@@ -1,0 +1,46 @@
+"""Turn the reference's param tree into the port's.
+
+``from_reference(tree, cfg, device)`` walks the reference's pytree of
+dicts and lists.  Its leaves are arrays (anything ``np.asarray`` accepts)
+or quantized weights — any object with ``q/scale/bits/group/shape/
+in_scale`` attributes — so the bridge needs no JAX.  bf16 arrays arrive
+as ``ml_dtypes.bfloat16`` numpy arrays, which ``torch.from_numpy``
+rejects; they cross through a ``uint16`` view of their bits.  The
+stacked layer axis of ``blocks`` is kept as is.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.compressed import QTensor
+from repro_torch.kernels.backend import resolve_device
+
+
+def to_tensor(a, device="cuda") -> torch.Tensor:
+    """One array leaf as a torch tensor on ``device`` (bf16 kept bf16)."""
+    a = np.array(a, order="C")          # a writable copy
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t.to(resolve_device(device))
+
+
+def from_reference(tree, cfg=None, device="cuda"):
+    """The port's param tree for the reference's ``tree`` on ``device``."""
+    if isinstance(tree, dict):
+        return {k: from_reference(v, cfg, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [from_reference(v, cfg, device) for v in tree]
+    if tree is None:
+        return None
+    if hasattr(tree, "q") and hasattr(tree, "scale") and hasattr(tree, "bits"):
+        return QTensor(to_tensor(tree.q, device), to_tensor(tree.scale, device),
+                       tree.bits, tree.group, tree.shape,
+                       None if tree.in_scale is None
+                       else to_tensor(tree.in_scale, device))
+    return to_tensor(tree, device)
+
+
+__all__ = ["from_reference", "to_tensor"]

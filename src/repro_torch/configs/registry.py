@@ -1,0 +1,30 @@
+"""Architecture registry of the port: only the architectures ported so far."""
+from __future__ import annotations
+
+from typing import Dict
+
+from repro_torch.configs import gemma2_2b
+from repro_torch.configs.base import ModelConfig
+
+_MODULES = {
+    "gemma2-2b": gemma2_2b,
+}
+
+ARCH_IDS = tuple(_MODULES)
+
+
+def get_config(arch: str) -> ModelConfig:
+    if arch not in _MODULES:
+        raise KeyError(f"unknown arch {arch!r}; available: {sorted(_MODULES)}")
+    return _MODULES[arch].CONFIG
+
+
+def get_reduced(arch: str) -> ModelConfig:
+    return _MODULES[arch].reduced()
+
+
+def all_configs() -> Dict[str, ModelConfig]:
+    return {k: m.CONFIG for k, m in _MODULES.items()}
+
+
+__all__ = ["ARCH_IDS", "get_config", "get_reduced", "all_configs"]

@@ -1,0 +1,88 @@
+"""Build and load the CUDA kernels of ``kernels/csrc``.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
+shared library with a plain C interface, ``build/<name>-<hash>.so`` at
+the repository root, keyed by a hash of the source, and loaded with
+``ctypes``.  The build happens at first use (:func:`load`) or for all
+kernels at once, one ``nvcc`` per source started together
+(:func:`build_all`).  A failed build raises; nothing falls back.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, List
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
+KERNELS = ("quant_matmul", "paged_attention")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels build only where the "
+                       "CUDA toolkit is installed")
+
+
+def _target(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{name}-{tag}.so"
+
+
+def _start(name: str):
+    """Start nvcc for ``name`` unless its library is already built;
+    returns (target, temp path, process) or None."""
+    target = _target(name)
+    if target.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = target.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    return target, tmp, proc
+
+
+def _finish(name: str, started) -> str:
+    """Wait for a build started by :func:`_start`; returns nvcc's log."""
+    log_path = _target(name).with_suffix(".log")
+    if started is None:
+        return log_path.read_text() if log_path.exists() else ""
+    target, tmp, proc = started
+    log, _ = proc.communicate()
+    log_path.write_text(log)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+    os.replace(tmp, target)
+    return log
+
+
+def build_all(names: List[str] = KERNELS) -> Dict[str, str]:
+    """Build every kernel, one nvcc per source, all started together;
+    returns {name: compiler log (registers, shared memory, spills)}."""
+    started = {n: _start(n) for n in names}
+    return {n: _finish(n, started[n]) for n in names}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, building it if needed."""
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            _finish(name, _start(name))
+            lib = ctypes.CDLL(str(_target(name)))
+            _LIBS[name] = lib
+        return lib

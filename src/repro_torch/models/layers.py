@@ -1,0 +1,293 @@
+"""Shared neural-net layers of the port (dense family).
+
+Functional style like the reference: ``init_*`` builds param dicts of
+tensors, plain functions apply them.  Every linear projection goes
+through ``repro_torch.core.compressed.matmul`` so quantized weights slot
+in transparently.  Attention is written as explicit einsums with an f32
+softmax (never ``scaled_dot_product_attention``), keeping the
+reference's rounding points.  Init draws from an explicit
+``torch.Generator`` on the target device; the numbers differ from
+``jax.random`` for the same seed, so parity tests bridge the reference's
+weights instead.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.compressed import matmul
+
+NEG_INF = -1e30
+
+# ---------------------------------------------------------------------------
+# init helpers
+# ---------------------------------------------------------------------------
+
+
+def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype,
+               scale: float = 1.0, lead: Tuple[int, ...] = ()):
+    """N(0, scale^2 / d_in) weight [*lead, d_in, d_out] on gen's device."""
+    std = scale / math.sqrt(d_in)
+    w = torch.randn((*lead, d_in, d_out), generator=gen, device=gen.device,
+                    dtype=torch.float32)
+    return (w * std).to(dtype)
+
+
+def norm_init(d: int, dtype, norm_type: str = "rmsnorm", *,
+              device="cuda", lead: Tuple[int, ...] = ()):
+    if norm_type == "layernorm":
+        return {"w": torch.ones((*lead, d), dtype=dtype, device=device),
+                "b": torch.zeros((*lead, d), dtype=dtype, device=device)}
+    return {"w": torch.ones((*lead, d), dtype=dtype, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# norms / activations
+# ---------------------------------------------------------------------------
+
+def rmsnorm(x, p, offset: bool = False, eps: float = 1e-6):
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    xf = xf * torch.rsqrt(var + eps)
+    w = p["w"].float()
+    w = 1.0 + w if offset else w
+    return (xf * w).to(x.dtype)
+
+
+def layernorm(x, p, eps: float = 1e-5):
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
+    xf = (xf - mu) * torch.rsqrt(var + eps)
+    return (xf * p["w"].float() + p["b"].float()).to(x.dtype)
+
+
+def norm(x, p, cfg):
+    if cfg.norm_type == "layernorm":
+        return layernorm(x, p)
+    return rmsnorm(x, p, offset=cfg.rms_offset)
+
+
+def softcap(x, cap: float):
+    if not cap:
+        return x
+    return torch.tanh(x / cap) * cap
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device="cuda"):
+    return theta ** (-torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                   device=device) / head_dim)
+
+
+def apply_rope(x, positions, theta: float):
+    """x: [..., S, H, D]; positions: [..., S] int."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)
+    ang = positions[..., None].float() * freqs
+    cos = torch.cos(ang)[..., None, :]
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+def init_attention(gen, cfg, dtype, lead: Tuple[int, ...] = ()):
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    H, K = cfg.n_heads, cfg.n_kv_heads
+    depth_scale = 1.0 / math.sqrt(2 * max(cfg.n_layers, 1))
+    return {
+        "wq": dense_init(gen, d, H * hd, dtype, lead=lead),
+        "wk": dense_init(gen, d, K * hd, dtype, lead=lead),
+        "wv": dense_init(gen, d, K * hd, dtype, lead=lead),
+        "wo": dense_init(gen, H * hd, d, dtype, scale=depth_scale, lead=lead),
+    }
+
+
+def _qkv(p, x, cfg, positions, theta: float, use_rope: bool = True):
+    B, S, _ = x.shape
+    hd = cfg.resolved_head_dim
+    H, K = cfg.n_heads, cfg.n_kv_heads
+    q = matmul(x, p["wq"]).reshape(B, S, H, hd)
+    k = matmul(x, p["wk"]).reshape(B, S, K, hd)
+    v = matmul(x, p["wv"]).reshape(B, S, K, hd)
+    if use_rope:
+        q = apply_rope(q, positions, theta)
+        k = apply_rope(k, positions, theta)
+    return q, k, v
+
+
+def _sdpa(q, k, v, mask, cap: float):
+    """Grouped-query attention core.
+
+    q: [B, S, K, G, D]; k, v: [B, T, K, D]; mask: broadcastable to
+    [B, K, G, S, T] (True = attend).  f32 scores and softmax; the
+    probabilities are rounded to v's dtype before the f32 PV sum.
+    """
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    logits = torch.einsum("bskgd,btkd->bkgst", q.float(), k.float()) * scale
+    logits = softcap(logits, cap)
+    logits = logits.masked_fill(~mask, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgst,btkd->bskgd", probs.to(v.dtype).float(), v.float())
+    return out.to(v.dtype)
+
+
+def full_attention(q, k, v, *, causal: bool, cap: float = 0.0,
+                   window: int = 0, q_offset: int = 0):
+    """q: [B,S,H,D], k/v: [B,T,K,D].  Optional causal/window banding."""
+    B, S, H, D = q.shape
+    T, K = k.shape[1], k.shape[2]
+    qg = q.reshape(B, S, K, H // K, D)
+    qpos = torch.arange(S, device=q.device) + q_offset
+    kpos = torch.arange(T, device=q.device)
+    mask = torch.ones((S, T), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qpos[:, None] >= kpos[None, :]
+    if window:
+        mask &= qpos[:, None] - kpos[None, :] < window
+    out = _sdpa(qg, k, v, mask[None, None, None], cap)
+    return out.reshape(B, S, H, D)
+
+
+def local_block_attention(q, k, v, *, window: int, cap: float = 0.0):
+    """Sliding-window causal attention in O(S*W) via W-sized blocks.
+
+    Each query block attends to itself + the previous key block, which
+    covers every key within ``window``.  Requires S % window == 0.
+    Falls back to masked full attention when S <= window.
+    """
+    B, S, H, D = q.shape
+    K = k.shape[2]
+    W = window
+    if S <= W:
+        return full_attention(q, k, v, causal=True, cap=cap, window=W)
+    assert S % W == 0, (S, W)
+    nb = S // W
+    G = H // K
+    qb = q.reshape(B, nb, W, K, G, D)
+    kb = k.reshape(B, nb, W, K, D)
+    vb = v.reshape(B, nb, W, K, D)
+
+    def prev(a):
+        return torch.cat([torch.zeros_like(a[:, :1]), a[:, :-1]], dim=1)
+
+    k2 = torch.cat([prev(kb), kb], dim=2)               # [B, nb, 2W, K, D]
+    v2 = torch.cat([prev(vb), vb], dim=2)
+    logits = torch.einsum("bnskgd,bntkd->bnkgst", qb.float(), k2.float()) \
+        * (1.0 / math.sqrt(D))
+    logits = softcap(logits, cap)
+    dev = q.device
+    qpos = torch.arange(W, device=dev)[:, None] + W
+    kpos = torch.arange(2 * W, device=dev)[None, :]
+    mask = (qpos >= kpos) & (qpos - kpos < W)
+    first = torch.arange(nb, device=dev) == 0
+    valid = torch.where(first[:, None, None], kpos >= W,
+                        torch.ones_like(kpos, dtype=torch.bool))  # [nb,1,2W]
+    mask = mask[None, :, :] & valid                      # [nb, W, 2W]
+    logits = logits.masked_fill(~mask[None, :, None, None], NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bnkgst,bntkd->bnskgd", probs.to(v2.dtype).float(),
+                       v2.float())
+    return out.reshape(B, S, H, D).to(v.dtype)
+
+
+# threshold above which the reference switches to its blocked-flash path
+_FLASH_MIN_ELEMS = 1 << 26
+
+
+def best_attention(q, k, v, *, kind: str, cfg, q_offset: int = 0,
+                   causal: bool = True):
+    """Dispatch: local-block for window layers, plain masked attention
+    otherwise.  The reference's blocked-flash branch (long global
+    sequences) is not ported and raises."""
+    S, T = q.shape[1], k.shape[1]
+    if kind == "L" and S > cfg.window_size and causal:
+        return local_block_attention(q, k, v, window=cfg.window_size,
+                                     cap=cfg.attn_softcap)
+    win = cfg.window_size if kind == "L" else 0
+    if S * T >= _FLASH_MIN_ELEMS and S % 1024 == 0 and T % 1024 == 0:
+        raise NotImplementedError(
+            "blocked-flash attention for long sequences is not ported yet: "
+            "ROADMAP queue 2 K3 (flash_attention)")
+    return full_attention(q, k, v, causal=causal, cap=cfg.attn_softcap,
+                          window=win, q_offset=q_offset)
+
+
+def attention_block(p, x, cfg, *, kind: str, positions, theta: float,
+                    use_flash: bool = False):
+    """Full-sequence (train/prefill) attention incl. projections."""
+    if use_flash:
+        raise NotImplementedError(
+            "use_flash needs the flash_attention kernel: ROADMAP queue 2 K3")
+    B, S, _ = x.shape
+    q, k, v = _qkv(p, x, cfg, positions, theta)
+    out = best_attention(q, k, v, kind=kind, cfg=cfg)
+    return matmul(out.reshape(B, S, -1), p["wo"])
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+def init_mlp(gen, cfg, dtype, d_ff: Optional[int] = None,
+             lead: Tuple[int, ...] = ()):
+    d = cfg.d_model
+    ff = d_ff or cfg.d_ff
+    depth_scale = 1.0 / math.sqrt(2 * max(cfg.n_layers, 1))
+    p = {
+        "wi": dense_init(gen, d, ff, dtype, lead=lead),
+        "wo": dense_init(gen, ff, d, dtype, scale=depth_scale, lead=lead),
+    }
+    if cfg.mlp_gated:
+        p["wg"] = dense_init(gen, d, ff, dtype, lead=lead)
+    return p
+
+
+def mlp_block(p, x):
+    if "wg" in p:
+        h = F.silu(matmul(x, p["wg"])) * matmul(x, p["wi"])
+    else:
+        h = F.gelu(matmul(x, p["wi"]), approximate="tanh")
+    return matmul(h, p["wo"])
+
+
+# ---------------------------------------------------------------------------
+# embeddings
+# ---------------------------------------------------------------------------
+
+def init_embed(gen, cfg, dtype):
+    w = torch.randn((cfg.vocab_size, cfg.d_model), generator=gen,
+                    device=gen.device, dtype=torch.float32)
+    p = {"embed": (w * 0.02).to(dtype)}
+    if not cfg.tie_embeddings:
+        p["unembed"] = dense_init(gen, cfg.d_model, cfg.vocab_size, dtype)
+    return p
+
+
+def embed(params, cfg, tokens):
+    x = params["embed"][tokens.long()]
+    if cfg.emb_scale:
+        x = (x.float() * math.sqrt(cfg.d_model)).to(x.dtype)
+    return x
+
+
+def unembed(params, cfg, x):
+    """f32 logits [..., V].  The tied product runs in the working dtype
+    (f32 accumulation), so bf16 logits are rounded to bf16 before the
+    softcap; the reference keeps them in f32."""
+    if cfg.tie_embeddings:
+        logits = torch.matmul(x, params["embed"].to(x.dtype).t()).float()
+    else:
+        logits = matmul(x, params["unembed"]).float()
+    return softcap(logits, cfg.final_softcap)
