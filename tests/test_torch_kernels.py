@@ -200,3 +200,29 @@ def test_reference_double_in_scale_fault_not_reproduced():
     port = err(C.matmul(torch.from_numpy(x), pq).numpy())
     print(f"relative error vs x @ w: reference jnp path {ref_jnp:.3f}, port {port:.3f}")
     assert ref_jnp > 0.1 and port < 2e-2
+
+
+def test_int4_matmul_matches_reference():
+    """int4 weights stay on the plain formula (no kernel), as in the
+    reference's dispatch; without ``in_scale`` the two formulas agree."""
+    from repro.core import compressed as RC
+    rng = np.random.default_rng(5)
+    w = rng.normal(size=(256, 96)).astype(np.float32)
+    rq, pq = _qt(w, bits=4, group=64)
+    xj = jnp.asarray(rng.normal(size=(3, 5, 256)), jnp.float32).astype(jnp.bfloat16)
+    want = RC.matmul(xj, rq)
+    with C.kernel_backend("cuda"):
+        got = C.matmul(to_tensor(xj, "cpu"), pq)
+    assert got.shape == (3, 5, 96) and got.dtype == torch.bfloat16
+    assert _rel(_np(got), want) < 2e-2
+
+
+@pytest.mark.parametrize("field", [
+    {"drop_units": 1}, {"kv_keep_frac": 0.5}, {"ffn_keep_frac": 0.5},
+    {"sparsity": 0.5}, {"nm": (2, 4)}, {"block_bs": 16}, {"quant_embed": True},
+])
+def test_unported_recipe_fields_raise(field):
+    from repro_torch.configs import gemma2_2b
+    from repro_torch.core.pipeline import InstanceOptimizer, Recipe
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        InstanceOptimizer({}, gemma2_2b.reduced()).apply(Recipe(wbits=8, **field))
