@@ -17,8 +17,9 @@ Phases, each of which raises on failure (so the script exits non-zero):
    template (one duplicate row), then the bf16 base model the same way;
    the kernels' launch counts are zeroed just before the int8 run and
    read just after;
-4. whole step: one paged decode step of the int8 instance with the cuda
-   backend and with the reference backend on the same state.
+4. whole step: one paged decode step of the int8 instance under the cuda
+   backend and under the reference backend on the same state, in bf16 and
+   in f32; the launch counts show that only the cuda side ran the kernels.
 
 Prints one JSON line per phase, the ``{"kernels": [...]}`` summary, the
 card line, and last ``{"ok": true, "device": {...}}``.  Exits non-zero
@@ -42,12 +43,15 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12              # dense bf16 tensor-core peak
 K2_TOL = 2e-2                    # bf16 bound of tests/test_kernels.py
 K1_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}
-# whole decode step, kernels vs plain path: RMS of the logit difference over
-# the RMS logit.  bf16 through 26 layers of random weights: one bf16 rounding
-# that the two summation orders resolve differently grows layer by layer, so
-# the largest single logit moves several times more than the RMS (both are
-# printed); the RMS is the stable measure.
-STEP_TOL = 5e-2
+# whole decode step, kernels vs plain path, as the RMS of the logit difference
+# over the RMS logit.  In f32 the two differ only in summation order, so they
+# must agree closely.  In bf16, through 26 layers of random weights, one bf16
+# rounding that the two orders resolve differently grows layer by layer (the
+# two bf16 steps differ by 5e-2 to 9e-2); there the kernels' step is held to
+# the f32 step: no further from it than STEP_BF16_RATIO times the plain
+# path's own bf16 step, summed over the trials.
+STEP_TOL_F32 = 1e-3
+STEP_BF16_RATIO = 1.25
 
 TEMPLATE = "Classify the review's sentiment as pos or neg.\nReview: "
 REVIEWS = [
@@ -372,42 +376,77 @@ def main_path(gen):
 # phase 4: one decode step, cuda backend vs reference backend
 # ---------------------------------------------------------------------------
 
-def whole_step(gen, params, eng, trials: int = 4):
-    """One int8 decode step with the cuda backend and with the reference
-    backend on the same state (the served rows' pools, a scrambled table,
-    random tokens), over a few random inputs."""
+def _f32(tree):
+    """The param tree with every float tensor in f32 (QTensors stay)."""
+    if isinstance(tree, dict):
+        return {k: _f32(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_f32(v) for v in tree]
+    if isinstance(tree, torch.Tensor) and tree.is_floating_point():
+        return tree.float()
+    return tree
+
+
+def whole_step(gen, params, eng, trials: int = 6):
+    """One int8 decode step under ``kernel_backend("cuda")`` and under
+    ``kernel_backend("reference")`` on the same state (the served rows'
+    pools, a scrambled table, random tokens), in bf16 as served and in f32
+    (params and pools cast), over a few random inputs.  The launch counts
+    show that each cuda side ran both kernels on every layer and each
+    reference side neither."""
+    from repro_torch.core.compressed import kernel_backend
+    from repro_torch.kernels import ops
     from repro_torch.models import api
     cfg = eng.cfg
     S, bs = eng.slots, eng._block_size
     nblk = eng.max_len // bs
     pos = torch.tensor([90, 95, 100, 105, 110, 115, 120, 600], device="cuda")
+    p32 = _f32(params)
+    rms = lambda a, b: ((a - b).norm() / b.norm()).item()  # noqa: E731
     results = []
     for _ in range(trials):
         perm = torch.randperm(eng._alloc.num_blocks - 1, generator=gen, device="cuda")
         tables = perm[:S * nblk].reshape(S, nblk).to(torch.int32)
         toks = torch.randint(4, 260, (S, 1), generator=gen, device="cuda")
         logits = {}
-        for backend in ("cuda", "reference"):
-            st = {sec: [{n: t.clone() for n, t in e.items()} for e in eng._slot_state[sec]]
-                  for sec in ("blocks", "tail")}
-            with torch.no_grad():
-                lg, _ = api.paged_decode_step(params, cfg, st, tables, toks, pos,
-                                              block_size=bs, max_len=eng.max_len,
-                                              backend=backend)
-            logits[backend] = lg.float()
-        lc, lr = logits["cuda"], logits["reference"]
-        check(bool(torch.isfinite(lc).all()) and lc.shape == (S, 1, cfg.vocab_size),
-              ("decode-step logits", lc.shape))
-        err_abs, err_rel = errors(lc, lr)
-        results.append({"max_abs_err": err_abs, "max_rel_err": err_rel,
-                        "rms_rel_err": ((lc - lr).norm() / lr.norm()).item(),
-                        "greedy_agreement":
-                            (lc[:, -1].argmax(-1) == lr[:, -1].argmax(-1)).float().mean().item()})
-    line = {"phase": "whole_step", "tolerance_rms_rel": STEP_TOL, "trials": results}
+        for dtype, p in ((torch.bfloat16, params), (torch.float32, p32)):
+            for backend in ("cuda", "reference"):
+                st = {sec: [{n: t.to(dtype, copy=True) for n, t in e.items()}
+                            for e in eng._slot_state[sec]] for sec in ("blocks", "tail")}
+                before = dict(ops.launch_count)
+                with kernel_backend(backend), torch.no_grad():
+                    lg, _ = api.paged_decode_step(p, cfg, st, tables, toks, pos,
+                                                  block_size=bs, max_len=eng.max_len)
+                launched = {k: ops.launch_count[k] - before[k] for k in before}
+                want = ({"quant_matmul": 7 * cfg.n_layers, "paged_attention": cfg.n_layers}
+                        if backend == "cuda" else {"quant_matmul": 0, "paged_attention": 0})
+                check(launched == want, ("launches of the step", dtype, backend, launched))
+                check(bool(torch.isfinite(lg).all()) and lg.shape == (S, 1, cfg.vocab_size),
+                      ("decode-step logits", dtype, backend, lg.shape))
+                logits[dtype, backend] = lg.float()
+        c16, r16 = logits[torch.bfloat16, "cuda"], logits[torch.bfloat16, "reference"]
+        c32, r32 = logits[torch.float32, "cuda"], logits[torch.float32, "reference"]
+        results.append({
+            "f32_rms_rel_err": rms(c32, r32), "f32_max_abs_err": errors(c32, r32)[0],
+            "bf16_rms_rel_err": rms(c16, r16), "bf16_max_rel_err": errors(c16, r16)[1],
+            "bf16_cuda_vs_f32": rms(c16, r32), "bf16_plain_vs_f32": rms(r16, r32),
+            "greedy_agreement_bf16":
+                (c16[:, -1].argmax(-1) == r16[:, -1].argmax(-1)).float().mean().item(),
+            "greedy_agreement_f32":
+                (c32[:, -1].argmax(-1) == r32[:, -1].argmax(-1)).float().mean().item()})
+    cuda_err = sum(r["bf16_cuda_vs_f32"] for r in results)
+    plain_err = sum(r["bf16_plain_vs_f32"] for r in results)
+    line = {"phase": "whole_step", "trials": results,
+            "tolerance_f32_rms_rel": STEP_TOL_F32, "bf16_ratio_bound": STEP_BF16_RATIO,
+            "bf16_ratio": cuda_err / plain_err,
+            "launches_per_step": {"quant_matmul": 7 * cfg.n_layers,
+                                  "paged_attention": cfg.n_layers}}
     emit(line)
-    agree = sum(r["greedy_agreement"] for r in results) / trials
-    print(f"decode step cuda vs reference: greedy agreement {agree:.3f}", flush=True)
-    check(all(r["rms_rel_err"] < STEP_TOL for r in results), line)
+    agree = sum(r["greedy_agreement_bf16"] for r in results) / trials
+    print(f"decode step cuda vs reference: greedy agreement {agree:.3f} (bf16), "
+          f"f32 RMS error up to {max(r['f32_rms_rel_err'] for r in results):.2e}", flush=True)
+    check(all(r["f32_rms_rel_err"] < STEP_TOL_F32 for r in results), line)
+    check(cuda_err <= STEP_BF16_RATIO * plain_err, line)
     return line
 
 
@@ -417,6 +456,7 @@ def profile_step(gen, params, eng, steps: int = 5):
     split by kernel name."""
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.core.compressed import kernel_backend
     from repro_torch.models import api
     cfg, S, bs = eng.cfg, eng.slots, eng._block_size
     nblk = eng.max_len // bs
@@ -425,9 +465,9 @@ def profile_step(gen, params, eng, steps: int = 5):
     pos = torch.full((S,), 100, device="cuda")
 
     def step():
-        with torch.no_grad():
+        with kernel_backend("cuda"), torch.no_grad():
             api.paged_decode_step(params, cfg, eng._slot_state, tables, toks, pos,
-                                  block_size=bs, max_len=eng.max_len, backend="cuda")
+                                  block_size=bs, max_len=eng.max_len)
 
     step()
     torch.cuda.synchronize()
@@ -462,6 +502,9 @@ def main() -> int:
         return 2
     from repro_torch.kernels import build
 
+    # one card: the run and its last line's "count" speak of one device
+    check(torch.cuda.device_count() == 1,
+          f"expected one visible card, found {torch.cuda.device_count()}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()

@@ -55,15 +55,14 @@ def init_paged_cache(cfg, slots: int, num_blocks: int, block_size: int,
 
 
 def paged_decode_step(params, cfg, cache, tables, tokens, pos, *,
-                      block_size: int, max_len: int,
-                      backend: str = "reference"):
+                      block_size: int, max_len: int):
     """One token for every slot, attending through ``tables``
-    [slots, max_len // block_size].  ``backend`` picks the attention:
-    ``"reference"`` gathers blocks in PyTorch, ``"cuda"`` runs the paged
-    kernel (its plain version for CPU tensors)."""
+    [slots, max_len // block_size].  The scoped ``kernel_backend``
+    (``core/compressed.py``) picks attention and int8 matmuls alike:
+    ``"auto"``, the default, runs the kernels on CUDA tensors."""
     return family_module(cfg).paged_decode_step(
         params, cfg, cache, tables, tokens, pos, block_size=block_size,
-        max_len=max_len, backend=backend)
+        max_len=max_len)
 
 
 def paged_insert(cfg, state, rows, slot_idxs, write_ids, *, block_size: int):

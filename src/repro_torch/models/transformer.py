@@ -18,7 +18,7 @@ from typing import Any, Dict, Iterator, Tuple
 
 import torch
 
-from repro_torch.core.compressed import QTensor
+from repro_torch.core.compressed import QTensor, current_backend
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
 from repro_torch.models.layers import matmul, norm
@@ -343,9 +343,11 @@ def _masked_decode(q, k_cache, v_cache, valid, cap):
 
 
 def _paged_attn_block(p, c, x, cfg, *, kind: str, pos, tables,
-                      block_size: int, max_len: int, backend: str):
+                      block_size: int, max_len: int):
     """Decode attention against block pools ``c`` ({"k","v"}
-    [nb, bs, K, hd]) through ``tables`` [B, T // bs].  pos: [B] int."""
+    [nb, bs, K, hd]) through ``tables`` [B, T // bs].  pos: [B] int.
+    The scoped kernel backend picks the attention, as it picks the int8
+    matmul: the paged kernel on ``"cuda"``, a PyTorch gather otherwise."""
     B = x.shape[0]
     h = norm(x, p["ln1"], cfg)
     q, k, v = L._qkv(p["attn"], h, cfg, pos[:, None], _theta(cfg, kind))
@@ -358,7 +360,7 @@ def _paged_attn_block(p, c, x, cfg, *, kind: str, pos, tables,
     c["k"].view(nb * bs, K, hd).index_copy_(0, flat, k[:, 0].to(c["k"].dtype))
     c["v"].view(nb * bs, K, hd).index_copy_(0, flat, v[:, 0].to(c["v"].dtype))
     win = cfg.window_size if kind == "L" else 0
-    if backend == "cuda":
+    if current_backend(x.device) == "cuda":
         out = kops.paged_attention(q, c["k"], c["v"], tables, pos + 1,
                                    softcap=cfg.attn_softcap, window=win)
     else:
@@ -377,8 +379,7 @@ def _paged_attn_block(p, c, x, cfg, *, kind: str, pos, tables,
 
 
 def paged_decode_step(params: Params, cfg, cache, tables, tokens, pos, *,
-                      block_size: int, max_len: int,
-                      backend: str = "reference"):
+                      block_size: int, max_len: int):
     """One token for every slot against the paged pools.  tokens [B,1];
     pos [B] int; tables [B, max_len // block_size] int32.  Writes this
     step's K/V into ``cache`` in place; returns (logits [B,1,V], cache)."""
@@ -388,7 +389,7 @@ def paged_decode_step(params: Params, cfg, cache, tables, tokens, pos, *,
     for (kind, p), (_, c) in zip(_layers(params, cfg), _layers(cache, cfg)):
         x = x + _paged_attn_block(p, c, x, cfg, kind=kind, pos=pos,
                                   tables=tables, block_size=block_size,
-                                  max_len=max_len, backend=backend)
+                                  max_len=max_len)
         h = norm(x, p["ln2"], cfg)
         x = x + _mlp_section(p, h, cfg)
     x = norm(x, params["ln_f"], cfg)

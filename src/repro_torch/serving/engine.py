@@ -195,8 +195,7 @@ class Engine:
     def _decode(self, tables, toks, pos):
         logits, state = api.paged_decode_step(
             self.params, self.cfg, self._slot_state, tables, toks[:, None], pos,
-            block_size=self._block_size, max_len=self.max_len,
-            backend=self.backend)
+            block_size=self._block_size, max_len=self.max_len)
         last = logits[:, -1]
         nxt = sample(last, self._gen, temperature=self.sampling.temperature,
                      top_k=self.sampling.top_k)

@@ -5,12 +5,17 @@ The reference's params (``jax.random`` init) are bridged into the port
 Two configs — the shared ``tiny_dense`` shape (tests/conftest.py) and
 the reduced gemma2-2b (local/global window, softcaps, post-norms, scaled
 tied embeddings) — each in f32 and bf16.  Tolerances, relative to the
-largest logit: f32 1e-4 with identical greedy tokens; bf16 6e-2 with
-token agreement reported.  The bf16 bound is the reference's own noise:
-the frameworks round bf16 at different places (XLA also fuses bf16
-chains with excess precision), and on reduced gemma2 the reference's
-bf16 logits already sit 5.1e-2 from its f32 logits on the same weights,
-which ``test_bf16_port_is_no_noisier_than_reference`` measures.
+largest logit: f32 1e-4 with identical greedy tokens; bf16 2e-2 on
+``tiny`` and 6e-2 on reduced gemma2, with token agreement reported.
+The bf16 bound is the reference's own noise: the frameworks round bf16
+at different places (XLA also fuses bf16 chains with excess precision).
+On reduced gemma2 (4 layers, softcaps, post-norms) the reference's bf16
+logits sit 5.1e-2 from its f32 logits on the same weights, and the port
+reads 3.2e-2 (forward), 4.2e-2 (prefill) and 4.7e-2 (paged decode) from
+the reference, so 2e-2 cannot hold there; on ``tiny`` the same readings
+are 1.3e-2 and 1.2e-2 / 1.0e-2 / 1.4e-2.
+``test_bf16_port_is_no_noisier_than_reference`` holds the port's bf16
+error against f32 to 1.1x the reference's own.
 """
 import numpy as np
 import pytest
@@ -26,9 +31,13 @@ from repro.configs.base import ModelConfig as RConfig  # noqa: E402
 from repro.models import api as rapi  # noqa: E402
 from repro_torch import bridge  # noqa: E402
 from repro_torch.configs import from_reference  # noqa: E402
+from repro_torch.core.compressed import kernel_backend  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.models import api  # noqa: E402
 
-TOL = {"float32": 1e-4, "bfloat16": 6e-2}
+# bf16 bounds from the readings in the module docstring
+TOL = {("tiny", "float32"): 1e-4, ("gemma2", "float32"): 1e-4,
+       ("tiny", "bfloat16"): 2e-2, ("gemma2", "bfloat16"): 6e-2}
 CASES = [(m, d) for m in ("tiny", "gemma2") for d in ("float32", "bfloat16")]
 MAX_LEN = 64
 
@@ -70,17 +79,17 @@ def _tokens(cfg, B, S, seed):
     return np.random.default_rng(seed).integers(4, cfg.vocab_size, (B, S)).astype(np.int32)
 
 
-def _check(got, want, dtype, *, tokens=True):
-    assert _rel(_np(got), want) < TOL[dtype], _rel(_np(got), want)
+def _check(got, want, model, dtype, *, tokens=True):
+    assert _rel(_np(got), want) < TOL[model, dtype], _rel(_np(got), want)
     if tokens and dtype == "float32":
         assert np.array_equal(_np(got).argmax(-1), np.asarray(want, np.float32).argmax(-1))
 
 
-def _check_cache(got, want, dtype):
+def _check_cache(got, want, model, dtype):
     for sec in ("blocks", "tail"):
         for g, w in zip(got[sec], want[sec]):
             for name in ("k", "v"):
-                assert _rel(_np(g[name]), w[name]) < TOL[dtype]
+                assert _rel(_np(g[name]), w[name]) < TOL[model, dtype]
 
 
 @pytest.mark.parametrize("model,dtype", CASES)
@@ -90,7 +99,7 @@ def test_forward_matches_reference(model, dtype):
     want, _ = rapi.forward(rparams, rcfg, {"tokens": jnp.asarray(toks)})
     got, _ = api.forward(params, cfg, {"tokens": torch.from_numpy(toks)})
     assert got.dtype == torch.float32 and got.shape == (2, 24, cfg.vocab_size)
-    _check(got, want, dtype)
+    _check(got, want, model, dtype)
 
 
 @pytest.mark.parametrize("model,dtype", CASES)
@@ -101,9 +110,9 @@ def test_prefill_matches_reference(model, dtype):
                                 max_len=MAX_LEN, compact_local=False)
     got, gcache = api.prefill(params, cfg, {"tokens": torch.from_numpy(toks)},
                               max_len=MAX_LEN)
-    _check(got, want, dtype)
+    _check(got, want, model, dtype)
     assert gcache["blocks"][0]["k"].shape == wcache["blocks"][0]["k"].shape
-    _check_cache(gcache, wcache, dtype)
+    _check_cache(gcache, wcache, model, dtype)
 
 
 @pytest.mark.parametrize("model,dtype", CASES)
@@ -121,8 +130,8 @@ def test_prefill_from_matches_reference(model, dtype):
                          max_len=MAX_LEN)
     got, gcache = api.prefill_from(params, cfg, pre, torch.from_numpy(suffix), 16,
                                    max_len=MAX_LEN)
-    _check(got, want, dtype)
-    _check_cache(gcache, wcache, dtype)
+    _check(got, want, model, dtype)
+    _check_cache(gcache, wcache, model, dtype)
     assert pre["blocks"][0]["k"].shape[1] == 1          # the prefix is not modified
     assert not pre["blocks"][0]["k"][:, :, 16:].any()
 
@@ -178,24 +187,52 @@ def _reference_decode(model, dtype):
 def test_paged_decode_matches_reference(model, dtype, backend):
     """Admission scatter and 8 paged decode steps against the reference's
     ``paged_insert`` / ``paged_decode_step``, same tokens fed to both.
-    ``backend="cuda"`` on CPU tensors runs the kernel wrappers' plumbing
-    with their plain versions."""
+    ``kernel_backend("cuda")`` on CPU tensors runs the kernel wrappers'
+    plumbing with their plain versions."""
     _, _, cfg, params = _model(model, dtype)
     toks, tables, inserted, feeds, logits, final = _reference_decode(model, dtype)
     _, rows = api.prefill(params, cfg, {"tokens": torch.from_numpy(toks)},
                           max_len=MAX_LEN)
     state = api.init_paged_cache(cfg, _B, tables.size + 3, _BS, device="cpu")
     api.paged_insert(cfg, state, rows, None, tables, block_size=_BS)
-    _check_cache(state, inserted, dtype)
+    _check_cache(state, inserted, model, dtype)
     agree = []
     for (tok, pos), want in zip(feeds, logits):
-        got, state = api.paged_decode_step(
-            params, cfg, state, torch.from_numpy(tables), torch.from_numpy(tok[:, None]),
-            torch.from_numpy(pos), block_size=_BS, max_len=MAX_LEN, backend=backend)
-        _check(got, want, dtype)
+        with kernel_backend(backend):
+            got, state = api.paged_decode_step(
+                params, cfg, state, torch.from_numpy(tables),
+                torch.from_numpy(tok[:, None]), torch.from_numpy(pos),
+                block_size=_BS, max_len=MAX_LEN)
+        _check(got, want, model, dtype)
         agree.append(np.mean(_np(got[:, -1]).argmax(-1) == want[:, -1].argmax(-1)))
-    _check_cache(state, final, dtype)
+    _check_cache(state, final, model, dtype)
     print(f"{model}/{dtype}/{backend}: greedy agreement {np.mean(agree):.3f}")
+
+
+@pytest.mark.parametrize("backend,calls", [(None, 0), ("reference", 0), ("auto", 0),
+                                           ("cuda", 2)])
+def test_paged_decode_attention_follows_scoped_backend(monkeypatch, backend, calls):
+    """Attention takes its backend from the same scope as the int8 matmul:
+    the paged kernel's wrapper runs once per layer under ``"cuda"``, and
+    never under ``"reference"`` or under ``"auto"`` on CPU tensors."""
+    _, _, cfg, params = _model("tiny", "float32")
+    nblk = MAX_LEN // _BS
+    state = api.init_paged_cache(cfg, _B, _B * nblk + 1, _BS, device="cpu")
+    tables = torch.arange(_B * nblk, dtype=torch.int32).reshape(_B, nblk)
+    seen = []
+    orig = ops.paged_attention
+
+    def spy(*a, **k):
+        seen.append(1)
+        return orig(*a, **k)
+
+    monkeypatch.setattr(ops, "paged_attention", spy)
+    with kernel_backend(backend):
+        got, _ = api.paged_decode_step(params, cfg, state, tables,
+                                       torch.tensor([[5], [7]]), torch.tensor([3, 4]),
+                                       block_size=_BS, max_len=MAX_LEN)
+    assert len(seen) == calls == 2 * (backend == "cuda")
+    assert got.shape == (_B, 1, cfg.vocab_size) and torch.isfinite(got).all()
 
 
 def test_config_and_param_count_match_reference():
@@ -222,5 +259,5 @@ def test_bf16_port_is_no_noisier_than_reference(model):
     got, _ = api.forward(params, cfg, {"tokens": torch.from_numpy(toks)})
     ref_err, port_err = _rel(ref16, truth), _rel(_np(got), truth)
     print(f"{model}: bf16 error vs f32, reference {ref_err:.4f} port {port_err:.4f}")
-    assert ref_err < TOL["bfloat16"]
+    assert ref_err < TOL[model, "bfloat16"]
     assert port_err <= 1.1 * ref_err
