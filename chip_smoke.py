@@ -5,12 +5,14 @@
 
 Phases, each of which raises on failure (so the script exits non-zero):
 
-1. card: prints the card's name and power limit, builds the CUDA kernels
-   of ``src/repro_torch/kernels/csrc`` (one nvcc per source, in parallel);
-2. kernels: calls each kernel's wrapper at the main path's shapes and at
+1. card: prints the card's name and power limit, builds the four CUDA
+   kernels of ``src/repro_torch/kernels/csrc`` (one nvcc per source, in
+   parallel);
+2. kernels: calls each kernel's wrapper at the main paths' shapes and at
    edge cases, holds it against its plain PyTorch version, and times
    kernel, plain version and a library call (CUDA events, L2 flushed
-   before every launch);
+   before every launch): K2 quant_matmul, K1 paged_attention, K4
+   block_sparse_matmul, K3 flash_attention;
 3. main path: full-width gemma2-2b (26 layers, random bf16 weights from a
    seeded generator) compressed with the ``w8-absmax`` recipe, served by
    ``Engine(slots=8, max_len=1024)`` on OLAP-style rows sharing one
@@ -19,7 +21,18 @@ Phases, each of which raises on failure (so the script exits non-zero):
    read just after;
 4. whole step: one paged decode step of the int8 instance under the cuda
    backend and under the reference backend on the same state, in bf16 and
-   in f32; the launch counts show that only the cuda side ran the kernels.
+   in f32; the launch counts show that only the cuda side ran the kernels;
+   then a profile of the step;
+5. block_sparse: the base calibrated on 16 of the rows (activation norms),
+   compressed with ``bs16@75`` (every linear block-sparse) and served the
+   same way, the counts zeroed just before the run and read just after
+   (182 K4 launches per decode step and per prefill, no K2); then the
+   whole-step check and the profile on this instance;
+6. long_prefill: ``prefill(use_flash=True)`` of a 4096-token document
+   (26 K3 launches on the cuda side), and an 8192-token prefill through
+   ``best_attention`` (13 K3 launches, the global layers), each under the
+   cuda and the reference backends (no K3 launch), in bf16 and f32, held
+   to the whole-step criteria.
 
 Prints one JSON line per phase, the ``{"kernels": [...]}`` summary, the
 card line, and last ``{"ok": true, "device": {...}}``.  Exits non-zero
@@ -282,6 +295,153 @@ def check_paged_attention(gen):
     return line, results
 
 
+# per dtype: the reference's bf16 bound (tests/test_kernels.py), f32 summation order
+K34_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}
+# gemma2-2b's linears (K, N) in layer order: wq, wk, wv, attn wo, wi, wg, mlp wo
+LAYER_SHAPES = [(2304, 2048), (2304, 1024), (2304, 1024), (2048, 2304),
+                (2304, 9216), (2304, 9216), (9216, 2304)]
+
+
+def _block_idx(gen, K, N, bs, density):
+    """Random kept-block lists, ``keep`` per output block column, sorted."""
+    nbi, nbo = K // bs, N // bs
+    keep = max(1, int(round(density * nbi)))
+    order = torch.rand((nbo, nbi), generator=gen, device="cuda").argsort(dim=1)
+    return order[:, :keep].sort(dim=1).values.to(torch.int32)
+
+
+def check_block_sparse(gen):
+    """K4 against its plain version.  The weight is dense random, not
+    zero-filled, so a block read outside ``idx`` would show."""
+    from repro_torch.kernels import ops, ref
+    dev = "cuda"
+    shapes = [(2304, 2048), (2304, 1024), (2048, 2304), (2304, 9216), (9216, 2304)]
+    Ms = (1, 8, 37, 512)
+    cases = [(M, K, N, 16, 0.75, torch.bfloat16) for K, N in shapes for M in Ms]
+    cases += [(8, K, N, 16, 0.75, torch.float32) for K, N in shapes]
+    i = 0
+    for bs in (16, 32, 64, 128):
+        for density in (0.25, 0.5, 0.75, 1.0):
+            K, N = shapes[i % len(shapes)]
+            cases.append((Ms[i % len(Ms)], K, N, bs, density,
+                          (torch.bfloat16, torch.float32)[i % 2]))
+            i += 1
+    worst_abs, results = 0.0, []
+    for M, K, N, bs, density, xdt in cases:
+        w = (torch.randn((K, N), generator=gen, device=dev) / math.sqrt(K)).bfloat16()
+        idx = _block_idx(gen, K, N, bs, density)
+        x = torch.randn((M, K), generator=gen, device=dev).to(xdt)
+        got = ops.block_sparse_matmul(x, w, idx, bs=bs)
+        want = ref.block_sparse_matmul(x, w, idx, bs=bs)
+        torch.cuda.synchronize()
+        check(got.dtype == xdt and got.shape == (M, N), ("output", got.dtype, got.shape))
+        err_abs, err_rel = errors(got, want)
+        results.append({"M": M, "K": K, "N": N, "bs": bs, "density": density,
+                        "x": str(xdt).split(".")[-1], "rel_err": err_rel})
+        check(err_rel < K34_TOL[xdt], results[-1])
+        worst_abs = max(worst_abs, err_abs)
+
+    # timing: the 7 linears of one layer at bs 16, density 0.75, bf16
+    timed = {}
+    for M in (8, 512):
+        ms = plain_ms = lib_ms = nbytes = flops = 0.0
+        warm = True
+        for K, N in LAYER_SHAPES:
+            idx = _block_idx(gen, K, N, 16, 0.75)
+            mask = ref.block_mask_from_idx(idx, K // 16)
+            big = mask.repeat_interleave(16, 0).repeat_interleave(16, 1)
+            w = torch.where(big, torch.randn((K, N), generator=gen, device=dev)
+                            / math.sqrt(K), torch.zeros((), device=dev)).bfloat16()
+            x = torch.randn((M, K), generator=gen, device=dev).bfloat16()
+            if warm:            # an untimed round, so the first shape is not timed cold
+                time_ms(lambda: ops.block_sparse_matmul(x, w, idx, bs=16))
+                warm = False
+            ms += time_ms(lambda: ops.block_sparse_matmul(x, w, idx, bs=16))
+            plain_ms += time_ms(lambda: ref.block_sparse_matmul(x, w, idx, bs=16))
+            lib_ms += time_ms(lambda: torch.matmul(x, w))
+            kept = idx.numel() * 16 * 16
+            nbytes += kept * 2 + idx.numel() * 4 + M * K * 2 + M * N * 2
+            flops += 2 * M * kept
+        bound_ms, bound_by = bound(nbytes, flops)
+        timed[M] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+                    "flops": flops}
+    line = {"phase": "kernel", "name": "block_sparse_matmul", "cases": len(cases),
+            "max_rel_err": max(r["rel_err"] for r in results), "max_abs_err": worst_abs,
+            "timed": "7 linears of one layer, bs 16, density 0.75, decode M=8, bf16",
+            **timed[8], "prefill_M512": timed[512]}
+    emit(line)
+    return line, results
+
+
+def _attn_inputs(gen, B, S, T, H, Kh, D, dtype):
+    q = torch.randn((B, S, H, D), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((B, T, Kh, D), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((B, T, Kh, D), generator=gen, device="cuda").to(dtype)
+    return q, k, v
+
+
+def check_flash_attention(gen):
+    """K3 against its plain version: the reference's four kernel-test
+    shapes (q_offset = T - S), S < T with a padded T and ``t_real``, G of
+    1, 2 and 4, D of 64, 128 and 256, S not a multiple of the 64-row tile,
+    a window that leaves some rows no live key, bf16 and f32."""
+    from repro_torch.kernels import ops, ref
+    # (B, S, T, H, Kh, D, window, softcap, q_offset, t_real)
+    shapes = [(2, 64, 64, 4, 2, 64, 0, 0.0, 0, 0),
+              (1, 128, 128, 8, 1, 32, 32, 0.0, 0, 0),
+              (2, 64, 64, 4, 4, 64, 0, 30.0, 0, 0),
+              (1, 64, 192, 2, 2, 32, 0, 0.0, 128, 0),
+              (1, 100, 300, 8, 4, 256, 0, 50.0, 150, 250),
+              (2, 200, 200, 8, 4, 256, 64, 50.0, 0, 0),
+              (1, 130, 130, 8, 2, 128, 0, 0.0, 0, 0),
+              (1, 96, 256, 4, 2, 128, 16, 0.0, 0, 40)]
+    worst_abs, results = 0.0, []
+    for dtype in (torch.bfloat16, torch.float32):
+        for B, S, T, H, Kh, D, win, cap, off, t_real in shapes:
+            q, k, v = _attn_inputs(gen, B, S, T, H, Kh, D, dtype)
+            kw = dict(causal=True, window=win, softcap=cap, q_offset=off, t_real=t_real)
+            got = ops.flash_attention(q, k, v, **kw)
+            want = ref.flash_attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            check(got.dtype == dtype and got.shape == q.shape, ("output", got.shape))
+            err_abs, err_rel = errors(got, want)
+            results.append({"B": B, "S": S, "T": T, "H": H, "Kh": Kh, "D": D,
+                            "window": win, "softcap": cap, "q_offset": off,
+                            "t_real": t_real, "dtype": str(dtype).split(".")[-1],
+                            "rel_err": err_rel})
+            check(bool(torch.isfinite(got).all()) and err_rel < K34_TOL[dtype], results[-1])
+            worst_abs = max(worst_abs, err_abs)
+
+    # timing: one gemma2-2b layer's prefill attention at S = T = 4096, bf16
+    B, S, H, Kh, D = 1, 4096, 8, 4, 256
+    q, k, v = _attn_inputs(gen, B, S, S, H, Kh, D, torch.bfloat16)
+    timed = {}
+    for win in (0, 4096):
+        kw = dict(causal=True, window=win, softcap=50.0)
+        timed[win] = {"ms": time_ms(lambda: ops.flash_attention(q, k, v, **kw), reps=10),
+                      "plain_ms": time_ms(lambda: ref.flash_attention(q, k, v, **kw), reps=3)}
+    qs = q.transpose(1, 2).contiguous()
+    ks = k.transpose(1, 2).repeat_interleave(H // Kh, dim=1).contiguous()
+    vs = v.transpose(1, 2).repeat_interleave(H // Kh, dim=1).contiguous()
+    lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qs, ks, vs, is_causal=True), reps=10)
+    # live causal (query, key) pairs, each a D-long QK dot and a D-long PV sum
+    flops = 4.0 * B * H * D * (S * (S + 1) / 2)
+    nbytes = 2 * (q.numel() * 2 + k.numel() + v.numel())
+    bound_ms, bound_by = bound(nbytes, flops)
+    line = {"phase": "kernel", "name": "flash_attention", "cases": len(results),
+            "max_rel_err": max(r["rel_err"] for r in results), "max_abs_err": worst_abs,
+            "timed": "one prefill call, B=1 S=T=4096 H=8 Kh=4 D=256, causal, softcap 50, "
+                     "bf16, window 0 (window 4096 under 'window_4096')",
+            "ms": timed[0]["ms"], "plain_ms": timed[0]["plain_ms"], "library_ms": lib_ms,
+            "library_note": "SDPA is_causal, no softcap, KV heads pre-expanded",
+            "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
+            "window_4096": timed[4096]}
+    emit(line)
+    return line, results
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the main path
 # ---------------------------------------------------------------------------
@@ -369,7 +529,7 @@ def main_path(gen):
     print(f"max_memory_allocated: {line['max_memory_allocated']}", flush=True)
     print(f"greedy agreement base vs int8: {line['greedy_token_agreement_base_vs_int8']:.4f}",
           flush=True)
-    return line, launches, int8, eng8
+    return line, launches, base, int8, eng8
 
 
 # ---------------------------------------------------------------------------
@@ -387,27 +547,28 @@ def _f32(tree):
     return tree
 
 
-def whole_step(gen, params, eng, trials: int = 6):
-    """One int8 decode step under ``kernel_backend("cuda")`` and under
-    ``kernel_backend("reference")`` on the same state (the served rows'
-    pools, a scrambled table, random tokens), in bf16 as served and in f32
-    (params and pools cast), over a few random inputs.  The launch counts
-    show that each cuda side ran both kernels on every layer and each
-    reference side neither."""
+def whole_step(gen, params, eng, per_step, trials: int = 6, name="whole_step"):
+    """One decode step of a compressed instance under
+    ``kernel_backend("cuda")`` and under ``kernel_backend("reference")`` on
+    the same state (the served rows' pools, a scrambled table, random
+    tokens), in bf16 as served and in f32 (float params and pools cast;
+    int8 codes and block-sparse bf16 tiles stay), over a few random inputs.
+    The launch counts show that each cuda side ran ``per_step`` launches
+    of each kernel and each reference side none."""
     from repro_torch.core.compressed import kernel_backend
     from repro_torch.kernels import ops
     from repro_torch.models import api
     cfg = eng.cfg
     S, bs = eng.slots, eng._block_size
     nblk = eng.max_len // bs
-    pos = torch.tensor([90, 95, 100, 105, 110, 115, 120, 600], device="cuda")
+    pos = torch.tensor([90, 95, 100, 105, 110, 115, 120, 600], device=eng.device)
     p32 = _f32(params)
     rms = lambda a, b: ((a - b).norm() / b.norm()).item()  # noqa: E731
     results = []
     for _ in range(trials):
-        perm = torch.randperm(eng._alloc.num_blocks - 1, generator=gen, device="cuda")
+        perm = torch.randperm(eng._alloc.num_blocks - 1, generator=gen, device=eng.device)
         tables = perm[:S * nblk].reshape(S, nblk).to(torch.int32)
-        toks = torch.randint(4, 260, (S, 1), generator=gen, device="cuda")
+        toks = torch.randint(4, 260, (S, 1), generator=gen, device=eng.device)
         logits = {}
         for dtype, p in ((torch.bfloat16, params), (torch.float32, p32)):
             for backend in ("cuda", "reference"):
@@ -418,8 +579,7 @@ def whole_step(gen, params, eng, trials: int = 6):
                     lg, _ = api.paged_decode_step(p, cfg, st, tables, toks, pos,
                                                   block_size=bs, max_len=eng.max_len)
                 launched = {k: ops.launch_count[k] - before[k] for k in before}
-                want = ({"quant_matmul": 7 * cfg.n_layers, "paged_attention": cfg.n_layers}
-                        if backend == "cuda" else {"quant_matmul": 0, "paged_attention": 0})
+                want = {k: per_step.get(k, 0) if backend == "cuda" else 0 for k in before}
                 check(launched == want, ("launches of the step", dtype, backend, launched))
                 check(bool(torch.isfinite(lg).all()) and lg.shape == (S, 1, cfg.vocab_size),
                       ("decode-step logits", dtype, backend, lg.shape))
@@ -436,22 +596,165 @@ def whole_step(gen, params, eng, trials: int = 6):
                 (c32[:, -1].argmax(-1) == r32[:, -1].argmax(-1)).float().mean().item()})
     cuda_err = sum(r["bf16_cuda_vs_f32"] for r in results)
     plain_err = sum(r["bf16_plain_vs_f32"] for r in results)
-    line = {"phase": "whole_step", "trials": results,
+    line = {"phase": name, "trials": results,
             "tolerance_f32_rms_rel": STEP_TOL_F32, "bf16_ratio_bound": STEP_BF16_RATIO,
-            "bf16_ratio": cuda_err / plain_err,
-            "launches_per_step": {"quant_matmul": 7 * cfg.n_layers,
-                                  "paged_attention": cfg.n_layers}}
+            "bf16_ratio": cuda_err / plain_err, "launches_per_step": per_step}
     emit(line)
     agree = sum(r["greedy_agreement_bf16"] for r in results) / trials
-    print(f"decode step cuda vs reference: greedy agreement {agree:.3f} (bf16), "
+    print(f"{name}: decode step cuda vs reference: greedy agreement {agree:.3f} (bf16), "
           f"f32 RMS error up to {max(r['f32_rms_rel_err'] for r in results):.2e}", flush=True)
     check(all(r["f32_rms_rel_err"] < STEP_TOL_F32 for r in results), line)
     check(cuda_err <= STEP_BF16_RATIO * plain_err, line)
     return line
 
 
-def profile_step(gen, params, eng, steps: int = 5):
-    """Where one int8 decode step's time goes: host wall time per step
+# ---------------------------------------------------------------------------
+# phase block_sparse: calibrate, compress with bs16@75, serve
+# ---------------------------------------------------------------------------
+
+def calibration_tokens(device, rows: int = 16, seq: int = 96):
+    """The first ``rows`` template rows, tokenized and right-padded to
+    ``seq`` tokens (the calibration sample of ``benchmarks/ablation.py``)."""
+    from repro_torch.training.data import ByteTokenizer
+    tok = ByteTokenizer()
+    toks, _ = tok.pad_batch([tok.encode(TEMPLATE + r, bos=True) for r in REVIEWS[:rows]],
+                            seq_len=seq)
+    return torch.from_numpy(toks).to(device)
+
+
+def block_sparse_path(base, cfg):
+    """The slice's main path: calibrate the bf16 base on a sample of the
+    rows (activation norms only: the block recipe reads no Hessian), apply
+    ``bs16@75`` and serve the rows.  The launch counts are zeroed just
+    before the run and read just after."""
+    from repro_torch.core.compressed import BlockSparseTensor, param_bytes
+    from repro_torch.core.pipeline import InstanceOptimizer, Recipe
+    from repro_torch.kernels import ops
+    per_step = 7 * cfg.n_layers
+    opt = InstanceOptimizer(base, cfg)
+    t0 = time.time()
+    opt.run_calibration({"tokens": calibration_tokens(base["embed"].device)}, hessian=False)
+    torch.cuda.synchronize()
+    calib_s = time.time() - t0
+    t0 = time.time()
+    bsp, _, report = opt.apply(Recipe(name="bs16@75", block_bs=16, block_density=0.75))
+    torch.cuda.synchronize()
+    apply_s = time.time() - t0
+    linears = [w for blk in bsp["blocks"] for sub in ("attn", "mlp") for w in blk[sub].values()]
+    check(len(linears) * len(bsp["blocks"][0]["mlp"]["wi"].w) == per_step
+          and all(isinstance(w, BlockSparseTensor) and w.idx.shape[0] == w.w.shape[0]
+                  and abs(w.density() - 0.75) < 1e-6 for w in linears),
+          "every linear of every layer block-sparse at 0.75, with its own indices")
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    eng, reqs = serve(bsp, cfg, "bs16@75")
+    launches = dict(ops.launch_count)
+    st = eng.stats
+    check(launches == {"quant_matmul": 0, "flash_attention": 0,
+                       "paged_attention": cfg.n_layers * st.decode_steps,
+                       "block_sparse_matmul": per_step * (st.decode_steps + st.prefills)},
+          ("block-sparse run launches", launches, st.decode_steps, st.prefills))
+    line = {"phase": "block_sparse", "model": cfg.name, "recipe": "bs16@75",
+            "calibration_rows": 16, "calibration_tokens": 96, "calibrate_s": calib_s,
+            "apply_s": apply_s, "rows": len(REVIEWS), "max_new": 32,
+            "rows_per_s": st.rows_per_s, "tokens_per_s": st.tokens_out / st.wall_s,
+            "wall_s": st.wall_s, "decode_steps": st.decode_steps, "prefills": st.prefills,
+            "prefix_hits": st.prefix_hits, "cache_hits": st.cache_hits,
+            "backend": st.backend, "launches": launches,
+            "block_sparse_per_decode_step": per_step,
+            "param_bytes_base": param_bytes(base), "param_bytes": param_bytes(bsp),
+            "compression": report.compression,
+            "max_memory_allocated_run": torch.cuda.max_memory_allocated(),
+            "memory_note": "the weights stay dense and zero-filled on the card: "
+                           "param_bytes counts kept tiles, device memory does not shrink"}
+    emit(line)
+    print(f"bs16@75: {line['rows_per_s']:.3f} rows/s, {line['tokens_per_s']:.1f} tokens/s, "
+          f"calibrate {calib_s:.2f} s, apply {apply_s:.2f} s, param_bytes "
+          f"{line['param_bytes']} (device memory unchanged: dense zero-filled tiles)",
+          flush=True)
+    return line, launches, bsp, eng
+
+
+# ---------------------------------------------------------------------------
+# phase long_prefill: flash prefill of long documents
+# ---------------------------------------------------------------------------
+
+LONG_S, LONGEST_S = 4096, 8192
+
+
+def long_prefill(gen, base, cfg):
+    """Two long documents, each prefilled under the cuda and the reference
+    backends, in bf16 and f32, and held to the whole-step criteria: one of
+    LONG_S tokens with ``use_flash=True`` (every layer runs K3), and one
+    of LONGEST_S tokens without it, whose global layers take
+    ``best_attention``'s long-sequence branch (K3 on the cuda side, its
+    plain version, one tile of memory, on the reference side)."""
+    from repro_torch.core.compressed import kernel_backend
+    from repro_torch.kernels import ops
+    from repro_torch.models import api
+    dev = base["embed"].device
+    rms = lambda a, b: ((a - b).norm() / b.norm()).item()  # noqa: E731
+
+    def run(params, toks, backend, use_flash, flash_launches):
+        before = dict(ops.launch_count)
+        t0 = time.time()
+        with kernel_backend(backend), torch.no_grad():
+            lg, _ = api.prefill(params, cfg, {"tokens": toks}, max_len=toks.shape[1],
+                                use_flash=use_flash)
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        launched = {k: ops.launch_count[k] - before[k] for k in before}
+        check(launched == {k: flash_launches if k == "flash_attention" else 0
+                           for k in before}, ("prefill launches", backend, launched))
+        check(lg.shape == (1, toks.shape[1], cfg.vocab_size)
+              and bool(torch.isfinite(lg).all()), ("prefill logits", backend, lg.shape))
+        return lg, secs
+
+    def compare(S, use_flash, flash_launches):
+        toks = torch.randint(4, 260, (1, S), generator=gen, device=gen.device).to(dev)
+        logits, secs = {}, {}
+        for dtype in (torch.bfloat16, torch.float32):
+            params = base if dtype == torch.bfloat16 else _f32(base)
+            for backend in ("cuda", "reference"):
+                lg, secs[f"{backend}_{str(dtype)[6:]}"] = run(
+                    params, toks, backend, use_flash,
+                    flash_launches if backend == "cuda" else 0)
+                logits[dtype, backend] = lg
+            del params
+        c16, r16 = logits[torch.bfloat16, "cuda"], logits[torch.bfloat16, "reference"]
+        c32, r32 = logits[torch.float32, "cuda"], logits[torch.float32, "reference"]
+        res = {"S": S, "use_flash": use_flash, "flash_launches": flash_launches,
+               "f32_rms_rel_err": rms(c32, r32), "f32_max_abs_err": errors(c32, r32)[0],
+               "bf16_rms_rel_err": rms(c16, r16), "bf16_cuda_vs_f32": rms(c16, r32),
+               "bf16_plain_vs_f32": rms(r16, r32),
+               "greedy_agreement_f32":
+                   (c32[0].argmax(-1) == r32[0].argmax(-1)).float().mean().item(),
+               "greedy_agreement_bf16":
+                   (c16[0].argmax(-1) == r16[0].argmax(-1)).float().mean().item(),
+               "seconds": secs}
+        res["bf16_ratio"] = res["bf16_cuda_vs_f32"] / res["bf16_plain_vs_f32"]
+        del logits, c16, r16, c32, r32
+        torch.cuda.empty_cache()
+        return res
+
+    flash = compare(LONG_S, True, cfg.n_layers)
+    longest = compare(LONGEST_S, False, cfg.pattern().count("G"))
+    line = {"phase": "long_prefill", "model": cfg.name, "flash": flash, "longest": longest,
+            "tolerance_f32_rms_rel": STEP_TOL_F32, "bf16_ratio_bound": STEP_BF16_RATIO}
+    emit(line)
+    for res in (flash, longest):
+        print(f"prefill S={res['S']} use_flash={res['use_flash']}: {res['flash_launches']} "
+              f"K3 launches, f32 RMS error {res['f32_rms_rel_err']:.2e}, bf16 ratio "
+              f"{res['bf16_ratio']:.3f}, cuda bf16 in {res['seconds']['cuda_bfloat16']:.2f} s",
+              flush=True)
+        check(res["f32_rms_rel_err"] < STEP_TOL_F32, line)
+        check(res["bf16_cuda_vs_f32"] <= STEP_BF16_RATIO * res["bf16_plain_vs_f32"], line)
+    return line
+
+
+def profile_step(gen, params, eng, steps: int = 5, name="decode_profile"):
+    """Where one decode step's time goes: host wall time per step
     (ending in a sync) against device kernel time from torch.profiler,
     split by kernel name."""
     from torch.profiler import ProfilerActivity, profile
@@ -487,7 +790,7 @@ def profile_step(gen, params, eng, steps: int = 5):
                                     + ev.self_device_time_total / 1e3 / steps)
     device_ms = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    line = {"phase": "decode_profile", "steps": steps, "wall_ms_per_step": wall_ms,
+    line = {"phase": name, "steps": steps, "wall_ms_per_step": wall_ms,
             "device_ms_per_step": device_ms,
             "device_idle_share": max(0.0, 1.0 - device_ms / wall_ms),
             "top_kernels_ms_per_step": dict(top)}
@@ -500,7 +803,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 2
-    from repro_torch.kernels import build
+    t_start = time.time()
+    from repro_torch.kernels import build, ops
 
     # one card: the run and its last line's "count" speak of one device
     check(torch.cuda.device_count() == 1,
@@ -521,18 +825,39 @@ def main() -> int:
     gen.manual_seed(0)
     k2, k2_cases = check_quant_matmul(gen)
     k1, k1_cases = check_paged_attention(gen)
-    main_line, launches, int8, eng8 = main_path(gen)
-    step_line = whole_step(gen, int8, eng8)
+    k4, k4_cases = check_block_sparse(gen)
+    k3, k3_cases = check_flash_attention(gen)
+    main_line, launches, base, int8, eng8 = main_path(gen)
+    cfg = eng8.cfg
+    step_line = whole_step(gen, int8, eng8, {"quant_matmul": 7 * cfg.n_layers,
+                                             "paged_attention": cfg.n_layers})
     prof_line = profile_step(gen, int8, eng8)
+    del int8, eng8
+    torch.cuda.empty_cache()
+    bs_line, bs_launches, bsp, eng_bs = block_sparse_path(base, cfg)
+    bs_step_line = whole_step(gen, bsp, eng_bs, {"block_sparse_matmul": 7 * cfg.n_layers,
+                                                 "paged_attention": cfg.n_layers},
+                              name="whole_step_block_sparse")
+    bs_prof_line = profile_step(gen, bsp, eng_bs, name="decode_profile_block_sparse")
+    del bsp, eng_bs
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    long_line = long_prefill(gen, base, cfg)
+    long_launches = dict(ops.launch_count)
 
     kernels = []
-    for line, source, replaces in (
-            (k1, "src/repro_torch/kernels/csrc/paged_attention.cu",
+    for line, runs, source, replaces in (
+            (k1, launches, "src/repro_torch/kernels/csrc/paged_attention.cu",
              "src/repro/kernels/paged_attention.py:68"),
-            (k2, "src/repro_torch/kernels/csrc/quant_matmul.cu",
-             "src/repro/kernels/quant_matmul.py:47")):
+            (k2, launches, "src/repro_torch/kernels/csrc/quant_matmul.cu",
+             "src/repro/kernels/quant_matmul.py:47"),
+            (k3, long_launches, "src/repro_torch/kernels/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:83"),
+            (k4, bs_launches, "src/repro_torch/kernels/csrc/block_sparse.cu",
+             "src/repro/kernels/block_sparse.py:39")):
+        check(runs[line["name"]] > 0, ("no launch on the path", line["name"], runs))
         kernels.append({"name": line["name"], "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches[line["name"]],
+                        "replaces": replaces, "launches": runs[line["name"]],
                         "max_abs_err": line["max_abs_err"], "ms": line["ms"],
                         "plain_ms": line["plain_ms"], "bound_ms": line["bound_ms"],
                         "bound_by": line["bound_by"], "library_ms": line["library_ms"],
@@ -541,8 +866,13 @@ def main() -> int:
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kernels": kernels, "quant_matmul_cases": k2_cases,
-                   "paged_attention_cases": k1_cases, "main_path": main_line,
-                   "whole_step": step_line, "decode_profile": prof_line}, f, indent=1)
+                   "paged_attention_cases": k1_cases, "block_sparse_matmul_cases": k4_cases,
+                   "flash_attention_cases": k3_cases, "kernel_lines": [k1, k2, k3, k4],
+                   "main_path": main_line, "whole_step": step_line,
+                   "decode_profile": prof_line, "block_sparse": bs_line,
+                   "whole_step_block_sparse": bs_step_line,
+                   "decode_profile_block_sparse": bs_prof_line, "long_prefill": long_line,
+                   "seconds": time.time() - t_start}, f, indent=1)
     emit({"kernels": kernels})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

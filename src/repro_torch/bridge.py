@@ -1,9 +1,12 @@
 """Turn the reference's param tree into the port's.
 
 ``from_reference(tree, cfg, device)`` walks the reference's pytree of
-dicts and lists.  Its leaves are arrays (anything ``np.asarray`` accepts)
-or quantized weights — any object with ``q/scale/bits/group/shape/
-in_scale`` attributes — so the bridge needs no JAX.  bf16 arrays arrive
+dicts and lists.  Its leaves are arrays (anything ``np.asarray`` accepts),
+quantized weights (any object with ``q/scale/bits/group/shape/in_scale``
+attributes) or block-sparse weights (``w/mask/bs/idx``), so the bridge
+needs no JAX.  A block-sparse leaf whose ``idx`` is None (the reference
+drops it when it stacks layers) gets its indices rebuilt from ``mask``,
+per layer.  bf16 arrays arrive
 as ``ml_dtypes.bfloat16`` numpy arrays, which ``torch.from_numpy``
 rejects; they cross through a ``uint16`` view of their bits.  The
 stacked layer axis of ``blocks`` is kept as is.
@@ -13,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.compressed import QTensor
+from repro_torch.core.compressed import BlockSparseTensor, QTensor, check_idx
 from repro_torch.kernels.backend import resolve_device
 
 
@@ -40,6 +43,11 @@ def from_reference(tree, cfg=None, device="cuda"):
                        tree.bits, tree.group, tree.shape,
                        None if tree.in_scale is None
                        else to_tensor(tree.in_scale, device))
+    if hasattr(tree, "mask") and hasattr(tree, "bs"):
+        w = to_tensor(tree.w, device)
+        return BlockSparseTensor(w, to_tensor(tree.mask, device), tree.bs,
+                                 None if tree.idx is None else
+                                 check_idx(to_tensor(tree.idx, device), w.shape, tree.bs))
     return to_tensor(tree, device)
 
 

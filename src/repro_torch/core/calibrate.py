@@ -1,0 +1,177 @@
+"""Calibration: per-weight activation statistics from a data sample.
+
+The paper (§3.2) tunes quantization parameters and pruning thresholds on
+calibration data, small unlabeled samples of the query's input domain.
+This module runs the model layer by layer on such a sample and collects,
+per weight matrix:
+
+  - ``H``       Gram matrix X^T X of the layer's inputs (GPTQ, SparseGPT)
+  - ``sqnorm``  per-input-channel sum x^2 (the Wanda metric)
+  - ``amax``    per-input-channel max |x| (SmoothQuant scales)
+  - ``count``   number of observed rows
+
+plus the cosine similarity of each block's input and output (layer-drop
+scores).  Statistics stay on the activations' device: sqnorm and amax in
+float32, H in float64.
+
+Weights are keyed by their path in the param tree (e.g.
+``blocks.0.3.attn.wq``).  The interception happens inside
+``repro_torch.core.compressed.matmul`` through ``set_record_hook``, so
+no model code knows about calibration.  Weights are recognised by object
+identity: a slice ``t[r]`` of a stacked tensor is a new object on every
+call, so the calibration loop registers the very per-layer slices it hands to
+``block_apply`` and keeps them alive while the block runs.  Padded
+positions of the sample are recorded too, as in the reference.
+
+Only the dense family is ported; MoE routing statistics, the cascade
+threshold fit and the other families wait for their ROADMAP items.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch.core import compressed
+
+
+@dataclasses.dataclass
+class WeightStats:
+    shape: Tuple[int, ...]
+    count: int = 0
+    H: Optional[torch.Tensor] = None        # [d_in, d_in] float64
+    sqnorm: Optional[torch.Tensor] = None   # [d_in] float32
+    amax: Optional[torch.Tensor] = None     # [d_in] float32
+
+    def merge_norm(self) -> torch.Tensor:
+        """Per-channel RMS norm of the inputs (the Wanda metric)."""
+        return torch.sqrt(self.sqnorm / max(self.count, 1))
+
+
+@dataclasses.dataclass
+class CalibStats:
+    weights: Dict[str, WeightStats]
+    block_sim: Dict[str, float]      # path -> cos(x_in, x_out)
+    n_tokens: int = 0
+
+    def get(self, path: str) -> Optional[WeightStats]:
+        return self.weights.get(path)
+
+
+class Recorder:
+    """Accumulates statistics for weights registered under a path."""
+
+    def __init__(self, hessian: bool = True):
+        self.hessian = hessian
+        self.stats: Dict[str, WeightStats] = {}
+        self.block_sim: Dict[str, float] = {}
+        self._block_acc: Dict[str, List[float]] = {}   # path -> [sum, count]
+        self._id2path: Dict[int, str] = {}
+        self.n_tokens = 0
+
+    def register(self, prefix: str, tree) -> None:
+        """Map every tensor leaf of ``tree`` to ``prefix.<path>``."""
+        for path, leaf in _leaves(tree, ""):
+            self._id2path[id(leaf)] = f"{prefix}.{path}" if prefix else path
+
+    @contextlib.contextmanager
+    def active(self):
+        compressed.set_record_hook(self._on_matmul)
+        try:
+            yield self
+        finally:
+            compressed.set_record_hook(None)
+
+    def _on_matmul(self, w, x) -> None:
+        path = self._id2path.get(id(w))
+        if path is None or w.dim() < 2:
+            return
+        st = self.stats.get(path)
+        if st is None:
+            st = WeightStats(shape=tuple(w.shape))
+            self.stats[path] = st
+        xf = x.detach().float().reshape(-1, x.shape[-1])        # [N, d_in]
+        d = xf.shape[1]
+        if st.sqnorm is None:
+            st.sqnorm = torch.zeros((d,), dtype=torch.float32, device=xf.device)
+            st.amax = torch.zeros((d,), dtype=torch.float32, device=xf.device)
+            if self.hessian:
+                st.H = torch.zeros((d, d), dtype=torch.float64, device=xf.device)
+        st.sqnorm += (xf ** 2).sum(0)
+        st.amax = torch.maximum(st.amax, xf.abs().amax(0))
+        if self.hessian:
+            xd = xf.double()
+            st.H += xd.T @ xd
+        st.count += xf.shape[0]
+
+    def record_block(self, path: str, x_in, x_out) -> None:
+        a = x_in.detach().float().reshape(-1)
+        b = x_out.detach().float().reshape(-1)
+        cos = float((a @ b / (a.norm() * b.norm() + 1e-9)).item())
+        acc = self._block_acc.setdefault(path, [0.0, 0])
+        acc[0] += cos
+        acc[1] += 1
+
+    def finish(self) -> CalibStats:
+        self.block_sim = {p: s / n for p, (s, n) in self._block_acc.items()}
+        return CalibStats(weights=self.stats, block_sim=self.block_sim,
+                          n_tokens=self.n_tokens)
+
+
+def _leaves(tree, path: str):
+    """(dotted path, leaf) over a param tree of dicts and lists."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, f"{path}.{k}" if path else str(k))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, f"{path}.{i}" if path else str(i))
+    elif tree is not None:
+        yield path, tree
+
+
+def calibrate(params, cfg, batch: Dict[str, Any], *,
+              hessian: bool = True) -> CalibStats:
+    """Run the model on ``batch`` ({"tokens": [B, S]}) and gather
+    calibration statistics, the untied output head's included."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"calibration of family {cfg.family!r} is not ported yet "
+            "(ROADMAP queue 1 item 9)")
+    rec = Recorder(hessian=hessian)
+    with torch.no_grad():
+        _calib_transformer(rec, params, cfg, batch)
+    return rec.finish()
+
+
+def _calib_transformer(rec, params, cfg, batch):
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as TF
+    tokens = torch.as_tensor(batch["tokens"], device=params["embed"].device)
+    x = L.embed(params, cfg, tokens)
+    B, S, _ = x.shape
+    rec.n_tokens = B * S
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    unit, R, _ = TF.pattern_unit(cfg)
+    with rec.active():
+        for r in range(R):
+            for u, kind in enumerate(unit):
+                bp = TF.layer_slice(params["blocks"][u], r)
+                path = f"blocks.{u}.{r}"
+                rec.register(path, bp)
+                x2, _ = TF.block_apply(bp, x, cfg, kind=kind, positions=positions)
+                rec.record_block(path, x, x2)
+                x = x2
+        for i, bp in enumerate(params["tail"]):
+            path = f"tail.{i}"
+            rec.register(path, bp)
+            x2, _ = TF.block_apply(bp, x, cfg, kind=unit[i % len(unit)],
+                                   positions=positions)
+            rec.record_block(path, x, x2)
+            x = x2
+        if not cfg.tie_embeddings:
+            x = L.norm(x, params["ln_f"], cfg)
+            rec.register("", {"unembed": params["unembed"]})
+            L.matmul(x, params["unembed"])

@@ -6,16 +6,22 @@ optionally with SmoothQuant input scales).  Every linear layer in
 ``repro_torch.models`` calls :func:`matmul`, which dispatches on the
 container type, so compression is transparent to the model code.
 
-The plain formula here is the portable path and the oracle; the int8
-CUDA kernel (``kernels/ops.py``) takes over when the scoped
-:func:`kernel_backend` resolves to ``"cuda"`` for the input's device.
-``QEmbed``, ``BlockSparseTensor``, ``expert_matmul`` and the
-calibration record/route hooks are not ported yet.
+The plain formulas here are the portable path and the oracle; the int8
+and block-sparse CUDA kernels (``kernels/ops.py``) take over when the
+scoped :func:`kernel_backend` resolves to ``"cuda"`` for the input's
+device.
+
+Calibration: ``set_record_hook`` installs an observer that the matmul
+dispatch feeds with (weight, activation) pairs of raw weights;
+``repro_torch.core.calibrate`` uses it to gather Hessians and channel
+norms without any model-code changes.  ``QEmbed``, ``expert_matmul`` and
+the MoE route hook are not ported yet.
 """
 from __future__ import annotations
 
 import contextlib
 import contextvars
+from typing import Callable, Optional
 
 import torch
 
@@ -44,6 +50,15 @@ def current_backend(device="cuda") -> str:
     or ``"cuda"``."""
     b = _BACKEND.get()
     return resolve_backend(b if b is not None else "auto", device)
+
+
+_RECORD_HOOK: Optional[Callable] = None
+
+
+def set_record_hook(fn: Optional[Callable]) -> None:
+    """fn(w, x) observes the matmuls of raw weights; x is [..., d_in]."""
+    global _RECORD_HOOK
+    _RECORD_HOOK = fn
 
 
 class QTensor:
@@ -126,13 +141,90 @@ def pack_int4(codes: torch.Tensor) -> torch.Tensor:
     return lo | (hi << 4)
 
 
+class BlockSparseTensor:
+    """Block-sparse weight ``[d_in, d_out]`` with ``bs x bs`` zero blocks.
+
+    w     the dense zero-filled bf16 weight (the plain path's operand)
+    mask  f32 0/1 block bitmap ``[d_in/bs, d_out/bs]``
+    idx   int32 ``[d_out/bs, keep]``: the kept input-block rows of each
+          output block column, ascending (uniform ``keep``, the kernel's
+          gather length)
+
+    Tensors carry a leading layer axis when stacked, and so does ``idx``:
+    every layer keeps its own indices (:meth:`layer`).
+    """
+
+    def __init__(self, w, mask, bs: int, idx=None):
+        self.w = w
+        self.mask = mask
+        self.bs = int(bs)
+        self.idx = idx_from_mask(mask) if idx is None else idx
+
+    @property
+    def shape(self):
+        return tuple(self.w.shape)
+
+    @property
+    def ndim(self) -> int:
+        return self.w.dim()
+
+    @property
+    def dtype(self):
+        return self.w.dtype
+
+    @property
+    def nbytes(self) -> int:
+        """Kept blocks plus a one-bit-per-block bitmap (stacked-safe)."""
+        nnz = float(self.mask.sum().item())
+        return int(nnz * self.bs * self.bs * self.w.element_size()
+                   + self.mask.numel() / 8 + 1)
+
+    def density(self) -> float:
+        return float(self.mask.mean().item())
+
+    def layer(self, r: int) -> "BlockSparseTensor":
+        """The ``r``-th matrix of a layer-stacked BlockSparseTensor."""
+        return BlockSparseTensor(self.w[r], self.mask[r], self.bs, self.idx[r])
+
+    def to(self, device) -> "BlockSparseTensor":
+        return BlockSparseTensor(self.w.to(device), self.mask.to(device), self.bs,
+                                 self.idx.to(device))
+
+
+def idx_from_mask(mask: torch.Tensor) -> torch.Tensor:
+    """Kept input-block rows per output block column, ascending:
+    ``mask`` [..., nb_in, nb_out] -> int32 [..., nb_out, keep]."""
+    m = mask.transpose(-1, -2) > 0
+    counts = m.sum(-1)
+    keep = int(counts.reshape(-1)[0].item())
+    if not bool((counts == keep).all()):
+        raise ValueError("block mask keeps a different number of blocks per column")
+    rows = torch.nonzero(m)[:, -1]
+    return rows.reshape(*m.shape[:-1], keep).to(torch.int32)
+
+
+def check_idx(idx: torch.Tensor, shape, bs: int) -> torch.Tensor:
+    """``idx`` itself, once checked against a weight of ``shape``
+    [..., d_in, d_out]: integer [..., d_out/bs, keep] with 1 <= keep <=
+    d_in/bs and entries in [0, d_in/bs).  The kernel reads out of bounds
+    on any other, so gather indices from outside are checked here once."""
+    nb_in, nb_out = shape[-2] // bs, shape[-1] // bs
+    if (idx.is_floating_point() or tuple(idx.shape[:-1]) != (*shape[:-2], nb_out)
+            or not 1 <= idx.shape[-1] <= nb_in):
+        raise ValueError(f"idx {tuple(idx.shape)} does not fit a {tuple(shape)} "
+                         f"weight of {bs} x {bs} blocks")
+    if bool((idx < 0).any()) or bool((idx >= nb_in).any()):
+        raise ValueError(f"idx entries must lie in [0, {nb_in})")
+    return idx
+
+
 def param_bytes(tree) -> int:
     """Total stored bytes of a (possibly compressed) param tree."""
     if isinstance(tree, dict):
         return sum(param_bytes(v) for v in tree.values())
     if isinstance(tree, (list, tuple)):
         return sum(param_bytes(v) for v in tree)
-    if isinstance(tree, QTensor):
+    if isinstance(tree, (QTensor, BlockSparseTensor)):
         return tree.nbytes
     return int(tree.numel() * tree.element_size())
 
@@ -146,10 +238,16 @@ def _q_matmul_plain(x: torch.Tensor, w: QTensor) -> torch.Tensor:
 
 
 def matmul(x: torch.Tensor, w) -> torch.Tensor:
-    """Universal ``x @ w`` over raw / quantized weights."""
+    """Universal ``x @ w`` over raw / quantized / block-sparse weights."""
     if isinstance(w, QTensor):
         if w.bits == 8 and current_backend(x.device) == "cuda":
             return kops.quant_matmul(x, w.q, w.scale, group=w.group,
                                      in_scale=w.in_scale)
         return _q_matmul_plain(x, w)
+    if isinstance(w, BlockSparseTensor):
+        if current_backend(x.device) == "cuda":
+            return kops.block_sparse_matmul(x, w.w, w.idx, bs=w.bs)
+        return torch.matmul(x, w.w.to(x.dtype))
+    if _RECORD_HOOK is not None:
+        _RECORD_HOOK(w, x)
     return torch.matmul(x, w.to(x.dtype))

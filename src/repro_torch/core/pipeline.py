@@ -1,29 +1,39 @@
-"""The instance-optimization pipeline (quantization stage).
+"""The instance-optimization pipeline.
 
-``InstanceOptimizer`` turns a (params, config) pair into a compressed
-model:
+``InstanceOptimizer`` turns a (params, config) pair plus a calibration
+sample into a compressed, query-specialized model:
 
     opt = InstanceOptimizer(params, cfg)
+    opt.run_calibration({"tokens": sample})
     new_params, new_cfg, report = opt.apply(Recipe(...))
 
-This slice ports the recipe space's weight quantization without
-calibration: absmax int8/int4 with group-wise scales, on the same leaf
-selection as the reference.  Without calibration statistics a ``gptq``
-recipe quantizes with absmax, as the reference does when it has no
-Hessian.  Structural pruning, sparsity, block sparsity, calibrated GPTQ
-and embedding quantization raise ``NotImplementedError`` naming the
-ROADMAP item that ports them.
+Stages (paper §3.2), in order:
+  1. structural pruning: not ported yet (``prune.py``, ROADMAP queue 1
+     item 5); its recipe fields raise;
+  2. sparsification: SparseGPT / Wanda masks (N:M or unstructured), or
+     block sparsity (whole tiles skipped by the block-sparse kernel);
+  3. quantization: GPTQ / absmax int8 or int4, group-wise scales,
+     optional SmoothQuant; masks from stage 2 are respected inside the
+     GPTQ sweep.
+
+Without calibration statistics a ``gptq`` recipe quantizes with absmax
+and masks score with unit activation norms, as in the reference.  A
+layer-stacked block-sparse weight keeps its gather indices per layer, so
+the kernel runs on every block-sparse linear.
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch.core import calibrate as C
 from repro_torch.core import quantize as Q
-from repro_torch.core.compressed import QTensor, param_bytes
+from repro_torch.core import sparsify as S
+from repro_torch.core.compressed import (BlockSparseTensor, QTensor, pack_int4,
+                                         param_bytes)
 
 
 @dataclass(frozen=True)
@@ -77,9 +87,6 @@ _COMPRESS_NAMES = frozenset({
 })
 
 _PRUNING = "ROADMAP queue 1 item 5 (core/prune.py)"
-_SPARSITY = "ROADMAP queue 1 item 5 (core/sparsify.py)"
-_BLOCK_SPARSE = "ROADMAP queue 2 K4 (block_sparse_matmul)"
-_CALIBRATION = "ROADMAP queue 1 item 5 (core/calibrate.py, GPTQ)"
 _QEMBED = "ROADMAP queue 1 item 2 (QEmbed)"
 
 
@@ -89,8 +96,6 @@ def _unported(recipe: Recipe) -> None:
         (recipe.kv_keep_frac < 1.0, "kv_keep_frac", _PRUNING),
         (recipe.ffn_keep_frac < 1.0, "ffn_keep_frac", _PRUNING),
         (recipe.experts_keep, "experts_keep", _PRUNING),
-        (recipe.sparsity or recipe.nm[1], "sparsity/nm", _SPARSITY),
-        (recipe.block_bs, "block_bs", _BLOCK_SPARSE),
         (recipe.quant_embed, "quant_embed", _QEMBED),
     ]
     for hit, field, item in checks:
@@ -104,7 +109,8 @@ def _leaf_name(path: str) -> str:
 
 
 def _is_target(path: str, leaf) -> bool:
-    if isinstance(leaf, QTensor) or _leaf_name(path) not in _COMPRESS_NAMES:
+    if isinstance(leaf, (QTensor, BlockSparseTensor)) \
+            or _leaf_name(path) not in _COMPRESS_NAMES:
         return False
     return getattr(leaf, "ndim", 0) >= 2
 
@@ -112,6 +118,13 @@ def _is_target(path: str, leaf) -> bool:
 def _stack_depth(cfg, path: str) -> int:
     """Leading stacked-layer axes of a param subtree (dense family)."""
     return 1 if path.startswith("blocks.") else 0
+
+
+def _stats_key(path: str, r: int) -> str:
+    """Calibration key of layer ``r`` of a stacked leaf: ``blocks.u.attn.wq``
+    -> ``blocks.u.r.attn.wq``."""
+    parts = path.split(".")
+    return ".".join(parts[:2] + [str(r)] + parts[2:])
 
 
 @dataclass
@@ -144,16 +157,25 @@ def _param_count(tree) -> int:
         return sum(_param_count(v) for v in tree)
     if isinstance(tree, QTensor):
         return tree.q.numel() * (2 if tree.bits == 4 else 1)
+    if isinstance(tree, BlockSparseTensor):
+        return int(tree.w.numel() * tree.density())
     return tree.numel()
 
 
-def _stack_q(items: List[QTensor]) -> QTensor:
+def _stack(items):
+    """Stack per-layer compression results along a new axis 0."""
     first = items[0]
-    ins = (None if first.in_scale is None
-           else torch.stack([it.in_scale for it in items]))
-    return QTensor(torch.stack([it.q for it in items]),
-                   torch.stack([it.scale for it in items]),
-                   first.bits, first.group, first.shape[-2:], ins)
+    if isinstance(first, QTensor):
+        ins = (None if first.in_scale is None
+               else torch.stack([it.in_scale for it in items]))
+        return QTensor(torch.stack([it.q for it in items]),
+                       torch.stack([it.scale for it in items]),
+                       first.bits, first.group, first.shape[-2:], ins)
+    if isinstance(first, BlockSparseTensor):
+        return BlockSparseTensor(torch.stack([it.w for it in items]),
+                                 torch.stack([it.mask for it in items]), first.bs,
+                                 torch.stack([it.idx for it in items]))
+    return torch.stack(items)
 
 
 class InstanceOptimizer:
@@ -162,9 +184,11 @@ class InstanceOptimizer:
     def __init__(self, params, cfg):
         self.params = params
         self.cfg = cfg
+        self.stats: Optional[C.CalibStats] = None
 
-    def run_calibration(self, batch):
-        raise NotImplementedError(f"calibration is not ported yet: {_CALIBRATION}")
+    def run_calibration(self, batch: Dict[str, Any], *, hessian: bool = True):
+        self.stats = C.calibrate(self.params, self.cfg, batch, hessian=hessian)
+        return self.stats
 
     def apply(self, recipe: Recipe):
         _unported(recipe)
@@ -172,10 +196,14 @@ class InstanceOptimizer:
             raise NotImplementedError(
                 f"family {self.cfg.family!r} is not ported yet (ROADMAP queue 1 item 9)")
         t0 = time.time()
+        if self.stats is None:
+            self.stats = C.CalibStats({}, {}, 0)
         params = self.params
         per_weight: List[Dict[str, Any]] = []
-        if recipe.wbits < 16:
-            params = self._compress(params, recipe, per_weight, "")
+        if (recipe.wbits < 16 or recipe.sparsity or recipe.nm[1]
+                or recipe.block_bs):
+            with torch.no_grad():
+                params = self._compress(params, recipe, per_weight, "")
         report = Report(recipe=recipe, bytes_before=param_bytes(self.params),
                         bytes_after=param_bytes(params),
                         params_before=_param_count(self.params),
@@ -195,14 +223,67 @@ class InstanceOptimizer:
                     for i, v in enumerate(tree)]
         if not _is_target(path, tree):
             return tree
-        log = {"path": path, "shape": tuple(tree.shape[-2:]),
-               "kind": f"quant w{recipe.wbits}"}
-        per_weight.append(log)
         if _stack_depth(self.cfg, path) == 0:
-            return self._one_matrix(tree, recipe)
-        return _stack_q([self._one_matrix(tree[r], recipe)
-                         for r in range(tree.shape[0])])
+            return self._one_matrix(tree, recipe, self.stats.get(path), path,
+                                    per_weight, log=True)
+        return _stack([self._one_matrix(tree[r], recipe,
+                                        self.stats.get(_stats_key(path, r)), path,
+                                        per_weight, log=r == 0)
+                       for r in range(tree.shape[0])])
 
     @staticmethod
-    def _one_matrix(w, recipe: Recipe) -> QTensor:
-        return Q.absmax_quantize(w, bits=recipe.wbits, group=recipe.group)
+    def _one_matrix(w, recipe: Recipe, st, path, per_weight, log=False):
+        """Sparsify and quantize one [d_in, d_out] matrix."""
+        d_in, d_out = w.shape
+        H = st.H if st is not None else None
+        act_norm = (st.merge_norm() if st is not None and st.sqnorm is not None
+                    else torch.ones(d_in, dtype=torch.float32, device=w.device))
+        amax = st.amax if st is not None else None
+        mask = None
+        entry = {"path": path, "shape": (d_in, d_out)}
+        w = w.float()
+
+        # block sparsity: a container of its own, the kernel skips tiles
+        bs = recipe.block_bs
+        if bs and recipe.block_density < 1.0 and d_in % bs == 0 and d_out % bs == 0:
+            bmask = S.block_sparse_mask(w, bs=bs, density=recipe.block_density,
+                                        act_norm=act_norm)
+            if recipe.wbits >= 16:
+                if log:
+                    entry["kind"] = f"block_sparse@{recipe.block_density}"
+                    per_weight.append(entry)
+                return S.apply_block_mask(w, bmask, bs)
+            # compose: zero the tiles, then quantize below
+            mask = S.expand_block_mask(bmask, bs, w.device)
+            w = w * mask
+
+        # fine-grained sparsity (size reduction; composes with quantization)
+        n, m = recipe.nm
+        if (m or recipe.sparsity) and mask is None:
+            if recipe.sparse_method == "sparsegpt" and H is not None:
+                w, mask = S.sparsegpt_prune(w, H, sparsity=recipe.sparsity, n=n, m=m)
+            else:
+                mask = S.wanda_mask(w, act_norm, sparsity=recipe.sparsity, n=n, m=m)
+                w = torch.where(mask, w, torch.zeros((), device=w.device))
+
+        if recipe.wbits < 16:
+            alpha = recipe.smooth_alpha
+            if recipe.quant_method == "gptq" and H is not None:
+                qt = Q.gptq_quantize(w, H, bits=recipe.wbits, group=recipe.group,
+                                     amax_x=amax, smooth_alpha=alpha, mask=mask)
+            else:
+                qt = Q.absmax_quantize(w, bits=recipe.wbits, group=recipe.group,
+                                       amax_x=amax, smooth_alpha=alpha)
+                if mask is not None:
+                    codes = torch.where(mask, qt.unpack(),
+                                        torch.zeros((), dtype=torch.int8, device=w.device))
+                    qt = QTensor(pack_int4(codes) if recipe.wbits == 4 else codes,
+                                 qt.scale, qt.bits, qt.group, qt.shape, qt.in_scale)
+            if log:
+                entry["kind"] = f"quant w{recipe.wbits}"
+                per_weight.append(entry)
+            return qt
+        if mask is not None and log:
+            entry["kind"] = "sparse (dense container)"
+            per_weight.append(entry)
+        return w.to(torch.bfloat16)

@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, ``build/<name>-<hash>.so`` at
-the repository root, keyed by a hash of the source, and loaded with
+the repository root, keyed by a hash of the source and the shared
+headers (``csrc/*.cuh``), and loaded with
 ``ctypes``.  The build happens at first use (:func:`load`) or for all
 kernels at once, one ``nvcc`` per source started together
 (:func:`build_all`).  A failed build raises; nothing falls back.
@@ -20,7 +21,7 @@ from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-KERNELS = ("quant_matmul", "paged_attention")
+KERNELS = ("quant_matmul", "paged_attention", "block_sparse", "flash_attention")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -38,6 +39,7 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{tag}.so"
 

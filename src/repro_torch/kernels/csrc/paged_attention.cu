@@ -32,20 +32,13 @@
 #include <stdint.h>
 #include <string.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int MAX_G = 8;
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 // Sum (or max) of v over the block; every thread gets the result.
 __device__ float block_reduce(float v, bool is_max, float* red) {
@@ -184,12 +177,6 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
       static_cast<const int*>(lengths), static_cast<T*>(out), Kh, G, D, bs,
       nblk, scale, softcap, window, span);
   return static_cast<int>(cudaGetLastError());
-}
-
-float bits_to_float(int bits) {
-  float f;
-  memcpy(&f, &bits, sizeof(f));
-  return f;
 }
 
 }  // namespace

@@ -29,16 +29,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 // bf16(code * scale), back in f32: the reference rounds the dequantized
 // weight to bf16 before the product.
@@ -134,17 +127,6 @@ quant_matmul_kernel(const XT* __restrict__ x, const int8_t* __restrict__ q,
         y[(size_t)m * N + n] = from_f<XT>(acc[i][j]);
     }
   }
-}
-
-// y = cast(sum over splits of partial[z]), summed in split order.
-template <typename XT>
-__global__ void reduce_splits_kernel(const float* __restrict__ partial,
-                                     XT* __restrict__ y, int MN, int splits) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= MN) return;
-  float s = 0.f;
-  for (int z = 0; z < splits; ++z) s += partial[(size_t)z * MN + i];
-  y[i] = from_f<XT>(s);
 }
 
 // Tile shapes: a skinny tile for decode (few rows of x), a square one

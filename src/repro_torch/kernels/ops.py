@@ -1,7 +1,8 @@
 """Public wrappers of the hand-written CUDA kernels.
 
 Shape plumbing lives here: flattening leading dims, the ``(Kh, G)`` head
-split, int32 tables and lengths, the K split of the int8 matmul.  Each
+split, int32 tables, lengths and block indices, the reduction splits of
+the two matmuls.  Each
 wrapper checks device, dtype, shape and contiguity and raises on what
 its kernel does not take.  For tensors on the CPU it computes the
 kernel's plain version (``kernels/ref.py``); for CUDA tensors it
@@ -21,8 +22,10 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels import ref
 
-# launches per kernel since the last reset_launch_counts()
-launch_count: Dict[str, int] = {name: 0 for name in build.KERNELS}
+# launches per kernel wrapper since the last reset_launch_counts()
+launch_count: Dict[str, int] = {name: 0 for name in
+                                ("quant_matmul", "paged_attention",
+                                 "block_sparse_matmul", "flash_attention")}
 
 _SMS = 132                 # H100 SXM streaming multiprocessors
 _SIGS: Dict[str, list] = {
@@ -31,6 +34,10 @@ _SIGS: Dict[str, list] = {
     "paged_attention_launch": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11
     + [ctypes.c_void_p],
     "paged_attention_max_g": [],
+    "block_sparse_launch": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
+    + [ctypes.c_void_p],
+    "flash_attention_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 13
+    + [ctypes.c_void_p],
     **{f"quant_matmul_tile_{d}": [ctypes.c_int] for d in "mnk"},
 }
 
@@ -81,6 +88,14 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
+def _split(blocks: int, steps: int) -> tuple:
+    """(splits, steps per split): cut a reduction of ``steps`` steps so
+    that ``blocks`` output tiles become about two blocks per SM."""
+    splits = min(steps, max(1, math.ceil(2 * _SMS / blocks)))
+    per = math.ceil(steps / splits)
+    return math.ceil(steps / per), per
+
+
 # ---------------------------------------------------------------------------
 # K2: int8 group-quantized matmul
 # ---------------------------------------------------------------------------
@@ -127,11 +142,8 @@ def quant_matmul(x, q, scale, *, group: int, in_scale=None, bits: int = 8):
     small = int(M <= 16)
     fn = _fn(name, "quant_matmul_launch")
     bm, bn, bk = _tiles(small)
-    blocks = math.ceil(M / bm) * math.ceil(N / bn)
-    ksteps = math.ceil(K / bk)
-    splits = min(ksteps, max(1, math.ceil(2 * _SMS / blocks)))
-    k_per_split = math.ceil(ksteps / splits) * bk
-    splits = math.ceil(K / k_per_split)
+    splits, steps = _split(math.ceil(M / bm) * math.ceil(N / bn), math.ceil(K / bk))
+    k_per_split = steps * bk
     partial = (torch.empty((splits, M, N), dtype=torch.float32, device=dev)
                if splits > 1 else None)
     vec = int(N % 16 == 0 and q.data_ptr() % 16 == 0 and scale.data_ptr() % 16 == 0)
@@ -194,3 +206,99 @@ def paged_attention(q, k_pool, v_pool, tables, lengths, *,
     _check(err, name)
     launch_count[name] += 1
     return out.reshape(S, 1, H, D)
+
+
+# ---------------------------------------------------------------------------
+# K4: block-sparse matmul
+# ---------------------------------------------------------------------------
+
+BLOCK_SIZES = (16, 32, 64, 128)
+_BS_TILE_M = {1: 8, 0: 64}   # rows per block, skinny (M <= 16) or square tile:
+                             # SMALL_BM and LARGE_BM of csrc/block_sparse.cu
+
+
+def block_sparse_matmul(x, w, idx, *, bs: int):
+    """x [..., K] @ w [K, N] (bf16, zero-filled) reading only the bs x bs
+    blocks listed in ``idx`` [N/bs, keep] (entries in [0, K/bs)) ->
+    [..., N] in x's dtype, summed in f32."""
+    name = "block_sparse_matmul"
+    _require(bs in BLOCK_SIZES, name, f"bs must be one of {BLOCK_SIZES}, got {bs}")
+    _require(w.dim() == 2 and w.dtype == torch.bfloat16, name, "w must be [K, N] bf16")
+    K, N = w.shape
+    _require(K % bs == 0 and N % bs == 0, name, f"bs={bs} must divide K={K} and N={N}")
+    _require(idx.dim() == 2 and idx.shape[0] == N // bs and 1 <= idx.shape[1] <= K // bs
+             and not idx.is_floating_point(), name,
+             f"idx must be integer [{N // bs}, keep <= {K // bs}], got {tuple(idx.shape)}")
+    _require(x.shape[-1] == K, name, f"x [..., {x.shape[-1]}] does not match K={K}")
+    _require(x.dtype in (torch.bfloat16, torch.float32), name,
+             f"x must be bf16 or f32, got {x.dtype}")
+    dev = _same_device(name, x, w, idx)
+    if dev.type == "cpu":
+        return ref.block_sparse_matmul(x, w, idx, bs=bs)
+    _require(w.is_contiguous() and w.data_ptr() % 16 == 0, name,
+             "w must be contiguous and 16-byte aligned")
+    keep = idx.shape[1]
+    x2 = x.reshape(-1, K).contiguous()
+    ix = idx.to(torch.int32).contiguous()
+    M = x2.shape[0]
+    y = torch.empty((M, N), dtype=x.dtype, device=dev)
+    if M == 0:
+        return y.reshape(*x.shape[:-1], N)
+    small = int(M <= 16)
+    fn = _fn("block_sparse", "block_sparse_launch")
+    bm = _BS_TILE_M[small]
+    splits, per = _split(math.ceil(M / bm) * (N // bs), keep)
+    partial = (torch.empty((splits, M, N), dtype=torch.float32, device=dev)
+               if splits > 1 else None)
+    err = fn(x2.data_ptr(), w.data_ptr(), ix.data_ptr(), y.data_ptr(),
+             None if partial is None else partial.data_ptr(), M, N, K, bs, keep,
+             int(x.dtype == torch.bfloat16), small, splits, per, _stream())
+    _check(err, name)
+    launch_count[name] += 1
+    return y.reshape(*x.shape[:-1], N)
+
+
+# ---------------------------------------------------------------------------
+# K3: flash attention
+# ---------------------------------------------------------------------------
+
+HEAD_DIMS = (32, 64, 128, 256)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    softcap: float = 0.0, q_offset: int = 0, t_real: int = 0):
+    """q [B, S, H, D], k/v [B, T, Kh, D] -> [B, S, H, D] (GQA: query head
+    h reads KV head h // (H/Kh)).  ``q_offset`` is the position of query
+    row 0; keys at or past ``t_real`` (default T) are masked."""
+    name = "flash_attention"
+    _require(q.dim() == 4 and k.dim() == 4 and k.shape == v.shape, name,
+             "q must be [B, S, H, D] and k, v alike [B, T, Kh, D]")
+    B, S, H, D = q.shape
+    _, T, Kh, Dk = k.shape
+    _require(k.shape[0] == B and Dk == D and H % Kh == 0, name,
+             f"q {tuple(q.shape)} vs k/v {tuple(k.shape)}")
+    _require(q.dtype in (torch.bfloat16, torch.float32)
+             and k.dtype == q.dtype and v.dtype == q.dtype, name,
+             "q, k and v must share one dtype, bf16 or f32")
+    t_real = int(t_real) or T
+    _require(1 <= t_real <= T and q_offset >= 0 and window >= 0, name,
+             f"t_real={t_real}, q_offset={q_offset}, window={window} out of range")
+    dev = _same_device(name, q, k, v)
+    if dev.type == "cpu":
+        return ref.flash_attention(q, k, v, causal=causal, window=window,
+                                   softcap=softcap, t_real=t_real, q_offset=q_offset)
+    _require(D in HEAD_DIMS, name, f"head dim {D} is not one of {HEAD_DIMS}")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    _require(all(t.data_ptr() % 16 == 0 for t in (q, k, v)), name,
+             "q, k and v must be 16-byte aligned")
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    fn = _fn(name, "flash_attention_launch")
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, T, H, Kh, D,
+             t_real, int(q_offset), int(window), int(causal),
+             _f32_bits(1.0 / math.sqrt(D)), _f32_bits(softcap),
+             int(q.dtype == torch.bfloat16), _stream())
+    _check(err, name)
+    launch_count[name] += 1
+    return out

@@ -63,3 +63,82 @@ def paged_attention(q, k_pool, v_pool, tables, lengths, *,
     probs = (p / p.sum(-1, keepdim=True)).to(v.dtype)
     out = torch.einsum("skgt,stkd->skgd", probs.float(), v.float())
     return out.to(q.dtype)
+
+
+def block_mask_from_idx(idx, n_in_blocks: int):
+    """Bool block map [K/bs, N/bs] with True at (idx[j, t], j)."""
+    nbn = idx.shape[0]
+    mask = torch.zeros((n_in_blocks, nbn), dtype=torch.bool, device=idx.device)
+    mask[idx.long(), torch.arange(nbn, device=idx.device)[:, None]] = True
+    return mask
+
+
+def block_sparse_matmul(x, w, idx, *, bs: int):
+    """x [..., K] @ w [K, N] over only the blocks listed in ``idx``
+    [N/bs, keep] (output block column j reads input blocks ``idx[j, :]``)
+    -> [..., N] in x's dtype, summed in f32.  Blocks outside ``idx``
+    count as zero whatever ``w`` holds there."""
+    K, N = w.shape
+    mask = block_mask_from_idx(idx, K // bs)
+    big = mask.repeat_interleave(bs, 0).repeat_interleave(bs, 1)
+    wz = torch.where(big, w.float(), torch.zeros((), device=w.device))
+    return torch.matmul(x.float(), wz).to(x.dtype)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    softcap: float = 0.0, t_real: int = 0, q_offset: int = 0,
+                    bq: int = 1024, bkv: int = 1024):
+    """Tiled online-softmax attention: q [B, S, H, D], k/v [B, T, Kh, D]
+    -> [B, S, H, D] in q's dtype; query head h reads KV head h // (H/Kh).
+
+    Query row i sits at position ``i + q_offset``; keys at or past
+    ``t_real`` (default T) are masked, as are, with ``causal``, keys after
+    the query and, with ``window``, keys ``window`` or more behind it.
+    Scores are f32, scaled by 1/sqrt(D) and softcapped before the mask;
+    tiles with no live (query, key) pair are skipped; probabilities are
+    rounded to V's dtype before the f32 PV sum.  A masked key adds exactly
+    zero, so a row with no live key gives 0 and the result does not depend
+    on the tile sizes beyond summation order.  Memory stays at one
+    [B, H, bq, bkv] tile.
+    """
+    B, S, H, D = q.shape
+    T, Kh = k.shape[1], k.shape[2]
+    G = H // Kh
+    t_real = t_real or T
+    scale = 1.0 / math.sqrt(D)
+    qg = q.reshape(B, S, Kh, G, D)
+    out = torch.empty_like(q)
+    dev = q.device
+    for qs in range(0, S, bq):
+        qe = min(qs + bq, S)
+        qb = qg[:, qs:qe].float()
+        qpos = torch.arange(qs, qe, device=dev) + q_offset
+        first_q, last_q = qs + q_offset, qe - 1 + q_offset
+        m = torch.full((B, Kh, G, qe - qs), NEG_INF, device=dev)
+        l = torch.zeros((B, Kh, G, qe - qs), device=dev)
+        acc = torch.zeros((B, Kh, G, qe - qs, D), device=dev)
+        for ks in range(0, T, bkv):
+            ke = min(ks + bkv, T)
+            if ks >= t_real or (causal and ks > last_q) \
+                    or (window and ke - 1 < first_q - window + 1):
+                continue
+            s = torch.einsum("bqkgd,btkd->bkgqt", qb, k[:, ks:ke].float()) * scale
+            if softcap:
+                s = torch.tanh(s / softcap) * softcap
+            kpos = torch.arange(ks, ke, device=dev)
+            live = (kpos < t_real)[None, :].expand(qe - qs, -1)
+            if causal:
+                live = live & (qpos[:, None] >= kpos[None, :])
+            if window:
+                live = live & (qpos[:, None] - kpos[None, :] < window)
+            s = torch.where(live, s, torch.full_like(s, NEG_INF))
+            m2 = torch.maximum(m, s.amax(-1))
+            p = torch.where(live, torch.exp(s - m2[..., None]), torch.zeros_like(s))
+            corr = torch.exp(m - m2)
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bkgqt,btkd->bkgqd", p.to(v.dtype).float(), v[:, ks:ke].float())
+            m = m2
+        o = acc / torch.clamp(l, min=1e-30)[..., None]
+        out[:, qs:qe] = o.permute(0, 3, 1, 2, 4).reshape(B, qe - qs, H, D).to(q.dtype)
+    return out

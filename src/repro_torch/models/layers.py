@@ -18,7 +18,9 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.compressed import matmul
+from repro_torch.core.compressed import current_backend, matmul
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref as kref
 
 NEG_INF = -1e30
 
@@ -202,24 +204,32 @@ def local_block_attention(q, k, v, *, window: int, cap: float = 0.0):
     return out.reshape(B, S, H, D).to(v.dtype)
 
 
-# threshold above which the reference switches to its blocked-flash path
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    cap: float = 0.0, q_offset: int = 0):
+    """Tiled online-softmax attention, q [B,S,H,D], k/v [B,T,K,D]: the
+    flash kernel under the ``"cuda"`` backend, its plain version
+    otherwise (memory stays at one tile either way)."""
+    fn = kops.flash_attention if current_backend(q.device) == "cuda" \
+        else kref.flash_attention
+    return fn(q, k, v, causal=causal, window=window, softcap=cap, q_offset=q_offset)
+
+
+# threshold above which full [S, T] logits would dominate device memory
 _FLASH_MIN_ELEMS = 1 << 26
 
 
 def best_attention(q, k, v, *, kind: str, cfg, q_offset: int = 0,
                    causal: bool = True):
-    """Dispatch: local-block for window layers, plain masked attention
-    otherwise.  The reference's blocked-flash branch (long global
-    sequences) is not ported and raises."""
+    """Dispatch: local-block for window layers, blocked flash for long
+    global sequences, plain masked attention otherwise."""
     S, T = q.shape[1], k.shape[1]
     if kind == "L" and S > cfg.window_size and causal:
         return local_block_attention(q, k, v, window=cfg.window_size,
                                      cap=cfg.attn_softcap)
     win = cfg.window_size if kind == "L" else 0
     if S * T >= _FLASH_MIN_ELEMS and S % 1024 == 0 and T % 1024 == 0:
-        raise NotImplementedError(
-            "blocked-flash attention for long sequences is not ported yet: "
-            "ROADMAP queue 2 K3 (flash_attention)")
+        return flash_attention(q, k, v, causal=causal, window=win,
+                               cap=cfg.attn_softcap, q_offset=q_offset)
     return full_attention(q, k, v, causal=causal, cap=cfg.attn_softcap,
                           window=win, q_offset=q_offset)
 
@@ -227,12 +237,14 @@ def best_attention(q, k, v, *, kind: str, cfg, q_offset: int = 0,
 def attention_block(p, x, cfg, *, kind: str, positions, theta: float,
                     use_flash: bool = False):
     """Full-sequence (train/prefill) attention incl. projections."""
-    if use_flash:
-        raise NotImplementedError(
-            "use_flash needs the flash_attention kernel: ROADMAP queue 2 K3")
     B, S, _ = x.shape
     q, k, v = _qkv(p, x, cfg, positions, theta)
-    out = best_attention(q, k, v, kind=kind, cfg=cfg)
+    if use_flash:
+        out = flash_attention(q, k, v, causal=True,
+                              window=cfg.window_size if kind == "L" else 0,
+                              cap=cfg.attn_softcap)
+    else:
+        out = best_attention(q, k, v, kind=kind, cfg=cfg)
     return matmul(out.reshape(B, S, -1), p["wo"])
 
 

@@ -18,7 +18,7 @@ from typing import Any, Dict, Iterator, Tuple
 
 import torch
 
-from repro_torch.core.compressed import QTensor, current_backend
+from repro_torch.core.compressed import BlockSparseTensor, QTensor, current_backend
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
 from repro_torch.models.layers import matmul, norm
@@ -49,7 +49,7 @@ def layer_slice(tree, r: int):
     """The ``r``-th layer of a stacked param or cache subtree."""
     if isinstance(tree, dict):
         return {k: layer_slice(v, r) for k, v in tree.items()}
-    if isinstance(tree, QTensor):
+    if isinstance(tree, (QTensor, BlockSparseTensor)):
         return tree.layer(r)
     return tree[r]
 
@@ -178,9 +178,6 @@ def prefill(params: Params, cfg, tokens, *, max_len: int,
     """
     if compact_local:
         raise NotImplementedError("compact_local caches are dry-run only")
-    if use_flash:
-        raise NotImplementedError(
-            "use_flash needs the flash_attention kernel: ROADMAP queue 2 K3")
     x = L.embed(params, cfg, tokens)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
@@ -190,7 +187,12 @@ def prefill(params: Params, cfg, tokens, *, max_len: int,
     for (kind, p), (_, c) in zip(_layers(params, cfg), _layers(cache, cfg)):
         h = norm(x, p["ln1"], cfg)
         q, k, v = L._qkv(p["attn"], h, cfg, positions, _theta(cfg, kind))
-        out = L.best_attention(q, k, v, kind=kind, cfg=cfg)
+        if use_flash:
+            out = L.flash_attention(q, k, v, causal=True,
+                                    window=cfg.window_size if kind == "L" else 0,
+                                    cap=cfg.attn_softcap)
+        else:
+            out = L.best_attention(q, k, v, kind=kind, cfg=cfg)
         a = matmul(out.reshape(B, S, -1), p["attn"]["wo"])
         if "ln1_post" in p:
             a = norm(a, p["ln1_post"], cfg)

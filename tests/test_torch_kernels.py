@@ -5,7 +5,9 @@ Inputs are made with numpy from a seed and go through the JAX kernel
 and through the port's wrapper on CPU tensors, which computes the
 kernel's plain version.
 Tolerances are the bounds of tests/test_kernels.py: 2e-2 of the largest
-magnitude for the bf16 matmul, 1e-5 for f32 paged attention.
+magnitude for the bf16 matmuls and flash attention, 1e-5 for f32 paged
+attention, and 1e-5 for the f32 block-sparse matmul and flash attention
+(the same products summed in another order).
 """
 import numpy as np
 import pytest
@@ -17,12 +19,15 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.core import quantize as RQ  # noqa: E402
 from repro.kernels import ops as rops  # noqa: E402
+from repro.core import sparsify as RS  # noqa: E402
 from repro.kernels import ref as rref  # noqa: E402
+from repro.kernels.flash_attention import flash_attention_kernel  # noqa: E402
+from repro.models.layers import flash_attention_jnp  # noqa: E402
 from repro.models.transformer import _masked_decode  # noqa: E402
 from repro_torch.bridge import to_tensor  # noqa: E402
 from repro_torch.core import compressed as C  # noqa: E402
 from repro_torch.core import quantize as Q  # noqa: E402
-from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.backend import resolve_backend  # noqa: E402
 
 
@@ -176,7 +181,12 @@ def test_wrappers_leave_launch_counts_alone_on_cpu():
     x = torch.zeros((2, 128), dtype=torch.bfloat16)
     ops.quant_matmul(x, torch.zeros((128, 16), dtype=torch.int8),
                      torch.ones((1, 16)), group=128)
-    assert ops.launch_count == {"quant_matmul": 0, "paged_attention": 0}
+    ops.block_sparse_matmul(x, torch.zeros((128, 32), dtype=torch.bfloat16),
+                            torch.zeros((2, 1), dtype=torch.int32), bs=16)
+    q = torch.zeros((1, 4, 2, 32))
+    ops.flash_attention(q, q[:, :, :1], q[:, :, :1])
+    assert ops.launch_count == {"quant_matmul": 0, "paged_attention": 0,
+                                "block_sparse_matmul": 0, "flash_attention": 0}
 
 
 def test_reference_double_in_scale_fault_not_reproduced():
@@ -219,10 +229,122 @@ def test_int4_matmul_matches_reference():
 
 @pytest.mark.parametrize("field", [
     {"drop_units": 1}, {"kv_keep_frac": 0.5}, {"ffn_keep_frac": 0.5},
-    {"sparsity": 0.5}, {"nm": (2, 4)}, {"block_bs": 16}, {"quant_embed": True},
+    {"experts_keep": 2}, {"quant_embed": True},
 ])
 def test_unported_recipe_fields_raise(field):
     from repro_torch.configs import gemma2_2b
     from repro_torch.core.pipeline import InstanceOptimizer, Recipe
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         InstanceOptimizer({}, gemma2_2b.reduced()).apply(Recipe(wbits=8, **field))
+
+
+@pytest.mark.parametrize("K,N,bs,dens", [
+    (256, 256, 64, 0.5), (512, 128, 128, 0.75), (128, 256, 32, 0.25), (256, 128, 16, 0.75),
+])
+@pytest.mark.parametrize("xdtype", ["bfloat16", "float32"])
+def test_block_sparse_plain_matches_reference_kernel(K, N, bs, dens, xdtype):
+    """The reference's kernel-test cases plus bs = 16; the weight is the
+    reference's zero-filled ``BlockSparseTensor`` with its gather indices."""
+    rng = np.random.default_rng(K + N + bs)
+    w = rng.normal(size=(K, N)).astype(np.float32)
+    bst = RS.apply_block_mask(w, RS.block_sparse_mask(w, bs=bs, density=dens), bs)
+    xj = jnp.asarray(rng.normal(size=(16, K)), jnp.float32).astype(xdtype)
+    want = rops.block_sparse_matmul(xj, bst.w, bst.idx, bs=bs, interpret=True)
+    got = ops.block_sparse_matmul(to_tensor(xj, "cpu"), to_tensor(bst.w, "cpu"),
+                                  to_tensor(bst.idx, "cpu"), bs=bs)
+    assert got.dtype == getattr(torch, xdtype) and got.shape == (16, N)
+    tol = 2e-2 if xdtype == "bfloat16" else 1e-5
+    assert _rel(_np(got), want) < tol
+    assert _rel(_np(got), rref.block_sparse_matmul(xj, bst.w, bst.mask, bs=bs)) < tol
+
+
+def test_block_sparse_plain_reads_only_listed_blocks():
+    """Blocks outside ``idx`` count as zero even where ``w`` is not."""
+    rng = np.random.default_rng(2)
+    w = torch.from_numpy(rng.normal(size=(64, 32)).astype(np.float32)).bfloat16()
+    idx = torch.tensor([[1, 3], [0, 2]], dtype=torch.int32)
+    x = torch.from_numpy(rng.normal(size=(3, 64)).astype(np.float32))
+    got = ops.block_sparse_matmul(x, w, idx, bs=16)
+    wz = w.float().clone()
+    wz[0:16, 0:16] = wz[32:48, 0:16] = 0
+    wz[16:32, 16:32] = wz[48:64, 16:32] = 0
+    assert torch.allclose(got, x @ wz, rtol=1e-6, atol=1e-6)
+    with pytest.raises(ValueError, match="bs"):
+        ops.block_sparse_matmul(x, w, idx, bs=8)
+    with pytest.raises(ValueError, match="bf16"):
+        ops.block_sparse_matmul(x, w.float(), idx, bs=16)
+    with pytest.raises(ValueError, match="idx"):
+        ops.block_sparse_matmul(x, w, idx[:1], bs=16)
+
+
+FLASH_CASES = [   # B, S, T, H, Kh, D, window, softcap (tests/test_kernels.py)
+    (2, 64, 64, 4, 2, 64, 0, 0.0), (1, 128, 128, 8, 1, 32, 32, 0.0),
+    (2, 64, 64, 4, 4, 64, 0, 30.0), (1, 64, 192, 2, 2, 32, 0, 0.0),
+]
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_flash_plain_matches_reference_kernel(case, dtype):
+    B, S, T, H, Kh, D, win, cap = case
+    rng = np.random.default_rng(S + T + H)
+    q, k, v = (jnp.asarray(rng.normal(size=shape), jnp.float32).astype(dtype)
+               for shape in ((B, S, H, D), (B, T, Kh, D), (B, T, Kh, D)))
+    kw = dict(causal=True, window=win, softcap=cap, q_offset=T - S)
+    want = rops.flash_attention(q, k, v, interpret=True, **kw)
+    got = ops.flash_attention(*(to_tensor(a, "cpu") for a in (q, k, v)), **kw)
+    assert got.dtype == getattr(torch, dtype) and got.shape == (B, S, H, D)
+    assert _rel(_np(got), want) < (2e-2 if dtype == "bfloat16" else 1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_flash_plain_matches_reference_kernel_padded_kv(dtype):
+    """A padded KV length with ``t_real`` and a query offset, against the
+    Pallas kernel (heads flattened into its batch axis)."""
+    rng = np.random.default_rng(4)
+    B, S, T, H, Kh, D, t_real = 1, 64, 256, 4, 2, 32, 200
+    q, k, v = (jnp.asarray(rng.normal(size=shape), jnp.float32).astype(dtype)
+               for shape in ((B, S, H, D), (B, T, Kh, D), (B, T, Kh, D)))
+    want = flash_attention_kernel(
+        q.transpose(0, 2, 1, 3).reshape(B * H, S, D),
+        k.transpose(0, 2, 1, 3).reshape(B * Kh, T, D),
+        v.transpose(0, 2, 1, 3).reshape(B * Kh, T, D), group=H // Kh, causal=True,
+        softcap=50.0, t_real=t_real, q_offset=t_real - S, bq=32, bkv=64, interpret=True)
+    want = np.asarray(want, np.float32).reshape(B, H, S, D).transpose(0, 2, 1, 3)
+    got = ops.flash_attention(*(to_tensor(a, "cpu") for a in (q, k, v)), causal=True,
+                              softcap=50.0, t_real=t_real, q_offset=t_real - S)
+    assert _rel(_np(got), want) < (2e-2 if dtype == "bfloat16" else 1e-5)
+
+
+@pytest.mark.parametrize("S,T,win,cap,bq,bkv", [
+    (256, 256, 0, 0.0, 64, 128), (256, 256, 96, 50.0, 128, 64), (128, 384, 0, 30.0, 32, 128),
+    (512, 512, 64, 50.0, 64, 64), (128, 384, 48, 0.0, 32, 64),
+])
+def test_flash_plain_matches_flash_attention_jnp(S, T, win, cap, bq, bkv):
+    """f32 against the reference's blocked jnp twin.  The plain version
+    runs on the case's own tiles, so its recurrence across tiles (the
+    rescaling of earlier sums, the causal skip of key tiles past the
+    query tile, the window's skip of whole key tiles behind it: the last
+    two cases) meets the reference, and on its default single tile."""
+    rng = np.random.default_rng(S + win)
+    q = rng.normal(size=(2, S, 4, 16)).astype(np.float32)
+    k = rng.normal(size=(2, T, 2, 16)).astype(np.float32)
+    v = rng.normal(size=(2, T, 2, 16)).astype(np.float32)
+    want = flash_attention_jnp(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True,
+                               window=win, cap=cap, q_offset=T - S, bq=bq, bkv=bkv)
+    qt, kt, vt = (torch.from_numpy(a) for a in (q, k, v))
+    kw = dict(causal=True, window=win, softcap=cap, q_offset=T - S)
+    tiled = ref.flash_attention(qt, kt, vt, bq=bq, bkv=bkv, **kw)
+    got = ops.flash_attention(qt, kt, vt, **kw)
+    assert _rel(tiled.numpy(), want) < 1e-5
+    assert _rel(got.numpy(), want) < 1e-5
+
+
+def test_flash_row_without_live_key_is_zero():
+    """A query row whose window holds no real key gives 0, not NaN."""
+    q = torch.randn((1, 8, 2, 32))
+    k = torch.randn((1, 8, 1, 32))
+    got = ops.flash_attention(q, k, k, causal=True, window=2, t_real=3)
+    assert torch.isfinite(got).all()
+    assert torch.equal(got[:, 4:], torch.zeros_like(got[:, 4:]))
+    assert got[:, :4].abs().sum() > 0
