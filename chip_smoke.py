@@ -7,12 +7,15 @@ Phases, each of which raises on failure (so the script exits non-zero):
 
 1. card: prints the card's name and power limit, builds the four CUDA
    kernels of ``src/repro_torch/kernels/csrc`` (one nvcc per source, in
-   parallel);
+   parallel) and counts the tensor-core instructions (HGMMA, HMMA) in
+   each library's machine code: K3's and K4's must have some;
 2. kernels: calls each kernel's wrapper at the main paths' shapes and at
    edge cases, holds it against its plain PyTorch version, and times
    kernel, plain version and a library call (CUDA events, L2 flushed
    before every launch): K2 quant_matmul, K1 paged_attention, K4
-   block_sparse_matmul, K3 flash_attention;
+   block_sparse_matmul (decode M = 8 and prefill M = 512), K3
+   flash_attention (S = T = 4096 and 8192); each line carries
+   bound_share = bound_ms / ms;
 3. main path: full-width gemma2-2b (26 layers, random bf16 weights from a
    seeded generator) compressed with the ``w8-absmax`` recipe, served by
    ``Engine(slots=8, max_len=1024)`` on OLAP-style rows sharing one
@@ -26,14 +29,17 @@ Phases, each of which raises on failure (so the script exits non-zero):
 5. block_sparse: the base calibrated on 16 of the rows (activation norms),
    compressed with ``bs16@75`` (every linear block-sparse) and served the
    same way, the counts zeroed just before the run and read just after
-   (182 K4 launches per decode step and per prefill, no K2); then the
-   whole-step check and the profile on this instance;
+   (182 K4 launches per decode step and per prefill, no K2, all on the
+   bf16 tensor-core designs: ``decode`` in the steps, ``mma`` in the
+   prefills); then the whole-step check and the profile on this instance;
 6. long_prefill: ``prefill(use_flash=True)`` of a 4096-token document
    (26 K3 launches on the cuda side), and an 8192-token prefill through
    ``best_attention`` (13 K3 launches, the global layers), each under the
    cuda and the reference backends (no K3 launch), in bf16 and f32, held
    to the whole-step criteria.
 
+K3 and K4 run their tensor-core designs on bf16 and their FMA designs on
+f32; ``ops.variant_count`` shows which ran, and every phase checks it.
 Prints one JSON line per phase, the ``{"kernels": [...]}`` summary, the
 card line, and last ``{"ok": true, "device": {...}}``.  Exits non-zero
 without a card and outside a checkout of the repository.
@@ -226,8 +232,8 @@ def check_quant_matmul(gen):
             "max_rel_err": max(r["rel_err"] for r in results), "max_abs_err": worst_abs,
             "timed": "7 matmuls of one layer, decode M=8, bf16",
             "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
-            "per_shape": per_shape, "prefill": prefill}
+            "bound_ms": bound_ms, "bound_by": bound_by, "bound_share": bound_ms / ms,
+            "bytes": nbytes, "per_shape": per_shape, "prefill": prefill}
     emit(line)
     return line, results
 
@@ -290,7 +296,8 @@ def check_paged_attention(gen):
             "timed": "one decode call, S=8 Kh=4 G=2 D=256 bs=32, 128 positions a slot, "
                      "softcap 50, bf16",
             "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes}
+            "bound_ms": bound_ms, "bound_by": bound_by, "bound_share": bound_ms / ms,
+            "bytes": nbytes}
     emit(line)
     return line, results
 
@@ -326,28 +333,43 @@ def check_block_sparse(gen):
             cases.append((Ms[i % len(Ms)], K, N, bs, density,
                           (torch.bfloat16, torch.float32)[i % 2]))
             i += 1
+    # the tensor-core tiles' edges: 9-16 rows (two n8 tiles of x in decode),
+    # rows just past a multiple of 16 and of the 128-row prefill tile
+    for bs in (16, 32, 64, 128):
+        for M in (13, 17, 65, 129):
+            K, N = shapes[i % len(shapes)]
+            cases.append((M, K, N, bs, 0.75, torch.bfloat16))
+            i += 1
     worst_abs, results = 0.0, []
-    for M, K, N, bs, density, xdt in cases:
+    for n, (M, K, N, bs, density, xdt) in enumerate(cases):
         w = (torch.randn((K, N), generator=gen, device=dev) / math.sqrt(K)).bfloat16()
         idx = _block_idx(gen, K, N, bs, density)
         x = torch.randn((M, K), generator=gen, device=dev).to(xdt)
+        if n == len(cases) - 1:     # x 2 bytes past a 16-byte boundary
+            x = torch.randn((M * K + 1,), generator=gen, device=dev).to(xdt)[1:].view(M, K)
         got = ops.block_sparse_matmul(x, w, idx, bs=bs)
         want = ref.block_sparse_matmul(x, w, idx, bs=bs)
         torch.cuda.synchronize()
         check(got.dtype == xdt and got.shape == (M, N), ("output", got.dtype, got.shape))
         err_abs, err_rel = errors(got, want)
         results.append({"M": M, "K": K, "N": N, "bs": bs, "density": density,
-                        "x": str(xdt).split(".")[-1], "rel_err": err_rel})
+                        "x": str(xdt).split(".")[-1], "rel_err": err_rel,
+                        "variant": ops.block_sparse_variant(xdt, M)})
         check(err_rel < K34_TOL[xdt], results[-1])
         worst_abs = max(worst_abs, err_abs)
 
     # timing: the 7 linears of one layer at bs 16, density 0.75, bf16
     timed = {}
     for M in (8, 512):
-        ms = plain_ms = lib_ms = nbytes = flops = 0.0
+        ms = plain_ms = lib_ms = nbytes = flops = panel_flops = 0.0
         warm = True
         for K, N in LAYER_SHAPES:
             idx = _block_idx(gen, K, N, 16, 0.75)
+            if M > ops.DECODE_M:
+                # the mma design's panels: every input block any column of a
+                # 128-wide group keeps, run in full (pruned slots zero-filled)
+                panel_flops += 2 * M * 16 * 128 * int(
+                    (ops.group_schedule(idx, K // 16, 8) != 0).sum())
             mask = ref.block_mask_from_idx(idx, K // 16)
             big = mask.repeat_interleave(16, 0).repeat_interleave(16, 1)
             w = torch.where(big, torch.randn((K, N), generator=gen, device=dev)
@@ -364,8 +386,11 @@ def check_block_sparse(gen):
             flops += 2 * M * kept
         bound_ms, bound_by = bound(nbytes, flops)
         timed[M] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                    "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
-                    "flops": flops}
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "bound_share": bound_ms / ms, "bytes": nbytes, "flops": flops,
+                    "variant": ops.block_sparse_variant(torch.bfloat16, M)}
+        if M > ops.DECODE_M:
+            timed[M]["panel_flops"] = panel_flops
     line = {"phase": "kernel", "name": "block_sparse_matmul", "cases": len(cases),
             "max_rel_err": max(r["rel_err"] for r in results), "max_abs_err": worst_abs,
             "timed": "7 linears of one layer, bs 16, density 0.75, decode M=8, bf16",
@@ -385,7 +410,10 @@ def check_flash_attention(gen):
     """K3 against its plain version: the reference's four kernel-test
     shapes (q_offset = T - S), S < T with a padded T and ``t_real``, G of
     1, 2 and 4, D of 64, 128 and 256, S not a multiple of the 64-row tile,
-    a window that leaves some rows no live key, bf16 and f32."""
+    a window that leaves some rows no live key, bf16 and f32; then the
+    tensor-core design's edges: S of 127, 129 and 200 against its 128-row
+    tile, T not a multiple of its 64-key stage, and windows that start
+    inside a stage, with and without q_offset."""
     from repro_torch.kernels import ops, ref
     # (B, S, T, H, Kh, D, window, softcap, q_offset, t_real)
     shapes = [(2, 64, 64, 4, 2, 64, 0, 0.0, 0, 0),
@@ -395,7 +423,12 @@ def check_flash_attention(gen):
               (1, 100, 300, 8, 4, 256, 0, 50.0, 150, 250),
               (2, 200, 200, 8, 4, 256, 64, 50.0, 0, 0),
               (1, 130, 130, 8, 2, 128, 0, 0.0, 0, 0),
-              (1, 96, 256, 4, 2, 128, 16, 0.0, 0, 40)]
+              (1, 96, 256, 4, 2, 128, 16, 0.0, 0, 40),
+              (1, 127, 127, 8, 4, 256, 0, 50.0, 0, 0),
+              (2, 129, 129, 8, 4, 256, 0, 50.0, 0, 0),
+              (1, 200, 232, 8, 4, 256, 100, 50.0, 32, 0),
+              (1, 129, 300, 4, 2, 128, 70, 0.0, 171, 290),
+              (1, 256, 256, 8, 8, 64, 29, 30.0, 0, 0)]
     worst_abs, results = 0.0, []
     for dtype in (torch.bfloat16, torch.float32):
         for B, S, T, H, Kh, D, win, cap, off, t_real in shapes:
@@ -409,35 +442,39 @@ def check_flash_attention(gen):
             results.append({"B": B, "S": S, "T": T, "H": H, "Kh": Kh, "D": D,
                             "window": win, "softcap": cap, "q_offset": off,
                             "t_real": t_real, "dtype": str(dtype).split(".")[-1],
-                            "rel_err": err_rel})
+                            "rel_err": err_rel, "variant": ops.flash_variant(dtype)})
             check(bool(torch.isfinite(got).all()) and err_rel < K34_TOL[dtype], results[-1])
             worst_abs = max(worst_abs, err_abs)
 
-    # timing: one gemma2-2b layer's prefill attention at S = T = 4096, bf16
-    B, S, H, Kh, D = 1, 4096, 8, 4, 256
-    q, k, v = _attn_inputs(gen, B, S, S, H, Kh, D, torch.bfloat16)
+    # timing: one gemma2-2b layer's prefill attention at S = T = 4096 and
+    # 8192, bf16
+    B, H, Kh, D = 1, 8, 4, 256
     timed = {}
-    for win in (0, 4096):
+    for S, win in ((4096, 0), (4096, 4096), (8192, 0)):
+        q, k, v = _attn_inputs(gen, B, S, S, H, Kh, D, torch.bfloat16)
         kw = dict(causal=True, window=win, softcap=50.0)
-        timed[win] = {"ms": time_ms(lambda: ops.flash_attention(q, k, v, **kw), reps=10),
-                      "plain_ms": time_ms(lambda: ref.flash_attention(q, k, v, **kw), reps=3)}
-    qs = q.transpose(1, 2).contiguous()
-    ks = k.transpose(1, 2).repeat_interleave(H // Kh, dim=1).contiguous()
-    vs = v.transpose(1, 2).repeat_interleave(H // Kh, dim=1).contiguous()
-    lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qs, ks, vs, is_causal=True), reps=10)
-    # live causal (query, key) pairs, each a D-long QK dot and a D-long PV sum
-    flops = 4.0 * B * H * D * (S * (S + 1) / 2)
-    nbytes = 2 * (q.numel() * 2 + k.numel() + v.numel())
-    bound_ms, bound_by = bound(nbytes, flops)
+        t = {"ms": time_ms(lambda: ops.flash_attention(q, k, v, **kw), reps=10),
+             "plain_ms": time_ms(lambda: ref.flash_attention(q, k, v, **kw), reps=3)}
+        if win == 0:
+            qs = q.transpose(1, 2).contiguous()
+            ks = k.transpose(1, 2).repeat_interleave(H // Kh, dim=1).contiguous()
+            vs = v.transpose(1, 2).repeat_interleave(H // Kh, dim=1).contiguous()
+            t["library_ms"] = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                qs, ks, vs, is_causal=True), reps=10)
+            # live causal (query, key) pairs, each a D-long QK dot and a D-long PV sum
+            t["flops"] = 4.0 * B * H * D * (S * (S + 1) / 2)
+            t["bound_ms"], t["bound_by"] = bound(2 * (q.numel() * 2 + k.numel() + v.numel()),
+                                                 t["flops"])
+            t["bound_share"] = t["bound_ms"] / t["ms"]
+            del qs, ks, vs
+        timed[S, win] = t
     line = {"phase": "kernel", "name": "flash_attention", "cases": len(results),
             "max_rel_err": max(r["rel_err"] for r in results), "max_abs_err": worst_abs,
             "timed": "one prefill call, B=1 S=T=4096 H=8 Kh=4 D=256, causal, softcap 50, "
-                     "bf16, window 0 (window 4096 under 'window_4096')",
-            "ms": timed[0]["ms"], "plain_ms": timed[0]["plain_ms"], "library_ms": lib_ms,
+                     "bf16, window 0 (window 4096 and S=T=8192 under their keys)",
+            **timed[4096, 0], "variant": ops.flash_variant(torch.bfloat16),
             "library_note": "SDPA is_causal, no softcap, KV heads pre-expanded",
-            "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
-            "window_4096": timed[4096]}
+            "window_4096": timed[4096, 4096], "S_8192": timed[8192, 0]}
     emit(line)
     return line, results
 
@@ -547,6 +584,26 @@ def _f32(tree):
     return tree
 
 
+def variant_delta(before):
+    """Launches per K3/K4 design since ``before``, zero entries dropped."""
+    from repro_torch.kernels import ops
+    d = {k: ops.variant_count[k] - before[k] for k in before}
+    return {k: n for k, n in d.items() if n}
+
+
+def variants_of(launched, dtype, rows):
+    """The designs that K3's and K4's launches must have run for params of
+    ``dtype`` and x of ``rows`` rows (0: prefill-sized)."""
+    from repro_torch.kernels import ops
+    want = {}
+    if launched.get("flash_attention"):
+        want[f"flash_attention.{ops.flash_variant(dtype)}"] = launched["flash_attention"]
+    if launched.get("block_sparse_matmul"):
+        key = f"block_sparse_matmul.{ops.block_sparse_variant(dtype, rows or 10**6)}"
+        want[key] = launched["block_sparse_matmul"]
+    return want
+
+
 def whole_step(gen, params, eng, per_step, trials: int = 6, name="whole_step"):
     """One decode step of a compressed instance under
     ``kernel_backend("cuda")`` and under ``kernel_backend("reference")`` on
@@ -575,12 +632,15 @@ def whole_step(gen, params, eng, per_step, trials: int = 6, name="whole_step"):
                 st = {sec: [{n: t.to(dtype, copy=True) for n, t in e.items()}
                             for e in eng._slot_state[sec]] for sec in ("blocks", "tail")}
                 before = dict(ops.launch_count)
+                vbefore = dict(ops.variant_count)
                 with kernel_backend(backend), torch.no_grad():
                     lg, _ = api.paged_decode_step(p, cfg, st, tables, toks, pos,
                                                   block_size=bs, max_len=eng.max_len)
                 launched = {k: ops.launch_count[k] - before[k] for k in before}
                 want = {k: per_step.get(k, 0) if backend == "cuda" else 0 for k in before}
                 check(launched == want, ("launches of the step", dtype, backend, launched))
+                check(variant_delta(vbefore) == variants_of(launched, dtype, S),
+                      ("designs of the step", dtype, backend, variant_delta(vbefore)))
                 check(bool(torch.isfinite(lg).all()) and lg.shape == (S, 1, cfg.vocab_size),
                       ("decode-step logits", dtype, backend, lg.shape))
                 logits[dtype, backend] = lg.float()
@@ -651,17 +711,22 @@ def block_sparse_path(base, cfg):
     eng, reqs = serve(bsp, cfg, "bs16@75")
     launches = dict(ops.launch_count)
     st = eng.stats
+    variants = {k: n for k, n in ops.variant_count.items() if n}
     check(launches == {"quant_matmul": 0, "flash_attention": 0,
                        "paged_attention": cfg.n_layers * st.decode_steps,
                        "block_sparse_matmul": per_step * (st.decode_steps + st.prefills)},
           ("block-sparse run launches", launches, st.decode_steps, st.prefills))
+    # bf16 throughout: decode steps (8 rows) on `decode`, prefills on `mma`
+    check(variants == {"block_sparse_matmul.decode": per_step * st.decode_steps,
+                       "block_sparse_matmul.mma": per_step * st.prefills},
+          ("block-sparse run designs", variants))
     line = {"phase": "block_sparse", "model": cfg.name, "recipe": "bs16@75",
             "calibration_rows": 16, "calibration_tokens": 96, "calibrate_s": calib_s,
             "apply_s": apply_s, "rows": len(REVIEWS), "max_new": 32,
             "rows_per_s": st.rows_per_s, "tokens_per_s": st.tokens_out / st.wall_s,
             "wall_s": st.wall_s, "decode_steps": st.decode_steps, "prefills": st.prefills,
             "prefix_hits": st.prefix_hits, "cache_hits": st.cache_hits,
-            "backend": st.backend, "launches": launches,
+            "backend": st.backend, "launches": launches, "variants": variants,
             "block_sparse_per_decode_step": per_step,
             "param_bytes_base": param_bytes(base), "param_bytes": param_bytes(bsp),
             "compression": report.compression,
@@ -673,7 +738,7 @@ def block_sparse_path(base, cfg):
           f"calibrate {calib_s:.2f} s, apply {apply_s:.2f} s, param_bytes "
           f"{line['param_bytes']} (device memory unchanged: dense zero-filled tiles)",
           flush=True)
-    return line, launches, bsp, eng
+    return line, launches, variants, bsp, eng
 
 
 # ---------------------------------------------------------------------------
@@ -698,6 +763,7 @@ def long_prefill(gen, base, cfg):
 
     def run(params, toks, backend, use_flash, flash_launches):
         before = dict(ops.launch_count)
+        vbefore = dict(ops.variant_count)
         t0 = time.time()
         with kernel_backend(backend), torch.no_grad():
             lg, _ = api.prefill(params, cfg, {"tokens": toks}, max_len=toks.shape[1],
@@ -707,6 +773,8 @@ def long_prefill(gen, base, cfg):
         launched = {k: ops.launch_count[k] - before[k] for k in before}
         check(launched == {k: flash_launches if k == "flash_attention" else 0
                            for k in before}, ("prefill launches", backend, launched))
+        check(variant_delta(vbefore) == variants_of(launched, params["embed"].dtype, 0),
+              ("prefill designs", backend, variant_delta(vbefore)))
         check(lg.shape == (1, toks.shape[1], cfg.vocab_size)
               and bool(torch.isfinite(lg).all()), ("prefill logits", backend, lg.shape))
         return lg, secs
@@ -816,10 +884,15 @@ def main() -> int:
           "cuda": torch.version.cuda, "device": torch.cuda.get_device_name(0)})
     t0 = time.time()
     logs = build.build_all()
-    emit({"phase": "build", "seconds": time.time() - t0,
+    sass = {n: build.sass_counts(n) for n in build.KERNELS}
+    emit({"phase": "build", "seconds": time.time() - t0, "sass": sass,
           "ptxas": {n: [ln.strip() for ln in log.splitlines()
-                        if "registers" in ln or "spill" in ln]
+                        if "registers" in ln or "spill" in ln or "smem" in ln]
                     for n, log in logs.items()}})
+    print("sass: " + ", ".join(f"{n} HGMMA {c['HGMMA']} HMMA {c['HMMA']}"
+                               for n, c in sass.items()), flush=True)
+    for n in ("flash_attention", "block_sparse"):
+        check(sass[n]["HGMMA"] + sass[n]["HMMA"] > 0, (n, "has no tensor-core instruction"))
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -834,7 +907,7 @@ def main() -> int:
     prof_line = profile_step(gen, int8, eng8)
     del int8, eng8
     torch.cuda.empty_cache()
-    bs_line, bs_launches, bsp, eng_bs = block_sparse_path(base, cfg)
+    bs_line, bs_launches, bs_variants, bsp, eng_bs = block_sparse_path(base, cfg)
     bs_step_line = whole_step(gen, bsp, eng_bs, {"block_sparse_matmul": 7 * cfg.n_layers,
                                                  "paged_attention": cfg.n_layers},
                               name="whole_step_block_sparse")
@@ -844,16 +917,17 @@ def main() -> int:
     ops.reset_launch_counts()
     long_line = long_prefill(gen, base, cfg)
     long_launches = dict(ops.launch_count)
+    long_variants = {k: n for k, n in ops.variant_count.items() if n}
 
     kernels = []
-    for line, runs, source, replaces in (
-            (k1, launches, "src/repro_torch/kernels/csrc/paged_attention.cu",
+    for line, runs, variants, source, replaces in (
+            (k1, launches, {}, "src/repro_torch/kernels/csrc/paged_attention.cu",
              "src/repro/kernels/paged_attention.py:68"),
-            (k2, launches, "src/repro_torch/kernels/csrc/quant_matmul.cu",
+            (k2, launches, {}, "src/repro_torch/kernels/csrc/quant_matmul.cu",
              "src/repro/kernels/quant_matmul.py:47"),
-            (k3, long_launches, "src/repro_torch/kernels/csrc/flash_attention.cu",
+            (k3, long_launches, long_variants, "src/repro_torch/kernels/csrc/flash_attention.cu",
              "src/repro/kernels/flash_attention.py:83"),
-            (k4, bs_launches, "src/repro_torch/kernels/csrc/block_sparse.cu",
+            (k4, bs_launches, bs_variants, "src/repro_torch/kernels/csrc/block_sparse.cu",
              "src/repro/kernels/block_sparse.py:39")):
         check(runs[line["name"]] > 0, ("no launch on the path", line["name"], runs))
         kernels.append({"name": line["name"], "route": "cuda", "source": source,
@@ -861,11 +935,14 @@ def main() -> int:
                         "max_abs_err": line["max_abs_err"], "ms": line["ms"],
                         "plain_ms": line["plain_ms"], "bound_ms": line["bound_ms"],
                         "bound_by": line["bound_by"], "library_ms": line["library_ms"],
+                        "bound_share": line["bound_ms"] / line["ms"],
                         "check": "pass", "cases": line["cases"],
-                        "max_rel_err": line["max_rel_err"]})
+                        "max_rel_err": line["max_rel_err"],
+                        "variants": {k.split(".")[1]: n for k, n in variants.items()
+                                     if k.startswith(line["name"] + ".")}})
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
-        json.dump({"card": card, "kernels": kernels, "quant_matmul_cases": k2_cases,
+        json.dump({"card": card, "sass": sass, "kernels": kernels, "quant_matmul_cases": k2_cases,
                    "paged_attention_cases": k1_cases, "block_sparse_matmul_cases": k4_cases,
                    "flash_attention_cases": k3_cases, "kernel_lines": [k1, k2, k3, k4],
                    "main_path": main_line, "whole_step": step_line,

@@ -7,12 +7,15 @@ headers (``csrc/*.cuh``), and loaded with
 ``ctypes``.  The build happens at first use (:func:`load`) or for all
 kernels at once, one ``nvcc`` per source started together
 (:func:`build_all`).  A failed build raises; nothing falls back.
+:func:`sass_counts` counts instructions in a built library's machine
+code, which shows whether a kernel reached the tensor cores.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -29,11 +32,11 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 
 
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+def _tool(name: str) -> str:
+    for cand in (shutil.which(name), f"/usr/local/cuda/bin/{name}"):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found: the CUDA kernels build only where the "
+    raise RuntimeError(f"{name} not found: the CUDA kernels build only where the "
                        "CUDA toolkit is installed")
 
 
@@ -52,7 +55,7 @@ def _start(name: str):
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = target.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [_tool("nvcc"), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True)
     return target, tmp, proc
@@ -88,3 +91,13 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(_target(name)))
             _LIBS[name] = lib
         return lib
+
+
+def sass_counts(name: str, opcodes=("HGMMA", "HMMA")) -> Dict[str, int]:
+    """How many instructions of each opcode the built library of kernel
+    ``name`` holds, from ``cuobjdump -sass`` (HGMMA: wgmma, HMMA: mma.sync
+    on the tensor cores)."""
+    load(name)
+    sass = subprocess.run([_tool("cuobjdump"), "-sass", str(_target(name))], check=True,
+                          capture_output=True, text=True, timeout=300).stdout
+    return {op: len(re.findall(rf"\b{op}\b", sass)) for op in opcodes}

@@ -9,6 +9,12 @@ kernel's plain version (``kernels/ref.py``); for CUDA tensors it
 launches the kernel on the current stream, adds one to
 ``launch_count[name]`` and raises if the launch fails.  It never
 falls back from a CUDA tensor to the plain version.
+
+K3 and K4 have several designs, chosen by a documented rule on dtype and
+shape (:func:`flash_variant`, :func:`block_sparse_variant`): f32 runs the
+FMA kernels, whose exact f32 products the 1e-5 checks need, and bf16 the
+tensor-core kernels.  Each launch also adds one to
+``variant_count["<name>.<variant>"]``, so a run shows which design ran.
 """
 from __future__ import annotations
 
@@ -39,12 +45,22 @@ _SIGS: Dict[str, list] = {
     "flash_attention_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 13
     + [ctypes.c_void_p],
     **{f"quant_matmul_tile_{d}": [ctypes.c_int] for d in "mnk"},
+    "block_sparse_tile_m": [ctypes.c_int] * 2,
+    "block_sparse_tile_n": [ctypes.c_int] * 3,
 }
 
 
+# launches per design of the kernels that have several, same reset
+variant_count: Dict[str, int] = {name: 0 for name in
+                                 ("flash_attention.mma", "flash_attention.fma",
+                                  "block_sparse_matmul.decode", "block_sparse_matmul.mma",
+                                  "block_sparse_matmul.fma")}
+
+
 def reset_launch_counts() -> None:
-    for name in launch_count:
-        launch_count[name] = 0
+    for counts in (launch_count, variant_count):
+        for name in counts:
+            counts[name] = 0
 
 
 _FNS: Dict[str, object] = {}
@@ -213,8 +229,54 @@ def paged_attention(q, k_pool, v_pool, tables, lengths, *,
 # ---------------------------------------------------------------------------
 
 BLOCK_SIZES = (16, 32, 64, 128)
-_BS_TILE_M = {1: 8, 0: 64}   # rows per block, skinny (M <= 16) or square tile:
-                             # SMALL_BM and LARGE_BM of csrc/block_sparse.cu
+DECODE_M = 16              # rows of x up to which K4 runs its skinny designs
+
+
+def block_sparse_variant(dtype: torch.dtype, M: int) -> str:
+    """K4's design for x of ``dtype`` with ``M`` rows: ``fma`` for f32
+    (exact f32 products), ``decode`` for bf16 with M <= DECODE_M (the
+    weight stream on tensor cores), ``mma`` for taller bf16 x (column
+    groups on tensor cores)."""
+    if dtype == torch.float32:
+        return "fma"
+    return "decode" if M <= DECODE_M else "mma"
+
+
+def block_sparse_plan(M: int, N: int, K: int, bs: int, keep: int, bm: int, bn: int):
+    """(grid, input blocks per split) of K4 for a ``bm`` x ``bn`` output
+    tile.  A tile of one block column walks its ``keep`` kept tiles; a
+    column group walks the input blocks any of its ``bn // bs`` columns
+    keeps, at most ``K // bs``.  The walk is split so that the grid
+    reaches about two blocks per SM."""
+    steps = min(K // bs, (bn // bs) * keep)
+    cols, rows = math.ceil(N / bn), math.ceil(M / bm)
+    splits, per = _split(cols * rows, steps)
+    return (cols, rows, splits), per
+
+
+def group_schedule(idx, n_in_blocks: int, cols: int):
+    """What K4's ``mma`` design builds in shared memory for each group of
+    ``cols`` adjacent output block columns: int32 [groups, n_in_blocks],
+    bit c of [g, i] set where column g * cols + c keeps input block i.
+    Its set bits are the kept (block, column) pairs of ``idx``."""
+    mask = ref.block_mask_from_idx(idx, n_in_blocks).T.to(torch.int32)   # [N/bs, K/bs]
+    pad = -mask.shape[0] % cols
+    mask = torch.cat([mask, mask.new_zeros((pad, n_in_blocks))]).reshape(-1, cols,
+                                                                          n_in_blocks)
+    weights = (1 << torch.arange(cols, dtype=torch.int32, device=mask.device))[:, None]
+    return (mask * weights).sum(1, dtype=torch.int32)
+
+
+_BS_TILES: Dict[tuple, tuple] = {}
+
+
+def _bs_tiles(bf16: int, small: int, bs: int) -> tuple:
+    """(rows, columns) of the output tile of K4's design, from the library."""
+    key = (bf16, small, bs)
+    if key not in _BS_TILES:
+        _BS_TILES[key] = (_fn("block_sparse", "block_sparse_tile_m")(bf16, small),
+                          _fn("block_sparse", "block_sparse_tile_n")(bf16, small, bs))
+    return _BS_TILES[key]
 
 
 def block_sparse_matmul(x, w, idx, *, bs: int):
@@ -239,22 +301,25 @@ def block_sparse_matmul(x, w, idx, *, bs: int):
              "w must be contiguous and 16-byte aligned")
     keep = idx.shape[1]
     x2 = x.reshape(-1, K).contiguous()
+    if x2.data_ptr() % 16:            # the bf16 designs copy x in 16-byte pieces
+        x2 = x2.clone()
     ix = idx.to(torch.int32).contiguous()
     M = x2.shape[0]
     y = torch.empty((M, N), dtype=x.dtype, device=dev)
     if M == 0:
         return y.reshape(*x.shape[:-1], N)
-    small = int(M <= 16)
+    variant = block_sparse_variant(x.dtype, M)
+    bf16, small = int(x.dtype == torch.bfloat16), int(M <= DECODE_M)
     fn = _fn("block_sparse", "block_sparse_launch")
-    bm = _BS_TILE_M[small]
-    splits, per = _split(math.ceil(M / bm) * (N // bs), keep)
+    (_, _, splits), per = block_sparse_plan(M, N, K, bs, keep, *_bs_tiles(bf16, small, bs))
     partial = (torch.empty((splits, M, N), dtype=torch.float32, device=dev)
                if splits > 1 else None)
     err = fn(x2.data_ptr(), w.data_ptr(), ix.data_ptr(), y.data_ptr(),
              None if partial is None else partial.data_ptr(), M, N, K, bs, keep,
-             int(x.dtype == torch.bfloat16), small, splits, per, _stream())
+             bf16, small, splits, per, _stream())
     _check(err, name)
     launch_count[name] += 1
+    variant_count[f"{name}.{variant}"] += 1
     return y.reshape(*x.shape[:-1], N)
 
 
@@ -263,6 +328,12 @@ def block_sparse_matmul(x, w, idx, *, bs: int):
 # ---------------------------------------------------------------------------
 
 HEAD_DIMS = (32, 64, 128, 256)
+
+
+def flash_variant(dtype: torch.dtype) -> str:
+    """K3's design: ``mma`` (tensor cores) for bf16, ``fma`` (exact f32
+    products) for f32."""
+    return "fma" if dtype == torch.float32 else "mma"
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
@@ -301,4 +372,5 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
              int(q.dtype == torch.bfloat16), _stream())
     _check(err, name)
     launch_count[name] += 1
+    variant_count[f"{name}.{flash_variant(q.dtype)}"] += 1
     return out
