@@ -8,20 +8,23 @@ Phases, each of which raises on failure (so the script exits non-zero):
 1. card: prints the card's name and power limit, builds the four CUDA
    kernels of ``src/repro_torch/kernels/csrc`` (one nvcc per source, in
    parallel) and counts the tensor-core instructions (HGMMA, HMMA) in
-   each library's machine code: K3's and K4's must have some;
+   each library's machine code and the bytes ptxas spills: K2's, K3's
+   and K4's must have tensor-core instructions, K1 and K2 no spill;
 2. kernels: calls each kernel's wrapper at the main paths' shapes and at
    edge cases, holds it against its plain PyTorch version, and times
    kernel, plain version and a library call (CUDA events, L2 flushed
-   before every launch): K2 quant_matmul, K1 paged_attention, K4
-   block_sparse_matmul (decode M = 8 and prefill M = 512), K3
-   flash_attention (S = T = 4096 and 8192); each line carries
-   bound_share = bound_ms / ms;
+   before every launch): K2 quant_matmul (decode M = 8 and prefill
+   M = 512, each also on the FMA design it replaced), K1 paged_attention
+   (128 and 1024 positions a slot), K4 block_sparse_matmul (decode M = 8
+   and prefill M = 512), K3 flash_attention (S = T = 4096 and 8192); each
+   line carries bound_share = bound_ms / ms;
 3. main path: full-width gemma2-2b (26 layers, random bf16 weights from a
    seeded generator) compressed with the ``w8-absmax`` recipe, served by
    ``Engine(slots=8, max_len=1024)`` on OLAP-style rows sharing one
    template (one duplicate row), then the bf16 base model the same way;
    the kernels' launch counts are zeroed just before the int8 run and
-   read just after;
+   read just after (182 K2 launches per decode step on ``decode`` and per
+   prefill on ``mma``, 26 K1 launches per step on ``split``);
 4. whole step: one paged decode step of the int8 instance under the cuda
    backend and under the reference backend on the same state, in bf16 and
    in f32; the launch counts show that only the cuda side ran the kernels;
@@ -38,8 +41,9 @@ Phases, each of which raises on failure (so the script exits non-zero):
    cuda and the reference backends (no K3 launch), in bf16 and f32, held
    to the whole-step criteria.
 
-K3 and K4 run their tensor-core designs on bf16 and their FMA designs on
-f32; ``ops.variant_count`` shows which ran, and every phase checks it.
+K2, K3 and K4 run their tensor-core designs on bf16 and their FMA
+designs on f32; ``ops.variant_count`` shows which design of every kernel
+ran, and every phase checks it.
 Prints one JSON line per phase, the ``{"kernels": [...]}`` summary, the
 card line, and last ``{"ok": true, "device": {...}}``.  Exits non-zero
 without a card and outside a checkout of the repository.
@@ -49,6 +53,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -71,6 +76,9 @@ K1_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}
 # path's own bf16 step, summed over the trials.
 STEP_TOL_F32 = 1e-3
 STEP_BF16_RATIO = 1.25
+# gemma2-2b's linears (K, N) in layer order: wq, wk, wv, attn wo, wi, wg, mlp wo
+LAYER_SHAPES = [(2304, 2048), (2304, 1024), (2304, 1024), (2048, 2304),
+                (2304, 9216), (2304, 9216), (9216, 2304)]
 
 TEMPLATE = "Classify the review's sentiment as pos or neg.\nReview: "
 REVIEWS = [
@@ -157,7 +165,26 @@ def bound(nbytes: float, flops: float):
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+def _turns(fns, rounds: int = 2):
+    """Mean time of each of ``fns`` timed in turns (a b b a ...), so a
+    drift of the card's clocks weighs on all alike."""
+    times = [[] for _ in fns]
+    for r in range(rounds):
+        order = range(len(fns)) if r % 2 == 0 else reversed(range(len(fns)))
+        for i in order:
+            times[i].append(time_ms(fns[i]))
+    return [sum(t) / len(t) for t in times]
+
+
 def check_quant_matmul(gen):
+    """K2 against its plain version at the main path's shapes and edges:
+    decode (M <= 16, one and two n8 tiles of x), prefill tiles and their
+    edges (M = 17, 37, 128, 296, 512, 1024), SmoothQuant's ``in_scale`` in
+    both regimes, f32 x, ragged N, group 80, and q and scale 4 bytes off
+    16-byte alignment (the last three on the FMA design).  Each case's
+    launch must run the design ``ops.quant_matmul_variant`` names.  Then
+    times the bf16 designs against the FMA design they replaced (still in
+    the library for f32 and ragged shapes), in turns."""
     from repro_torch.core import quantize as Q
     from repro_torch.kernels import ops, ref
     dev = "cuda"
@@ -174,74 +201,109 @@ def check_quant_matmul(gen):
                 cache[key] = Q.absmax_quantize(w)
         return cache[key]
 
-    cases = [(8, K, N, torch.bfloat16, False) for K, N in
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [(8, K, N, bf16, None) for K, N in
              ((2304, 2048), (2304, 1024), (2048, 2304), (2304, 9216), (9216, 2304))]
-    cases += [(M, 2304, N, torch.bfloat16, False) for M in (1, 8, 296) for N in (1024, 9216)]
-    cases += [(37, 2304, 2048, torch.bfloat16, False), (512, 2304, 9216, torch.bfloat16, False),
-              (512, 9216, 2304, torch.bfloat16, False), (8, 2304, 2048, torch.bfloat16, True),
-              (8, 2304, 1024, torch.float32, False), (296, 2304, 1024, torch.float32, True),
+    cases += [(M, 2304, N, bf16, None) for M in (1, 8, 296) for N in (1024, 9216)]
+    cases += [(37, 2304, 2048, bf16, None), (512, 2304, 9216, bf16, None),
+              (512, 9216, 2304, bf16, None), (8, 2304, 2048, bf16, "smooth"),
+              (8, 2304, 1024, f32, None), (296, 2304, 1024, f32, "smooth"),
               # ragged N (no 16-byte loads), K not a multiple of the tile, group 80
-              (8, 320, 260, torch.bfloat16, False), (37, 320, 260, torch.float32, False)]
+              (8, 320, 260, bf16, None), (37, 320, 260, f32, None)]
+    cases += [(M, 2304, 2048, bf16, None) for M in (16, 17, 128, 1024)]
+    cases += [(512, 2304, 9216, bf16, "smooth"), (8, 2304, 1024, bf16, "offset"),
+              (296, 2048, 2304, bf16, "offset")]
     worst_abs, results = 0.0, []
-    for M, K, N, xdt, smooth in cases:
-        qt = weight(K, N, smooth)
+    for M, K, N, xdt, kind in cases:
+        qt = weight(K, N, kind == "smooth")
+        q, scale = qt.q, qt.scale
+        if kind == "offset":          # the same codes and scales 4 bytes past alignment
+            q = torch.empty(K * N + 4, dtype=torch.int8, device=dev)[4:].view(K, N)
+            scale = torch.empty(scale.numel() + 1, device=dev)[1:].view(scale.shape)
+            q.copy_(qt.q)
+            scale.copy_(qt.scale)
+        aligned = q.data_ptr() % 16 == 0 and scale.data_ptr() % 16 == 0
+        variant = ops.quant_matmul_variant(xdt, M, N, qt.group, aligned)
         x = torch.randn((M, K), generator=gen, device=dev).to(xdt)
-        got = ops.quant_matmul(x, qt.q, qt.scale, group=qt.group, in_scale=qt.in_scale)
+        before = dict(ops.variant_count)
+        got = ops.quant_matmul(x, q, scale, group=qt.group, in_scale=qt.in_scale)
         want = ref.quant_matmul(x, qt.q, qt.scale, group=qt.group, in_scale=qt.in_scale)
         torch.cuda.synchronize()
         check(got.dtype == xdt and got.shape == (M, N), ("output", got.dtype, got.shape))
+        check(variant_delta(before) == {f"quant_matmul.{variant}": 1},
+              ("K2 design", M, K, N, xdt, kind, variant_delta(before)))
         err_abs, err_rel = errors(got, want)
         results.append({"M": M, "K": K, "N": N, "x": str(xdt).split(".")[-1],
-                        "in_scale": smooth, "rel_err": err_rel})
-        check(err_rel < K2_TOL, (M, K, N, xdt, smooth, err_rel))
+                        "kind": kind, "group": qt.group, "variant": variant,
+                        "rel_err": err_rel})
+        check(err_rel < K2_TOL, results[-1])
         worst_abs = max(worst_abs, err_abs)
 
+    def fma(x, qt):                   # the replaced design on the same bf16 input
+        return ops._launch_quant_matmul(x, qt.q, qt.scale, qt.group, "fma")
+
     # timing: the 7 matmuls of one gemma2-2b layer in one decode step (M=8)
-    shapes = [(2304, 2048), (2304, 1024), (2304, 1024), (2048, 2304),
-              (2304, 9216), (2304, 9216), (9216, 2304)]
-    ms = plain_ms = lib_ms = nbytes = flops = 0.0
+    ms = fma_ms = plain_ms = lib_ms = nbytes = flops = 0.0
     per_shape = []
     # an untimed round first, so the first timed shape is not measured cold
-    qt = weight(*shapes[0])
-    x = torch.randn((8, shapes[0][0]), generator=gen, device=dev).to(torch.bfloat16)
+    qt = weight(*LAYER_SHAPES[0])
+    x = torch.randn((8, LAYER_SHAPES[0][0]), generator=gen, device=dev).to(bf16)
     time_ms(lambda: ops.quant_matmul(x, qt.q, qt.scale, group=qt.group))
-    for K, N in shapes:
+    for K, N in LAYER_SHAPES:
         qt = weight(K, N)
-        x = torch.randn((8, K), generator=gen, device=dev).to(torch.bfloat16)
+        x = torch.randn((8, K), generator=gen, device=dev).to(bf16)
         wd = ref.dequantize_codes(qt.q, qt.scale, qt.group)
-        t = (time_ms(lambda: ops.quant_matmul(x, qt.q, qt.scale, group=qt.group)),
-             time_ms(lambda: ref.quant_matmul(x, qt.q, qt.scale, group=qt.group)),
+        t_new, t_fma = _turns([lambda: ops.quant_matmul(x, qt.q, qt.scale, group=qt.group),
+                               lambda: fma(x, qt)])
+        t = (t_new, time_ms(lambda: ref.quant_matmul(x, qt.q, qt.scale, group=qt.group)),
              time_ms(lambda: torch.matmul(x, wd)))
         b = K * N + qt.scale.numel() * 4 + 8 * K * 2 + 8 * N * 2
-        per_shape.append({"K": K, "N": N, "ms": t[0], "plain_ms": t[1], "library_ms": t[2],
-                          "bound_ms": bound(b, 2 * 8 * K * N)[0]})
-        ms, plain_ms, lib_ms = ms + t[0], plain_ms + t[1], lib_ms + t[2]
+        per_shape.append({"K": K, "N": N, "ms": t[0], "fma_ms": t_fma, "plain_ms": t[1],
+                          "library_ms": t[2], "bound_ms": bound(b, 2 * 8 * K * N)[0]})
+        ms, fma_ms, plain_ms, lib_ms = ms + t[0], fma_ms + t_fma, plain_ms + t[1], lib_ms + t[2]
         nbytes += b
         flops += 2 * 8 * K * N
     # prefill-sized product: 8 rows of a 64-token bucket through wi
     qt = weight(2304, 9216)
-    x = torch.randn((512, 2304), generator=gen, device=dev).to(torch.bfloat16)
+    x = torch.randn((512, 2304), generator=gen, device=dev).to(bf16)
     wd = ref.dequantize_codes(qt.q, qt.scale, qt.group)
-    prefill = {"M": 512, "K": 2304, "N": 9216,
-               "ms": time_ms(lambda: ops.quant_matmul(x, qt.q, qt.scale, group=qt.group)),
+    t_new, t_fma = _turns([lambda: ops.quant_matmul(x, qt.q, qt.scale, group=qt.group),
+                           lambda: fma(x, qt)])
+    pb, pb_by = bound(2304 * 9216 * 1.0 + qt.scale.numel() * 4 + 512 * (2304 + 9216) * 2,
+                      2 * 512 * 2304 * 9216)
+    prefill = {"M": 512, "K": 2304, "N": 9216, "variant": "mma", "ms": t_new,
+               "fma_ms": t_fma,
+               "plain_ms": time_ms(lambda: ref.quant_matmul(x, qt.q, qt.scale, group=qt.group)),
                "library_ms": time_ms(lambda: torch.matmul(x, wd)),
-               "bound_ms": bound(2304 * 9216 * 1.0 + 512 * (2304 + 9216) * 2,
-                                 2 * 512 * 2304 * 9216)[0]}
+               "bound_ms": pb, "bound_by": pb_by, "bound_share": pb / t_new}
     bound_ms, bound_by = bound(nbytes, flops)
     line = {"phase": "kernel", "name": "quant_matmul", "cases": len(cases),
             "max_rel_err": max(r["rel_err"] for r in results), "max_abs_err": worst_abs,
             "timed": "7 matmuls of one layer, decode M=8, bf16",
-            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "bound_share": bound_ms / ms,
-            "bytes": nbytes, "per_shape": per_shape, "prefill": prefill}
+            "variant": "decode", "ms": ms, "fma_ms": fma_ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_share": bound_ms / ms, "bytes": nbytes, "per_shape": per_shape,
+            "prefill": prefill,
+            "fma_note": "fma_ms: the FMA design, which the bf16 designs replaced, "
+                        "on the same bf16 inputs"}
     emit(line)
     return line, results
 
 
-def _paged_inputs(gen, dtype, lengths, *, S=8, Kh=4, G=2, D=256, bs=32, nblk=32):
-    nb = S * nblk + 2 * nblk + 1                      # the engine's pool at max_len 1024
+def _paged_inputs(gen, dtype, lengths, *, S=8, Kh=4, G=2, D=256, bs=32, nblk=32,
+                  alias=False):
+    """Pools of the engine's size at max_len 1024, a scrambled table per
+    slot and a trash block (the pool's last).  With ``alias`` every slot's
+    first two table entries name the same prefix blocks, and entries past
+    a slot's length name the trash block, as the engine's tables do."""
+    nb = S * nblk + 2 * nblk + 1
     perm = torch.randperm(nb - 1, generator=gen, device="cuda")[:S * nblk]
     tables = perm.reshape(S, nblk).to(torch.int32)      # scrambled, trash block unused
+    if alias:
+        tables[:, :2] = tables[0, :2]
+        used = torch.tensor([-(-n // bs) for n in lengths], device="cuda")
+        past = torch.arange(nblk, device="cuda")[None, :] >= used[:, None]
+        tables[past] = nb - 1
     q = torch.randn((S, 1, Kh * G, D), generator=gen, device="cuda").to(dtype)
     k = torch.randn((nb, bs, Kh, D), generator=gen, device="cuda").to(dtype)
     v = torch.randn((nb, bs, Kh, D), generator=gen, device="cuda").to(dtype)
@@ -250,16 +312,28 @@ def _paged_inputs(gen, dtype, lengths, *, S=8, Kh=4, G=2, D=256, bs=32, nblk=32)
 
 
 def check_paged_attention(gen):
+    """K1 against its plain version: the main path's shape at lengths from
+    1 to 1024, windows 0, 64 and 4096, softcap 0 and 50; lengths around
+    the split boundaries (1, 31, 32, 33, 1024); window 64 with lengths far
+    past it; tables aliasing one prefix across slots with the trash block
+    past each length; another head layout and block size.  Each launch
+    must run the ``split`` design.  Then one decode call is timed at 128
+    and at 1024 positions a slot."""
     from repro_torch.kernels import ops, ref
-    lengths = [1, 33, 700, 1024, 5, 64, 257, 999]
-    cases = [(dtype, window, cap, {}) for dtype in (torch.bfloat16, torch.float32)
+    base = [1, 33, 700, 1024, 5, 64, 257, 999]
+    edges = [1, 31, 32, 33, 1024, 63, 65, 96]
+    past = [1000, 1024, 500, 65, 66, 97, 128, 900]
+    cases = [(dtype, window, cap, base, {}) for dtype in (torch.bfloat16, torch.float32)
              for window in (0, 64, 4096) for cap in (0.0, 50.0)]
-    # another head layout and block size than gemma2-2b's
-    cases += [(dtype, 40, 30.0, {"Kh": 2, "G": 4, "D": 128, "bs": 16, "nblk": 64})
-              for dtype in (torch.bfloat16, torch.float32)]
+    for dtype in (torch.bfloat16, torch.float32):
+        cases += [(dtype, 0, 50.0, edges, {}), (dtype, 4096, 50.0, edges, {"alias": True}),
+                  (dtype, 64, 50.0, past, {}), (dtype, 0, 0.0, base, {"alias": True}),
+                  # another head layout and block size than gemma2-2b's
+                  (dtype, 40, 30.0, base, {"Kh": 2, "G": 4, "D": 128, "bs": 16, "nblk": 64})]
     worst_abs, results = 0.0, []
-    for dtype, window, cap, shape in cases:
+    for dtype, window, cap, lengths, shape in cases:
         q, k, v, tables, ln = _paged_inputs(gen, dtype, lengths, **shape)
+        before = dict(ops.variant_count)
         got = ops.paged_attention(q, k, v, tables, ln, softcap=cap, window=window)
         S, _, H, D = q.shape
         Kh = k.shape[2]
@@ -268,45 +342,52 @@ def check_paged_attention(gen):
         torch.cuda.synchronize()
         err_abs, err_rel = errors(got, want)
         results.append({"dtype": str(dtype).split(".")[-1], "window": window,
-                        "softcap": cap, "rel_err": err_rel, **shape})
-        check(got.dtype == dtype and err_rel < K1_TOL[dtype], results[-1])
+                        "softcap": cap, "lengths": lengths, "rel_err": err_rel,
+                        "plan": ops.paged_attention_plan(S, Kh, tables.shape[1] * k.shape[1],
+                                                         window, k.shape[1]), **shape})
+        check(variant_delta(before) == {"paged_attention.split": 1},
+              ("K1 design", variant_delta(before)))
+        check(got.dtype == dtype and bool(torch.isfinite(got).all())
+              and err_rel < K1_TOL[dtype], results[-1])
         worst_abs = max(worst_abs, err_abs)
 
-    # timing: one decode call at the main path's shape, 128 live positions a slot
-    lengths = [128] * 8
-    q, k, v, tables, ln = _paged_inputs(gen, torch.bfloat16, lengths)
-    S, _, H, D = q.shape
-    Kh, G = 4, 2
-    qr = q[:, 0].reshape(S, Kh, G, D)
-    ms = time_ms(lambda: ops.paged_attention(q, k, v, tables, ln, softcap=50.0, window=4096))
-    plain_ms = time_ms(lambda: ref.paged_attention(qr, k, v, tables, ln, softcap=50.0,
-                                                   window=4096))
-    L = lengths[0]
-    kc = k[tables.long()].reshape(S, -1, Kh, D)[:, :L].permute(0, 2, 1, 3)
-    vc = v[tables.long()].reshape(S, -1, Kh, D)[:, :L].permute(0, 2, 1, 3)
-    kc = kc.repeat_interleave(G, dim=1).contiguous()
-    vc = vc.repeat_interleave(G, dim=1).contiguous()
-    qs = q.permute(0, 2, 1, 3).contiguous()
-    lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qs, kc, vc))
-    nbytes = sum(lengths) * Kh * D * 2 * 2 + 2 * q.numel() * 2 + tables.numel() * 4 + S * 4
-    flops = sum(lengths) * Kh * G * D * 2 * 2
-    bound_ms, bound_by = bound(nbytes, flops)
+    # timing: one decode call at the main path's shape, 128 and 1024 live
+    # positions a slot, softcap 50, window 4096 (a local layer's call)
+    timed = {}
+    for L in (128, 1024):
+        lengths = [L] * 8
+        q, k, v, tables, ln = _paged_inputs(gen, torch.bfloat16, lengths)
+        S, _, H, D = q.shape
+        Kh, G = 4, 2
+        qr = q[:, 0].reshape(S, Kh, G, D)
+        kw = dict(softcap=50.0, window=4096)
+        ms = time_ms(lambda: ops.paged_attention(q, k, v, tables, ln, **kw))
+        plain_ms = time_ms(lambda: ref.paged_attention(qr, k, v, tables, ln, **kw))
+        kc = k[tables.long()].reshape(S, -1, Kh, D)[:, :L].permute(0, 2, 1, 3)
+        vc = v[tables.long()].reshape(S, -1, Kh, D)[:, :L].permute(0, 2, 1, 3)
+        kc = kc.repeat_interleave(G, dim=1).contiguous()
+        vc = vc.repeat_interleave(G, dim=1).contiguous()
+        qs = q.permute(0, 2, 1, 3).contiguous()
+        lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qs, kc, vc))
+        nbytes = sum(lengths) * Kh * D * 2 * 2 + 2 * q.numel() * 2 + tables.numel() * 4 + S * 4
+        flops = sum(lengths) * Kh * G * D * 2 * 2
+        bound_ms, bound_by = bound(nbytes, flops)
+        timed[L] = {"ms": ms, "plain_ms": plain_ms,
+                    "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                    "bound_share": bound_ms / ms, "bytes": nbytes,
+                    "plan": ops.paged_attention_plan(S, Kh, 1024, 4096, 32)}
     line = {"phase": "kernel", "name": "paged_attention", "cases": len(results),
             "max_rel_err": max(r["rel_err"] for r in results), "max_abs_err": worst_abs,
             "timed": "one decode call, S=8 Kh=4 G=2 D=256 bs=32, 128 positions a slot, "
-                     "softcap 50, bf16",
-            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "bound_share": bound_ms / ms,
-            "bytes": nbytes}
+                     "softcap 50, bf16 (1024 positions under L1024)",
+            "variant": "split", **timed[128], "L1024": timed[1024],
+            "library_note": "SDPA on K/V gathered and expanded beforehand"}
     emit(line)
     return line, results
 
 
 # per dtype: the reference's bf16 bound (tests/test_kernels.py), f32 summation order
 K34_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}
-# gemma2-2b's linears (K, N) in layer order: wq, wk, wv, attn wo, wi, wg, mlp wo
-LAYER_SHAPES = [(2304, 2048), (2304, 1024), (2304, 1024), (2048, 2304),
-                (2304, 9216), (2304, 9216), (9216, 2304)]
 
 
 def _block_idx(gen, K, N, bs, density):
@@ -524,13 +605,27 @@ def main_path(gen):
     ops.reset_launch_counts()
     eng8, reqs8 = serve(int8, cfg, "w8-absmax")
     launches = dict(ops.launch_count)
-    check(launches["quant_matmul"] > 0 and launches["paged_attention"] > 0, launches)
+    variants = {k: n for k, n in ops.variant_count.items() if n}
+    st8, per_step = eng8.stats, 7 * cfg.n_layers
+    check(launches == {"quant_matmul": per_step * (st8.decode_steps + st8.prefills),
+                       "paged_attention": cfg.n_layers * st8.decode_steps,
+                       "block_sparse_matmul": 0, "flash_attention": 0},
+          ("int8 run launches", launches, st8.decode_steps, st8.prefills))
+    # bf16 throughout: decode steps (8 rows) on K2's `decode`, bucketed
+    # prefills on `mma`, never `fma`; K1 on `split`
+    check(variants == {"quant_matmul.decode": per_step * st8.decode_steps,
+                       "quant_matmul.mma": per_step * st8.prefills,
+                       "paged_attention.split": launches["paged_attention"]},
+          ("int8 run designs", variants))
     peak = torch.cuda.max_memory_allocated()
 
     ops.reset_launch_counts()
     eng16, reqs16 = serve(base, cfg, "base")
     base_launches = dict(ops.launch_count)
-    check(base_launches["paged_attention"] > 0, base_launches)
+    base_variants = {k: n for k, n in ops.variant_count.items() if n}
+    check(base_launches["paged_attention"] > 0 and base_launches["quant_matmul"] == 0
+          and base_variants == {"paged_attention.split": base_launches["paged_attention"]},
+          (base_launches, base_variants))
 
     same = tot = rows_same = 0
     for a, b in zip(reqs16, reqs8):
@@ -547,7 +642,7 @@ def main_path(gen):
                      "wall_s": eng8.stats.wall_s, "decode_steps": eng8.stats.decode_steps,
                      "prefills": eng8.stats.prefills, "prefix_hits": eng8.stats.prefix_hits,
                      "cache_hits": eng8.stats.cache_hits, "backend": eng8.stats.backend,
-                     "launches": launches},
+                     "launches": launches, "variants": variants},
             "base": {"rows_per_s": eng16.stats.rows_per_s,
                      "tokens_per_s": eng16.stats.tokens_out / eng16.stats.wall_s,
                      "wall_s": eng16.stats.wall_s, "decode_steps": eng16.stats.decode_steps,
@@ -566,7 +661,7 @@ def main_path(gen):
     print(f"max_memory_allocated: {line['max_memory_allocated']}", flush=True)
     print(f"greedy agreement base vs int8: {line['greedy_token_agreement_base_vs_int8']:.4f}",
           flush=True)
-    return line, launches, base, int8, eng8
+    return line, launches, variants, base, int8, eng8
 
 
 # ---------------------------------------------------------------------------
@@ -585,21 +680,29 @@ def _f32(tree):
 
 
 def variant_delta(before):
-    """Launches per K3/K4 design since ``before``, zero entries dropped."""
+    """Launches per kernel design since ``before``, zero entries dropped."""
     from repro_torch.kernels import ops
     d = {k: ops.variant_count[k] - before[k] for k in before}
     return {k: n for k, n in d.items() if n}
 
 
 def variants_of(launched, dtype, rows):
-    """The designs that K3's and K4's launches must have run for params of
-    ``dtype`` and x of ``rows`` rows (0: prefill-sized)."""
+    """The designs that the kernels' launches must have run for params of
+    ``dtype`` and x of ``rows`` rows (0: prefill-sized).  K2's rule sees
+    gemma2-2b's linears, whose N are all multiples of 16, and w8-absmax's
+    groups of 128 rows."""
     from repro_torch.kernels import ops
+    rows = rows or 10**6
     want = {}
+    if launched.get("quant_matmul"):
+        key = f"quant_matmul.{ops.quant_matmul_variant(dtype, rows, 2304, 128)}"
+        want[key] = launched["quant_matmul"]
+    if launched.get("paged_attention"):
+        want["paged_attention.split"] = launched["paged_attention"]
     if launched.get("flash_attention"):
         want[f"flash_attention.{ops.flash_variant(dtype)}"] = launched["flash_attention"]
     if launched.get("block_sparse_matmul"):
-        key = f"block_sparse_matmul.{ops.block_sparse_variant(dtype, rows or 10**6)}"
+        key = f"block_sparse_matmul.{ops.block_sparse_variant(dtype, rows)}"
         want[key] = launched["block_sparse_matmul"]
     return want
 
@@ -718,7 +821,8 @@ def block_sparse_path(base, cfg):
           ("block-sparse run launches", launches, st.decode_steps, st.prefills))
     # bf16 throughout: decode steps (8 rows) on `decode`, prefills on `mma`
     check(variants == {"block_sparse_matmul.decode": per_step * st.decode_steps,
-                       "block_sparse_matmul.mma": per_step * st.prefills},
+                       "block_sparse_matmul.mma": per_step * st.prefills,
+                       "paged_attention.split": launches["paged_attention"]},
           ("block-sparse run designs", variants))
     line = {"phase": "block_sparse", "model": cfg.name, "recipe": "bs16@75",
             "calibration_rows": 16, "calibration_tokens": 96, "calibrate_s": calib_s,
@@ -824,7 +928,8 @@ def long_prefill(gen, base, cfg):
 def profile_step(gen, params, eng, steps: int = 5, name="decode_profile"):
     """Where one decode step's time goes: host wall time per step
     (ending in a sync) against device kernel time from torch.profiler,
-    split by kernel name."""
+    split by kernel name, and the device's busy time (the union of the
+    kernels' intervals), from which the idle share is taken."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.compressed import kernel_backend
@@ -857,10 +962,20 @@ def profile_step(gen, params, eng, steps: int = 5, name="decode_profile"):
             by_name[ev.key[:60]] = (by_name.get(ev.key[:60], 0.0)
                                     + ev.self_device_time_total / 1e3 / steps)
     device_ms = sum(by_name.values())
+    # the time some kernel runs: a kernel launched as a programmatic
+    # dependent starts while the one ahead of it still runs, so the sum of
+    # kernel times counts that overlap twice
+    spans = sorted((ev.time_range.start, ev.time_range.end) for ev in prof.events()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA)
+    busy_us, end = 0.0, float("-inf")
+    for a, b in spans:
+        busy_us += max(0.0, b - max(a, end))
+        end = max(end, b)
+    busy_ms = busy_us / 1e3 / steps
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     line = {"phase": name, "steps": steps, "wall_ms_per_step": wall_ms,
-            "device_ms_per_step": device_ms,
-            "device_idle_share": max(0.0, 1.0 - device_ms / wall_ms),
+            "device_ms_per_step": device_ms, "device_busy_ms_per_step": busy_ms,
+            "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
             "top_kernels_ms_per_step": dict(top)}
     emit(line)
     return line
@@ -885,14 +1000,20 @@ def main() -> int:
     t0 = time.time()
     logs = build.build_all()
     sass = {n: build.sass_counts(n) for n in build.KERNELS}
-    emit({"phase": "build", "seconds": time.time() - t0, "sass": sass,
-          "ptxas": {n: [ln.strip() for ln in log.splitlines()
-                        if "registers" in ln or "spill" in ln or "smem" in ln]
-                    for n, log in logs.items()}})
-    print("sass: " + ", ".join(f"{n} HGMMA {c['HGMMA']} HMMA {c['HMMA']}"
+    ptxas = {n: [ln.strip() for ln in log.splitlines()
+                 if "registers" in ln or "spill" in ln or "smem" in ln]
+             for n, log in logs.items()}
+    # the most bytes any kernel of each library spills to local memory
+    spill = {n: max([int(m) for ln in lines
+                     for m in re.findall(r"(\d+) bytes spill stores", ln)] or [0])
+             for n, lines in ptxas.items()}
+    emit({"phase": "build", "seconds": time.time() - t0, "sass": sass, "spill_stores": spill})
+    print("sass: " + ", ".join(f"{n} HGMMA {c['HGMMA']} HMMA {c['HMMA']} spill {spill[n]}"
                                for n, c in sass.items()), flush=True)
-    for n in ("flash_attention", "block_sparse"):
+    for n in ("quant_matmul", "flash_attention", "block_sparse"):
         check(sass[n]["HGMMA"] + sass[n]["HMMA"] > 0, (n, "has no tensor-core instruction"))
+    for n in ("quant_matmul", "paged_attention"):
+        check(spill[n] == 0, (n, "spills registers", ptxas[n]))
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -900,7 +1021,7 @@ def main() -> int:
     k1, k1_cases = check_paged_attention(gen)
     k4, k4_cases = check_block_sparse(gen)
     k3, k3_cases = check_flash_attention(gen)
-    main_line, launches, base, int8, eng8 = main_path(gen)
+    main_line, launches, int8_variants, base, int8, eng8 = main_path(gen)
     cfg = eng8.cfg
     step_line = whole_step(gen, int8, eng8, {"quant_matmul": 7 * cfg.n_layers,
                                              "paged_attention": cfg.n_layers})
@@ -921,9 +1042,9 @@ def main() -> int:
 
     kernels = []
     for line, runs, variants, source, replaces in (
-            (k1, launches, {}, "src/repro_torch/kernels/csrc/paged_attention.cu",
+            (k1, launches, int8_variants, "src/repro_torch/kernels/csrc/paged_attention.cu",
              "src/repro/kernels/paged_attention.py:68"),
-            (k2, launches, {}, "src/repro_torch/kernels/csrc/quant_matmul.cu",
+            (k2, launches, int8_variants, "src/repro_torch/kernels/csrc/quant_matmul.cu",
              "src/repro/kernels/quant_matmul.py:47"),
             (k3, long_launches, long_variants, "src/repro_torch/kernels/csrc/flash_attention.cu",
              "src/repro/kernels/flash_attention.py:83"),
@@ -942,7 +1063,8 @@ def main() -> int:
                                      if k.startswith(line["name"] + ".")}})
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
-        json.dump({"card": card, "sass": sass, "kernels": kernels, "quant_matmul_cases": k2_cases,
+        json.dump({"card": card, "sass": sass, "ptxas": ptxas, "kernels": kernels,
+                   "quant_matmul_cases": k2_cases,
                    "paged_attention_cases": k1_cases, "block_sparse_matmul_cases": k4_cases,
                    "flash_attention_cases": k3_cases, "kernel_lines": [k1, k2, k3, k4],
                    "main_path": main_line, "whole_step": step_line,

@@ -7,25 +7,42 @@
 // named by the slot's block table.  Scores are f32, scaled by 1/sqrt(D),
 // optionally tanh-softcapped; positions >= lengths[s] and, with a window,
 // < lengths[s] - window get weight 0; the softmax is exact (max-
-// subtracted, two passes over the stored scores, not an online
+// subtracted over all of the slot's positions, not an online
 // recurrence), probabilities are rounded to V's dtype before the f32 PV
 // sum, and the output is stored in q's dtype.
 //
 // What bounds it on the H100: bytes.  Each K and V element read is used
 // for G = 2 multiply-adds, so the call is the time to read the slots'
-// live K/V rows (plus the q/out rows) at 3.35 TB/s.
+// live K/V rows (plus the q/out rows) at 3.35 TB/s: 1.3 us for 8 slots of
+// 128 positions at gemma2-2b's shape, 10 us for 8 slots of 1024.
 //
-// What the simple design does about it: one thread block per (slot, KV
-// head) reads only the rows below lengths[s] (and inside the window),
-// each K/V row exactly once; the block loads its own table row and
-// length (there is no scalar prefetch), so a scrambled table, aliased
-// prefix blocks and the engine's trash block cost nothing extra.  The
-// G x span f32 scores stay in shared memory for the exact softmax:
-// dynamic shared memory, raised past 48 KB with cudaFuncSetAttribute,
-// covers spans up to ~27k positions at G = 2.  Warps split the
-// positions for QK^T (one row per warp, lanes over D); threads split D
-// for PV.  Many slots at short lengths leave SMs idle (S * Kh blocks);
-// splitting the positions across blocks is later work.
+// Design (`split`): the positions of a slot are cut into splits of a
+// whole number of pool blocks, planned by the wrapper from the span (the
+// table's length, or the window if smaller; ops.paged_attention_plan),
+// never from `lengths`, which live on the card.  Split z covers positions
+// [lo + z per, lo + (z + 1) per) of the live range [lo, len),
+// lo = max(0, len - window), so a window costs no dead splits, and a
+// block whose split lies past the live range exits at once.  One block
+// per (split, KV head, slot) reads each of its live K rows once, through
+// the table (aliased prefix blocks and the engine's trash block cost
+// nothing extra), a row per group of lanes with 16-byte loads (one warp
+// covers a D = 256 bf16 row in one load), several rows in flight per
+// lane; the G query rows stay in registers.  Rounding stays where the
+// reference has it: probabilities are rounded to V's dtype only once the
+// slot's global max and sum are known.  So there are two kernels:
+// - scores: writes each live position's G scores (f32) and its split's
+//   (max, sum of exp) to a workspace;
+// - pv: forms the slot's global (m, l) from the splits' pairs, in split
+//   order, rounds exp(s - m) / l to V's dtype for its positions and sums
+//   its PV partial in f32 over V rows read like K's; the last block of a
+//   (slot, head) to finish, by a ticket counter that the scores kernel
+//   reset, adds the partials in split order and stores the output.
+// The sums therefore do not depend on scheduling.  The pv kernel is
+// launched as a programmatic dependent of the scores kernel, so its launch
+// and its V loads overlap the scores kernel.  A split with no live key
+// contributes nothing (its max is -inf and its sum 0).  Both kernels
+// stay on the FMA pipes: with G = 2 query rows per KV head an
+// m16n8k16 tile would be mostly padding on a byte-bound call.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -37,146 +54,380 @@
 namespace {
 
 constexpr int MAX_G = 8;
-constexpr int THREADS = 256;
+constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
+constexpr int MAX_PER = 256;          // positions per split
+constexpr int UNROLL = 8;             // rows in flight per lane
 
-// Sum (or max) of v over the block; every thread gets the result.
-__device__ float block_reduce(float v, bool is_max, float* red) {
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+// 16 bytes of T (one load), widened to f32: 8 bf16 or 4 f32 elements.
+__device__ __forceinline__ int4 load16(const void* p) {
+  return __ldg(reinterpret_cast<const int4*>(p));
+}
+template <typename T> struct Piece;
+template <> struct Piece<__nv_bfloat16> {
+  static constexpr int E = 8;
+  static __device__ __forceinline__ void widen(const int4& raw, float (&f)[8]) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float o = __shfl_xor_sync(0xffffffffu, v, off);
-    v = is_max ? fmaxf(v, o) : v + o;
-  }
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    v = lane < WARPS ? red[lane] : (is_max ? -INFINITY : 0.f);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float o = __shfl_xor_sync(0xffffffffu, v, off);
-      v = is_max ? fmaxf(v, o) : v + o;
+    for (int i = 0; i < 4; ++i) {
+      const float2 v = __bfloat1622float2(h[i]);
+      f[2 * i] = v.x;
+      f[2 * i + 1] = v.y;
     }
-    if (lane == 0) red[0] = v;
   }
-  __syncthreads();
-  const float r = red[0];
-  __syncthreads();
-  return r;
+};
+template <> struct Piece<float> {
+  static constexpr int E = 4;
+  static __device__ __forceinline__ void widen(const int4& raw, float (&f)[4]) {
+    f[0] = __int_as_float(raw.x), f[1] = __int_as_float(raw.y);
+    f[2] = __int_as_float(raw.z), f[3] = __int_as_float(raw.w);
+  }
+};
+
+// Lanes of a warp over one K or V row: LR lanes per row (16-byte pieces
+// c = pl + LR i, i < PPL), RW = 32 / LR rows side by side.
+struct RowLanes {
+  int LR, PPL, RW, sub, pl;
+  __device__ RowLanes(int D, int E, int lane) {
+    const int np = D / E;
+    LR = np < 32 ? np : 32;
+    PPL = np / LR;
+    RW = 32 / LR;
+    sub = lane / LR;
+    pl = lane % LR;
+  }
+};
+
+// Where the split of block (z, h, s) lies: positions [t0, t1) (empty when
+// t0 >= t1), and how many leading splits of the slot are not empty.
+struct Split {
+  int t0, t1, live;
+  __device__ Split(const int* lengths, int s, int z, int T, int window, int per) {
+    const int len = lengths[s];
+    const int hi = min(len, T);
+    const int lo = window > 0 ? max(0, len - window) : 0;
+    t0 = lo + z * per;
+    t1 = min(hi, t0 + per);
+    live = hi > lo ? (hi - lo + per - 1) / per : 0;
+  }
+};
+
+// Workspace layout (f32 unless said): partial [S Kh][splits][G][D] first
+// (its rows stay 16-byte aligned), scores [S Kh][G][splits per],
+// ml [S Kh][splits][G][2], then the tickets [S Kh] int32.
+struct Workspace {
+  float *partial, *scores, *ml;
+  int* tickets;
+  __host__ __device__ Workspace(void* base, int S, int Kh, int G, int D, int splits, int per) {
+    const size_t sk = (size_t)S * Kh;
+    partial = static_cast<float*>(base);
+    scores = partial + sk * splits * G * D;
+    ml = scores + sk * G * splits * per;
+    tickets = reinterpret_cast<int*>(ml + sk * splits * G * 2);
+  }
+  static size_t bytes(int S, int Kh, int G, int D, int splits, int per) {
+    const size_t sk = (size_t)S * Kh;
+    return 4 * (sk * G * splits * per + sk * splits * G * 2 + sk * splits * G * D + sk);
+  }
+};
+
+// The lane's pieces of rows i0, i0 + stride, ... (UNROLL of them) of the
+// split that starts at position t0 and holds n rows: first the rows' table
+// entries, then their 16-byte pieces, so that all are in flight before
+// the first is used.  Rows past the split repeat its last row.
+template <typename T, int MAX_PPL>
+__device__ __forceinline__ void load_rows(int4 (&raw)[UNROLL][MAX_PPL], const T* pool,
+                                          const int* trow, int t0, int i0, int stride, int n,
+                                          int bs, int Kh, int h, int D, const RowLanes& rl) {
+  int blk[UNROLL];
+#pragma unroll
+  for (int u = 0; u < UNROLL; ++u) blk[u] = __ldg(trow + (t0 + min(i0 + u * stride, n - 1)) / bs);
+#pragma unroll
+  for (int u = 0; u < UNROLL; ++u) {
+    const int t = t0 + min(i0 + u * stride, n - 1);
+    const T* row = pool + (((size_t)blk[u] * bs + t % bs) * Kh + h) * D;
+#pragma unroll
+    for (int c = 0; c < MAX_PPL; ++c)
+      if (c < rl.PPL) raw[u][c] = load16(row + (rl.pl + rl.LR * c) * Piece<T>::E);
+  }
 }
 
-// grid (S, Kh), THREADS threads.  Dynamic shared memory:
-// q [G][D] f32 | scores [G][span] f32 | table row [nblk] int.
-template <typename T>
+// grid (splits, Kh, S), THREADS threads.  Dynamic shared memory: the
+// split's scores [G][per] f32.
+template <typename T, int G>
 __global__ void __launch_bounds__(THREADS)
-paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
-                       const T* __restrict__ v_pool, const int* __restrict__ tables,
-                       const int* __restrict__ lengths, T* __restrict__ out,
-                       int Kh, int G, int D, int bs, int nblk, float scale,
-                       float softcap, int window, int span) {
-  extern __shared__ float smem[];
-  __shared__ float red[WARPS];
-  float* qs = smem;
-  float* sc = smem + G * D;
-  int* tbl = reinterpret_cast<int*>(sc + G * span);
+paged_scores_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
+                    const int* __restrict__ tables, const int* __restrict__ lengths,
+                    Workspace ws, int Kh, int D, int bs, int nblk, float scale, float softcap,
+                    int window, int splits, int per) {
+  using P = Piece<T>;
+  constexpr int E = P::E, MAX_PPL = sizeof(T) == 4 ? 2 : 1;
+  extern __shared__ float sc[];
+  const int z = blockIdx.x, h = blockIdx.y, s = blockIdx.z;
+  const int sh = s * Kh + h;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  allow_dependents();                              // the pv kernel may launch now
+  if (z == 0 && tid == 0) ws.tickets[sh] = 0;      // the pv kernel's counter
+  const Split sp(lengths, s, z, nblk * bs, window, per);
+  const int n = sp.t1 - sp.t0;
+  if (n <= 0) return;
+  const RowLanes rl(D, E, lane);
+  const int* trow = tables + (size_t)s * nblk;
 
-  const int s = blockIdx.x, h = blockIdx.y;
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int len = lengths[s];
-  const int hi = min(len, nblk * bs);
-  const int lo = window > 0 ? max(0, len - window) : 0;
-  const int n = max(hi - lo, 0);
+  int4 qraw[MAX_PPL][G];
+#pragma unroll
+  for (int i = 0; i < MAX_PPL; ++i)
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+      if (i < rl.PPL) qraw[i][g] = load16(q + ((size_t)sh * G + g) * D + (rl.pl + rl.LR * i) * E);
+  // the warp's first rows: their table entries, then their pieces, all in
+  // flight with q's before any is used (rows past the split repeat its last)
+  const int stride = WARPS * rl.RW, first = warp * rl.RW;
+  int4 raw[UNROLL][MAX_PPL];
+  load_rows<T, MAX_PPL>(raw, k_pool, trow, sp.t0, first + rl.sub, stride, n, bs, Kh, h, D, rl);
+  float qv[MAX_PPL][E][G];
+#pragma unroll
+  for (int i = 0; i < MAX_PPL; ++i)
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+      if (i < rl.PPL) {
+        float f[E];
+        P::widen(qraw[i][g], f);
+#pragma unroll
+        for (int e = 0; e < E; ++e) qv[i][e][g] = f[e];
+      }
 
-  const T* qrow = q + (size_t)(s * Kh + h) * G * D;
-  for (int i = tid; i < G * D; i += THREADS) qs[i] = to_f(qrow[i]);
-  for (int i = tid; i < nblk; i += THREADS) tbl[i] = tables[(size_t)s * nblk + i];
-  __syncthreads();
-
-  // scores: one position per warp, lanes across D
-  for (int i = warp; i < n; i += WARPS) {
-    const int t = lo + i;
-    const T* krow = k_pool + (((size_t)tbl[t / bs] * bs + t % bs) * Kh + h) * D;
-    float acc[MAX_G];
+  for (int base = first; base < n; base += stride * UNROLL) {
+    if (base != first)
+      load_rows<T, MAX_PPL>(raw, k_pool, trow, sp.t0, base + rl.sub, stride, n, bs, Kh, h, D,
+                            rl);
 #pragma unroll
-    for (int g = 0; g < MAX_G; ++g) acc[g] = 0.f;
-#pragma unroll 8
-    for (int d = lane; d < D; d += 32) {
-      const float kv = to_f(krow[d]);
+    for (int u = 0; u < UNROLL; ++u) {
+      const int i = base + rl.sub + u * stride;
+      float dot[G];
 #pragma unroll
-      for (int g = 0; g < MAX_G; ++g)
-        if (g < G) acc[g] = fmaf(qs[g * D + d], kv, acc[g]);
-    }
+      for (int g = 0; g < G; ++g) dot[g] = 0.f;
 #pragma unroll
-    for (int g = 0; g < MAX_G; ++g) {
-      if (g >= G) break;
-      float v = acc[g];
+      for (int c = 0; c < MAX_PPL; ++c)
+        if (c < rl.PPL) {
+          float kv[E];
+          P::widen(raw[u][c], kv);
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-      if (lane == 0) {
-        v *= scale;
-        if (softcap != 0.f) v = tanhf(v / softcap) * softcap;
-        sc[g * span + i] = v;
+          for (int e = 0; e < E; ++e)
+#pragma unroll
+            for (int g = 0; g < G; ++g) dot[g] = fmaf(qv[c][e][g], kv[e], dot[g]);
+        }
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        float v = dot[g];
+        for (int off = rl.LR / 2; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+        if (rl.pl == 0 && i < n) {
+          v *= scale;
+          if (softcap != 0.f) v = tanhf(v / softcap) * softcap;
+          sc[g * per + i] = v;
+          ws.scores[((size_t)sh * G + g) * splits * per + z * per + i] = v;
+        }
       }
     }
   }
   __syncthreads();
 
-  // exact softmax per query head; probabilities rounded to V's dtype
-  for (int g = 0; g < G; ++g) {
-    float* row = sc + g * span;
+  // the split's (max, sum of exp) per query head, one warp per head
+  for (int g = warp; g < G; g += WARPS) {
     float m = -INFINITY;
-    for (int i = tid; i < n; i += THREADS) m = fmaxf(m, row[i]);
-    m = block_reduce(m, true, red);
+    for (int i = lane; i < n; i += 32) m = fmaxf(m, sc[g * per + i]);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
     float l = 0.f;
-    for (int i = tid; i < n; i += THREADS) {
-      const float p = expf(row[i] - m);
-      row[i] = p;
-      l += p;
+    for (int i = lane; i < n; i += 32) l += expf(sc[g * per + i] - m);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) l += __shfl_xor_sync(0xffffffffu, l, off);
+    if (lane == 0) {
+      float* ml = ws.ml + (((size_t)sh * splits + z) * G + g) * 2;
+      ml[0] = m;
+      ml[1] = l;
     }
-    l = block_reduce(l, false, red);
-    for (int i = tid; i < n; i += THREADS) row[i] = to_f(from_f<T>(row[i] / l));
-  }
-  __syncthreads();
-
-  // out[g, d] = sum_t probs[g, t] * v[t, d], threads across D
-  T* orow = out + (size_t)(s * Kh + h) * G * D;
-  for (int d = tid; d < D; d += THREADS) {
-    float acc[MAX_G];
-#pragma unroll
-    for (int g = 0; g < MAX_G; ++g) acc[g] = 0.f;
-    // unrolled so several V loads are in flight per thread
-#pragma unroll 8
-    for (int i = 0; i < n; ++i) {
-      const int t = lo + i;
-      const float vv = to_f(v_pool[(((size_t)tbl[t / bs] * bs + t % bs) * Kh + h) * D + d]);
-#pragma unroll
-      for (int g = 0; g < MAX_G; ++g)
-        if (g < G) acc[g] = fmaf(sc[g * span + i], vv, acc[g]);
-    }
-#pragma unroll
-    for (int g = 0; g < MAX_G; ++g)
-      if (g < G) orow[g * D + d] = from_f<T>(acc[g]);
   }
 }
 
-template <typename T>
-int launch(const void* q, const void* k_pool, const void* v_pool,
-           const void* tables, const void* lengths, void* out, int S, int Kh,
-           int G, int D, int bs, int nblk, float scale, float softcap,
-           int window, int span, cudaStream_t stream) {
-  const size_t smem = (size_t)G * D * 4 + (size_t)G * span * 4 + (size_t)nblk * 4;
-  auto kernel = paged_attention_kernel<T>;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
+// grid (splits, Kh, S), THREADS threads.  Dynamic shared memory: the
+// warps' PV sums [WARPS][G][D] f32, then probabilities [G][per] f32.
+template <typename T, int G>
+__global__ void __launch_bounds__(THREADS)
+paged_pv_kernel(const T* __restrict__ v_pool, const int* __restrict__ tables,
+                const int* __restrict__ lengths, Workspace ws, T* __restrict__ out, int Kh,
+                int D, int bs, int nblk, int window, int splits, int per) {
+  using P = Piece<T>;
+  constexpr int E = P::E, MAX_PPL = sizeof(T) == 4 ? 2 : 1;
+  extern __shared__ float smem[];
+  __shared__ float gm[MAX_G], gl[MAX_G];
+  __shared__ bool last;
+  float* red = smem;
+  float* pr = smem + WARPS * G * D;
+  const int z = blockIdx.x, h = blockIdx.y, s = blockIdx.z;
+  const int sh = s * Kh + h;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const Split sp(lengths, s, z, nblk * bs, window, per);
+  const int n = sp.t1 - sp.t0;
+  float* part = ws.partial + (size_t)sh * splits * G * D;
+  // the warp's first V rows go out before the scores kernel has finished:
+  // they do not depend on it
+  const RowLanes rl(D, E, lane);
+  const int* trow = tables + (size_t)s * nblk;
+  const int stride = WARPS * rl.RW, first = warp * rl.RW;
+  int4 raw[UNROLL][MAX_PPL];
+  if (n > 0)
+    load_rows<T, MAX_PPL>(raw, v_pool, trow, sp.t0, first + rl.sub, stride, n, bs, Kh, h, D,
+                          rl);
+  wait_for_prerequisite();           // the scores kernel's workspace and tickets
+
+  if (n > 0) {
+    // the slot's global max and sum, from the live splits' pairs in order
+    if (tid < G) {
+      const float* ml = ws.ml + (size_t)sh * splits * G * 2;
+      float m = -INFINITY;
+#pragma unroll 8
+      for (int y = 0; y < sp.live; ++y) m = fmaxf(m, ml[(y * G + tid) * 2]);
+      float l = 0.f;
+#pragma unroll 8
+      for (int y = 0; y < sp.live; ++y) {
+        const float* p = ml + (y * G + tid) * 2;
+        l += p[1] * expf(p[0] - m);
+      }
+      gm[tid] = m;
+      gl[tid] = l;
+    }
+    __syncthreads();
+    // probabilities, rounded to V's dtype as the reference rounds them
+    for (int e = tid; e < G * n; e += THREADS) {
+      const int g = e / n, i = e % n;
+      const float sv = ws.scores[((size_t)sh * G + g) * splits * per + z * per + i];
+      pr[g * per + i] = to_f(from_f<T>(expf(sv - gm[g]) / gl[g]));
+    }
+    __syncthreads();
+
+    float acc[MAX_PPL][E][G];
+#pragma unroll
+    for (int c = 0; c < MAX_PPL; ++c)
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+#pragma unroll
+        for (int g = 0; g < G; ++g) acc[c][e][g] = 0.f;
+    for (int base = first; base < n; base += stride * UNROLL) {
+      if (base != first)
+        load_rows<T, MAX_PPL>(raw, v_pool, trow, sp.t0, base + rl.sub, stride, n, bs, Kh, h,
+                              D, rl);
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        const int i = base + rl.sub + u * stride;
+        if (i >= n) continue;
+#pragma unroll
+        for (int c = 0; c < MAX_PPL; ++c)
+          if (c < rl.PPL) {
+            float vv[E];
+            P::widen(raw[u][c], vv);
+#pragma unroll
+            for (int g = 0; g < G; ++g) {
+              const float p = pr[g * per + i];
+#pragma unroll
+              for (int e = 0; e < E; ++e) acc[c][e][g] = fmaf(p, vv[e], acc[c][e][g]);
+            }
+          }
+      }
+    }
+    // the warp's rows side by side, then the warps in order
+#pragma unroll
+    for (int c = 0; c < MAX_PPL; ++c)
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+#pragma unroll
+        for (int g = 0; g < G; ++g)
+          for (int off = rl.LR; off < 32; off <<= 1)
+            acc[c][e][g] += __shfl_xor_sync(0xffffffffu, acc[c][e][g], off);
+    if (rl.sub == 0)
+#pragma unroll
+      for (int c = 0; c < MAX_PPL; ++c)
+        if (c < rl.PPL)
+#pragma unroll
+          for (int e = 0; e < E; ++e)
+#pragma unroll
+            for (int g = 0; g < G; ++g)
+              red[(warp * G + g) * D + (rl.pl + rl.LR * c) * E + e] = acc[c][e][g];
+    __syncthreads();
+    for (int e = tid; e < G * D / 4; e += THREADS) {
+      float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int w = 0; w < WARPS; ++w) {
+        const float4 r = reinterpret_cast<const float4*>(red + w * G * D)[e];
+        sum.x += r.x, sum.y += r.y, sum.z += r.z, sum.w += r.w;
+      }
+      reinterpret_cast<float4*>(part + (size_t)z * G * D)[e] = sum;
+    }
+    __threadfence();
   }
-  kernel<<<dim3(S, Kh), THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pool),
-      static_cast<const T*>(v_pool), static_cast<const int*>(tables),
-      static_cast<const int*>(lengths), static_cast<T*>(out), Kh, G, D, bs,
-      nblk, scale, softcap, window, span);
-  return static_cast<int>(cudaGetLastError());
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(ws.tickets + sh, 1) == splits - 1;
+  __syncthreads();
+  if (!last) return;
+  // the last block of the (slot, head): partials added in split order
+  T* orow = out + (size_t)sh * G * D;
+  for (int e = tid; e < G * D / 4; e += THREADS) {
+    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 8
+    for (int y = 0; y < sp.live; ++y) {
+      const float4 r = __ldcg(reinterpret_cast<const float4*>(part + (size_t)y * G * D) + e);
+      sum.x += r.x, sum.y += r.y, sum.z += r.z, sum.w += r.w;
+    }
+    orow[4 * e] = from_f<T>(sum.x);
+    orow[4 * e + 1] = from_f<T>(sum.y);
+    orow[4 * e + 2] = from_f<T>(sum.z);
+    orow[4 * e + 3] = from_f<T>(sum.w);
+  }
+}
+
+template <typename T, int G>
+int launch_g(const T* q, const T* k_pool, const T* v_pool, const int* tables,
+             const int* lengths, void* work, T* out, int S, int Kh, int D, int bs, int nblk,
+             float scale, float softcap, int window, int splits, int per,
+             cudaStream_t stream) {
+  const Workspace ws(work, S, Kh, G, D, splits, per);
+  const dim3 grid(splits, Kh, S);
+  paged_scores_kernel<T, G><<<grid, THREADS, sizeof(float) * G * per, stream>>>(
+      q, k_pool, tables, lengths, ws, Kh, D, bs, nblk, scale, softcap, window, splits, per);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(launch_dependent(paged_pv_kernel<T, G>, grid, THREADS,
+                                           sizeof(float) * G * (per + WARPS * D), stream,
+                                           v_pool, tables, lengths, ws, out, Kh, D, bs, nblk,
+                                           window, splits, per));
+}
+
+template <typename T>
+int launch(const void* q, const void* k_pool, const void* v_pool, const void* tables,
+           const void* lengths, void* work, void* out, int S, int Kh, int G, int D, int bs,
+           int nblk, float scale, float softcap, int window, int splits, int per,
+           cudaStream_t stream) {
+  if (D % Piece<T>::E || D / Piece<T>::E > 32 * (sizeof(T) == 4 ? 2 : 1) ||
+      ((D / Piece<T>::E) & (D / Piece<T>::E - 1)) || per > MAX_PER || per % bs)
+    return cudaErrorInvalidValue;
+#define G_CASE(GG)                                                                        \
+  case GG:                                                                                \
+    return launch_g<T, GG>(static_cast<const T*>(q), static_cast<const T*>(k_pool),       \
+                           static_cast<const T*>(v_pool), static_cast<const int*>(tables), \
+                           static_cast<const int*>(lengths), work, static_cast<T*>(out),  \
+                           S, Kh, D, bs, nblk, scale, softcap, window, splits, per, stream);
+  switch (G) {
+    G_CASE(1)
+    G_CASE(2)
+    G_CASE(3)
+    G_CASE(4)
+    G_CASE(5)
+    G_CASE(6)
+    G_CASE(7)
+    G_CASE(8)
+    default: return cudaErrorInvalidValue;
+  }
+#undef G_CASE
 }
 
 }  // namespace
@@ -185,24 +436,32 @@ extern "C" {
 
 int paged_attention_max_g() { return MAX_G; }
 
+// Bytes of the workspace a launch with this shape and plan needs.
+long long paged_attention_workspace(int S, int Kh, int G, int D, int splits, int per) {
+  return static_cast<long long>(Workspace::bytes(S, Kh, G, D, splits, per));
+}
+
 // q [S, Kh, G, D], pools [nb, bs, Kh, D] (bf16 if is_bf16 else f32, all
-// alike), tables [S, nblk] int32, lengths [S] int32 (>= 1), out like q.
-// scale and softcap are f32 values passed by their bit patterns; span is
-// the most positions a slot can attend (nblk * bs, or the window if
-// smaller).  Returns cudaGetLastError() after the launch.
+// alike, 16-byte aligned), tables [S, nblk] int32, lengths [S] int32
+// (1 <= lengths <= nblk * bs), out like q, work of
+// paged_attention_workspace() bytes (16-byte aligned).  D is a power of
+// two from 16 to 256; G <= 8.  splits * per covers the span (the window,
+// or nblk * bs if smaller), per is a multiple of bs up to MAX_PER
+// (ops.PA_MAX_PER).  scale and softcap are f32 values passed by
+// their bit patterns.  Returns cudaGetLastError() after the launches.
 int paged_attention_launch(const void* q, const void* k_pool, const void* v_pool,
-                           const void* tables, const void* lengths, void* out,
-                           int S, int Kh, int G, int D, int bs, int nblk,
-                           int scale_bits, int softcap_bits, int window,
-                           int span, int is_bf16, void* stream) {
+                           const void* tables, const void* lengths, void* work, void* out,
+                           int S, int Kh, int G, int D, int bs, int nblk, int scale_bits,
+                           int softcap_bits, int window, int splits, int per, int is_bf16,
+                           void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float scale = bits_to_float(scale_bits);
   const float softcap = bits_to_float(softcap_bits);
   if (is_bf16)
-    return launch<__nv_bfloat16>(q, k_pool, v_pool, tables, lengths, out, S, Kh,
-                                 G, D, bs, nblk, scale, softcap, window, span, st);
-  return launch<float>(q, k_pool, v_pool, tables, lengths, out, S, Kh, G, D, bs,
-                       nblk, scale, softcap, window, span, st);
+    return launch<__nv_bfloat16>(q, k_pool, v_pool, tables, lengths, work, out, S, Kh, G, D,
+                                 bs, nblk, scale, softcap, window, splits, per, st);
+  return launch<float>(q, k_pool, v_pool, tables, lengths, work, out, S, Kh, G, D, bs, nblk,
+                       scale, softcap, window, splits, per, st);
 }
 
 }  // extern "C"

@@ -10,11 +10,12 @@ launches the kernel on the current stream, adds one to
 ``launch_count[name]`` and raises if the launch fails.  It never
 falls back from a CUDA tensor to the plain version.
 
-K3 and K4 have several designs, chosen by a documented rule on dtype and
-shape (:func:`flash_variant`, :func:`block_sparse_variant`): f32 runs the
-FMA kernels, whose exact f32 products the 1e-5 checks need, and bf16 the
-tensor-core kernels.  Each launch also adds one to
-``variant_count["<name>.<variant>"]``, so a run shows which design ran.
+K2, K3 and K4 have several designs, chosen by a documented rule on dtype
+and shape (:func:`quant_matmul_variant`, :func:`flash_variant`,
+:func:`block_sparse_variant`): f32 runs the FMA kernels, whose exact f32
+products the 1e-5 checks need, and bf16 the tensor-core kernels.  K1 has
+one, ``split`` (:func:`paged_attention_plan`).  Each launch also adds one
+to ``variant_count["<name>.<variant>"]``, so a run shows which design ran.
 """
 from __future__ import annotations
 
@@ -37,22 +38,28 @@ _SMS = 132                 # H100 SXM streaming multiprocessors
 _SIGS: Dict[str, list] = {
     "quant_matmul_launch": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
     + [ctypes.c_void_p],
-    "paged_attention_launch": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11
+    "paged_attention_launch": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 12
     + [ctypes.c_void_p],
     "paged_attention_max_g": [],
+    "paged_attention_workspace": [ctypes.c_int] * 6,
     "block_sparse_launch": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
     + [ctypes.c_void_p],
     "flash_attention_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 13
     + [ctypes.c_void_p],
-    **{f"quant_matmul_tile_{d}": [ctypes.c_int] for d in "mnk"},
+    **{f"quant_matmul_tile_{d}": [ctypes.c_int] * 2 for d in "mnk"},
     "block_sparse_tile_m": [ctypes.c_int] * 2,
     "block_sparse_tile_n": [ctypes.c_int] * 3,
 }
 
 
-# launches per design of the kernels that have several, same reset
+# C entry points that return something else than an int
+_RESTYPES = {"paged_attention_workspace": ctypes.c_longlong}
+
+# launches per design of each kernel, same reset
 variant_count: Dict[str, int] = {name: 0 for name in
-                                 ("flash_attention.mma", "flash_attention.fma",
+                                 ("quant_matmul.decode", "quant_matmul.mma",
+                                  "quant_matmul.fma", "paged_attention.split",
+                                  "flash_attention.mma", "flash_attention.fma",
                                   "block_sparse_matmul.decode", "block_sparse_matmul.mma",
                                   "block_sparse_matmul.fma")}
 
@@ -73,7 +80,7 @@ def _fn(kernel: str, symbol: str):
     if fn is None:
         fn = getattr(build.load(kernel), symbol)
         fn.argtypes = _SIGS[symbol]
-        fn.restype = ctypes.c_int
+        fn.restype = _RESTYPES.get(symbol, ctypes.c_int)
         _FNS[symbol] = fn
     return fn
 
@@ -116,15 +123,51 @@ def _split(blocks: int, steps: int) -> tuple:
 # K2: int8 group-quantized matmul
 # ---------------------------------------------------------------------------
 
-_TILES: Dict[int, tuple] = {}
+DECODE_M = 16              # rows of x up to which K2 and K4 run their skinny designs
+QM_STAGE_K = 64            # code rows per stage of K2's bf16 designs (one scale row)
+# K2's designs as the library numbers them (the FMA design: skinny, square tile)
+_QM_DESIGNS = {"decode": 0, "mma": 1, "fma_small": 2, "fma_large": 3}
 
 
-def _tiles(small: int) -> tuple:
-    """(BM, BN, BK) of the int8 kernel's skinny (decode) or square tile."""
-    if small not in _TILES:
-        _TILES[small] = tuple(_fn("quant_matmul", f"quant_matmul_tile_{d}")(small)
-                              for d in "mnk")
-    return _TILES[small]
+def quant_matmul_variant(dtype: torch.dtype, M: int, N: int, group: int,
+                         aligned: bool = True) -> str:
+    """K2's design for x of ``dtype`` with ``M`` rows against an [K, N]
+    weight in groups of ``group`` rows: ``fma`` for f32 (exact f32
+    products) and for what the bf16 designs do not take (N not a multiple
+    of 16, q or scale not 16-byte ``aligned``, a group that is not a
+    multiple of the QM_STAGE_K-row stage); else ``decode`` for M <=
+    DECODE_M (the weight stream on tensor cores) and ``mma`` above (128 x
+    128 tiles on tensor cores)."""
+    if dtype == torch.float32 or N % 16 or group % QM_STAGE_K or not aligned:
+        return "fma"
+    return "decode" if M <= DECODE_M else "mma"
+
+
+def _qm_design(variant: str, M: int) -> int:
+    if variant == "fma":
+        return _QM_DESIGNS["fma_small" if M <= DECODE_M else "fma_large"]
+    return _QM_DESIGNS[variant]
+
+
+def quant_matmul_plan(M: int, N: int, K: int, bm: int, bn: int, bk: int):
+    """(grid, K rows per split) of K2 for a ``bm`` x ``bn`` output tile
+    stepping ``bk`` rows of K: the K steps are split only where the output
+    tiles give fewer than about two blocks per SM."""
+    cols, rows = math.ceil(N / bn), math.ceil(M / bm)
+    splits, per = _split(cols * rows, math.ceil(K / bk))
+    return (cols, rows, splits), per * bk
+
+
+_TILES: Dict[tuple, tuple] = {}
+
+
+def _tiles(design: int, N: int) -> tuple:
+    """(BM, BN, BK) of K2's design for a weight of N columns, from the
+    library."""
+    if (design, N) not in _TILES:
+        _TILES[design, N] = tuple(_fn("quant_matmul", f"quant_matmul_tile_{d}")(design, N)
+                                  for d in "mnk")
+    return _TILES[design, N]
 
 
 def quant_matmul(x, q, scale, *, group: int, in_scale=None, bits: int = 8):
@@ -151,30 +194,63 @@ def quant_matmul(x, q, scale, *, group: int, in_scale=None, bits: int = 8):
     if in_scale is not None:
         x = (x.float() * in_scale).to(x.dtype)
     x2 = x.reshape(-1, K).contiguous()
-    M = x2.shape[0]
-    y = torch.empty((M, N), dtype=x.dtype, device=dev)
+    if x2.data_ptr() % 16:            # the bf16 designs copy x in 16-byte pieces
+        x2 = x2.clone()
+    aligned = q.data_ptr() % 16 == 0 and scale.data_ptr() % 16 == 0
+    variant = quant_matmul_variant(x.dtype, x2.shape[0], N, group, aligned)
+    return _launch_quant_matmul(x2, q, scale, group, variant).reshape(*x.shape[:-1], N)
+
+
+def _launch_quant_matmul(x2, q, scale, group: int, variant: str):
+    """Launch K2's ``variant`` on CUDA x2 [M, K] (16-byte aligned rows)
+    and count it; the wrapper picks the variant by its rule, and
+    ``chip_smoke.py`` also times the FMA design on bf16 through here."""
+    name = "quant_matmul"
+    (M, K), N = x2.shape, q.shape[1]
+    y = torch.empty((M, N), dtype=x2.dtype, device=x2.device)
     if M == 0:
-        return y.reshape(*x.shape[:-1], N)
-    small = int(M <= 16)
-    fn = _fn(name, "quant_matmul_launch")
-    bm, bn, bk = _tiles(small)
-    splits, steps = _split(math.ceil(M / bm) * math.ceil(N / bn), math.ceil(K / bk))
-    k_per_split = steps * bk
-    partial = (torch.empty((splits, M, N), dtype=torch.float32, device=dev)
+        return y
+    design = _qm_design(variant, M)
+    bm, bn, bk = _tiles(design, N)
+    _require(variant == "fma" or group % bk == 0, name,
+             f"group={group} is not a multiple of the {bk}-row stage of {variant}")
+    (_, _, splits), k_per_split = quant_matmul_plan(M, N, K, bm, bn, bk)
+    partial = (torch.empty((splits, M, N), dtype=torch.float32, device=x2.device)
                if splits > 1 else None)
     vec = int(N % 16 == 0 and q.data_ptr() % 16 == 0 and scale.data_ptr() % 16 == 0)
-    err = fn(x2.data_ptr(), q.data_ptr(), scale.data_ptr(), y.data_ptr(),
-             None if partial is None else partial.data_ptr(), M, N, K, group,
-             int(x.dtype == torch.bfloat16), small, splits, k_per_split, vec,
-             _stream())
+    err = _fn(name, "quant_matmul_launch")(
+        x2.data_ptr(), q.data_ptr(), scale.data_ptr(), y.data_ptr(),
+        None if partial is None else partial.data_ptr(), M, N, K, group,
+        int(x2.dtype == torch.bfloat16), design, splits, k_per_split, vec, _stream())
     _check(err, name)
     launch_count[name] += 1
-    return y.reshape(*x.shape[:-1], N)
+    variant_count[f"{name}.{variant}"] += 1
+    return y
 
 
 # ---------------------------------------------------------------------------
 # K1: paged-KV decode attention
 # ---------------------------------------------------------------------------
+
+PA_HEAD_DIMS = (16, 32, 64, 128, 256)
+PA_MAX_PER = 256           # positions per split (paged_attention.cu's MAX_PER refuses more)
+PA_BLOCKS_PER_SM = 8       # blocks per SM K1's split plan aims for
+
+
+def paged_attention_plan(S: int, Kh: int, T: int, window: int, bs: int):
+    """(splits, positions per split) of K1 for S slots, Kh KV heads and
+    tables of T positions in pool blocks of ``bs``.  Planned from the span
+    (T, or the window if smaller), never from the lengths, which live on
+    the card: split z covers positions [lo + z per, lo + (z + 1) per) of a
+    slot's live range [lo, len), lo = max(0, len - window), so ``splits``
+    * ``per`` covers the span.  A split is a whole number of pool blocks,
+    at most PA_MAX_PER positions, and S * Kh * splits aims at
+    PA_BLOCKS_PER_SM blocks per SM when the span is long enough."""
+    span = min(T, window) if window else T
+    want = math.ceil(PA_BLOCKS_PER_SM * _SMS / (S * Kh))
+    per = bs * max(1, min(math.ceil(math.ceil(span / bs) / want), PA_MAX_PER // bs))
+    return math.ceil(span / per), per
+
 
 def paged_attention(q, k_pool, v_pool, tables, lengths, *,
                     softcap: float = 0.0, window: int = 0):
@@ -182,7 +258,8 @@ def paged_attention(q, k_pool, v_pool, tables, lengths, *,
 
     q [S, 1, H, D] (one decode token per slot), k/v pools
     [num_blocks, block_size, Kh, D], tables [S, T // block_size] block
-    ids per slot, lengths [S] valid KV lengths (>= 1) -> [S, 1, H, D].
+    ids per slot, lengths [S] valid KV lengths (1 <= lengths <= T) ->
+    [S, 1, H, D].
     """
     name = "paged_attention"
     S, one, H, D = q.shape
@@ -206,21 +283,28 @@ def paged_attention(q, k_pool, v_pool, tables, lengths, *,
         return out.reshape(S, 1, H, D)
     fn = _fn(name, "paged_attention_launch")
     _require(G <= _fn(name, "paged_attention_max_g")(), name, f"G={G} is too large")
-    _require(k_pool.is_contiguous() and v_pool.is_contiguous(), name,
-             "pools must be contiguous")
+    _require(D in PA_HEAD_DIMS, name, f"head dim {D} is not one of {PA_HEAD_DIMS}")
+    _require(bs <= PA_MAX_PER, name, f"block size {bs} is above {PA_MAX_PER}")
+    _require(k_pool.is_contiguous() and v_pool.is_contiguous()
+             and k_pool.data_ptr() % 16 == 0 and v_pool.data_ptr() % 16 == 0, name,
+             "pools must be contiguous and 16-byte aligned")
     qr = qr.contiguous()
+    if qr.data_ptr() % 16:
+        qr = qr.clone()
     tbl = tables.to(torch.int32).contiguous()
     ln = lengths.to(torch.int32).contiguous()
     nblk = tbl.shape[1]
-    T = nblk * bs
-    span = min(T, window) if window else T
+    splits, per = paged_attention_plan(S, Kh, nblk * bs, window, bs)
+    work = torch.empty(_fn(name, "paged_attention_workspace")(S, Kh, G, D, splits, per),
+                       dtype=torch.uint8, device=dev)
     out = torch.empty_like(qr)
     err = fn(qr.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), tbl.data_ptr(),
-             ln.data_ptr(), out.data_ptr(), S, Kh, G, D, bs, nblk,
-             _f32_bits(1.0 / math.sqrt(D)), _f32_bits(softcap), int(window), span,
+             ln.data_ptr(), work.data_ptr(), out.data_ptr(), S, Kh, G, D, bs, nblk,
+             _f32_bits(1.0 / math.sqrt(D)), _f32_bits(softcap), int(window), splits, per,
              int(q.dtype == torch.bfloat16), _stream())
     _check(err, name)
     launch_count[name] += 1
+    variant_count[f"{name}.split"] += 1
     return out.reshape(S, 1, H, D)
 
 
@@ -229,7 +313,6 @@ def paged_attention(q, k_pool, v_pool, tables, lengths, *,
 # ---------------------------------------------------------------------------
 
 BLOCK_SIZES = (16, 32, 64, 128)
-DECODE_M = 16              # rows of x up to which K4 runs its skinny designs
 
 
 def block_sparse_variant(dtype: torch.dtype, M: int) -> str:

@@ -65,6 +65,49 @@ def paged_attention(q, k_pool, v_pool, tables, lengths, *,
     return out.to(q.dtype)
 
 
+def paged_attention_split(q, k_pool, v_pool, tables, lengths, *, splits: int, per: int,
+                          softcap: float = 0.0, window: int = 0):
+    """K1's split-and-merge arithmetic in plain PyTorch (a model for the
+    tests; the wrappers use :func:`paged_attention`).  Split z of slot s
+    covers positions [lo + z per, lo + (z + 1) per) of its live range
+    [lo, min(len, T)), lo = max(0, len - window); each split keeps its
+    scores and its (max, sum of exp); the slot's (m, l) is formed from the
+    pairs in split order, exp(s - m) / l is rounded to V's dtype, and the
+    splits' f32 PV partials are added in split order."""
+    S, Kh, G, D = q.shape
+    bs = k_pool.shape[1]
+    T = tables.shape[1] * bs
+    ln = lengths.long()
+    hi = ln.clamp(max=T)
+    lo = (ln - window).clamp(min=0) if window else torch.zeros_like(ln)
+    t = lo[:, None] + torch.arange(splits * per, device=q.device)[None, :]
+    live = (t < hi[:, None]).reshape(S, 1, 1, splits, per)
+    t = t.clamp(max=T - 1)
+    rows = tables.long().gather(1, t // bs) * bs + t % bs              # [S, P]
+    k = k_pool.reshape(-1, Kh, D)[rows].float()                         # [S, P, Kh, D]
+    v = v_pool.reshape(-1, Kh, D)[rows].float()
+    s = torch.einsum("skgd,stkd->skgt", q.float(), k) * (1.0 / math.sqrt(D))
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    s = s.reshape(S, Kh, G, splits, per)
+    m_z = torch.where(live, s, torch.full_like(s, -math.inf)).amax(-1)  # [S, Kh, G, splits]
+    has = live.any(-1)
+    e = torch.where(live, torch.exp(s - torch.where(has, m_z, 0.0)[..., None]), 0.0)
+    l_z = e.sum(-1)
+    m = m_z.amax(-1)
+    w = torch.where(has, l_z * torch.exp(m_z - m[..., None]), 0.0)
+    l = torch.zeros_like(m)
+    for z in range(splits):
+        l = l + w[..., z]
+    p = torch.where(live, torch.exp(s - m[..., None, None]) / l[..., None, None], 0.0)
+    p = p.to(v_pool.dtype).float()
+    part = torch.einsum("skgzt,sztkd->skgzd", p, v.reshape(S, splits, per, Kh, D))
+    out = torch.zeros((S, Kh, G, D), device=q.device)
+    for z in range(splits):
+        out = out + part[..., z, :]
+    return out.to(q.dtype)
+
+
 def block_mask_from_idx(idx, n_in_blocks: int):
     """Bool block map [K/bs, N/bs] with True at (idx[j, t], j)."""
     nbn = idx.shape[0]

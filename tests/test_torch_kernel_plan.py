@@ -1,7 +1,8 @@
-"""Host-side plans of the port's K3 and K4 designs: which design runs for
-a dtype and shape, K4's grid and split plan, and the column-group
-schedule of its ``mma`` design.  The kernels themselves run only on the
-card, where ``chip_smoke.py`` holds them to their plain versions."""
+"""Host-side plans of the port's kernel designs: which design of K2, K3
+and K4 runs for a dtype and shape, K2's and K4's grid and split plans, the
+column-group schedule of K4's ``mma`` design, and K1's split plan.  The
+kernels themselves run only on the card, where ``chip_smoke.py`` holds
+them to their plain versions."""
 from __future__ import annotations
 
 import math
@@ -18,6 +19,12 @@ from repro_torch.kernels import ops, ref  # noqa: E402
 SHAPES = [(2304, 2048), (2304, 1024), (2048, 2304), (2304, 9216), (9216, 2304)]
 TILES = {"fma_small": (8, None), "fma_large": (64, None), "decode": (16, None),
          "mma": (128, 128)}
+# K2's tiles (rows, columns, K step) per design, as quant_matmul.cu sets them
+# (`decode` takes 256 columns a block where N >= 4096)
+QM_TILES = {"decode": (16, 128, 64), "decode_wide": (16, 256, 64), "mma": (128, 128, 64),
+            "fma_small": (8, 64, 128), "fma_large": (64, 64, 32)}
+LAYER_SHAPES = [(2304, 2048), (2304, 1024), (2304, 1024), (2048, 2304),
+                (2304, 9216), (2304, 9216), (9216, 2304)]
 
 
 def _idx(rng, K, N, bs, density):
@@ -110,7 +117,95 @@ def test_wrappers_leave_variant_counts_alone_on_cpu():
                             torch.zeros((2, 1), dtype=torch.int32), bs=16)
     q = torch.zeros((1, 4, 2, 32), dtype=torch.bfloat16)
     ops.flash_attention(q, q[:, :, :1], q[:, :, :1])
+    for rows in (2, 40):
+        ops.quant_matmul(torch.zeros((rows, 128)).bfloat16(),
+                         torch.zeros((128, 32), dtype=torch.int8), torch.ones((1, 32)),
+                         group=128)
+    pool = torch.zeros((3, 16, 2, 32), dtype=torch.bfloat16)
+    ops.paged_attention(torch.zeros((2, 1, 4, 32), dtype=torch.bfloat16), pool, pool,
+                        torch.tensor([[0], [1]]), torch.tensor([3, 16]), window=8)
     assert set(ops.variant_count.values()) == {0}
+    assert set(ops.launch_count.values()) == {0}
     ops.variant_count["flash_attention.mma"] = 3
     ops.reset_launch_counts()
     assert set(ops.variant_count.values()) == {0}
+
+
+@pytest.mark.parametrize("M", [1, 8, 16, 17, 296, 512])
+def test_quant_matmul_variant_by_dtype_shape_and_group(M):
+    """f32 and the shapes the bf16 designs do not take run ``fma``; bf16
+    runs ``decode`` up to DECODE_M rows and ``mma`` above."""
+    bf16 = torch.bfloat16
+    want = "decode" if M <= ops.DECODE_M else "mma"
+    assert ops.quant_matmul_variant(bf16, M, 2304, 128) == want
+    assert ops.quant_matmul_variant(bf16, M, 9216, 64) == want
+    assert ops.quant_matmul_variant(torch.float32, M, 2304, 128) == "fma"
+    assert ops.quant_matmul_variant(bf16, M, 260, 128) == "fma"        # ragged N
+    assert ops.quant_matmul_variant(bf16, M, 2304, 80) == "fma"        # group 80
+    assert ops.quant_matmul_variant(bf16, M, 2304, 32) == "fma"        # group < stage
+    assert ops.quant_matmul_variant(bf16, M, 2304, 128, aligned=False) == "fma"
+    names = {ops.quant_matmul_variant(d, M, n, g)
+             for d in (bf16, torch.float32) for n in (260, 2304) for g in (80, 128)}
+    assert {f"quant_matmul.{v}" for v in names} <= set(ops.variant_count)
+    assert {f"quant_matmul.{v}" for v in ("decode", "mma", "fma")} \
+        == {k for k in ops.variant_count if k.startswith("quant_matmul.")}
+
+
+@pytest.mark.parametrize("design", sorted(QM_TILES))
+@pytest.mark.parametrize("M", [1, 8, 16, 17, 296, 512])
+def test_quant_matmul_plan_covers_every_tile_and_k_step(design, M):
+    """K2's grid covers every output tile of y once, and its splits cover
+    every K step of each tile exactly once, at gemma2-2b's shapes; the K
+    walk is split only where the tiles are fewer than two per SM."""
+    bm, bn, bk = QM_TILES[design]
+    for K, N in LAYER_SHAPES:
+        (cols, rows, splits), k_per_split = ops.quant_matmul_plan(M, N, K, bm, bn, bk)
+        assert cols * bn >= N > (cols - 1) * bn and rows * bm >= M > (rows - 1) * bm
+        assert k_per_split % bk == 0
+        steps = np.zeros(math.ceil(K / bk), np.int64)
+        for z in range(splits):
+            k0 = z * k_per_split
+            assert k0 < K                              # no split without work
+            steps[k0 // bk:min(K, k0 + k_per_split) // bk] += 1
+        assert (steps == 1).all()
+        if cols * rows >= 2 * 132:
+            assert splits == 1
+        else:
+            assert cols * rows * splits >= min(2 * 132, cols * rows * len(steps)) // 2
+
+
+def test_quant_matmul_plan_decode_shape():
+    """gemma2-2b's wk at M = 8: 8 column blocks of 128, 36 stages of 64
+    code rows split in 18; wi at M = 8: 36 column blocks of 256 split in 8;
+    wi at M = 512: 288 tiles, no split."""
+    assert ops.quant_matmul_plan(8, 1024, 2304, 16, 128, 64) == ((8, 1, 18), 128)
+    assert ops.quant_matmul_plan(8, 9216, 2304, 16, 256, 64) == ((36, 1, 8), 320)
+    assert ops.quant_matmul_plan(512, 9216, 2304, 128, 128, 64) == ((72, 4, 1), 2304)
+
+
+@pytest.mark.parametrize("window", [0, 64, 4096])
+@pytest.mark.parametrize("bs", [16, 32])
+@pytest.mark.parametrize("S,Kh", [(8, 4), (1, 1), (64, 8)])
+def test_paged_attention_plan_covers_the_span_once(window, bs, S, Kh):
+    """Split z covers relative positions [z per, (z + 1) per) of the live
+    range, which is at most the span long: every position of the span
+    falls in exactly one split, a split is whole pool blocks of at most
+    PA_MAX_PER positions, and the main path's shape fills the card."""
+    T = 1024
+    splits, per = ops.paged_attention_plan(S, Kh, T, window, bs)
+    span = min(T, window) if window else T
+    assert per % bs == 0 and bs <= per <= ops.PA_MAX_PER
+    hits = np.zeros(splits * per, np.int64)
+    for z in range(splits):
+        hits[z * per:(z + 1) * per] += 1
+    assert (hits[:span] == 1).all() and splits * per - span < per
+    if (S, Kh) == (8, 4) and window != 64:
+        assert S * Kh * splits >= 132
+
+
+def test_paged_attention_plan_main_path():
+    """At the main path's shape (8 slots, 4 KV heads, T = 1024, bs 32) a
+    split is one pool block: 32 splits, 1024 blocks."""
+    assert ops.paged_attention_plan(8, 4, 1024, 0, 32) == (32, 32)
+    assert ops.paged_attention_plan(8, 4, 1024, 4096, 32) == (32, 32)
+    assert ops.paged_attention_plan(8, 4, 1024, 64, 32) == (2, 32)

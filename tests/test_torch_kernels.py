@@ -348,3 +348,58 @@ def test_flash_row_without_live_key_is_zero():
     assert torch.isfinite(got).all()
     assert torch.equal(got[:, 4:], torch.zeros_like(got[:, 4:]))
     assert got[:, :4].abs().sum() > 0
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5), ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("win", [0, 24, 4096])
+@pytest.mark.parametrize("per", [0, 32])
+def test_paged_attention_split_model_matches_plain_and_oracle(dtype, tol, win, per):
+    """K1's split-and-merge arithmetic (``ref.paged_attention_split``: per-
+    split scores and (max, sum of exp), the slot's (m, l) formed in split
+    order, probabilities rounded to V's dtype, partials added in split
+    order) equals the plain version and the model's contiguous
+    ``_masked_decode`` on the same numpy inputs: lengths at and around
+    the split boundaries, a window, a prefix block aliased across slots
+    and the trash block past each length.  ``per`` 0 takes the wrapper's
+    plan (one pool block per split at this size)."""
+    rng = np.random.default_rng(win + per)
+    S, Kh, G, D, bs, nblk = 6, 2, 2, 32, 16, 8
+    T = nblk * bs
+    lengths = np.array([1, 15, 16, 17, 100, 128], np.int32)
+    q = rng.normal(size=(S, 1, Kh * G, D)).astype(np.float32)
+    k = rng.normal(size=(S, T, Kh, D)).astype(np.float32)
+    v = rng.normal(size=(S, T, Kh, D)).astype(np.float32)
+    k[:, :bs], v[:, :bs] = k[0, :bs], v[0, :bs]           # one prefix block for all
+    trash = S * nblk
+    tables = rng.permutation(S * nblk).astype(np.int32).reshape(S, nblk)
+    tables[:, 0] = tables[0, 0]
+    kp = rng.normal(size=(trash + 1, bs, Kh, D)).astype(np.float32)   # junk everywhere else
+    vp = rng.normal(size=(trash + 1, bs, Kh, D)).astype(np.float32)
+    for s in range(S):
+        for j in range(nblk):
+            if j * bs >= lengths[s]:
+                tables[s, j] = trash
+            else:
+                kp[tables[s, j]] = k[s, j * bs:(j + 1) * bs]
+                vp[tables[s, j]] = v[s, j * bs:(j + 1) * bs]
+    tdt = getattr(torch, dtype)
+    args = [torch.from_numpy(a).to(tdt) for a in (q, kp, vp)]
+    qr = args[0][:, 0].reshape(S, Kh, G, D)
+    splits, p = ops.paged_attention_plan(S, Kh, T, win, bs)
+    if per:
+        p = per
+        splits = -(-min(T, win or T) // per)
+    tb, ln = torch.from_numpy(tables), torch.from_numpy(lengths)
+    got = ref.paged_attention_split(qr, args[1], args[2], tb, ln, splits=splits, per=p,
+                                    softcap=30.0, window=win)
+    plain = ref.paged_attention(qr, args[1], args[2], tb, ln, softcap=30.0, window=win)
+    assert got.dtype == tdt and bool(torch.isfinite(got.float()).all())
+    assert _rel(_np(got), _np(plain)) < tol
+    kpos = np.arange(T)
+    valid = kpos[None, :] < lengths[:, None]
+    if win:
+        valid &= kpos[None, :] >= (lengths[:, None] - win)
+    jdt = getattr(jnp, dtype)
+    want = _masked_decode(jnp.asarray(q, jdt), jnp.asarray(k, jdt), jnp.asarray(v, jdt),
+                          jnp.asarray(valid), 30.0)
+    assert _rel(_np(got).reshape(S, 1, Kh * G, D), np.asarray(want, np.float32)) < tol
