@@ -39,7 +39,23 @@ Phases, each of which raises on failure (so the script exits non-zero):
    (26 K3 launches on the cuda side), and an 8192-token prefill through
    ``best_attention`` (13 K3 launches, the global layers), each under the
    cuda and the reference backends (no K3 launch), in bf16 and f32, held
-   to the whole-step criteria.
+   to the whole-step criteria;
+7. olap_session: the main path of a query.  An ``IOLMSession`` over the
+   bf16 base runs the queries of ``examples/olap_queries.py`` (Q1
+   ``llm_map`` over 64 reviews, Q2 ``llm_correct`` over 64 values, Q3
+   ``llm_join`` of 16 x 16 names, Q4 ``llm_correct`` + a pushed-down
+   filter with dedup, EXPLAINed first) and Q5, Q2 as a forced cascade
+   with budget 0.25, through ``Query.run``: each LLM operator calibrates
+   on its own rows, searches ``w8-absmax`` and absmax copies of the
+   grid's ``w8-ffn75`` and ``w8-kv50`` (every candidate built and
+   evaluated, the pruned configs checked) and serves the picked instance
+   through ``Engine``; the grid's GPTQ ``w8-ffn75`` is applied once on
+   Q1's statistics and timed.  Rows, columns, invocations, model-cache
+   hits, ``backend=cuda`` in EXPLAIN, and every engine's K1 and K2
+   launches (from ``ops.variant_count``) are checked per query;
+8. olap_f32_parity: Q2 at gemma2-2b's widths in f32 at 4 layers under a
+   cuda-backend session and a reference-backend session: identical
+   tables, and any prompt whose tokens differ must be a near tie.
 
 K2, K3 and K4 run their tensor-core designs on bf16 and their FMA
 designs on f32; ``ops.variant_count`` shows which design of every kernel
@@ -79,6 +95,9 @@ STEP_BF16_RATIO = 1.25
 # gemma2-2b's linears (K, N) in layer order: wq, wk, wv, attn wo, wi, wg, mlp wo
 LAYER_SHAPES = [(2304, 2048), (2304, 1024), (2304, 1024), (2048, 2304),
                 (2304, 9216), (2304, 9216), (9216, 2304)]
+# the linears that the OLAP session's pruned recipes change: ffn75's wi, wg
+# and mlp wo; kv50's wq, wk (and wv) and attn wo
+PRUNED_SHAPES = [(2304, 6912), (6912, 2304), (2304, 1024), (2304, 512), (1024, 2304)]
 
 TEMPLATE = "Classify the review's sentiment as pos or neg.\nReview: "
 REVIEWS = [
@@ -180,8 +199,9 @@ def check_quant_matmul(gen):
     """K2 against its plain version at the main path's shapes and edges:
     decode (M <= 16, one and two n8 tiles of x), prefill tiles and their
     edges (M = 17, 37, 128, 296, 512, 1024), SmoothQuant's ``in_scale`` in
-    both regimes, f32 x, ragged N, group 80, and q and scale 4 bytes off
-    16-byte alignment (the last three on the FMA design).  Each case's
+    both regimes, f32 x, ragged N, group 80, q and scale 4 bytes off
+    16-byte alignment (the last three on the FMA design), and the pruned
+    shapes of the OLAP session's ffn75 and kv50 instances.  Each case's
     launch must run the design ``ops.quant_matmul_variant`` names.  Then
     times the bf16 designs against the FMA design they replaced (still in
     the library for f32 and ragged shapes), in turns."""
@@ -213,6 +233,9 @@ def check_quant_matmul(gen):
     cases += [(M, 2304, 2048, bf16, None) for M in (16, 17, 128, 1024)]
     cases += [(512, 2304, 9216, bf16, "smooth"), (8, 2304, 1024, bf16, "offset"),
               (296, 2048, 2304, bf16, "offset")]
+    # the pruned instances of the OLAP session's search: ffn75 (d_ff 6912)
+    # and kv50 (2 KV groups: wq N 1024, wk and wv N 512, attn wo K 1024)
+    cases += [(M, K, N, bf16, None) for M in (8, 296) for K, N in PRUNED_SHAPES]
     worst_abs, results = 0.0, []
     for M, K, N, xdt, kind in cases:
         qt = weight(K, N, kind == "smooth")
@@ -316,8 +339,8 @@ def check_paged_attention(gen):
     1 to 1024, windows 0, 64 and 4096, softcap 0 and 50; lengths around
     the split boundaries (1, 31, 32, 33, 1024); window 64 with lengths far
     past it; tables aliasing one prefix across slots with the trash block
-    past each length; another head layout and block size.  Each launch
-    must run the ``split`` design.  Then one decode call is timed at 128
+    past each length; the kv50 instance's layout (Kh = 2, G = 2); another
+    head layout and block size.  Each launch must run the ``split`` design.  Then one decode call is timed at 128
     and at 1024 positions a slot."""
     from repro_torch.kernels import ops, ref
     base = [1, 33, 700, 1024, 5, 64, 257, 999]
@@ -328,6 +351,9 @@ def check_paged_attention(gen):
     for dtype in (torch.bfloat16, torch.float32):
         cases += [(dtype, 0, 50.0, edges, {}), (dtype, 4096, 50.0, edges, {"alias": True}),
                   (dtype, 64, 50.0, past, {}), (dtype, 0, 0.0, base, {"alias": True}),
+                  # the kv50 instance of the OLAP session: 2 KV groups, 4 heads
+                  (dtype, 4096, 50.0, base, {"Kh": 2, "G": 2}),
+                  (dtype, 0, 50.0, edges, {"Kh": 2, "G": 2, "alias": True}),
                   # another head layout and block size than gemma2-2b's
                   (dtype, 40, 30.0, base, {"Kh": 2, "G": 4, "D": 128, "bs": 16, "nblk": 64})]
     worst_abs, results = 0.0, []
@@ -925,6 +951,406 @@ def long_prefill(gen, base, cfg):
     return line
 
 
+# ---------------------------------------------------------------------------
+# phase olap_session: Query -> per-query calibration and recipe search ->
+# the picked instance served through Engine
+# ---------------------------------------------------------------------------
+
+SESSION_KW = dict(objective="perf", calib_rows=16, eval_rows=8,
+                  engine_kw=dict(slots=8, max_len=1024, buckets=(32, 64, 128)))
+SEARCH_MAX_NEW = 12             # greedy tokens per eval row (the session's)
+
+
+def sync() -> None:
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def session_recipes(cfg):
+    """The grid, and the session's three recipes: the grid's ``w8-absmax``
+    and absmax copies of its ``w8-ffn75`` and ``w8-kv50``."""
+    import dataclasses
+    from repro_torch.core import policy as POL
+    grid = {r.name: r for r in POL.default_recipe_space(cfg)}
+    check(grid["w8-ffn75"].ffn_keep_frac == 0.75 and grid["w8-kv50"].kv_keep_frac == 0.5,
+          ("grid recipes", grid["w8-ffn75"], grid["w8-kv50"]))
+    return grid, [grid["w8-absmax"],
+                  dataclasses.replace(grid["w8-ffn75"], name="w8a-ffn75", quant_method="absmax"),
+                  dataclasses.replace(grid["w8-kv50"], name="w8a-kv50", quant_method="absmax")]
+
+
+class SessionProbe:
+    """Instruments a session from outside the package, for the length of a
+    ``with`` block: ``policy.search`` (each search's candidates, seconds and
+    kernel designs launched), ``InstanceOptimizer.run_calibration`` and
+    ``apply`` (seconds, the device synchronized around each), and the
+    ``Engine`` the session builds (each engine's stats and, with ``ids``,
+    each row's token ids)."""
+
+    def __init__(self, ids: bool = False, on_search=None):
+        self.searches, self.calibrations, self.applies, self.engines = [], [], [], []
+        self.ids = {} if ids else None
+        self.on_search = on_search
+
+    def __enter__(self):
+        from repro_torch.core import policy as POL
+        from repro_torch.core.pipeline import InstanceOptimizer
+        from repro_torch.kernels import ops
+        from repro_torch.olap import query as Q
+        self._saved = [(POL, "search", POL.search),
+                       (InstanceOptimizer, "run_calibration", InstanceOptimizer.run_calibration),
+                       (InstanceOptimizer, "apply", InstanceOptimizer.apply),
+                       (Q, "Engine", Q.Engine)]
+        real_search, real_calib, real_apply, real_engine = (s[2] for s in self._saved)
+        probe = self
+
+        def search(optimizer, eval_fn, recipes, **kw):
+            sync()
+            before, t0 = dict(ops.variant_count), time.time()
+            out = real_search(optimizer, eval_fn, recipes, **kw)
+            sync()
+            probe.searches.append({
+                "seconds": time.time() - t0, "recipes": [r.name for r in recipes],
+                "peak_memory": torch.cuda.max_memory_allocated(),
+                "baseline_rows_per_s": out.baseline.rows_per_s,
+                "picked": out.perf.recipe.name if out.perf else None,
+                "variants": variant_delta(before),
+                "candidates": [{"recipe": c.recipe.name, "eval_rows_per_s": c.result.rows_per_s,
+                                "accuracy": c.result.accuracy,
+                                "token_agreement": c.result.token_agreement,
+                                "param_bytes": c.result.bytes, "n_layers": c.cfg.n_layers,
+                                "d_ff": c.cfg.d_ff, "n_heads": c.cfg.n_heads,
+                                "n_kv_heads": c.cfg.n_kv_heads} for c in out.candidates]})
+            if probe.on_search is not None:
+                probe.on_search(optimizer)
+            return out
+
+        def run_calibration(opt, batch, **kw):
+            sync()
+            t0 = time.time()
+            stats = real_calib(opt, batch, **kw)
+            sync()
+            probe.calibrations.append({"seconds": time.time() - t0,
+                                       "tokens": list(batch["tokens"].shape),
+                                       "memory_after": torch.cuda.memory_allocated()})
+            return stats
+
+        def apply(opt, recipe):
+            sync()
+            t0 = time.time()
+            out = real_apply(opt, recipe)
+            sync()
+            probe.applies.append({"recipe": recipe.name, "seconds": time.time() - t0})
+            return out
+
+        def engine(*a, **k):
+            e = real_engine(*a, **k)
+            probe.engines.append({"version": e.version, "stats": e.stats,
+                                  "n_layers": e.cfg.n_layers})
+            if probe.ids is not None:
+                retire = e._retire
+
+                def record(req):
+                    probe.ids[req.src] = list(req.out_ids)
+                    return retire(req)
+                e._retire = record
+            return e
+
+        POL.search, InstanceOptimizer.run_calibration = search, run_calibration
+        InstanceOptimizer.apply, Q.Engine = apply, engine
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, val in self._saved:
+            setattr(obj, name, val)
+        return False
+
+
+def _block_key(v: str) -> str:
+    """The fuzzy join's blocking key, recomputed here to predict its pairs."""
+    return "".join(ch for ch in str(v).lower() if ch.isalnum())[:1]
+
+
+def olap_queries(sess):
+    """Q1-Q4 of ``examples/olap_queries.py`` at 64 rows (Q3: 16 x 16
+    names), and Q5: Q2's table as a forced cascade with budget 0.25.
+    Returns [(name, query, input rows, expected output rows, expected
+    columns, expected invocations or None)]."""
+    from repro_torch.olap.query import Query
+    from repro_torch.olap.table import Table
+    from repro_torch.training.data import PROMPTS, workload_rows
+    reviews = Table({"review": [r.text for r in workload_rows("summarize", 64)]})
+    commits = Table({"lang": [r.text for r in workload_rows("correct", 64)]})
+    pairs = workload_rows("join", 16)
+    left = Table({"name": [p.text.split(" | ")[0] for p in pairs]})
+    right = Table({"name": [p.text.split(" | ")[1] for p in pairs]})
+    commits4 = Table({"lang": [commits["lang"][i % 32] for i in range(64)],
+                      "status": ["ok" if i % 2 == 0 else "wip" for i in range(64)]})
+    ok = [v for v, s in zip(commits4["lang"], commits4["status"]) if s == "ok"]
+    n_pairs = sum(_block_key(a) == _block_key(b) for a in left["name"] for b in right["name"])
+    n_distinct = len(set(commits["lang"]))
+    return [
+        ("Q1", Query(reviews, sess).llm_map("review", prompt=PROMPTS["summarize"],
+                                            out_col="summary"),
+         64, 64, ["review", "summary"], 64),
+        ("Q2", Query(commits, sess).llm_correct("lang", prompt=PROMPTS["correct"]),
+         64, 64, ["lang", "lang_fixed"], n_distinct),
+        ("Q3", Query(left, sess).llm_join(right, ("name", "name"), prompt=PROMPTS["join"]),
+         16 * 16, None, ["l_name", "r_name"], n_pairs),
+        ("Q4", Query(commits4, sess).llm_correct("lang", prompt=PROMPTS["correct"], max_new=8)
+         .filter(lambda r: r["status"] == "ok", columns=["status"]),
+         64, len(ok), ["lang", "status", "lang_fixed"], len(set(ok))),
+        ("Q5", Query(commits, sess, cascade="force").llm_correct(
+            "lang", prompt=PROMPTS["correct"], accuracy_budget=0.25),
+         64, 64, ["lang", "lang_fixed"], n_distinct),
+    ]
+
+
+def _engine_launches(engines):
+    """K1 and K2 launches that the engines' steps and prefills must have
+    made: every decode step runs K1 once a layer, every decode step and
+    prefill of an int8 instance K2 once a linear."""
+    k1 = sum(e["n_layers"] * e["stats"].decode_steps for e in engines)
+    k2 = sum(7 * e["n_layers"] * (e["stats"].decode_steps + e["stats"].prefills)
+             for e in engines if e["version"] != "base")
+    return k1, k2
+
+
+def olap_session(base, cfg):
+    """A query's main path: an ``IOLMSession`` over the full-width model
+    runs Q1-Q5 through ``Query.run``, each LLM operator calibrating on its
+    own rows, searching three recipes (two of them pruned) and serving
+    the picked instance through ``Engine`` on the card.  The grid's own
+    ``w8-ffn75`` (GPTQ) is applied once on Q1's calibration statistics,
+    after Q1 and outside its time.  The launch counts are zeroed just before Q1 and read just
+    after Q5."""
+    import gc
+    from repro_torch.core.compressed import QTensor
+    from repro_torch.kernels import ops
+    from repro_torch.olap.query import IOLMSession
+
+    grid, recipes = session_recipes(cfg)
+    gptq, first = {}, []
+
+    def gptq_once(optimizer):
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        params, cfg2, report = optimizer.apply(grid["w8-ffn75"])
+        sync()
+        linears = [w for blk in params["blocks"] for sub in ("attn", "mlp")
+                   for w in blk[sub].values()]
+        gptq.update(recipe="w8-ffn75", seconds=time.time() - t0, d_ff=cfg2.d_ff,
+                    peak_memory=torch.cuda.max_memory_allocated(),
+                    param_bytes=report.bytes_after,
+                    all_quantized=all(isinstance(w, QTensor) for w in linears))
+        check(cfg2.d_ff == 6912 and gptq["all_quantized"], ("grid w8-ffn75", gptq))
+
+    sess = IOLMSession(base, cfg, device="cuda", recipes=recipes, **SESSION_KW)
+    results, peak = [], 0
+    ops.reset_launch_counts()
+    def keep_first(optimizer):          # Q1's optimizer, until its GPTQ step
+        if not first and not gptq:
+            first.append(optimizer)
+
+    with SessionProbe(on_search=keep_first) as probe:
+        for name, q, n_in, n_out, cols, n_inv in olap_queries(sess):
+            if name == "Q4":
+                explain = q.explain()
+                print(f"Q4 EXPLAIN:\n{explain}", flush=True)
+            steps = [ln for ln in q.explain().splitlines() if " llm " in ln]
+            check(steps and all(" backend=cuda " in ln for ln in steps), (name, steps))
+            n_search, n_eng = len(probe.searches), len(probe.engines)
+            before = dict(ops.variant_count)
+            sync()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.time()
+            out = q.run()
+            sync()
+            wall = time.time() - t0
+            peak = max(peak, torch.cuda.max_memory_allocated())
+            searches, engines = probe.searches[n_search:], probe.engines[n_eng:]
+            delta = variant_delta(before)
+            in_search = {}
+            for s in searches:
+                for k, n in s["variants"].items():
+                    in_search[k] = in_search.get(k, 0) + n
+            served = {k: n - in_search.get(k, 0) for k, n in delta.items()
+                      if n - in_search.get(k, 0)}
+            stats = q.last_run_stats
+            rec = {"query": name, "rows_in": n_in, "rows_out": len(out), "wall_s": wall,
+                   "rows_per_s": n_in / wall, "columns": list(out.columns),
+                   "invocations": sum(s.invocations for s in stats),
+                   "engine": stats[0].engine, "escalated": stats[0].escalated,
+                   "threshold": stats[0].threshold, "searches": searches,
+                   "engines": [{"version": e["version"], "decode_steps": e["stats"].decode_steps,
+                                "prefills": e["stats"].prefills, "rows": e["stats"].rows,
+                                "truncated": e["stats"].truncated,
+                                "prefix_hits": e["stats"].prefix_hits,
+                                "backend": e["stats"].backend} for e in engines],
+                   "served_variants": served, "search_variants": in_search,
+                   "peak_memory": torch.cuda.max_memory_allocated(),
+                   "recalibrations": sess.recalibrations, "cascade_fits": sess.cascade_fits}
+            results.append(rec)
+            print(f"{name}: {len(out)} rows out of {n_in} in {wall:.2f} s "
+                  f"({n_in / wall:.2f} rows/s), {rec['invocations']} invocations, engine "
+                  f"{rec['engine']}, peak memory {rec['peak_memory']}" + "".join(
+                      f", picked {s['picked']} (search {s['seconds']:.2f} s)" for s in searches),
+                  flush=True)
+            # the query's result
+            check(list(out.columns) == cols and (n_out is None or len(out) == n_out),
+                  (name, "rows or columns", len(out), list(out.columns)))
+            check(rec["invocations"] == n_inv, (name, "invocations", rec["invocations"], n_inv))
+            if name == "Q3":
+                check(len(out) <= n_inv, ("Q3 matches", len(out), n_inv))
+            # each search built and evaluated all three candidates
+            for s in searches:
+                check([c["recipe"] for c in s["candidates"]] == [r.name for r in recipes],
+                      (name, "candidates", s["candidates"]))
+                by = {c["recipe"]: c for c in s["candidates"]}
+                check(by["w8a-ffn75"]["d_ff"] == 6912 and by["w8a-kv50"]["n_kv_heads"] == 2
+                      and by["w8a-kv50"]["n_heads"] == 4, (name, "pruned cfgs", by))
+                k2 = sum(7 * c["n_layers"] * SEARCH_MAX_NEW for c in s["candidates"])
+                check(s["variants"].get("quant_matmul.mma") == sum(
+                          7 * c["n_layers"] for c in s["candidates"])
+                      and s["variants"].get("quant_matmul.decode", 0)
+                      + s["variants"]["quant_matmul.mma"] == k2
+                      and set(s["variants"]) == {"quant_matmul.decode", "quant_matmul.mma"},
+                      (name, "search launches", s["variants"], k2))
+            check(len(searches) == (0 if name == "Q5" else 1), (name, "searches", len(searches)))
+            # every engine's K1, and K2 on the int8 ones, on their bf16 designs
+            k1, k2 = _engine_launches(engines)
+            check(k1 > 0 and served.get("paged_attention.split") == k1
+                  and served.get("quant_matmul.decode", 0) + served.get("quant_matmul.mma", 0)
+                  == k2 and served.get("quant_matmul.mma", 0) > 0
+                  and served.get("quant_matmul.decode", 0) > 0
+                  and set(served) <= {"paged_attention.split", "quant_matmul.decode",
+                                      "quant_matmul.mma"},
+                  (name, "served launches", served, k1, k2))
+            check(all(e["stats"].backend == "cuda" for e in engines), (name, "engine backend"))
+            if name == "Q1":          # the grid's GPTQ recipe on Q1's statistics
+                gptq_once(first.pop())
+                peak = max(peak, gptq["peak_memory"])
+            del out, q
+            gc.collect()
+            torch.cuda.empty_cache()
+    launches = dict(ops.launch_count)
+    variants = {k: n for k, n in ops.variant_count.items() if n}
+    check(results[3]["recalibrations"] == 4 and results[4]["recalibrations"] == 4
+          and sess.cascade_fits == 1 and sess.model_cache.hits >= 1,
+          ("model cache", [r["recalibrations"] for r in results], sess.cascade_fits))
+    check(results[4]["engine"] == "cascade", ("Q5 engine", results[4]["engine"]))
+    for m in sess.model_cache._d.values():
+        check(all(w.q.is_cuda for blk in m.params["blocks"] for sub in ("attn", "mlp")
+                  for w in blk[sub].values()), ("cached instance off the card", m.version))
+    line = {"phase": "olap_session", "model": cfg.name, "layers": cfg.n_layers,
+            "recipes": [r.name for r in recipes], "session": {
+                k: v for k, v in SESSION_KW.items() if k != "engine_kw"},
+            "engine_kw": SESSION_KW["engine_kw"],
+            "calibrations": probe.calibrations, "applies": probe.applies,
+            "gptq_w8_ffn75": gptq, "queries": results, "launches": launches,
+            "variants": variants, "recalibrations": sess.recalibrations,
+            "cascade_fits": sess.cascade_fits, "model_cache_hits": sess.model_cache.hits,
+            "log": sess.log, "max_memory_allocated": peak}
+    emit(line)
+    for c in probe.calibrations:
+        print(f"calibrate {c['tokens']} tokens: {c['seconds']:.2f} s", flush=True)
+    for s in (s for r in results for s in r["searches"]):
+        print("search " + ", ".join(
+            f"{c['recipe']} {c['eval_rows_per_s']:.2f} rows/s {c['param_bytes']} B"
+            for c in s["candidates"]) + f"; picked {s['picked']} in {s['seconds']:.2f} s",
+            flush=True)
+    print("apply s: " + ", ".join(f"{a['recipe']} {a['seconds']:.2f}" for a in probe.applies),
+          flush=True)
+    print(f"w8-ffn75 (GPTQ) on Q1's statistics: {gptq['seconds']:.2f} s, peak memory "
+          f"{gptq['peak_memory']}", flush=True)
+    print(f"olap_session max_memory_allocated: {line['max_memory_allocated']}", flush=True)
+    del sess
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line, launches, variants
+
+
+NEAR_TIE = 1e-4                 # top-two logit gap under which f32 argmaxes may flip
+
+
+def olap_f32_parity(gen, cfg_full, layers: int = 4):
+    """Q2 at gemma2-2b's widths in f32 at ``layers`` layers, with
+    ``recipes=[w8-absmax]``, run by one session on the cuda backend and by
+    one on the reference backend.  The tables must be identical; a row
+    whose tokens differ must be a near tie: the plain instance's top-two
+    logit gap at the first differing token under NEAR_TIE."""
+    import gc
+    from repro_torch.core.compressed import kernel_backend
+    from repro_torch.kernels import ops
+    from repro_torch.models import api
+    from repro_torch.olap.query import IOLMSession, Query
+    from repro_torch.olap.table import Table
+    from repro_torch.training.data import PROMPTS, ByteTokenizer, workload_rows
+
+    cfg = cfg_full.replace(n_layers=layers, attn_pattern="LG" * (layers // 2),
+                           param_dtype="float32")
+    params = api.init_params(gen, cfg)
+    grid, _ = session_recipes(cfg)
+    commits = Table({"lang": [r.text for r in workload_rows("correct", 64)]})
+    runs = {}
+    for backend in ("cuda", "reference"):
+        ops.reset_launch_counts()
+        with SessionProbe(ids=True) as probe:
+            sess = IOLMSession(params, cfg, device="cuda", backend=backend,
+                               recipes=[grid["w8-absmax"]], **SESSION_KW)
+            q = Query(commits, sess).llm_correct("lang", prompt=PROMPTS["correct"])
+            steps = [ln for ln in q.explain().splitlines() if " llm " in ln]
+            check(steps and all(f" backend={backend} " in ln for ln in steps), steps)
+            sync()
+            t0 = time.time()
+            out = q.run()
+            sync()
+        variants = {k: n for k, n in ops.variant_count.items() if n}
+        if backend == "cuda":
+            check(set(variants) == {"quant_matmul.fma", "paged_attention.split"},
+                  ("f32 session designs", variants))
+        else:
+            check(not variants, ("reference session launched kernels", variants))
+        runs[backend] = {"table": out, "ids": probe.ids, "wall_s": time.time() - t0,
+                         "variants": variants, "model": next(iter(sess.model_cache._d.values())),
+                         "search": probe.searches}
+        del sess, q
+    tok = ByteTokenizer(max(cfg.vocab_size, 260))
+    c, r = runs["cuda"], runs["reference"]
+    differ = []
+    for text in sorted(r["ids"]):
+        a, b = c["ids"].get(text), r["ids"][text]
+        if a == b:
+            continue
+        j = next(i for i in range(min(len(a), len(b)) + 1)
+                 if i == min(len(a), len(b)) or a[i] != b[i])
+        ids = tok.encode(text, bos=True) + [tok.SEP] + b[:j]
+        m = r["model"]
+        with kernel_backend("reference"), torch.no_grad():
+            lg, _ = api.forward(m.params, m.cfg, {"tokens": torch.tensor([ids], device="cuda")})
+        top = lg[0, -1].float().topk(2).values
+        differ.append({"prompt": text, "token": j, "gap": (top[0] - top[1]).item()})
+    same_table = c["table"].columns == r["table"].columns
+    line = {"phase": "olap_f32_parity", "model": cfg.name, "layers": layers,
+            "dtype": "float32", "recipe": "w8-absmax", "rows": 64,
+            "distinct_prompts": len(r["ids"]), "tables_identical": same_table,
+            "rows_with_other_tokens": differ, "near_tie_bound": NEAR_TIE,
+            "wall_s": {k: v["wall_s"] for k, v in runs.items()},
+            "variants": {k: v["variants"] for k, v in runs.items()}}
+    emit(line)
+    print(f"olap f32 parity: tables identical {same_table}, {len(differ)} of "
+          f"{len(r['ids'])} prompts with other tokens"
+          + "".join(f", gap {d['gap']:.2e} at token {d['token']}" for d in differ), flush=True)
+    check(sorted(c["ids"]) == sorted(r["ids"]), "the two sessions served other prompts")
+    check(all(d["gap"] < NEAR_TIE for d in differ), line)
+    check(same_table or differ, line)
+    del runs, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line
+
+
 def profile_step(gen, params, eng, steps: int = 5, name="decode_profile"):
     """Where one decode step's time goes: host wall time per step
     (ending in a sync) against device kernel time from torch.profiler,
@@ -1039,6 +1465,11 @@ def main() -> int:
     long_line = long_prefill(gen, base, cfg)
     long_launches = dict(ops.launch_count)
     long_variants = {k: n for k, n in ops.variant_count.items() if n}
+    torch.cuda.empty_cache()
+    olap_line, olap_launches, olap_variants = olap_session(base, cfg)
+    del base
+    torch.cuda.empty_cache()
+    parity_line = olap_f32_parity(gen, cfg)
 
     kernels = []
     for line, runs, variants, source, replaces in (
@@ -1051,8 +1482,12 @@ def main() -> int:
             (k4, bs_launches, bs_variants, "src/repro_torch/kernels/csrc/block_sparse.cu",
              "src/repro/kernels/block_sparse.py:39")):
         check(runs[line["name"]] > 0, ("no launch on the path", line["name"], runs))
+        by_path = {"olap_session": olap_launches[line["name"]]}
+        if line["name"] in ("paged_attention", "quant_matmul"):
+            check(by_path["olap_session"] > 0, ("no launch in the OLAP session", line["name"]))
         kernels.append({"name": line["name"], "route": "cuda", "source": source,
                         "replaces": replaces, "launches": runs[line["name"]],
+                        "launches_olap_session": by_path["olap_session"],
                         "max_abs_err": line["max_abs_err"], "ms": line["ms"],
                         "plain_ms": line["plain_ms"], "bound_ms": line["bound_ms"],
                         "bound_by": line["bound_by"], "library_ms": line["library_ms"],
@@ -1071,6 +1506,8 @@ def main() -> int:
                    "decode_profile": prof_line, "block_sparse": bs_line,
                    "whole_step_block_sparse": bs_step_line,
                    "decode_profile_block_sparse": bs_prof_line, "long_prefill": long_line,
+                   "olap_session": olap_line, "olap_session_variants": olap_variants,
+                   "olap_f32_parity": parity_line,
                    "seconds": time.time() - t_start}, f, indent=1)
     emit({"kernels": kernels})
     print(card, flush=True)

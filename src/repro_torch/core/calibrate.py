@@ -23,8 +23,10 @@ call, so the calibration loop registers the very per-layer slices it hands to
 ``block_apply`` and keeps them alive while the block runs.  Padded
 positions of the sample are recorded too, as in the reference.
 
-Only the dense family is ported; MoE routing statistics, the cascade
-threshold fit and the other families wait for their ROADMAP items.
+Also here: ``fit_confidence_threshold``, which fits a proxy -> base
+cascade's acceptance threshold on a held-out probe.  Only the dense
+family is calibrated; MoE routing statistics and the other families
+wait for their ROADMAP items.
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ import contextlib
 import dataclasses
 from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import compressed
@@ -120,6 +123,77 @@ class Recorder:
                           n_tokens=self.n_tokens)
 
 
+@dataclasses.dataclass(frozen=True)
+class CascadeCalibration:
+    """Fitted acceptance rule for a proxy→base model cascade.
+
+    ``threshold`` is the smallest confidence at which proxy answers are
+    accepted; rows with ``confidence < threshold`` escalate to the base
+    model.  ``expected_escalation`` is the escalation rate the fit
+    predicts on its own sample — the number the physical planner's cost
+    inequality and ``EXPLAIN`` report."""
+    threshold: float
+    expected_escalation: float
+    accuracy_budget: float
+    n_fit: int
+
+    # warm-restart serialization (the service's checkpoint).  ``inf``
+    # thresholds survive the trip: json emits the literal Infinity,
+    # which Python's json reader parses back to float('inf').
+    def to_dict(self) -> dict:
+        return {"threshold": self.threshold,
+                "expected_escalation": self.expected_escalation,
+                "accuracy_budget": self.accuracy_budget,
+                "n_fit": self.n_fit}
+
+    @staticmethod
+    def from_dict(d: dict) -> "CascadeCalibration":
+        return CascadeCalibration(
+            threshold=float(d["threshold"]),
+            expected_escalation=float(d["expected_escalation"]),
+            accuracy_budget=float(d["accuracy_budget"]),
+            n_fit=int(d["n_fit"]))
+
+
+def fit_confidence_threshold(confidences, agreements,
+                             accuracy_budget: float) -> CascadeCalibration:
+    """Fit the cascade acceptance threshold on a held-out probe.
+
+    ``confidences[i]`` is the proxy's confidence on holdout row i and
+    ``agreements[i]`` whether the proxy's answer matched the base
+    model's.  The fit picks the SMALLEST threshold (most rows accepted,
+    fewest escalations) such that accepted-but-wrong rows stay within
+    the per-op accuracy budget, measured against the WHOLE sample:
+
+        |{i : conf_i >= thr  and  not agree_i}| / n  <=  accuracy_budget
+
+    Lowering the threshold only grows the accepted set, so the
+    constraint is monotone and the scan below finds the optimum.  A
+    budget of 0 (or none satisfiable) returns ``threshold = inf``:
+    every row escalates and the cascade degenerates to base-only —
+    the exactness contract.  Deterministic:
+    the result is a pure function of the (sorted) sample.
+    """
+    conf = np.asarray(confidences, np.float64)
+    agree = np.asarray(agreements, bool)
+    n = conf.size
+    if accuracy_budget is None or accuracy_budget <= 0.0 or n == 0:
+        return CascadeCalibration(threshold=float("inf"),
+                                  expected_escalation=1.0,
+                                  accuracy_budget=float(accuracy_budget or 0.0),
+                                  n_fit=int(n))
+    best = float("inf")
+    for thr in np.unique(conf):          # ascending: first hit is smallest
+        wrong = int(np.sum((conf >= thr) & ~agree))
+        if wrong <= accuracy_budget * n:
+            best = float(thr)
+            break
+    esc = float(np.mean(conf < best)) if np.isfinite(best) else 1.0
+    return CascadeCalibration(threshold=best, expected_escalation=esc,
+                              accuracy_budget=float(accuracy_budget),
+                              n_fit=int(n))
+
+
 def _leaves(tree, path: str):
     """(dotted path, leaf) over a param tree of dicts and lists."""
     if isinstance(tree, dict):
@@ -132,21 +206,22 @@ def _leaves(tree, path: str):
         yield path, tree
 
 
-def calibrate(params, cfg, batch: Dict[str, Any], *,
-              hessian: bool = True) -> CalibStats:
+def calibrate(params, cfg, batch: Dict[str, Any], *, hessian: bool = True,
+              include_head: bool = True) -> CalibStats:
     """Run the model on ``batch`` ({"tokens": [B, S]}) and gather
-    calibration statistics, the untied output head's included."""
+    calibration statistics, the untied output head's included unless
+    ``include_head`` is False."""
     if cfg.family != "dense":
         raise NotImplementedError(
             f"calibration of family {cfg.family!r} is not ported yet "
             "(ROADMAP queue 1 item 9)")
     rec = Recorder(hessian=hessian)
     with torch.no_grad():
-        _calib_transformer(rec, params, cfg, batch)
+        _calib_transformer(rec, params, cfg, batch, include_head)
     return rec.finish()
 
 
-def _calib_transformer(rec, params, cfg, batch):
+def _calib_transformer(rec, params, cfg, batch, include_head):
     from repro_torch.models import layers as L
     from repro_torch.models import transformer as TF
     tokens = torch.as_tensor(batch["tokens"], device=params["embed"].device)
@@ -171,7 +246,7 @@ def _calib_transformer(rec, params, cfg, batch):
                                    positions=positions)
             rec.record_block(path, x, x2)
             x = x2
-        if not cfg.tie_embeddings:
+        if include_head and not cfg.tie_embeddings:
             x = L.norm(x, params["ln_f"], cfg)
             rec.register("", {"unembed": params["unembed"]})
             L.matmul(x, params["unembed"])

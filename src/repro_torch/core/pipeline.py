@@ -8,8 +8,10 @@ sample into a compressed, query-specialized model:
     new_params, new_cfg, report = opt.apply(Recipe(...))
 
 Stages (paper §3.2), in order:
-  1. structural pruning: not ported yet (``prune.py``, ROADMAP queue 1
-     item 5); its recipe fields raise;
+  1. structural pruning: layer drop, KV-group prune, FFN-channel prune,
+     driven by calibration statistics (``prune.py``); ``experts_keep``
+     applies to the MoE family only and is a no-op on dense configs, as
+     in the reference;
   2. sparsification: SparseGPT / Wanda masks (N:M or unstructured), or
      block sparsity (whole tiles skipped by the block-sparse kernel);
   3. quantization: GPTQ / absmax int8 or int4, group-wise scales,
@@ -30,6 +32,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.core import calibrate as C
+from repro_torch.core import prune as P
 from repro_torch.core import quantize as Q
 from repro_torch.core import sparsify as S
 from repro_torch.core.compressed import (BlockSparseTensor, QTensor, pack_int4,
@@ -86,22 +89,10 @@ _COMPRESS_NAMES = frozenset({
     "in_proj", "out_proj",
 })
 
-_PRUNING = "ROADMAP queue 1 item 5 (core/prune.py)"
-_QEMBED = "ROADMAP queue 1 item 2 (QEmbed)"
-
-
 def _unported(recipe: Recipe) -> None:
-    checks = [
-        (recipe.drop_units, "drop_units", _PRUNING),
-        (recipe.kv_keep_frac < 1.0, "kv_keep_frac", _PRUNING),
-        (recipe.ffn_keep_frac < 1.0, "ffn_keep_frac", _PRUNING),
-        (recipe.experts_keep, "experts_keep", _PRUNING),
-        (recipe.quant_embed, "quant_embed", _QEMBED),
-    ]
-    for hit, field, item in checks:
-        if hit:
-            raise NotImplementedError(
-                f"Recipe.{field} is not ported yet: {item}")
+    if recipe.quant_embed:
+        raise NotImplementedError(
+            "Recipe.quant_embed is not ported yet: ROADMAP queue 1 item 2 (QEmbed)")
 
 
 def _leaf_name(path: str) -> str:
@@ -198,36 +189,48 @@ class InstanceOptimizer:
         t0 = time.time()
         if self.stats is None:
             self.stats = C.CalibStats({}, {}, 0)
-        params = self.params
+        params, cfg, stats = self.params, self.cfg, self.stats
+
+        # 1. structural
+        if recipe.drop_units:
+            params, cfg, stats = P.drop_layers(params, cfg, stats, recipe.drop_units)
+        if recipe.kv_keep_frac < 1.0:
+            keep = max(1, int(round(recipe.kv_keep_frac * cfg.n_kv_heads)))
+            params, cfg, stats = P.prune_kv_groups(params, cfg, stats, keep)
+        if recipe.ffn_keep_frac < 1.0:
+            params, cfg, stats = P.prune_ffn(params, cfg, stats, recipe.ffn_keep_frac)
+        # experts_keep: MoE only (cfg.family is dense here), a no-op
+
+        # 2+3. sparsify + quantize, per weight
         per_weight: List[Dict[str, Any]] = []
         if (recipe.wbits < 16 or recipe.sparsity or recipe.nm[1]
                 or recipe.block_bs):
             with torch.no_grad():
-                params = self._compress(params, recipe, per_weight, "")
+                params = self._compress(params, cfg, stats, recipe, per_weight, "")
         report = Report(recipe=recipe, bytes_before=param_bytes(self.params),
                         bytes_after=param_bytes(params),
                         params_before=_param_count(self.params),
                         params_after=_param_count(params),
                         seconds=time.time() - t0, per_weight=per_weight,
-                        cfg_before=self.cfg, cfg_after=self.cfg)
-        return params, self.cfg, report
+                        cfg_before=self.cfg, cfg_after=cfg)
+        return params, cfg, report
 
-    def _compress(self, tree, recipe, per_weight, path):
+    def _compress(self, tree, cfg, stats, recipe, per_weight, path):
         if isinstance(tree, dict):
-            return {k: self._compress(v, recipe, per_weight,
+            return {k: self._compress(v, cfg, stats, recipe, per_weight,
                                       f"{path}.{k}" if path else str(k))
                     for k, v in tree.items()}
         if isinstance(tree, list):
-            return [self._compress(v, recipe, per_weight,
+            return [self._compress(v, cfg, stats, recipe, per_weight,
                                    f"{path}.{i}" if path else str(i))
                     for i, v in enumerate(tree)]
         if not _is_target(path, tree):
             return tree
-        if _stack_depth(self.cfg, path) == 0:
-            return self._one_matrix(tree, recipe, self.stats.get(path), path,
+        if _stack_depth(cfg, path) == 0:
+            return self._one_matrix(tree, recipe, stats.get(path), path,
                                     per_weight, log=True)
         return _stack([self._one_matrix(tree[r], recipe,
-                                        self.stats.get(_stats_key(path, r)), path,
+                                        stats.get(_stats_key(path, r)), path,
                                         per_weight, log=r == 0)
                        for r in range(tree.shape[0])])
 

@@ -40,6 +40,20 @@ def prefill(params, cfg, batch, *, max_len: int, compact_local: bool = False,
                                       use_flash=use_flash)
 
 
+def init_cache(cfg, batch: int, max_len: int, *, compact_local: bool = False,
+               device="cuda"):
+    """Contiguous cache at absolute slots (``compact_local=True`` raises)."""
+    return family_module(cfg).init_cache(cfg, batch, max_len,
+                                         compact_local=compact_local, device=device)
+
+
+def decode_step(params, cfg, cache, tokens, pos, *, max_len: int):
+    """One token for every row of a contiguous cache; ``pos`` scalar or
+    [B] (per-row positions).  Returns (logits [B,1,V], cache)."""
+    return family_module(cfg).decode_step(params, cfg, cache, tokens, pos,
+                                          max_len=max_len)
+
+
 # ---------------------------------------------------------------------------
 # paged KV cache (serving: block pools + per-slot block tables)
 # ---------------------------------------------------------------------------

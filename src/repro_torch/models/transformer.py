@@ -274,6 +274,61 @@ def prefill_from(params: Params, cfg, cache, tokens, start: int, *, max_len: int
 
 
 # ---------------------------------------------------------------------------
+# contiguous KV cache: per-row decode at absolute slots
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg, batch: int, max_len: int, *, compact_local: bool = False,
+               device="cuda"):
+    """Cache tree mirroring the block structure, absolute slots
+    ([R, batch, max_len, K, hd] per unit position), the layout ``prefill``
+    returns.  The reference's circular ``compact_local`` layout is a
+    dry-run device and is not ported."""
+    if compact_local:
+        raise NotImplementedError("compact_local caches are dry-run only")
+    return _empty_cache(cfg, batch, max_len, cfg.dtype, device)
+
+
+def _decode_attn_block(p, c, x, cfg, *, kind: str, pos):
+    """One decode block's attention: writes this step's k/v into ``c``
+    ([B, T, K, hd], absolute slots, in place) at slot ``pos`` of each row
+    and attends to the valid slots.  pos: [B] int, each row's own
+    position."""
+    B = x.shape[0]
+    h = norm(x, p["ln1"], cfg)
+    q, k, v = L._qkv(p["attn"], h, cfg, pos[:, None], _theta(cfg, kind))
+    bidx = torch.arange(B, device=x.device)
+    c["k"][bidx, pos] = k[:, 0].to(c["k"].dtype)
+    c["v"][bidx, pos] = v[:, 0].to(c["v"].dtype)
+    slots = torch.arange(c["k"].shape[1], device=x.device)[None, :]
+    valid = slots <= pos[:, None]
+    if kind == "L":
+        valid &= slots > pos[:, None] - cfg.window_size
+    out = _masked_decode(q, c["k"], c["v"], valid, cfg.attn_softcap)
+    a = matmul(out.reshape(B, 1, -1), p["attn"]["wo"])
+    if "ln1_post" in p:
+        a = norm(a, p["ln1_post"], cfg)
+    return a
+
+
+def decode_step(params: Params, cfg, cache, tokens, pos, *, max_len: int):
+    """One token for every row of a contiguous cache.  tokens [B,1]; pos a
+    scalar or [B] int (per-row positions).  Writes this step's K/V into
+    ``cache`` in place; returns (logits [B,1,V], cache).  ``max_len`` is
+    the cache's slot count (the reference's signature).  The linears go
+    through ``matmul``, so the scoped kernel backend picks K2 or K4 for
+    compressed weights; attention is the plain masked decode."""
+    B = tokens.shape[0]
+    pos = torch.as_tensor(pos, device=tokens.device).long().expand(B)
+    x = L.embed(params, cfg, tokens)
+    for (kind, p), (_, c) in zip(_layers(params, cfg), _layers(cache, cfg)):
+        x = x + _decode_attn_block(p, c, x, cfg, kind=kind, pos=pos)
+        h = norm(x, p["ln2"], cfg)
+        x = x + _mlp_section(p, h, cfg)
+    x = norm(x, params["ln_f"], cfg)
+    return L.unembed(params, cfg, x), cache
+
+
+# ---------------------------------------------------------------------------
 # paged KV cache
 # ---------------------------------------------------------------------------
 #

@@ -232,10 +232,27 @@ def test_int4_matmul_matches_reference():
     {"experts_keep": 2}, {"quant_embed": True},
 ])
 def test_unported_recipe_fields_raise(field):
+    """Of the recipe fields that once raised, only ``quant_embed`` (QEmbed)
+    still does; the structural ones apply on a dense model (stage 1,
+    ``core/prune.py``) and ``experts_keep`` is a no-op there, as in the
+    reference."""
     from repro_torch.configs import gemma2_2b
     from repro_torch.core.pipeline import InstanceOptimizer, Recipe
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        InstanceOptimizer({}, gemma2_2b.reduced()).apply(Recipe(wbits=8, **field))
+    from repro_torch.models import api
+    cfg = gemma2_2b.reduced()
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    opt = InstanceOptimizer(api.init_params(gen, cfg), cfg)
+    recipe = Recipe(wbits=8, quant_method="absmax", **field)
+    if "quant_embed" in field:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            opt.apply(recipe)
+        return
+    _, cfg2, report = opt.apply(recipe)
+    want = {"drop_units": dict(n_layers=2, attn_pattern="LG"),
+            "kv_keep_frac": dict(n_kv_heads=1, n_heads=2, head_dim=cfg.resolved_head_dim),
+            "ffn_keep_frac": dict(d_ff=64), "experts_keep": {}}[next(iter(field))]
+    assert cfg2 == cfg.replace(**want) and report.cfg_after == cfg2
 
 
 @pytest.mark.parametrize("K,N,bs,dens", [
