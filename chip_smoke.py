@@ -55,13 +55,39 @@ Phases, each of which raises on failure (so the script exits non-zero):
    launches (from ``ops.variant_count``) are checked per query;
 8. olap_f32_parity: Q2 at gemma2-2b's widths in f32 at 4 layers under a
    cuda-backend session and a reference-backend session: identical
-   tables, and any prompt whose tokens differ must be a near tie.
+   tables, and any prompt whose tokens differ must be a near tie;
+9. olap_pool_fleet: several tenants, each with its own data-correction
+   template (so its own instance), through one byte-budgeted
+   ``ModelPool`` and one fair-share ``Scheduler`` under a budget of 2.8
+   base entries: a ``base`` fleet (identity recipe) and an ``iolm`` fleet
+   (``w8-absmax``) at 1 and 4 tenants, the instances built first, then
+   one timed pass through a new pool; rows per second, residency, the pool's bytes beside ``memory_allocated``,
+   evictions and per-tenant latency quantiles; every row returned, the
+   budget never exceeded, more resident ``iolm`` than ``base`` models at
+   4 tenants, each tenant's rows equal to a private serial engine's (bf16
+   rows parted at a near tie counted), K1 and K2 launched, no
+   degradation;
+10. olap_pool_session: phase 7's Q1-Q5 as five tenants of one pooled
+   session through ``Scheduler.run_queries``, against the same queries
+   run serially on the same built models: every table row equal, in
+   order, but those of prompts parted at a near tie or escalated in one
+   run only (counted), wrong rows put in place of right ones not passing
+   as near ties, Q5's escalations alike but where a row's confidence moved
+   (counted), proxy and base resident together at the cascade fit,
+   ``placement: pool`` in EXPLAIN, each build's peak memory and each
+   engine's truncated prompts printed;
+11. olap_pool_f32_parity: Q1 and Q2 in f32 at 4 layers as two tenants of
+   a pooled cuda-backend session against a serial reference-backend
+   session: identical tables (every differing row a near tie's, in
+   order), launches on the cuda side only.
 
 K2, K3 and K4 run their tensor-core designs on bf16 and their FMA
 designs on f32; ``ops.variant_count`` shows which design of every kernel
 ran, and every phase checks it.
-Prints one JSON line per phase, the ``{"kernels": [...]}`` summary, the
-card line, and last ``{"ok": true, "device": {...}}``.  Exits non-zero
+Prints one JSON line per phase and each phase's seconds, the
+``{"kernels": [...]}`` summary (with each kernel's launches on its own
+path, over ``olap_session`` and over the pooled runs of phases 9-11),
+the card line, and last ``{"ok": true, "device": {...}}``.  Exits non-zero
 without a card and outside a checkout of the repository.
 """
 from __future__ import annotations
@@ -984,12 +1010,16 @@ class SessionProbe:
     ``with`` block: ``policy.search`` (each search's candidates, seconds and
     kernel designs launched), ``InstanceOptimizer.run_calibration`` and
     ``apply`` (seconds, the device synchronized around each), and the
-    ``Engine`` the session builds (each engine's stats and, with ``ids``,
-    each row's token ids)."""
+    ``Engine`` the session or its model pool builds (each engine's stats
+    and, with ``ids``, each row's token ids by prompt in ``ids`` and by
+    (model version, prompt) in ``vids``, and its confidence by (model
+    version, prompt) in ``vconf``)."""
 
     def __init__(self, ids: bool = False, on_search=None):
         self.searches, self.calibrations, self.applies, self.engines = [], [], [], []
         self.ids = {} if ids else None
+        self.vids = {} if ids else None
+        self.vconf = {} if ids else None
         self.on_search = on_search
 
     def __enter__(self):
@@ -997,11 +1027,12 @@ class SessionProbe:
         from repro_torch.core.pipeline import InstanceOptimizer
         from repro_torch.kernels import ops
         from repro_torch.olap import query as Q
+        from repro_torch.serving import scheduler as SCH
         self._saved = [(POL, "search", POL.search),
                        (InstanceOptimizer, "run_calibration", InstanceOptimizer.run_calibration),
                        (InstanceOptimizer, "apply", InstanceOptimizer.apply),
-                       (Q, "Engine", Q.Engine)]
-        real_search, real_calib, real_apply, real_engine = (s[2] for s in self._saved)
+                       (Q, "Engine", Q.Engine), (SCH, "Engine", SCH.Engine)]
+        real_search, real_calib, real_apply, real_engine = (s[2] for s in self._saved[:4])
         probe = self
 
         def search(optimizer, eval_fn, recipes, **kw):
@@ -1052,12 +1083,14 @@ class SessionProbe:
 
                 def record(req):
                     probe.ids[req.src] = list(req.out_ids)
+                    probe.vids[e.version, req.src] = list(req.out_ids)
+                    probe.vconf[e.version, req.src] = req.confidence
                     return retire(req)
                 e._retire = record
             return e
 
         POL.search, InstanceOptimizer.run_calibration = search, run_calibration
-        InstanceOptimizer.apply, Q.Engine = apply, engine
+        InstanceOptimizer.apply, Q.Engine, SCH.Engine = apply, engine, engine
         return self
 
     def __exit__(self, *exc):
@@ -1351,6 +1384,636 @@ def olap_f32_parity(gen, cfg_full, layers: int = 4):
     return line
 
 
+# ---------------------------------------------------------------------------
+# phases olap_pool_*: several tenants' queries through one byte-budgeted
+# ModelPool and one fair-share Scheduler
+# ---------------------------------------------------------------------------
+
+POOL_KW = SESSION_KW["engine_kw"]
+POOL_ENTRIES = 2.8        # the pool budget in base entries: 2 base or 4 w8-absmax engines
+FLEET_ROWS, FLEET_MAX_NEW, FLEET_TENANTS = 16, 8, (1, 4)
+POOL_SHARE = 8            # in-flight rows per submission
+
+
+def card_memory():
+    """(memory_allocated, max_memory_allocated) of the card; zeros off it."""
+    if not torch.cuda.is_available():
+        return 0, 0
+    return torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated()
+
+
+def reset_peak() -> None:
+    if torch.cuda.is_available():
+        torch.cuda.reset_peak_memory_stats()
+
+
+def pool_budget(params, cfg, engine_kw):
+    """(bytes of one base entry, the pool budget): the pool charges an
+    entry ``param_bytes + slots * slot_state_bytes(cfg, max_len)``."""
+    from repro_torch.core.compressed import param_bytes
+    from repro_torch.serving.scheduler import slot_state_bytes
+    entry = param_bytes(params) + engine_kw["slots"] * slot_state_bytes(cfg, engine_kw["max_len"])
+    return entry, int(POOL_ENTRIES * entry)
+
+
+def tenant_workload(i: int, n_rows: int, *, seed0: int = 100):
+    """Tenant ``i``'s template and prompts: the data-correction workload
+    behind a template of its own, so each tenant has its own query
+    signature and instance; unique row suffixes keep the result cache out
+    of the measurement (a copy of ``benchmarks/common.py``'s)."""
+    from repro_torch.training.data import workload_rows
+    tmpl = (f"tenant-{i} data cleaning: reply with only the canonical "
+            f"category for value: ")
+    rows = workload_rows("correct", n_rows, seed=seed0 + i)
+    return tmpl, [f"{tmpl}{r.text}#{j}" for j, r in enumerate(rows)]
+
+
+NEAR_TIE_SIGMAS = 4       # bf16: near tie within this many standard deviations
+
+
+def tie_at(params, cfg, tok, prompt, a, b, top, p32=None):
+    """Where two runs' token ids ``a`` and ``b`` for ``prompt`` part, and
+    whether that is a near tie.  The plain path (reference backend) runs
+    the prompt as the engine saw it (clipped to the top bucket ``top``
+    from the left) and the shared tokens.  In f32 the criterion is
+    olap_f32_parity's: the top-two logit gap under NEAR_TIE.  In bf16 the
+    gap of the two tokens ``x`` and ``y`` on the f32 path (the same
+    weights, ``p32`` = ``_f32(params)``, with f32 activations) is held to
+    the noise of one bf16 run's logit difference: with ``sigma`` the RMS
+    of the bf16 path's logit error over the vocabulary at that position,
+    a difference of two logits carries sqrt(2) sigma, and two bf16 runs
+    can order ``x`` and ``y`` either way only if the gap is within
+    NEAR_TIE_SIGMAS of that."""
+    from repro_torch.core.compressed import kernel_backend
+    from repro_torch.models import api
+    n = min(len(a), len(b))
+    j = next((i for i in range(n) if a[i] != b[i]), n)
+    x = a[j] if j < len(a) else tok.EOS
+    y = b[j] if j < len(b) else tok.EOS
+    ids = (tok.encode(prompt, bos=True) + [tok.SEP])[-top:] + a[:j]
+    toks = torch.tensor([ids], device=params["embed"].device)
+    with kernel_backend("reference"), torch.no_grad():
+        lg = api.forward(params, cfg, {"tokens": toks})[0][0, -1].float()
+        if cfg.dtype == torch.float32:
+            top2 = lg.topk(2).values
+            gap = (top2[0] - top2[1]).item()
+            return {"token": j, "gap": gap, "bound": NEAR_TIE, "near_tie": gap < NEAR_TIE}
+        lg32 = api.forward(p32 if p32 is not None else _f32(params),
+                           cfg.replace(param_dtype="float32"),
+                           {"tokens": toks})[0][0, -1].float()
+    gap = abs(lg32[x] - lg32[y]).item()
+    sigma = (lg - lg32).pow(2).mean().sqrt().item()
+    bound = NEAR_TIE_SIGMAS * math.sqrt(2) * sigma
+    return {"token": j, "gap": gap, "sigma": sigma, "bound": bound, "near_tie": gap <= bound}
+
+
+def _p32_of(p32, models, version):
+    """The f32 copy of ``version``'s params for ``tie_at``, one at a time."""
+    params, cfg = models[version]
+    if cfg.dtype != torch.float32 and version not in p32:
+        p32.clear()
+        p32[version] = _f32(params)
+    return p32.get(version)
+
+
+def parted_rows(scheduled, serial, models, tok, top, skip=()):
+    """Every (model version, prompt) the serial run served whose token ids
+    the scheduled run did not reproduce, with ``tie_at``'s verdict.  The
+    scheduled run must have served every such row on the same model,
+    but for the keys in ``skip``."""
+    out, p32 = [], {}
+    for key in sorted(set(serial) - set(skip)):
+        a, b = scheduled.get(key), serial[key]
+        check(a is not None, ("the scheduled run never served", key))
+        if a != b:
+            params, cfg = models[key[0]]
+            out.append({"version": key[0], "prompt": key[1],
+                        **tie_at(params, cfg, tok, key[1], a, b, top,
+                                 _p32_of(p32, models, key[0]))})
+    return out
+
+
+def control_rows(serial, models, tok, top):
+    """The near-tie criterion on rows known to be wrong: for each model
+    version of the serial run, its first row (by prompt) is given the
+    token ids of the first row of another version whose first token
+    differs, as a fault that served one tenant's row to another would.
+    Each must come out not a near tie."""
+    keys, out, p32 = sorted(serial), [], {}
+    for version in sorted({v for v, _ in keys}):
+        key = next(k for k in keys if k[0] == version)
+        donor = next((k for k in keys if k[0] != version and serial[k][:1] != serial[key][:1]),
+                     None)
+        if donor is None:
+            continue
+        params, cfg = models[version]
+        out.append({"version": version, "prompt": key[1], "donor": list(donor),
+                    **tie_at(params, cfg, tok, key[1], serial[donor], serial[key], top,
+                             _p32_of(p32, models, version))})
+    return out
+
+
+LLM_OUT = ("summary", "lang_fixed")      # the columns the queries' LLM steps write
+
+
+def unexplained_rows(got, want, allowed):
+    """Rows in which table ``got`` differs from ``want``, in row order,
+    whose input values (every column but LLM_OUT) do not all appear in one
+    prompt of ``allowed``: the prompts whose token ids parted between the
+    runs or that escalated in one run only.  A row spliced out of order,
+    or one whose tokens were equal, is unexplained."""
+    import difflib
+    cols = list(want.columns)
+    if list(got.columns) != cols:
+        return [("columns", list(got.columns), cols)]
+    rows = [list(zip(*(t[c] for c in cols))) for t in (got, want)]
+    ins = [i for i, c in enumerate(cols) if c not in LLM_OUT]
+    out = []
+    sm = difflib.SequenceMatcher(None, rows[0], rows[1], autojunk=False)
+    for op, i0, i1, j0, j1 in sm.get_opcodes():
+        if op != "equal":
+            for r in rows[0][i0:i1] + rows[1][j0:j1]:
+                if not any(all(str(r[i]) in p for i in ins) for p in allowed):
+                    out.append(r)
+    return out
+
+
+def emit_pool_line(line, served):
+    """Print a pool phase's line with its parted rows summarised (the whole
+    record goes to chiprun_out/chip_smoke.json)."""
+    emit({**{k: v for k, v in line.items() if k not in ("parted_rows", "log", "controls")},
+          "parted": parted_summary(line["parted_rows"], served)})
+
+
+def parted_summary(parted, served):
+    """The compact form of ``parted_rows`` for a phase's printed line."""
+    by = {}
+    for p in parted:
+        by[p["version"]] = by.get(p["version"], 0) + 1
+    return {"rows_compared": served, "parted": len(parted), "by_version": by,
+            "max_gap": max((p["gap"] for p in parted), default=None),
+            "min_bound": min((p["bound"] for p in parted), default=None),
+            "max_gap_over_bound": max((p["gap"] / p["bound"] for p in parted), default=None)}
+
+
+def _models_of(sess):
+    """version -> (params, cfg) of the base and of every cached instance."""
+    models = {"base": (sess.params, sess.cfg)}
+    for m in sess.model_cache._d.values():
+        models[m.version] = (m.params, m.cfg)
+    return models
+
+
+def _no_degradation(sched, what):
+    check(sched.stats.degradations == 0 and sched.stats.events == [],
+          (what, "degraded", sched.stats.degradations, sched.stats.events))
+
+
+def _tenant_lines(sched):
+    return {t: {"rows": ts.rows, "queue_wait_p50_s": ts.queue_wait.quantile(0.5),
+                "queue_wait_p95_s": ts.queue_wait.quantile(0.95),
+                "latency_p50_s": ts.latency.quantile(0.5),
+                "latency_p95_s": ts.latency.quantile(0.95)}
+            for t, ts in sched.stats.tenants.items()}
+
+
+def olap_pool_fleet(base, cfg, device="cuda"):
+    """The full-width counterpart of ``benchmarks/multi_tenant.py``.  Each
+    tenant runs the data-correction workload behind its own template (its
+    own qsig, so its own instance) through one ``ModelPool`` and one
+    ``Scheduler``.  Two fleets under the same budget of POOL_ENTRIES base
+    entries: ``base`` (the identity recipe: one full-size instance per
+    tenant) and ``iolm`` (``w8-absmax``), each recipe pinned.  For 1 and 4
+    tenants a fleet first builds its tenants' instances (the session's
+    model cache keeps them), then serves every tenant once through a new
+    pool: engines are admitted, evicted and rebuilt inside the timed pass,
+    the instances are not.  (The reference benchmark's warm pass, a first
+    pass that also builds, is left out to keep the run short.)  The launch
+    counts are zeroed just before the pass and read just after.  Gates:
+    every row returned, the budget never exceeded, more resident ``iolm``
+    than ``base`` models at 4 tenants, each tenant's rows equal to a
+    private serial engine on the same model (rows parted at a near tie
+    counted), K1 and K2 launched in every ``iolm`` pass, no degradation."""
+    import gc
+    from repro_torch.core.pipeline import Recipe
+    from repro_torch.kernels import ops
+    from repro_torch.olap.query import IOLMSession
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.scheduler import ModelPool, Scheduler
+
+    on_card = torch.device(device).type == "cuda"
+    grid, _ = session_recipes(cfg)
+    fleets = {"base": Recipe(name="identity"), "iolm": grid["w8-absmax"]}
+    entry, budget = pool_budget(base, cfg, POOL_KW)
+    cells, launches, parted = [], {}, []
+    for fleet, recipe in fleets.items():
+        sess = IOLMSession(base, cfg, device=device, recipes=[recipe], calib_rows=8,
+                           eval_rows=4, engine_kw=dict(POOL_KW))
+        for n in FLEET_TENANTS:
+            work = [tenant_workload(i, FLEET_ROWS) for i in range(n)]
+            rec0 = sess.recalibrations
+            sync()
+            reset_peak()
+            t0 = time.time()
+            for i, (_, prompts) in enumerate(work):      # the pool resolves these again
+                sess._optimize(f"t{i}", prompts[:12])
+            sync()
+            build_s, build_peak = time.time() - t0, card_memory()[1]
+            sess.pool = pool = ModelPool(sess, budget, engine_kw=sess.engine_kw)
+            sched = Scheduler(pool, share=POOL_SHARE)
+            ops.reset_launch_counts()
+            reset_peak()
+            t0 = time.time()
+            subs = [sched.submit(f"t{i}", prompts, qsig=f"t{i}", probe=prompts[:12],
+                                 max_new=FLEET_MAX_NEW, prefix=tmpl)
+                    for i, (tmpl, prompts) in enumerate(work)]
+            sched.run()
+            sync()
+            wall = time.time() - t0
+            got = dict(ops.launch_count)
+            variants = {k: v for k, v in ops.variant_count.items() if v}
+            for k, v in got.items():
+                launches[k] = launches.get(k, 0) + v
+            alloc, peak = card_memory()
+            rows = sum(len(s.results()) for s in subs)
+            cell = {"fleet": fleet, "tenants": n, "rows": rows, "wall_s": wall,
+                    "rows_per_s": rows / wall, "builds": sess.recalibrations - rec0,
+                    "build_s": build_s, "build_peak_memory": build_peak,
+                    "resident_models": len(pool),
+                    "peak_resident_models": pool.stats.peak_resident_models,
+                    "resident_bytes": pool.resident_bytes,
+                    "peak_resident_bytes": pool.stats.peak_resident_bytes,
+                    "budget": budget, "memory_allocated": alloc, "peak_memory": peak,
+                    "evictions": pool.stats.evictions,
+                    "eviction_log": list(pool.eviction_log), "ticks": sched.stats.ticks,
+                    "tenants_stats": _tenant_lines(sched),
+                    "launches": got, "variants": variants,
+                    "truncated": sum(e.engine.stats.truncated for e in pool._entries.values())}
+            cells.append(cell)
+            print(f"olap_pool_fleet {fleet} {n} tenant(s): {cell['rows_per_s']:.2f} rows/s "
+                  f"({rows} rows in {wall:.2f} s; {cell['builds']} builds before it in "
+                  f"{build_s:.2f} s, peak {build_peak}), {cell['resident_models']} resident "
+                  f"(peak {cell['peak_resident_models']}), pool {pool.resident_bytes} B "
+                  f"of {budget} vs memory_allocated {alloc}, {cell['evictions']} "
+                  f"evictions, {sched.stats.ticks} ticks, peak memory {peak}; "
+                  + "; ".join(f"{t}: wait p50 {v['queue_wait_p50_s']:.3f} s "
+                              f"p95 {v['queue_wait_p95_s']:.3f} s, row p50 "
+                              f"{v['latency_p50_s']:.3f} s p95 {v['latency_p95_s']:.3f} s"
+                              for t, v in cell["tenants_stats"].items()), flush=True)
+            check(rows == n * FLEET_ROWS
+                  and all(len(s.results()) == FLEET_ROWS for s in subs), (fleet, n, "rows"))
+            check(pool.stats.peak_resident_bytes <= budget, (fleet, n, "over budget", cell))
+            _no_degradation(sched, (fleet, n))
+            if on_card:
+                check(got["paged_attention"] > 0 and got["flash_attention"] == 0
+                      and got["block_sparse_matmul"] == 0
+                      and (got["quant_matmul"] > 0) == (fleet == "iolm"),
+                      (fleet, n, "launches", got))
+            if n == FLEET_TENANTS[-1]:
+                # each tenant against a private engine on its own model, served alone
+                tok = sess.tok
+                for sub, (tmpl, prompts) in zip(subs, work):
+                    m = sess._optimize(sub.qsig, sub.probe)           # a model-cache hit
+                    eng = Engine(m.params, m.cfg, tokenizer=tok, version=m.version,
+                                 **sess.engine_kw)
+                    ref = eng.generate_stream(iter(prompts), max_new=FLEET_MAX_NEW,
+                                              prefix=tmpl, return_requests=True)
+                    for p, r, s in zip(prompts, ref, sub.reqs):
+                        if r.out_ids != s.out_ids:
+                            parted.append({"fleet": fleet, "tenant": sub.tenant, "prompt": p,
+                                           **tie_at(m.params, m.cfg, tok, p, s.out_ids,
+                                                    r.out_ids, POOL_KW["buckets"][-1])})
+                    del eng
+        del sess, pool
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+    by = {(c["fleet"], c["tenants"]): c for c in cells}
+    n = FLEET_TENANTS[-1]
+    line = {"phase": "olap_pool_fleet", "model": cfg.name, "layers": cfg.n_layers,
+            "engine_kw": POOL_KW, "share": POOL_SHARE, "rows_per_tenant": FLEET_ROWS,
+            "max_new": FLEET_MAX_NEW, "base_entry_bytes": entry, "budget": budget,
+            "budget_entries": POOL_ENTRIES, "cells": cells, "parted_rows": parted,
+            "near_ties": len(parted), "launches": launches}
+    emit_pool_line(line, 2 * FLEET_ROWS * FLEET_TENANTS[-1])
+    print(f"olap_pool_fleet: budget {budget} B ({POOL_ENTRIES} base entries of {entry} B); "
+          f"peak resident models at {n} tenants: base {by['base', n]['peak_resident_models']}, "
+          f"iolm {by['iolm', n]['peak_resident_models']}; {len(parted)} rows parted "
+          "from the serial run" + "".join(f", {p['tenant']} gap {p['gap']:.3g} bound "
+                                          f"{p['bound']:.3g}" for p in parted), flush=True)
+    check(by["iolm", n]["peak_resident_models"] > by["base", n]["peak_resident_models"],
+          ("resident models", by))
+    check(all(p["near_tie"] for p in parted), ("fleet rows parted from serial", parted))
+    return line, launches
+
+
+def olap_pool_session(base, cfg, device="cuda"):
+    """``olap_session``'s queries as five tenants of one pooled session:
+    an ``IOLMSession(pool_budget=POOL_ENTRIES base entries)`` over the
+    bf16 base with the same three absmax recipes runs Q1-Q4 and Q5 (Q2 as
+    a forced cascade at budget 0.25) through ``Scheduler(sess.pool,
+    share=POOL_SHARE).run_queries``, Q5 first so its cascade fit finds the
+    pool empty.  The launch counts are zeroed just before
+    ``run_queries`` and read just after.  The same queries then run
+    serially through ``Query.run`` on a session without a pool that shares
+    the pooled session's model cache and cascade thresholds (no rebuild,
+    no refit): private engines with fresh result caches.  Gates: each
+    query's rows and columns as ``olap_session`` checks them; each
+    query's table equal to the serial one row by row, in order, but rows
+    whose prompt parted at a near tie or escalated in one run only
+    (``unexplained_rows``); every ``control_rows`` reading not a near tie;
+    Q5 escalating in each run
+    exactly its rows under the fitted threshold and the two runs
+    escalating the same rows but those whose confidence moved between
+    them (counted), proxy and base resident together at Q5's cascade
+    fit, ``placement: pool`` in every EXPLAIN, K1 and K2 launched, no
+    degradation."""
+    import dataclasses
+    import gc
+    from repro_torch.kernels import ops
+    from repro_torch.olap.query import IOLMSession
+    from repro_torch.serving.scheduler import Scheduler
+
+    on_card = torch.device(device).type == "cuda"
+    _, recipes = session_recipes(cfg)
+    entry, budget = pool_budget(base, cfg, SESSION_KW["engine_kw"])
+    sess = IOLMSession(base, cfg, device=device, recipes=recipes, pool_budget=budget,
+                       **SESSION_KW)
+    queries = olap_queries(sess)
+    queries = queries[4:] + queries[:4]              # Q5 first
+    builds, fit, peak = [], {}, [0]
+    real_optimize, real_cascade = sess._optimize, sess._cascade
+
+    def optimize(qsig, prompts):
+        n0 = sess.recalibrations
+        sync()
+        peak[0] = max(peak[0], card_memory()[1])
+        reset_peak()
+        t0 = time.time()
+        m = real_optimize(qsig, prompts)
+        sync()
+        if sess.recalibrations > n0:
+            alloc, top = card_memory()
+            builds.append({"qsig": qsig, "recipe": m.recipe.name, "seconds": time.time() - t0,
+                           "peak_memory": top, "memory_after": alloc,
+                           "resident_models": len(sess.pool),
+                           "resident_bytes": sess.pool.resident_bytes})
+        return m
+
+    def cascade(qsig, prompts, budget, **kw):
+        cal = real_cascade(qsig, prompts, budget, **kw)
+        fit.setdefault("resident_after_fit", list(sess.pool.resident_versions))
+        return cal
+
+    sess._optimize, sess._cascade = optimize, cascade
+    for name, q, *_ in queries:
+        txt = q.explain()
+        steps = [ln for ln in txt.splitlines() if " llm " in ln]
+        check("placement: pool," in txt and steps
+              and all(" placement=pool " in ln and (" backend=cuda " in ln or not on_card)
+                      for ln in steps), (name, "EXPLAIN", txt))
+    sched = Scheduler(sess.pool, share=POOL_SHARE)
+    real_step, ticks = sched.step, []
+
+    def step():
+        more = real_step()
+        if any(s.tenant == "Q5" for s in sched.active):
+            ticks.append(set(sess.pool.resident_versions))
+        return more
+
+    sched.step = step
+    ops.reset_launch_counts()
+    with SessionProbe(ids=True) as probe:
+        sync()
+        t0 = time.time()
+        tables = sched.run_queries({name: q for name, q, *_ in queries})
+        sync()
+        wall = time.time() - t0
+    launches = dict(ops.launch_count)
+    variants = {k: v for k, v in ops.variant_count.items() if v}
+    peak[0] = max(peak[0], card_memory()[1])
+    _no_degradation(sched, "olap_pool_session")
+    subs = {}
+    for s in sched.finished:
+        subs.setdefault(s.tenant, []).append(s)
+    proxy = next(s.engine.version for s in subs["Q5"] if s.optimize)
+    results = {}
+    for name, q, n_in, n_out, cols, n_inv in queries:
+        out = tables[name]
+        inv = sum(len(s.reqs) for s in subs[name] if s.optimize)
+        results[name] = {"rows_in": n_in, "rows_out": len(out), "columns": list(out.columns),
+                         "invocations": inv,
+                         "escalated": sum(len(s.reqs) for s in subs[name] if not s.optimize)}
+        check(list(out.columns) == cols and (n_out is None or len(out) == n_out),
+              (name, "rows or columns", len(out), list(out.columns)))
+        check(inv == n_inv, (name, "invocations", inv, n_inv))
+    pooled_engines = [{"version": e["version"], "truncated": e["stats"].truncated,
+                       "rows": e["stats"].rows, "decode_steps": e["stats"].decode_steps,
+                       "prefills": e["stats"].prefills, "cache_hits": e["stats"].cache_hits}
+                      for e in probe.engines]
+    scheduled_ids = dict(probe.vids)
+
+    # the serial reference: the same built models on private engines
+    serial = IOLMSession(base, cfg, device=device, recipes=recipes, **SESSION_KW)
+    serial.model_cache, serial.cascade_cache = sess.model_cache, sess.cascade_cache
+    serial_tables, escalated = {}, {}
+    with SessionProbe(ids=True) as sprobe:
+        sync()
+        t0 = time.time()
+        for name, q, *_ in olap_queries(serial):
+            serial_tables[name] = q.run()
+            escalated[name] = q.last_run_stats[0].escalated
+        sync()
+        serial_wall = time.time() - t0
+    check(serial.recalibrations == 0 and serial.cascade_fits == 0,
+          ("the serial run rebuilt", serial.recalibrations, serial.cascade_fits))
+    # Q5's escalations.  In each run a row escalates exactly when its proxy
+    # confidence is under the one fitted threshold.  A bf16 confidence moves
+    # with the prefill's batch shape, so the two runs may escalate other
+    # rows; such a row must be one whose confidence moved across the
+    # threshold between the runs (counted), never one whose confidence is
+    # the same in both.
+    (cal,) = sess.cascade_cache.values()
+    thr = cal.threshold
+    proxy_sub = next(s for s in subs["Q5"] if s.optimize)
+    sched_conf = {r.src: r.confidence for r in proxy_sub.reqs}
+    sched_esc = {r.src for s in subs["Q5"] if not s.optimize for r in s.reqs}
+    serial_conf = {src: c for (v, src), c in sprobe.vconf.items() if v == proxy}
+    serial_esc = {src for v, src in sprobe.vids if v == "base"}
+    check(sched_esc == {p for p, c in sched_conf.items() if c < thr},
+          ("scheduled Q5 escalated other rows than its low-confidence ones", thr))
+    check(len(serial_esc) == escalated["Q5"]
+          and serial_esc == {p for p in sched_conf if serial_conf[p] < thr},
+          ("serial Q5 escalations", len(serial_esc), escalated["Q5"]))
+    crossed = [{"prompt": p, "scheduled_confidence": sched_conf[p],
+                "serial_confidence": serial_conf[p], "threshold": thr,
+                "proxy_tokens_equal": scheduled_ids.get((proxy, p)) == sprobe.vids.get((proxy, p))}
+               for p in sorted(sched_esc ^ serial_esc)]
+    models, top = _models_of(sess), SESSION_KW["engine_kw"]["buckets"][-1]
+    parted = parted_rows(scheduled_ids, sprobe.vids, models, sess.tok, top,
+                         skip={("base", c["prompt"]) for c in crossed})
+    controls = control_rows(sprobe.vids, models, sess.tok, top)
+    differ = [name for name in tables if tables[name].columns != serial_tables[name].columns]
+    parted_keys = {(p["version"], p["prompt"]) for p in parted}
+    unexplained = {}
+    for name in tables:        # each query's rows against its own parted prompts
+        allowed = {r.src for sub in subs[name] for r in sub.reqs
+                   if (sub.engine.version, r.src) in parted_keys}
+        if name == "Q5":
+            allowed |= {c["prompt"] for c in crossed}
+        unexplained[name] = unexplained_rows(tables[name], serial_tables[name], allowed)
+    together = sum(proxy in r and "base" in r for r in ticks)
+    line = {"phase": "olap_pool_session", "model": cfg.name, "layers": cfg.n_layers,
+            "budget": budget, "base_entry_bytes": entry, "budget_entries": POOL_ENTRIES,
+            "share": POOL_SHARE, "recipes": [r.name for r in recipes],
+            "order": [name for name, *_ in queries], "queries": results,
+            "scheduled_wall_s": wall, "serial_wall_s": serial_wall,
+            "pool_stats": dataclasses.asdict(sess.pool.stats),
+            "eviction_log": list(sess.pool.eviction_log),
+            "resident_versions": sess.pool.resident_versions,
+            "scheduler": sched.stats.as_dict(), "builds": builds,
+            "proxy": proxy, "resident_after_cascade_fit": fit.get("resident_after_fit"),
+            "q5_ticks": len(ticks), "q5_ticks_proxy_and_base_resident": together,
+            "q5_threshold": thr, "q5_crossed": crossed,
+            "engines": pooled_engines,
+            "serial_engines": [{"version": e["version"], "truncated": e["stats"].truncated}
+                               for e in sprobe.engines],
+            "serial_escalated": escalated, "tables_differ": differ,
+            "unexplained_rows": unexplained, "parted_rows": parted,
+            "near_ties": len(parted), "controls": controls,
+            "launches": launches, "variants": variants,
+            "max_memory_allocated": peak[0], "log": sess.log}
+    emit_pool_line(line, len(sprobe.vids))
+    print(f"olap_pool_session: scheduled {wall:.2f} s, serial {serial_wall:.2f} s; pool "
+          f"hits {sess.pool.stats.hits} misses {sess.pool.stats.misses} evictions "
+          f"{sess.pool.stats.evictions} {sess.pool.eviction_log}, peak resident "
+          f"{sess.pool.stats.peak_resident_models} models / "
+          f"{sess.pool.stats.peak_resident_bytes} B of {budget}; Q5 escalated "
+          f"{results['Q5']['escalated']} (serial {escalated['Q5']}, {len(crossed)} rows "
+          f"crossed the threshold {thr:.4g} between the runs); {len(parted)} rows "
+          f"parted from serial; designs {variants}", flush=True)
+    print("controls (wrong rows, each must not be a near tie): " + ", ".join(
+        f"{c['version'].split(':')[-1]} gap {c['gap']:.3g} bound {c['bound']:.3g} "
+        f"near tie {c['near_tie']}" for c in controls), flush=True)
+    for b in builds:
+        print(f"build {b['qsig']}: {b['recipe']} in {b['seconds']:.2f} s, peak "
+              f"{b['peak_memory']}, memory after {b['memory_after']}, pool "
+              f"{b['resident_models']} models {b['resident_bytes']} B", flush=True)
+    print("truncated per engine: " + ", ".join(
+        f"{e['version'].split(':')[-1]} {e['truncated']}" for e in pooled_engines), flush=True)
+    check(all(c["scheduled_confidence"] != c["serial_confidence"] for c in crossed),
+          ("Q5 escalated", results["Q5"]["escalated"], escalated["Q5"], crossed))
+    check(sess.pool.stats.peak_resident_bytes <= budget, ("over budget", line["pool_stats"]))
+    check({proxy, "base"} <= set(fit.get("resident_after_fit", ())),
+          ("proxy and base not resident together", fit, together))
+    check(all(p["near_tie"] for p in parted), ("rows parted from serial", parted))
+    check(controls and not any(c["near_tie"] for c in controls),
+          ("a wrong row passed as a near tie", controls))
+    check(not any(unexplained.values()), ("table rows differ unexplained", unexplained))
+    if on_card:
+        check(launches["paged_attention"] > 0 and launches["quant_matmul"] > 0
+              and launches["flash_attention"] == 0 and launches["block_sparse_matmul"] == 0,
+              ("olap_pool_session launches", launches))
+    del sess, serial, tables, serial_tables, probe, sprobe
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    return line, launches
+
+
+def olap_pool_f32_parity(gen, cfg_full, device="cuda", layers: int = 4):
+    """Q1 and Q2 at gemma2-2b's widths in f32 at ``layers`` layers, as two
+    tenants of a pooled cuda-backend session under ``run_queries``, against
+    the same queries run serially by a reference-backend session without a
+    pool.  Gates: identical tables, row by row in order, but rows whose
+    prompt parted at a near tie (counted, as in olap_f32_parity), kernel
+    launches on the cuda side only, no degradation."""
+    import gc
+    from repro_torch.kernels import ops
+    from repro_torch.models import api
+    from repro_torch.olap.query import IOLMSession, Query
+    from repro_torch.olap.table import Table
+    from repro_torch.serving.scheduler import Scheduler
+    from repro_torch.training.data import PROMPTS, workload_rows
+
+    on_card = torch.device(device).type == "cuda"
+    cfg = cfg_full.replace(n_layers=layers, attn_pattern="LG" * (layers // 2),
+                           param_dtype="float32")
+    params = api.init_params(gen, cfg)
+    grid, _ = session_recipes(cfg)
+    _, budget = pool_budget(params, cfg, SESSION_KW["engine_kw"])
+
+    def queries(sess):
+        reviews = Table({"review": [r.text for r in workload_rows("summarize", 64)]})
+        commits = Table({"lang": [r.text for r in workload_rows("correct", 64)]})
+        return {"Q1": Query(reviews, sess).llm_map("review", prompt=PROMPTS["summarize"],
+                                                   out_col="summary"),
+                "Q2": Query(commits, sess).llm_correct("lang", prompt=PROMPTS["correct"])}
+
+    runs = {}
+    for backend in ("cuda", "reference"):
+        pooled = backend == "cuda"
+        # (off the card, as when this phase is rehearsed on the host, both
+        # sides run the plain path)
+        sess = IOLMSession(params, cfg, device=device,
+                           backend=backend if on_card else "reference",
+                           recipes=[grid["w8-absmax"]], **SESSION_KW,
+                           **(dict(pool_budget=budget) if pooled else {}))
+        qs = queries(sess)
+        ops.reset_launch_counts()
+        with SessionProbe(ids=True) as probe:
+            sync()
+            t0 = time.time()
+            served = {}
+            if pooled:
+                sched = Scheduler(sess.pool, share=POOL_SHARE)
+                tables = sched.run_queries(qs)
+                _no_degradation(sched, "olap_pool_f32_parity")
+                for sub in sched.finished:
+                    served.setdefault(sub.tenant, set()).update(
+                        (sub.engine.version, r.src) for r in sub.reqs)
+            else:
+                tables = {name: q.run() for name, q in qs.items()}
+            sync()
+        runs[backend] = {"tables": tables, "ids": dict(probe.vids), "wall_s": time.time() - t0,
+                         "served": served,
+                         "launches": dict(ops.launch_count),
+                         "variants": {k: v for k, v in ops.variant_count.items() if v},
+                         "models": _models_of(sess), "tok": sess.tok}
+        del sess, qs
+    c, r = runs["cuda"], runs["reference"]
+    parted = parted_rows(c["ids"], r["ids"], r["models"], r["tok"],
+                         SESSION_KW["engine_kw"]["buckets"][-1])
+    same = {name: c["tables"][name].columns == r["tables"][name].columns for name in c["tables"]}
+    parted_keys = {(p["version"], p["prompt"]) for p in parted}
+    unexplained = {name: unexplained_rows(c["tables"][name], r["tables"][name],
+                                          {src for v, src in c["served"][name]
+                                           if (v, src) in parted_keys})
+                   for name in c["tables"]}
+    line = {"phase": "olap_pool_f32_parity", "model": cfg.name, "layers": layers,
+            "dtype": "float32", "recipe": "w8-absmax", "budget": budget,
+            "tables_identical": same, "unexplained_rows": unexplained,
+            "parted_rows": parted, "near_tie_bound": NEAR_TIE,
+            "wall_s": {k: v["wall_s"] for k, v in runs.items()},
+            "launches": {k: v["launches"] for k, v in runs.items()},
+            "variants": {k: v["variants"] for k, v in runs.items()}}
+    emit_pool_line(line, len(r["ids"]))
+    print(f"olap_pool_f32_parity: tables identical {same}, {len(parted)} rows parted"
+          + "".join(f", gap {p['gap']:.2e} at token {p['token']}" for p in parted), flush=True)
+    check(all(p["near_tie"] for p in parted), line)
+    check(not any(unexplained.values()), line)
+    check(not any(r["launches"].values()), ("reference session launched kernels", r["launches"]))
+    if on_card:
+        check(c["launches"]["paged_attention"] > 0 and c["launches"]["quant_matmul"] > 0,
+              ("pooled f32 session launches", c["launches"]))
+    launches = c["launches"]
+    del runs, params
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    return line, launches
+
+
 def profile_step(gen, params, eng, steps: int = 5, name="decode_profile"):
     """Where one decode step's time goes: host wall time per step
     (ending in a sync) against device kernel time from torch.profiler,
@@ -1441,35 +2104,54 @@ def main() -> int:
     for n in ("quant_matmul", "paged_attention"):
         check(spill[n] == 0, (n, "spills registers", ptxas[n]))
 
+    seconds = {"build": time.time() - t0}
+
+    def timed(phase, fn, *a, **kw):
+        t = time.time()
+        out = fn(*a, **kw)
+        seconds[phase] = time.time() - t
+        print(f"phase {phase}: {seconds[phase]:.1f} s", flush=True)
+        return out
+
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    k2, k2_cases = check_quant_matmul(gen)
-    k1, k1_cases = check_paged_attention(gen)
-    k4, k4_cases = check_block_sparse(gen)
-    k3, k3_cases = check_flash_attention(gen)
-    main_line, launches, int8_variants, base, int8, eng8 = main_path(gen)
+    k2, k2_cases = timed("kernel_quant_matmul", check_quant_matmul, gen)
+    k1, k1_cases = timed("kernel_paged_attention", check_paged_attention, gen)
+    k4, k4_cases = timed("kernel_block_sparse", check_block_sparse, gen)
+    k3, k3_cases = timed("kernel_flash_attention", check_flash_attention, gen)
+    main_line, launches, int8_variants, base, int8, eng8 = timed("main_path", main_path, gen)
     cfg = eng8.cfg
-    step_line = whole_step(gen, int8, eng8, {"quant_matmul": 7 * cfg.n_layers,
-                                             "paged_attention": cfg.n_layers})
-    prof_line = profile_step(gen, int8, eng8)
+    step_line = timed("whole_step", whole_step, gen, int8, eng8,
+                      {"quant_matmul": 7 * cfg.n_layers, "paged_attention": cfg.n_layers})
+    prof_line = timed("decode_profile", profile_step, gen, int8, eng8)
     del int8, eng8
     torch.cuda.empty_cache()
-    bs_line, bs_launches, bs_variants, bsp, eng_bs = block_sparse_path(base, cfg)
-    bs_step_line = whole_step(gen, bsp, eng_bs, {"block_sparse_matmul": 7 * cfg.n_layers,
-                                                 "paged_attention": cfg.n_layers},
-                              name="whole_step_block_sparse")
-    bs_prof_line = profile_step(gen, bsp, eng_bs, name="decode_profile_block_sparse")
+    bs_line, bs_launches, bs_variants, bsp, eng_bs = timed("block_sparse", block_sparse_path,
+                                                           base, cfg)
+    bs_step_line = timed("whole_step_block_sparse", whole_step, gen, bsp, eng_bs,
+                         {"block_sparse_matmul": 7 * cfg.n_layers,
+                          "paged_attention": cfg.n_layers}, name="whole_step_block_sparse")
+    bs_prof_line = timed("decode_profile_block_sparse", profile_step, gen, bsp, eng_bs,
+                         name="decode_profile_block_sparse")
     del bsp, eng_bs
     torch.cuda.empty_cache()
     ops.reset_launch_counts()
-    long_line = long_prefill(gen, base, cfg)
+    long_line = timed("long_prefill", long_prefill, gen, base, cfg)
     long_launches = dict(ops.launch_count)
     long_variants = {k: n for k, n in ops.variant_count.items() if n}
     torch.cuda.empty_cache()
-    olap_line, olap_launches, olap_variants = olap_session(base, cfg)
+    olap_line, olap_launches, olap_variants = timed("olap_session", olap_session, base, cfg)
+    torch.cuda.empty_cache()
+    parity_line = timed("olap_f32_parity", olap_f32_parity, gen, cfg)
+    fleet_line, fleet_launches = timed("olap_pool_fleet", olap_pool_fleet, base, cfg)
+    pool_line, pool_launches = timed("olap_pool_session", olap_pool_session, base, cfg)
     del base
     torch.cuda.empty_cache()
-    parity_line = olap_f32_parity(gen, cfg)
+    pool_parity_line, pool_parity_launches = timed("olap_pool_f32_parity",
+                                                   olap_pool_f32_parity, gen, cfg)
+    # the pooled runs of the three olap_pool phases (their serial references excluded)
+    pool_runs = {k: fleet_launches.get(k, 0) + pool_launches.get(k, 0)
+                 + pool_parity_launches.get(k, 0) for k in ops.launch_count}
 
     kernels = []
     for line, runs, variants, source, replaces in (
@@ -1482,12 +2164,17 @@ def main() -> int:
             (k4, bs_launches, bs_variants, "src/repro_torch/kernels/csrc/block_sparse.cu",
              "src/repro/kernels/block_sparse.py:39")):
         check(runs[line["name"]] > 0, ("no launch on the path", line["name"], runs))
-        by_path = {"olap_session": olap_launches[line["name"]]}
+        by_path = {"olap_session": olap_launches[line["name"]],
+                   "olap_pool": pool_runs[line["name"]]}
         if line["name"] in ("paged_attention", "quant_matmul"):
             check(by_path["olap_session"] > 0, ("no launch in the OLAP session", line["name"]))
+            check(by_path["olap_pool"] > 0, ("no launch in the pooled OLAP runs", line["name"]))
+        else:
+            check(by_path["olap_pool"] == 0, ("off the pooled path", line["name"]))
         kernels.append({"name": line["name"], "route": "cuda", "source": source,
                         "replaces": replaces, "launches": runs[line["name"]],
                         "launches_olap_session": by_path["olap_session"],
+                        "launches_olap_pool": by_path["olap_pool"],
                         "max_abs_err": line["max_abs_err"], "ms": line["ms"],
                         "plain_ms": line["plain_ms"], "bound_ms": line["bound_ms"],
                         "bound_by": line["bound_by"], "library_ms": line["library_ms"],
@@ -1507,8 +2194,9 @@ def main() -> int:
                    "whole_step_block_sparse": bs_step_line,
                    "decode_profile_block_sparse": bs_prof_line, "long_prefill": long_line,
                    "olap_session": olap_line, "olap_session_variants": olap_variants,
-                   "olap_f32_parity": parity_line,
-                   "seconds": time.time() - t_start}, f, indent=1)
+                   "olap_f32_parity": parity_line, "olap_pool_fleet": fleet_line,
+                   "olap_pool_session": pool_line, "olap_pool_f32_parity": pool_parity_line,
+                   "phase_seconds": seconds, "seconds": time.time() - t_start}, f, indent=1)
     emit({"kernels": kernels})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,7 +6,8 @@ the repository root, keyed by a hash of the source and the shared
 headers (``csrc/*.cuh``), and loaded with
 ``ctypes``.  The build happens at first use (:func:`load`) or for all
 kernels at once, one ``nvcc`` per source started together
-(:func:`build_all`).  A failed build raises; nothing falls back.
+(:func:`build_all`).  A failed build raises :class:`KernelError`; nothing
+falls back.
 :func:`sass_counts` counts instructions in a built library's machine
 code, which shows whether a kernel reached the tensor cores.
 """
@@ -32,12 +33,18 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 
 
+class KernelError(RuntimeError):
+    """A hand-written kernel failed to build, load or launch, or its
+    wrapper refused its inputs.  Callers that serve around other faults
+    (the scheduler's quarantine) let this one through."""
+
+
 def _tool(name: str) -> str:
     for cand in (shutil.which(name), f"/usr/local/cuda/bin/{name}"):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError(f"{name} not found: the CUDA kernels build only where the "
-                       "CUDA toolkit is installed")
+    raise KernelError(f"{name} not found: the CUDA kernels build only where the "
+                      "CUDA toolkit is installed")
 
 
 def _target(name: str) -> Path:
@@ -70,7 +77,7 @@ def _finish(name: str, started) -> str:
     log, _ = proc.communicate()
     log_path.write_text(log)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+        raise KernelError(f"nvcc failed for {name}.cu:\n{log}")
     os.replace(tmp, target)
     return log
 
@@ -88,7 +95,10 @@ def load(name: str) -> ctypes.CDLL:
         lib = _LIBS.get(name)
         if lib is None:
             _finish(name, _start(name))
-            lib = ctypes.CDLL(str(_target(name)))
+            try:
+                lib = ctypes.CDLL(str(_target(name)))
+            except OSError as e:
+                raise KernelError(f"{name}: cannot load {_target(name)}: {e}") from e
             _LIBS[name] = lib
         return lib
 

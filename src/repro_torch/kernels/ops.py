@@ -2,13 +2,13 @@
 
 Shape plumbing lives here: flattening leading dims, the ``(Kh, G)`` head
 split, int32 tables, lengths and block indices, the reduction splits of
-the two matmuls.  Each
-wrapper checks device, dtype, shape and contiguity and raises on what
-its kernel does not take.  For tensors on the CPU it computes the
-kernel's plain version (``kernels/ref.py``); for CUDA tensors it
-launches the kernel on the current stream, adds one to
-``launch_count[name]`` and raises if the launch fails.  It never
-falls back from a CUDA tensor to the plain version.
+the two matmuls.  Each wrapper checks device, dtype, shape and
+contiguity and raises :class:`KernelInputError` on what its kernel does
+not take.  For tensors on the CPU it computes the kernel's plain version
+(``kernels/ref.py``); for CUDA tensors it launches the kernel on the
+current stream, adds one to ``launch_count[name]`` and raises
+:class:`KernelError` if the build or the launch fails.  It never falls
+back from a CUDA tensor to the plain version.
 
 K2, K3 and K4 have several designs, chosen by a documented rule on dtype
 and shape (:func:`quant_matmul_variant`, :func:`flash_variant`,
@@ -28,6 +28,12 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels import ref
+from repro_torch.kernels.build import KernelError
+
+
+class KernelInputError(KernelError, ValueError):
+    """A wrapper refused inputs its kernel does not take."""
+
 
 # launches per kernel wrapper since the last reset_launch_counts()
 launch_count: Dict[str, int] = {name: 0 for name in
@@ -87,7 +93,7 @@ def _fn(kernel: str, symbol: str):
 
 def _check(err: int, name: str) -> None:
     if err != 0:
-        raise RuntimeError(f"{name} launch failed with CUDA error {err}")
+        raise KernelError(f"{name} launch failed with CUDA error {err}")
 
 
 def _f32_bits(v: float) -> int:
@@ -98,13 +104,13 @@ def _same_device(name: str, *tensors) -> torch.device:
     dev = tensors[0].device
     for t in tensors:
         if t is not None and t.device != dev:
-            raise ValueError(f"{name}: tensors on {dev} and {t.device}")
+            raise KernelInputError(f"{name}: tensors on {dev} and {t.device}")
     return dev
 
 
 def _require(cond: bool, name: str, what: str) -> None:
     if not cond:
-        raise ValueError(f"{name}: {what}")
+        raise KernelInputError(f"{name}: {what}")
 
 
 def _stream() -> int:

@@ -18,10 +18,9 @@ The split exists so two executors can drive the same operator:
     engine's async core in bounded chunks (at most ``chunk``
     un-finished requests resident, so ``llm_join``'s O(n·k) candidate
     prompts never fully materialize);
-  - a multi-tenant scheduler (the reference's ``serving/scheduler.py``;
-    the port's is ROADMAP queue 1 item 7) consumes the spec's prompt
-    stream directly, interleaving many tenants' operators across pooled
-    engines tick-by-tick.
+  - the multi-tenant scheduler (``serving/scheduler.py``) consumes the
+    spec's prompt stream directly, interleaving many tenants' operators
+    across pooled engines tick-by-tick.
 
 Every operator renders rows through a fixed template, so the spec
 carries the template as ``prefix`` — the engine prefills the shared

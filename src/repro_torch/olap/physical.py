@@ -11,14 +11,14 @@ one physical step per node:
     ``qsig``, the **engine choice** (``"optimized"`` = run the
     instance-optimization workflow and serve from the compressed
     recipe, ``"base"`` = the uncompressed model), the placement
-    (``"private"``, a per-operator engine: the shared model pool is
-    ROADMAP queue 1 item 7), the resolved kernel backend, the shared
-    **prefix template**, and the dedup flag + cost estimate the
-    optimizer attached.
+    (``"pool"``: the session's shared byte-budgeted ``ModelPool``;
+    ``"private"``: a per-operator engine), the resolved kernel backend,
+    the shared **prefix template**, and the dedup flag + cost estimate
+    the optimizer attached.
 
 Execution is a *generator protocol* an executor drives (the serial
-``Query.run``; the reference's multi-tenant scheduler drives the same
-protocol, and the port's is ROADMAP queue 1 item 7):
+``Query.run`` and the multi-tenant scheduler's ``QueryDriver``,
+serving/scheduler.py, drive the same protocol):
 ``execute(pplan)`` yields one ``ExecutableOp`` per LLM step — probe
 sample and dedup-wrapped ``OpSpec`` built against the table state at
 that point — and expects the executor to ``send`` back the output rows
@@ -52,7 +52,7 @@ class PhysicalOp:
     qsig: str
     engine: str          # "optimized" | "base" | "cascade"
     backend: str         # resolved KernelBackend: "reference" | "cuda"
-    placement: str       # "private"
+    placement: str       # "pool" | "private"
     prefix: str
     dedup: bool
     max_new: int
@@ -93,7 +93,7 @@ class ExecutableOp:
 
 
 def lower(logical: P.PlanNode, *, optimize_models: bool = True,
-          use_optimizer: bool = True,
+          pooled: bool = False, use_optimizer: bool = True,
           verify: bool = True, backend: str = "auto", device="cuda",
           cascade_budget: Optional[float] = None,
           cascade: str = "auto") -> PhysicalPlan:
@@ -142,7 +142,7 @@ def lower(logical: P.PlanNode, *, optimize_models: bool = True,
     # device, reference on the CPU) so EXPLAIN shows the kernel backend
     # each op will actually run on
     kbackend = resolve_backend(backend, device)
-    placement = "private"      # the shared model pool is ROADMAP queue 1 item 7
+    placement = "pool" if pooled else "private"
     steps: List[Union[TableStep, PhysicalOp]] = []
     for node in reversed(P.chain(optimized)):
         if isinstance(node, P.Scan):

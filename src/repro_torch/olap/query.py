@@ -24,9 +24,10 @@ for CUDA without a card raises): the base model, the calibration and
 evaluation batches, every compressed instance in the model cache and
 every engine sit there.  The session's kernel backend scopes the recipe
 search as well as its engines, so a ``"reference"`` session launches no
-kernel at all.  The shared byte-budgeted model pool (``pool=``,
-``pool_budget=``, ``devices=``, ``mesh=``) is not ported yet (ROADMAP
-queue 1 item 7) and raises.
+kernel at all.  With ``pool_budget=`` (or ``pool=``) the engines come
+from one shared byte-budgeted ``ModelPool`` (serving/scheduler.py),
+which a ``Scheduler`` drives across tenants; ``mesh=`` (tensor
+parallel) is not ported yet (ROADMAP queue 1 item 11) and raises.
 """
 from __future__ import annotations
 
@@ -50,6 +51,7 @@ from repro_torch.olap import physical as PHYS
 from repro_torch.olap import plan as PLAN
 from repro_torch.olap.table import Table
 from repro_torch.serving.engine import Engine, _to_device
+from repro_torch.serving.scheduler import ModelPool
 from repro_torch.training.data import ByteTokenizer, PROMPTS
 
 
@@ -117,16 +119,23 @@ class ModelCache:
         return len(self._d)
 
 
-_POOL = "ROADMAP queue 1 item 7 (ModelPool)"
-
-
 class IOLMSession:
     """Holds the base model + optimization machinery across queries.
 
-    Every operator gets a private engine on the session's ``device``.
-    The reference's shared ``ModelPool`` (``pool_budget=``, ``pool=``,
-    ``devices=``, ``mesh=``) is not ported yet: those arguments raise
-    ``NotImplementedError`` rather than building a private engine.
+    With ``pool_budget`` set (or an explicit ``pool``), the session
+    stops building a private engine per operator and instead draws
+    engines from a shared byte-budgeted ``ModelPool``
+    (serving/scheduler.py): engines persist across queries, many
+    tenants' compressed models co-reside under one budget, and
+    identical (model-version, prompt) work dedups across tenants
+    through each pooled engine's result cache.  The pool's engines get
+    the session's ``engine_kw``, so its ``device`` and ``backend`` too.
+
+    ``devices=`` (a list of ``torch.device``s) makes that pool
+    device-aware: the budget turns per-device and ``placement=`` picks
+    each engine's device.  Without a pool every operator gets a private
+    engine on the session's ``device``.  ``mesh=`` raises: tensor
+    parallel serving is ROADMAP queue 1 item 11.
     """
 
     def __init__(self, params, cfg, *, tokenizer: Optional[ByteTokenizer] = None,
@@ -135,17 +144,23 @@ class IOLMSession:
                  calib_rows: int = 16, eval_rows: int = 8,
                  engine_kw: Optional[Dict] = None,
                  pool_budget: Optional[int] = None,
-                 pool=None,
+                 pool: Optional[ModelPool] = None,
                  devices: Optional[List] = None,
                  mesh=None,
+                 placement: str = "least_loaded",
                  backend: str = "auto",
                  device="cuda"):
-        for name, val in (("pool_budget", pool_budget), ("pool", pool),
-                          ("devices", devices), ("mesh", mesh)):
-            if val is not None:
-                raise NotImplementedError(
-                    f"IOLMSession({name}=...) needs the shared model pool, "
-                    f"which is not ported yet: {_POOL}")
+        if mesh is not None:
+            raise NotImplementedError(
+                "IOLMSession(mesh=...) (tensor-parallel serving) is not "
+                "ported yet: ROADMAP queue 1 item 11")
+        if pool is not None and devices is not None:
+            raise ValueError("devices= configures a NEW ModelPool and is "
+                             "ignored with an explicit pool= — construct "
+                             "the pool with it instead")
+        if pool is None and pool_budget is None and devices is not None:
+            raise ValueError("devices= requires pool_budget= (it "
+                             "configures the shared ModelPool)")
         self.device = resolve_device(device)
         self.params = _to_device(params, self.device)
         self.cfg = cfg
@@ -172,13 +187,21 @@ class IOLMSession:
         self.recalibrations = 0       # full InstanceOptimizer runs
         self.cascade_fits = 0         # cascade threshold fits
         self.log: List[str] = []
+        self.pool = pool
+        if pool is None and pool_budget is not None:
+            self.pool = ModelPool(self, pool_budget, engine_kw=self.engine_kw,
+                                  devices=devices, placement=placement)
 
     # -- engines --------------------------------------------------------
     def base_engine(self) -> Engine:
+        if self.pool is not None:
+            return self.pool.engine_for("base", optimize=False)
         return Engine(self.params, self.cfg, tokenizer=self.tok,
                       version="base", **self.engine_kw)
 
     def optimized_engine(self, qsig: str, prompts: List[str]) -> Engine:
+        if self.pool is not None:
+            return self.pool.engine_for(qsig, prompts, optimize=True)
         m = self._optimize(qsig, prompts)
         return Engine(m.params, m.cfg, tokenizer=self.tok,
                       version=m.version, **self.engine_kw)
@@ -412,19 +435,21 @@ class Query:
 
     def physical_plan(self) -> PHYS.PhysicalPlan:
         """plan -> optimize -> lower, annotated with engine choice
-        (base vs instance-optimized recipe), kernel backend and prefix
-        template.  Memoized until the plan or a routing flag changes
-        (builder calls reassign ``_root``, invalidating the key)."""
+        (base vs instance-optimized recipe), kernel backend, prefix
+        template and pool placement.  Memoized until the plan or a
+        routing flag changes (builder calls reassign ``_root``,
+        invalidating the key)."""
         backend = getattr(self.session, "backend", "auto")
         # a session without a device (a test fake) runs on the host
         device = getattr(self.session, "device", "cpu")
-        flags = (self.optimize, self.optimize_plan, backend, str(device),
+        pooled = getattr(self.session, "pool", None) is not None
+        flags = (self.optimize, self.optimize_plan, pooled, backend, str(device),
                  self.cascade_budget, self.cascade)
         if (self._pplan is None or self._pplan_key is None
                 or self._pplan_key[0] is not self._root
                 or self._pplan_key[1] != flags):
             self._pplan = PHYS.lower(
-                self._root, optimize_models=self.optimize,
+                self._root, optimize_models=self.optimize, pooled=pooled,
                 use_optimizer=self.optimize_plan,
                 backend=backend, device=device,
                 cascade_budget=self.cascade_budget,
@@ -437,6 +462,7 @@ class Query:
         rules that fired, and the physical ops — without executing."""
         pplan = self.physical_plan()
         est = pplan.est
+        pooled = getattr(self.session, "pool", None) is not None
 
         def annotate(node):
             e = est.get(id(node))
@@ -453,7 +479,7 @@ class Query:
         # counts or milliseconds
         lines = [
             f"EXPLAIN (models: {'optimized' if self.optimize else 'base'}, "
-            f"placement: private, "
+            f"placement: {'pool' if pooled else 'private'}, "
             f"plan optimizer: "
             f"{'on' if self.optimize_plan else 'off'}, "
             f"cost unit: rows x prompt_tokens)",
@@ -517,8 +543,9 @@ class Query:
         engine-choice routing bit — and expects the executor to
         ``send`` back the output rows; table steps run inline.
         Returns (via StopIteration.value) the final Table.  ``run()``
-        drives it serially; a multi-tenant scheduler (ROADMAP queue 1
-        item 7) would interleave many tenants' plans through it.
+        drives it serially; ``Scheduler.run_queries``
+        (serving/scheduler.py) interleaves many tenants' plans through
+        it.
         """
         n_probe = max(64, self.session.calib_rows + self.session.eval_rows)
         return PHYS.execute(self.physical_plan(), n_probe=n_probe)
@@ -584,7 +611,8 @@ class Query:
 
     def run(self) -> Table:
         """Serial execution: drive the plan coroutine op by op through
-        the session's private engines."""
+        the session's engines (pooled when the session has a
+        ModelPool, private otherwise)."""
         gen = self._ops()
         send = None
         self.last_run_stats = []

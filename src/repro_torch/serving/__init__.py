@@ -1,1 +1,2 @@
-"""Serving engine, sampler, batching, caches and the paged allocator."""
+"""Serving engine, sampler, batching, caches, the paged allocator, the
+multi-tenant model pool and scheduler, and per-tenant latency metrics."""

@@ -16,6 +16,7 @@ when a query swaps in a recompressed instance-optimized model.
 """
 from __future__ import annotations
 
+import weakref
 from collections import OrderedDict
 from dataclasses import dataclass
 from typing import Any, Optional, Sequence, Tuple
@@ -107,12 +108,17 @@ class PrefixCache:
         # fn(key, entry) called on LRU eviction — paged engines subscribe
         # so their block allocators can release the entry's shared blocks
         # (a pool-shared cache holds entries from many engines; each
-        # subscriber ignores keys it never seeded)
+        # subscriber ignores keys it never seeded).  Bound methods are
+        # held weakly: an engine the model pool evicted must not stay
+        # alive, with its KV pool on the device, through this list.
         self._evict_listeners: list = []
 
     def add_evict_listener(self, fn) -> None:
-        if fn not in self._evict_listeners:
-            self._evict_listeners.append(fn)
+        if any(ref() == fn for ref in self._evict_listeners):
+            return
+        self._evict_listeners.append(
+            weakref.WeakMethod(fn) if hasattr(fn, "__self__")
+            else (lambda fn=fn: fn))
 
     def key(self, prefix_ids: Sequence[int], version: str = "") -> Tuple:
         return (tuple(prefix_ids), version)
@@ -132,8 +138,12 @@ class PrefixCache:
         self._d.move_to_end(key)
         if len(self._d) > self.capacity:
             old_key, old_entry = self._d.popitem(last=False)
-            for fn in self._evict_listeners:
-                fn(old_key, old_entry)
+            fns = [ref() for ref in self._evict_listeners]
+            self._evict_listeners = [ref for ref, fn in zip(self._evict_listeners, fns)
+                                     if fn is not None]
+            for fn in fns:
+                if fn is not None:
+                    fn(old_key, old_entry)
         return e
 
     def __len__(self) -> int:

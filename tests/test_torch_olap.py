@@ -14,7 +14,8 @@
   ``last_run_stats`` identical to the reference session's; a cascade
   with budget 0 equals the base-only run.
 - ``to_spec`` equals the reference's dict and ``query_from_spec``
-  round-trips; the model pool's arguments raise.
+  round-trips; the model pool's arguments get the reference's checks
+  (``mesh=`` raises).
 """
 import dataclasses
 import json
@@ -339,9 +340,28 @@ def test_to_spec_matches_reference_and_round_trips():
 
 @pytest.mark.parametrize("arg", ["pool_budget", "pool", "devices", "mesh"])
 def test_pool_arguments_raise(tiny, arg):
+    """The model pool's arguments take the reference's checks:
+    ``pool_budget=`` builds a pool (EXPLAIN says so), ``pool=`` with
+    ``devices=`` and ``devices=`` without a budget raise ``ValueError``,
+    and ``mesh=`` raises until ROADMAP queue 1 item 11."""
     _, _, cfg, params = tiny
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        Q.IOLMSession(params, cfg, device="cpu", **{arg: 1})
+    cpu = [torch.device("cpu")]
+    if arg == "pool_budget":
+        sess = Q.IOLMSession(params, cfg, device="cpu", pool_budget=1 << 30)
+        assert sess.pool is not None and sess.pool.byte_budget == 1 << 30
+        txt = Q.Query(Table({"lang": ["pyton"]}), sess).llm_correct("lang").explain()
+        assert "placement: pool," in txt and " placement=pool " in txt
+    elif arg == "pool":
+        shared = Q.IOLMSession(params, cfg, device="cpu", pool_budget=1 << 30).pool
+        with pytest.raises(ValueError, match="pool="):
+            Q.IOLMSession(params, cfg, device="cpu", pool=shared, devices=cpu)
+        assert Q.IOLMSession(params, cfg, device="cpu", pool=shared).pool is shared
+    elif arg == "devices":
+        with pytest.raises(ValueError, match="pool_budget="):
+            Q.IOLMSession(params, cfg, device="cpu", devices=cpu)
+    else:
+        with pytest.raises(NotImplementedError, match="queue 1 item 11"):
+            Q.IOLMSession(params, cfg, device="cpu", mesh=object())
 
 
 def test_session_defaults_to_the_card(tiny):
