@@ -79,14 +79,43 @@ Phases, each of which raises on failure (so the script exits non-zero):
 11. olap_pool_f32_parity: Q1 and Q2 in f32 at 4 layers as two tenants of
    a pooled cuda-backend session against a serial reference-backend
    session: identical tables (every differing row a near tie's, in
-   order), launches on the cuda side only.
+   order), launches on the cuda side only;
+12. service_full_width (run before phase 11, while the full-width base is
+   in memory): the HTTP service over a pooled session with phase 7's
+   pinned recipes answers Q2 as one tenant; its rows equal ``Query.run``
+   on the same session, and its warm state (``POST /checkpoint`` under
+   ``OUT_DIR``) restores in a fresh session with no build and the
+   same rows; bytes on disk and save and restore seconds recorded;
+13. train_parity: one AdamW ``make_train_step`` step at gemma2-2b's
+   widths in f32 at 4 layers on the card and on the CPU from the same
+   params and batch (loss, grad norm, updated params), and on the card
+   remat on against off and two microbatches against one; a K3 call on
+   inputs that require grad is refused;
+14. train_full_width: five AdamW steps of gemma2-2b at all 26 layers in
+   bf16 (batch 4 x 1024 tokens, two microbatches, remat, the unembed
+   streamed in chunks of 256): loss and grad norm finite, step wall,
+   tokens/s, peak memory and 6 N tokens over the step's bf16 peak;
+15. train_tiny_olap: ``benchmarks/common.py``'s ``tiny-olap`` trained to
+   its recipe (300 steps, checkpoints every 150 under ``OUT_DIR``):
+   the loss falls below 0.7 of its first value, both restores equal the
+   state in memory bit for bit, and a run over only step 150 resumes;
+16. service_trained: the HTTP service over the trained ``tiny-olap``
+   with the reference's nine-recipe grid answers Q1-Q4 as four tenants;
+   rows equal ``Scheduler.run_queries`` on a fresh session sharing the
+   model cache; after ``POST /checkpoint`` a new session restored warm
+   answers with the same rows and no build; every candidate's accuracy
+   and agreement, the picks and per-tenant latency recorded.  The
+   training phases launch none of the four kernels; the two service
+   phases launch K1 and K2 and neither K3 nor K4.
 
 K2, K3 and K4 run their tensor-core designs on bf16 and their FMA
 designs on f32; ``ops.variant_count`` shows which design of every kernel
 ran, and every phase checks it.
-Prints one JSON line per phase and each phase's seconds, the
+Prints one JSON line per phase and each phase's seconds and
+``memory_allocated`` before and after it, the
 ``{"kernels": [...]}`` summary (with each kernel's launches on its own
-path, over ``olap_session`` and over the pooled runs of phases 9-11),
+path, over ``olap_session``, over the pooled runs of phases 9-11 and
+over the two service phases),
 the card line, and last ``{"ok": true, "device": {...}}``.  Exits non-zero
 without a card and outside a checkout of the repository.
 """
@@ -103,6 +132,7 @@ import time
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+OUT_DIR = os.path.join(ROOT, "chiprun_out")      # the run's record (gitignored)
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
@@ -124,6 +154,19 @@ LAYER_SHAPES = [(2304, 2048), (2304, 1024), (2304, 1024), (2048, 2304),
 # the linears that the OLAP session's pruned recipes change: ffn75's wi, wg
 # and mlp wo; kv50's wq, wk (and wv) and attn wo
 PRUNED_SHAPES = [(2304, 6912), (6912, 2304), (2304, 1024), (2304, 512), (1024, 2304)]
+# tiny-olap's linears (K, N) in the service's nine-recipe grid: wq and attn
+# wo, wk and wv, wi and wg, mlp wo; ffn75's wi, wg and mlp wo (d_ff 288,
+# groups of 96); the unembed (N 260, untied); kv50's wq, wk and wv, attn wo
+# (1 KV group, 2 heads)
+TINY_SHAPES = [(128, 128), (128, 64), (128, 384), (384, 128), (128, 288), (288, 128),
+               (128, 260), (128, 32), (64, 128)]
+TINY_M = (8, 384)                # a decode step of 8 slots; 8 rows of the 48 bucket
+# tiny-olap's decode attention: 8 slots, 2 KV groups of 2 heads, head dim 32,
+# the engine's block of 32 at max_len 160 (5 blocks a slot); no window or softcap
+TINY_PA = {"Kh": 2, "G": 2, "D": 32, "bs": 32, "nblk": 5}
+# the tiny-olap cases draw from a generator of their own, so that the shared
+# generator, and with it every later phase's weights, is what it was without them
+TINY_SEED = 17
 
 TEMPLATE = "Classify the review's sentiment as pos or neg.\nReview: "
 REVIEWS = [
@@ -226,23 +269,31 @@ def check_quant_matmul(gen):
     decode (M <= 16, one and two n8 tiles of x), prefill tiles and their
     edges (M = 17, 37, 128, 296, 512, 1024), SmoothQuant's ``in_scale`` in
     both regimes, f32 x, ragged N, group 80, q and scale 4 bytes off
-    16-byte alignment (the last three on the FMA design), and the pruned
-    shapes of the OLAP session's ffn75 and kv50 instances.  Each case's
+    16-byte alignment (the last three on the FMA design), the pruned
+    shapes of the OLAP session's ffn75 and kv50 instances, and every
+    linear of the trained tiny-olap's grid (TINY_SHAPES at TINY_M rows,
+    w8-smooth's ``in_scale``, the 2:4 recipes' zeros).  Each case's
     launch must run the design ``ops.quant_matmul_variant`` names.  Then
     times the bf16 designs against the FMA design they replaced (still in
     the library for f32 and ragged shapes), in turns."""
     from repro_torch.core import quantize as Q
+    from repro_torch.core import sparsify as S
     from repro_torch.kernels import ops, ref
     dev = "cuda"
     cache = {}
 
-    def weight(K, N, smooth=False):
-        key = (K, N, smooth)
+    def weight(K, N, kind=None, g=gen):
+        key = (K, N, kind == "smooth", kind == "nm24")
         if key not in cache:
-            w = torch.randn((K, N), generator=gen, device=dev) / math.sqrt(K)
-            if smooth:
-                amax = torch.rand((K,), generator=gen, device=dev) * 4 + 0.5
+            w = torch.randn((K, N), generator=g, device=dev) / math.sqrt(K)
+            if kind == "smooth":
+                amax = torch.rand((K,), generator=g, device=dev) * 4 + 0.5
                 cache[key] = Q.absmax_quantize(w, amax_x=amax, smooth_alpha=0.5)
+            elif kind == "nm24":      # the 2:4 recipes: 2 of every 4 codes along K are 0
+                keep = S.wanda_mask(w, torch.ones(K), n=2, m=4)
+                qt = Q.absmax_quantize(torch.where(keep, w, 0.0))
+                cache[key] = Q.QTensor(torch.where(keep, qt.q, 0), qt.scale, qt.bits,
+                                       qt.group, qt.shape, qt.in_scale)
             else:
                 cache[key] = Q.absmax_quantize(w)
         return cache[key]
@@ -262,9 +313,18 @@ def check_quant_matmul(gen):
     # the pruned instances of the OLAP session's search: ffn75 (d_ff 6912)
     # and kv50 (2 KV groups: wq N 1024, wk and wv N 512, attn wo K 1024)
     cases += [(M, K, N, bf16, None) for M in (8, 296) for K, N in PRUNED_SHAPES]
+    # the trained tiny-olap's instances: every linear, w8-smooth's in_scale at
+    # K 128 and 384, the 2:4 recipes' zeros (base and ffn75 shapes), f32 x
+    tiny = [(M, K, N, bf16, None) for M in TINY_M for K, N in TINY_SHAPES]
+    tiny += [(M, K, 128, bf16, "smooth") for M in TINY_M for K in (128, 384)]
+    tiny += [(M, K, N, bf16, "nm24") for M in TINY_M for K, N in TINY_SHAPES[:7]]
+    tiny += [(8, 128, 64, f32, None), (384, 288, 128, f32, "nm24")]
+    tgen = torch.Generator(device=dev)
+    tgen.manual_seed(TINY_SEED)
+    cases = [(c, gen) for c in cases] + [(c, tgen) for c in tiny]
     worst_abs, results = 0.0, []
-    for M, K, N, xdt, kind in cases:
-        qt = weight(K, N, kind == "smooth")
+    for (M, K, N, xdt, kind), g in cases:
+        qt = weight(K, N, kind, g)
         q, scale = qt.q, qt.scale
         if kind == "offset":          # the same codes and scales 4 bytes past alignment
             q = torch.empty(K * N + 4, dtype=torch.int8, device=dev)[4:].view(K, N)
@@ -273,7 +333,7 @@ def check_quant_matmul(gen):
             scale.copy_(qt.scale)
         aligned = q.data_ptr() % 16 == 0 and scale.data_ptr() % 16 == 0
         variant = ops.quant_matmul_variant(xdt, M, N, qt.group, aligned)
-        x = torch.randn((M, K), generator=gen, device=dev).to(xdt)
+        x = torch.randn((M, K), generator=g, device=dev).to(xdt)
         before = dict(ops.variant_count)
         got = ops.quant_matmul(x, q, scale, group=qt.group, in_scale=qt.in_scale)
         want = ref.quant_matmul(x, qt.q, qt.scale, group=qt.group, in_scale=qt.in_scale)
@@ -366,12 +426,15 @@ def check_paged_attention(gen):
     the split boundaries (1, 31, 32, 33, 1024); window 64 with lengths far
     past it; tables aliasing one prefix across slots with the trash block
     past each length; the kv50 instance's layout (Kh = 2, G = 2); another
-    head layout and block size.  Each launch must run the ``split`` design.  Then one decode call is timed at 128
+    head layout and block size; the trained tiny-olap's engines (D 32,
+    Kh 2 and its kv50's Kh 1, 5 blocks of 32 a slot).  Each launch must run the ``split`` design.  Then one decode call is timed at 128
     and at 1024 positions a slot."""
     from repro_torch.kernels import ops, ref
     base = [1, 33, 700, 1024, 5, 64, 257, 999]
     edges = [1, 31, 32, 33, 1024, 63, 65, 96]
     past = [1000, 1024, 500, 65, 66, 97, 128, 900]
+    tiny = [1, 33, 100, 160, 5, 64, 127, 159]
+    tiny_edges = [1, 31, 32, 33, 160, 63, 65, 96]
     cases = [(dtype, window, cap, base, {}) for dtype in (torch.bfloat16, torch.float32)
              for window in (0, 64, 4096) for cap in (0.0, 50.0)]
     for dtype in (torch.bfloat16, torch.float32):
@@ -382,9 +445,17 @@ def check_paged_attention(gen):
                   (dtype, 0, 50.0, edges, {"Kh": 2, "G": 2, "alias": True}),
                   # another head layout and block size than gemma2-2b's
                   (dtype, 40, 30.0, base, {"Kh": 2, "G": 4, "D": 128, "bs": 16, "nblk": 64})]
+    # the trained tiny-olap's engines (max_len 160), and its kv50 (Kh 1)
+    tgen = torch.Generator(device="cuda")
+    tgen.manual_seed(TINY_SEED)
+    cases = [(c, gen) for c in cases] + [
+        (c, tgen) for dtype in (torch.bfloat16, torch.float32)
+        for c in ((dtype, 0, 0.0, tiny, TINY_PA),
+                  (dtype, 0, 0.0, tiny_edges, {**TINY_PA, "alias": True}),
+                  (dtype, 0, 0.0, tiny, {**TINY_PA, "Kh": 1}))]
     worst_abs, results = 0.0, []
-    for dtype, window, cap, lengths, shape in cases:
-        q, k, v, tables, ln = _paged_inputs(gen, dtype, lengths, **shape)
+    for (dtype, window, cap, lengths, shape), g in cases:
+        q, k, v, tables, ln = _paged_inputs(g, dtype, lengths, **shape)
         before = dict(ops.variant_count)
         got = ops.paged_attention(q, k, v, tables, ln, softcap=cap, window=window)
         S, _, H, D = q.shape
@@ -1038,7 +1109,15 @@ class SessionProbe:
         def search(optimizer, eval_fn, recipes, **kw):
             sync()
             before, t0 = dict(ops.variant_count), time.time()
-            out = real_search(optimizer, eval_fn, recipes, **kw)
+            per_eval = []              # kernel designs of each evaluation, baseline first
+
+            def counted(params, cfg):
+                b = dict(ops.variant_count)
+                res = eval_fn(params, cfg)
+                per_eval.append(variant_delta(b))
+                return res
+
+            out = real_search(optimizer, counted, recipes, **kw)
             sync()
             probe.searches.append({
                 "seconds": time.time() - t0, "recipes": [r.name for r in recipes],
@@ -1051,7 +1130,8 @@ class SessionProbe:
                                 "token_agreement": c.result.token_agreement,
                                 "param_bytes": c.result.bytes, "n_layers": c.cfg.n_layers,
                                 "d_ff": c.cfg.d_ff, "n_heads": c.cfg.n_heads,
-                                "n_kv_heads": c.cfg.n_kv_heads} for c in out.candidates]})
+                                "n_kv_heads": c.cfg.n_kv_heads, "variants": v}
+                               for c, v in zip(out.candidates, per_eval[1:])]})
             if probe.on_search is not None:
                 probe.on_search(optimizer)
             return out
@@ -2014,6 +2094,501 @@ def olap_pool_f32_parity(gen, cfg_full, device="cuda", layers: int = 4):
     return line, launches
 
 
+# ---------------------------------------------------------------------------
+# training and the always-on service
+# ---------------------------------------------------------------------------
+
+# benchmarks/common.py's MODEL_CFG, the model the reference trains for its
+# benchmarks (the reference's registry has no such entry), and its recipe:
+# 300 steps of batch 16, seq 96, adamw(lr=2e-3, warmup=30, total_steps=300)
+TINY_OLAP = dict(name="tiny-olap", family="dense", n_layers=4, d_model=128, n_heads=4,
+                 n_kv_heads=2, d_ff=384, vocab_size=260, rope_theta=10000.0, max_seq=512)
+TINY_TRAIN = dict(steps=300, batch=16, seq_len=96, log_every=100, ckpt_every=150)
+TINY_ADAMW = dict(lr=2e-3, warmup=30, total_steps=300)
+# benchmarks/common.make_engine's settings and benchmarks/service.py's budget
+SERVICE_ENGINE_KW = dict(slots=8, max_len=160, buckets=(48, 96, 128))
+SERVICE_ENTRIES = 3
+SERVICE_ROWS = 64
+ACC_FLOOR = 0.9                    # the session's accuracy floor (IOLMSession default)
+# train_parity: one AdamW step at gemma2-2b's widths in f32, card against CPU
+PARITY_LR = 1e-3
+LOSS_RTOL = 1e-5                  # the loss: a sum of f32 terms in another order
+GNORM_RTOL = 1e-4                 # the grad norm: through every layer's backward
+UPDATE_RMS_RTOL = 1e-3            # RMS of the params' difference over the RMS update
+# Adam's first step moves each weight by about lr * sign(g): where g is
+# within rounding of 0 the two sides may move it in opposite directions, so
+# no weight may differ by more than one such flip, 2 lr (plus rounding)
+FLIP = 2.0 * PARITY_LR * (1 + 1e-3)
+# train_full_width: Adam's first steps move every weight by about lr in the
+# direction of its gradient; on random weights at gemma2-2b's widths 3e-4
+# (reached at step 2) sent the loss from 3.4 to 44, so the steps stay small
+FULL_LR = 1e-5
+
+
+def update_errors(new_a, new_b, old):
+    """(max |a - b| over FLIP, RMS(a - b) over RMS(b - old)) of two updated
+    param trees against the params before the step."""
+    from repro_torch.tree import leaves
+    la, lb, lo = leaves(new_a), leaves(new_b), leaves(old)
+    worst, diff2, upd2 = 0.0, 0.0, 0.0
+    for a, b, o in zip(la, lb, lo):
+        a, b, o = a.float(), b.to(a.device).float(), o.to(a.device).float()
+        worst = max(worst, (a - b).abs().max().item())
+        diff2 += torch.sum((a - b) ** 2).item()
+        upd2 += torch.sum((b - o) ** 2).item()
+    return worst / FLIP, math.sqrt(diff2 / max(upd2, 1e-30))
+
+
+def _batch(step, cfg, device, batch, seq_len):
+    from repro_torch.training import data as D
+    b = D.train_batch(step, batch=batch, seq_len=seq_len,
+                      tok=D.ByteTokenizer(max(cfg.vocab_size, 260)))
+    return {k: torch.from_numpy(b[k]).to(device) for k in ("tokens", "labels")}
+
+
+def train_parity(gen, cfg_full, layers: int = 4, device="cuda", batch=2, seq_len=128):
+    """One ``make_train_step`` step with AdamW at gemma2-2b's widths in f32
+    (``layers`` layers), on the card and on the CPU from the same params
+    and batch: loss, grad norm and updated params agree (LOSS_RTOL,
+    GNORM_RTOL, UPDATE_RMS_RTOL and FLIP).  On the card ``remat=True``
+    equals ``remat=False`` and two microbatches equal one, within the
+    same tolerances.  The step launches none of the four kernels, and K3
+    refuses inputs that require grad."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import api
+    from repro_torch.training import optimizer as OPT
+    from repro_torch.training import train_loop as TL
+    from repro_torch.tree import leaves, tree_map
+
+    cfg = cfg_full.replace(n_layers=layers, attn_pattern="LG" * (layers // 2),
+                           param_dtype="float32")
+    params = api.init_params(gen, cfg)
+    opt = OPT.adamw(lr=PARITY_LR, warmup=0, total_steps=10)
+    ops.reset_launch_counts()
+
+    def step(p, dev, **kw):
+        b = _batch(0, cfg, dev, batch, seq_len)
+        fn = TL.make_train_step(cfg, opt, **kw)
+        p = tree_map(torch.clone, p)            # the step writes into its params
+        state = opt.init(p)
+        sync()
+        t0 = time.time()
+        p2, _, m = fn(p, state, b, 0)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        sync()
+        return p2, {"loss": loss, "grad_norm": gnorm, "seconds": time.time() - t0}
+
+    card, card_m = step(params, device, remat=True)
+    runs = {"card": card_m}
+    errs = {}
+    for name, kw in (("no_remat", dict(remat=False)), ("microbatches_2", dict(microbatches=2))):
+        other, runs[name] = step(params, device, **kw)
+        errs[name] = update_errors(other, card, params)
+        del other
+    launched = {k: n for k, n in ops.launch_count.items() if n}
+    host = tree_map(lambda t: t.cpu(), params)
+    cpu, runs["cpu"] = step(host, "cpu", remat=True)
+    errs["cpu"] = update_errors(cpu, card, host)
+    del cpu, host
+    line = {"phase": "train_parity", "layers": layers, "batch": batch, "seq_len": seq_len,
+            "lr": PARITY_LR, "params": sum(t.numel() for t in leaves(params)),
+            "runs": runs, "update_errors": {k: {"max_over_flip": a, "rms_rel": r}
+                                            for k, (a, r) in errs.items()},
+            "launches": launched}
+    for name in ("no_remat", "microbatches_2", "cpu"):
+        check(abs(runs[name]["loss"] / runs["card"]["loss"] - 1) <= LOSS_RTOL,
+              (name, "loss", runs[name]["loss"], runs["card"]["loss"]))
+        check(abs(runs[name]["grad_norm"] / runs["card"]["grad_norm"] - 1) <= GNORM_RTOL,
+              (name, "grad norm", runs[name]["grad_norm"], runs["card"]["grad_norm"]))
+        check(errs[name][0] <= 1.0 and errs[name][1] <= UPDATE_RMS_RTOL,
+              (name, "updated params", errs[name]))
+    check(not launched, ("the training step launched a kernel", launched))
+    if torch.device(device).type == "cuda":
+        # no backward kernel: a K3 launch on inputs that require grad is refused
+        q = torch.randn((1, 1024, 8, 256), device=device, dtype=torch.bfloat16,
+                        requires_grad=True)
+        kv = torch.randn((1, 1024, 4, 256), device=device, dtype=torch.bfloat16)
+        try:
+            ops.flash_attention(q, kv, kv)
+            refused = None
+        except ops.KernelInputError as e:
+            refused = str(e)
+        check(refused is not None and "no backward" in refused, ("K3 took a grad input", refused))
+        check(ops.launch_count["flash_attention"] == 0, "K3 launched on a grad input")
+        line["k3_grad_refused"] = refused
+    del params, card
+    emit(line)
+    return line
+
+
+def train_full_width(cfg, device="cuda", steps=5, batch=4, seq_len=1024, microbatches=2,
+                     xent_chunk=256, seed=0):
+    """Training steps of gemma2-2b at its published widths in bf16 with
+    AdamW, remat on, ``xent_chunk`` streaming the 256000-way unembed: params
+    from a seeded generator on the card, then ``steps`` steps of
+    ``make_train_step`` on ``train_batch``es.  Records each step's loss
+    and grad norm (finite), its wall time between syncs, positions/s
+    (every position of the batch, padding included: the loss counts
+    them all), the positions that are not padding, the peak memory and
+    6 N positions / (step s x BF16_FLOPS)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import api
+    from repro_torch.training import data as D
+    from repro_torch.training import optimizer as OPT
+    from repro_torch.training import train_loop as TL
+    from repro_torch.tree import leaves
+
+    tok = D.ByteTokenizer(max(cfg.vocab_size, 260))
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    sync()
+    before = card_memory()[0]
+    t0 = time.time()
+    params = api.init_params(gen, cfg)
+    opt = OPT.adamw(lr=FULL_LR, warmup=0, total_steps=steps)
+    state = opt.init(params)
+    sync()
+    init_s = time.time() - t0
+    fn = TL.make_train_step(cfg, opt, microbatches=microbatches, xent_chunk=xent_chunk,
+                            remat=True)
+    reset_peak()
+    ops.reset_launch_counts()
+    n_params = cfg.param_count()
+    tokens = batch * seq_len
+    per_step = []
+    for i in range(steps):
+        b = _batch(i, cfg, device, batch, seq_len)
+        real = D.train_batch(i, batch=batch, seq_len=seq_len, tok=tok)["weights"].sum()
+        sync()
+        t0 = time.time()
+        params, state, m = fn(params, state, b, i)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        sync()
+        dt = time.time() - t0
+        check(math.isfinite(loss) and math.isfinite(gnorm), ("step", i, loss, gnorm))
+        per_step.append({"step": i, "loss": loss, "grad_norm": gnorm, "seconds": dt,
+                         "positions_per_s": tokens / dt, "real_tokens": int(real),
+                         "flop_share": 6 * n_params * tokens / (dt * BF16_FLOPS)})
+    alloc, peak = card_memory()
+    launched = {k: n for k, n in ops.launch_count.items() if n}
+    check(not launched, ("the training step launched a kernel", launched))
+    steady = per_step[1:] or per_step
+    line = {"phase": "train_full_width", "layers": cfg.n_layers, "params": n_params,
+            "batch": batch, "seq_len": seq_len, "microbatches": microbatches,
+            "xent_chunk": xent_chunk, "remat": True, "init_s": init_s, "steps": per_step,
+            "steady_seconds": sum(s["seconds"] for s in steady) / len(steady),
+            "steady_positions_per_s": sum(s["positions_per_s"] for s in steady) / len(steady),
+            "positions_per_step": tokens,
+            "steady_flop_share": sum(s["flop_share"] for s in steady) / len(steady),
+            "memory_before": before, "peak_memory": peak, "memory_after": alloc,
+            "peak_over_before": peak - before,
+            "state_bytes": sum(t.numel() * t.element_size() for t in leaves((params, state)))}
+    del params, state
+    emit(line)
+    return line
+
+
+def _same_bits(a, b) -> bool:
+    from repro_torch.tree import leaves
+    la, lb = leaves(a), leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.shape == y.shape and torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def train_tiny_olap(device="cuda", train_kw=None):
+    """``tiny-olap`` trained to the reference's own recipe through
+    ``train``, with checkpoints every 150 steps under ``OUT_DIR``.
+    Gates: the last logged loss below 0.7 of the first (the reference's
+    bar); ``restore`` and ``restore_tree`` of the last step equal to the
+    state in memory, bit for bit; ``train`` over a directory holding only
+    step 150 resumes from it and writes the last step.  Returns (line,
+    cfg, trained params)."""
+    import shutil
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.kernels import ops
+    from repro_torch.training import checkpoint as CK
+    from repro_torch.training import optimizer as OPT
+    from repro_torch.training import train_loop as TL
+    from repro_torch.tree import leaves
+
+    cfg = ModelConfig(**TINY_OLAP)
+    kw = dict(TINY_TRAIN, **(train_kw or {}))
+    steps, every = kw["steps"], kw["ckpt_every"]
+    d, d2 = os.path.join(OUT_DIR, "tiny_olap_ckpt"), os.path.join(OUT_DIR, "tiny_olap_resume")
+    for x in (d, d2):
+        shutil.rmtree(x, ignore_errors=True)
+    adamw = dict(TINY_ADAMW, total_steps=steps)
+    ops.reset_launch_counts()
+    logs = []
+    sync()
+    t0 = time.time()
+    out = TL.train(cfg, TL.TrainConfig(ckpt_dir=d, **kw), OPT.adamw(**adamw),
+                   log=logs.append, device=device)
+    sync()
+    train_s = time.time() - t0
+    losses = out["losses"]
+    check(losses[-1][1] < 0.7 * losses[0][1], ("tiny-olap loss did not fall", losses))
+    state = (out["params"], out["opt_state"])
+    check(CK.latest_step(d) == steps, ("last checkpoint", CK.latest_step(d)))
+    t0 = time.time()
+    restored, step, _ = CK.restore(d, state, device=device)
+    restore_s = time.time() - t0
+    check(step == steps and _same_bits(restored, state), "restore differs from memory")
+    loose, _, _ = CK.restore_tree(d, device=device)
+    check(_same_bits(tuple(loose), state), "restore_tree differs from memory")
+    del restored, loose
+    os.makedirs(d2)
+    shutil.copytree(os.path.join(d, f"step_{every:08d}"), os.path.join(d2, f"step_{every:08d}"))
+    logs2 = []
+    t0 = time.time()
+    out2 = TL.train(cfg, TL.TrainConfig(ckpt_dir=d2, **kw), OPT.adamw(**adamw),
+                    log=logs2.append, device=device)
+    sync()
+    resume_s = time.time() - t0
+    check(logs2[0] == f"[train] resumed from step {every}", ("resume", logs2[:1]))
+    check(CK.latest_step(d2) == steps, ("resumed run's last checkpoint", CK.latest_step(d2)))
+    state2 = (out2["params"], out2["opt_state"])
+    drift = max((a.float() - b.float()).abs().max().item()
+                for a, b in zip(leaves(state), leaves(state2)))
+    launched = {k: n for k, n in ops.launch_count.items() if n}
+    check(not launched, ("training launched a kernel", launched))
+    ckpt_bytes = _dir_bytes(d)
+    line = {"phase": "train_tiny_olap", "cfg": TINY_OLAP, "train": kw, "adamw": adamw,
+            "params": cfg.param_count(), "seconds": train_s, "losses": losses,
+            "loss_ratio": losses[-1][1] / losses[0][1], "log": logs,
+            "restore_s": restore_s, "ckpt_bytes": ckpt_bytes, "resume_s": resume_s,
+            "resume_log": logs2, "resumed_losses": out2["losses"],
+            "resume_bit_identical": _same_bits(state, state2), "resume_max_abs_diff": drift}
+    for x in (d, d2):
+        shutil.rmtree(x, ignore_errors=True)
+    emit(line)
+    return line, cfg, out["params"]
+
+
+def service_specs(n_rows: int = SERVICE_ROWS):
+    """Q1-Q4 of ``olap_queries`` as wire specs (``Query.to_spec``): Q4's
+    status filter as a ``ColumnPredicate``, the spec form of its lambda."""
+    from types import SimpleNamespace
+    from repro_torch.olap.plan import ColumnPredicate
+    from repro_torch.olap.query import Query
+    from repro_torch.olap.table import Table
+    from repro_torch.training.data import PROMPTS, workload_rows
+    builder = SimpleNamespace(pool=None, backend="auto")
+    reviews = Table({"review": [r.text for r in workload_rows("summarize", n_rows)]})
+    vals = [r.text for r in workload_rows("correct", n_rows)]
+    pairs = workload_rows("join", 16)
+    left = Table({"name": [p.text.split(" | ")[0] for p in pairs]})
+    right = Table({"name": [p.text.split(" | ")[1] for p in pairs]})
+    commits4 = Table({"lang": [vals[i % (n_rows // 2)] for i in range(n_rows)],
+                      "status": ["ok" if i % 2 == 0 else "wip" for i in range(n_rows)]})
+    return {
+        "q1_map": Query(reviews, builder).llm_map("review", prompt=PROMPTS["summarize"],
+                                                  out_col="summary").to_spec(),
+        "q2_correct": Query(Table({"lang": vals}), builder).llm_correct(
+            "lang", prompt=PROMPTS["correct"]).to_spec(),
+        "q3_join": Query(left, builder).llm_join(right, ("name", "name"),
+                                                 prompt=PROMPTS["join"]).to_spec(),
+        "q4_filter": Query(commits4, builder).llm_correct(
+            "lang", prompt=PROMPTS["correct"], max_new=8)
+        .filter(ColumnPredicate("status", "eq", "ok")).to_spec(),
+    }
+
+
+def _http_queries(client, specs):
+    """Each tenant's spec through the service in turn: (rows by tenant,
+    seconds by tenant); every stream must end with its done event."""
+    rows, seconds = {}, {}
+    for tenant, spec in specs.items():
+        t0 = time.time()
+        events = list(client.iter_query(tenant, spec))
+        seconds[tenant] = time.time() - t0
+        check(events and events[-1]["event"] == "done", (tenant, "stream", events[-1:]))
+        rows[tenant] = [e["row"] for e in events if e["event"] == "row"]
+        check(len(rows[tenant]) == events[-1]["rows"], (tenant, "rows streamed"))
+    return rows, seconds
+
+
+def _start_service(sess):
+    from repro_torch.service import SemanticQueryService, ServiceClient, TenantSLO, serve
+    svc = SemanticQueryService(sess, default_slo=TenantSLO(max_inflight_rows=1024,
+                                                           max_queries=8))
+    server, _ = serve(svc, host="127.0.0.1", port=0, block=False)
+    client = ServiceClient(*server.server_address[:2], timeout=900, max_retries=0)
+    check(client.healthz()["ok"] is True, "healthz")
+    return svc, server, client
+
+
+def _stop_service(svc, server):
+    server.shutdown()
+    server.server_close()
+    svc.stop()
+
+
+def _dir_bytes(d) -> int:
+    return sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(d) for f in fs)
+
+
+def _serve_and_restart(make_session, specs, warm, first_gates):
+    """One service's life and a warm restart: ``specs`` over HTTP to a
+    service over ``make_session()``, ``/stats``, ``POST /checkpoint`` into
+    ``warm`` and a stop; ``first_gates(sess, rows)`` runs the phase's own
+    gates on that session.  The session is dropped (its pool and the
+    session refer to each other: the cycle is collected, or its engines
+    stay on the card); a new ``make_session()`` restored with
+    ``restore_warm_state`` behind a new service answers the same specs.
+    Gates: the same rows, no recalibration, no cascade fit, no search, no
+    apply, no calibration.  Deletes ``warm`` and returns a dict of the
+    rows, the first session's probe, the stats, the seconds by tenant
+    before and after, the save and restore seconds and the bytes on disk."""
+    import gc
+    import shutil
+    from repro_torch.service import restore_warm_state
+
+    shutil.rmtree(warm, ignore_errors=True)
+    sess = make_session()
+    with SessionProbe() as probe:
+        svc, server, client = _start_service(sess)
+        t0 = time.time()
+        rows, seconds = _http_queries(client, specs)
+        http_s = time.time() - t0
+        stats = client.stats()
+        t0 = time.time()
+        client.checkpoint(warm)
+        save_s = time.time() - t0
+        _stop_service(svc, server)
+        first_gates(sess, rows)
+    del sess, svc, server, client
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+    sess2 = make_session()
+    with SessionProbe() as probe2:
+        sync()
+        t0 = time.time()
+        restore_warm_state(sess2, warm)
+        sync()
+        restore_s = time.time() - t0
+        svc2, server2, client2 = _start_service(sess2)
+        rows2, seconds2 = _http_queries(client2, specs)
+        _stop_service(svc2, server2)
+    check(rows2 == rows, "warm restart changed rows")
+    check(sess2.recalibrations == 0 and sess2.cascade_fits == 0, "warm restart recalibrated")
+    check(not probe2.searches and not probe2.applies and not probe2.calibrations,
+          "warm restart built")
+    warm_bytes = _dir_bytes(warm)
+    shutil.rmtree(warm, ignore_errors=True)
+    del sess2, svc2, server2, client2
+    gc.collect()
+    return {"rows": rows, "probe": probe, "stats": stats, "http_s": http_s,
+            "seconds": seconds, "restart_seconds": seconds2, "save_s": save_s,
+            "restore_s": restore_s, "warm_bytes": warm_bytes}
+
+
+def service_trained(params, cfg, device="cuda", n_rows: int = SERVICE_ROWS, recipes=None):
+    """The always-on service over the trained ``tiny-olap``: an
+    ``IOLMSession`` with no ``recipes=`` (the reference's grid), the
+    engine settings of ``benchmarks/common.make_engine`` and
+    SERVICE_ENTRIES base entries of pool, behind ``serve`` on an ephemeral
+    port of 127.0.0.1.  ``ServiceClient`` sends Q1-Q4 (``to_spec``) as four
+    tenants, one after another.  Gates: each tenant's HTTP rows equal
+    ``Scheduler.run_queries`` of the same spec on a fresh session that
+    shares the model cache (the same order, so the same batches); the
+    warm restart of ``_serve_and_restart``.  Records each operator's
+    candidates (accuracy, agreement, eval rows/s, bytes, kernel designs),
+    how many clear ACC_FLOOR, the pick, the build seconds and each
+    tenant's p50/p95 from ``/stats``.  Whether a candidate reaches the
+    floor is not gated."""
+    from repro_torch.olap.query import IOLMSession, query_from_spec
+    from repro_torch.serving.scheduler import Scheduler
+    from repro_torch.service.core import table_rows
+
+    engine_kw = dict(SERVICE_ENGINE_KW)
+    entry, _ = pool_budget(params, cfg, engine_kw)
+    budget = int(SERVICE_ENTRIES * entry)
+    specs = service_specs(n_rows)
+    kw = dict(device=device, engine_kw=engine_kw, pool_budget=budget, recipes=recipes)
+
+    def against_run_queries(sess, rows):
+        check(sess.recalibrations == len(specs), ("recalibrations", sess.recalibrations))
+        fresh = IOLMSession(params, cfg, **kw)
+        fresh.model_cache = sess.model_cache
+        sched = Scheduler(fresh.pool, share=8)
+        for tenant, spec in specs.items():
+            want = table_rows(sched.run_queries({tenant: query_from_spec(spec, fresh)})[tenant])
+            check(rows[tenant] == want, (tenant, "HTTP rows differ from run_queries"))
+        check(fresh.recalibrations == 0, "the fresh session rebuilt")
+
+    run = _serve_and_restart(lambda: IOLMSession(params, cfg, **kw), specs,
+                             os.path.join(OUT_DIR, "warm_tiny_olap"), against_run_queries)
+    probe, stats = run["probe"], run["stats"]
+    operators = []
+    for tenant, search in zip(specs, probe.searches):
+        operators.append({"tenant": tenant, "picked": search["picked"],
+                          "search_s": search["seconds"],
+                          "cleared_floor": sum(c["accuracy"] >= ACC_FLOOR
+                                               for c in search["candidates"]),
+                          "baseline_rows_per_s": search["baseline_rows_per_s"],
+                          "candidates": search["candidates"]})
+    tenants = stats["scheduler"]["tenants"]
+    line = {"phase": "service_trained", "rows": {t: len(r) for t, r in run["rows"].items()},
+            "budget": budget, "entry_bytes": entry,
+            **{k: run[k] for k in ("http_s", "seconds", "restart_seconds", "save_s",
+                                   "restore_s", "warm_bytes")},
+            "calibrations": probe.calibrations, "applies": probe.applies,
+            "operators": operators,
+            "latency": {t: {k: tenants[t]["latency"][k] for k in ("p50", "p95")}
+                        for t in specs},
+            "queue_wait": {t: {k: tenants[t]["queue_wait"][k] for k in ("p50", "p95")}
+                           for t in specs},
+            "pool": stats["pool"], "service": stats["service"],
+            "degradations": stats["scheduler"].get("degradations")}
+    check(not line["degradations"], ("degradations", line["degradations"]))
+    emit(line)
+    for op in operators:
+        print(f"  {op['tenant']}: pick {op['picked']}, {op['cleared_floor']} of "
+              f"{len(op['candidates'])} at accuracy >= {ACC_FLOOR}; " + ", ".join(
+                  f"{c['recipe']} {c['accuracy']:.3f}/{c['token_agreement']:.3f}"
+                  for c in op["candidates"]), flush=True)
+    return line
+
+
+def service_full_width(base, cfg, device="cuda", n_rows: int = SERVICE_ROWS):
+    """One HTTP query at full width: an ``IOLMSession`` over the bf16
+    gemma2-2b base with ``olap_session``'s pinned absmax recipes and a
+    pool of POOL_ENTRIES base entries behind ``serve``; Q2 as one tenant.
+    Gates: its rows equal ``Query.run`` on the same session; the warm
+    restart of ``_serve_and_restart`` (the warm state under ``OUT_DIR``).
+    Records the bytes on disk and the save and restore seconds."""
+    from repro_torch.olap.query import IOLMSession, query_from_spec
+    from repro_torch.service.core import table_rows
+
+    _, recipes = session_recipes(cfg)
+    _, budget = pool_budget(base, cfg, SESSION_KW["engine_kw"])
+    kw = dict(SESSION_KW, device=device, recipes=recipes, pool_budget=budget)
+    spec = {"q2_correct": service_specs(n_rows)["q2_correct"]}
+
+    def against_query_run(sess, rows):
+        serial = table_rows(query_from_spec(spec["q2_correct"], sess).run())
+        check(rows["q2_correct"] == serial, "HTTP rows differ from Query.run")
+        check(len(serial) == n_rows, ("rows", len(serial)))
+
+    run = _serve_and_restart(lambda: IOLMSession(base, cfg, **kw), spec,
+                             os.path.join(OUT_DIR, "warm_full_width"), against_query_run)
+    searches = run["probe"].searches
+    tenant = run["stats"]["scheduler"]["tenants"]["q2_correct"]
+    line = {"phase": "service_full_width", "rows": len(run["rows"]["q2_correct"]),
+            "picked": searches[0]["picked"] if searches else None,
+            "seconds": run["seconds"]["q2_correct"],
+            "restart_seconds": run["restart_seconds"]["q2_correct"],
+            "save_s": run["save_s"], "restore_s": run["restore_s"],
+            "warm_bytes": run["warm_bytes"],
+            "latency": {k: tenant["latency"][k] for k in ("p50", "p95")},
+            "search_s": searches[0]["seconds"] if searches else None}
+    emit(line)
+    return line
+
+
 def profile_step(gen, params, eng, steps: int = 5, name="decode_profile"):
     """Where one decode step's time goes: host wall time per step
     (ending in a sync) against device kernel time from torch.profiler,
@@ -2105,12 +2680,15 @@ def main() -> int:
         check(spill[n] == 0, (n, "spills registers", ptxas[n]))
 
     seconds = {"build": time.time() - t0}
+    memory = {}                 # memory_allocated before and after each phase
 
     def timed(phase, fn, *a, **kw):
-        t = time.time()
+        t, before = time.time(), card_memory()[0]
         out = fn(*a, **kw)
         seconds[phase] = time.time() - t
-        print(f"phase {phase}: {seconds[phase]:.1f} s", flush=True)
+        memory[phase] = (before, card_memory()[0])
+        print(f"phase {phase}: {seconds[phase]:.1f} s, memory_allocated "
+              f"{before} -> {memory[phase][1]}", flush=True)
         return out
 
     gen = torch.Generator(device="cuda")
@@ -2145,6 +2723,11 @@ def main() -> int:
     parity_line = timed("olap_f32_parity", olap_f32_parity, gen, cfg)
     fleet_line, fleet_launches = timed("olap_pool_fleet", olap_pool_fleet, base, cfg)
     pool_line, pool_launches = timed("olap_pool_session", olap_pool_session, base, cfg)
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    svc_full_line = timed("service_full_width", service_full_width, base, cfg)
+    service_runs = dict(ops.launch_count)
+    svc_full_line["launches"] = dict(service_runs)
     del base
     torch.cuda.empty_cache()
     pool_parity_line, pool_parity_launches = timed("olap_pool_f32_parity",
@@ -2152,6 +2735,16 @@ def main() -> int:
     # the pooled runs of the three olap_pool phases (their serial references excluded)
     pool_runs = {k: fleet_launches.get(k, 0) + pool_launches.get(k, 0)
                  + pool_parity_launches.get(k, 0) for k in ops.launch_count}
+    torch.cuda.empty_cache()
+    train_parity_line = timed("train_parity", train_parity, gen, cfg)
+    torch.cuda.empty_cache()
+    train_full_line = timed("train_full_width", train_full_width, cfg)
+    torch.cuda.empty_cache()
+    tiny_line, tiny_cfg, tiny_params = timed("train_tiny_olap", train_tiny_olap)
+    ops.reset_launch_counts()
+    svc_line = timed("service_trained", service_trained, tiny_params, tiny_cfg)
+    svc_line["launches"] = dict(ops.launch_count)
+    service_runs = {k: service_runs[k] + ops.launch_count[k] for k in ops.launch_count}
 
     kernels = []
     for line, runs, variants, source, replaces in (
@@ -2165,16 +2758,20 @@ def main() -> int:
              "src/repro/kernels/block_sparse.py:39")):
         check(runs[line["name"]] > 0, ("no launch on the path", line["name"], runs))
         by_path = {"olap_session": olap_launches[line["name"]],
-                   "olap_pool": pool_runs[line["name"]]}
+                   "olap_pool": pool_runs[line["name"]],
+                   "service": service_runs[line["name"]]}
         if line["name"] in ("paged_attention", "quant_matmul"):
             check(by_path["olap_session"] > 0, ("no launch in the OLAP session", line["name"]))
             check(by_path["olap_pool"] > 0, ("no launch in the pooled OLAP runs", line["name"]))
+            check(by_path["service"] > 0, ("no launch in the service phases", line["name"]))
         else:
             check(by_path["olap_pool"] == 0, ("off the pooled path", line["name"]))
+            check(by_path["service"] == 0, ("off the service path", line["name"]))
         kernels.append({"name": line["name"], "route": "cuda", "source": source,
                         "replaces": replaces, "launches": runs[line["name"]],
                         "launches_olap_session": by_path["olap_session"],
                         "launches_olap_pool": by_path["olap_pool"],
+                        "launches_service": by_path["service"],
                         "max_abs_err": line["max_abs_err"], "ms": line["ms"],
                         "plain_ms": line["plain_ms"], "bound_ms": line["bound_ms"],
                         "bound_by": line["bound_by"], "library_ms": line["library_ms"],
@@ -2183,8 +2780,8 @@ def main() -> int:
                         "max_rel_err": line["max_rel_err"],
                         "variants": {k.split(".")[1]: n for k, n in variants.items()
                                      if k.startswith(line["name"] + ".")}})
-    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "sass": sass, "ptxas": ptxas, "kernels": kernels,
                    "quant_matmul_cases": k2_cases,
                    "paged_attention_cases": k1_cases, "block_sparse_matmul_cases": k4_cases,
@@ -2196,7 +2793,11 @@ def main() -> int:
                    "olap_session": olap_line, "olap_session_variants": olap_variants,
                    "olap_f32_parity": parity_line, "olap_pool_fleet": fleet_line,
                    "olap_pool_session": pool_line, "olap_pool_f32_parity": pool_parity_line,
-                   "phase_seconds": seconds, "seconds": time.time() - t_start}, f, indent=1)
+                   "service_full_width": svc_full_line, "train_parity": train_parity_line,
+                   "train_full_width": train_full_line, "train_tiny_olap": tiny_line,
+                   "service_trained": svc_line,
+                   "phase_seconds": seconds, "phase_memory": memory,
+                   "seconds": time.time() - t_start}, f, indent=1)
     emit({"kernels": kernels})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

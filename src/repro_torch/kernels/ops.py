@@ -113,6 +113,19 @@ def _require(cond: bool, name: str, what: str) -> None:
         raise KernelInputError(f"{name}: {what}")
 
 
+def grad_refused(*tensors) -> bool:
+    """Whether a kernel launch on ``tensors`` would drop a gradient: grad
+    mode is on and one of them requires grad."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                           for t in tensors)
+
+
+def _no_grad_inputs(name: str, *tensors) -> None:
+    _require(not grad_refused(*tensors), name,
+             "inputs require grad and the kernel has no backward pass; run it "
+             "under torch.no_grad() or take the plain path")
+
+
 def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
@@ -195,6 +208,7 @@ def quant_matmul(x, q, scale, *, group: int, in_scale=None, bits: int = 8):
     dev = _same_device(name, x, q, scale, in_scale)
     if dev.type == "cpu":
         return ref.quant_matmul(x, q, scale, group=group, in_scale=in_scale)
+    _no_grad_inputs(name, x, q, scale, in_scale)
     _require(q.is_contiguous() and scale.is_contiguous(), name,
              "q and scale must be contiguous")
     if in_scale is not None:
@@ -287,6 +301,7 @@ def paged_attention(q, k_pool, v_pool, tables, lengths, *,
         out = ref.paged_attention(qr, k_pool, v_pool, tables, lengths,
                                   softcap=softcap, window=window)
         return out.reshape(S, 1, H, D)
+    _no_grad_inputs(name, q, k_pool, v_pool)
     fn = _fn(name, "paged_attention_launch")
     _require(G <= _fn(name, "paged_attention_max_g")(), name, f"G={G} is too large")
     _require(D in PA_HEAD_DIMS, name, f"head dim {D} is not one of {PA_HEAD_DIMS}")
@@ -386,6 +401,7 @@ def block_sparse_matmul(x, w, idx, *, bs: int):
     dev = _same_device(name, x, w, idx)
     if dev.type == "cpu":
         return ref.block_sparse_matmul(x, w, idx, bs=bs)
+    _no_grad_inputs(name, x, w)
     _require(w.is_contiguous() and w.data_ptr() % 16 == 0, name,
              "w must be contiguous and 16-byte aligned")
     keep = idx.shape[1]
@@ -447,6 +463,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if dev.type == "cpu":
         return ref.flash_attention(q, k, v, causal=causal, window=window,
                                    softcap=softcap, t_real=t_real, q_offset=q_offset)
+    _no_grad_inputs(name, q, k, v)
     _require(D in HEAD_DIMS, name, f"head dim {D} is not one of {HEAD_DIMS}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     _require(all(t.data_ptr() % 16 == 0 for t in (q, k, v)), name,

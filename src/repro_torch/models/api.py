@@ -8,6 +8,7 @@ from __future__ import annotations
 from typing import Any, Dict
 
 from repro_torch.models import transformer
+from repro_torch.tree import value_and_grad
 
 
 def family_module(cfg):
@@ -28,6 +29,15 @@ def forward(params, cfg, batch: Dict[str, Any], *, train: bool = False,
     return family_module(cfg).forward(params, cfg, batch["tokens"], train=train,
                                       remat=remat, capture=capture,
                                       use_flash=use_flash)
+
+
+def loss_fn(params, cfg, batch, *, xent_chunk: int = 0, remat: bool = True,
+            aux_weight: float = 0.01):
+    """Causal LM loss of ``batch`` {"tokens", "labels"} (scalar f32)."""
+    return family_module(cfg).loss_fn(params, cfg, batch["tokens"], batch["labels"],
+                                      img_embs=batch.get("img_embs"),
+                                      xent_chunk=xent_chunk, remat=remat,
+                                      aux_weight=aux_weight)
 
 
 def prefill(params, cfg, batch, *, max_len: int, compact_local: bool = False,
@@ -108,3 +118,26 @@ def prefill_from(params, cfg, prefix_cache_entry, suffix_tokens, prefix_len,
     return family_module(cfg).prefill_from(params, cfg, prefix_cache_entry,
                                            suffix_tokens, prefix_len,
                                            max_len=max_len)
+
+
+# ---------------------------------------------------------------------------
+# step builders
+# ---------------------------------------------------------------------------
+
+def build_train_step(cfg, optimizer, *, xent_chunk: int = 0,
+                     grad_compress=None):
+    """(params, opt_state, batch, step) -> (params, opt_state, metrics).
+
+    ``optimizer`` from ``repro_torch.training.optimizer``;
+    ``grad_compress`` an optional hook applied to the grads before the
+    update, which the optimizer writes into the given params and state
+    (the reference's step donates them to ``jax.jit``)."""
+    def train_step(params, opt_state, batch, step):
+        loss, grads = value_and_grad(
+            lambda p: loss_fn(p, cfg, batch, xent_chunk=xent_chunk), params)
+        if grad_compress is not None:
+            grads = grad_compress(grads)
+        params, opt_state = optimizer.update(params, grads, opt_state, step)
+        gnorm = optimizer.global_norm(grads)
+        return params, opt_state, {"loss": loss, "grad_norm": gnorm}
+    return train_step

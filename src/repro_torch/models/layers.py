@@ -221,7 +221,13 @@ _FLASH_MIN_ELEMS = 1 << 26
 def best_attention(q, k, v, *, kind: str, cfg, q_offset: int = 0,
                    causal: bool = True):
     """Dispatch: local-block for window layers, blocked flash for long
-    global sequences, plain masked attention otherwise."""
+    global sequences, plain masked attention otherwise.
+
+    The flash branch runs K3 under the ``"cuda"`` backend, and K3 has no
+    backward pass (its wrapper refuses inputs that require grad), so a
+    training step stays below the flash threshold (S * T < 2**26) until
+    one exists; the reference sends this branch to its differentiable
+    jnp flash instead."""
     S, T = q.shape[1], k.shape[1]
     if kind == "L" and S > cfg.window_size and causal:
         return local_block_attention(q, k, v, window=cfg.window_size,

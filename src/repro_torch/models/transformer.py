@@ -17,6 +17,7 @@ from __future__ import annotations
 from typing import Any, Dict, Iterator, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.compressed import BlockSparseTensor, QTensor, current_backend
 from repro_torch.kernels import ops as kops
@@ -132,21 +133,81 @@ def init_params(gen: torch.Generator, cfg) -> Params:
 # full-sequence forward
 # ---------------------------------------------------------------------------
 
+def _trunk(params: Params, cfg, x, *, train: bool, use_flash: bool, remat: bool):
+    """Every block over x [B, S, d], then the final norm.  With ``remat``
+    (and grad mode on) each layer of ``blocks`` runs under
+    ``torch.utils.checkpoint``, which keeps only its input for the
+    backward pass and recomputes the rest, as ``jax.checkpoint`` of the
+    reference's scan body does; the ``tail`` layers are not
+    rematerialized, as in the reference."""
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    unit, R, _ = pattern_unit(cfg)
+    remat = remat and torch.is_grad_enabled()
+
+    def one(p, x, kind):
+        return block_apply(p, x, cfg, kind=kind, positions=positions,
+                           train=train, use_flash=use_flash)[0]
+
+    for i, (kind, p) in enumerate(_layers(params, cfg)):
+        if remat and i < R * len(unit):
+            x = checkpoint(one, p, x, kind, use_reentrant=False)
+        else:
+            x = one(p, x, kind)
+    return norm(x, params["ln_f"], cfg)
+
+
 def forward(params: Params, cfg, tokens, *, train: bool = False,
             use_flash: bool = False, remat: bool = True, capture: bool = False):
     """Returns (logits [B,S,V], aux dict)."""
     if capture:
         raise NotImplementedError(
             "capture is for calibration: ROADMAP queue 1 item 5")
-    x = L.embed(params, cfg, tokens)
-    B, S, _ = x.shape
-    positions = torch.arange(S, device=x.device).expand(B, S)
-    for kind, p in _layers(params, cfg):
-        x, _ = block_apply(p, x, cfg, kind=kind, positions=positions,
-                           train=train, use_flash=use_flash)
-    x = norm(x, params["ln_f"], cfg)
+    x = _trunk(params, cfg, L.embed(params, cfg, tokens), train=train,
+               use_flash=use_flash, remat=remat)
     logits = L.unembed(params, cfg, x)
     return logits, {"moe_aux": torch.zeros((), device=x.device)}
+
+
+def loss_fn(params: Params, cfg, tokens, labels, *, img_embs=None,
+            xent_chunk: int = 0, remat: bool = True, aux_weight: float = 0.01):
+    """Causal LM loss: the summed cross-entropy over every position divided
+    by ``labels.numel()`` (padding positions count, with label 0, as in
+    the reference).  ``xent_chunk`` > 0 streams the vocab projection
+    over sequence chunks so [B, S, V] logits are never materialized;
+    with ``remat`` each chunk's logits are recomputed in the backward
+    pass instead of kept."""
+    if img_embs is not None:
+        raise NotImplementedError(
+            "img_embs (the vlm family) is not ported yet (ROADMAP queue 1 item 9)")
+    if not xent_chunk:
+        logits, aux = forward(params, cfg, tokens, train=True, remat=remat)
+        return _xent(logits, labels) / labels.numel() + aux_weight * aux["moe_aux"]
+    x = _trunk(params, cfg, L.embed(params, cfg, tokens), train=True,
+               use_flash=False, remat=remat)
+    B, S, d = x.shape
+    nchunks = max(S // xent_chunk, 1)
+    xcs = x.reshape(B, nchunks, -1, d)
+    ycs = labels.reshape(B, nchunks, -1)
+
+    def chunk(xc, yc):
+        return _xent(L.unembed(params, cfg, xc), yc)
+
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c in range(nchunks):
+        if remat and torch.is_grad_enabled():
+            total = total + checkpoint(chunk, xcs[:, c], ycs[:, c], use_reentrant=False)
+        else:
+            total = total + chunk(xcs[:, c], ycs[:, c])
+    return total / labels.numel()
+
+
+def _xent(logits, labels) -> torch.Tensor:
+    """Summed token cross-entropy of logits [..., V] against int labels
+    [...], in f32."""
+    lse = torch.logsumexp(logits.float(), dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return (lse - gold.float()).sum()
 
 
 # ---------------------------------------------------------------------------

@@ -1,1 +1,1 @@
-"""Tokenizer of the serving path."""
+"""Training of the port: data, optimizers, the train loop and checkpoints."""

@@ -6,6 +6,9 @@ imports nothing of it), so that the same ``(seed, i)`` gives the same
 strings on both sides: free-text review rows for summarization,
 corrupted records for data correction and entity pairs for fuzzy joins,
 each drawn from a ``random.Random`` seeded by a hash of its salt.
+``train_batch`` mixes the three tasks into language-model batches that
+are a pure function of ``(seed, step)``: a restarted trainer replays
+the same batches with no data server.
 """
 from __future__ import annotations
 
@@ -180,6 +183,37 @@ PROMPTS = {
 def workload_rows(name: str, n: int, *, seed: int = 0) -> List[Row]:
     gen = WORKLOADS[name]
     return [gen(seed, i) for i in range(n)]
+
+
+# ---------------------------------------------------------------------------
+# LM training batches (mixture of all three tasks, prompt-formatted)
+# ---------------------------------------------------------------------------
+
+def format_example(task: str, row: Row, tok: ByteTokenizer) -> List[int]:
+    """``<bos> prompt text <sep> target <eos>`` — loss over the whole row."""
+    ids = tok.encode(PROMPTS[task] + row.text, bos=True)
+    ids += [tok.SEP] + tok.encode(row.target, eos=True)
+    return ids
+
+
+def train_batch(step: int, *, batch: int, seq_len: int,
+                tok: ByteTokenizer, seed: int = 0,
+                tasks: Sequence[str] = ("summarize", "correct", "join")):
+    """Deterministic (seed, step) -> batch of numpy arrays ``tokens``,
+    ``labels`` (int32 [batch, seq_len]) and ``weights`` (f32, 0 on
+    padding); restart-safe by construction."""
+    rows = []
+    for b in range(batch):
+        r = _rng(seed, "mix", step, b)
+        task = tasks[r.randrange(len(tasks))]
+        row = WORKLOADS[task](seed * 97 + 13, step * batch + b)
+        rows.append(format_example(task, row, tok))
+    toks, _ = tok.pad_batch(rows, seq_len=seq_len + 1)
+    tokens = toks[:, :-1]
+    labels = toks[:, 1:].copy()
+    labels[labels == tok.PAD] = 0
+    weights = (toks[:, 1:] != tok.PAD).astype(np.float32)
+    return {"tokens": tokens, "labels": labels, "weights": weights}
 
 
 def eval_rows(task: str, n: int, *, seed: int = 10_000) -> List[Row]:

@@ -1,0 +1,141 @@
+"""Training loop: microbatch accumulation, remat, checkpoint/restart.
+
+The reference's trainer (``training/train_loop.py``) on PyTorch:
+
+  - deterministic (seed, step) -> batch (``training/data.py``), so a
+    killed trainer replays the same batches;
+  - atomic checkpoints every ``ckpt_every`` steps and at the end
+    (``training/checkpoint.py``, the reference's on-disk format); on
+    start the loop resumes from the latest one;
+  - gradient accumulation over ``microbatches`` in f32, divided by M,
+    keeps the activation footprint at 1/M;
+  - an optional ``grad_compressor`` hook ``(grads, residual) -> (grads,
+    residual)`` between the gradients and the update (the reference's
+    int8 error-feedback compressor over a mesh is ROADMAP queue 1
+    item 11).
+
+Params come from a seeded ``torch.Generator`` on ``device`` (default
+``"cuda"``, which raises without a card), or from ``params=``.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, Optional
+
+import torch
+
+from repro_torch.kernels.backend import resolve_device
+from repro_torch.models import api
+from repro_torch.training import checkpoint as ckpt
+from repro_torch.training import data as D
+from repro_torch.training.optimizer import Optimizer, global_norm
+from repro_torch.tree import tree_map, value_and_grad
+
+
+@dataclass
+class TrainConfig:
+    steps: int = 200
+    batch: int = 16
+    seq_len: int = 128
+    microbatches: int = 1
+    seed: int = 0
+    ckpt_dir: Optional[str] = None
+    ckpt_every: int = 100
+    log_every: int = 20
+    xent_chunk: int = 0
+    aux_weight: float = 0.01
+
+
+def make_train_step(model_cfg, optimizer: Optimizer, *,
+                    microbatches: int = 1, xent_chunk: int = 0,
+                    grad_compressor: Optional[Callable] = None,
+                    aux_weight: float = 0.01, remat: bool = True):
+    """(params, opt_state, batch, step[, residual]) -> updated state.
+
+    ``batch["tokens"/"labels"]``: [B, S] tensors; B must divide by
+    ``microbatches``.  Metrics are device scalars ``loss`` and
+    ``grad_norm`` (the norm before clipping).  The update is written
+    into the given params and state (``Optimizer.update``)."""
+    def loss(p, b):
+        return api.loss_fn(p, model_cfg, b, xent_chunk=xent_chunk, remat=remat,
+                           aux_weight=aux_weight)
+
+    def train_step(params, opt_state, batch, step, residual=None):
+        if microbatches == 1:
+            lv, grads = value_and_grad(lambda p: loss(p, batch), params)
+        else:
+            M = microbatches
+            B = batch["tokens"].shape[0]
+            if B % M:
+                raise ValueError(f"batch {B} does not divide into {M} microbatches")
+            lv = None
+            grads = None
+            for i in range(M):
+                mb = {k: v[i * (B // M):(i + 1) * (B // M)] for k, v in batch.items()}
+                li, gi = value_and_grad(lambda p: loss(p, mb), params)
+                if grads is None:
+                    lv, grads = li.float(), tree_map(lambda g: g.float(), gi)
+                else:
+                    lv = lv + li
+                    grads = tree_map(lambda a, g: a.add_(g), grads, gi)
+                del gi
+            lv = lv / M
+            grads = tree_map(lambda g: g.div_(M), grads)
+        if grad_compressor is not None:
+            grads, residual = grad_compressor(grads, residual)
+        gnorm = global_norm(grads)
+        params, opt_state = optimizer.update(params, grads, opt_state, step)
+        metrics = {"loss": lv, "grad_norm": gnorm}
+        if grad_compressor is not None:
+            return params, opt_state, residual, metrics
+        return params, opt_state, metrics
+
+    return train_step
+
+
+def train(model_cfg, tcfg: TrainConfig, optimizer: Optimizer, *,
+          params=None, log: Callable[[str], None] = print,
+          batch_fn: Optional[Callable] = None, device="cuda") -> Dict[str, Any]:
+    """End-to-end single-device training with restart support."""
+    dev = resolve_device(device)
+    tok = D.ByteTokenizer(max(model_cfg.vocab_size, 260))
+    if batch_fn is None:
+        def batch_fn(step):
+            return D.train_batch(step, batch=tcfg.batch, seq_len=tcfg.seq_len,
+                                 tok=tok, seed=tcfg.seed)
+    if params is None:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(tcfg.seed)
+        params = api.init_params(gen, model_cfg)
+    opt_state = optimizer.init(params)
+    start = 0
+    if tcfg.ckpt_dir and ckpt.latest_step(tcfg.ckpt_dir) is not None:
+        (params, opt_state), start, _ = ckpt.restore(tcfg.ckpt_dir, (params, opt_state),
+                                                     device=dev)
+        log(f"[train] resumed from step {start}")
+
+    step_fn = make_train_step(model_cfg, optimizer, microbatches=tcfg.microbatches,
+                              xent_chunk=tcfg.xent_chunk, aux_weight=tcfg.aux_weight)
+    losses = []
+    t0 = time.time()
+    for step in range(start, tcfg.steps):
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in batch_fn(step).items()
+                 if k in ("tokens", "labels")}
+        params, opt_state, metrics = step_fn(params, opt_state, batch, step)
+        if step % tcfg.log_every == 0 or step == tcfg.steps - 1:
+            lv = float(metrics["loss"])
+            losses.append((step, lv))
+            log(f"[train] step {step:5d} loss {lv:.4f} "
+                f"gnorm {float(metrics['grad_norm']):.3f} "
+                f"({(time.time() - t0):.1f}s)")
+        if tcfg.ckpt_dir and tcfg.ckpt_every \
+                and (step + 1) % tcfg.ckpt_every == 0:
+            ckpt.save(tcfg.ckpt_dir, step + 1, (params, opt_state))
+    if tcfg.ckpt_dir:
+        ckpt.save(tcfg.ckpt_dir, tcfg.steps, (params, opt_state))
+    return {"params": params, "opt_state": opt_state, "losses": losses,
+            "tokenizer": tok}
+
+
+__all__ = ["TrainConfig", "make_train_step", "train"]
