@@ -107,6 +107,36 @@ Phases, each of which raises on failure (so the script exits non-zero):
    and agreement, the picks and per-tenant latency recorded.  The
    training phases launch none of the four kernels; the two service
    phases launch K1 and K2 and neither K3 nor K4.
+17. kernel_quant_matmul_experts (the MoE phases run last, from
+   generators of their own, MOE_SEED and MOE_KERNEL_SEED): K2 over
+   experts, every expert of a linear in one launch, against its plain
+   version at qwen2-moe's expert shapes (E 60, 30, 15; C 8, 14, 32, 64,
+   256, 512 and 1024; 2048 -> 1408 and back; ``in_scale``, f32, K 1056
+   in groups of 96) and K1 at qwen2-moe's decode shape; one expert
+   linear timed in a decode step;
+18. moe_main_path: full-width qwen2-moe-a2.7b (24 layers, 60 experts
+   top 4, 4 shared; random bf16 weights) compressed with ``w8-absmax``
+   and served by ``Engine(slots=8, max_len=1024)`` on the main path's
+   rows, then the bf16 base: per decode step 169 K2 launches on
+   ``decode``, 72 of K2 over experts on ``expert_decode``, 24 of K1;
+   per prefill 169 on ``mma`` and 72 on ``expert_mma``; the base K1 only;
+19. moe_whole_step: one decode step of that int8 instance, cuda against
+   reference backend, in bf16 at full width (STEP_BF16_RATIO; tokens
+   whose expert sets differ counted) and in f32 at 4 layers (STEP_TOL_F32,
+   identical routes); then moe_decode_profile, the step's profile;
+20. moe_session: an ``IOLMSession`` over the full-width base runs Q2 and
+   Q1 (64 rows each) with ``w8-absmax`` and absmax copies of
+   ``w8-expert50`` and ``w8-expert25``: no Hessian calibrated, each
+   router's counts summing to calibration tokens x top_k, the pruned
+   candidates (30 and 15 experts) keeping the most-routed experts,
+   ``backend=cuda`` in EXPLAIN, the served engine on K1, K2 and K2 over
+   experts;
+21. kernel_quant_matmul_experts_seen: K2 over experts against its plain
+   version at every shape phases 18 and 20 gave it (``ExpertShapeProbe``
+   records them), on the design each ran; one expert linear timed at
+   the main path's most frequent prefill shape;
+22. moe_f32_parity: Q2 at qwen2-moe's widths in f32 at 4 layers, cuda
+   against reference session (phase 8's criteria).
 
 K2, K3 and K4 run their tensor-core designs on bf16 and their FMA
 designs on f32; ``ops.variant_count`` shows which design of every kernel
@@ -115,7 +145,8 @@ Prints one JSON line per phase and each phase's seconds and
 ``memory_allocated`` before and after it, the
 ``{"kernels": [...]}`` summary (with each kernel's launches on its own
 path, over ``olap_session``, over the pooled runs of phases 9-11 and
-over the two service phases),
+over the two service phases, and
+on the MoE path: ``launches_moe``, and K2's expert designs and timing),
 the card line, and last ``{"ok": true, "device": {...}}``.  Exits non-zero
 without a card and outside a checkout of the repository.
 """
@@ -349,7 +380,8 @@ def check_quant_matmul(gen):
         worst_abs = max(worst_abs, err_abs)
 
     def fma(x, qt):                   # the replaced design on the same bf16 input
-        return ops._launch_quant_matmul(x, qt.q, qt.scale, qt.group, "fma")
+        return ops._launch_quant_matmul(x[None], qt.q[None], qt.scale[None], qt.group,
+                                        "fma")[0]
 
     # timing: the 7 matmuls of one gemma2-2b layer in one decode step (M=8)
     ms = fma_ms = plain_ms = lib_ms = nbytes = flops = 0.0
@@ -1086,12 +1118,13 @@ class SessionProbe:
     (model version, prompt) in ``vids``, and its confidence by (model
     version, prompt) in ``vconf``)."""
 
-    def __init__(self, ids: bool = False, on_search=None):
+    def __init__(self, ids: bool = False, on_search=None, on_outcome=None):
         self.searches, self.calibrations, self.applies, self.engines = [], [], [], []
         self.ids = {} if ids else None
         self.vids = {} if ids else None
         self.vconf = {} if ids else None
         self.on_search = on_search
+        self.on_outcome = on_outcome
 
     def __enter__(self):
         from repro_torch.core import policy as POL
@@ -1134,6 +1167,8 @@ class SessionProbe:
                                for c, v in zip(out.candidates, per_eval[1:])]})
             if probe.on_search is not None:
                 probe.on_search(optimizer)
+            if probe.on_outcome is not None:
+                probe.on_outcome(optimizer, out)
             return out
 
         def run_calibration(opt, batch, **kw):
@@ -1387,12 +1422,14 @@ def olap_session(base, cfg):
 NEAR_TIE = 1e-4                 # top-two logit gap under which f32 argmaxes may flip
 
 
-def olap_f32_parity(gen, cfg_full, layers: int = 4):
-    """Q2 at gemma2-2b's widths in f32 at ``layers`` layers, with
-    ``recipes=[w8-absmax]``, run by one session on the cuda backend and by
-    one on the reference backend.  The tables must be identical; a row
-    whose tokens differ must be a near tie: the plain instance's top-two
-    logit gap at the first differing token under NEAR_TIE."""
+def olap_f32_parity(gen, cfg_full, layers: int = 4, name="olap_f32_parity"):
+    """Q2 at ``cfg_full``'s widths (gemma2-2b's, or qwen2-moe-a2.7b's) in
+    f32 at ``layers`` layers, with ``recipes=[w8-absmax]``, run by one
+    session on the cuda backend and by one on the reference backend.  The
+    tables must be identical; a row whose tokens differ must be a near
+    tie: the plain instance's top-two logit gap at the first differing
+    token under NEAR_TIE.  The cuda side runs K1 and K2's FMA design (and
+    K2 over experts on it for an MoE model), the reference side nothing."""
     import gc
     from repro_torch.core.compressed import kernel_backend
     from repro_torch.kernels import ops
@@ -1401,8 +1438,8 @@ def olap_f32_parity(gen, cfg_full, layers: int = 4):
     from repro_torch.olap.table import Table
     from repro_torch.training.data import PROMPTS, ByteTokenizer, workload_rows
 
-    cfg = cfg_full.replace(n_layers=layers, attn_pattern="LG" * (layers // 2),
-                           param_dtype="float32")
+    cfg = cfg_full.replace(n_layers=layers, param_dtype="float32",
+                           attn_pattern=cfg_full.attn_pattern and "LG" * (layers // 2))
     params = api.init_params(gen, cfg)
     grid, _ = session_recipes(cfg)
     commits = Table({"lang": [r.text for r in workload_rows("correct", 64)]})
@@ -1421,8 +1458,10 @@ def olap_f32_parity(gen, cfg_full, layers: int = 4):
             sync()
         variants = {k: n for k, n in ops.variant_count.items() if n}
         if backend == "cuda":
-            check(set(variants) == {"quant_matmul.fma", "paged_attention.split"},
-                  ("f32 session designs", variants))
+            want = {"quant_matmul.fma", "paged_attention.split"}
+            if cfg.family == "moe":
+                want.add("quant_matmul.expert_fma")
+            check(set(variants) == want, ("f32 session designs", variants))
         else:
             check(not variants, ("reference session launched kernels", variants))
         runs[backend] = {"table": out, "ids": probe.ids, "wall_s": time.time() - t0,
@@ -1445,14 +1484,14 @@ def olap_f32_parity(gen, cfg_full, layers: int = 4):
         top = lg[0, -1].float().topk(2).values
         differ.append({"prompt": text, "token": j, "gap": (top[0] - top[1]).item()})
     same_table = c["table"].columns == r["table"].columns
-    line = {"phase": "olap_f32_parity", "model": cfg.name, "layers": layers,
+    line = {"phase": name, "model": cfg.name, "layers": layers,
             "dtype": "float32", "recipe": "w8-absmax", "rows": 64,
             "distinct_prompts": len(r["ids"]), "tables_identical": same_table,
             "rows_with_other_tokens": differ, "near_tie_bound": NEAR_TIE,
             "wall_s": {k: v["wall_s"] for k, v in runs.items()},
             "variants": {k: v["variants"] for k, v in runs.items()}}
     emit(line)
-    print(f"olap f32 parity: tables identical {same_table}, {len(differ)} of "
+    print(f"{name}: tables identical {same_table}, {len(differ)} of "
           f"{len(r['ids'])} prompts with other tokens"
           + "".join(f", gap {d['gap']:.2e} at token {d['token']}" for d in differ), flush=True)
     check(sorted(c["ids"]) == sorted(r["ids"]), "the two sessions served other prompts")
@@ -2589,6 +2628,618 @@ def service_full_width(base, cfg, device="cuda", n_rows: int = SERVICE_ROWS):
     return line
 
 
+# ---------------------------------------------------------------------------
+# the MoE phases: full-width qwen2-moe-a2.7b
+# ---------------------------------------------------------------------------
+
+MOE_SEED = 23                    # the MoE phases' generator: earlier phases' draws stay
+MOE_KERNEL_SEED = 29             # K2 over experts' checks: adding a case moves no weight
+# qwen2-moe-a2.7b's expert linears (K, N): wi and wg, then wo
+MOE_EXPERT_SHAPES = [(2048, 1408), (1408, 2048)]
+# C of K2 over experts: a decode step of 8 slots; a 14-token template prefix
+# (``decode``'s form for 8 < M <= 16); admissions of whole rows of the 32 and
+# 64 buckets (``mma``, partial 128-row tiles included), up to 8 rows of 128.
+# kernel_quant_matmul_experts_seen adds every shape the MoE phases called.
+MOE_C = (8, 14, 32, 64, 256, 512, 1024)
+# K1 at qwen2-moe's decode: 8 slots, 16 KV heads of one query head, head dim 128,
+# blocks of 32 at max_len 1024; no window or softcap
+MOE_PA = {"Kh": 16, "G": 1, "D": 128, "bs": 32, "nblk": 32}
+
+
+def _expert_stack(gen, E, K, N, smooth=False, group=128):
+    """E expert weights [K, N] drawn from ``gen`` and quantized with absmax
+    (SmoothQuant's ``in_scale`` when ``smooth``): (q, scale, group, in_scale)."""
+    from repro_torch.core import quantize as Q
+    qs = []
+    for _ in range(E):
+        w = torch.randn((K, N), generator=gen, device="cuda") / math.sqrt(K)
+        amax = (torch.rand((K,), generator=gen, device="cuda") * 4 + 0.5) if smooth else None
+        qs.append(Q.absmax_quantize(w, group=group, amax_x=amax,
+                                    smooth_alpha=0.5 if smooth else 0.0))
+    ins = torch.stack([t.in_scale for t in qs]) if smooth else None
+    return torch.stack([t.q for t in qs]), torch.stack([t.scale for t in qs]), qs[0].group, ins
+
+
+def _check_expert_case(gen, stack, C, xdt, label):
+    """One launch of K2 over experts on x [E, C, K] of ``xdt`` from ``gen``
+    against its plain version: it must run the design
+    ``ops.quant_matmul_variant`` names, counted as ``expert_<design>``,
+    within K2_TOL (f32 within 1e-5).  Returns (record, max abs error)."""
+    from repro_torch.kernels import ops, ref
+    q, scale, group, ins = stack
+    E, K, N = q.shape
+    x = torch.randn((E, C, K), generator=gen, device="cuda").to(xdt)
+    variant = ops.quant_matmul_variant(xdt, C, N, group)
+    before = dict(ops.variant_count)
+    got = ops.quant_matmul_experts(x, q, scale, group=group, in_scale=ins)
+    want = ref.quant_matmul(x, q, scale, group=group, in_scale=ins)
+    torch.cuda.synchronize()
+    check(got.dtype == xdt and got.shape == (E, C, N), ("output", got.dtype, got.shape))
+    check(variant_delta(before) == {f"quant_matmul.expert_{variant}": 1},
+          ("K2 over experts design", E, C, K, N, xdt, label, variant_delta(before)))
+    err_abs, err_rel = errors(got, want)
+    tol = 1e-5 if xdt == torch.float32 else K2_TOL
+    rec = {"E": E, "C": C, "K": K, "N": N, "x": str(xdt).split(".")[-1], "kind": label,
+           "group": group, "variant": f"expert_{variant}", "rel_err": err_rel,
+           "tolerance": tol}
+    check(err_rel < tol, rec)
+    return rec, err_abs
+
+
+def _time_experts(gen, E, C, K, N):
+    """One expert linear at [E, C, K] -> N in bf16: kernel, plain version
+    and ``torch.bmm`` on the dequantized bf16 stack, and its bound."""
+    from repro_torch.kernels import ops, ref
+    q, scale, group, _ = _expert_stack(gen, E, K, N)
+    x = torch.randn((E, C, K), generator=gen, device="cuda").to(torch.bfloat16)
+    wd = ref.dequantize_codes(q, scale, group)
+    ms = time_ms(lambda: ops.quant_matmul_experts(x, q, scale, group=group))
+    plain_ms = time_ms(lambda: ref.quant_matmul(x, q, scale, group=group))
+    lib_ms = time_ms(lambda: torch.bmm(x, wd))
+    nbytes = q.numel() + scale.numel() * 4 + x.numel() * 2 + E * C * N * 2
+    bms, by = bound(nbytes, 2 * E * C * K * N)
+    return {"E": E, "C": C, "K": K, "N": N,
+            "variant": "expert_" + ops.quant_matmul_variant(torch.bfloat16, C, N, group),
+            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bms,
+            "bound_by": by, "bound_share": bms / ms, "bytes": nbytes}
+
+
+def check_quant_matmul_experts():
+    """K2 over experts against its plain version (``ref.quant_matmul`` over
+    the expert axis) at qwen2-moe's expert shapes, drawn from a generator
+    of its own (MOE_KERNEL_SEED): E 60, 30 and 15 (the base and the two
+    expert-pruned instances) at every C of MOE_C, 2048 -> 1408 and 1408 ->
+    2048; SmoothQuant's ``in_scale`` per expert; f32 x (the FMA design,
+    within 1e-5); ffn75's wo, K 1056 in groups of 96 (the FMA design in
+    bf16 and f32).  Then K1 at qwen2-moe's decode shape (16 KV heads, G 1,
+    D 128).  Then times one expert linear (wi, E 60) in a decode step of
+    8 slots (a prefill's is timed by :func:`check_quant_matmul_experts_seen`
+    at a shape the main path gave)."""
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(MOE_KERNEL_SEED)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [(E, K, N, C, bf16, None) for E in (60, 30, 15) for K, N in MOE_EXPERT_SHAPES
+             for C in MOE_C]
+    cases += [(60, 2048, 1408, 8, bf16, "smooth"), (60, 1408, 2048, 1024, bf16, "smooth"),
+              (15, 2048, 1408, 8, f32, None), (15, 1408, 2048, 1024, f32, "smooth"),
+              (30, 1056, 2048, 8, bf16, "g96"), (30, 1056, 2048, 1024, bf16, "g96"),
+              (30, 1056, 2048, 8, f32, "g96")]
+    worst_abs, results, stacks = 0.0, [], {}
+    for E, K, N, C, xdt, kind in cases:
+        key = (E, K, N, kind)
+        if key not in stacks:            # one stack per weight, its C values in turn
+            stacks = {key: _expert_stack(gen, E, K, N, smooth=kind == "smooth",
+                                         group=96 if kind == "g96" else 128)}
+        rec, err_abs = _check_expert_case(gen, stacks[key], C, xdt, kind)
+        results.append(rec)
+        worst_abs = max(worst_abs, err_abs)
+    del stacks
+
+    pa_results = []
+    for dtype in (bf16, f32):
+        for lengths in ([1, 33, 700, 1024, 5, 64, 257, 999], [1, 31, 32, 33, 1024, 63, 65, 96]):
+            q, k, v, tables, ln = _paged_inputs(gen, dtype, lengths, **MOE_PA)
+            before = dict(ops.variant_count)
+            got = ops.paged_attention(q, k, v, tables, ln)
+            S, _, H, D = q.shape
+            want = ref.paged_attention(q[:, 0].reshape(S, 16, 1, D), k, v, tables,
+                                       ln).reshape(S, 1, H, D)
+            torch.cuda.synchronize()
+            err_rel = errors(got, want)[1]
+            pa_results.append({"dtype": str(dtype).split(".")[-1], "lengths": lengths,
+                               "rel_err": err_rel, **MOE_PA})
+            check(variant_delta(before) == {"paged_attention.split": 1},
+                  ("K1 design at qwen2-moe's shape", variant_delta(before)))
+            check(bool(torch.isfinite(got).all()) and err_rel < K1_TOL[dtype], pa_results[-1])
+
+    K, N = MOE_EXPERT_SHAPES[0]
+    line = {"phase": "kernel", "name": "quant_matmul_experts", "cases": len(results),
+            "max_rel_err": max(r["rel_err"] for r in results), "max_abs_err": worst_abs,
+            "timed": "one expert linear (wi, E 60, 2048 -> 1408), decode C=8, bf16",
+            **_time_experts(gen, 60, 8, K, N), "paged_attention_moe_cases": pa_results,
+            "library_note": "torch.bmm on the dequantized bf16 stack"}
+    emit(line)
+    return line, results
+
+
+class ExpertShapeProbe:
+    """Counts the calls of K2 over experts on the card by shape (E, C, K,
+    N, x dtype, group, with ``in_scale``), for the length of a ``with``
+    block, from outside the package."""
+
+    def __init__(self):
+        import collections
+        self.shapes = collections.Counter()
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self._ops, real = ops, ops.quant_matmul_experts
+        self._real = real
+
+        def quant_matmul_experts(x, q, scale, *, group, in_scale=None):
+            if x.is_cuda:
+                self.shapes[(q.shape[0], x.shape[1], q.shape[1], q.shape[2],
+                             str(x.dtype).split(".")[-1], group, in_scale is not None)] += 1
+            return real(x, q, scale, group=group, in_scale=in_scale)
+        ops.quant_matmul_experts = quant_matmul_experts
+        return self
+
+    def __exit__(self, *exc):
+        self._ops.quant_matmul_experts = self._real
+        return False
+
+
+def check_quant_matmul_experts_seen(main_shapes, session_shapes):
+    """K2 over experts against its plain version at every shape that
+    ``moe_main_path``'s int8 run and ``moe_session`` gave it (each
+    distinct shape once, fresh inputs from a generator of its own), on
+    the design each launch there ran.  Then times one expert linear at the
+    main path's most frequent prefill shape of wi (E 60)."""
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(MOE_KERNEL_SEED + 1)
+    shapes = sorted(set(main_shapes) | set(session_shapes))
+    results, worst_abs, stacks = [], 0.0, {}
+    for E, C, K, N, dt, group, smooth in shapes:
+        key = (E, K, N, group, smooth)
+        if key not in stacks:            # shapes sort by E, so one stack at a time
+            stacks = {key: _expert_stack(gen, E, K, N, smooth=smooth, group=group)}
+        rec, err_abs = _check_expert_case(gen, stacks[key], C, getattr(torch, dt),
+                                          "seen")
+        rec["calls"] = {"main_path": main_shapes.get((E, C, K, N, dt, group, smooth), 0),
+                        "session": session_shapes.get((E, C, K, N, dt, group, smooth), 0)}
+        results.append(rec)
+        worst_abs = max(worst_abs, err_abs)
+    del stacks
+    K, N = MOE_EXPERT_SHAPES[0]
+    prefills = {s: n for s, n in main_shapes.items()
+                if s[0] == 60 and s[1] > ops.DECODE_M and s[2:4] == (K, N)}
+    check(prefills, ("no prefill of wi on the main path", dict(main_shapes)))
+    C = max(prefills, key=lambda s: (prefills[s], s[1]))[1]
+    prefill = _time_experts(gen, 60, C, K, N)
+    line = {"phase": "kernel_quant_matmul_experts_seen", "cases": results,
+            "max_rel_err": max(r["rel_err"] for r in results), "max_abs_err": worst_abs,
+            "C_main_path": sorted({s[1] for s in main_shapes}),
+            "C_session": sorted({s[1] for s in session_shapes}),
+            "prefill_timed": f"one expert linear (wi, E 60, 2048 -> 1408) at C={C}, the main "
+                             "path's most frequent prefill shape, bf16", "prefill": prefill}
+    emit(line)
+    print(f"K2 over experts at {len(results)} shapes of the MoE path: max rel err "
+          f"{line['max_rel_err']:.3g}; prefill C={C}: {prefill['ms']:.4f} ms (bound "
+          f"{prefill['bound_ms']:.4f}, plain {prefill['plain_ms']:.4f}, bmm "
+          f"{prefill['library_ms']:.4f})", flush=True)
+    return line
+
+
+def moe_per_step(cfg):
+    """K2 launches of one decode step or prefill of qwen2-moe's int8
+    instance: (dense, over experts) = (7 a layer (wq, wk, wv, attn wo and
+    the shared MLP's wi, wg, wo) and the unembed, 3 a layer)."""
+    return 7 * cfg.n_layers + 1, 3 * cfg.n_layers
+
+
+def moe_variants(cfg, steps: int, prefills: int):
+    """The kernel designs a bf16 int8 MoE run of ``steps`` decode steps and
+    ``prefills`` prefills launches: K2's skinny designs in the steps (8
+    slots), its 128-row tiles in the prefills, K1 in the steps."""
+    dense, expert = moe_per_step(cfg)
+    want = {"quant_matmul.decode": dense * steps, "quant_matmul.expert_decode": expert * steps,
+            "quant_matmul.mma": dense * prefills, "quant_matmul.expert_mma": expert * prefills,
+            "paged_attention.split": cfg.n_layers * steps}
+    return {k: n for k, n in want.items() if n}
+
+
+class RouteProbe:
+    """Records the experts each MoE block routes every token to (the
+    top-k of the router's probabilities, recomputed from the block's own
+    inputs), for the length of a ``with`` block, from outside the package."""
+
+    def __enter__(self):
+        from repro_torch.models import layers as L
+        self._L, self._real = L, L.moe_block
+        self.routes = []
+
+        def moe_block(p, x, cfg, **kw):
+            with torch.no_grad():
+                logits = L.matmul(x.reshape(-1, x.shape[-1]), p["router"]).float()
+                self.routes.append(torch.topk(torch.softmax(logits, -1), cfg.top_k)[1])
+            return self._real(p, x, cfg, **kw)
+        L.moe_block = moe_block
+        return self
+
+    def __exit__(self, *exc):
+        self._L.moe_block = self._real
+        return False
+
+
+def differing_routes(a, b) -> int:
+    """Tokens whose expert set differs between two runs' routes."""
+    return sum(int((torch.sort(x, -1).values != torch.sort(y, -1).values).any(-1).sum())
+               for x, y in zip(a, b))
+
+
+def moe_main_path(gen):
+    """Full-width qwen2-moe-a2.7b (24 layers, 60 experts top 4 and 4 shared
+    ones; random bf16 weights from ``gen``) compressed with ``w8-absmax``
+    and served by ``Engine(slots=8, max_len=1024)`` on the rows of the
+    main path, then the bf16 base the same way.  The counts are zeroed
+    just before the int8 run and read just after: per decode step 169 K2
+    launches on ``decode``, 72 of K2 over experts on ``expert_decode`` and
+    24 of K1; per prefill 169 on ``mma`` and 72 on ``expert_mma``.  The
+    base run launches K1 only."""
+    from repro_torch.configs import qwen2_moe_a2_7b
+    from repro_torch.core.compressed import QTensor, param_bytes
+    from repro_torch.core.pipeline import InstanceOptimizer, Recipe
+    from repro_torch.kernels import ops
+    from repro_torch.models import api
+
+    cfg = qwen2_moe_a2_7b.CONFIG
+    t0 = time.time()
+    base = api.init_params(gen, cfg)
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    t0 = time.time()
+    int8, _, report = InstanceOptimizer(base, cfg).apply(
+        Recipe(name="w8-absmax", wbits=8, quant_method="absmax"))
+    torch.cuda.synchronize()
+    quant_s = time.time() - t0
+    moe = int8["blocks"][0]["moe"]
+    check(all(isinstance(moe[n], QTensor) and moe[n].q.shape[:2] == (cfg.n_layers, 60)
+              for n in ("wi", "wg", "wo")), "expert stacks of the int8 instance")
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    with ExpertShapeProbe() as probe:
+        eng8, reqs8 = serve(int8, cfg, "w8-absmax")
+    launches = dict(ops.launch_count)
+    variants = {k: n for k, n in ops.variant_count.items() if n}
+    st8 = eng8.stats
+    dense, expert = moe_per_step(cfg)
+    check(launches == {"quant_matmul": (dense + expert) * (st8.decode_steps + st8.prefills),
+                       "paged_attention": cfg.n_layers * st8.decode_steps,
+                       "block_sparse_matmul": 0, "flash_attention": 0},
+          ("MoE int8 run launches", launches, st8.decode_steps, st8.prefills))
+    check(variants == moe_variants(cfg, st8.decode_steps, st8.prefills),
+          ("MoE int8 run designs", variants))
+    peak = torch.cuda.max_memory_allocated()
+
+    ops.reset_launch_counts()
+    eng16, reqs16 = serve(base, cfg, "base")
+    base_launches = dict(ops.launch_count)
+    base_variants = {k: n for k, n in ops.variant_count.items() if n}
+    check(base_launches["paged_attention"] == cfg.n_layers * eng16.stats.decode_steps
+          and base_launches["quant_matmul"] == 0
+          and base_variants == {"paged_attention.split": base_launches["paged_attention"]},
+          (base_launches, base_variants))
+    same = tot = rows_same = 0
+    for a, b in zip(reqs16, reqs8):
+        n = min(len(a.out_ids), len(b.out_ids))
+        same += sum(x == y for x, y in zip(a.out_ids[:n], b.out_ids[:n]))
+        tot += n
+        rows_same += a.out_ids == b.out_ids
+    line = {"phase": "moe_main_path", "model": cfg.name, "layers": cfg.n_layers,
+            "experts": cfg.n_experts, "top_k": cfg.top_k, "rows": len(REVIEWS), "max_new": 32,
+            "init_s": init_s, "quantize_s": quant_s,
+            "param_bytes_base": param_bytes(base), "param_bytes_int8": param_bytes(int8),
+            "compression": report.compression,
+            "int8": {"rows_per_s": st8.rows_per_s, "tokens_per_s": st8.tokens_out / st8.wall_s,
+                     "wall_s": st8.wall_s, "decode_steps": st8.decode_steps,
+                     "prefills": st8.prefills, "prefix_hits": st8.prefix_hits,
+                     "cache_hits": st8.cache_hits, "launches": launches, "variants": variants},
+            "base": {"rows_per_s": eng16.stats.rows_per_s,
+                     "tokens_per_s": eng16.stats.tokens_out / eng16.stats.wall_s,
+                     "wall_s": eng16.stats.wall_s, "decode_steps": eng16.stats.decode_steps,
+                     "launches": base_launches},
+            "max_memory_allocated_int8_run": peak,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "greedy_token_agreement_base_vs_int8": same / max(tot, 1),
+            "rows_identical_base_vs_int8": rows_same,
+            "expert_shapes": {str(k): n for k, n in sorted(probe.shapes.items())}}
+    emit(line)
+    for name in ("int8", "base"):
+        print(f"qwen2-moe {name}: {line[name]['rows_per_s']:.3f} rows/s, "
+              f"{line[name]['tokens_per_s']:.1f} tokens/s", flush=True)
+    print(f"qwen2-moe param_bytes: base {line['param_bytes_base']}, int8 "
+          f"{line['param_bytes_int8']}; quantize {quant_s:.1f} s; max_memory_allocated "
+          f"{line['max_memory_allocated']}; greedy agreement base vs int8 "
+          f"{line['greedy_token_agreement_base_vs_int8']:.4f}", flush=True)
+    del eng16
+    return line, launches, variants, base, int8, eng8, probe.shapes
+
+
+def _moe_step(params, cfg, state, tables, toks, pos, backend, bs, max_len):
+    """One paged decode step under ``backend`` on a copy of ``state``:
+    (logits, launches, designs, routes)."""
+    from repro_torch.core.compressed import kernel_backend
+    from repro_torch.kernels import ops
+    from repro_torch.models import api
+    st = {sec: [{n: t.clone() for n, t in e.items()} for e in state[sec]]
+          for sec in ("blocks", "tail")}
+    before, vbefore = dict(ops.launch_count), dict(ops.variant_count)
+    with RouteProbe() as probe, kernel_backend(backend), torch.no_grad():
+        lg, _ = api.paged_decode_step(params, cfg, st, tables, toks, pos, block_size=bs,
+                                      max_len=max_len)
+    torch.cuda.synchronize()
+    launched = {k: ops.launch_count[k] - before[k] for k in before}
+    check(bool(torch.isfinite(lg).all()) and lg.shape == (toks.shape[0], 1, cfg.vocab_size),
+          ("MoE decode-step logits", backend, lg.shape))
+    return lg.float(), launched, variant_delta(vbefore), probe.routes
+
+
+def moe_whole_step(gen, params, eng, trials: int = 4, layers: int = 4):
+    """One paged decode step of the int8 MoE instance under the cuda and
+    the reference backends on the same state.  bf16 at full width, held to
+    STEP_BF16_RATIO against the f32 plain step (the tokens whose expert
+    sets differ between the bf16 steps counted and printed); f32 at
+    qwen2-moe's widths cut to ``layers`` layers (fresh weights from
+    ``gen``, compressed with ``w8-absmax``, random pools), within
+    STEP_TOL_F32 with identical routes.  The cuda sides launch K2, K2 over
+    experts and K1 once a linear and a layer, the reference sides nothing."""
+    from repro_torch.core.pipeline import InstanceOptimizer, Recipe
+    from repro_torch.models import api
+    cfg, S, bs = eng.cfg, eng.slots, eng._block_size
+    nblk = eng.max_len // bs
+    pos = torch.tensor([90, 95, 100, 105, 110, 115, 120, 600], device="cuda")
+    rms = lambda a, b: ((a - b).norm() / b.norm()).item()  # noqa: E731
+    dense, expert = moe_per_step(cfg)
+
+    def expect(c, backend, dtype):
+        d, e = moe_per_step(c)
+        if backend == "reference":
+            return {}, {}
+        v = "fma" if dtype == torch.float32 else "decode"
+        return ({"quant_matmul": d + e, "paged_attention": c.n_layers},
+                {f"quant_matmul.{v}": d, f"quant_matmul.expert_{v}": e,
+                 "paged_attention.split": c.n_layers})
+
+    p32 = _f32(params)
+    bf16_trials = []
+    for _ in range(trials):
+        perm = torch.randperm(eng._alloc.num_blocks - 1, generator=gen, device="cuda")
+        tables = perm[:S * nblk].reshape(S, nblk).to(torch.int32)
+        toks = torch.randint(4, 260, (S, 1), generator=gen, device="cuda")
+        out = {}
+        for dtype, p in ((torch.bfloat16, params), (torch.float32, p32)):
+            state = {sec: [{n: t.to(dtype) for n, t in e.items()}
+                           for e in eng._slot_state[sec]] for sec in ("blocks", "tail")}
+            for backend in ("cuda", "reference"):
+                if dtype == torch.float32 and backend == "cuda":
+                    continue                     # f32 is held at 4 layers below
+                lg, launched, variants, routes = _moe_step(p, cfg, state, tables, toks, pos,
+                                                           backend, bs, eng.max_len)
+                want_l, want_v = expect(cfg, backend, dtype)
+                check({k: n for k, n in launched.items() if n} == want_l,
+                      ("MoE step launches", dtype, backend, launched))
+                check(variants == want_v, ("MoE step designs", dtype, backend, variants))
+                out[dtype, backend] = (lg, routes)
+            del state
+        (c16, rc), (r16, rr), (r32, _) = (out[torch.bfloat16, "cuda"],
+                                          out[torch.bfloat16, "reference"],
+                                          out[torch.float32, "reference"])
+        bf16_trials.append({
+            "bf16_rms_rel_err": rms(c16, r16), "bf16_cuda_vs_f32": rms(c16, r32),
+            "bf16_plain_vs_f32": rms(r16, r32),
+            "tokens_with_other_experts": differing_routes(rc, rr),
+            "routed_tokens": sum(int(r.shape[0]) for r in rr),
+            "greedy_agreement_bf16":
+                (c16[:, -1].argmax(-1) == r16[:, -1].argmax(-1)).float().mean().item()})
+    del p32
+    torch.cuda.empty_cache()
+
+    # f32 at `layers` layers: fresh weights, w8-absmax, random pools
+    cfg4 = cfg.replace(n_layers=layers, param_dtype="float32")
+    base4 = api.init_params(gen, cfg4)
+    p4, _, _ = InstanceOptimizer(base4, cfg4).apply(
+        Recipe(name="w8-absmax", wbits=8, quant_method="absmax"))
+    del base4
+    nb = S * nblk + 1
+    state = api.init_paged_cache(cfg4, S, nb, bs, device="cuda")
+    for sec in ("blocks", "tail"):
+        for e in state[sec]:
+            for t in e.values():
+                t.copy_(torch.randn(t.shape, generator=gen, device="cuda"))
+    f32_trials = []
+    for _ in range(trials):
+        perm = torch.randperm(nb - 1, generator=gen, device="cuda")
+        tables = perm[:S * nblk].reshape(S, nblk).to(torch.int32)
+        toks = torch.randint(4, 260, (S, 1), generator=gen, device="cuda")
+        res = {}
+        for backend in ("cuda", "reference"):
+            lg, launched, variants, routes = _moe_step(p4, cfg4, state, tables, toks, pos,
+                                                       backend, bs, eng.max_len)
+            want_l, want_v = expect(cfg4, backend, torch.float32)
+            check({k: n for k, n in launched.items() if n} == want_l,
+                  ("MoE f32 step launches", backend, launched))
+            check(variants == want_v, ("MoE f32 step designs", backend, variants))
+            res[backend] = (lg, routes)
+        (c32, rc), (r32, rr) = res["cuda"], res["reference"]
+        f32_trials.append({"f32_rms_rel_err": rms(c32, r32),
+                           "f32_max_abs_err": errors(c32, r32)[0],
+                           "tokens_with_other_experts": differing_routes(rc, rr)})
+    del p4, state
+    cuda_err = sum(r["bf16_cuda_vs_f32"] for r in bf16_trials)
+    plain_err = sum(r["bf16_plain_vs_f32"] for r in bf16_trials)
+    line = {"phase": "moe_whole_step", "model": cfg.name, "bf16_layers": cfg.n_layers,
+            "f32_layers": layers, "bf16_trials": bf16_trials, "f32_trials": f32_trials,
+            "tolerance_f32_rms_rel": STEP_TOL_F32, "bf16_ratio_bound": STEP_BF16_RATIO,
+            "bf16_ratio": cuda_err / plain_err,
+            "launches_per_step": {"quant_matmul": dense + expert,
+                                  "paged_attention": cfg.n_layers}}
+    emit(line)
+    print(f"moe_whole_step: bf16 ratio {line['bf16_ratio']:.3f}, tokens with other experts "
+          f"(bf16, of {bf16_trials[0]['routed_tokens']} a step) "
+          f"{[r['tokens_with_other_experts'] for r in bf16_trials]}; f32 ({layers} layers) RMS "
+          f"error up to {max(r['f32_rms_rel_err'] for r in f32_trials):.2e}", flush=True)
+    check(all(r["f32_rms_rel_err"] < STEP_TOL_F32 and r["tokens_with_other_experts"] == 0
+              for r in f32_trials), line)
+    check(cuda_err <= STEP_BF16_RATIO * plain_err, line)
+    return line
+
+
+def moe_session_recipes(cfg):
+    """``w8-absmax`` and absmax copies of the grid's ``w8-expert50`` (30
+    experts) and ``w8-expert25`` (15), named as the dense session's."""
+    import dataclasses
+    from repro_torch.core import policy as POL
+    grid = {r.name: r for r in POL.default_recipe_space(cfg)}
+    check(grid["w8-expert50"].experts_keep == 30 and grid["w8-expert25"].experts_keep == 15,
+          ("grid expert recipes", grid["w8-expert50"], grid["w8-expert25"]))
+    return [grid["w8-absmax"],
+            dataclasses.replace(grid["w8-expert50"], name="w8a-expert50",
+                                quant_method="absmax"),
+            dataclasses.replace(grid["w8-expert25"], name="w8a-expert25",
+                                quant_method="absmax")]
+
+
+def moe_session(base, cfg):
+    """An ``IOLMSession`` over the full-width qwen2-moe base runs Q2
+    (``llm_correct`` over 64 values) and Q1 (``llm_map`` over 64 reviews)
+    through ``Query.run``: each operator calibrates on its rows (no
+    Hessian: none of the three recipes reads one), builds and evaluates
+    ``w8-absmax`` and the two expert-pruned instances, which keep the
+    experts this query's calibration rows routed to most, and serves the
+    pick through ``Engine``.  The model cache is emptied between the two
+    queries, so that Q1's three candidates have the card beside the base."""
+    import gc
+    from repro_torch.core.compressed import QTensor
+    from repro_torch.kernels import ops
+    from repro_torch.olap.query import IOLMSession, Query
+    from repro_torch.olap.table import Table
+    from repro_torch.training.data import PROMPTS, workload_rows
+
+    recipes = moe_session_recipes(cfg)
+    routed = []
+
+    def on_outcome(optimizer, out):
+        """Each layer's routing counts sum to calibration tokens x top_k;
+        the pruned candidates keep the most-routed experts, in order."""
+        st = optimizer.stats
+        check(all(w.H is None for w in st.weights.values()), "a Hessian was calibrated")
+        sums, kept_ok = [], True
+        for r in range(cfg.n_layers):
+            rs = st.weights[f"blocks.0.{r}.moe.router"]
+            sums.append(int(rs.route_count.sum().item()))
+            imp = rs.route_count + 1e-3 * rs.route_prob
+            for c in out.candidates:
+                k = c.cfg.n_experts
+                if k == cfg.n_experts:
+                    continue
+                idx = torch.sort(torch.sort(-imp, stable=True).indices[:k]).values
+                want = base["blocks"][0]["moe"]["router"][r][:, idx.to(base["embed"].device)]
+                kept_ok &= torch.equal(c.params["blocks"][0]["moe"]["router"][r], want)
+                kept_ok &= all(isinstance(c.params["blocks"][0]["moe"][n], QTensor)
+                               and c.params["blocks"][0]["moe"][n].q.shape[1] == k
+                               for n in ("wi", "wg", "wo"))
+        routed.append({"calibration_tokens": st.n_tokens, "route_count_sums": sorted(set(sums)),
+                       "experts": [c.cfg.n_experts for c in out.candidates],
+                       "kept_by_route_count": kept_ok})
+        check(set(sums) == {st.n_tokens * cfg.top_k}, ("routing counts", routed[-1]))
+        check([c.cfg.n_experts for c in out.candidates] == [60, 30, 15] and kept_ok,
+              ("expert-pruned candidates", routed[-1]))
+
+    sess = IOLMSession(base, cfg, device="cuda", recipes=recipes, **SESSION_KW)
+    commits = Table({"lang": [r.text for r in workload_rows("correct", 64)]})
+    reviews = Table({"review": [r.text for r in workload_rows("summarize", 64)]})
+    queries = [("Q2", Query(commits, sess).llm_correct("lang", prompt=PROMPTS["correct"]),
+                ["lang", "lang_fixed"]),
+               ("Q1", Query(reviews, sess).llm_map("review", prompt=PROMPTS["summarize"],
+                                                   out_col="summary"),
+                ["review", "summary"])]
+    results, peak = [], 0
+    ops.reset_launch_counts()
+    with SessionProbe(on_outcome=on_outcome) as probe, ExpertShapeProbe() as shapes:
+        for name, q, cols in queries:
+            steps = [ln for ln in q.explain().splitlines() if " llm " in ln]
+            check(steps and all(" backend=cuda " in ln for ln in steps), (name, steps))
+            n_search, n_eng, n_apply = (len(probe.searches), len(probe.engines),
+                                        len(probe.applies))
+            before = dict(ops.variant_count)
+            sync()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.time()
+            out = q.run()
+            sync()
+            wall = time.time() - t0
+            peak = max(peak, torch.cuda.max_memory_allocated())
+            searches, engines = probe.searches[n_search:], probe.engines[n_eng:]
+            delta = variant_delta(before)
+            in_search = {}
+            for s in searches:
+                for k, n in s["variants"].items():
+                    in_search[k] = in_search.get(k, 0) + n
+            served = {k: n - in_search.get(k, 0) for k, n in delta.items()
+                      if n - in_search.get(k, 0)}
+            check(list(out.columns) == cols and len(out) == 64,
+                  (name, "rows or columns", len(out), list(out.columns)))
+            check(len(searches) == 1 and [c["recipe"] for c in searches[0]["candidates"]]
+                  == [r.name for r in recipes], (name, "search", searches))
+            # every step and prefill of the served engines: K2's skinny designs
+            # in the steps and in a prefill of at most 16 tokens (a short
+            # template prefix), its 128-row tiles in the other prefills
+            steps = sum(e["stats"].decode_steps for e in engines)
+            calls = steps + sum(e["stats"].prefills for e in engines)
+            dense, expert = moe_per_step(cfg)
+            check(served.get("quant_matmul.decode", 0) + served.get("quant_matmul.mma", 0)
+                  == dense * calls
+                  and served.get("quant_matmul.expert_decode", 0)
+                  + served.get("quant_matmul.expert_mma", 0) == expert * calls
+                  and served.get("paged_attention.split") == cfg.n_layers * steps
+                  and served.get("quant_matmul.expert_decode", 0) >= expert * steps
+                  and served.get("quant_matmul.expert_mma", 0) > 0
+                  and set(served) <= set(moe_variants(cfg, 1, 1)),
+                  (name, "served launches", served, steps, calls))
+            rec = {"query": name, "wall_s": wall, "rows_per_s": 64 / wall,
+                   "picked": searches[0]["picked"], "search_s": searches[0]["seconds"],
+                   "candidates": searches[0]["candidates"],
+                   "applies": probe.applies[n_apply:], "served_variants": served,
+                   "search_variants": in_search, "peak_memory": torch.cuda.max_memory_allocated(),
+                   "engines": [{"version": e["version"], "decode_steps": e["stats"].decode_steps,
+                                "prefills": e["stats"].prefills, "rows": e["stats"].rows,
+                                "backend": e["stats"].backend} for e in engines]}
+            results.append(rec)
+            print(f"moe {name}: 64 rows in {wall:.2f} s, picked {rec['picked']} (search "
+                  f"{rec['search_s']:.2f} s), peak memory {rec['peak_memory']}; " + ", ".join(
+                      f"{c['recipe']} {c['param_bytes']} B acc {c['accuracy']:.2f} tok "
+                      f"{c['token_agreement']:.2f}" for c in rec["candidates"]) + "; apply s "
+                  + ", ".join(f"{a['recipe']} {a['seconds']:.1f}" for a in rec["applies"]),
+                  flush=True)
+            del out, q
+            sess.model_cache._d.clear()          # the card for the next query's candidates
+            gc.collect()
+            torch.cuda.empty_cache()
+    launches = dict(ops.launch_count)
+    line = {"phase": "moe_session", "model": cfg.name, "recipes": [r.name for r in recipes],
+            "calibrations": probe.calibrations, "routing": routed, "queries": results,
+            "launches": launches, "max_memory_allocated": peak, "log": sess.log,
+            "expert_shapes": {str(k): n for k, n in sorted(shapes.shapes.items())}}
+    emit(line)
+    del sess
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line, launches, shapes.shapes
+
+
 def profile_step(gen, params, eng, steps: int = 5, name="decode_profile"):
     """Where one decode step's time goes: host wall time per step
     (ending in a sync) against device kernel time from torch.profiler,
@@ -2745,6 +3396,35 @@ def main() -> int:
     svc_line = timed("service_trained", service_trained, tiny_params, tiny_cfg)
     svc_line["launches"] = dict(ops.launch_count)
     service_runs = {k: service_runs[k] + ops.launch_count[k] for k in ops.launch_count}
+    del tiny_params
+
+    # the MoE phases: full-width qwen2-moe-a2.7b, from a generator of their own
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"MoE phases: memory_allocated {torch.cuda.memory_allocated()}", flush=True)
+    mgen = torch.Generator(device="cuda")
+    mgen.manual_seed(MOE_SEED)
+    kx, kx_cases = timed("kernel_quant_matmul_experts", check_quant_matmul_experts)
+    (moe_line, moe_launches, moe_variants_run, moe_base, moe_int8,
+     moe_eng, moe_shapes) = timed("moe_main_path", moe_main_path, mgen)
+    moe_cfg = moe_eng.cfg
+    moe_step_line = timed("moe_whole_step", moe_whole_step, mgen, moe_int8, moe_eng)
+    moe_prof_line = timed("moe_decode_profile", profile_step, mgen, moe_int8, moe_eng,
+                          name="moe_decode_profile")
+    del moe_int8, moe_eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_sess_line, moe_sess_launches, moe_sess_shapes = timed("moe_session", moe_session,
+                                                             moe_base, moe_cfg)
+    del moe_base
+    gc.collect()
+    torch.cuda.empty_cache()
+    kx_seen = timed("kernel_quant_matmul_experts_seen", check_quant_matmul_experts_seen,
+                    moe_shapes, moe_sess_shapes)
+    kx["prefill"] = kx_seen["prefill"]
+    moe_parity_line = timed("moe_f32_parity", olap_f32_parity, mgen, moe_cfg, 4,
+                            name="moe_f32_parity")
 
     kernels = []
     for line, runs, variants, source, replaces in (
@@ -2780,6 +3460,24 @@ def main() -> int:
                         "max_rel_err": line["max_rel_err"],
                         "variants": {k.split(".")[1]: n for k, n in variants.items()
                                      if k.startswith(line["name"] + ".")}})
+        # the MoE path (moe_main_path's int8 run): K1, K2 and K2 over experts
+        moe_runs = moe_launches[line["name"]]
+        kernels[-1]["launches_moe"] = moe_runs
+        kernels[-1]["launches_moe_session"] = moe_sess_launches[line["name"]]
+        if line["name"] in ("paged_attention", "quant_matmul"):
+            check(moe_runs > 0 and moe_sess_launches[line["name"]] > 0,
+                  ("no launch on the MoE path", line["name"]))
+        else:
+            check(moe_runs == 0, ("off the MoE path", line["name"]))
+        if line["name"] == "quant_matmul":
+            kernels[-1]["variants_moe"] = {k.split(".")[1]: n
+                                           for k, n in moe_variants_run.items()
+                                           if k.startswith("quant_matmul.")}
+            kernels[-1]["experts"] = {k: kx[k] for k in (
+                "E", "C", "K", "N", "variant", "ms", "plain_ms", "library_ms", "bound_ms",
+                "bound_by", "bound_share", "prefill", "cases", "max_rel_err", "max_abs_err")}
+            kernels[-1]["experts"]["cases_seen"] = len(kx_seen["cases"])
+            kernels[-1]["experts"]["max_rel_err_seen"] = kx_seen["max_rel_err"]
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "sass": sass, "ptxas": ptxas, "kernels": kernels,
@@ -2796,6 +3494,11 @@ def main() -> int:
                    "service_full_width": svc_full_line, "train_parity": train_parity_line,
                    "train_full_width": train_full_line, "train_tiny_olap": tiny_line,
                    "service_trained": svc_line,
+                   "quant_matmul_experts": kx, "quant_matmul_experts_cases": kx_cases,
+                   "quant_matmul_experts_seen": kx_seen,
+                   "moe_main_path": moe_line, "moe_whole_step": moe_step_line,
+                   "moe_decode_profile": moe_prof_line, "moe_session": moe_sess_line,
+                   "moe_f32_parity": moe_parity_line,
                    "phase_seconds": seconds, "phase_memory": memory,
                    "seconds": time.time() - t_start}, f, indent=1)
     emit({"kernels": kernels})

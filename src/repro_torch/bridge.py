@@ -9,7 +9,10 @@ drops it when it stacks layers) gets its indices rebuilt from ``mask``,
 per layer.  bf16 arrays arrive
 as ``ml_dtypes.bfloat16`` numpy arrays, which ``torch.from_numpy``
 rejects; they cross through a ``uint16`` view of their bits.  The
-stacked layer axis of ``blocks`` is kept as is.
+stacked layer axis of ``blocks`` is kept as is, and so is an MoE block's
+expert axis: the f32 router [R, d, E], bf16 expert stacks [R, E, d, f]
+and expert-stacked quantized weights (``q`` [R, E, K, N], ``scale``
+[R, E, K/g, N], ``in_scale`` [R, E, K]) cross as any other leaf.
 """
 from __future__ import annotations
 

@@ -9,10 +9,16 @@ per weight matrix:
   - ``sqnorm``  per-input-channel sum x^2 (the Wanda metric)
   - ``amax``    per-input-channel max |x| (SmoothQuant scales)
   - ``count``   number of observed rows
+  - ``count_e`` (MoE expert stacks) rows each expert received; ``H``,
+                ``sqnorm`` and ``amax`` then carry the expert axis first
+  - ``route_count``, ``route_prob`` (MoE routers) per-expert dispatch
+                counts and mean router probabilities: the signal of
+                expert pruning for this query's data
 
 plus the cosine similarity of each block's input and output (layer-drop
 scores).  Statistics stay on the activations' device: sqnorm and amax in
-float32, H in float64.
+float32, H in float64 (an expert stack's X^T X summed in float32 first,
+as the reference's does), routing statistics in float64.
 
 Weights are keyed by their path in the param tree (e.g.
 ``blocks.0.3.attn.wq``).  The interception happens inside
@@ -24,9 +30,9 @@ call, so the calibration loop registers the very per-layer slices it hands to
 positions of the sample are recorded too, as in the reference.
 
 Also here: ``fit_confidence_threshold``, which fits a proxy -> base
-cascade's acceptance threshold on a held-out probe.  Only the dense
-family is calibrated; MoE routing statistics and the other families
-wait for their ROADMAP items.
+cascade's acceptance threshold on a held-out probe.  The dense and MoE
+families are calibrated; the other families wait for their ROADMAP
+items.
 """
 from __future__ import annotations
 
@@ -44,12 +50,19 @@ from repro_torch.core import compressed
 class WeightStats:
     shape: Tuple[int, ...]
     count: int = 0
-    H: Optional[torch.Tensor] = None        # [d_in, d_in] float64
-    sqnorm: Optional[torch.Tensor] = None   # [d_in] float32
-    amax: Optional[torch.Tensor] = None     # [d_in] float32
+    H: Optional[torch.Tensor] = None        # [d_in, d_in] (or [E, d_in, d_in]) float64
+    sqnorm: Optional[torch.Tensor] = None   # [d_in] (or [E, d_in]) float32
+    amax: Optional[torch.Tensor] = None     # [d_in] (or [E, d_in]) float32
+    count_e: Optional[torch.Tensor] = None  # expert stacks: rows per expert [E] int64
+    route_count: Optional[torch.Tensor] = None  # routers: [E] float64
+    route_prob: Optional[torch.Tensor] = None   # routers: [E] float64
 
     def merge_norm(self) -> torch.Tensor:
-        """Per-channel RMS norm of the inputs (the Wanda metric)."""
+        """Per-channel RMS norm of the inputs (the Wanda metric); an expert
+        stack's rows divide by each expert's own row count."""
+        if self.sqnorm.dim() == 2 and self.count_e is not None:
+            denom = torch.clamp(self.count_e, min=1).double()
+            return torch.sqrt(self.sqnorm / denom[:, None])
         return torch.sqrt(self.sqnorm / max(self.count, 1))
 
 
@@ -82,19 +95,32 @@ class Recorder:
     @contextlib.contextmanager
     def active(self):
         compressed.set_record_hook(self._on_matmul)
+        compressed.set_route_hook(self._on_route)
         try:
             yield self
         finally:
             compressed.set_record_hook(None)
+            compressed.set_route_hook(None)
 
-    def _on_matmul(self, w, x) -> None:
+    def _stats_of(self, w) -> Optional[WeightStats]:
         path = self._id2path.get(id(w))
-        if path is None or w.dim() < 2:
-            return
+        if path is None:
+            return None
         st = self.stats.get(path)
         if st is None:
             st = WeightStats(shape=tuple(w.shape))
             self.stats[path] = st
+        return st
+
+    def _on_matmul(self, w, x, valid=None) -> None:
+        if w.dim() < 2:
+            return
+        st = self._stats_of(w)
+        if st is None:
+            return
+        if w.dim() == 3 and valid is not None:
+            self._on_experts(st, x, valid)
+            return
         xf = x.detach().float().reshape(-1, x.shape[-1])        # [N, d_in]
         d = xf.shape[1]
         if st.sqnorm is None:
@@ -108,6 +134,34 @@ class Recorder:
             xd = xf.double()
             st.H += xd.T @ xd
         st.count += xf.shape[0]
+
+    def _on_experts(self, st: WeightStats, x, valid) -> None:
+        """A stacked expert weight: x [E, C, d_in], valid [E] filled rows."""
+        xe = x.detach().float()
+        E, C, d = xe.shape
+        mask = torch.arange(C, device=xe.device)[None, :] < valid[:, None]
+        xm = xe * mask[..., None]
+        if st.sqnorm is None:
+            st.sqnorm = torch.zeros((E, d), dtype=torch.float32, device=xe.device)
+            st.amax = torch.zeros((E, d), dtype=torch.float32, device=xe.device)
+            st.count_e = torch.zeros((E,), dtype=torch.int64, device=xe.device)
+            if self.hessian:
+                st.H = torch.zeros((E, d, d), dtype=torch.float64, device=xe.device)
+        st.sqnorm += (xm ** 2).sum(1)
+        st.amax = torch.maximum(st.amax, xm.abs().amax(1))
+        if self.hessian:
+            st.H += torch.matmul(xm.transpose(1, 2), xm).double()
+        rows = valid.to(torch.int64)
+        st.count_e += rows
+        st.count += int(rows.sum().item())
+
+    def _on_route(self, router_w, counts, probs_mean) -> None:
+        st = self._stats_of(router_w)
+        if st is None:
+            return
+        c, p = counts.detach().double(), probs_mean.detach().double()
+        st.route_count = c if st.route_count is None else st.route_count + c
+        st.route_prob = p if st.route_prob is None else st.route_prob + p
 
     def record_block(self, path: str, x_in, x_out) -> None:
         a = x_in.detach().float().reshape(-1)
@@ -211,7 +265,7 @@ def calibrate(params, cfg, batch: Dict[str, Any], *, hessian: bool = True,
     """Run the model on ``batch`` ({"tokens": [B, S]}) and gather
     calibration statistics, the untied output head's included unless
     ``include_head`` is False."""
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"calibration of family {cfg.family!r} is not ported yet "
             "(ROADMAP queue 1 item 9)")

@@ -11,11 +11,17 @@ and block-sparse CUDA kernels (``kernels/ops.py``) take over when the
 scoped :func:`kernel_backend` resolves to ``"cuda"`` for the input's
 device.
 
+MoE expert stacks ``[E, d_in, d_out]`` (raw, or a ``QTensor`` whose
+tensors carry the expert axis) go through :func:`expert_matmul`: one
+int8 kernel launch covers every expert of a linear on the card.
+
 Calibration: ``set_record_hook`` installs an observer that the matmul
-dispatch feeds with (weight, activation) pairs of raw weights;
-``repro_torch.core.calibrate`` uses it to gather Hessians and channel
-norms without any model-code changes.  ``QEmbed``, ``expert_matmul`` and
-the MoE route hook are not ported yet.
+dispatch (and the MoE block, through :func:`record`) feeds with
+(weight, activation) pairs of raw weights, and ``set_route_hook`` one
+that the MoE block feeds with routing statistics;
+``repro_torch.core.calibrate`` uses them to gather Hessians, channel
+norms and expert routing counts without any model-code changes.
+``QEmbed`` is not ported yet.
 """
 from __future__ import annotations
 
@@ -53,12 +59,32 @@ def current_backend(device="cuda") -> str:
 
 
 _RECORD_HOOK: Optional[Callable] = None
+_ROUTE_HOOK: Optional[Callable] = None
 
 
 def set_record_hook(fn: Optional[Callable]) -> None:
-    """fn(w, x) observes the matmuls of raw weights; x is [..., d_in]."""
+    """fn(w, x, valid) observes the matmuls of raw weights; x is
+    [..., d_in] and ``valid`` None, or, for a stacked expert weight, x is
+    [E, C, d_in] and ``valid`` [E] the filled rows of each expert."""
     global _RECORD_HOOK
     _RECORD_HOOK = fn
+
+
+def set_route_hook(fn: Optional[Callable]) -> None:
+    """fn(router_w, counts, probs_mean) observes MoE routing statistics."""
+    global _ROUTE_HOOK
+    _ROUTE_HOOK = fn
+
+
+def record(w, x, valid=None) -> None:
+    """Explicit calibration record (the MoE block's expert inputs)."""
+    if _RECORD_HOOK is not None:
+        _RECORD_HOOK(w, x, valid)
+
+
+def record_routing(router_w, counts, probs_mean) -> None:
+    if _ROUTE_HOOK is not None:
+        _ROUTE_HOOK(router_w, counts, probs_mean)
 
 
 class QTensor:
@@ -72,8 +98,10 @@ class QTensor:
               inverse was folded into the stored codes at quantization)
     bits      4 or 8
 
-    Tensors may carry a leading layer axis when stacked; methods are only
-    invoked on per-layer slices (:meth:`layer`).
+    Tensors may carry leading axes: a layer axis when stacked, and an
+    expert axis for MoE expert stacks (``q`` [R, E, d_in, d_out]);
+    ``shape`` stays the matrix's [d_in, d_out].  :meth:`layer` slices the
+    first leading axis (a layer, or an expert of one layer's stack).
     """
 
     def __init__(self, q, scale, bits: int, group: int, shape, in_scale=None):
@@ -102,7 +130,8 @@ class QTensor:
         return int(b)
 
     def layer(self, r: int) -> "QTensor":
-        """The ``r``-th matrix of a layer-stacked QTensor."""
+        """Entry ``r`` of the first leading axis: a layer of a stacked
+        QTensor, or an expert of one layer's expert stack."""
         return QTensor(self.q[r], self.scale[r], self.bits, self.group,
                        self.shape[-2:],
                        None if self.in_scale is None else self.in_scale[r])
@@ -113,7 +142,7 @@ class QTensor:
                        None if self.in_scale is None else self.in_scale.to(device))
 
     def unpack(self) -> torch.Tensor:
-        """int8 logical codes [d_in, d_out] (unpacks int4)."""
+        """int8 logical codes [..., d_in, d_out] (unpacks int4)."""
         if self.bits == 8:
             return self.q
         u = self.q
@@ -121,7 +150,8 @@ class QTensor:
         hi = (u >> 4).to(torch.int8)
         lo = torch.where(lo >= 8, lo - 16, lo)
         hi = torch.where(hi >= 8, hi - 16, hi)
-        return torch.stack([lo, hi], dim=1).reshape(self.shape[-2], self.shape[-1])
+        return torch.stack([lo, hi], dim=-2).reshape(*u.shape[:-2], self.shape[-2],
+                                                     self.shape[-1])
 
     def dequantize(self) -> torch.Tensor:
         """Dense bf16 reconstruction of the weight (folds in_scale back)."""
@@ -249,5 +279,19 @@ def matmul(x: torch.Tensor, w) -> torch.Tensor:
             return kops.block_sparse_matmul(x, w.w, w.idx, bs=w.bs)
         return torch.matmul(x, w.w.to(x.dtype))
     if _RECORD_HOOK is not None:
-        _RECORD_HOOK(w, x)
+        _RECORD_HOOK(w, x, None)
+    return torch.matmul(x, w.to(x.dtype))
+
+
+def expert_matmul(x: torch.Tensor, w) -> torch.Tensor:
+    """Batched per-expert matmul ``[E, C, d_in] @ [E, d_in, d_out]`` over a
+    raw or quantized expert stack (the MoE block calls this).  An int8
+    stack on the ``"cuda"`` backend runs K2 over experts, one launch for
+    every expert; int4 stacks and the other backends take the plain
+    version, which applies ``in_scale`` once, as the kernel does."""
+    if isinstance(w, QTensor):
+        if w.bits == 8 and current_backend(x.device) == "cuda":
+            return kops.quant_matmul_experts(x, w.q, w.scale, group=w.group,
+                                             in_scale=w.in_scale)
+        return _q_matmul_plain(x, w)
     return torch.matmul(x, w.to(x.dtype))

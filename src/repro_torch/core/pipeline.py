@@ -9,9 +9,8 @@ sample into a compressed, query-specialized model:
 
 Stages (paper §3.2), in order:
   1. structural pruning: layer drop, KV-group prune, FFN-channel prune,
-     driven by calibration statistics (``prune.py``); ``experts_keep``
-     applies to the MoE family only and is a no-op on dense configs, as
-     in the reference;
+     expert prune (MoE), driven by calibration statistics (``prune.py``);
+     ``experts_keep`` is a no-op on dense configs, as in the reference;
   2. sparsification: SparseGPT / Wanda masks (N:M or unstructured), or
      block sparsity (whole tiles skipped by the block-sparse kernel);
   3. quantization: GPTQ / absmax int8 or int4, group-wise scales,
@@ -21,7 +20,12 @@ Stages (paper §3.2), in order:
 Without calibration statistics a ``gptq`` recipe quantizes with absmax
 and masks score with unit activation norms, as in the reference.  A
 layer-stacked block-sparse weight keeps its gather indices per layer, so
-the kernel runs on every block-sparse linear.
+the kernel runs on every block-sparse linear.  An MoE expert stack is
+compressed one expert matrix at a time, each with its own statistics
+(its rows' norms and Hessian), and stacked back over experts, then
+layers: ``q`` [R, E, K, N], ``scale`` [R, E, K/g, N], ``in_scale``
+[R, E, K].  :func:`needs_hessian` says which recipes read a Hessian, so
+that a search over none of them calibrates without one.
 """
 from __future__ import annotations
 
@@ -107,8 +111,21 @@ def _is_target(path: str, leaf) -> bool:
 
 
 def _stack_depth(cfg, path: str) -> int:
-    """Leading stacked-layer axes of a param subtree (dense family)."""
+    """Leading stacked-layer axes of a param subtree (dense, MoE)."""
     return 1 if path.startswith("blocks.") else 0
+
+
+def _is_expert(path: str) -> bool:
+    return ".moe." in f".{path}." and _leaf_name(path) in ("wi", "wg", "wo")
+
+
+def needs_hessian(recipe: Recipe) -> bool:
+    """Whether ``apply(recipe)`` reads calibration Hessians: GPTQ
+    quantization and SparseGPT sparsification do; absmax, Wanda, block
+    sparsity and the structural prunes read norms and routing only."""
+    gptq = recipe.wbits < 16 and recipe.quant_method == "gptq"
+    sparsegpt = bool(recipe.nm[1] or recipe.sparsity) and recipe.sparse_method == "sparsegpt"
+    return gptq or sparsegpt
 
 
 def _stats_key(path: str, r: int) -> str:
@@ -169,6 +186,18 @@ def _stack(items):
     return torch.stack(items)
 
 
+def _expert_stats(st, e: int):
+    """Expert ``e``'s statistics of a stacked expert weight: its own row
+    count (not the sum over experts, which would deflate a lightly routed
+    expert's norms), Hessian, norms and maxima."""
+    if st is None or st.sqnorm is None:
+        return None
+    count = int(st.count_e[e].item()) if st.count_e is not None else st.count
+    return C.WeightStats(shape=tuple(st.shape[1:]), count=count,
+                         H=None if st.H is None else st.H[e],
+                         sqnorm=st.sqnorm[e], amax=st.amax[e])
+
+
 class InstanceOptimizer:
     """Generates a query-specialized compressed model (the paper's core)."""
 
@@ -183,7 +212,7 @@ class InstanceOptimizer:
 
     def apply(self, recipe: Recipe):
         _unported(recipe)
-        if self.cfg.family != "dense":
+        if self.cfg.family not in ("dense", "moe"):
             raise NotImplementedError(
                 f"family {self.cfg.family!r} is not ported yet (ROADMAP queue 1 item 9)")
         t0 = time.time()
@@ -199,7 +228,8 @@ class InstanceOptimizer:
             params, cfg, stats = P.prune_kv_groups(params, cfg, stats, keep)
         if recipe.ffn_keep_frac < 1.0:
             params, cfg, stats = P.prune_ffn(params, cfg, stats, recipe.ffn_keep_frac)
-        # experts_keep: MoE only (cfg.family is dense here), a no-op
+        if recipe.experts_keep and cfg.family == "moe":
+            params, cfg, stats = P.prune_experts(params, cfg, stats, recipe.experts_keep)
 
         # 2+3. sparsify + quantize, per weight
         per_weight: List[Dict[str, Any]] = []
@@ -226,12 +256,17 @@ class InstanceOptimizer:
                     for i, v in enumerate(tree)]
         if not _is_target(path, tree):
             return tree
+
+        def one(w, st, log):
+            if not _is_expert(path):
+                return self._one_matrix(w, recipe, st, path, per_weight, log=log)
+            return _stack([self._one_matrix(w[e], recipe, _expert_stats(st, e), path,
+                                            per_weight, log=log and e == 0)
+                           for e in range(w.shape[0])])
+
         if _stack_depth(cfg, path) == 0:
-            return self._one_matrix(tree, recipe, stats.get(path), path,
-                                    per_weight, log=True)
-        return _stack([self._one_matrix(tree[r], recipe,
-                                        stats.get(_stats_key(path, r)), path,
-                                        per_weight, log=r == 0)
+            return one(tree, stats.get(path), True)
+        return _stack([one(tree[r], stats.get(_stats_key(path, r)), r == 0)
                        for r in range(tree.shape[0])])
 
     @staticmethod

@@ -1,4 +1,4 @@
-"""Structural pruning: KV-head groups, FFN channels, whole layers.
+"""Structural pruning: KV-head groups, FFN channels, whole layers, experts.
 
 LLM-Pruner-style removal of entire components, driven by the calibration
 statistics, so the same data sample that tunes quantization also decides
@@ -17,11 +17,17 @@ where calibration left them (on the card for a model that lives there);
 a float64 Hessian is sliced there too (``H[idx][:, idx]``).  Ties in
 importance resolve as ``np.argsort(kind="stable")`` does, through a
 stable sort of the negated importance, so both packages keep the same
-members.  Only the dense family is ported; expert pruning waits for the
-MoE family (ROADMAP queue 1 item 9).
+members.  The dense and MoE families are ported: an MoE block's FFN
+pruning keeps channels per expert (and prunes its shared and dense
+residual MLPs as dense ones), and expert pruning keeps the experts that
+this query's calibration rows routed to most.  Expert pruning leaves the
+router's statistics of the optimizer it came from as they were: the
+reference slices them in place (ROADMAP queue 3), so a second
+expert-pruned recipe of the same optimizer there ranks the wrong experts.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, List, Optional
 
 import torch
@@ -32,7 +38,7 @@ _FAMILIES = "ROADMAP queue 1 item 9"
 
 
 def _dense_only(cfg, what: str) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"{what} of family {cfg.family!r} is not ported yet ({_FAMILIES})")
 
@@ -186,20 +192,65 @@ def prune_ffn(params, cfg, stats: CalibStats, keep_frac: float):
                 new_stats[key] = _slice_stats(new_stats[key], idx[r])
         return out
 
+    def prune_moe(moe: Dict, paths: List[str]) -> Dict:
+        """Per-expert channel pruning: a uniform keep count, each (layer,
+        expert) choosing its own.  wi, wg [R?, E, d, ffe], wo [R?, E, ffe, d]."""
+        stacked = moe["wo"].dim() == 4
+        R = moe["wo"].shape[0] if stacked else 1
+        E, ffe = moe["wo"].shape[-3], moe["wo"].shape[-2]
+        keep_ff = max(8, int(round(keep_frac * ffe)) // 8 * 8)
+        idx = torch.zeros((R, E, keep_ff), dtype=torch.long, device=moe["wo"].device)
+        for r in range(R):
+            wo = moe["wo"][r] if stacked else moe["wo"]              # [E, ffe, d]
+            st = stats.get(paths[r] + ".wo")
+            for e in range(E):
+                imp = (wo[e].float() ** 2).mean(1)
+                if st is not None and st.sqnorm is not None:
+                    imp = st.sqnorm[e].to(imp.device) / max(st.count, 1) * imp
+                idx[r, e] = _top(imp, keep_ff)
+        out = dict(moe)
+        for name, axis in (("wo", 0), ("wi", 1), ("wg", 1)):
+            w = moe[name] if stacked else moe[name][None]
+            t = torch.stack([torch.stack([torch.index_select(w[r, e], axis, idx[r, e])
+                                          for e in range(E)]) for r in range(R)])
+            out[name] = t if stacked else t[0]
+        for r in range(R):
+            key = paths[r] + ".wo"
+            st = new_stats.get(key)
+            if st is not None and st.sqnorm is not None:
+                ix = [idx[r, e].to(st.sqnorm.device) for e in range(E)]
+                new_stats[key] = WeightStats(
+                    shape=(E, keep_ff, moe["wo"].shape[-1]), count=st.count,
+                    H=None if st.H is None else torch.stack(
+                        [st.H[e][ix[e]][:, ix[e]] for e in range(E)]),
+                    sqnorm=torch.stack([st.sqnorm[e][ix[e]] for e in range(E)]),
+                    amax=torch.stack([st.amax[e][ix[e]] for e in range(E)]))
+        return out
+
     unit, R, tail = _units(cfg)
     params["blocks"] = list(params["blocks"])
     params["tail"] = list(params["tail"])
-    new_ff = cfg.d_ff
+    def prune_block(blk, pre: List[str]):
+        """The block's MLPs pruned, and the widths they give the config:
+        (block, {field: width})."""
+        blk, widths = dict(blk), {}
+        for name, prune, field in (("mlp", prune_mlp, "d_ff"), ("moe", prune_moe, "moe_d_ff"),
+                                   ("shared_mlp", prune_mlp, None),
+                                   ("dense_mlp", prune_mlp, "d_ff")):
+            if name in blk:
+                blk[name] = prune(blk[name], [f"{p}.{name}" for p in pre])
+                if field:
+                    widths[field] = blk[name]["wo"].shape[-2]
+        return blk, widths
+
+    widths = {}
     for u in range(len(unit)):
-        blk = dict(params["blocks"][u])
-        blk["mlp"] = prune_mlp(blk["mlp"], [f"blocks.{u}.{r}.mlp" for r in range(R)])
-        new_ff = blk["mlp"]["wo"].shape[-2]
-        params["blocks"][u] = blk
-    for i in range(tail):
-        blk = dict(params["tail"][i])
-        blk["mlp"] = prune_mlp(blk["mlp"], [f"tail.{i}.mlp"])
-        params["tail"][i] = blk
-    new_cfg = cfg.replace(d_ff=new_ff)
+        params["blocks"][u], w = prune_block(params["blocks"][u],
+                                             [f"blocks.{u}.{r}" for r in range(R)])
+        widths.update(w)
+    for i in range(tail):           # tail layers set no width, as in the reference
+        params["tail"][i], _ = prune_block(params["tail"][i], [f"tail.{i}"])
+    new_cfg = cfg.replace(**widths)
     return params, new_cfg, CalibStats(new_stats, stats.block_sim, stats.n_tokens)
 
 
@@ -257,7 +308,64 @@ def drop_layers(params, cfg, stats: CalibStats, n_drop_units: int):
 # ---------------------------------------------------------------------------
 
 def prune_experts(params, cfg, stats: CalibStats, keep_e: int):
-    """Keep the ``keep_e`` most-routed experts per layer: needs the MoE
-    family and its routing statistics, which are not ported yet."""
-    raise NotImplementedError(
-        f"expert pruning is not ported yet: it needs the MoE family ({_FAMILIES})")
+    """Keep the ``keep_e`` most-routed experts per layer, the MoE analogue
+    of structural pruning, driven by this query's routing distribution
+    from calibration: importance = route count + 1e-3 * mean router
+    probability, or the router's column norms without routing statistics."""
+    if cfg.family != "moe" or keep_e >= cfg.n_experts:
+        return params, cfg, stats
+    if keep_e < cfg.top_k:
+        raise ValueError(f"keep_e={keep_e} experts is below top_k={cfg.top_k}")
+    params = dict(params)
+    new_stats = dict(stats.weights)
+
+    def prune_one(moe: Dict, paths: List[str]) -> Dict:
+        stacked = moe["router"].dim() == 3
+        R = moe["router"].shape[0] if stacked else 1
+        idx = torch.zeros((R, keep_e), dtype=torch.long, device=moe["router"].device)
+        for r in range(R):
+            st = stats.get(paths[r] + ".router")
+            if st is not None and st.route_count is not None:
+                imp = st.route_count.double()
+                if st.route_prob is not None:
+                    imp = imp + 1e-3 * st.route_prob
+            else:
+                w = moe["router"][r] if stacked else moe["router"]
+                imp = (w.float() ** 2).sum(0)
+            idx[r] = _top(imp.to(idx.device), keep_e)
+        out = dict(moe)
+        for name, axis in (("router", 1), ("wi", 0), ("wg", 0), ("wo", 0)):
+            out[name] = (_take_stacked(moe[name], idx, axis) if stacked
+                         else torch.index_select(moe[name], axis, idx[0]))
+        for r in range(R):
+            for nm in ("wi", "wg", "wo"):
+                key = paths[r] + "." + nm
+                st = new_stats.get(key)
+                if st is not None and st.sqnorm is not None:
+                    i = idx[r].to(st.sqnorm.device)
+                    new_stats[key] = WeightStats(
+                        shape=(keep_e,) + tuple(st.shape[1:]), count=st.count,
+                        H=None if st.H is None else st.H[i],
+                        sqnorm=st.sqnorm[i], amax=st.amax[i])
+            key = paths[r] + ".router"
+            st = new_stats.get(key)
+            if st is not None and st.route_count is not None:
+                i = idx[r].to(st.route_count.device)
+                new_stats[key] = dataclasses.replace(
+                    st, route_count=st.route_count[i],
+                    route_prob=None if st.route_prob is None else st.route_prob[i])
+        return out
+
+    unit, R, tail = _units(cfg)
+    params["blocks"] = list(params["blocks"])
+    params["tail"] = list(params["tail"])
+    for u in range(len(unit)):
+        blk = dict(params["blocks"][u])
+        blk["moe"] = prune_one(blk["moe"], [f"blocks.{u}.{r}.moe" for r in range(R)])
+        params["blocks"][u] = blk
+    for i in range(tail):
+        blk = dict(params["tail"][i])
+        blk["moe"] = prune_one(blk["moe"], [f"tail.{i}.moe"])
+        params["tail"][i] = blk
+    new_cfg = cfg.replace(n_experts=keep_e, top_k=min(cfg.top_k, keep_e))
+    return params, new_cfg, CalibStats(new_stats, stats.block_sim, stats.n_tokens)

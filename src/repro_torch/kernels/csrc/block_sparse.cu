@@ -496,10 +496,10 @@ int launch(const void* x, const void* w, const void* idx, void* y, void* partial
   const int MN = M * N;
   if (x_bf16)
     reduce_splits_kernel<__nv_bfloat16><<<(MN + 255) / 256, 256, 0, stream>>>(
-        part, static_cast<__nv_bfloat16*>(y), MN, splits);
+        part, static_cast<__nv_bfloat16*>(y), MN, splits, 1);
   else
     reduce_splits_kernel<float><<<(MN + 255) / 256, 256, 0, stream>>>(
-        part, static_cast<float*>(y), MN, splits);
+        part, static_cast<float*>(y), MN, splits, 1);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -56,16 +56,18 @@ cudaError_t launch_dependent(void (*kernel)(Params...), dim3 grid, dim3 block, s
   return cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
-// y = cast(sum over splits of partial[z]), summed in split order.
+// y[e] = cast(sum over splits of partial[e * splits + z]), summed in split
+// order, for each of `experts` outputs of MN elements (1 for a dense one).
 template <typename XT>
 __global__ void reduce_splits_kernel(const float* __restrict__ partial,
-                                     XT* __restrict__ y, int MN, int splits) {
+                                     XT* __restrict__ y, int MN, int splits, int experts) {
   wait_for_prerequisite();
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= MN) return;
+  if (i >= experts * MN) return;
+  const float* p = partial + (size_t)(i / MN) * splits * MN + i % MN;
   float s = 0.f;
 #pragma unroll 8                      // the loads of eight splits in flight at once
-  for (int z = 0; z < splits; ++z) s += partial[(size_t)z * MN + i];
+  for (int z = 0; z < splits; ++z) s += p[(size_t)z * MN];
   y[i] = from_f<XT>(s);
 }
 

@@ -44,6 +44,10 @@
 // The bf16 designs convert codes to floats without I2F: a code's byte,
 // offset by 128 into the mantissa of 2^23, minus 2^23 + 128, is the code
 // exactly; the product with the scale then rounds as the plain version.
+// K2 over experts (an MoE layer's stack of E expert matrices, the
+// vmapped TPU kernel) is the same kernels with the expert in the grid:
+// z = expert * splits + split, and x, q, scale, y and the partials step by
+// expert.  A dense linear is the case E = 1.
 // Too few output tiles to fill 132 SMs also split K (`splits` > 1): each
 // split writes f32 partial sums that a second kernel adds in a fixed
 // order, so results do not depend on scheduling; that kernel is launched
@@ -74,7 +78,7 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN))
 quant_matmul_fma_kernel(const XT* __restrict__ x, const int8_t* __restrict__ q,
                         const float* __restrict__ scale, XT* __restrict__ y,
                         float* __restrict__ partial, int M, int N, int K,
-                        int group, int k_per_split, int vec) {
+                        int group, int splits, int k_per_split, int vec) {
   constexpr int NT = (BM / TM) * (BN / TN);
   constexpr int CHUNKS = BN / 16;          // 16-byte code chunks per tile row
   __shared__ float xs[BK][BM + 1];         // x tile, k-major; +1 avoids bank conflicts
@@ -83,7 +87,12 @@ quant_matmul_fma_kernel(const XT* __restrict__ x, const int8_t* __restrict__ q,
   allow_dependents();                      // the split sum may launch now
   const int n0 = blockIdx.x * BN;
   const int m0 = blockIdx.y * BM;
-  const int kb = blockIdx.z * k_per_split;
+  const int e = blockIdx.z / splits;       // the expert
+  x += (size_t)e * M * K;
+  q += (size_t)e * K * N;
+  scale += (size_t)e * (K / group) * N;
+  y += (size_t)e * M * N;
+  const int kb = (blockIdx.z % splits) * k_per_split;
   const int ke = min(K, kb + k_per_split);
   const int tid = threadIdx.x;
   const int tn = tid % (BN / TN);
@@ -227,7 +236,7 @@ struct Dec {
 using DecNarrow = Dec<128, 4>;
 using DecWide = Dec<256, 3>;
 
-// grid (ceil(N / C::BN), 1, splits), C::THREADS threads; MT n8 tiles of
+// grid (ceil(N / C::BN), 1, experts * splits), C::THREADS threads; MT n8 tiles of
 // x rows (M <= 8 MT).  Dynamic shared memory: the ring of stages (codes
 // [BK][C::BN] int8 | scale [C::BN] f32 | x [DEC_M][XS] bf16), then the
 // bf16 tile [BK][C::WS].
@@ -236,12 +245,17 @@ __global__ void __launch_bounds__(C::THREADS)
 quant_matmul_decode_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ q,
                            const float* __restrict__ scale, bf16* __restrict__ y,
                            float* __restrict__ partial, int M, int N, int K, int group,
-                           int k_per_split) {
+                           int splits, int k_per_split) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* wt = reinterpret_cast<bf16*>(smem + C::STAGES * C::STAGE);
   allow_dependents();                // the split sum may launch now
   const int n0 = blockIdx.x * C::BN;
-  const int kb = blockIdx.z * k_per_split;
+  const int e = blockIdx.z / splits; // the expert
+  x += (size_t)e * M * K;
+  q += (size_t)e * K * N;
+  scale += (size_t)e * (K / group) * N;
+  y += (size_t)e * M * N;
+  const int kb = (blockIdx.z % splits) * k_per_split;
   const int nst = (min(K, kb + k_per_split) - kb) / BK;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
 
@@ -331,19 +345,24 @@ constexpr int PF_THREADS = 256, PF_STAGES = 3, PF_BM = 128;
 constexpr int PF_STAGE = PF_BM * XS * 2 + CODE_BYTES + SCALE_BYTES;          // bytes
 constexpr int PF_SMEM = PF_STAGES * PF_STAGE + BK * WS * 2;
 
-// grid (ceil(N / BN), ceil(M / PF_BM), splits), PF_THREADS threads.
+// grid (ceil(N / BN), ceil(M / PF_BM), experts * splits), PF_THREADS threads.
 // Dynamic shared memory: the ring of stages (x [PF_BM][XS] bf16 | codes
 // [BK][BN] int8 | scale [BN] f32), then the bf16 tile [BK][WS].
 __global__ void __launch_bounds__(PF_THREADS, 2)
 quant_matmul_mma_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ q,
                         const float* __restrict__ scale, bf16* __restrict__ y,
                         float* __restrict__ partial, int M, int N, int K, int group,
-                        int k_per_split) {
+                        int splits, int k_per_split) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* wt = reinterpret_cast<bf16*>(smem + PF_STAGES * PF_STAGE);
   allow_dependents();                // the split sum may launch now
   const int n0 = blockIdx.x * BN, m0 = blockIdx.y * PF_BM;
-  const int kb = blockIdx.z * k_per_split;
+  const int e = blockIdx.z / splits; // the expert
+  x += (size_t)e * M * K;
+  q += (size_t)e * K * N;
+  scale += (size_t)e * (K / group) * N;
+  y += (size_t)e * M * N;
+  const int kb = (blockIdx.z % splits) * k_per_split;
   const int nst = (min(K, kb + k_per_split) - kb) / BK;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
 
@@ -447,56 +466,59 @@ quant_matmul_mma_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ q
 enum Design { DECODE = 0, MMA = 1, FMA_SMALL = 2, FMA_LARGE = 3 };
 
 template <typename XT>
-int launch_fma(const XT* x, const int8_t* q, const float* scale, XT* y, float* part, int M,
-               int N, int K, int group, int small, int splits, int k_per_split, int vec,
+int launch_fma(const XT* x, const int8_t* q, const float* scale, XT* y, float* part, int E,
+               int M, int N, int K, int group, int small, int splits, int k_per_split, int vec,
                cudaStream_t stream) {
   if (small) {
-    dim3 grid((N + SMALL_BN - 1) / SMALL_BN, (M + SMALL_BM - 1) / SMALL_BM, splits);
+    dim3 grid((N + SMALL_BN - 1) / SMALL_BN, (M + SMALL_BM - 1) / SMALL_BM, E * splits);
     dim3 block((SMALL_BM / SMALL_TM) * (SMALL_BN / SMALL_TN));
     quant_matmul_fma_kernel<XT, SMALL_BM, SMALL_BN, SMALL_BK, SMALL_TM, SMALL_TN>
-        <<<grid, block, 0, stream>>>(x, q, scale, y, part, M, N, K, group, k_per_split, vec);
+        <<<grid, block, 0, stream>>>(x, q, scale, y, part, M, N, K, group, splits, k_per_split,
+                                     vec);
   } else {
-    dim3 grid((N + LARGE_BN - 1) / LARGE_BN, (M + LARGE_BM - 1) / LARGE_BM, splits);
+    dim3 grid((N + LARGE_BN - 1) / LARGE_BN, (M + LARGE_BM - 1) / LARGE_BM, E * splits);
     dim3 block((LARGE_BM / LARGE_TM) * (LARGE_BN / LARGE_TN));
     quant_matmul_fma_kernel<XT, LARGE_BM, LARGE_BN, LARGE_BK, LARGE_TM, LARGE_TN>
-        <<<grid, block, 0, stream>>>(x, q, scale, y, part, M, N, K, group, k_per_split, vec);
+        <<<grid, block, 0, stream>>>(x, q, scale, y, part, M, N, K, group, splits, k_per_split,
+                                     vec);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename C>
 cudaError_t launch_decode(const __nv_bfloat16* x, const int8_t* q, const float* scale,
-                          __nv_bfloat16* y, float* part, int M, int N, int K, int group,
+                          __nv_bfloat16* y, float* part, int E, int M, int N, int K, int group,
                           int splits, int k_per_split, cudaStream_t stream) {
   auto kernel = M > 8 ? &tc::quant_matmul_decode_kernel<C, 2>
                       : &tc::quant_matmul_decode_kernel<C, 1>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          C::SMEM);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3((N + C::BN - 1) / C::BN, 1, splits), C::THREADS, C::SMEM, stream>>>(
-      x, q, scale, y, part, M, N, K, group, k_per_split);
+  kernel<<<dim3((N + C::BN - 1) / C::BN, 1, E * splits), C::THREADS, C::SMEM, stream>>>(
+      x, q, scale, y, part, M, N, K, group, splits, k_per_split);
   return cudaGetLastError();
 }
 
 int launch_tc(const __nv_bfloat16* x, const int8_t* q, const float* scale, __nv_bfloat16* y,
-              float* part, int M, int N, int K, int group, int design, int splits,
+              float* part, int E, int M, int N, int K, int group, int design, int splits,
               int k_per_split, cudaStream_t stream) {
   if (N % 16 || group % tc::BK || k_per_split % tc::BK) return cudaErrorInvalidValue;
   cudaError_t err;
   if (design == DECODE) {
     if (M > tc::DEC_M) return cudaErrorInvalidValue;
-    err = N >= tc::DEC_WIDE_N ? launch_decode<tc::DecWide>(x, q, scale, y, part, M, N, K, group,
-                                                           splits, k_per_split, stream)
-                              : launch_decode<tc::DecNarrow>(x, q, scale, y, part, M, N, K,
-                                                             group, splits, k_per_split, stream);
+    err = N >= tc::DEC_WIDE_N
+              ? launch_decode<tc::DecWide>(x, q, scale, y, part, E, M, N, K, group, splits,
+                                           k_per_split, stream)
+              : launch_decode<tc::DecNarrow>(x, q, scale, y, part, E, M, N, K, group, splits,
+                                             k_per_split, stream);
     if (err != cudaSuccess) return static_cast<int>(err);
   } else {
     err = cudaFuncSetAttribute(tc::quant_matmul_mma_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, tc::PF_SMEM);
     if (err != cudaSuccess) return static_cast<int>(err);
-    dim3 grid((N + tc::BN - 1) / tc::BN, (M + tc::PF_BM - 1) / tc::PF_BM, splits);
+    dim3 grid((N + tc::BN - 1) / tc::BN, (M + tc::PF_BM - 1) / tc::PF_BM, E * splits);
     tc::quant_matmul_mma_kernel<<<grid, tc::PF_THREADS, tc::PF_SMEM, stream>>>(
-        x, q, scale, y, part, M, N, K, group, k_per_split);
+        x, q, scale, y, part, M, N, K, group, splits, k_per_split);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -519,16 +541,17 @@ int quant_matmul_tile_k(int design, int N) {
   return design <= MMA ? tc::BK : design == FMA_SMALL ? SMALL_BK : LARGE_BK;
 }
 
-// x [M, K] (bf16 if x_bf16 else f32), q [K, N] int8, scale [K/group, N]
-// f32, y [M, N] in x's dtype, partial [splits, M, N] f32 (used when
-// splits > 1).  design: 0 `decode`, 1 `mma` (bf16 x with 16-byte aligned
+// For each of E experts: x [E, M, K] (bf16 if x_bf16 else f32), q
+// [E, K, N] int8, scale [E, K/group, N] f32, y [E, M, N] in x's dtype,
+// partial [E * splits, M, N] f32 (used when splits > 1); a dense linear
+// is E = 1.  design: 0 `decode`, 1 `mma` (bf16 x with 16-byte aligned
 // rows, N % 16 == 0, group a multiple of the 64-row stage, q and scale
 // 16-byte aligned), 2 and 3 the skinny and square FMA tiles.  k_per_split
 // is a multiple of the design's K step.  vec = 1 lets the FMA design load
 // codes 16 bytes at a time (N % 16 == 0 and q 16-byte aligned).  Returns
 // cudaGetLastError() after the launches.
 int quant_matmul_launch(const void* x, const void* q, const void* scale, void* y,
-                        void* partial, int M, int N, int K, int group, int x_bf16,
+                        void* partial, int E, int M, int N, int K, int group, int x_bf16,
                         int design, int splits, int k_per_split, int vec, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* part = splits > 1 ? static_cast<float*>(partial) : nullptr;
@@ -538,24 +561,24 @@ int quant_matmul_launch(const void* x, const void* q, const void* scale, void* y
   if (design <= MMA) {
     if (!x_bf16) return cudaErrorInvalidValue;
     err = launch_tc(static_cast<const __nv_bfloat16*>(x), qp, sp,
-                    static_cast<__nv_bfloat16*>(y), part, M, N, K, group, design, splits,
+                    static_cast<__nv_bfloat16*>(y), part, E, M, N, K, group, design, splits,
                     k_per_split, s);
   } else if (x_bf16) {
     err = launch_fma(static_cast<const __nv_bfloat16*>(x), qp, sp,
-                     static_cast<__nv_bfloat16*>(y), part, M, N, K, group,
+                     static_cast<__nv_bfloat16*>(y), part, E, M, N, K, group,
                      design == FMA_SMALL, splits, k_per_split, vec, s);
   } else {
-    err = launch_fma(static_cast<const float*>(x), qp, sp, static_cast<float*>(y), part, M, N,
-                     K, group, design == FMA_SMALL, splits, k_per_split, vec, s);
+    err = launch_fma(static_cast<const float*>(x), qp, sp, static_cast<float*>(y), part, E, M,
+                     N, K, group, design == FMA_SMALL, splits, k_per_split, vec, s);
   }
   if (err != cudaSuccess || splits == 1) return err;
-  const int MN = M * N;
+  const int MN = M * N, blocks = (E * MN + 255) / 256;
   if (x_bf16)
-    return static_cast<int>(launch_dependent(reduce_splits_kernel<__nv_bfloat16>,
-                                             (MN + 255) / 256, 256, 0, s, part,
-                                             static_cast<__nv_bfloat16*>(y), MN, splits));
-  return static_cast<int>(launch_dependent(reduce_splits_kernel<float>, (MN + 255) / 256, 256,
-                                           0, s, part, static_cast<float*>(y), MN, splits));
+    return static_cast<int>(launch_dependent(reduce_splits_kernel<__nv_bfloat16>, blocks, 256,
+                                             0, s, part, static_cast<__nv_bfloat16*>(y), MN,
+                                             splits, E));
+  return static_cast<int>(launch_dependent(reduce_splits_kernel<float>, blocks, 256, 0, s,
+                                           part, static_cast<float*>(y), MN, splits, E));
 }
 
 }  // extern "C"

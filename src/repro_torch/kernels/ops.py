@@ -16,6 +16,9 @@ and shape (:func:`quant_matmul_variant`, :func:`flash_variant`,
 products the 1e-5 checks need, and bf16 the tensor-core kernels.  K1 has
 one, ``split`` (:func:`paged_attention_plan`).  Each launch also adds one
 to ``variant_count["<name>.<variant>"]``, so a run shows which design ran.
+K2 over experts (:func:`quant_matmul_experts`, an MoE expert stack in one
+launch) counts under ``quant_matmul`` and its designs as
+``quant_matmul.expert_<variant>``.
 """
 from __future__ import annotations
 
@@ -42,7 +45,7 @@ launch_count: Dict[str, int] = {name: 0 for name in
 
 _SMS = 132                 # H100 SXM streaming multiprocessors
 _SIGS: Dict[str, list] = {
-    "quant_matmul_launch": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
+    "quant_matmul_launch": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
     + [ctypes.c_void_p],
     "paged_attention_launch": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 12
     + [ctypes.c_void_p],
@@ -64,7 +67,9 @@ _RESTYPES = {"paged_attention_workspace": ctypes.c_longlong}
 # launches per design of each kernel, same reset
 variant_count: Dict[str, int] = {name: 0 for name in
                                  ("quant_matmul.decode", "quant_matmul.mma",
-                                  "quant_matmul.fma", "paged_attention.split",
+                                  "quant_matmul.fma", "quant_matmul.expert_decode",
+                                  "quant_matmul.expert_mma", "quant_matmul.expert_fma",
+                                  "paged_attention.split",
                                   "flash_attention.mma", "flash_attention.fma",
                                   "block_sparse_matmul.decode", "block_sparse_matmul.mma",
                                   "block_sparse_matmul.fma")}
@@ -168,13 +173,15 @@ def _qm_design(variant: str, M: int) -> int:
     return _QM_DESIGNS[variant]
 
 
-def quant_matmul_plan(M: int, N: int, K: int, bm: int, bn: int, bk: int):
+def quant_matmul_plan(M: int, N: int, K: int, bm: int, bn: int, bk: int,
+                      experts: int = 1):
     """(grid, K rows per split) of K2 for a ``bm`` x ``bn`` output tile
-    stepping ``bk`` rows of K: the K steps are split only where the output
-    tiles give fewer than about two blocks per SM."""
+    stepping ``bk`` rows of K, over ``experts`` matrices: the K steps are
+    split only where the output tiles of all the experts give fewer than
+    about two blocks per SM.  The grid's z is expert * splits + split."""
     cols, rows = math.ceil(N / bn), math.ceil(M / bm)
-    splits, per = _split(cols * rows, math.ceil(K / bk))
-    return (cols, rows, splits), per * bk
+    splits, per = _split(experts * cols * rows, math.ceil(K / bk))
+    return (cols, rows, experts * splits), per * bk
 
 
 _TILES: Dict[tuple, tuple] = {}
@@ -195,16 +202,31 @@ def quant_matmul(x, q, scale, *, group: int, in_scale=None, bits: int = 8):
     name = "quant_matmul"
     _require(bits == 8, name, f"only int8 codes are supported, got bits={bits}")
     _require(q.dim() == 2 and q.dtype == torch.int8, name, "q must be [K, N] int8")
-    K, N = q.shape
+    return _quant_matmul(x, q, scale, group, in_scale, "")
+
+
+def _quant_matmul(x, q, scale, group: int, in_scale, tag: str):
+    """The body of both K2 wrappers, q [K, N] (a dense linear, x [..., K])
+    or [E, K, N] (an expert stack, x [E, C, K]) int8 codes, ``scale`` and
+    ``in_scale`` with the same leading axis: the checks, the plain version
+    for CPU tensors, else one launch counted as ``quant_matmul.<tag><design>``."""
+    name = "quant_matmul"
+    experts = q.dim() == 3
+    *lead, K, N = q.shape
+    E = lead[0] if experts else 1
     _require(K % group == 0, name, f"K={K} is not divisible by group={group}")
-    _require(scale.shape == (K // group, N) and scale.dtype == torch.float32,
-             name, f"scale must be f32 [{K // group}, {N}], got {tuple(scale.shape)}")
-    _require(x.shape[-1] == K, name, f"x [..., {x.shape[-1]}] does not match K={K}")
+    _require(tuple(scale.shape) == (*lead, K // group, N) and scale.dtype == torch.float32,
+             name, f"scale must be f32 {[*lead, K // group, N]}, got {tuple(scale.shape)}")
+    if experts:
+        _require(x.dim() == 3 and x.shape[0] == E and x.shape[2] == K, name,
+                 f"x {tuple(x.shape)} does not match [E={E}, C, K={K}]")
+    else:
+        _require(x.shape[-1] == K, name, f"x [..., {x.shape[-1]}] does not match K={K}")
     _require(x.dtype in (torch.bfloat16, torch.float32), name,
              f"x must be bf16 or f32, got {x.dtype}")
-    _require(in_scale is None or (in_scale.shape == (K,)
+    _require(in_scale is None or (tuple(in_scale.shape) == (*lead, K)
                                   and in_scale.dtype == torch.float32),
-             name, "in_scale must be f32 [K]")
+             name, f"in_scale must be f32 {[*lead, K]}")
     dev = _same_device(name, x, q, scale, in_scale)
     if dev.type == "cpu":
         return ref.quant_matmul(x, q, scale, group=group, in_scale=in_scale)
@@ -212,40 +234,59 @@ def quant_matmul(x, q, scale, *, group: int, in_scale=None, bits: int = 8):
     _require(q.is_contiguous() and scale.is_contiguous(), name,
              "q and scale must be contiguous")
     if in_scale is not None:
-        x = (x.float() * in_scale).to(x.dtype)
-    x2 = x.reshape(-1, K).contiguous()
-    if x2.data_ptr() % 16:            # the bf16 designs copy x in 16-byte pieces
-        x2 = x2.clone()
+        x = (x.float() * (in_scale[:, None, :] if experts else in_scale)).to(x.dtype)
+    x3 = x.reshape(E, -1, K).contiguous()
+    if x3.data_ptr() % 16:            # the bf16 designs copy x in 16-byte pieces
+        x3 = x3.clone()
+    # every expert's q and scale start 16-byte aligned where N % 16 == 0,
+    # which the bf16 designs need anyway (and so do x's rows, K % 64 == 0)
     aligned = q.data_ptr() % 16 == 0 and scale.data_ptr() % 16 == 0
-    variant = quant_matmul_variant(x.dtype, x2.shape[0], N, group, aligned)
-    return _launch_quant_matmul(x2, q, scale, group, variant).reshape(*x.shape[:-1], N)
+    variant = quant_matmul_variant(x.dtype, x3.shape[1], N, group, aligned)
+    y = _launch_quant_matmul(x3, q.view(E, K, N), scale.view(E, K // group, N), group,
+                             variant, tag)
+    return y if experts else y[0].reshape(*x.shape[:-1], N)
 
 
-def _launch_quant_matmul(x2, q, scale, group: int, variant: str):
-    """Launch K2's ``variant`` on CUDA x2 [M, K] (16-byte aligned rows)
-    and count it; the wrapper picks the variant by its rule, and
-    ``chip_smoke.py`` also times the FMA design on bf16 through here."""
+def _launch_quant_matmul(x3, q, scale, group: int, variant: str, tag: str = ""):
+    """Launch K2's ``variant`` on CUDA x3 [E, M, K] against q [E, K, N]
+    and scale [E, K/g, N] (contiguous, 16-byte aligned rows), one launch
+    for every expert (E = 1 for a dense linear), and count it as
+    ``quant_matmul.<tag><variant>``.  The wrappers pick the variant by its
+    rule; ``chip_smoke.py`` also times the FMA design on bf16 through
+    here."""
     name = "quant_matmul"
-    (M, K), N = x2.shape, q.shape[1]
-    y = torch.empty((M, N), dtype=x2.dtype, device=x2.device)
-    if M == 0:
+    (E, M, K), N = x3.shape, q.shape[-1]
+    y = torch.empty((E, M, N), dtype=x3.dtype, device=x3.device)
+    if M == 0 or E == 0:
         return y
     design = _qm_design(variant, M)
     bm, bn, bk = _tiles(design, N)
     _require(variant == "fma" or group % bk == 0, name,
              f"group={group} is not a multiple of the {bk}-row stage of {variant}")
-    (_, _, splits), k_per_split = quant_matmul_plan(M, N, K, bm, bn, bk)
-    partial = (torch.empty((splits, M, N), dtype=torch.float32, device=x2.device)
+    (_, _, z), k_per_split = quant_matmul_plan(M, N, K, bm, bn, bk, E)
+    splits = z // E
+    partial = (torch.empty((E * splits, M, N), dtype=torch.float32, device=x3.device)
                if splits > 1 else None)
     vec = int(N % 16 == 0 and q.data_ptr() % 16 == 0 and scale.data_ptr() % 16 == 0)
     err = _fn(name, "quant_matmul_launch")(
-        x2.data_ptr(), q.data_ptr(), scale.data_ptr(), y.data_ptr(),
-        None if partial is None else partial.data_ptr(), M, N, K, group,
-        int(x2.dtype == torch.bfloat16), design, splits, k_per_split, vec, _stream())
+        x3.data_ptr(), q.data_ptr(), scale.data_ptr(), y.data_ptr(),
+        None if partial is None else partial.data_ptr(), E, M, N, K, group,
+        int(x3.dtype == torch.bfloat16), design, splits, k_per_split, vec, _stream())
     _check(err, name)
     launch_count[name] += 1
-    variant_count[f"{name}.{variant}"] += 1
+    variant_count[f"{name}.{tag}{variant}"] += 1
     return y
+
+
+def quant_matmul_experts(x, q, scale, *, group: int, in_scale=None):
+    """K2 over experts: x [E, C, K] @ bf16(q [E, K, N] int8 * scale
+    [E, K/g, N]) -> [E, C, N] in x's dtype, every expert in one launch
+    (the vmapped TPU kernel); ``in_scale`` [E, K] multiplies each
+    expert's rows of x (in f32) first.  The design follows
+    :func:`quant_matmul_variant` with M = C."""
+    _require(q.dim() == 3 and q.dtype == torch.int8, "quant_matmul",
+             "q must be [E, K, N] int8")
+    return _quant_matmul(x, q, scale, group, in_scale, "expert_")
 
 
 # ---------------------------------------------------------------------------

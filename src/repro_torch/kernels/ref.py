@@ -14,21 +14,24 @@ NEG_INF = -1e30
 
 
 def dequantize_codes(q, scale, group: int):
-    """bf16(q [K, N] int8 codes * scale [K/g, N]) — the kernel's weight."""
-    K, N = q.shape
-    w = q.float().reshape(K // group, group, N) * scale[:, None, :]
-    return w.reshape(K, N).to(torch.bfloat16)
+    """bf16(q [..., K, N] int8 codes * scale [..., K/g, N]) — the kernel's
+    weight (leading axes: an expert stack)."""
+    *lead, K, N = q.shape
+    w = q.float().reshape(*lead, K // group, group, N) * scale[..., :, None, :]
+    return w.reshape(*lead, K, N).to(torch.bfloat16)
 
 
 def quant_matmul(x, q, scale, *, group: int, in_scale=None):
-    """x [..., K] @ bf16(q [K, N] * scale [K/g, N]) -> [..., N] in x's dtype.
+    """x [..., K] @ bf16(q [K, N] * scale [K/g, N]) -> [..., N] in x's dtype,
+    or every expert's product: x [E, C, K] against q [E, K, N] and scale
+    [E, K/g, N] -> [E, C, N].
 
-    ``in_scale`` (SmoothQuant, f32 [K]) multiplies x in f32 first and the
-    product is cast back to x's dtype; the weight is dequantized to bf16
-    before the product and the sum is taken in f32.
+    ``in_scale`` (SmoothQuant, f32 [K], or [E, K] for experts) multiplies
+    x in f32 first and the product is cast back to x's dtype; the weight
+    is dequantized to bf16 before the product and the sum is taken in f32.
     """
     if in_scale is not None:
-        x = (x.float() * in_scale).to(x.dtype)
+        x = (x.float() * (in_scale[:, None, :] if q.dim() == 3 else in_scale)).to(x.dtype)
     w = dequantize_codes(q, scale, group)
     return torch.matmul(x.float(), w.float()).to(x.dtype)
 

@@ -1,7 +1,7 @@
 """Family dispatch: the entry points the serving engine and tests call.
 
-Only the dense family is ported; every other family raises
-``NotImplementedError`` naming its ROADMAP item.
+The dense and MoE families are ported (both on ``models/transformer.py``);
+every other family raises ``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -12,7 +12,7 @@ from repro_torch.tree import value_and_grad
 
 
 def family_module(cfg):
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP queue 1 item 9)")
     return transformer
@@ -41,13 +41,15 @@ def loss_fn(params, cfg, batch, *, xent_chunk: int = 0, remat: bool = True,
 
 
 def prefill(params, cfg, batch, *, max_len: int, compact_local: bool = False,
-            use_flash: bool = False, lengths=None):
+            use_flash: bool = False, lengths=None, cap_tokens=None):
     """``lengths`` is accepted for the recurrent families; attention
-    families ignore it (causality already isolates right-padding)."""
+    families ignore it (causality already isolates right-padding).
+    ``cap_tokens``: the token count that decides MoE capacity (default
+    the whole batch; the engine passes a row's, for per-row dispatch)."""
     return family_module(cfg).prefill(params, cfg, batch["tokens"],
                                       max_len=max_len,
                                       compact_local=compact_local,
-                                      use_flash=use_flash)
+                                      use_flash=use_flash, cap_tokens=cap_tokens)
 
 
 def init_cache(cfg, batch: int, max_len: int, *, compact_local: bool = False,
@@ -69,7 +71,7 @@ def decode_step(params, cfg, cache, tokens, pos, *, max_len: int):
 # ---------------------------------------------------------------------------
 
 def supports_paged(cfg) -> bool:
-    return cfg.family == "dense"
+    return cfg.family in ("dense", "moe")
 
 
 def init_paged_cache(cfg, slots: int, num_blocks: int, block_size: int,
@@ -107,17 +109,17 @@ def paged_seed(cfg, state, entry_state, write_ids, *, block_size: int):
 # ---------------------------------------------------------------------------
 
 def supports_prefix(cfg) -> bool:
-    return cfg.family == "dense"
+    return cfg.family in ("dense", "moe")
 
 
 def prefill_from(params, cfg, prefix_cache_entry, suffix_tokens, prefix_len,
-                 *, max_len: int, lengths=None):
+                 *, max_len: int, lengths=None, cap_tokens=None):
     """Continue a prefill from a stored prefix state (batch 1, broadcast to
     every row, or one per row); returns (suffix logits [B,S,V],
-    fully-populated batch-B cache)."""
+    fully-populated batch-B cache).  ``cap_tokens`` as in ``prefill``."""
     return family_module(cfg).prefill_from(params, cfg, prefix_cache_entry,
                                            suffix_tokens, prefix_len,
-                                           max_len=max_len)
+                                           max_len=max_len, cap_tokens=cap_tokens)
 
 
 # ---------------------------------------------------------------------------

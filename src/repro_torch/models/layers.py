@@ -1,4 +1,4 @@
-"""Shared neural-net layers of the port (dense family).
+"""Shared neural-net layers of the port (dense and MoE families).
 
 Functional style like the reference: ``init_*`` builds param dicts of
 tensors, plain functions apply them.  Every linear projection goes
@@ -18,6 +18,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import compressed
 from repro_torch.core.compressed import current_backend, matmul
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
@@ -278,6 +279,114 @@ def mlp_block(p, x):
     else:
         h = F.gelu(matmul(x, p["wi"]), approximate="tanh")
     return matmul(h, p["wo"])
+
+
+# ---------------------------------------------------------------------------
+# MoE
+# ---------------------------------------------------------------------------
+
+def init_moe(gen, cfg, dtype, lead: Tuple[int, ...] = ()):
+    """Router (f32 [d, E]) and expert stacks wi, wg [E, d, moe_d_ff], wo
+    [E, moe_d_ff, d]."""
+    d, ffe, E = cfg.d_model, cfg.moe_d_ff, cfg.n_experts
+    depth_scale = 1.0 / math.sqrt(2 * max(cfg.n_layers, 1))
+    return {
+        "router": dense_init(gen, d, E, torch.float32, lead=lead),
+        "wi": dense_init(gen, d, ffe, dtype, lead=(*lead, E)),
+        "wg": dense_init(gen, d, ffe, dtype, lead=(*lead, E)),
+        "wo": dense_init(gen, ffe, d, dtype, scale=depth_scale, lead=(*lead, E)),
+    }
+
+
+def moe_capacity(n_tokens: int, cfg, train: bool) -> int:
+    """Rows of each expert's buffer for a dispatch of ``n_tokens`` tokens:
+    dropless (``n_tokens``) at eval up to 4096 tokens, so that prefill and
+    decode agree with the full forward; above that (and in training)
+    capacity-bounded, the lowest-gate entries dropped first, at a capacity
+    factor of 2.0 at eval and ``cfg.capacity_factor`` in training.  The
+    reference's default behaviour (every switch of its ``OPT`` off)."""
+    if not train and n_tokens <= 4096:
+        return n_tokens
+    cf = cfg.capacity_factor if train else 2.0
+    cap = int(math.ceil(n_tokens * cfg.top_k * cf / cfg.n_experts))
+    return max(8, min(cap, n_tokens))
+
+
+def moe_block(p, x, cfg, *, train: bool, cap_tokens: Optional[int] = None):
+    """Scatter/gather top-k MoE: x [B, S, d] -> (out [B, S, d], aux).
+
+    ``aux`` is the Switch load-balance loss E * sum_e f_e * p_e.
+    ``cap_tokens`` is the token count that decides the capacity (default
+    B * S, one dispatch over the whole batch, as the reference's
+    ``moe_block``).  A smaller count makes every ``cap_tokens`` tokens (a
+    row of the serving engine's admission) a dispatch of their own, as
+    the reference's per-row ``vmap`` does: when such a group keeps all its
+    tokens (capacity >= ``cap_tokens``), one dropless dispatch over the
+    batch gives the same rows; otherwise the groups run one at a time."""
+    B, S, d = x.shape
+    T = B * S
+    if cap_tokens is not None and cap_tokens < T:
+        if T % cap_tokens:
+            raise ValueError(f"cap_tokens={cap_tokens} does not divide {T} tokens")
+        if moe_capacity(cap_tokens, cfg, train) < cap_tokens:
+            rows = x.reshape(T // cap_tokens, 1, cap_tokens, d)
+            outs = [moe_block(p, r, cfg, train=train) for r in rows]
+            aux = torch.stack([a for _, a in outs]).mean()
+            return torch.cat([o for o, _ in outs]).reshape(B, S, d), aux
+        C = T
+    else:
+        C = moe_capacity(T, cfg, train)
+    E, k = cfg.n_experts, cfg.top_k
+    xt = x.reshape(T, d)
+    logits = matmul(xt, p["router"]).float()                       # [T, E]
+    probs = torch.softmax(logits, dim=-1)
+    gates, eidx = torch.topk(probs, k, dim=-1)                     # [T, k]
+    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+
+    # load-balance aux (Switch-style): E * sum_e f_e * p_e
+    f = F.one_hot(eidx, E).float().sum(1).mean(0)
+    pmean = probs.mean(0)
+    aux = E * torch.sum(f * pmean)
+
+    # position of each (token, choice) within its expert: ranks from the
+    # exclusive cumsum of the one-hot; when capacity can drop entries, in
+    # gate order (stable, as jnp.argsort), so the lowest gates drop first
+    flat_e = eidx.reshape(-1)                                      # [T*k]
+    if C < T * k:
+        order = torch.argsort(-gates.reshape(-1).detach(), stable=True)
+        inv = torch.argsort(order)
+        onehot = F.one_hot(flat_e[order], E)
+        pos = onehot.cumsum(0) - onehot
+        ppos = pos.gather(1, flat_e[order][:, None])[:, 0][inv]
+    else:
+        onehot = F.one_hot(flat_e, E)
+        pos = onehot.cumsum(0) - onehot
+        ppos = pos.gather(1, flat_e[:, None])[:, 0]
+    keep = ppos < C
+    tok = torch.arange(T, device=x.device).repeat_interleave(k)
+    # scatter the kept entries into [E, C, d]; dropped ones go to a spare row
+    slot = torch.where(keep, flat_e * C + ppos, torch.full_like(ppos, E * C))
+    buf = torch.zeros((E * C + 1, d), dtype=x.dtype, device=x.device)
+    buf.index_copy_(0, slot, xt[tok])
+    buf = buf[:E * C].reshape(E, C, d)
+    # calibration hooks: expert inputs and routing statistics
+    ecounts = (F.one_hot(flat_e, E) * keep[:, None]).sum(0)
+    compressed.record(p["wg"], buf, ecounts)
+    compressed.record(p["wi"], buf, ecounts)
+    compressed.record_routing(p["router"], ecounts, pmean)
+    # expert FFN on [E, C, d] (one K2 launch per linear for int8 stacks)
+    h = F.silu(compressed.expert_matmul(buf, p["wg"]))
+    h = h * compressed.expert_matmul(buf, p["wi"])
+    compressed.record(p["wo"], h, ecounts)
+    yb = compressed.expert_matmul(h, p["wo"]).reshape(E * C, d)
+    # gather back and weight by the gates, summed over the k choices in order
+    gath = yb[torch.where(keep, flat_e * C + ppos, torch.zeros_like(ppos))]
+    gath = torch.where(keep[:, None], gath, torch.zeros((), dtype=x.dtype, device=x.device))
+    w = (gath * gates.reshape(-1, 1).to(x.dtype)).reshape(T, k, d)
+    out = torch.zeros((T, d), dtype=x.dtype, device=x.device)
+    for j in range(k):
+        out = out + w[:, j]
+    return out.reshape(B, S, d), aux
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""Decoder-only transformer LM (dense family).
+"""Decoder-only transformer LM (dense and MoE families).
 
 The reference runs the layer stack with ``lax.scan`` over the repeating
 pattern unit of the architecture (gemma2's (local, global) pair); the
@@ -11,10 +11,17 @@ is ``{"blocks": [{"k": [R, B, T, K, hd], "v": ...}], "tail": [...]}``,
 the paged pools are ``[R, num_blocks, block_size, K, hd]``.  Where the
 reference returns a new cache (jit donation), the port writes the pools
 in place with ``index_copy_`` and returns the same dicts.
+
+An MoE block's FFN is the routed experts plus, where the config has
+them, a shared MLP (qwen2-moe's always-active experts) and a dense
+residual MLP (arctic).  Its capacity is decided by the token count of one
+dispatch: the whole batch, except in ``prefill`` and ``prefill_from``
+with ``cap_tokens`` (the serving engine's admission), where every row is
+its own dispatch, as in the reference's per-row prefill.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Tuple
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -71,7 +78,7 @@ def _layers(tree, cfg) -> Iterator[Tuple[str, Any]]:
 # ---------------------------------------------------------------------------
 
 def init_block(gen, cfg, dtype, lead: Tuple[int, ...] = ()) -> Params:
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP queue 1 item 9)")
     d, dev = cfg.d_model, gen.device
@@ -83,7 +90,16 @@ def init_block(gen, cfg, dtype, lead: Tuple[int, ...] = ()) -> Params:
     if cfg.post_norms:
         p["ln1_post"] = L.norm_init(d, dtype, cfg.norm_type, device=dev, lead=lead)
         p["ln2_post"] = L.norm_init(d, dtype, cfg.norm_type, device=dev, lead=lead)
-    p["mlp"] = L.init_mlp(gen, cfg, dtype, lead=lead)
+    if cfg.family == "moe":
+        p["moe"] = L.init_moe(gen, cfg, dtype, lead=lead)
+        if cfg.n_shared_experts:
+            # n parallel shared experts == one MLP with concatenated hidden
+            p["shared_mlp"] = L.init_mlp(gen, cfg, dtype, lead=lead,
+                                         d_ff=cfg.n_shared_experts * cfg.moe_d_ff)
+        if cfg.dense_residual:
+            p["dense_mlp"] = L.init_mlp(gen, cfg, dtype, d_ff=cfg.d_ff, lead=lead)
+    else:
+        p["mlp"] = L.init_mlp(gen, cfg, dtype, lead=lead)
     return p
 
 
@@ -93,16 +109,31 @@ def _theta(cfg, kind: str) -> float:
     return cfg.rope_theta
 
 
-def _mlp_section(p, h, cfg):
-    m = L.mlp_block(p["mlp"], h)
+def _ffn(p, h, cfg, *, train: bool = False, cap_tokens: Optional[int] = None):
+    """FFN half of a block (dense, or MoE with its shared and dense
+    residual MLPs) -> (out, MoE load-balance aux)."""
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    if "moe" in p:
+        m, aux = L.moe_block(p["moe"], h, cfg, train=train, cap_tokens=cap_tokens)
+        if "shared_mlp" in p:
+            m = m + L.mlp_block(p["shared_mlp"], h)
+        if "dense_mlp" in p:
+            m = m + L.mlp_block(p["dense_mlp"], h)
+    else:
+        m = L.mlp_block(p["mlp"], h)
     if "ln2_post" in p:
         m = norm(m, p["ln2_post"], cfg)
-    return m
+    return m, aux
+
+
+def _mlp_section(p, h, cfg, cap_tokens: Optional[int] = None):
+    """Inference-mode FFN half of a block."""
+    return _ffn(p, h, cfg, cap_tokens=cap_tokens)[0]
 
 
 def block_apply(p: Params, x, cfg, *, kind: str, positions, train: bool = False,
                 use_flash: bool = False):
-    """Full-sequence block (prefill without cache)."""
+    """Full-sequence block (prefill without cache) -> (x, MoE aux)."""
     h = norm(x, p["ln1"], cfg)
     a = L.attention_block(p["attn"], h, cfg, kind=kind, positions=positions,
                           theta=_theta(cfg, kind), use_flash=use_flash)
@@ -110,7 +141,8 @@ def block_apply(p: Params, x, cfg, *, kind: str, positions, train: bool = False,
         a = norm(a, p["ln1_post"], cfg)
     x = x + a
     h = norm(x, p["ln2"], cfg)
-    return x + _mlp_section(p, h, cfg), torch.zeros((), device=x.device)
+    m, aux = _ffn(p, h, cfg, train=train)
+    return x + m, aux
 
 
 # ---------------------------------------------------------------------------
@@ -134,7 +166,8 @@ def init_params(gen: torch.Generator, cfg) -> Params:
 # ---------------------------------------------------------------------------
 
 def _trunk(params: Params, cfg, x, *, train: bool, use_flash: bool, remat: bool):
-    """Every block over x [B, S, d], then the final norm.  With ``remat``
+    """Every block over x [B, S, d], then the final norm -> (x, the summed
+    MoE aux).  With ``remat``
     (and grad mode on) each layer of ``blocks`` runs under
     ``torch.utils.checkpoint``, which keeps only its input for the
     backward pass and recomputes the rest, as ``jax.checkpoint`` of the
@@ -147,14 +180,16 @@ def _trunk(params: Params, cfg, x, *, train: bool, use_flash: bool, remat: bool)
 
     def one(p, x, kind):
         return block_apply(p, x, cfg, kind=kind, positions=positions,
-                           train=train, use_flash=use_flash)[0]
+                           train=train, use_flash=use_flash)
 
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, (kind, p) in enumerate(_layers(params, cfg)):
         if remat and i < R * len(unit):
-            x = checkpoint(one, p, x, kind, use_reentrant=False)
+            x, a = checkpoint(one, p, x, kind, use_reentrant=False)
         else:
-            x = one(p, x, kind)
-    return norm(x, params["ln_f"], cfg)
+            x, a = one(p, x, kind)
+        aux = aux + a
+    return norm(x, params["ln_f"], cfg), aux
 
 
 def forward(params: Params, cfg, tokens, *, train: bool = False,
@@ -163,17 +198,17 @@ def forward(params: Params, cfg, tokens, *, train: bool = False,
     if capture:
         raise NotImplementedError(
             "capture is for calibration: ROADMAP queue 1 item 5")
-    x = _trunk(params, cfg, L.embed(params, cfg, tokens), train=train,
-               use_flash=use_flash, remat=remat)
+    x, aux = _trunk(params, cfg, L.embed(params, cfg, tokens), train=train,
+                    use_flash=use_flash, remat=remat)
     logits = L.unembed(params, cfg, x)
-    return logits, {"moe_aux": torch.zeros((), device=x.device)}
+    return logits, {"moe_aux": aux}
 
 
 def loss_fn(params: Params, cfg, tokens, labels, *, img_embs=None,
             xent_chunk: int = 0, remat: bool = True, aux_weight: float = 0.01):
     """Causal LM loss: the summed cross-entropy over every position divided
     by ``labels.numel()`` (padding positions count, with label 0, as in
-    the reference).  ``xent_chunk`` > 0 streams the vocab projection
+    the reference), plus ``aux_weight`` times the summed MoE aux.  ``xent_chunk`` > 0 streams the vocab projection
     over sequence chunks so [B, S, V] logits are never materialized;
     with ``remat`` each chunk's logits are recomputed in the backward
     pass instead of kept."""
@@ -183,8 +218,8 @@ def loss_fn(params: Params, cfg, tokens, labels, *, img_embs=None,
     if not xent_chunk:
         logits, aux = forward(params, cfg, tokens, train=True, remat=remat)
         return _xent(logits, labels) / labels.numel() + aux_weight * aux["moe_aux"]
-    x = _trunk(params, cfg, L.embed(params, cfg, tokens), train=True,
-               use_flash=False, remat=remat)
+    x, aux = _trunk(params, cfg, L.embed(params, cfg, tokens), train=True,
+                    use_flash=False, remat=remat)
     B, S, d = x.shape
     nchunks = max(S // xent_chunk, 1)
     xcs = x.reshape(B, nchunks, -1, d)
@@ -199,7 +234,7 @@ def loss_fn(params: Params, cfg, tokens, labels, *, img_embs=None,
             total = total + checkpoint(chunk, xcs[:, c], ycs[:, c], use_reentrant=False)
         else:
             total = total + chunk(xcs[:, c], ycs[:, c])
-    return total / labels.numel()
+    return total / labels.numel() + aux_weight * aux
 
 
 def _xent(logits, labels) -> torch.Tensor:
@@ -229,13 +264,15 @@ def _empty_cache(cfg, batch: int, T: int, dtype, device):
 
 
 def prefill(params: Params, cfg, tokens, *, max_len: int,
-            compact_local: bool = False, use_flash: bool = False):
+            compact_local: bool = False, use_flash: bool = False,
+            cap_tokens: Optional[int] = None):
     """Run the prompt, return (logits [B,S,V], populated cache).
 
     Rows are right-padded; the caller gathers each row's last-valid-token
     logits.  Cache slots are absolute (``compact_local=False``, the
     serving layout; the reference's circular dry-run layout is not
-    ported).
+    ported).  ``cap_tokens``: the token count that decides MoE capacity
+    (``L.moe_block``; default the whole batch).
     """
     if compact_local:
         raise NotImplementedError("compact_local caches are dry-run only")
@@ -259,7 +296,7 @@ def prefill(params: Params, cfg, tokens, *, max_len: int,
             a = norm(a, p["ln1_post"], cfg)
         x = x + a
         h = norm(x, p["ln2"], cfg)
-        x = x + _mlp_section(p, h, cfg)
+        x = x + _mlp_section(p, h, cfg, cap_tokens)
         for name, t in (("k", k), ("v", v)):
             t = t[:, S - keep:].to(cfg.dtype)
             if shift:
@@ -282,7 +319,8 @@ def _masked_chunk(q, k_cache, v_cache, valid, cap):
     return out.reshape(B, S, H, D)
 
 
-def block_prefill_from(p, c, x, cfg, *, kind: str, start: int, max_len: int):
+def block_prefill_from(p, c, x, cfg, *, kind: str, start: int, max_len: int,
+                       cap_tokens: Optional[int] = None):
     """Full block (attn + FFN) over an S-token chunk whose first token sits
     at absolute position ``start``: the chunk's k/v are written into the
     per-row cache ``c`` ([B, T, K, hd], written in place) at slots
@@ -306,10 +344,11 @@ def block_prefill_from(p, c, x, cfg, *, kind: str, start: int, max_len: int):
         a = norm(a, p["ln1_post"], cfg)
     x = x + a
     h = norm(x, p["ln2"], cfg)
-    return x + _mlp_section(p, h, cfg)
+    return x + _mlp_section(p, h, cfg, cap_tokens)
 
 
-def prefill_from(params: Params, cfg, cache, tokens, start: int, *, max_len: int):
+def prefill_from(params: Params, cfg, cache, tokens, start: int, *, max_len: int,
+                 cap_tokens: Optional[int] = None):
     """Prefill only the suffix ``tokens`` [B,S] whose shared prefix
     (absolute positions [0, start)) is resident in ``cache``.
 
@@ -329,7 +368,7 @@ def prefill_from(params: Params, cfg, cache, tokens, start: int, *, max_len: int
            for sec in ("blocks", "tail")}
     for (kind, p), (_, c) in zip(_layers(params, cfg), _layers(new, cfg)):
         x = block_prefill_from(p, c, x, cfg, kind=kind, start=start,
-                               max_len=max_len)
+                               max_len=max_len, cap_tokens=cap_tokens)
     x = norm(x, params["ln_f"], cfg)
     return L.unembed(params, cfg, x), new
 

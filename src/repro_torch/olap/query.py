@@ -42,7 +42,7 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 import torch
 
 from repro_torch.core.calibrate import CascadeCalibration, fit_confidence_threshold
-from repro_torch.core.pipeline import InstanceOptimizer, Recipe
+from repro_torch.core.pipeline import InstanceOptimizer, Recipe, needs_hessian
 from repro_torch.core import policy as POL
 from repro_torch.core.compressed import kernel_backend
 from repro_torch.kernels.backend import normalize_backend, resolve_device
@@ -282,7 +282,9 @@ class IOLMSession:
             seq_len=max(16, max(len(p) + 3 for p in hold)))
         with kernel_backend(self.backend):
             opt = InstanceOptimizer(self.params, self.cfg)
-            opt.run_calibration(batch)
+            # Hessians only where a recipe reads them: an MoE model's expert
+            # Hessians alone outgrow the card (119.5 GB for qwen2-moe-a2.7b)
+            opt.run_calibration(batch, hessian=any(needs_hessian(r) for r in recipes))
             eval_fn = POL.make_agreement_eval(
                 self.params, self.cfg, torch.from_numpy(htoks).to(self.device),
                 max_new=12, lengths=torch.from_numpy(hlens).to(self.device))

@@ -27,10 +27,14 @@ for it; an admission reads its first sampled tokens back to the host
 ``step_finish``, the tick's one host sync for decode.
 
 Admission prefill is one batched call over ``[n, bucket]`` where the
-reference vmaps single rows: for the dense family causal masking keeps
-right-padding out of every real position, so the rows agree.  The
-contiguous layout, ``mesh=`` and the other families are not ported and
-raise.  The engine updates its pools in place (``index_copy_``) where
+reference vmaps single rows.  Causal masking keeps right-padding out of
+every real position, so the rows agree; an MoE model's capacity is
+decided per row (``cap_tokens`` = the bucket), as in the reference's
+single-row prefill, so rows that together pass the 4096-token dropless
+limit are still dispatched without drops when each row is under it.
+Decode is batched over slots in both packages (its MoE dispatch sees one
+token a slot).  The dense and MoE families are ported; the contiguous
+layout, ``mesh=`` and the other families are not and raise.  The engine updates its pools in place (``index_copy_``) where
 the reference donates them to jit.
 """
 from __future__ import annotations
@@ -136,8 +140,8 @@ class Engine:
         if (kv_layout == "contiguous" or not api.supports_paged(cfg)
                 or (kv_layout == "auto" and bs < 8)):
             raise NotImplementedError(
-                "only the paged KV layout of the dense family is ported; the "
-                "contiguous layout is ROADMAP queue 1 item 4")
+                "only the paged KV layout of the dense and MoE families is "
+                "ported; the contiguous layout is ROADMAP queue 1 item 4")
         self.device = resolve_device(device)
         self.backend = resolve_backend(backend, self.device)
         self._placement_tag = f"@{self.device}"
@@ -178,11 +182,12 @@ class Engine:
     # -- device steps ---------------------------------------------------
     def _prefill(self, toks):
         return api.prefill(self.params, self.cfg, {"tokens": toks},
-                           max_len=self.max_len, compact_local=False)
+                           max_len=self.max_len, compact_local=False,
+                           cap_tokens=toks.shape[1])
 
     def _prefill_from(self, prefix_state, toks, plen):
         return api.prefill_from(self.params, self.cfg, prefix_state, toks, plen,
-                                max_len=self.max_len)
+                                max_len=self.max_len, cap_tokens=toks.shape[1])
 
     def _insert(self, rows, slot_idxs, write_ids):
         return api.paged_insert(self.cfg, self._slot_state, rows, slot_idxs,

@@ -20,8 +20,10 @@ saved:
     manifest's ``bf16``; they are read back through
     ``torch.from_numpy(a).view(torch.bfloat16)``.
 
-A layer-stacked ``BlockSparseTensor`` is written as the reference holds
-it, without its gather indices; on load ``idx`` is rebuilt from ``mask``
+A ``QTensor`` is one entry whatever its leading axes (a layer, and an
+MoE stack's expert axis), as in the reference.  A layer-stacked
+``BlockSparseTensor`` is written as the reference holds it, without its
+gather indices; on load ``idx`` is rebuilt from ``mask``
 per layer.  ``qembed`` entries (the reference's quantized embedding)
 raise: ``QEmbed`` is ROADMAP queue 1 item 2.
 """

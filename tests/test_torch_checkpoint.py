@@ -5,10 +5,12 @@ against the reference's ``repro.training.checkpoint``.
   ``TestTraining``): a round trip with compressed leaves gives the same
   forward, a corrupted ``arrays.npz`` raises, GC keeps the newest.
 - Across packages, both ways: the reference's ``save`` of ``(params,
-  adamw state)``, of a ``w8`` instance and of a layer-stacked ``bs16``
-  instance is read by the port's ``restore`` and ``restore_tree`` bit for
-  bit (the stacked block-sparse leaf without ``idx``, rebuilt from
-  ``mask``); the port's ``save`` of the same trees is read back by the
+  adamw state)``, of a ``w8`` instance, of a layer-stacked ``bs16``
+  instance and of the reduced qwen2-moe's ``w8`` and SmoothQuant
+  instances (expert-stacked ``QTensor`` leaves [R, E, K, N], the second
+  with ``in_scale``) is read by the port's ``restore`` and
+  ``restore_tree`` bit for bit (the stacked block-sparse leaf without
+  ``idx``, rebuilt from ``mask``); the port's ``save`` of the same trees is read back by the
   reference's, and both write manifests with the same ``a{i}`` paths and
   kinds; forwards agree (f32, within 1e-5 relative of the reference's).
 - Training that stops at a checkpoint and resumes ends where an
@@ -27,6 +29,7 @@ torch.set_num_threads(2)
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from repro.configs import registry as rregistry  # noqa: E402
 from repro.configs.base import ModelConfig as RConfig  # noqa: E402
 from repro.core.compressed import quantize_embed  # noqa: E402
 from repro.core.pipeline import InstanceOptimizer as RInstanceOptimizer  # noqa: E402
@@ -67,8 +70,18 @@ def ref_trees():
     opt.run_calibration({"tokens": toks})
     w8, _, _ = opt.apply(RRecipe(name="w8", wbits=8, quant_method="absmax"))
     bs16, _, _ = opt.apply(RRecipe(name="bs16", block_bs=16, block_density=0.75))
-    return {"cfg": rcfg, "params": rparams,
-            "train": (bparams, ROPT.adamw().init(bparams)), "w8": w8, "bs16": bs16}
+    # the reduced qwen2-moe: expert-stacked QTensors [R, E, K, N], with
+    # SmoothQuant's in_scale [R, E, K] in the second
+    mcfg = rregistry.get_reduced("qwen2-moe-a2.7b").replace(param_dtype="float32")
+    mopt = RInstanceOptimizer(rapi.init_params(jax.random.PRNGKey(3), mcfg), mcfg)
+    mopt.run_calibration({"tokens": jax.random.randint(jax.random.PRNGKey(4), (4, 32), 4,
+                                                       mcfg.vocab_size)})
+    moe_w8, _, _ = mopt.apply(RRecipe(name="w8", wbits=8, quant_method="absmax"))
+    moe_sq, _, _ = mopt.apply(RRecipe(name="sq", wbits=8, quant_method="absmax",
+                                      smooth_alpha=0.5))
+    return {"cfg": rcfg, "params": rparams, "moe_cfg": mcfg,
+            "train": (bparams, ROPT.adamw().init(bparams)), "w8": w8, "bs16": bs16,
+            "moe_w8": moe_w8, "moe_sq": moe_sq}
 
 
 def _bits(a) -> np.ndarray:
@@ -189,7 +202,7 @@ def test_atomic_write_json(tmp_path):
 # across packages
 # ---------------------------------------------------------------------------
 
-TREES = ["train", "w8", "bs16"]
+TREES = ["train", "w8", "bs16", "moe_w8", "moe_sq"]
 
 
 @pytest.mark.parametrize("which", TREES)
@@ -209,6 +222,10 @@ def test_reference_checkpoint_restores_in_port(ref_trees, which, tmp_path):
         leaf = got["blocks"][0]["mlp"]["wi"]
         assert isinstance(leaf, BlockSparseTensor) and leaf.w.dim() == 3
         assert torch.equal(leaf.idx, target["blocks"][0]["mlp"]["wi"].idx)
+    if which.startswith("moe"):
+        leaf = got["blocks"][0]["moe"]["wo"]
+        assert isinstance(leaf, QTensor) and leaf.q.dim() == 4 and leaf.shape == (96, 64)
+        assert (leaf.in_scale is not None) == (which == "moe_sq")
     # the port writes the same manifest for the same tree
     CK.save(port_dir, 3, got, extra={"note": which})
     mr, mp = _manifest(ref_dir), _manifest(port_dir)
@@ -232,13 +249,13 @@ def test_port_checkpoint_restores_in_reference(ref_trees, which, tmp_path):
     _assert_same_bits(port_tree, tuple(loose) if which == "train" else loose)
 
 
-@pytest.mark.parametrize("which", ["w8", "bs16"])
+@pytest.mark.parametrize("which", ["w8", "bs16", "moe_w8"])
 def test_forwards_agree_across_packages(ref_trees, which, tmp_path):
-    rcfg = ref_trees["cfg"]
+    rcfg = ref_trees["moe_cfg" if which.startswith("moe") else "cfg"]
     d = str(tmp_path)
     RCK.save(d, 0, ref_trees[which])
     params, _, _ = CK.restore_tree(d, device="cpu")
-    toks = np.array(jax.random.randint(jax.random.PRNGKey(5), (2, 16), 4, 260))
+    toks = np.array(jax.random.randint(jax.random.PRNGKey(5), (2, 16), 4, rcfg.vocab_size))
     got, _ = api.forward(params, from_reference(rcfg), {"tokens": torch.from_numpy(toks)})
     want, _ = rapi.forward(ref_trees[which], rcfg, {"tokens": jnp.asarray(toks)})
     want = torch.from_numpy(np.array(want, np.float32))

@@ -147,7 +147,8 @@ def test_quant_matmul_variant_by_dtype_shape_and_group(M):
     names = {ops.quant_matmul_variant(d, M, n, g)
              for d in (bf16, torch.float32) for n in (260, 2304) for g in (80, 128)}
     assert {f"quant_matmul.{v}" for v in names} <= set(ops.variant_count)
-    assert {f"quant_matmul.{v}" for v in ("decode", "mma", "fma")} \
+    # each design counted for dense linears and for K2 over experts
+    assert {f"quant_matmul.{e}{v}" for e in ("", "expert_") for v in ("decode", "mma", "fma")} \
         == {k for k in ops.variant_count if k.startswith("quant_matmul.")}
 
 
