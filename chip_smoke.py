@@ -137,6 +137,41 @@ Phases, each of which raises on failure (so the script exits non-zero):
    the main path's most frequent prefill shape;
 22. moe_f32_parity: Q2 at qwen2-moe's widths in f32 at 4 layers, cuda
    against reference session (phase 8's criteria).
+23. kernel_paged_attention_d112 and kernel_flash_attention_d112 (the
+   hybrid phases run last, from generators of their own, HYBRID_SEED and
+   HYBRID_KERNEL_SEED): K1 at zamba2's head dim 112 (8 slots, 32 and 16
+   KV heads of one query head, blocks of 32, 128 and 1024 positions,
+   ragged lengths, aliased tables) and K3 at 112 (S = T = 8192, H = Kh =
+   32, a ragged ``t_real``, tile edges), bf16 and f32, against their plain
+   versions, and timed;
+24. hybrid_main_path: full-width zamba2-7b (70 Mamba2 layers and 11 sites
+   of one shared attention block, 5.89 B params; random bf16 weights)
+   compressed with ``w8-absmax`` and served by ``Engine(slots=8,
+   max_len=1024)`` on the main path's rows, then the bf16 base: per
+   decode step 218 K2 launches on ``decode`` and 11 of K1, per prefill
+   218 on ``mma``; the template prefix's length and seconds recorded;
+25. hybrid_whole_step: one decode step of that instance, cuda against
+   reference backend, bf16 at full depth (STEP_BF16_RATIO) and f32 cut to
+   15 block applications (2 sites, 2 groups of 6, 1 tail layer;
+   STEP_TOL_F32);
+26. hybrid_contiguous: the same rows through ``kv_layout="contiguous"``
+   (no K1): bf16 rows equal to the paged run's or parted at a near tie;
+   in f32 at 15 block applications, and on gemma2-2b cut to 4 layers,
+   identical tokens; then hybrid_decode_profile, the step's profile;
+27. hybrid_long_prefill: one 8192-token prompt through the hybrid's
+   ``prefill`` (K3 at each of the 11 sites), bf16 and f32, cuda against
+   reference backend, seconds and peak memory;
+28. hybrid_session: Q2 and Q1 at 64 rows through ``Query.run`` over a
+   full-width zamba2 session with ``w8-absmax`` and absmax copies of
+   ``w8-ffn75`` and ``w8-kv50`` (no Hessian; the shared block's
+   statistics summed over its 11 sites); K1 and K2 on the served engines;
+29. kernel_quant_matmul_seen: K2 against its plain version at every shape
+   phases 24 (its int8 run) and 28 gave it (``QuantShapeProbe`` records
+   them), ``decode`` and ``mma`` alike, on the design each ran; zamba2's
+   in_proj (3584 -> 14576) timed at decode M = 8 and at the main path's
+   most frequent prefill M;
+30. hybrid_f32_parity: Q2 in f32 at 15 block applications, cuda against
+   reference session (phase 8's criteria).
 
 K2, K3 and K4 run their tensor-core designs on bf16 and their FMA
 designs on f32; ``ops.variant_count`` shows which design of every kernel
@@ -146,7 +181,10 @@ Prints one JSON line per phase and each phase's seconds and
 ``{"kernels": [...]}`` summary (with each kernel's launches on its own
 path, over ``olap_session``, over the pooled runs of phases 9-11 and
 over the two service phases, and
-on the MoE path: ``launches_moe``, and K2's expert designs and timing),
+on the MoE path: ``launches_moe``, and K2's expert designs and timing;
+on the hybrid path: ``launches_hybrid``, ``launches_hybrid_session``,
+``launches_hybrid_long_prefill``, K1's and K3's ``d112`` timings, and
+K2's ``hybrid`` cases seen and in_proj timings),
 the card line, and last ``{"ok": true, "device": {...}}``.  Exits non-zero
 without a card and outside a checkout of the repository.
 """
@@ -719,16 +757,19 @@ def check_flash_attention(gen):
 # phase 3: the main path
 # ---------------------------------------------------------------------------
 
-def serve(params, cfg, version):
+def serve(params, cfg, version, device="cuda", kv_layout="auto"):
+    """The main path's rows through ``Engine(slots=8, max_len=1024)``."""
     from repro_torch.serving.engine import Engine
-    eng = Engine(params, cfg, slots=8, max_len=1024, backend="auto", version=version)
-    torch.cuda.synchronize()
+    eng = Engine(params, cfg, slots=8, max_len=1024, backend="auto", version=version,
+                 device=device, kv_layout=kv_layout)
+    sync()
     reqs = eng.generate([TEMPLATE + r for r in REVIEWS], max_new=32, prefix=TEMPLATE,
                         return_requests=True)
-    torch.cuda.synchronize()
+    sync()
     st = eng.stats
     check(all(r.done for r in reqs), "unfinished rows")
-    check(st.rows == len(REVIEWS) and st.backend == "cuda", st)
+    check(st.rows == len(REVIEWS) and st.backend == ("cuda" if device == "cuda"
+                                                     else "reference"), st)
     check(st.prefix_hits > 0 and st.cache_hits >= 1, st)
     for r in reqs:
         check(1 <= len(r.out_ids) <= 32 and all(0 <= t < cfg.vocab_size for t in r.out_ids),
@@ -2646,16 +2687,19 @@ MOE_C = (8, 14, 32, 64, 256, 512, 1024)
 MOE_PA = {"Kh": 16, "G": 1, "D": 128, "bs": 32, "nblk": 32}
 
 
+def _dense_weight(gen, K, N, group=128, smooth=False):
+    """A [K, N] weight drawn from ``gen`` and quantized with absmax
+    (SmoothQuant's ``in_scale`` when ``smooth``)."""
+    from repro_torch.core import quantize as Q
+    w = torch.randn((K, N), generator=gen, device="cuda") / math.sqrt(K)
+    amax = (torch.rand((K,), generator=gen, device="cuda") * 4 + 0.5) if smooth else None
+    return Q.absmax_quantize(w, group=group, amax_x=amax, smooth_alpha=0.5 if smooth else 0.0)
+
+
 def _expert_stack(gen, E, K, N, smooth=False, group=128):
     """E expert weights [K, N] drawn from ``gen`` and quantized with absmax
     (SmoothQuant's ``in_scale`` when ``smooth``): (q, scale, group, in_scale)."""
-    from repro_torch.core import quantize as Q
-    qs = []
-    for _ in range(E):
-        w = torch.randn((K, N), generator=gen, device="cuda") / math.sqrt(K)
-        amax = (torch.rand((K,), generator=gen, device="cuda") * 4 + 0.5) if smooth else None
-        qs.append(Q.absmax_quantize(w, group=group, amax_x=amax,
-                                    smooth_alpha=0.5 if smooth else 0.0))
+    qs = [_dense_weight(gen, K, N, group, smooth) for _ in range(E)]
     ins = torch.stack([t.in_scale for t in qs]) if smooth else None
     return torch.stack([t.q for t in qs]), torch.stack([t.scale for t in qs]), qs[0].group, ins
 
@@ -2824,7 +2868,7 @@ def check_quant_matmul_experts_seen(main_shapes, session_shapes):
             "C_session": sorted({s[1] for s in session_shapes}),
             "prefill_timed": f"one expert linear (wi, E 60, 2048 -> 1408) at C={C}, the main "
                              "path's most frequent prefill shape, bf16", "prefill": prefill}
-    emit(line)
+    emit({**line, "cases": len(results)})   # each case in chip_smoke.json
     print(f"K2 over experts at {len(results)} shapes of the MoE path: max rel err "
           f"{line['max_rel_err']:.3g}; prefill C={C}: {prefill['ms']:.4f} ms (bound "
           f"{prefill['bound_ms']:.4f}, plain {prefill['plain_ms']:.4f}, bmm "
@@ -3240,6 +3284,741 @@ def moe_session(base, cfg):
     return line, launches, shapes.shapes
 
 
+# ---------------------------------------------------------------------------
+# the hybrid phases: full-width zamba2-7b (Mamba2 + one shared attention block)
+# ---------------------------------------------------------------------------
+
+HYBRID_SEED = 31                 # the hybrid phases' generator: earlier phases' draws stay
+HYBRID_KERNEL_SEED = 37          # K1 and K3 at head dim 112: adding a case moves no weight
+# K1 at zamba2's decode: 8 slots, 32 KV heads of one query head (16 after
+# kv50), head dim 112, blocks of 32 at max_len 1024; no window or softcap
+HYBRID_PA = {"Kh": 32, "G": 1, "D": 112, "bs": 32, "nblk": 32}
+
+
+def check_paged_attention_d112():
+    """K1 at zamba2's head dim 112 (14 bf16 or 28 f32 16-byte pieces a
+    row, a lane group with idle lanes) against its plain version: 8 slots,
+    32 and 16 KV heads of one query head, tables of 128 and 1024 positions
+    with ragged lengths, plain and aliased tables, bf16 and f32.  Then one
+    decode call is timed at 128 and 1024 positions a slot (32 KV heads)."""
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(HYBRID_KERNEL_SEED)
+    ragged = {4: [1, 31, 32, 33, 64, 100, 127, 128],
+              32: [1, 33, 257, 700, 999, 1024, 512, 65]}
+    worst_abs, results = 0.0, []
+    for dtype in (torch.bfloat16, torch.float32):
+        for Kh in (32, 16):
+            for nblk, lengths in ragged.items():
+                for alias in (False, True):
+                    shape = {**HYBRID_PA, "Kh": Kh, "nblk": nblk, "alias": alias}
+                    q, k, v, tables, ln = _paged_inputs(gen, dtype, lengths, **shape)
+                    before = dict(ops.variant_count)
+                    got = ops.paged_attention(q, k, v, tables, ln)
+                    S, _, H, D = q.shape
+                    want = ref.paged_attention(q[:, 0].reshape(S, Kh, 1, D), k, v, tables,
+                                               ln).reshape(S, 1, H, D)
+                    torch.cuda.synchronize()
+                    err_abs, err_rel = errors(got, want)
+                    results.append({"dtype": str(dtype).split(".")[-1], "lengths": lengths,
+                                    "rel_err": err_rel,
+                                    "plan": ops.paged_attention_plan(S, Kh, nblk * 32, 0, 32),
+                                    **shape})
+                    check(variant_delta(before) == {"paged_attention.split": 1},
+                          ("K1 design", variant_delta(before)))
+                    check(got.dtype == dtype and bool(torch.isfinite(got).all())
+                          and err_rel < K1_TOL[dtype], results[-1])
+                    worst_abs = max(worst_abs, err_abs)
+    timed = {}
+    for L in (128, 1024):
+        lengths = [L] * 8
+        q, k, v, tables, ln = _paged_inputs(gen, torch.bfloat16, lengths, **HYBRID_PA)
+        S, _, H, D = q.shape
+        Kh = H
+        qr = q[:, 0].reshape(S, Kh, 1, D)
+        ms = time_ms(lambda: ops.paged_attention(q, k, v, tables, ln))
+        plain_ms = time_ms(lambda: ref.paged_attention(qr, k, v, tables, ln))
+        kc = k[tables.long()].reshape(S, -1, Kh, D)[:, :L].permute(0, 2, 1, 3).contiguous()
+        vc = v[tables.long()].reshape(S, -1, Kh, D)[:, :L].permute(0, 2, 1, 3).contiguous()
+        qs = q.permute(0, 2, 1, 3).contiguous()
+        lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qs, kc, vc))
+        nbytes = sum(lengths) * Kh * D * 2 * 2 + 2 * q.numel() * 2 + tables.numel() * 4 + S * 4
+        flops = sum(lengths) * Kh * D * 2 * 2
+        bound_ms, bound_by = bound(nbytes, flops)
+        timed[L] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by, "bound_share": bound_ms / ms,
+                    "bytes": nbytes, "plan": ops.paged_attention_plan(S, Kh, 1024, 0, 32)}
+    line = {"phase": "kernel", "name": "paged_attention_d112", "cases": len(results),
+            "max_rel_err": max(r["rel_err"] for r in results), "max_abs_err": worst_abs,
+            "timed": "one decode call at a zamba2 site, S=8 Kh=32 G=1 D=112 bs=32, "
+                     "128 positions a slot, bf16 (1024 positions under L1024)",
+            "variant": "split", **timed[128], "L1024": timed[1024],
+            "library_note": "SDPA on K/V gathered beforehand"}
+    emit(line)
+    return line, results
+
+
+def check_flash_attention_d112():
+    """K3 at zamba2's head dim 112 against its plain version: the long
+    prefill's shape (S = T = 8192, H = Kh = 32) and a ragged ``t_real``
+    there, then the tile edges (S of 127, 129 and 200, T not a multiple of
+    the 64-key stage, windows, softcap, q_offset, G of 2), bf16 (``mma``,
+    7 k-steps and 14 n8 tiles) and f32 (``fma``, padded to 128 columns
+    inside the kernel).  Then the long prefill's call is timed in bf16."""
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(HYBRID_KERNEL_SEED + 1)
+    # (B, S, T, H, Kh, D, window, softcap, q_offset, t_real)
+    shapes = [(1, 8192, 8192, 32, 32, 112, 0, 0.0, 0, 0),
+              (1, 8192, 8192, 32, 32, 112, 0, 0.0, 0, 8001),
+              (1, 127, 127, 8, 8, 112, 0, 0.0, 0, 0),
+              (2, 129, 129, 4, 2, 112, 0, 50.0, 0, 0),
+              (1, 200, 232, 4, 4, 112, 100, 50.0, 32, 0),
+              (1, 129, 300, 4, 2, 112, 70, 0.0, 171, 290)]
+    worst_abs, results = 0.0, []
+    for dtype in (torch.bfloat16, torch.float32):
+        for B, S, T, H, Kh, D, win, cap, off, t_real in shapes:
+            q, k, v = _attn_inputs(gen, B, S, T, H, Kh, D, dtype)
+            kw = dict(causal=True, window=win, softcap=cap, q_offset=off, t_real=t_real)
+            before = dict(ops.variant_count)
+            got = ops.flash_attention(q, k, v, **kw)
+            want = ref.flash_attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            check(got.dtype == dtype and got.shape == q.shape, ("output", got.shape))
+            check(variant_delta(before) == {f"flash_attention.{ops.flash_variant(dtype)}": 1},
+                  ("K3 design", variant_delta(before)))
+            err_abs, err_rel = errors(got, want)
+            results.append({"B": B, "S": S, "T": T, "H": H, "Kh": Kh, "D": D,
+                            "window": win, "softcap": cap, "q_offset": off,
+                            "t_real": t_real, "dtype": str(dtype).split(".")[-1],
+                            "rel_err": err_rel, "variant": ops.flash_variant(dtype)})
+            check(bool(torch.isfinite(got).all()) and err_rel < K34_TOL[dtype], results[-1])
+            worst_abs = max(worst_abs, err_abs)
+            del q, k, v, got, want
+    B, S, H, D = 1, 8192, 32, 112
+    q, k, v = _attn_inputs(gen, B, S, S, H, H, D, torch.bfloat16)
+    t = {"ms": time_ms(lambda: ops.flash_attention(q, k, v, causal=True), reps=10),
+         "plain_ms": time_ms(lambda: ref.flash_attention(q, k, v, causal=True), reps=3)}
+    qs, ks, vs = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+    t["library_ms"] = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qs, ks, vs, is_causal=True), reps=10)
+    t["flops"] = 4.0 * B * H * D * (S * (S + 1) / 2)
+    t["bound_ms"], t["bound_by"] = bound(2 * (2 * q.numel() + k.numel() + v.numel()),
+                                         t["flops"])
+    t["bound_share"] = t["bound_ms"] / t["ms"]
+    line = {"phase": "kernel", "name": "flash_attention_d112", "cases": len(results),
+            "max_rel_err": max(r["rel_err"] for r in results), "max_abs_err": worst_abs,
+            "timed": "one zamba2 site's prefill attention, B=1 S=T=8192 H=Kh=32 D=112, "
+                     "causal, bf16", "variant": ops.flash_variant(torch.bfloat16),
+            "library_note": "SDPA is_causal", **t}
+    emit(line)
+    return line, results
+
+
+class QuantShapeProbe:
+    """Counts the calls of K2 on dense linears on the card by shape (M, K,
+    N, x dtype, group, with ``in_scale``) and the design each runs, for
+    the length of a ``with`` block, from outside the package."""
+
+    def __init__(self):
+        import collections
+        self.shapes = collections.Counter()
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self._ops, real = ops, ops.quant_matmul
+        self._real = real
+
+        def quant_matmul(x, q, scale, *, group, in_scale=None, bits=8):
+            if x.is_cuda:
+                K, N = q.shape
+                M = x.numel() // K
+                aligned = q.data_ptr() % 16 == 0 and scale.data_ptr() % 16 == 0
+                self.shapes[(M, K, N, str(x.dtype).split(".")[-1], group, in_scale is not None,
+                             ops.quant_matmul_variant(x.dtype, M, N, group, aligned))] += 1
+            return real(x, q, scale, group=group, in_scale=in_scale, bits=bits)
+        ops.quant_matmul = quant_matmul
+        return self
+
+    def __exit__(self, *exc):
+        self._ops.quant_matmul = self._real
+        return False
+
+
+def _time_dense(gen, M, K, N):
+    """One linear x [M, K] -> N in bf16: K2, its plain version and
+    ``torch.matmul`` on the dequantized bf16 weight, and its bound."""
+    from repro_torch.kernels import ops, ref
+    qt = _dense_weight(gen, K, N)
+    x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+    wd = ref.dequantize_codes(qt.q, qt.scale, qt.group)
+    ms = time_ms(lambda: ops.quant_matmul(x, qt.q, qt.scale, group=qt.group))
+    plain_ms = time_ms(lambda: ref.quant_matmul(x, qt.q, qt.scale, group=qt.group))
+    lib_ms = time_ms(lambda: torch.matmul(x, wd))
+    nbytes = qt.q.numel() + qt.scale.numel() * 4 + M * K * 2 + M * N * 2
+    bms, by = bound(nbytes, 2 * M * K * N)
+    return {"M": M, "K": K, "N": N,
+            "variant": ops.quant_matmul_variant(torch.bfloat16, M, N, qt.group),
+            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bms,
+            "bound_by": by, "bound_share": bms / ms, "bytes": nbytes}
+
+
+def check_quant_matmul_seen(main_shapes, session_shapes, d_model=3584, d_in_proj=14576):
+    """K2 against its plain version at every shape that ``hybrid_main_path``
+    (its int8 run) and ``hybrid_session`` gave it: each distinct (M, K, N,
+    group, ``in_scale``) once, on fresh absmax codes, scales and x from a
+    generator of its own (HYBRID_KERNEL_SEED + 1), on the design each
+    launch there ran (``decode`` in decode steps, ``mma`` in prefills),
+    within K2_TOL (f32 within 1e-5).  Then times zamba2's in_proj
+    (``d_model`` -> ``d_in_proj``) at decode M = 8 and at the main path's
+    most frequent prefill M."""
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(HYBRID_KERNEL_SEED + 1)
+    shapes = sorted(set(main_shapes) | set(session_shapes),
+                    key=lambda s: (s[1], s[2], s[4], s[5], s[0], s[3]))
+    check({s[6] for s in main_shapes} == {"decode", "mma"},
+          ("K2 designs of the hybrid main path", sorted(set(main_shapes))))
+    results, worst_abs, weights = [], 0.0, {}
+    for shape in shapes:
+        M, K, N, dt, group, smooth, variant = shape
+        key = (K, N, group, smooth)
+        if key not in weights:           # sorted by weight: one weight at a time
+            weights = {key: _dense_weight(gen, K, N, group, smooth)}
+        qt = weights[key]
+        xdt = getattr(torch, dt)
+        x = torch.randn((M, K), generator=gen, device="cuda").to(xdt)
+        before = dict(ops.variant_count)
+        got = ops.quant_matmul(x, qt.q, qt.scale, group=qt.group, in_scale=qt.in_scale)
+        want = ref.quant_matmul(x, qt.q, qt.scale, group=qt.group, in_scale=qt.in_scale)
+        torch.cuda.synchronize()
+        check(got.dtype == xdt and got.shape == (M, N), ("output", got.dtype, got.shape))
+        check(variant_delta(before) == {f"quant_matmul.{variant}": 1},
+              ("K2 design at a hybrid shape", shape, variant_delta(before)))
+        err_abs, err_rel = errors(got, want)
+        tol = 1e-5 if xdt == torch.float32 else K2_TOL
+        rec = {"M": M, "K": K, "N": N, "x": dt, "group": group, "smooth": smooth,
+               "variant": variant, "rel_err": err_rel, "tolerance": tol,
+               "calls": {"main_path": main_shapes.get(shape, 0),
+                         "session": session_shapes.get(shape, 0)}}
+        results.append(rec)
+        check(err_rel < tol, rec)
+        worst_abs = max(worst_abs, err_abs)
+    del weights
+    prefills = {s: n for s, n in main_shapes.items()
+                if s[6] == "mma" and s[1:3] == (d_model, d_in_proj)}
+    check(prefills, ("no prefill of in_proj on the main path", dict(main_shapes)))
+    M = max(prefills, key=lambda s: (prefills[s], s[0]))[0]
+    decode = _time_dense(gen, 8, d_model, d_in_proj)
+    prefill = _time_dense(gen, M, d_model, d_in_proj)
+    line = {"phase": "kernel_quant_matmul_seen", "cases": results,
+            "max_rel_err": max(r["rel_err"] for r in results), "max_abs_err": worst_abs,
+            "M_main_path": sorted({s[0] for s in main_shapes}),
+            "M_session": sorted({s[0] for s in session_shapes}),
+            "timed": f"zamba2's in_proj ({d_model} -> {d_in_proj}) at decode M=8 and at M={M}, "
+                     "the main path's most frequent prefill, bf16",
+            "decode": decode, "prefill": prefill,
+            "library_note": "torch.matmul on the dequantized bf16 weight"}
+    emit({**line, "cases": len(results)})   # each case in chip_smoke.json
+    print(f"K2 at {len(results)} shapes of the hybrid path: max rel err "
+          f"{line['max_rel_err']:.3g}; in_proj M=8: {decode['ms']:.4f} ms (bound "
+          f"{decode['bound_ms']:.4f}, plain {decode['plain_ms']:.4f}, matmul "
+          f"{decode['library_ms']:.4f}); M={M}: {prefill['ms']:.4f} ms (bound "
+          f"{prefill['bound_ms']:.4f}, plain {prefill['plain_ms']:.4f}, matmul "
+          f"{prefill['library_ms']:.4f})", flush=True)
+    return line
+
+
+def hybrid_per_step(cfg):
+    """(K2, K1) launches of one decode step of zamba2's int8 instance: each
+    Mamba layer's in_proj and out_proj, the shared block's 7 linears at
+    each site and the unembed (as many in a prefill); K1 once a site."""
+    from repro_torch.models.hybrid import layout
+    G, K, tail, sites = layout(cfg)
+    return 2 * (G * K + tail) + 7 * sites + 1, sites
+
+
+class PrefixProbe:
+    """Times each template prefix an ``Engine`` prefills (its length in
+    tokens and seconds, the device synchronized around it), for the length
+    of a ``with`` block, from outside the package."""
+
+    def __enter__(self):
+        from repro_torch.serving.engine import Engine
+        self._cls, real = Engine, Engine._build_prefix_entry
+        self._real, self.prefixes = real, []
+
+        def build(eng, key, prefix_ids):
+            sync()
+            t0 = time.time()
+            out = real(eng, key, prefix_ids)
+            sync()
+            self.prefixes.append({"tokens": len(prefix_ids), "seconds": time.time() - t0})
+            return out
+        Engine._build_prefix_entry = build
+        return self
+
+    def __exit__(self, *exc):
+        self._cls._build_prefix_entry = self._real
+        return False
+
+
+def hybrid_main_path(gen, cfg=None, device="cuda"):
+    """Full-width zamba2-7b (81 block applications: 70 Mamba2 layers and 11
+    sites of one shared attention block; random bf16 weights from ``gen``)
+    compressed with ``w8-absmax`` and served by ``Engine(slots=8,
+    max_len=1024)`` on the main path's rows with their shared template,
+    then the bf16 base the same way.  The counts are zeroed just before the
+    int8 run and read just after: per decode step 218 K2 launches on
+    ``decode`` and 11 of K1 (one a site, D = 112), per prefill 218 on
+    ``mma``; the base run launches K1 only.  ``cfg`` and ``device`` let it
+    run at reduced widths on the CPU, where no kernel launches."""
+    from repro_torch.configs import zamba2_7b
+    from repro_torch.core.compressed import QTensor, param_bytes
+    from repro_torch.core.pipeline import InstanceOptimizer, Recipe
+    from repro_torch.kernels import ops
+    from repro_torch.models import api
+    from repro_torch.tree import leaves
+
+    cfg = cfg or zamba2_7b.CONFIG
+    on_card = device == "cuda"
+    t0 = time.time()
+    base = api.init_params(gen, cfg)
+    sync()
+    init_s = time.time() - t0
+    t0 = time.time()
+    int8, _, report = InstanceOptimizer(base, cfg).apply(
+        Recipe(name="w8-absmax", wbits=8, quant_method="absmax"))
+    sync()
+    quant_s = time.time() - t0
+    G, K, tail, sites = api.family_module(cfg).layout(cfg)
+    check(isinstance(int8["mamba_groups"]["in_proj"], QTensor)
+          and int8["mamba_groups"]["in_proj"].q.shape[:2] == (G, K),
+          "the int8 instance's Mamba groups")
+    n_params = sum(t.numel() for t in leaves(base))
+
+    def run(params, version):
+        with PrefixProbe() as pp:
+            eng, reqs = serve(params, cfg, version, device=device)
+        check(eng.stats.truncated == 0 and eng._paged and eng._block_size == 32,
+              ("the paged layout, no prompt clipped", eng.stats))
+        return eng, reqs, pp.prefixes
+
+    reset_peak()
+    ops.reset_launch_counts()
+    eng8, reqs8, prefixes8 = run(int8, "w8-absmax")
+    launches = dict(ops.launch_count)
+    variants = {k: n for k, n in ops.variant_count.items() if n}
+    st8 = eng8.stats
+    k2, k1 = hybrid_per_step(cfg)
+    if on_card:
+        check(launches == {"quant_matmul": k2 * (st8.decode_steps + st8.prefills),
+                           "paged_attention": k1 * st8.decode_steps,
+                           "block_sparse_matmul": 0, "flash_attention": 0},
+              ("hybrid int8 run launches", launches, st8.decode_steps, st8.prefills))
+        check(variants == {"quant_matmul.decode": k2 * st8.decode_steps,
+                           "quant_matmul.mma": k2 * st8.prefills,
+                           "paged_attention.split": k1 * st8.decode_steps},
+              ("hybrid int8 run designs", variants))
+    peak = card_memory()[1]
+    ops.reset_launch_counts()
+    eng16, reqs16, prefixes16 = run(base, "base")
+    base_launches = dict(ops.launch_count)
+    if on_card:
+        check(base_launches == {"quant_matmul": 0, "block_sparse_matmul": 0,
+                                "flash_attention": 0,
+                                "paged_attention": k1 * eng16.stats.decode_steps},
+              ("hybrid base run launches", base_launches))
+    same = tot = rows_same = 0
+    for a, b in zip(reqs16, reqs8):
+        n = min(len(a.out_ids), len(b.out_ids))
+        same += sum(x == y for x, y in zip(a.out_ids[:n], b.out_ids[:n]))
+        tot += n
+        rows_same += a.out_ids == b.out_ids
+
+    def stats_of(eng, prefixes):
+        st = eng.stats
+        return {"rows_per_s": st.rows_per_s, "tokens_per_s": st.tokens_out / st.wall_s,
+                "wall_s": st.wall_s, "decode_steps": st.decode_steps,
+                "prefills": st.prefills, "prefix_hits": st.prefix_hits,
+                "cache_hits": st.cache_hits, "truncated": st.truncated,
+                "prefill_tokens": st.prefill_tokens, "template_prefixes": prefixes}
+
+    line = {"phase": "hybrid_main_path", "model": cfg.name, "layers": cfg.n_layers,
+            "layout": [G, K, tail, sites], "params": n_params,
+            "param_count_config": cfg.param_count(), "rows": len(REVIEWS), "max_new": 32,
+            "init_s": init_s, "quantize_s": quant_s,
+            "param_bytes_base": param_bytes(base), "param_bytes_int8": param_bytes(int8),
+            "compression": report.compression,
+            "int8": {**stats_of(eng8, prefixes8), "launches": launches, "variants": variants},
+            "base": {**stats_of(eng16, prefixes16), "launches": base_launches},
+            "launches_per_step": {"quant_matmul": k2, "paged_attention": k1},
+            "max_memory_allocated_int8_run": peak, "max_memory_allocated": card_memory()[1],
+            "greedy_token_agreement_base_vs_int8": same / max(tot, 1),
+            "rows_identical_base_vs_int8": rows_same}
+    emit(line)
+    for name in ("int8", "base"):
+        print(f"zamba2 {name}: {line[name]['rows_per_s']:.3f} rows/s, "
+              f"{line[name]['tokens_per_s']:.1f} tokens/s, {line[name]['decode_steps']} steps, "
+              f"template prefix {line[name]['template_prefixes']}", flush=True)
+    print(f"zamba2 params {n_params}, param_bytes base {line['param_bytes_base']}, int8 "
+          f"{line['param_bytes_int8']}; quantize {quant_s:.1f} s; max_memory_allocated "
+          f"{line['max_memory_allocated']}", flush=True)
+    del eng16
+    return line, launches, variants, base, int8, eng8, reqs8
+
+
+def _state_copy(state, dtype):
+    """A copy of a hybrid serving state with its float tensors in ``dtype``
+    (the SSD states ``h`` stay f32, as the model keeps them)."""
+    return {sec: None if part is None else
+            {n: t.to(torch.float32 if n == "h" else dtype, copy=True) for n, t in part.items()}
+            for sec, part in state.items()}
+
+
+def hybrid_whole_step(gen, params, eng, trials: int = 3, layers: int = 15):
+    """One paged decode step of the int8 zamba2 instance under the cuda and
+    the reference backends on the same state.  bf16 at full depth, held to
+    STEP_BF16_RATIO against the f32 plain step; f32 at zamba2's widths cut
+    to ``layers`` block applications (15: 2 sites, 2 groups of 6 Mamba
+    layers and 1 tail layer, so the tail runs; fresh weights from ``gen``,
+    ``w8-absmax``, random states and pools) within STEP_TOL_F32.  The cuda
+    sides launch K2 once a linear and K1 once a site, the reference sides
+    nothing."""
+    from repro_torch.core.compressed import kernel_backend
+    from repro_torch.core.pipeline import InstanceOptimizer, Recipe
+    from repro_torch.kernels import ops
+    from repro_torch.models import api
+    cfg, S, bs = eng.cfg, eng.slots, eng._block_size
+    nblk = eng.max_len // bs
+    pos = torch.tensor([90, 95, 100, 105, 110, 115, 120, 600], device="cuda")
+    rms = lambda a, b: ((a - b).norm() / b.norm()).item()  # noqa: E731
+
+    def step(p, c, state, tables, toks, backend, dtype):
+        st = _state_copy(state, dtype)
+        before, vbefore = dict(ops.launch_count), dict(ops.variant_count)
+        with kernel_backend(backend), torch.no_grad():
+            lg, _ = api.paged_decode_step(p, c, st, tables, toks, pos, block_size=bs,
+                                          max_len=eng.max_len)
+        torch.cuda.synchronize()
+        launched = {k: n - before[k] for k, n in ops.launch_count.items() if n - before[k]}
+        k2, k1 = hybrid_per_step(c)
+        v = "fma" if dtype == torch.float32 else "decode"
+        want = ({} if backend == "reference" else
+                {"quant_matmul": k2, "paged_attention": k1})
+        check(launched == want, ("hybrid step launches", dtype, backend, launched))
+        check(variant_delta(vbefore) == ({} if backend == "reference" else
+                                         {f"quant_matmul.{v}": k2,
+                                          "paged_attention.split": k1}),
+              ("hybrid step designs", dtype, backend, variant_delta(vbefore)))
+        check(bool(torch.isfinite(lg).all()) and lg.shape == (S, 1, c.vocab_size),
+              ("hybrid decode-step logits", dtype, backend, lg.shape))
+        return lg.float()
+
+    p32 = _f32(params)
+    bf16_trials = []
+    for _ in range(trials):
+        perm = torch.randperm(eng._alloc.num_blocks - 1, generator=gen, device="cuda")
+        tables = perm[:S * nblk].reshape(S, nblk).to(torch.int32)
+        toks = torch.randint(4, 260, (S, 1), generator=gen, device="cuda")
+        c16 = step(params, cfg, eng._slot_state, tables, toks, "cuda", torch.bfloat16)
+        r16 = step(params, cfg, eng._slot_state, tables, toks, "reference", torch.bfloat16)
+        r32 = step(p32, cfg.replace(param_dtype="float32"), eng._slot_state, tables, toks,
+                   "reference", torch.float32)
+        bf16_trials.append({
+            "bf16_rms_rel_err": rms(c16, r16), "bf16_cuda_vs_f32": rms(c16, r32),
+            "bf16_plain_vs_f32": rms(r16, r32),
+            "greedy_agreement_bf16":
+                (c16[:, -1].argmax(-1) == r16[:, -1].argmax(-1)).float().mean().item()})
+    del p32
+    torch.cuda.empty_cache()
+
+    cfg_f = cfg.replace(n_layers=layers, param_dtype="float32")
+    base_f = api.init_params(gen, cfg_f)
+    p_f, _, _ = InstanceOptimizer(base_f, cfg_f).apply(
+        Recipe(name="w8-absmax", wbits=8, quant_method="absmax"))
+    del base_f
+    nb = S * nblk + 1
+    state = api.init_paged_cache(cfg_f, S, nb, bs, device="cuda")
+    for part in state.values():
+        for t in (part or {}).values():
+            t.copy_(torch.randn(t.shape, generator=gen, device="cuda"))
+    f32_trials = []
+    for _ in range(trials):
+        perm = torch.randperm(nb - 1, generator=gen, device="cuda")
+        tables = perm[:S * nblk].reshape(S, nblk).to(torch.int32)
+        toks = torch.randint(4, 260, (S, 1), generator=gen, device="cuda")
+        c32 = step(p_f, cfg_f, state, tables, toks, "cuda", torch.float32)
+        r32 = step(p_f, cfg_f, state, tables, toks, "reference", torch.float32)
+        f32_trials.append({"f32_rms_rel_err": rms(c32, r32),
+                           "f32_max_abs_err": errors(c32, r32)[0],
+                           "greedy_agreement_f32":
+                               (c32[:, -1].argmax(-1) == r32[:, -1].argmax(-1)).float()
+                               .mean().item()})
+    del p_f, state
+    cuda_err = sum(r["bf16_cuda_vs_f32"] for r in bf16_trials)
+    plain_err = sum(r["bf16_plain_vs_f32"] for r in bf16_trials)
+    k2, k1 = hybrid_per_step(cfg)
+    line = {"phase": "hybrid_whole_step", "model": cfg.name, "bf16_layers": cfg.n_layers,
+            "f32_layers": layers, "f32_layout": list(api.family_module(cfg_f).layout(cfg_f)),
+            "bf16_trials": bf16_trials, "f32_trials": f32_trials,
+            "tolerance_f32_rms_rel": STEP_TOL_F32, "bf16_ratio_bound": STEP_BF16_RATIO,
+            "bf16_ratio": cuda_err / plain_err,
+            "launches_per_step": {"quant_matmul": k2, "paged_attention": k1}}
+    emit(line)
+    print(f"hybrid_whole_step: bf16 ratio {line['bf16_ratio']:.3f}; f32 ({layers} layers) RMS "
+          f"error up to {max(r['f32_rms_rel_err'] for r in f32_trials):.2e}", flush=True)
+    check(all(r["f32_rms_rel_err"] < STEP_TOL_F32 for r in f32_trials), line)
+    check(cuda_err <= STEP_BF16_RATIO * plain_err, line)
+    return line
+
+
+def _serve_rows(params, cfg, layout, device, version):
+    """``serve`` in ``layout``: (token ids by prompt, stats, launches,
+    designs, the top bucket)."""
+    from repro_torch.kernels import ops
+    ops.reset_launch_counts()
+    eng, reqs = serve(params, cfg, version, device=device, kv_layout=layout)
+    check(eng._paged == (layout == "paged"), ("layout", layout))
+    return ({r.src: list(r.out_ids) for r in reqs}, eng.stats, dict(ops.launch_count),
+            {k: n for k, n in ops.variant_count.items() if n}, eng.buckets[-1])
+
+
+def hybrid_contiguous(gen, int8, cfg, paged_reqs, device="cuda", dense_cfg=None,
+                      f32_layers: int = 15, dense_layers: int = 4):
+    """The contiguous KV layout (``kv_layout="contiguous"``: slot state from
+    ``init_cache``, decode as the model's masked decode over all slots,
+    no K1) against the paged one: the int8 zamba2 instance's rows in bf16
+    against ``hybrid_main_path``'s paged run, every row equal or parted at
+    a near tie (``tie_at``); then in f32 at zamba2's widths cut to
+    ``f32_layers`` block applications and at gemma2-2b's cut to
+    ``dense_layers`` layers (fresh base weights from ``gen``), the two
+    layouts' tokens identical (or parted at an f32 near tie)."""
+    from repro_torch.configs import gemma2_2b
+    from repro_torch.models import api
+    from repro_torch.training.data import ByteTokenizer
+    on_card = device == "cuda"
+    k2, k1 = hybrid_per_step(cfg)
+    tok = ByteTokenizer(max(cfg.vocab_size, 260))
+    want = {r.src: list(r.out_ids) for r in paged_reqs}
+    got, st, launches, variants, top = _serve_rows(int8, cfg, "contiguous", device,
+                                                   "w8-absmax")
+    if on_card:
+        check(launches == {"quant_matmul": k2 * (st.decode_steps + st.prefills),
+                           "paged_attention": 0, "block_sparse_matmul": 0,
+                           "flash_attention": 0},
+              ("contiguous int8 run launches", launches))
+    p32 = _f32(int8)
+    parted = [{"prompt": p, **tie_at(int8, cfg, tok, p, got[p], want[p], top, p32)}
+              for p in sorted(want) if got[p] != want[p]]
+    del p32
+    res = {"bf16": {"rows": len(want), "parted": parted, "rows_per_s": st.rows_per_s,
+                    "decode_steps": st.decode_steps, "launches": launches,
+                    "variants": variants}}
+    check(all(p["near_tie"] for p in parted), ("contiguous rows parted", parted))
+    dense_cfg = dense_cfg or gemma2_2b.CONFIG.replace(
+        n_layers=dense_layers, attn_pattern="LG" * (dense_layers // 2))
+    for name, c in (("hybrid_f32", cfg.replace(n_layers=f32_layers, param_dtype="float32")),
+                    ("dense_f32", dense_cfg.replace(param_dtype="float32"))):
+        params = api.init_params(gen, c)
+        rows = {lay: _serve_rows(params, c, lay, device, "base") for lay in ("paged",
+                                                                            "contiguous")}
+        (a, sa, la, _, top), (b, sb, lb, _, _) = rows["paged"], rows["contiguous"]
+        if on_card:
+            check(la["paged_attention"] > 0 and lb["paged_attention"] == 0, (name, la, lb))
+        tk = ByteTokenizer(max(c.vocab_size, 260))
+        parted = [{"prompt": p, **tie_at(params, c, tk, p, b[p], a[p], top)}
+                  for p in sorted(a) if a[p] != b[p]]
+        res[name] = {"model": c.name, "layers": c.n_layers, "rows": len(a),
+                     "identical": not parted, "parted": parted,
+                     "rows_per_s": {"paged": sa.rows_per_s, "contiguous": sb.rows_per_s}}
+        check(all(p["near_tie"] for p in parted), (name, parted))
+        del params
+    line = {"phase": "hybrid_contiguous", "model": cfg.name, **res}
+    emit(line)
+    print("hybrid_contiguous: " + "; ".join(
+        f"{k} {len(v['parted'])} of {v['rows']} rows parted" for k, v in res.items()),
+        flush=True)
+    return line
+
+
+def hybrid_long_prefill(gen, base, cfg, S: int = 8192):
+    """One S-token document through the hybrid's ``prefill``: at S * S >=
+    2**26 each shared site's attention takes ``best_attention``'s flash
+    branch, so the cuda side launches K3 once a site (D 112; the reference
+    side its plain version).  bf16 held to STEP_BF16_RATIO against the f32
+    plain prefill, f32 within STEP_TOL_F32; seconds and peak memory."""
+    from repro_torch.core.compressed import kernel_backend
+    from repro_torch.kernels import ops
+    from repro_torch.models import api
+    sites = api.family_module(cfg).layout(cfg)[3]
+    rms = lambda a, b: ((a - b).norm() / b.norm()).item()  # noqa: E731
+    toks = torch.randint(4, 260, (1, S), generator=gen, device="cuda")
+    logits, secs, peaks = {}, {}, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        params = base if dtype == torch.bfloat16 else _f32(base)
+        c = cfg.replace(param_dtype=str(dtype).split(".")[-1])
+        for backend in ("cuda", "reference"):
+            before, vbefore = dict(ops.launch_count), dict(ops.variant_count)
+            reset_peak()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            with kernel_backend(backend), torch.no_grad():
+                lg, _ = api.prefill(params, c, {"tokens": toks}, max_len=S)
+            torch.cuda.synchronize()
+            key = f"{backend}_{str(dtype).split('.')[-1]}"
+            secs[key], peaks[key] = time.time() - t0, torch.cuda.max_memory_allocated()
+            launched = {k: n - before[k] for k, n in ops.launch_count.items() if n - before[k]}
+            check(launched == ({"flash_attention": sites} if backend == "cuda" else {}),
+                  ("hybrid prefill launches", key, launched))
+            check(variant_delta(vbefore) == ({} if backend == "reference" else
+                                             {f"flash_attention.{ops.flash_variant(dtype)}":
+                                              sites}),
+                  ("hybrid prefill designs", key, variant_delta(vbefore)))
+            check(lg.shape == (1, S, cfg.vocab_size) and bool(torch.isfinite(lg).all()),
+                  ("hybrid prefill logits", key))
+            logits[dtype, backend] = lg.float()
+            del lg
+        del params
+        torch.cuda.empty_cache()
+    c16, r16 = logits[torch.bfloat16, "cuda"], logits[torch.bfloat16, "reference"]
+    c32, r32 = logits[torch.float32, "cuda"], logits[torch.float32, "reference"]
+    line = {"phase": "hybrid_long_prefill", "model": cfg.name, "S": S, "flash_launches": sites,
+            "f32_rms_rel_err": rms(c32, r32), "f32_max_abs_err": errors(c32, r32)[0],
+            "bf16_rms_rel_err": rms(c16, r16), "bf16_cuda_vs_f32": rms(c16, r32),
+            "bf16_plain_vs_f32": rms(r16, r32),
+            "greedy_agreement_bf16": (c16[0].argmax(-1) == r16[0].argmax(-1)).float().mean()
+            .item(), "seconds": secs, "max_memory_allocated": peaks,
+            "tolerance_f32_rms_rel": STEP_TOL_F32, "bf16_ratio_bound": STEP_BF16_RATIO}
+    line["bf16_ratio"] = line["bf16_cuda_vs_f32"] / line["bf16_plain_vs_f32"]
+    del logits, c16, r16, c32, r32
+    torch.cuda.empty_cache()
+    emit(line)
+    print(f"hybrid_long_prefill S={S}: {sites} K3 launches, f32 RMS error "
+          f"{line['f32_rms_rel_err']:.2e}, bf16 ratio {line['bf16_ratio']:.3f}, cuda bf16 in "
+          f"{secs['cuda_bfloat16']:.2f} s, peak {peaks['cuda_bfloat16']}", flush=True)
+    check(line["f32_rms_rel_err"] < STEP_TOL_F32, line)
+    check(line["bf16_cuda_vs_f32"] <= STEP_BF16_RATIO * line["bf16_plain_vs_f32"], line)
+    return line
+
+
+def hybrid_session(base, cfg, device="cuda", n_rows: int = 64):
+    """An ``IOLMSession`` over the full-width zamba2 base runs Q2
+    (``llm_correct``) and Q1 (``llm_map``) over ``n_rows`` rows through
+    ``Query.run``: each operator calibrates on its rows (Mamba layers,
+    the shared block's statistics summed over its 11 sites; no Hessian:
+    none of the three recipes reads one), builds and evaluates
+    ``w8-absmax`` and absmax copies of the grid's ``w8-ffn75`` (the shared
+    MLP at d_ff 10752, all sites at once) and ``w8-kv50`` (16 KV groups),
+    and serves the pick through the paged ``Engine`` (K1 at each site, K2
+    on every linear).  The model cache is emptied between the queries."""
+    import gc
+    from repro_torch.kernels import ops
+    from repro_torch.models import api
+    from repro_torch.olap.query import IOLMSession, Query
+    from repro_torch.olap.table import Table
+    from repro_torch.training.data import PROMPTS, workload_rows
+
+    on_card = device == "cuda"
+    _, recipes = session_recipes(cfg)
+    k2, k1 = hybrid_per_step(cfg)
+    sites = api.family_module(cfg).layout(cfg)[3]
+    calibrated = []
+
+    def on_outcome(optimizer, out):
+        st = optimizer.stats
+        check(all(w.H is None for w in st.weights.values()), "a Hessian was calibrated")
+        shared = st.weights["shared.attn.wq"]
+        calibrated.append({"tokens": st.n_tokens, "shared_rows": shared.count,
+                           "weights": len(st.weights),
+                           "configs": [(c.recipe.name, c.cfg.d_ff, c.cfg.n_kv_heads)
+                                       for c in out.candidates]})
+        check(shared.count == sites * st.n_tokens, ("shared block rows", calibrated[-1]))
+        check([(c.cfg.d_ff, c.cfg.n_kv_heads) for c in out.candidates]
+              == [(cfg.d_ff, cfg.n_kv_heads),
+                  (int(round(0.75 * cfg.d_ff)) // 8 * 8, cfg.n_kv_heads),
+                  (cfg.d_ff, cfg.n_kv_heads // 2)], ("pruned candidates", calibrated[-1]))
+
+    sess = IOLMSession(base, cfg, device=device, recipes=recipes, **SESSION_KW)
+    commits = Table({"lang": [r.text for r in workload_rows("correct", n_rows)]})
+    reviews = Table({"review": [r.text for r in workload_rows("summarize", n_rows)]})
+    queries = [("Q2", Query(commits, sess).llm_correct("lang", prompt=PROMPTS["correct"]),
+                ["lang", "lang_fixed"]),
+               ("Q1", Query(reviews, sess).llm_map("review", prompt=PROMPTS["summarize"],
+                                                   out_col="summary"),
+                ["review", "summary"])]
+    results, peak = [], 0
+    ops.reset_launch_counts()
+    with SessionProbe(on_outcome=on_outcome) as probe:
+        for name, q, cols in queries:
+            steps = [ln for ln in q.explain().splitlines() if " llm " in ln]
+            check(steps and all(f" backend={'cuda' if on_card else 'reference'} " in ln
+                                for ln in steps), (name, steps))
+            n_search, n_eng, n_apply, n_cal = (len(probe.searches), len(probe.engines),
+                                               len(probe.applies), len(probe.calibrations))
+            before = dict(ops.variant_count)
+            sync()
+            reset_peak()
+            t0 = time.time()
+            out = q.run()
+            sync()
+            wall = time.time() - t0
+            peak = max(peak, card_memory()[1])
+            searches, engines = probe.searches[n_search:], probe.engines[n_eng:]
+            delta = variant_delta(before)
+            in_search = {}
+            for s in searches:
+                for k, n in s["variants"].items():
+                    in_search[k] = in_search.get(k, 0) + n
+            served = {k: n - in_search.get(k, 0) for k, n in delta.items()
+                      if n - in_search.get(k, 0)}
+            check(list(out.columns) == cols and len(out) == n_rows,
+                  (name, "rows or columns", len(out), list(out.columns)))
+            check(len(searches) == 1 and [c["recipe"] for c in searches[0]["candidates"]]
+                  == [r.name for r in recipes], (name, "search", searches))
+            n_steps = sum(e["stats"].decode_steps for e in engines)
+            calls = n_steps + sum(e["stats"].prefills for e in engines)
+            if on_card:
+                check(served.get("quant_matmul.decode", 0) + served.get("quant_matmul.mma", 0)
+                      == k2 * calls and served.get("paged_attention.split") == k1 * n_steps
+                      and served.get("quant_matmul.decode", 0) >= k2 * n_steps
+                      and set(served) <= {"quant_matmul.decode", "quant_matmul.mma",
+                                          "paged_attention.split"},
+                      (name, "served launches", served, n_steps, calls))
+            rec = {"query": name, "wall_s": wall, "rows_per_s": n_rows / wall,
+                   "picked": searches[0]["picked"], "search_s": searches[0]["seconds"],
+                   "candidates": searches[0]["candidates"],
+                   "calibrations": probe.calibrations[n_cal:],
+                   "applies": probe.applies[n_apply:], "served_variants": served,
+                   "search_variants": in_search, "peak_memory": card_memory()[1],
+                   "engines": [{"version": e["version"], "decode_steps": e["stats"].decode_steps,
+                                "prefills": e["stats"].prefills, "rows": e["stats"].rows,
+                                "truncated": e["stats"].truncated,
+                                "backend": e["stats"].backend} for e in engines]}
+            results.append(rec)
+            print(f"zamba2 {name}: {n_rows} rows in {wall:.2f} s, picked {rec['picked']} "
+                  f"(search {rec['search_s']:.2f} s), peak memory {rec['peak_memory']}; "
+                  + ", ".join(f"{c['recipe']} {c['param_bytes']} B acc {c['accuracy']:.2f} tok "
+                              f"{c['token_agreement']:.2f}" for c in rec["candidates"])
+                  + "; calibrate s " + ", ".join(f"{c['seconds']:.2f}"
+                                                 for c in rec["calibrations"])
+                  + "; apply s " + ", ".join(f"{a['recipe']} {a['seconds']:.1f}"
+                                             for a in rec["applies"]), flush=True)
+            del out, q
+            sess.model_cache._d.clear()          # the card for the next query's candidates
+            gc.collect()
+            if on_card:
+                torch.cuda.empty_cache()
+    launches = dict(ops.launch_count)
+    line = {"phase": "hybrid_session", "model": cfg.name, "recipes": [r.name for r in recipes],
+            "calibrated": calibrated, "queries": results, "launches": launches,
+            "max_memory_allocated": peak, "log": sess.log}
+    emit(line)
+    del sess
+    gc.collect()
+    return line, launches
+
+
 def profile_step(gen, params, eng, steps: int = 5, name="decode_profile"):
     """Where one decode step's time goes: host wall time per step
     (ending in a sync) against device kernel time from torch.profiler,
@@ -3426,6 +4205,43 @@ def main() -> int:
     moe_parity_line = timed("moe_f32_parity", olap_f32_parity, mgen, moe_cfg, 4,
                             name="moe_f32_parity")
 
+    # the hybrid phases: full-width zamba2-7b, from generators of their own
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"hybrid phases: memory_allocated {torch.cuda.memory_allocated()}", flush=True)
+    hgen = torch.Generator(device="cuda")
+    hgen.manual_seed(HYBRID_SEED)
+    k1h, k1h_cases = timed("kernel_paged_attention_d112", check_paged_attention_d112)
+    k3h, k3h_cases = timed("kernel_flash_attention_d112", check_flash_attention_d112)
+    with QuantShapeProbe() as hy_shapes:
+        (hy_line, hy_launches, hy_variants, hy_base, hy_int8, hy_eng,
+         hy_reqs) = timed("hybrid_main_path", hybrid_main_path, hgen)
+    hy_cfg = hy_eng.cfg
+    hy_step_line = timed("hybrid_whole_step", hybrid_whole_step, hgen, hy_int8, hy_eng)
+    hy_contig_line = timed("hybrid_contiguous", hybrid_contiguous, hgen, hy_int8, hy_cfg,
+                           hy_reqs)
+    hy_prof_line = timed("hybrid_decode_profile", profile_step, hgen, hy_int8, hy_eng,
+                         name="hybrid_decode_profile")
+    in_proj = tuple(hy_int8["mamba_groups"]["in_proj"].q.shape[-2:])
+    del hy_int8, hy_eng, hy_reqs
+    gc.collect()
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    hy_long_line = timed("hybrid_long_prefill", hybrid_long_prefill, hgen, hy_base, hy_cfg)
+    hy_long_launches = dict(ops.launch_count)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with QuantShapeProbe() as hy_sess_shapes:
+        hy_sess_line, hy_sess_launches = timed("hybrid_session", hybrid_session, hy_base,
+                                               hy_cfg)
+    del hy_base
+    gc.collect()
+    torch.cuda.empty_cache()
+    kq_seen = timed("kernel_quant_matmul_seen", check_quant_matmul_seen, hy_shapes.shapes,
+                    hy_sess_shapes.shapes, *in_proj)
+    hy_parity_line = timed("hybrid_f32_parity", olap_f32_parity, hgen, hy_cfg, 15,
+                           name="hybrid_f32_parity")
+
     kernels = []
     for line, runs, variants, source, replaces in (
             (k1, launches, int8_variants, "src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -3469,6 +4285,28 @@ def main() -> int:
                   ("no launch on the MoE path", line["name"]))
         else:
             check(moe_runs == 0, ("off the MoE path", line["name"]))
+        # the hybrid path (hybrid_main_path's int8 run, the session, the long
+        # prefill): K1 at every shared site, K2 on every linear, K3 in the prefill
+        name = line["name"]
+        kernels[-1]["launches_hybrid"] = hy_launches[name]
+        kernels[-1]["launches_hybrid_session"] = hy_sess_launches[name]
+        kernels[-1]["launches_hybrid_long_prefill"] = hy_long_launches[name]
+        if name in ("paged_attention", "quant_matmul"):
+            check(hy_launches[name] > 0 and hy_sess_launches[name] > 0
+                  and hy_long_launches[name] == 0, ("the hybrid path", name))
+        elif name == "flash_attention":
+            check(hy_launches[name] == 0 and hy_long_launches[name] > 0,
+                  ("the hybrid path", name))
+        else:
+            check(hy_launches[name] == hy_sess_launches[name] == hy_long_launches[name] == 0,
+                  ("off the hybrid path", name))
+        d112 = {"paged_attention": k1h, "flash_attention": k3h}.get(name)
+        if d112 is not None:
+            kernels[-1]["d112"] = {k: d112[k] for k in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "bound_share",
+                "cases", "max_rel_err", "max_abs_err", "timed")}
+            if name == "paged_attention":
+                kernels[-1]["d112"]["L1024"] = d112["L1024"]
         if line["name"] == "quant_matmul":
             kernels[-1]["variants_moe"] = {k.split(".")[1]: n
                                            for k, n in moe_variants_run.items()
@@ -3478,6 +4316,12 @@ def main() -> int:
                 "bound_by", "bound_share", "prefill", "cases", "max_rel_err", "max_abs_err")}
             kernels[-1]["experts"]["cases_seen"] = len(kx_seen["cases"])
             kernels[-1]["experts"]["max_rel_err_seen"] = kx_seen["max_rel_err"]
+            # every shape of the hybrid path, and zamba2's in_proj timed
+            kernels[-1]["hybrid"] = {"cases_seen": len(kq_seen["cases"]),
+                                     "max_rel_err_seen": kq_seen["max_rel_err"],
+                                     "max_abs_err_seen": kq_seen["max_abs_err"],
+                                     "decode": kq_seen["decode"],
+                                     "prefill": kq_seen["prefill"]}
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "sass": sass, "ptxas": ptxas, "kernels": kernels,
@@ -3499,6 +4343,13 @@ def main() -> int:
                    "moe_main_path": moe_line, "moe_whole_step": moe_step_line,
                    "moe_decode_profile": moe_prof_line, "moe_session": moe_sess_line,
                    "moe_f32_parity": moe_parity_line,
+                   "paged_attention_d112": k1h, "paged_attention_d112_cases": k1h_cases,
+                   "flash_attention_d112": k3h, "flash_attention_d112_cases": k3h_cases,
+                   "hybrid_main_path": hy_line, "hybrid_variants": hy_variants,
+                   "hybrid_whole_step": hy_step_line, "hybrid_contiguous": hy_contig_line,
+                   "hybrid_decode_profile": hy_prof_line, "hybrid_long_prefill": hy_long_line,
+                   "hybrid_session": hy_sess_line, "hybrid_f32_parity": hy_parity_line,
+                   "quant_matmul_seen": kq_seen,
                    "phase_seconds": seconds, "phase_memory": memory,
                    "seconds": time.time() - t_start}, f, indent=1)
     emit({"kernels": kernels})

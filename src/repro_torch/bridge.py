@@ -12,7 +12,9 @@ rejects; they cross through a ``uint16`` view of their bits.  The
 stacked layer axis of ``blocks`` is kept as is, and so is an MoE block's
 expert axis: the f32 router [R, d, E], bf16 expert stacks [R, E, d, f]
 and expert-stacked quantized weights (``q`` [R, E, K, N], ``scale``
-[R, E, K/g, N], ``in_scale`` [R, E, K]) cross as any other leaf.
+[R, E, K/g, N], ``in_scale`` [R, E, K]) cross as any other leaf, as do
+the hybrid's Mamba groups ([G, K, ...] leaves, quantized ones too) and
+its ``mamba_tail``, ``None`` when the config has no tail layer.
 """
 from __future__ import annotations
 

@@ -16,12 +16,15 @@ per weight matrix:
                 expert pruning for this query's data
 
 plus the cosine similarity of each block's input and output (layer-drop
-scores).  Statistics stay on the activations' device: sqnorm and amax in
+scores; a block visited more than once, the hybrid's shared block at
+each of its sites, averages its visits, and its weights' statistics
+accumulate over them).  Statistics stay on the activations' device: sqnorm and amax in
 float32, H in float64 (an expert stack's X^T X summed in float32 first,
 as the reference's does), routing statistics in float64.
 
 Weights are keyed by their path in the param tree (e.g.
-``blocks.0.3.attn.wq``).  The interception happens inside
+``blocks.0.3.attn.wq``; the hybrid's ``mamba_groups.g.k.in_proj``,
+``shared.attn.wq`` and ``mamba_tail.i.out_proj``).  The interception happens inside
 ``repro_torch.core.compressed.matmul`` through ``set_record_hook``, so
 no model code knows about calibration.  Weights are recognised by object
 identity: a slice ``t[r]`` of a stacked tensor is a new object on every
@@ -30,9 +33,9 @@ call, so the calibration loop registers the very per-layer slices it hands to
 positions of the sample are recorded too, as in the reference.
 
 Also here: ``fit_confidence_threshold``, which fits a proxy -> base
-cascade's acceptance threshold on a held-out probe.  The dense and MoE
-families are calibrated; the other families wait for their ROADMAP
-items.
+cascade's acceptance threshold on a held-out probe.  The dense, MoE and
+hybrid families are calibrated; the other families wait for their
+ROADMAP items.
 """
 from __future__ import annotations
 
@@ -265,14 +268,23 @@ def calibrate(params, cfg, batch: Dict[str, Any], *, hessian: bool = True,
     """Run the model on ``batch`` ({"tokens": [B, S]}) and gather
     calibration statistics, the untied output head's included unless
     ``include_head`` is False."""
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "hybrid"):
         raise NotImplementedError(
             f"calibration of family {cfg.family!r} is not ported yet "
             "(ROADMAP queue 1 item 9)")
     rec = Recorder(hessian=hessian)
     with torch.no_grad():
-        _calib_transformer(rec, params, cfg, batch, include_head)
+        (_calib_hybrid if cfg.family == "hybrid" else _calib_transformer)(
+            rec, params, cfg, batch, include_head)
     return rec.finish()
+
+
+def _head(rec, params, cfg, x, include_head):
+    from repro_torch.models import layers as L
+    if include_head and not cfg.tie_embeddings:
+        x = L.norm(x, params["ln_f"], cfg)
+        rec.register("", {"unembed": params["unembed"]})
+        L.matmul(x, params["unembed"])
 
 
 def _calib_transformer(rec, params, cfg, batch, include_head):
@@ -300,7 +312,40 @@ def _calib_transformer(rec, params, cfg, batch, include_head):
                                    positions=positions)
             rec.record_block(path, x, x2)
             x = x2
-        if include_head and not cfg.tie_embeddings:
-            x = L.norm(x, params["ln_f"], cfg)
-            rec.register("", {"unembed": params["unembed"]})
-            L.matmul(x, params["unembed"])
+        _head(rec, params, cfg, x, include_head)
+
+
+def _calib_hybrid(rec, params, cfg, batch, include_head):
+    """The Mamba layers in order with the shared block after each group:
+    its statistics accumulate over its sites (registered once, its
+    tensors are the same objects at every visit)."""
+    from repro_torch.models import hybrid as HY
+    from repro_torch.models import layers as L
+    from repro_torch.models import mamba as M
+    from repro_torch.models import transformer as TF
+    tokens = torch.as_tensor(batch["tokens"], device=params["embed"].device)
+    x = L.embed(params, cfg, tokens)
+    B, S, _ = x.shape
+    rec.n_tokens = B * S
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    G, K, tail, _ = HY.layout(cfg)
+    shared = params["shared"]
+    rec.register("shared", shared)
+
+    def mamba(bp, path, x):
+        rec.register(path, bp)
+        x2, _ = M.block_apply(bp, x, cfg)
+        rec.record_block(path, x, x2)
+        return x2
+
+    with rec.active():
+        for g in range(G):
+            group = TF.layer_slice(params["mamba_groups"], g)
+            for k in range(K):
+                x = mamba(TF.layer_slice(group, k), f"mamba_groups.{g}.{k}", x)
+            x2, _ = TF.block_apply(shared, x, cfg, kind="G", positions=positions)
+            rec.record_block("shared", x, x2)
+            x = x2
+        for i in range(tail):
+            x = mamba(TF.layer_slice(params["mamba_tail"], i), f"mamba_tail.{i}", x)
+        _head(rec, params, cfg, x, include_head)

@@ -256,7 +256,7 @@ def param_bytes(tree) -> int:
         return sum(param_bytes(v) for v in tree)
     if isinstance(tree, (QTensor, BlockSparseTensor)):
         return tree.nbytes
-    return int(tree.numel() * tree.element_size())
+    return 0 if tree is None else int(tree.numel() * tree.element_size())
 
 
 def _q_matmul_plain(x: torch.Tensor, w: QTensor) -> torch.Tensor:

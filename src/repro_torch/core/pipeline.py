@@ -24,7 +24,9 @@ the kernel runs on every block-sparse linear.  An MoE expert stack is
 compressed one expert matrix at a time, each with its own statistics
 (its rows' norms and Hessian), and stacked back over experts, then
 layers: ``q`` [R, E, K, N], ``scale`` [R, E, K/g, N], ``in_scale``
-[R, E, K].  :func:`needs_hessian` says which recipes read a Hessian, so
+[R, E, K].  The hybrid's Mamba groups are stacked back over both of
+their axes, ``q`` [G, K, d_in, d_out], as in the reference, and the
+shared block is compressed once for all of its sites.  :func:`needs_hessian` says which recipes read a Hessian, so
 that a search over none of them calibrates without one.
 """
 from __future__ import annotations
@@ -111,7 +113,11 @@ def _is_target(path: str, leaf) -> bool:
 
 
 def _stack_depth(cfg, path: str) -> int:
-    """Leading stacked-layer axes of a param subtree (dense, MoE)."""
+    """Leading stacked-layer axes of a param subtree: ``blocks`` (dense,
+    MoE) and the hybrid's ``mamba_tail`` one, its ``mamba_groups`` two
+    ([G, K, ...])."""
+    if cfg.family == "hybrid":
+        return {"mamba_groups": 2, "mamba_tail": 1}.get(path.split(".")[0], 0)
     return 1 if path.startswith("blocks.") else 0
 
 
@@ -128,11 +134,16 @@ def needs_hessian(recipe: Recipe) -> bool:
     return gptq or sparsegpt
 
 
-def _stats_key(path: str, r: int) -> str:
-    """Calibration key of layer ``r`` of a stacked leaf: ``blocks.u.attn.wq``
-    -> ``blocks.u.r.attn.wq``."""
+def _stats_key(path: str, idx: Tuple[int, ...]) -> str:
+    """Calibration key of the layer at stack indices ``idx`` of a leaf:
+    ``blocks.u.attn.wq`` -> ``blocks.u.r.attn.wq``,
+    ``mamba_groups.in_proj`` -> ``mamba_groups.g.k.in_proj``,
+    ``mamba_tail.in_proj`` -> ``mamba_tail.i.in_proj``."""
+    if not idx:
+        return path
     parts = path.split(".")
-    return ".".join(parts[:2] + [str(r)] + parts[2:])
+    head = 2 if parts[0] == "blocks" else 1
+    return ".".join(parts[:head] + [str(i) for i in idx] + parts[head:])
 
 
 @dataclass
@@ -167,7 +178,7 @@ def _param_count(tree) -> int:
         return tree.q.numel() * (2 if tree.bits == 4 else 1)
     if isinstance(tree, BlockSparseTensor):
         return int(tree.w.numel() * tree.density())
-    return tree.numel()
+    return 0 if tree is None else tree.numel()
 
 
 def _stack(items):
@@ -212,7 +223,7 @@ class InstanceOptimizer:
 
     def apply(self, recipe: Recipe):
         _unported(recipe)
-        if self.cfg.family not in ("dense", "moe"):
+        if self.cfg.family not in ("dense", "moe", "hybrid"):
             raise NotImplementedError(
                 f"family {self.cfg.family!r} is not ported yet (ROADMAP queue 1 item 9)")
         t0 = time.time()
@@ -264,10 +275,13 @@ class InstanceOptimizer:
                                             per_weight, log=log and e == 0)
                            for e in range(w.shape[0])])
 
-        if _stack_depth(cfg, path) == 0:
-            return one(tree, stats.get(path), True)
-        return _stack([one(tree[r], stats.get(_stats_key(path, r)), r == 0)
-                       for r in range(tree.shape[0])])
+        def stacked(w, depth, idx):
+            if depth == 0:
+                return one(w, stats.get(_stats_key(path, idx)), not any(idx))
+            return _stack([stacked(w[r], depth - 1, idx + (r,))
+                           for r in range(w.shape[0])])
+
+        return stacked(tree, _stack_depth(cfg, path), ())
 
     @staticmethod
     def _one_matrix(w, recipe: Recipe, st, path, per_weight, log=False):

@@ -17,10 +17,13 @@ where calibration left them (on the card for a model that lives there);
 a float64 Hessian is sliced there too (``H[idx][:, idx]``).  Ties in
 importance resolve as ``np.argsort(kind="stable")`` does, through a
 stable sort of the negated importance, so both packages keep the same
-members.  The dense and MoE families are ported: an MoE block's FFN
-pruning keeps channels per expert (and prunes its shared and dense
+members.  The dense, MoE and hybrid families are ported: an MoE block's
+FFN pruning keeps channels per expert (and prunes its shared and dense
 residual MLPs as dense ones), and expert pruning keeps the experts that
-this query's calibration rows routed to most.  Expert pruning leaves the
+this query's calibration rows routed to most.  The hybrid's KV-group
+and FFN pruning change its one shared block, so all of its sites at
+once (its Mamba inner channels are left alone, as in the reference), and
+its layer dropping removes whole Mamba groups.  Expert pruning leaves the
 router's statistics of the optimizer it came from as they were: the
 reference slices them in place (ROADMAP queue 3), so a second
 expert-pruned recipe of the same optimizer there ranks the wrong experts.
@@ -34,11 +37,11 @@ import torch
 
 from repro_torch.core.calibrate import CalibStats, WeightStats
 
-_FAMILIES = "ROADMAP queue 1 item 9"
+_FAMILIES = "rwkv, vlm and encdec: ROADMAP queue 1 item 9"
 
 
-def _dense_only(cfg, what: str) -> None:
-    if cfg.family not in ("dense", "moe"):
+def _ported(cfg, what: str) -> None:
+    if cfg.family not in ("dense", "moe", "hybrid"):
         raise NotImplementedError(
             f"{what} of family {cfg.family!r} is not ported yet ({_FAMILIES})")
 
@@ -98,7 +101,7 @@ def _units(cfg):
 
 def prune_kv_groups(params, cfg, stats: CalibStats, keep: int):
     """Keep the ``keep`` most important KV groups in every attention block."""
-    _dense_only(cfg, "KV-group pruning")
+    _ported(cfg, "KV-group pruning")
     K, G = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
     hd = cfg.resolved_head_dim
     if not 1 <= keep <= K:
@@ -143,17 +146,22 @@ def prune_kv_groups(params, cfg, stats: CalibStats, keep: int):
                 new_stats[key] = _slice_stats(new_stats[key], ch)
         return out
 
-    unit, R, tail = _units(cfg)
-    params["blocks"] = list(params["blocks"])
-    params["tail"] = list(params["tail"])
-    for u in range(len(unit)):
-        blk = dict(params["blocks"][u])
-        blk["attn"] = prune_one(blk["attn"], [f"blocks.{u}.{r}.attn" for r in range(R)])
-        params["blocks"][u] = blk
-    for i in range(tail):
-        blk = dict(params["tail"][i])
-        blk["attn"] = prune_one(blk["attn"], [f"tail.{i}.attn"])
-        params["tail"][i] = blk
+    if cfg.family == "hybrid":
+        params["shared"] = dict(params["shared"])
+        params["shared"]["attn"] = prune_one(params["shared"]["attn"], ["shared.attn"])
+    else:
+        unit, R, tail = _units(cfg)
+        params["blocks"] = list(params["blocks"])
+        params["tail"] = list(params["tail"])
+        for u in range(len(unit)):
+            blk = dict(params["blocks"][u])
+            blk["attn"] = prune_one(blk["attn"],
+                                    [f"blocks.{u}.{r}.attn" for r in range(R)])
+            params["blocks"][u] = blk
+        for i in range(tail):
+            blk = dict(params["tail"][i])
+            blk["attn"] = prune_one(blk["attn"], [f"tail.{i}.attn"])
+            params["tail"][i] = blk
     # pin head_dim: n_heads changes would silently alter d_model // n_heads
     new_cfg = cfg.replace(n_kv_heads=keep, n_heads=keep * G,
                           head_dim=cfg.resolved_head_dim)
@@ -166,7 +174,7 @@ def prune_kv_groups(params, cfg, stats: CalibStats, keep: int):
 
 def prune_ffn(params, cfg, stats: CalibStats, keep_frac: float):
     """Keep the top ``keep_frac`` FFN hidden channels (each layer its own)."""
-    _dense_only(cfg, "FFN pruning")
+    _ported(cfg, "FFN pruning")
     if keep_frac >= 1.0:
         return params, cfg, stats
     params = dict(params)
@@ -227,9 +235,16 @@ def prune_ffn(params, cfg, stats: CalibStats, keep_frac: float):
                     amax=torch.stack([st.amax[e][ix[e]] for e in range(E)]))
         return out
 
+    if cfg.family == "hybrid":
+        params["shared"] = dict(params["shared"])
+        params["shared"]["mlp"] = prune_mlp(params["shared"]["mlp"], ["shared.mlp"])
+        new_cfg = cfg.replace(d_ff=params["shared"]["mlp"]["wo"].shape[-2])
+        return params, new_cfg, CalibStats(new_stats, stats.block_sim, stats.n_tokens)
+
     unit, R, tail = _units(cfg)
     params["blocks"] = list(params["blocks"])
     params["tail"] = list(params["tail"])
+
     def prune_block(blk, pre: List[str]):
         """The block's MLPs pruned, and the widths they give the config:
         (block, {field: width})."""
@@ -264,15 +279,54 @@ def _take_layers(tree, kept: torch.Tensor):
     return torch.index_select(tree, 0, kept.to(tree.device))
 
 
+def _rekey(new_stats, prefix: str, kept, keep_n: int, at: int) -> None:
+    """Stats ``prefix.{old}.`` -> ``prefix.{new}.`` for the kept indices
+    (``at``: the index's position in the dotted key), and the keys of
+    dropped indices at or past ``keep_n`` purged, as the reference does."""
+    moved = {}
+    for new_i, old_i in enumerate(kept.tolist()):
+        pre_old, pre_new = f"{prefix}.{old_i}.", f"{prefix}.{new_i}."
+        for k in list(new_stats):
+            if k.startswith(pre_old):
+                moved[pre_new + k[len(pre_old):]] = new_stats.pop(k)
+    for k in list(new_stats):
+        if k.startswith(f"{prefix}.") and int(k.split(".")[at]) >= keep_n:
+            new_stats.pop(k)
+    new_stats.update(moved)
+
+
+def _drop_groups(params, cfg, stats: CalibStats, n_drop: int):
+    """The hybrid's layer dropping: the ``n_drop`` Mamba groups of most
+    redundancy, 1 - mean(block_sim) over the group's layers; the shared
+    block keeps its sites after the remaining groups."""
+    from repro_torch.models.hybrid import layout
+    G, K, tail, _ = layout(cfg)
+    keep_n = max(1, G - n_drop)
+    score = torch.zeros(G, dtype=torch.float64)
+    for g in range(G):
+        sims = [stats.block_sim.get(f"mamba_groups.{g}.{k}", 0.0) for k in range(K)]
+        score[g] = 1.0 - sum(sims) / len(sims)
+    kept = _top(score, keep_n)
+    params = dict(params)
+    params["mamba_groups"] = _take_layers(params["mamba_groups"], kept)
+    new_stats = dict(stats.weights)
+    _rekey(new_stats, "mamba_groups", kept, keep_n, 1)
+    new_cfg = cfg.replace(n_layers=keep_n * (K + 1) + tail)
+    return params, new_cfg, CalibStats(new_stats, stats.block_sim, stats.n_tokens)
+
+
 def drop_layers(params, cfg, stats: CalibStats, n_drop_units: int):
-    """Drop the ``n_drop_units`` most redundant pattern-unit repeats.
+    """Drop the ``n_drop_units`` most redundant pattern-unit repeats (the
+    hybrid: Mamba groups).
 
     Redundancy score = 1 - cos(block input, block output) averaged over
     the unit, from calibration.  Order of the surviving layers is kept.
     """
-    _dense_only(cfg, "layer dropping")
+    _ported(cfg, "layer dropping")
     if n_drop_units <= 0:
         return params, cfg, stats
+    if cfg.family == "hybrid":
+        return _drop_groups(params, cfg, stats, n_drop_units)
     params = dict(params)
     new_stats = dict(stats.weights)
     unit, R, tail = _units(cfg)
@@ -284,18 +338,7 @@ def drop_layers(params, cfg, stats: CalibStats, n_drop_units: int):
     kept = _top(score, keep_n)
     params["blocks"] = [_take_layers(b, kept) for b in params["blocks"]]
     for u in range(len(unit)):
-        # re-key stats blocks.u.{old} -> blocks.u.{new}
-        moved = {}
-        for new_i, old_i in enumerate(kept.tolist()):
-            pre_old, pre_new = f"blocks.{u}.{old_i}.", f"blocks.{u}.{new_i}."
-            for k in list(new_stats):
-                if k.startswith(pre_old):
-                    moved[pre_new + k[len(pre_old):]] = new_stats.pop(k)
-        # purge dropped
-        for k in list(new_stats):
-            if k.startswith(f"blocks.{u}.") and int(k.split(".")[2]) >= keep_n:
-                new_stats.pop(k)
-        new_stats.update(moved)
+        _rekey(new_stats, f"blocks.{u}", kept, keep_n, 2)
     pat = cfg.pattern()
     new_pat = unit * keep_n + pat[len(unit) * R:]
     new_cfg = cfg.replace(n_layers=len(unit) * keep_n + tail,

@@ -40,6 +40,13 @@
 //   q, K, V and the probabilities in shared memory (210 KB at D = 256).
 //   Its sums are exact f32 products, which the check's 1e-5 bound needs
 //   and TF32 tensor cores (10-bit mantissa) cannot give.
+// Head dims: 32, 64, 128, 256 and zamba2's 112.  The `mma` design takes
+// 112 as it is (7 k-steps of 16 for q k^T, 14 n8 tiles for PV, rows of
+// 112 + 8 bf16, 240 bytes, whose ldmatrix rows still fall in distinct
+// 16-byte bank groups).  The `fma` design's threads own column pairs
+// 2 tx + 32 e, so its V tile and numerator are padded inside the kernel
+// to the next multiple of 32 (128): the pad columns of V are zero, add
+// nothing, and are not stored.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -70,7 +77,8 @@ constexpr int QPAD = 1;
 __device__ __forceinline__ float2 pair(const float* p) { return make_float2(p[0], p[1]); }
 
 // Copy a [rows, D] tile of a [.., heads, D] tensor into shared memory
-// with row stride `stride`; rows past `valid` are zero.
+// with row stride `stride` (columns past D untouched); rows past `valid`
+// are zero.
 template <int D>
 __device__ __forceinline__ void load_tile(float* dst, int stride, const float* src,
                                           size_t row_stride, int valid) {
@@ -91,9 +99,13 @@ __device__ __forceinline__ void load_tile(float* dst, int stride, const float* s
   }
 }
 
+// The numerator's width: D padded to the next multiple of 32.
+template <int D>
+__host__ __device__ constexpr int padded() { return (D + 31) / 32 * 32; }
+
 // grid (ceil(S / BQ), B * H), THREADS threads.  Dynamic shared memory:
-// q [BQ][D + P] | k [BKV][D + P] | v [BKV][D] (float) | p [BQ][BKV + 1] |
-// m, l, corr [BQ] (f32).
+// q [BQ][D + P] | k [BKV][D + P] | v [BKV][DP] (float) | p [BQ][BKV + 1] |
+// m, l, corr [BQ] (f32), DP = padded<D>().
 template <int D>
 __global__ void __launch_bounds__(THREADS)
 flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -102,12 +114,13 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        int causal, float scale, float softcap) {
   constexpr int P = QPAD;
   constexpr int QS = D + P;
-  constexpr int DE = D / 32;         // output column pairs per thread
+  constexpr int DP = padded<D>();
+  constexpr int DE = DP / 32;        // output column pairs per thread
   extern __shared__ __align__(16) unsigned char smem[];
   float* qs = reinterpret_cast<float*>(smem);
   float* ks = qs + BQ * QS;
   float* vs = ks + BKV * QS;
-  float* ps = reinterpret_cast<float*>(vs + BKV * D);
+  float* ps = reinterpret_cast<float*>(vs + BKV * DP);
   float* row_m = ps + BQ * (BKV + 1);
   float* row_l = row_m + BQ;
   float* row_c = row_l + BQ;
@@ -124,6 +137,10 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = tid; i < BQ; i += THREADS) {
     row_m[i] = NEG_INF;
     row_l[i] = 0.f;
+  }
+  if constexpr (DP > D) {            // v's pad columns, never loaded
+    constexpr int W = DP - D;
+    for (int i = tid; i < BKV * W; i += THREADS) vs[(i / W) * DP + D + i % W] = 0.f;
   }
 
   // live key tiles of this query tile
@@ -144,7 +161,7 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();                  // the previous tile's k, v and p are consumed
     const size_t kv_off = ((size_t)b * Tn + k0) * kv_row + (size_t)kh * D;
     load_tile<D>(ks, QS, k + kv_off, kv_row, min(BKV, Tn - k0));
-    load_tile<D>(vs, D, v + kv_off, kv_row, min(BKV, Tn - k0));
+    load_tile<D>(vs, DP, v + kv_off, kv_row, min(BKV, Tn - k0));
     __syncthreads();
 
     // scores of rows ty + 16 i, columns tx + 16 j
@@ -226,7 +243,7 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int i = 0; i < 4; ++i) p[i] = ps[(ty + 16 * i) * (BKV + 1) + c];
 #pragma unroll
       for (int e = 0; e < DE; ++e) {
-        const float2 vv = pair(vs + c * D + 2 * tx + 32 * e);
+        const float2 vv = pair(vs + c * DP + 2 * tx + 32 * e);
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           acc[i][e][0] = fmaf(p[i], vv.x, acc[i][e][0]);
@@ -246,6 +263,7 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int e = 0; e < DE; ++e) {
       const int d = 2 * tx + 32 * e;
+      if (d >= D) continue;            // a pad column
       orow[d] = acc[i][e][0] * inv;
       orow[d + 1] = acc[i][e][1] * inv;
     }
@@ -255,7 +273,8 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
 template <int D>
 size_t smem_bytes() {
   constexpr int P = QPAD;
-  return sizeof(float) * ((size_t)BQ * (D + P) + (size_t)BKV * (D + P) + (size_t)BKV * D) +
+  return sizeof(float) * ((size_t)BQ * (D + P) + (size_t)BKV * (D + P) +
+                          (size_t)BKV * padded<D>()) +
          sizeof(float) * ((size_t)BQ * (BKV + 1) + 3 * BQ);
 }
 
@@ -514,6 +533,7 @@ int launch(bool bf16, const void* q, const void* k, const void* v, void* out, in
   switch (D) {
     FLASH_D(32)
     FLASH_D(64)
+    FLASH_D(112)
     FLASH_D(128)
     FLASH_D(256)
     default: return static_cast<int>(cudaErrorInvalidValue);
@@ -527,7 +547,7 @@ extern "C" {
 
 // q [B, S, H, D], k/v [B, T, Kh, D], out like q, all contiguous and of one
 // dtype (bf16 if is_bf16, run by the tensor-core design, else f32, run by
-// the FMA design); D is 32, 64, 128 or 256; H % Kh == 0;
+// the FMA design); D is 32, 64, 112, 128 or 256; H % Kh == 0;
 // 1 <= t_real <= T.  scale and softcap are f32 values passed by their bit
 // patterns.  Returns cudaGetLastError() after the launch.
 int flash_attention_launch(const void* q, const void* k, const void* v, void* out,

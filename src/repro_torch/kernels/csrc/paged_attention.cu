@@ -27,7 +27,11 @@
 // the table (aliased prefix blocks and the engine's trash block cost
 // nothing extra), a row per group of lanes with 16-byte loads (one warp
 // covers a D = 256 bf16 row in one load), several rows in flight per
-// lane; the G query rows stay in registers.  Rounding stays where the
+// lane; the G query rows stay in registers.  A row of D / 8 (bf16) or
+// D / 4 (f32) pieces that is not a power of two (zamba2's D = 112: 14 and
+// 28 pieces) takes the next power of two of lanes, 16 or 32, and the idle
+// lanes hold zero pieces, which add nothing to the xor-shuffle sums over
+// the row's lanes and store nothing.  Rounding stays where the
 // reference has it: probabilities are rounded to V's dtype only once the
 // slot's global max and sum are known.  So there are two kernels:
 // - scores: writes each live position's G scores (f32) and its split's
@@ -84,18 +88,22 @@ template <> struct Piece<float> {
   }
 };
 
-// Lanes of a warp over one K or V row: LR lanes per row (16-byte pieces
-// c = pl + LR i, i < PPL), RW = 32 / LR rows side by side.
+// Lanes of a warp over one K or V row of np 16-byte pieces: LR lanes per
+// row, the power of two at or above np up to 32 (piece pl + LR i, i < PPL,
+// of lane pl, where it lies in the row: has(i)), RW = 32 / LR rows side by
+// side.
 struct RowLanes {
-  int LR, PPL, RW, sub, pl;
+  int np, LR, PPL, RW, sub, pl;
   __device__ RowLanes(int D, int E, int lane) {
-    const int np = D / E;
-    LR = np < 32 ? np : 32;
-    PPL = np / LR;
+    np = D / E;
+    LR = 1;
+    while (LR < np && LR < 32) LR <<= 1;
+    PPL = (np + LR - 1) / LR;
     RW = 32 / LR;
     sub = lane / LR;
     pl = lane % LR;
   }
+  __device__ bool has(int i) const { return pl + LR * i < np; }
 };
 
 // Where the split of block (z, h, s) lies: positions [t0, t1) (empty when
@@ -148,7 +156,9 @@ __device__ __forceinline__ void load_rows(int4 (&raw)[UNROLL][MAX_PPL], const T*
     const T* row = pool + (((size_t)blk[u] * bs + t % bs) * Kh + h) * D;
 #pragma unroll
     for (int c = 0; c < MAX_PPL; ++c)
-      if (c < rl.PPL) raw[u][c] = load16(row + (rl.pl + rl.LR * c) * Piece<T>::E);
+      if (c < rl.PPL)
+        raw[u][c] = rl.has(c) ? load16(row + (rl.pl + rl.LR * c) * Piece<T>::E)
+                              : make_int4(0, 0, 0, 0);
   }
 }
 
@@ -179,7 +189,9 @@ paged_scores_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   for (int i = 0; i < MAX_PPL; ++i)
 #pragma unroll
     for (int g = 0; g < G; ++g)
-      if (i < rl.PPL) qraw[i][g] = load16(q + ((size_t)sh * G + g) * D + (rl.pl + rl.LR * i) * E);
+      if (i < rl.PPL)
+        qraw[i][g] = rl.has(i) ? load16(q + ((size_t)sh * G + g) * D + (rl.pl + rl.LR * i) * E)
+                               : make_int4(0, 0, 0, 0);
   // the warp's first rows: their table entries, then their pieces, all in
   // flight with q's before any is used (rows past the split repeat its last)
   const int stride = WARPS * rl.RW, first = warp * rl.RW;
@@ -347,7 +359,7 @@ paged_pv_kernel(const T* __restrict__ v_pool, const int* __restrict__ tables,
     if (rl.sub == 0)
 #pragma unroll
       for (int c = 0; c < MAX_PPL; ++c)
-        if (c < rl.PPL)
+        if (c < rl.PPL && rl.has(c))
 #pragma unroll
           for (int e = 0; e < E; ++e)
 #pragma unroll
@@ -408,7 +420,7 @@ int launch(const void* q, const void* k_pool, const void* v_pool, const void* ta
            int nblk, float scale, float softcap, int window, int splits, int per,
            cudaStream_t stream) {
   if (D % Piece<T>::E || D / Piece<T>::E > 32 * (sizeof(T) == 4 ? 2 : 1) ||
-      ((D / Piece<T>::E) & (D / Piece<T>::E - 1)) || per > MAX_PER || per % bs)
+      per > MAX_PER || per % bs)
     return cudaErrorInvalidValue;
 #define G_CASE(GG)                                                                        \
   case GG:                                                                                \
@@ -444,8 +456,9 @@ long long paged_attention_workspace(int S, int Kh, int G, int D, int splits, int
 // q [S, Kh, G, D], pools [nb, bs, Kh, D] (bf16 if is_bf16 else f32, all
 // alike, 16-byte aligned), tables [S, nblk] int32, lengths [S] int32
 // (1 <= lengths <= nblk * bs), out like q, work of
-// paged_attention_workspace() bytes (16-byte aligned).  D is a power of
-// two from 16 to 256; G <= 8.  splits * per covers the span (the window,
+// paged_attention_workspace() bytes (16-byte aligned).  D is a multiple
+// of 8 (bf16) or 4 (f32) up to 256 (ops.PA_HEAD_DIMS: 16, 32, 64, 112,
+// 128 and 256); G <= 8.  splits * per covers the span (the window,
 // or nblk * bs if smaller), per is a multiple of bs up to MAX_PER
 // (ops.PA_MAX_PER).  scale and softcap are f32 values passed by
 // their bit patterns.  Returns cudaGetLastError() after the launches.

@@ -293,7 +293,7 @@ def quant_matmul_experts(x, q, scale, *, group: int, in_scale=None):
 # K1: paged-KV decode attention
 # ---------------------------------------------------------------------------
 
-PA_HEAD_DIMS = (16, 32, 64, 128, 256)
+PA_HEAD_DIMS = (16, 32, 64, 112, 128, 256)
 PA_MAX_PER = 256           # positions per split (paged_attention.cu's MAX_PER refuses more)
 PA_BLOCKS_PER_SM = 8       # blocks per SM K1's split plan aims for
 
@@ -473,7 +473,7 @@ def block_sparse_matmul(x, w, idx, *, bs: int):
 # K3: flash attention
 # ---------------------------------------------------------------------------
 
-HEAD_DIMS = (32, 64, 128, 256)
+HEAD_DIMS = (32, 64, 112, 128, 256)
 
 
 def flash_variant(dtype: torch.dtype) -> str:

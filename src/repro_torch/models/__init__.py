@@ -1,1 +1,1 @@
-"""Dense transformer layers, model and family dispatch."""
+"""Layers, the transformer (dense, MoE), Mamba2 and hybrid models, and family dispatch."""

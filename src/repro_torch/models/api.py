@@ -1,17 +1,21 @@
 """Family dispatch: the entry points the serving engine and tests call.
 
-The dense and MoE families are ported (both on ``models/transformer.py``);
-every other family raises ``NotImplementedError`` naming its ROADMAP item.
+The dense and MoE families (both on ``models/transformer.py``) and the
+hybrid (``models/hybrid.py``: Mamba2 layers and one shared attention
+block) are ported; every other family raises ``NotImplementedError``
+naming its ROADMAP item.
 """
 from __future__ import annotations
 
 from typing import Any, Dict
 
-from repro_torch.models import transformer
+from repro_torch.models import hybrid, transformer
 from repro_torch.tree import value_and_grad
 
 
 def family_module(cfg):
+    if cfg.family == "hybrid":
+        return hybrid
     if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP queue 1 item 9)")
@@ -34,6 +38,9 @@ def forward(params, cfg, batch: Dict[str, Any], *, train: bool = False,
 def loss_fn(params, cfg, batch, *, xent_chunk: int = 0, remat: bool = True,
             aux_weight: float = 0.01):
     """Causal LM loss of ``batch`` {"tokens", "labels"} (scalar f32)."""
+    if cfg.family == "hybrid":
+        raise NotImplementedError(
+            "training of the hybrid family is not ported yet (ROADMAP queue 1 item 9)")
     return family_module(cfg).loss_fn(params, cfg, batch["tokens"], batch["labels"],
                                       img_embs=batch.get("img_embs"),
                                       xent_chunk=xent_chunk, remat=remat,
@@ -42,14 +49,16 @@ def loss_fn(params, cfg, batch, *, xent_chunk: int = 0, remat: bool = True,
 
 def prefill(params, cfg, batch, *, max_len: int, compact_local: bool = False,
             use_flash: bool = False, lengths=None, cap_tokens=None):
-    """``lengths`` is accepted for the recurrent families; attention
+    """``lengths`` [B] (real token count per right-padded row) keeps the
+    padding out of a recurrent family's carried state; attention
     families ignore it (causality already isolates right-padding).
     ``cap_tokens``: the token count that decides MoE capacity (default
     the whole batch; the engine passes a row's, for per-row dispatch)."""
-    return family_module(cfg).prefill(params, cfg, batch["tokens"],
-                                      max_len=max_len,
-                                      compact_local=compact_local,
-                                      use_flash=use_flash, cap_tokens=cap_tokens)
+    kw: Dict[str, Any] = dict(max_len=max_len, compact_local=compact_local,
+                              use_flash=use_flash, cap_tokens=cap_tokens)
+    if cfg.family == "hybrid":
+        kw["lengths"] = lengths
+    return family_module(cfg).prefill(params, cfg, batch["tokens"], **kw)
 
 
 def init_cache(cfg, batch: int, max_len: int, *, compact_local: bool = False,
@@ -66,16 +75,29 @@ def decode_step(params, cfg, cache, tokens, pos, *, max_len: int):
                                           max_len=max_len)
 
 
+def insert_rows(cfg, state, rows, slot_idxs):
+    """Write an admission batch's caches (from ``prefill``) into the
+    contiguous slot state ``init_cache(cfg, slots, max_len)`` at
+    ``slot_idxs``, in place."""
+    return family_module(cfg).insert_rows(cfg, state, rows, slot_idxs)
+
+
 # ---------------------------------------------------------------------------
 # paged KV cache (serving: block pools + per-slot block tables)
 # ---------------------------------------------------------------------------
 
 def supports_paged(cfg) -> bool:
-    return cfg.family in ("dense", "moe")
+    """Whether the family serves from a paged (block pool + block table)
+    KV layout; the others take the contiguous one."""
+    return cfg.family in ("dense", "moe", "hybrid")
 
 
 def init_paged_cache(cfg, slots: int, num_blocks: int, block_size: int,
                      device="cuda"):
+    """KV block pools (every layer indexed by the same block-id space),
+    plus, for the hybrid, slot-batched recurrent states."""
+    if cfg.family == "hybrid":
+        return hybrid.init_paged_cache(cfg, slots, num_blocks, block_size, device=device)
     return family_module(cfg).init_paged_cache(cfg, num_blocks, block_size,
                                                device=device)
 
@@ -93,8 +115,10 @@ def paged_decode_step(params, cfg, cache, tables, tokens, pos, *,
 
 def paged_insert(cfg, state, rows, slot_idxs, write_ids, *, block_size: int):
     """Scatter a batched admission into the paged pools at ``write_ids``
-    [n, max_len // block_size] (``slot_idxs`` places recurrent state,
-    which the dense family has none of)."""
+    [n, max_len // block_size]; recurrent rows go to ``slot_idxs``."""
+    if cfg.family == "hybrid":
+        return hybrid.paged_insert(cfg, state, rows, slot_idxs, write_ids,
+                                   block_size=block_size)
     return family_module(cfg).paged_insert(cfg, state, rows, write_ids,
                                            block_size=block_size)
 
@@ -109,17 +133,21 @@ def paged_seed(cfg, state, entry_state, write_ids, *, block_size: int):
 # ---------------------------------------------------------------------------
 
 def supports_prefix(cfg) -> bool:
-    return cfg.family in ("dense", "moe")
+    return cfg.family in ("dense", "moe", "hybrid")
 
 
 def prefill_from(params, cfg, prefix_cache_entry, suffix_tokens, prefix_len,
                  *, max_len: int, lengths=None, cap_tokens=None):
     """Continue a prefill from a stored prefix state (batch 1, broadcast to
     every row, or one per row); returns (suffix logits [B,S,V],
-    fully-populated batch-B cache).  ``cap_tokens`` as in ``prefill``."""
+    fully-populated batch-B cache).  ``lengths`` [B] are the suffixes'
+    real token counts (the hybrid's recurrent states need them);
+    ``cap_tokens`` as in ``prefill``."""
+    kw: Dict[str, Any] = dict(max_len=max_len, cap_tokens=cap_tokens)
+    if cfg.family == "hybrid":
+        kw["lengths"] = lengths
     return family_module(cfg).prefill_from(params, cfg, prefix_cache_entry,
-                                           suffix_tokens, prefix_len,
-                                           max_len=max_len, cap_tokens=cap_tokens)
+                                           suffix_tokens, prefix_len, **kw)
 
 
 # ---------------------------------------------------------------------------

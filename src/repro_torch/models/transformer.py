@@ -1,4 +1,6 @@
-"""Decoder-only transformer LM (dense and MoE families).
+"""Decoder-only transformer LM (dense and MoE families), and the block the
+hybrid family shares across its sites (``init_block``, ``block_apply``,
+``block_decode``, ``paged_block_decode``, ``block_prefill_from``).
 
 The reference runs the layer stack with ``lax.scan`` over the repeating
 pattern unit of the architecture (gemma2's (local, global) pair); the
@@ -78,7 +80,8 @@ def _layers(tree, cfg) -> Iterator[Tuple[str, Any]]:
 # ---------------------------------------------------------------------------
 
 def init_block(gen, cfg, dtype, lead: Tuple[int, ...] = ()) -> Params:
-    if cfg.family not in ("dense", "moe"):
+    """One block's params (the hybrid's shared attention + MLP block too)."""
+    if cfg.family not in ("dense", "moe", "hybrid"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP queue 1 item 9)")
     d, dev = cfg.d_model, gen.device
@@ -280,30 +283,43 @@ def prefill(params: Params, cfg, tokens, *, max_len: int,
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
     cache = _empty_cache(cfg, B, max_len, cfg.dtype, x.device)
-    keep = min(S, max_len)
-    shift = (S - max_len) % max_len if S >= max_len else 0
     for (kind, p), (_, c) in zip(_layers(params, cfg), _layers(cache, cfg)):
-        h = norm(x, p["ln1"], cfg)
-        q, k, v = L._qkv(p["attn"], h, cfg, positions, _theta(cfg, kind))
-        if use_flash:
-            out = L.flash_attention(q, k, v, causal=True,
-                                    window=cfg.window_size if kind == "L" else 0,
-                                    cap=cfg.attn_softcap)
-        else:
-            out = L.best_attention(q, k, v, kind=kind, cfg=cfg)
-        a = matmul(out.reshape(B, S, -1), p["attn"]["wo"])
-        if "ln1_post" in p:
-            a = norm(a, p["ln1_post"], cfg)
-        x = x + a
-        h = norm(x, p["ln2"], cfg)
-        x = x + _mlp_section(p, h, cfg, cap_tokens)
-        for name, t in (("k", k), ("v", v)):
-            t = t[:, S - keep:].to(cfg.dtype)
-            if shift:
-                t = torch.roll(t, shift, dims=1)
-            c[name][:, :keep] = t
+        x = block_prefill(p, c, x, cfg, kind=kind, positions=positions, max_len=max_len,
+                          use_flash=use_flash, cap_tokens=cap_tokens)
     x = norm(x, params["ln_f"], cfg)
     return L.unembed(params, cfg, x), cache
+
+
+def block_prefill(p, c, x, cfg, *, kind: str, positions, max_len: int, ring: bool = True,
+                  use_flash: bool = False, cap_tokens: Optional[int] = None):
+    """Full block (attn + FFN) over a whole prompt x [B, S, d]: the last
+    min(S, max_len) positions' k/v go into the per-row cache ``c`` ([B, T,
+    K, hd], written in place), rolled so that position p sits at slot
+    p % max_len when ``ring`` (the dense layout), in order otherwise (the
+    hybrid's shared sites, as the reference keeps them)."""
+    B, S, _ = x.shape
+    h = norm(x, p["ln1"], cfg)
+    q, k, v = L._qkv(p["attn"], h, cfg, positions, _theta(cfg, kind))
+    if use_flash:
+        out = L.flash_attention(q, k, v, causal=True,
+                                window=cfg.window_size if kind == "L" else 0,
+                                cap=cfg.attn_softcap)
+    else:
+        out = L.best_attention(q, k, v, kind=kind, cfg=cfg)
+    a = matmul(out.reshape(B, S, -1), p["attn"]["wo"])
+    if "ln1_post" in p:
+        a = norm(a, p["ln1_post"], cfg)
+    x = x + a
+    h = norm(x, p["ln2"], cfg)
+    x = x + _mlp_section(p, h, cfg, cap_tokens)
+    keep = min(S, max_len)
+    shift = (S - max_len) % max_len if ring and S >= max_len else 0
+    for name, t in (("k", k), ("v", v)):
+        t = t[:, S - keep:].to(cfg.dtype)
+        if shift:
+            t = torch.roll(t, shift, dims=1)
+        c[name][:, :keep] = t
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -410,6 +426,14 @@ def _decode_attn_block(p, c, x, cfg, *, kind: str, pos):
     return a
 
 
+def block_decode(p, c, x, cfg, *, kind: str, pos):
+    """Full block (attn + FFN) for one decode token per row against the
+    contiguous cache ``c`` ([B, T, K, hd], written in place)."""
+    x = x + _decode_attn_block(p, c, x, cfg, kind=kind, pos=pos)
+    h = norm(x, p["ln2"], cfg)
+    return x + _mlp_section(p, h, cfg)
+
+
 def decode_step(params: Params, cfg, cache, tokens, pos, *, max_len: int):
     """One token for every row of a contiguous cache.  tokens [B,1]; pos a
     scalar or [B] int (per-row positions).  Writes this step's K/V into
@@ -421,11 +445,21 @@ def decode_step(params: Params, cfg, cache, tokens, pos, *, max_len: int):
     pos = torch.as_tensor(pos, device=tokens.device).long().expand(B)
     x = L.embed(params, cfg, tokens)
     for (kind, p), (_, c) in zip(_layers(params, cfg), _layers(cache, cfg)):
-        x = x + _decode_attn_block(p, c, x, cfg, kind=kind, pos=pos)
-        h = norm(x, p["ln2"], cfg)
-        x = x + _mlp_section(p, h, cfg)
+        x = block_decode(p, c, x, cfg, kind=kind, pos=pos)
     x = norm(x, params["ln_f"], cfg)
     return L.unembed(params, cfg, x), cache
+
+
+def insert_rows(cfg, state, rows, slot_idxs):
+    """The contiguous serving layout's admission: the batch-n caches
+    ``rows`` (from ``prefill``) written into the batch-slots cache
+    ``state`` at ``slot_idxs``, in place."""
+    for sec, axis in (("blocks", 1), ("tail", 0)):
+        for pool, row in zip(state[sec], rows[sec]):
+            for n in ("k", "v"):
+                idx = torch.as_tensor(slot_idxs, device=pool[n].device).long()
+                pool[n].index_copy_(axis, idx, row[n].to(pool[n].dtype))
+    return state
 
 
 # ---------------------------------------------------------------------------
@@ -535,6 +569,16 @@ def _paged_attn_block(p, c, x, cfg, *, kind: str, pos, tables,
     return a
 
 
+def paged_block_decode(p, c, x, cfg, *, kind: str, pos, tables, block_size: int,
+                       max_len: int):
+    """Full block (attn + FFN) for one decode token per slot against the
+    block pools ``c`` ({"k","v"} [nb, bs, K, hd], written in place)."""
+    x = x + _paged_attn_block(p, c, x, cfg, kind=kind, pos=pos, tables=tables,
+                              block_size=block_size, max_len=max_len)
+    h = norm(x, p["ln2"], cfg)
+    return x + _mlp_section(p, h, cfg)
+
+
 def paged_decode_step(params: Params, cfg, cache, tables, tokens, pos, *,
                       block_size: int, max_len: int):
     """One token for every slot against the paged pools.  tokens [B,1];
@@ -544,10 +588,7 @@ def paged_decode_step(params: Params, cfg, cache, tables, tokens, pos, *,
     pos = torch.as_tensor(pos, device=tokens.device).long().expand(B)
     x = L.embed(params, cfg, tokens)
     for (kind, p), (_, c) in zip(_layers(params, cfg), _layers(cache, cfg)):
-        x = x + _paged_attn_block(p, c, x, cfg, kind=kind, pos=pos,
-                                  tables=tables, block_size=block_size,
-                                  max_len=max_len)
-        h = norm(x, p["ln2"], cfg)
-        x = x + _mlp_section(p, h, cfg)
+        x = paged_block_decode(p, c, x, cfg, kind=kind, pos=pos, tables=tables,
+                               block_size=block_size, max_len=max_len)
     x = norm(x, params["ln_f"], cfg)
     return L.unembed(params, cfg, x), cache

@@ -82,8 +82,9 @@ class ResultCache:
 @dataclass
 class PrefixEntry:
     """One prefilled template prefix: the family cache pytree (batch=1,
-    full ``max_len`` slots for attention families; O(1) recurrent state
-    for rwkv/hybrid) plus the prefix token count."""
+    full ``max_len`` slots for attention families; the hybrid's adds the
+    recurrent states at the end of the prefix, which ``prefill_from``
+    resumes) plus the prefix token count."""
     state: Any
     prefix_len: int
     hits: int = 0            # rows seeded from this entry

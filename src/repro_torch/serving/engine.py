@@ -1,13 +1,20 @@
 """Serving engine: asynchronous continuous batching over fixed decode slots.
 
-The port of the reference engine's paged layout: a fixed set of decode
-slots, KV in one global pool of fixed-size blocks shared by all slots
-plus a per-slot block table, admission that scatters per-row prefill KV
-into table-addressed blocks, and a shared template prefix seeded once
-and *aliased* by every row's table instead of copied.  Decode attends
-through the table — a PyTorch gather (``"reference"`` backend) or the
-paged CUDA kernel (``"cuda"``), and every int8 linear runs the int8
-CUDA kernel on the cuda backend.
+The port of the reference engine: a fixed set of decode slots and two
+KV layouts.  The paged one keeps KV in one global pool of fixed-size
+blocks shared by all slots plus a per-slot block table; admission
+scatters per-row prefill KV into table-addressed blocks, and a shared
+template prefix is seeded once and *aliased* by every row's table
+instead of copied.  Decode attends through the table — a PyTorch gather
+(``"reference"`` backend) or the paged CUDA kernel (``"cuda"``).  The
+contiguous one keeps ``api.init_cache(cfg, slots, max_len)``: admission
+writes the rows' caches at their slot indices, and decode is one step
+of the model's masked decode over all slots at per-slot positions (the
+reference vmaps one-row steps, which the batched step equals); it
+launches no paged kernel.  ``kv_layout="auto"`` takes the paged layout
+unless the family has none or its power-of-two block would hold fewer
+than 8 positions.  Either way every int8 linear runs the int8 CUDA
+kernel on the cuda backend.
 
 Entry points, as in the reference:
 
@@ -28,14 +35,18 @@ for it; an admission reads its first sampled tokens back to the host
 
 Admission prefill is one batched call over ``[n, bucket]`` where the
 reference vmaps single rows.  Causal masking keeps right-padding out of
-every real position, so the rows agree; an MoE model's capacity is
+every real position, and each row's real length (``lengths``) keeps it
+out of a recurrent family's carried state, so the rows agree; a
+prefix-cache entry of the hybrid carries the recurrent states at the end
+of the prefix, which ``prefill_from`` resumes.  An MoE model's capacity is
 decided per row (``cap_tokens`` = the bucket), as in the reference's
 single-row prefill, so rows that together pass the 4096-token dropless
 limit are still dispatched without drops when each row is under it.
 Decode is batched over slots in both packages (its MoE dispatch sees one
-token a slot).  The dense and MoE families are ported; the contiguous
-layout, ``mesh=`` and the other families are not and raise.  The engine updates its pools in place (``index_copy_``) where
-the reference donates them to jit.
+token a slot).  The dense, MoE and hybrid families are ported;
+``mesh=`` and the other families are not and raise.  The engine updates
+its pools and states in place (``index_copy_``) where the reference
+donates them to jit.
 """
 from __future__ import annotations
 
@@ -108,7 +119,7 @@ def _to_device(tree, device):
         return {k: _to_device(v, device) for k, v in tree.items()}
     if isinstance(tree, list):
         return [_to_device(v, device) for v in tree]
-    return tree.to(device)
+    return None if tree is None else tree.to(device)
 
 
 class Engine:
@@ -137,11 +148,8 @@ class Engine:
         bs = 1
         while bs * 2 <= kv_block_size and max_len % (bs * 2) == 0:
             bs *= 2
-        if (kv_layout == "contiguous" or not api.supports_paged(cfg)
-                or (kv_layout == "auto" and bs < 8)):
-            raise NotImplementedError(
-                "only the paged KV layout of the dense and MoE families is "
-                "ported; the contiguous layout is ROADMAP queue 1 item 4")
+        self._paged = (kv_layout != "contiguous" and api.supports_paged(cfg)
+                       and not (kv_layout == "auto" and bs < 8))
         self.device = resolve_device(device)
         self.backend = resolve_backend(backend, self.device)
         self._placement_tag = f"@{self.device}"
@@ -164,9 +172,9 @@ class Engine:
         self.stats.backend = self.backend
         self.sampling = sampling or SamplingConfig()
         self._rid = 0
-        self._block_size = bs
-        self._alloc = BlockTableAllocator(slots, max_len // bs)
-        if self.prefix_cache is not None:
+        self._block_size = bs if self._paged else 0
+        self._alloc = BlockTableAllocator(slots, max_len // bs) if self._paged else None
+        if self._paged and self.prefix_cache is not None:
             self.prefix_cache.add_evict_listener(self._on_prefix_evict)
         self._tables_dev = None
         self._tables_dirty = True
@@ -180,16 +188,19 @@ class Engine:
         self._slot_state = None
 
     # -- device steps ---------------------------------------------------
-    def _prefill(self, toks):
+    def _prefill(self, toks, lens=None):
         return api.prefill(self.params, self.cfg, {"tokens": toks},
                            max_len=self.max_len, compact_local=False,
-                           cap_tokens=toks.shape[1])
+                           lengths=lens, cap_tokens=toks.shape[1])
 
-    def _prefill_from(self, prefix_state, toks, plen):
+    def _prefill_from(self, prefix_state, toks, plen, lens=None):
         return api.prefill_from(self.params, self.cfg, prefix_state, toks, plen,
-                                max_len=self.max_len, cap_tokens=toks.shape[1])
+                                max_len=self.max_len, lengths=lens,
+                                cap_tokens=toks.shape[1])
 
     def _insert(self, rows, slot_idxs, write_ids):
+        if not self._paged:
+            return api.insert_rows(self.cfg, self._slot_state, rows, slot_idxs)
         return api.paged_insert(self.cfg, self._slot_state, rows, slot_idxs,
                                 write_ids, block_size=self._block_size)
 
@@ -198,15 +209,23 @@ class Engine:
                               write_ids, block_size=self._block_size)
 
     def _decode(self, tables, toks, pos):
-        logits, state = api.paged_decode_step(
-            self.params, self.cfg, self._slot_state, tables, toks[:, None], pos,
-            block_size=self._block_size, max_len=self.max_len)
+        if self._paged:
+            logits, state = api.paged_decode_step(
+                self.params, self.cfg, self._slot_state, tables, toks[:, None], pos,
+                block_size=self._block_size, max_len=self.max_len)
+        else:
+            logits, state = api.decode_step(self.params, self.cfg, self._slot_state,
+                                            toks[:, None], pos, max_len=self.max_len)
         last = logits[:, -1]
         nxt = sample(last, self._gen, temperature=self.sampling.temperature,
                      top_k=self.sampling.top_k)
         return nxt, token_confidence(last, nxt), state
 
     def _init_slots(self):
+        if not self._paged:
+            self._slot_state = api.init_cache(self.cfg, self.slots, self.max_len,
+                                              device=self.device)
+            return
         self._slot_state = api.init_paged_cache(
             self.cfg, self.slots, self._alloc.num_blocks, self._block_size,
             device=self.device)
@@ -227,8 +246,9 @@ class Engine:
         self._alloc.drop_prefix(key)
 
     def _release_slot(self, s: int) -> None:
-        self._alloc.release(s)
-        self._tables_dirty = True
+        if self._paged:
+            self._alloc.release(s)
+            self._tables_dirty = True
 
     def _paged_admit_ids(self, slot_idxs, pk, plen, entry):
         """Block-table bookkeeping for one admission wave.
@@ -342,11 +362,14 @@ class Engine:
                 finished.extend(self._admit(take, free))
         if not self._active:
             return StepPending(finished, None)
-        used, sh = self._alloc.stats()
-        self.stats.kv_blocks_in_use = max(self.stats.kv_blocks_in_use, used)
-        self.stats.kv_blocks_shared = max(self.stats.kv_blocks_shared, sh)
+        tables = None
+        if self._paged:
+            used, sh = self._alloc.stats()
+            self.stats.kv_blocks_in_use = max(self.stats.kv_blocks_in_use, used)
+            self.stats.kv_blocks_shared = max(self.stats.kv_blocks_shared, sh)
+            tables = self._tables()
         nxt, conf, self._slot_state = self._decode(
-            self._tables(), self._dev(self._cur_tok), self._dev(self._cur_pos))
+            tables, self._dev(self._cur_tok), self._dev(self._cur_pos))
         self.stats.decode_steps += 1
         self.stats.busy_slot_steps += len(self._active)
         self.stats.total_slot_steps += self.slots
@@ -373,14 +396,15 @@ class Engine:
             if fresh:
                 entry = self._build_prefix_entry(pk, take[0].prefix_ids)
             plen = entry.prefix_len
-            logits, rows = self._prefill_from(entry.state, self._dev(toks), plen)
+            logits, rows = self._prefill_from(entry.state, self._dev(toks), plen,
+                                              self._dev(lens))
             seeded = len(take) - (1 if fresh else 0)
             entry.hits += seeded
             self.stats.prefix_hits += seeded
             self.stats.prefill_tokens_saved += plen * seeded
         else:
             plen, entry = 0, None
-            logits, rows = self._prefill(self._dev(toks))
+            logits, rows = self._prefill(self._dev(toks), self._dev(lens))
         self.stats.prefills += 1
         self.stats.prefill_tokens += len(take) * b
         # rows are right-padded: each row's logits at its last REAL position
@@ -392,7 +416,8 @@ class Engine:
         first_conf = token_confidence(last, first_dev).double().cpu().numpy()
         first = first_dev.cpu().numpy()
         slot_idxs = np.asarray(free[:len(take)], np.int32)
-        w_ids = self._paged_admit_ids(slot_idxs, pk, plen, entry)
+        w_ids = (self._paged_admit_ids(slot_idxs, pk, plen, entry) if self._paged
+                 else None)
         self._slot_state = self._insert(rows, slot_idxs, w_ids)
         for i, r in enumerate(take):
             s = int(slot_idxs[i])
@@ -445,7 +470,7 @@ class Engine:
         """One-time prefill of a template prefix (batch 1, absolute
         slots); the stored state seeds every row that shares it."""
         toks = self._dev(np.asarray(prefix_ids)[None])
-        _, cache = self._prefill(toks)
+        _, cache = self._prefill(toks, self._dev([len(prefix_ids)]))
         self.stats.prefills += 1
         self.stats.prefill_tokens += len(prefix_ids)
         return self.prefix_cache.put(key, cache, len(prefix_ids))

@@ -6,6 +6,16 @@ through the reference ``Engine(backend="reference")`` and the port's
 ``Engine(device="cpu")``: greedy outputs must be identical, with and
 without a shared template prefix, for the base model and for its
 ``w8-absmax`` instance.
+
+The contiguous KV layout, as tests/test_paged_cache.py holds it in the
+reference: contiguous, paged (reference backend) and paged on the cuda
+backend (the kernels' plain versions on the CPU) give identical rows
+for the tiny dense model, the reduced qwen2-moe and the reduced zamba2
+(f32), with and without a shared prefix; ``auto`` picks the paged layout
+with a block of 32 at ``max_len=128`` and falls back to the contiguous
+one when the block would hold fewer than 8 positions, which an explicit
+``paged`` keeps; slots retired and reused over three waves stay
+identical across the layouts.
 """
 import pytest
 
@@ -14,6 +24,7 @@ torch.set_num_threads(2)
 
 import jax  # noqa: E402
 
+from repro.configs import registry as rregistry  # noqa: E402
 from repro.configs.base import ModelConfig as RConfig  # noqa: E402
 from repro.core.pipeline import InstanceOptimizer as RInstanceOptimizer  # noqa: E402
 from repro.core.pipeline import Recipe as RRecipe  # noqa: E402
@@ -102,4 +113,77 @@ def test_engine_cuda_device_raises_without_card():
     with pytest.raises(RuntimeError, match="cuda"):
         Engine(params, cfg, **KW)
     with pytest.raises(NotImplementedError):
-        Engine(params, cfg, device="cpu", kv_layout="contiguous", **KW)
+        Engine(params, cfg, device="cpu", mesh=object(), **KW)
+
+
+# ---------------------------------------------------------------------------
+# the contiguous layout
+# ---------------------------------------------------------------------------
+
+PROMPTS = ["fix: pyton", "fix: javascrpt", "fix: golag", "fix: rst",
+           "fix: kotln", "fix: hsakell"]
+
+
+def _family_model(arch):
+    """Port (cfg, params) of the tiny dense model (``arch`` None) or a
+    reduced registry architecture, f32, bridged from the reference."""
+    if arch is None:
+        _, _, cfg, params = _models("base")
+        return cfg, params
+    rcfg = rregistry.get_reduced(arch).replace(vocab_size=260, param_dtype="float32")
+    rparams = rapi.init_params(jax.random.PRNGKey(0), rcfg)
+    return from_reference(rcfg), bridge.from_reference(rparams, device="cpu")
+
+
+def _serve(cfg, params, prompts, *, kv_layout, backend="auto", prefix=None, slots=2,
+           max_len=128):
+    eng = Engine(params, cfg, device="cpu", slots=slots, max_len=max_len,
+                 buckets=(16, 48, 64), use_result_cache=False, kv_layout=kv_layout,
+                 backend=backend)
+    return eng, eng.generate(prompts, max_new=8, prefix=prefix)
+
+
+@pytest.mark.parametrize("arch", [None, "qwen2-moe-a2.7b", "zamba2-7b"])
+def test_contiguous_equals_paged(arch):
+    cfg, params = _family_model(arch)
+    for prefix in (None, "fix: "):
+        ec, base = _serve(cfg, params, PROMPTS, kv_layout="contiguous", prefix=prefix)
+        ep, paged = _serve(cfg, params, PROMPTS, kv_layout="paged", prefix=prefix)
+        ek, kern = _serve(cfg, params, PROMPTS, kv_layout="paged", backend="cuda",
+                          prefix=prefix)
+        assert not ec._paged and ep._paged and ek._paged
+        assert paged == base and kern == base
+        assert ec.stats.prefix_hits == ep.stats.prefix_hits
+        assert (ec.stats.prefix_hits > 0) == (prefix is not None)
+
+
+def test_auto_layout_picks_paged_for_dense():
+    cfg, params = _family_model(None)
+    eng = Engine(params, cfg, device="cpu", max_len=128)
+    assert eng._paged and eng._block_size == 32
+    assert eng.stats.backend == "reference"         # auto on the CPU
+
+
+def test_tiny_block_auto_falls_back_to_contiguous():
+    cfg, params = _family_model(None)
+    # max_len=36: the largest power-of-two block dividing it is 4 (< 8), so
+    # auto takes the contiguous layout; an explicit "paged" keeps block 4
+    eng = Engine(params, cfg, device="cpu", max_len=36, buckets=(16, 32))
+    assert not eng._paged
+    eng2 = Engine(params, cfg, device="cpu", max_len=36, buckets=(16, 32),
+                  kv_layout="paged")
+    assert eng2._paged and eng2._block_size == 4
+    assert eng.generate(PROMPTS[:3], max_new=4) == eng2.generate(PROMPTS[:3], max_new=4)
+
+
+def test_slot_retire_and_reuse_stays_identical():
+    """More requests than slots: every slot is retired and reused (three
+    waves or more through 2 slots, ragged lengths so that retirement
+    interleaves)."""
+    cfg, params = _family_model(None)
+    prompts = [f"row {i}: " + "v" * (3 + 5 * (i % 3)) for i in range(7)]
+    _, base = _serve(cfg, params, prompts, kv_layout="contiguous")
+    eng, outs = _serve(cfg, params, prompts, kv_layout="paged")
+    assert outs == base
+    used, shared = eng._alloc.stats()
+    assert shared == 0 and not eng._alloc._occupied

@@ -210,3 +210,16 @@ def test_paged_attention_plan_main_path():
     assert ops.paged_attention_plan(8, 4, 1024, 0, 32) == (32, 32)
     assert ops.paged_attention_plan(8, 4, 1024, 4096, 32) == (32, 32)
     assert ops.paged_attention_plan(8, 4, 1024, 64, 32) == (2, 32)
+
+
+def test_head_dim_112_accepted_and_planned():
+    """zamba2's head dim is in both attention wrappers' lists, and K1's
+    plan at its decode shapes (8 slots, 32 KV heads or 16 after kv50, G 1,
+    blocks of 32) covers 1024 positions in whole blocks."""
+    assert 112 in ops.PA_HEAD_DIMS and 112 in ops.HEAD_DIMS
+    for Kh in (32, 16):
+        for T in (128, 1024):
+            splits, per = ops.paged_attention_plan(8, Kh, T, 0, 32)
+            assert per % 32 == 0 and splits * per >= T > (splits - 1) * per
+    assert ops.paged_attention_plan(8, 32, 1024, 0, 32) == (5, 224)
+    assert ops.paged_attention_plan(8, 16, 1024, 0, 32) == (8, 128)

@@ -420,3 +420,54 @@ def test_paged_attention_split_model_matches_plain_and_oracle(dtype, tol, win, p
     want = _masked_decode(jnp.asarray(q, jdt), jnp.asarray(k, jdt), jnp.asarray(v, jdt),
                           jnp.asarray(valid), 30.0)
     assert _rel(_np(got).reshape(S, 1, Kh * G, D), np.asarray(want, np.float32)) < tol
+
+
+# ---------------------------------------------------------------------------
+# zamba2's head dim 112 (14 bf16 or 28 f32 16-byte pieces a row)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5), ("bfloat16", 2e-2)])
+def test_paged_attention_plain_at_head_dim_112(dtype, tol):
+    """zamba2's decode attention at a shared site: G 1 (Kh = H), D 112,
+    blocks of 32, ragged lengths over a scrambled table, against the
+    model's contiguous ``_masked_decode``."""
+    rng = np.random.default_rng(112)
+    S, T, Kh, D, bs = 3, 128, 4, 112, 32
+    assert D in ops.PA_HEAD_DIMS
+    nblk = T // bs
+    q = rng.normal(size=(S, 1, Kh, D)).astype(np.float32)
+    k = rng.normal(size=(S, T, Kh, D)).astype(np.float32)
+    v = rng.normal(size=(S, T, Kh, D)).astype(np.float32)
+    lengths = np.array([1, 77, 128], np.int32)
+    tables = rng.permutation(S * nblk).astype(np.int32).reshape(S, nblk)
+    kp = np.zeros((S * nblk + 1, bs, Kh, D), np.float32)
+    vp = np.zeros_like(kp)
+    for s in range(S):
+        for j in range(nblk):
+            kp[tables[s, j]] = k[s, j * bs:(j + 1) * bs]
+            vp[tables[s, j]] = v[s, j * bs:(j + 1) * bs]
+    tdt = getattr(torch, dtype)
+    got = ops.paged_attention(*(torch.from_numpy(a).to(tdt) for a in (q, kp, vp)),
+                              torch.from_numpy(tables), torch.from_numpy(lengths))
+    valid = np.arange(T)[None, :] < lengths[:, None]
+    want = _masked_decode(*(jnp.asarray(a).astype(dtype) for a in (q, k, v)),
+                          jnp.asarray(valid), 0.0)
+    assert got.dtype == tdt and got.shape == (S, 1, Kh, D)
+    assert _rel(_np(got), want) < tol
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_flash_plain_at_head_dim_112(dtype):
+    """zamba2's long-prefill attention: H = Kh, D 112, causal, with a
+    padded KV length (``t_real``), against the reference's ``ref.attention``."""
+    assert 112 in ops.HEAD_DIMS
+    rng = np.random.default_rng(7)
+    B, S, T, H, D, t_real = 1, 96, 160, 2, 112, 130
+    q, k, v = (jnp.asarray(rng.normal(size=shape), jnp.float32).astype(dtype)
+               for shape in ((B, S, H, D), (B, T, H, D), (B, T, H, D)))
+    kw = dict(causal=True, t_real=t_real, q_offset=t_real - S)
+    want = rref.attention(*(a[0].transpose(1, 0, 2) for a in (q, k, v)), **kw)
+    want = np.asarray(want, np.float32).transpose(1, 0, 2)[None]
+    got = ops.flash_attention(*(to_tensor(a, "cpu") for a in (q, k, v)), **kw)
+    assert got.shape == (B, S, H, D)
+    assert _rel(_np(got), want) < (2e-2 if dtype == "bfloat16" else 1e-5)
