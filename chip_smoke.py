@@ -172,6 +172,28 @@ Phases, each of which raises on failure (so the script exits non-zero):
    most frequent prefill M;
 30. hybrid_f32_parity: Q2 in f32 at 15 block applications, cuda against
    reference session (phase 8's criteria).
+31. rwkv_main_path (the rwkv phases run last, from generators of their own,
+   RWKV_SEED and RWKV_KERNEL_SEED): full-width rwkv6-3b (32 layers, d_model
+   2560, 40 heads of 64, d_ff 8960, vocab 65536; 3.07 B params, random bf16
+   weights) compressed with ``w8-absmax`` and served by ``Engine(slots=8,
+   max_len=1024)`` on the main path's rows and template, then the bf16
+   base: the contiguous layout (slot state 8 x 21.6 MB), every row seeded
+   from the template's recurrent state; per decode step 257 K2 launches on
+   ``decode``, per prefill 257 on ``mma``, K1, K3 and K4 never;
+32. rwkv_whole_step: one contiguous decode step of that instance, cuda
+   against reference backend, bf16 at 32 layers (STEP_BF16_RATIO) and f32
+   cut to 4 (STEP_TOL_F32); then rwkv_decode_profile, the step's profile;
+33. rwkv_session: Q2 and Q1 at 64 rows through ``Query.run`` over a
+   full-width rwkv6-3b session with ``w8-absmax`` and ``w8a-ffn75`` (the
+   grid has no ``w8-kv50`` for rwkv; no Hessian): the pruned candidate at
+   d_ff 6720, its ``cm.wv`` in groups of 120 on K2's ``fma`` design, 32
+   of each call's 257 launches;
+34. kernel_quant_matmul_rwkv: K2 against its plain version at every shape
+   phases 31 (its int8 run) and 33 gave it, group 120 included; the pruned
+   ``cm.wv`` (6720 -> 2560, group 120, ``fma``) and the unpruned one (8960
+   -> 2560, group 128) timed at M = 8 and 512;
+35. rwkv_f32_parity: Q2 in f32 at 4 layers, cuda against reference session
+   (phase 8's criteria; K2 alone on the cuda side).
 
 K2, K3 and K4 run their tensor-core designs on bf16 and their FMA
 designs on f32; ``ops.variant_count`` shows which design of every kernel
@@ -184,7 +206,9 @@ over the two service phases, and
 on the MoE path: ``launches_moe``, and K2's expert designs and timing;
 on the hybrid path: ``launches_hybrid``, ``launches_hybrid_session``,
 ``launches_hybrid_long_prefill``, K1's and K3's ``d112`` timings, and
-K2's ``hybrid`` cases seen and in_proj timings),
+K2's ``hybrid`` cases seen and in_proj timings; on the rwkv path:
+``launches_rwkv``, ``launches_rwkv_session``, and K2's ``rwkv`` cases seen
+and channel-mix timings),
 the card line, and last ``{"ok": true, "device": {...}}``.  Exits non-zero
 without a card and outside a checkout of the repository.
 """
@@ -779,6 +803,29 @@ def serve(params, cfg, version, device="cuda", kv_layout="auto"):
     return eng, reqs
 
 
+def _agreement(reqs_a, reqs_b):
+    """(greedy token agreement over the common prefix of each pair of
+    rows, rows identical) of two runs of the same prompts."""
+    same = tot = rows_same = 0
+    for a, b in zip(reqs_a, reqs_b):
+        n = min(len(a.out_ids), len(b.out_ids))
+        same += sum(x == y for x, y in zip(a.out_ids[:n], b.out_ids[:n]))
+        tot += n
+        rows_same += a.out_ids == b.out_ids
+    return same / max(tot, 1), rows_same
+
+
+def _serve_stats(eng, prefixes):
+    """An engine's serving numbers and the template prefixes it built."""
+    st = eng.stats
+    return {"rows_per_s": st.rows_per_s, "tokens_per_s": st.tokens_out / st.wall_s,
+            "wall_s": st.wall_s, "decode_steps": st.decode_steps,
+            "prefills": st.prefills, "prefix_hits": st.prefix_hits,
+            "cache_hits": st.cache_hits, "truncated": st.truncated,
+            "prefill_tokens": st.prefill_tokens,
+            "prefill_tokens_saved": st.prefill_tokens_saved, "template_prefixes": prefixes}
+
+
 def main_path(gen):
     from repro_torch.configs import gemma2_2b
     from repro_torch.core.compressed import param_bytes
@@ -823,12 +870,7 @@ def main_path(gen):
           and base_variants == {"paged_attention.split": base_launches["paged_attention"]},
           (base_launches, base_variants))
 
-    same = tot = rows_same = 0
-    for a, b in zip(reqs16, reqs8):
-        n = min(len(a.out_ids), len(b.out_ids))
-        same += sum(x == y for x, y in zip(a.out_ids[:n], b.out_ids[:n]))
-        tot += n
-        rows_same += a.out_ids == b.out_ids
+    agree, rows_same = _agreement(reqs16, reqs8)
     line = {"phase": "main_path", "model": cfg.name, "layers": cfg.n_layers,
             "rows": len(REVIEWS), "max_new": 32, "init_s": init_s, "quantize_s": quant_s,
             "param_bytes_base": param_bytes(base), "param_bytes_int8": param_bytes(int8),
@@ -846,7 +888,7 @@ def main_path(gen):
                      "launches": base_launches},
             "max_memory_allocated_int8_run": peak,
             "max_memory_allocated": torch.cuda.max_memory_allocated(),
-            "greedy_token_agreement_base_vs_int8": same / max(tot, 1),
+            "greedy_token_agreement_base_vs_int8": agree,
             "rows_identical_base_vs_int8": rows_same}
     emit(line)
     for name in ("int8", "base"):
@@ -1137,16 +1179,21 @@ def sync() -> None:
 
 
 def session_recipes(cfg):
-    """The grid, and the session's three recipes: the grid's ``w8-absmax``
-    and absmax copies of its ``w8-ffn75`` and ``w8-kv50``."""
+    """The grid, and the session's recipes: the grid's ``w8-absmax`` and
+    absmax copies of its ``w8-ffn75`` and ``w8-kv50`` (rwkv's grid has no
+    ``w8-kv50``: no attention, so two recipes)."""
     import dataclasses
     from repro_torch.core import policy as POL
     grid = {r.name: r for r in POL.default_recipe_space(cfg)}
-    check(grid["w8-ffn75"].ffn_keep_frac == 0.75 and grid["w8-kv50"].kv_keep_frac == 0.5,
-          ("grid recipes", grid["w8-ffn75"], grid["w8-kv50"]))
-    return grid, [grid["w8-absmax"],
-                  dataclasses.replace(grid["w8-ffn75"], name="w8a-ffn75", quant_method="absmax"),
-                  dataclasses.replace(grid["w8-kv50"], name="w8a-kv50", quant_method="absmax")]
+    check(grid["w8-ffn75"].ffn_keep_frac == 0.75, ("grid recipe", grid["w8-ffn75"]))
+    recipes = [grid["w8-absmax"],
+               dataclasses.replace(grid["w8-ffn75"], name="w8a-ffn75", quant_method="absmax")]
+    if cfg.family == "rwkv":
+        check("w8-kv50" not in grid, ("rwkv grid", sorted(grid)))
+        return grid, recipes
+    check(grid["w8-kv50"].kv_keep_frac == 0.5, ("grid recipe", grid["w8-kv50"]))
+    return grid, recipes + [dataclasses.replace(grid["w8-kv50"], name="w8a-kv50",
+                                                quant_method="absmax")]
 
 
 class SessionProbe:
@@ -1464,13 +1511,15 @@ NEAR_TIE = 1e-4                 # top-two logit gap under which f32 argmaxes may
 
 
 def olap_f32_parity(gen, cfg_full, layers: int = 4, name="olap_f32_parity"):
-    """Q2 at ``cfg_full``'s widths (gemma2-2b's, or qwen2-moe-a2.7b's) in
-    f32 at ``layers`` layers, with ``recipes=[w8-absmax]``, run by one
-    session on the cuda backend and by one on the reference backend.  The
-    tables must be identical; a row whose tokens differ must be a near
-    tie: the plain instance's top-two logit gap at the first differing
-    token under NEAR_TIE.  The cuda side runs K1 and K2's FMA design (and
-    K2 over experts on it for an MoE model), the reference side nothing."""
+    """Q2 at ``cfg_full``'s widths (gemma2-2b's, qwen2-moe-a2.7b's,
+    zamba2-7b's or rwkv6-3b's) in f32 at ``layers`` layers, with
+    ``recipes=[w8-absmax]``, run by one session on the cuda backend and by
+    one on the reference backend.  The tables must be identical; a row
+    whose tokens differ must be a near tie: the plain instance's top-two
+    logit gap at the first differing token under NEAR_TIE.  The cuda side
+    runs K2's FMA design, K1 where the family serves paged KV (not rwkv),
+    and K2 over experts on the FMA design for an MoE model; the reference
+    side nothing."""
     import gc
     from repro_torch.core.compressed import kernel_backend
     from repro_torch.kernels import ops
@@ -1499,7 +1548,9 @@ def olap_f32_parity(gen, cfg_full, layers: int = 4, name="olap_f32_parity"):
             sync()
         variants = {k: n for k, n in ops.variant_count.items() if n}
         if backend == "cuda":
-            want = {"quant_matmul.fma", "paged_attention.split"}
+            want = {"quant_matmul.fma"}
+            if api.supports_paged(cfg):
+                want.add("paged_attention.split")
             if cfg.family == "moe":
                 want.add("quant_matmul.expert_fma")
             check(set(variants) == want, ("f32 session designs", variants))
@@ -2976,12 +3027,7 @@ def moe_main_path(gen):
           and base_launches["quant_matmul"] == 0
           and base_variants == {"paged_attention.split": base_launches["paged_attention"]},
           (base_launches, base_variants))
-    same = tot = rows_same = 0
-    for a, b in zip(reqs16, reqs8):
-        n = min(len(a.out_ids), len(b.out_ids))
-        same += sum(x == y for x, y in zip(a.out_ids[:n], b.out_ids[:n]))
-        tot += n
-        rows_same += a.out_ids == b.out_ids
+    agree, rows_same = _agreement(reqs16, reqs8)
     line = {"phase": "moe_main_path", "model": cfg.name, "layers": cfg.n_layers,
             "experts": cfg.n_experts, "top_k": cfg.top_k, "rows": len(REVIEWS), "max_new": 32,
             "init_s": init_s, "quantize_s": quant_s,
@@ -2997,7 +3043,7 @@ def moe_main_path(gen):
                      "launches": base_launches},
             "max_memory_allocated_int8_run": peak,
             "max_memory_allocated": torch.cuda.max_memory_allocated(),
-            "greedy_token_agreement_base_vs_int8": same / max(tot, 1),
+            "greedy_token_agreement_base_vs_int8": agree,
             "rows_identical_base_vs_int8": rows_same,
             "expert_shapes": {str(k): n for k, n in sorted(probe.shapes.items())}}
     emit(line)
@@ -3445,11 +3491,12 @@ class QuantShapeProbe:
         return False
 
 
-def _time_dense(gen, M, K, N):
-    """One linear x [M, K] -> N in bf16: K2, its plain version and
-    ``torch.matmul`` on the dequantized bf16 weight, and its bound."""
+def _time_dense(gen, M, K, N, group=128):
+    """One linear x [M, K] -> N in bf16, its codes in groups of ``group``
+    rows: K2, its plain version and ``torch.matmul`` on the dequantized
+    bf16 weight, and its bound."""
     from repro_torch.kernels import ops, ref
-    qt = _dense_weight(gen, K, N)
+    qt = _dense_weight(gen, K, N, group)
     x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
     wd = ref.dequantize_codes(qt.q, qt.scale, qt.group)
     ms = time_ms(lambda: ops.quant_matmul(x, qt.q, qt.scale, group=qt.group))
@@ -3457,7 +3504,7 @@ def _time_dense(gen, M, K, N):
     lib_ms = time_ms(lambda: torch.matmul(x, wd))
     nbytes = qt.q.numel() + qt.scale.numel() * 4 + M * K * 2 + M * N * 2
     bms, by = bound(nbytes, 2 * M * K * N)
-    return {"M": M, "K": K, "N": N,
+    return {"M": M, "K": K, "N": N, "group": qt.group,
             "variant": ops.quant_matmul_variant(torch.bfloat16, M, N, qt.group),
             "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bms,
             "bound_by": by, "bound_share": bms / ms, "bytes": nbytes}
@@ -3472,39 +3519,11 @@ def check_quant_matmul_seen(main_shapes, session_shapes, d_model=3584, d_in_proj
     within K2_TOL (f32 within 1e-5).  Then times zamba2's in_proj
     (``d_model`` -> ``d_in_proj``) at decode M = 8 and at the main path's
     most frequent prefill M."""
-    from repro_torch.kernels import ops, ref
     gen = torch.Generator(device="cuda")
     gen.manual_seed(HYBRID_KERNEL_SEED + 1)
-    shapes = sorted(set(main_shapes) | set(session_shapes),
-                    key=lambda s: (s[1], s[2], s[4], s[5], s[0], s[3]))
     check({s[6] for s in main_shapes} == {"decode", "mma"},
           ("K2 designs of the hybrid main path", sorted(set(main_shapes))))
-    results, worst_abs, weights = [], 0.0, {}
-    for shape in shapes:
-        M, K, N, dt, group, smooth, variant = shape
-        key = (K, N, group, smooth)
-        if key not in weights:           # sorted by weight: one weight at a time
-            weights = {key: _dense_weight(gen, K, N, group, smooth)}
-        qt = weights[key]
-        xdt = getattr(torch, dt)
-        x = torch.randn((M, K), generator=gen, device="cuda").to(xdt)
-        before = dict(ops.variant_count)
-        got = ops.quant_matmul(x, qt.q, qt.scale, group=qt.group, in_scale=qt.in_scale)
-        want = ref.quant_matmul(x, qt.q, qt.scale, group=qt.group, in_scale=qt.in_scale)
-        torch.cuda.synchronize()
-        check(got.dtype == xdt and got.shape == (M, N), ("output", got.dtype, got.shape))
-        check(variant_delta(before) == {f"quant_matmul.{variant}": 1},
-              ("K2 design at a hybrid shape", shape, variant_delta(before)))
-        err_abs, err_rel = errors(got, want)
-        tol = 1e-5 if xdt == torch.float32 else K2_TOL
-        rec = {"M": M, "K": K, "N": N, "x": dt, "group": group, "smooth": smooth,
-               "variant": variant, "rel_err": err_rel, "tolerance": tol,
-               "calls": {"main_path": main_shapes.get(shape, 0),
-                         "session": session_shapes.get(shape, 0)}}
-        results.append(rec)
-        check(err_rel < tol, rec)
-        worst_abs = max(worst_abs, err_abs)
-    del weights
+    results, worst_abs = _hold_seen(gen, main_shapes, session_shapes, "hybrid")
     prefills = {s: n for s, n in main_shapes.items()
                 if s[6] == "mma" and s[1:3] == (d_model, d_in_proj)}
     check(prefills, ("no prefill of in_proj on the main path", dict(main_shapes)))
@@ -3527,6 +3546,43 @@ def check_quant_matmul_seen(main_shapes, session_shapes, d_model=3584, d_in_proj
           f"{prefill['bound_ms']:.4f}, plain {prefill['plain_ms']:.4f}, matmul "
           f"{prefill['library_ms']:.4f})", flush=True)
     return line
+
+
+def _hold_seen(gen, main_shapes, session_shapes, path):
+    """K2 against its plain version once at each distinct shape (M, K, N,
+    x dtype, group, ``in_scale``, design) of two ``QuantShapeProbe``
+    counters, on fresh absmax codes, scales and x from ``gen``, on the
+    design the probed launch ran, within K2_TOL (f32 within 1e-5):
+    (the cases, the largest absolute error)."""
+    from repro_torch.kernels import ops, ref
+    shapes = sorted(set(main_shapes) | set(session_shapes),
+                    key=lambda s: (s[1], s[2], s[4], s[5], s[0], s[3]))
+    results, worst_abs, weights = [], 0.0, {}
+    for shape in shapes:
+        M, K, N, dt, group, smooth, variant = shape
+        key = (K, N, group, smooth)
+        if key not in weights:           # sorted by weight: one weight at a time
+            weights = {key: _dense_weight(gen, K, N, group, smooth)}
+        qt = weights[key]
+        xdt = getattr(torch, dt)
+        x = torch.randn((M, K), generator=gen, device="cuda").to(xdt)
+        before = dict(ops.variant_count)
+        got = ops.quant_matmul(x, qt.q, qt.scale, group=qt.group, in_scale=qt.in_scale)
+        want = ref.quant_matmul(x, qt.q, qt.scale, group=qt.group, in_scale=qt.in_scale)
+        torch.cuda.synchronize()
+        check(got.dtype == xdt and got.shape == (M, N), ("output", got.dtype, got.shape))
+        check(variant_delta(before) == {f"quant_matmul.{variant}": 1},
+              (f"K2 design at a {path} shape", shape, variant_delta(before)))
+        err_abs, err_rel = errors(got, want)
+        tol = 1e-5 if xdt == torch.float32 else K2_TOL
+        rec = {"M": M, "K": K, "N": N, "x": dt, "group": group, "smooth": smooth,
+               "variant": variant, "rel_err": err_rel, "tolerance": tol,
+               "calls": {"main_path": main_shapes.get(shape, 0),
+                         "session": session_shapes.get(shape, 0)}}
+        results.append(rec)
+        check(err_rel < tol, rec)
+        worst_abs = max(worst_abs, err_abs)
+    return results, worst_abs
 
 
 def hybrid_per_step(cfg):
@@ -3629,32 +3685,19 @@ def hybrid_main_path(gen, cfg=None, device="cuda"):
                                 "flash_attention": 0,
                                 "paged_attention": k1 * eng16.stats.decode_steps},
               ("hybrid base run launches", base_launches))
-    same = tot = rows_same = 0
-    for a, b in zip(reqs16, reqs8):
-        n = min(len(a.out_ids), len(b.out_ids))
-        same += sum(x == y for x, y in zip(a.out_ids[:n], b.out_ids[:n]))
-        tot += n
-        rows_same += a.out_ids == b.out_ids
-
-    def stats_of(eng, prefixes):
-        st = eng.stats
-        return {"rows_per_s": st.rows_per_s, "tokens_per_s": st.tokens_out / st.wall_s,
-                "wall_s": st.wall_s, "decode_steps": st.decode_steps,
-                "prefills": st.prefills, "prefix_hits": st.prefix_hits,
-                "cache_hits": st.cache_hits, "truncated": st.truncated,
-                "prefill_tokens": st.prefill_tokens, "template_prefixes": prefixes}
-
+    agree, rows_same = _agreement(reqs16, reqs8)
     line = {"phase": "hybrid_main_path", "model": cfg.name, "layers": cfg.n_layers,
             "layout": [G, K, tail, sites], "params": n_params,
             "param_count_config": cfg.param_count(), "rows": len(REVIEWS), "max_new": 32,
             "init_s": init_s, "quantize_s": quant_s,
             "param_bytes_base": param_bytes(base), "param_bytes_int8": param_bytes(int8),
             "compression": report.compression,
-            "int8": {**stats_of(eng8, prefixes8), "launches": launches, "variants": variants},
-            "base": {**stats_of(eng16, prefixes16), "launches": base_launches},
+            "int8": {**_serve_stats(eng8, prefixes8), "launches": launches,
+                     "variants": variants},
+            "base": {**_serve_stats(eng16, prefixes16), "launches": base_launches},
             "launches_per_step": {"quant_matmul": k2, "paged_attention": k1},
             "max_memory_allocated_int8_run": peak, "max_memory_allocated": card_memory()[1],
-            "greedy_token_agreement_base_vs_int8": same / max(tot, 1),
+            "greedy_token_agreement_base_vs_int8": agree,
             "rows_identical_base_vs_int8": rows_same}
     emit(line)
     for name in ("int8", "base"):
@@ -3902,43 +3945,25 @@ def hybrid_long_prefill(gen, base, cfg, S: int = 8192):
     return line
 
 
-def hybrid_session(base, cfg, device="cuda", n_rows: int = 64):
-    """An ``IOLMSession`` over the full-width zamba2 base runs Q2
-    (``llm_correct``) and Q1 (``llm_map``) over ``n_rows`` rows through
-    ``Query.run``: each operator calibrates on its rows (Mamba layers,
-    the shared block's statistics summed over its 11 sites; no Hessian:
-    none of the three recipes reads one), builds and evaluates
-    ``w8-absmax`` and absmax copies of the grid's ``w8-ffn75`` (the shared
-    MLP at d_ff 10752, all sites at once) and ``w8-kv50`` (16 KV groups),
-    and serves the pick through the paged ``Engine`` (K1 at each site, K2
-    on every linear).  The model cache is emptied between the queries."""
+def _family_session(phase, label, base, cfg, recipes, on_outcome, served_gate,
+                    device="cuda", n_rows: int = 64):
+    """Q2 (``llm_correct``) and Q1 (``llm_map``) over ``n_rows`` rows each
+    through ``Query.run`` on an ``IOLMSession`` over ``base`` with
+    ``recipes``: each operator calibrates on its rows, builds and
+    evaluates every recipe (``on_outcome(optimizer, outcome)`` checks the
+    calibration and the candidates) and serves the pick.  On the card
+    ``served_gate(query, search, served, decode_steps, model_calls)``
+    checks the designs the served engine launched.  Every search's
+    candidates, seconds and designs, the calibrations, applies and
+    engines are recorded; the model cache is emptied between the queries.
+    Returns (the phase's line, the launches of the whole phase)."""
     import gc
     from repro_torch.kernels import ops
-    from repro_torch.models import api
     from repro_torch.olap.query import IOLMSession, Query
     from repro_torch.olap.table import Table
     from repro_torch.training.data import PROMPTS, workload_rows
 
     on_card = device == "cuda"
-    _, recipes = session_recipes(cfg)
-    k2, k1 = hybrid_per_step(cfg)
-    sites = api.family_module(cfg).layout(cfg)[3]
-    calibrated = []
-
-    def on_outcome(optimizer, out):
-        st = optimizer.stats
-        check(all(w.H is None for w in st.weights.values()), "a Hessian was calibrated")
-        shared = st.weights["shared.attn.wq"]
-        calibrated.append({"tokens": st.n_tokens, "shared_rows": shared.count,
-                           "weights": len(st.weights),
-                           "configs": [(c.recipe.name, c.cfg.d_ff, c.cfg.n_kv_heads)
-                                       for c in out.candidates]})
-        check(shared.count == sites * st.n_tokens, ("shared block rows", calibrated[-1]))
-        check([(c.cfg.d_ff, c.cfg.n_kv_heads) for c in out.candidates]
-              == [(cfg.d_ff, cfg.n_kv_heads),
-                  (int(round(0.75 * cfg.d_ff)) // 8 * 8, cfg.n_kv_heads),
-                  (cfg.d_ff, cfg.n_kv_heads // 2)], ("pruned candidates", calibrated[-1]))
-
     sess = IOLMSession(base, cfg, device=device, recipes=recipes, **SESSION_KW)
     commits = Table({"lang": [r.text for r in workload_rows("correct", n_rows)]})
     reviews = Table({"review": [r.text for r in workload_rows("summarize", n_rows)]})
@@ -3979,12 +4004,7 @@ def hybrid_session(base, cfg, device="cuda", n_rows: int = 64):
             n_steps = sum(e["stats"].decode_steps for e in engines)
             calls = n_steps + sum(e["stats"].prefills for e in engines)
             if on_card:
-                check(served.get("quant_matmul.decode", 0) + served.get("quant_matmul.mma", 0)
-                      == k2 * calls and served.get("paged_attention.split") == k1 * n_steps
-                      and served.get("quant_matmul.decode", 0) >= k2 * n_steps
-                      and set(served) <= {"quant_matmul.decode", "quant_matmul.mma",
-                                          "paged_attention.split"},
-                      (name, "served launches", served, n_steps, calls))
+                served_gate(name, searches[0], served, n_steps, calls)
             rec = {"query": name, "wall_s": wall, "rows_per_s": n_rows / wall,
                    "picked": searches[0]["picked"], "search_s": searches[0]["seconds"],
                    "candidates": searches[0]["candidates"],
@@ -3996,7 +4016,7 @@ def hybrid_session(base, cfg, device="cuda", n_rows: int = 64):
                                 "truncated": e["stats"].truncated,
                                 "backend": e["stats"].backend} for e in engines]}
             results.append(rec)
-            print(f"zamba2 {name}: {n_rows} rows in {wall:.2f} s, picked {rec['picked']} "
+            print(f"{label} {name}: {n_rows} rows in {wall:.2f} s, picked {rec['picked']} "
                   f"(search {rec['search_s']:.2f} s), peak memory {rec['peak_memory']}; "
                   + ", ".join(f"{c['recipe']} {c['param_bytes']} B acc {c['accuracy']:.2f} tok "
                               f"{c['token_agreement']:.2f}" for c in rec["candidates"])
@@ -4010,12 +4030,56 @@ def hybrid_session(base, cfg, device="cuda", n_rows: int = 64):
             if on_card:
                 torch.cuda.empty_cache()
     launches = dict(ops.launch_count)
-    line = {"phase": "hybrid_session", "model": cfg.name, "recipes": [r.name for r in recipes],
-            "calibrated": calibrated, "queries": results, "launches": launches,
-            "max_memory_allocated": peak, "log": sess.log}
-    emit(line)
+    line = {"phase": phase, "model": cfg.name, "recipes": [r.name for r in recipes],
+            "queries": results, "launches": launches, "max_memory_allocated": peak,
+            "log": sess.log}
     del sess
     gc.collect()
+    return line, launches
+
+
+def hybrid_session(base, cfg, device="cuda", n_rows: int = 64):
+    """An ``IOLMSession`` over the full-width zamba2 base runs Q2
+    (``llm_correct``) and Q1 (``llm_map``) over ``n_rows`` rows through
+    ``Query.run`` (``_family_session``): each operator calibrates on its
+    rows (Mamba layers, the shared block's statistics summed over its 11
+    sites; no Hessian: none of the three recipes reads one), builds and
+    evaluates ``w8-absmax`` and absmax copies of the grid's ``w8-ffn75``
+    (the shared MLP at d_ff 10752, all sites at once) and ``w8-kv50`` (16
+    KV groups), and serves the pick through the paged ``Engine`` (K1 at
+    each site, K2 on every linear)."""
+    from repro_torch.models import api
+    _, recipes = session_recipes(cfg)
+    k2, k1 = hybrid_per_step(cfg)
+    sites = api.family_module(cfg).layout(cfg)[3]
+    calibrated = []
+
+    def on_outcome(optimizer, out):
+        st = optimizer.stats
+        check(all(w.H is None for w in st.weights.values()), "a Hessian was calibrated")
+        shared = st.weights["shared.attn.wq"]
+        calibrated.append({"tokens": st.n_tokens, "shared_rows": shared.count,
+                           "weights": len(st.weights),
+                           "configs": [(c.recipe.name, c.cfg.d_ff, c.cfg.n_kv_heads)
+                                       for c in out.candidates]})
+        check(shared.count == sites * st.n_tokens, ("shared block rows", calibrated[-1]))
+        check([(c.cfg.d_ff, c.cfg.n_kv_heads) for c in out.candidates]
+              == [(cfg.d_ff, cfg.n_kv_heads),
+                  (int(round(0.75 * cfg.d_ff)) // 8 * 8, cfg.n_kv_heads),
+                  (cfg.d_ff, cfg.n_kv_heads // 2)], ("pruned candidates", calibrated[-1]))
+
+    def served_gate(name, search, served, n_steps, calls):
+        check(served.get("quant_matmul.decode", 0) + served.get("quant_matmul.mma", 0)
+              == k2 * calls and served.get("paged_attention.split") == k1 * n_steps
+              and served.get("quant_matmul.decode", 0) >= k2 * n_steps
+              and set(served) <= {"quant_matmul.decode", "quant_matmul.mma",
+                                  "paged_attention.split"},
+              (name, "served launches", served, n_steps, calls))
+
+    line, launches = _family_session("hybrid_session", "zamba2", base, cfg, recipes,
+                                     on_outcome, served_gate, device, n_rows)
+    line["calibrated"] = calibrated
+    emit(line)
     return line, launches
 
 
@@ -4023,21 +4087,27 @@ def profile_step(gen, params, eng, steps: int = 5, name="decode_profile"):
     """Where one decode step's time goes: host wall time per step
     (ending in a sync) against device kernel time from torch.profiler,
     split by kernel name, and the device's busy time (the union of the
-    kernels' intervals), from which the idle share is taken."""
+    kernels' intervals), from which the idle share is taken.  The step is
+    the engine's own: paged, or the contiguous layout's ``decode_step``."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.compressed import kernel_backend
     from repro_torch.models import api
     cfg, S, bs = eng.cfg, eng.slots, eng._block_size
-    nblk = eng.max_len // bs
-    tables = torch.arange(S * nblk, device="cuda", dtype=torch.int32).reshape(S, nblk)
+    tables = None
+    if eng._paged:
+        nblk = eng.max_len // bs
+        tables = torch.arange(S * nblk, device="cuda", dtype=torch.int32).reshape(S, nblk)
     toks = torch.randint(4, 260, (S, 1), generator=gen, device="cuda")
     pos = torch.full((S,), 100, device="cuda")
 
     def step():
         with kernel_backend("cuda"), torch.no_grad():
-            api.paged_decode_step(params, cfg, eng._slot_state, tables, toks, pos,
-                                  block_size=bs, max_len=eng.max_len)
+            if tables is None:          # the contiguous layout: its state updates in place
+                api.decode_step(params, cfg, eng._slot_state, toks, pos, max_len=eng.max_len)
+            else:
+                api.paged_decode_step(params, cfg, eng._slot_state, tables, toks, pos,
+                                      block_size=bs, max_len=eng.max_len)
 
     step()
     torch.cuda.synchronize()
@@ -4072,6 +4142,302 @@ def profile_step(gen, params, eng, steps: int = 5, name="decode_profile"):
             "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
             "top_kernels_ms_per_step": dict(top)}
     emit(line)
+    return line
+
+
+# ---------------------------------------------------------------------------
+# the rwkv phases: full-width rwkv6-3b on the contiguous layout
+# ---------------------------------------------------------------------------
+
+RWKV_SEED = 41                   # the rwkv phases' generator: earlier phases' draws stay
+RWKV_KERNEL_SEED = 43            # K2 at rwkv's shapes: adding a case moves no weight
+
+
+def rwkv_per_call(cfg):
+    """K2 launches of one model call (a decode step or a prefill) of rwkv's
+    int8 instance: each layer's five time-mix linears (wr, wk, wv, wg, wo)
+    and three channel-mix ones (wk, wv, wr), and the unembed; the decay
+    LoRA (wa1, wa2) is never compressed and stays a plain matmul."""
+    return 8 * cfg.n_layers + 1
+
+
+def rwkv_main_path(gen, cfg=None, device="cuda"):
+    """Full-width rwkv6-3b (32 layers, d_model 2560, 40 heads of 64, d_ff
+    8960, vocab 65536; random bf16 weights from ``gen``) compressed with
+    ``w8-absmax`` and served by ``Engine(slots=8, max_len=1024)`` on the
+    main path's rows with their shared template, then the bf16 base the
+    same way.  ``auto`` lands on the contiguous layout (no paged KV for an
+    attention-free model): one batched prefill per admission with
+    ``lengths``, every row seeded from the template's recurrent state, one
+    batched decode step over the slots.  The counts are zeroed just before
+    the int8 run and read just after: per decode step 257 K2 launches on
+    ``decode``, per prefill 257 on ``mma``, K1, K3 and K4 never; the base
+    run launches nothing.  ``cfg`` and ``device`` let it run at reduced
+    widths on the CPU, where no kernel launches."""
+    from repro_torch.configs import rwkv6_3b
+    from repro_torch.core.compressed import QTensor, param_bytes
+    from repro_torch.core.pipeline import InstanceOptimizer, Recipe
+    from repro_torch.kernels import ops
+    from repro_torch.models import api
+    from repro_torch.serving.scheduler import slot_state_bytes
+    from repro_torch.tree import leaves
+
+    cfg = cfg or rwkv6_3b.CONFIG
+    on_card = device == "cuda"
+    t0 = time.time()
+    base = api.init_params(gen, cfg)
+    sync()
+    init_s = time.time() - t0
+    t0 = time.time()
+    int8, _, report = InstanceOptimizer(base, cfg).apply(
+        Recipe(name="w8-absmax", wbits=8, quant_method="absmax"))
+    sync()
+    quant_s = time.time() - t0
+    tm = int8["blocks"][0]["tm"]
+    check(isinstance(tm["wr"], QTensor) and tm["wr"].q.shape[0] == cfg.n_layers
+          and not isinstance(tm["wa1"], QTensor) and tm["w0"].dtype == torch.float32,
+          "the int8 instance's layer stack")
+    n_params = sum(t.numel() for t in leaves(base))
+    if cfg == rwkv6_3b.CONFIG:
+        check(n_params == 3_073_395_200 and (cfg.n_layers, cfg.d_model) == (32, 2560),
+              ("full-width rwkv6-3b", n_params))
+    k2 = rwkv_per_call(cfg)
+
+    def run(params, version):
+        with PrefixProbe() as pp:
+            eng, reqs = serve(params, cfg, version, device=device)
+        check(eng.stats.truncated == 0 and not eng._paged,
+              ("the contiguous layout, no prompt clipped", eng.stats))
+        held = sum(t.numel() * t.element_size() for t in eng._slot_state["blocks"][0].values())
+        check(held == eng.slots * slot_state_bytes(cfg, eng.max_len), ("slot state bytes", held))
+        return eng, reqs, pp.prefixes
+
+    reset_peak()
+    ops.reset_launch_counts()
+    eng8, reqs8, prefixes8 = run(int8, "w8-absmax")
+    launches = dict(ops.launch_count)
+    variants = {k: n for k, n in ops.variant_count.items() if n}
+    st8 = eng8.stats
+    if on_card:
+        check(launches == {"quant_matmul": k2 * (st8.decode_steps + st8.prefills),
+                           "paged_attention": 0, "block_sparse_matmul": 0,
+                           "flash_attention": 0},
+              ("rwkv int8 run launches", launches, st8.decode_steps, st8.prefills))
+        check(variants == {"quant_matmul.decode": k2 * st8.decode_steps,
+                           "quant_matmul.mma": k2 * st8.prefills},
+              ("rwkv int8 run designs", variants))
+    peak = card_memory()[1]
+    ops.reset_launch_counts()
+    eng16, reqs16, prefixes16 = run(base, "base")
+    base_launches = dict(ops.launch_count)
+    check(not any(base_launches.values()), ("rwkv base run launches", base_launches))
+    agree, rows_same = _agreement(reqs16, reqs8)
+    line = {"phase": "rwkv_main_path", "model": cfg.name, "layers": cfg.n_layers,
+            "d_model": cfg.d_model, "params": n_params, "layout": "contiguous",
+            "slot_state_bytes": slot_state_bytes(cfg, 1024),
+            "rows": len(REVIEWS), "max_new": 32, "init_s": init_s, "quantize_s": quant_s,
+            "param_bytes_base": param_bytes(base), "param_bytes_int8": param_bytes(int8),
+            "compression": report.compression,
+            "int8": {**_serve_stats(eng8, prefixes8), "launches": launches,
+                     "variants": variants},
+            "base": {**_serve_stats(eng16, prefixes16), "launches": base_launches},
+            "launches_per_call": {"quant_matmul": k2},
+            "max_memory_allocated_int8_run": peak, "max_memory_allocated": card_memory()[1],
+            "greedy_token_agreement_base_vs_int8": agree,
+            "rows_identical_base_vs_int8": rows_same}
+    emit(line)
+    for name in ("int8", "base"):
+        print(f"rwkv6 {name}: {line[name]['rows_per_s']:.3f} rows/s, "
+              f"{line[name]['tokens_per_s']:.1f} tokens/s, {line[name]['decode_steps']} steps, "
+              f"{line[name]['prefills']} prefills, template prefix "
+              f"{line[name]['template_prefixes']}", flush=True)
+    print(f"rwkv6 params {n_params}, param_bytes base {line['param_bytes_base']}, int8 "
+          f"{line['param_bytes_int8']}; quantize {quant_s:.1f} s; slot state "
+          f"{line['slot_state_bytes']} B; max_memory_allocated {line['max_memory_allocated']}",
+          flush=True)
+    del eng16
+    return line, launches, base, int8, eng8
+
+
+def _rwkv_state_copy(state, dtype=None):
+    """A copy of an rwkv slot state; ``dtype`` casts the token-shift
+    carries (the WKV states ``S`` stay f32, as the model keeps them)."""
+    return {"blocks": [{n: t.to(torch.float32 if n == "S" or dtype is None else dtype,
+                                copy=True)
+                        for n, t in state["blocks"][0].items()}], "tail": []}
+
+
+def rwkv_whole_step(gen, params, eng, trials: int = 3, layers: int = 4):
+    """One contiguous decode step of the int8 rwkv6-3b instance under the
+    cuda and the reference backends on copies of the same slot state (the
+    served rows' states).  bf16 at all 32 layers, held to STEP_BF16_RATIO
+    against the f32 plain step; f32 at rwkv6-3b's widths cut to
+    ``layers`` layers (fresh weights from ``gen``, ``w8-absmax``, random
+    states) within STEP_TOL_F32.  The cuda sides launch K2 once a linear
+    (``decode`` in bf16, ``fma`` in f32), the reference sides nothing."""
+    from repro_torch.core.compressed import kernel_backend
+    from repro_torch.core.pipeline import InstanceOptimizer, Recipe
+    from repro_torch.kernels import ops
+    from repro_torch.models import api
+    cfg, S = eng.cfg, eng.slots
+    pos = torch.full((S,), 100, device="cuda")
+    rms = lambda a, b: ((a - b).norm() / b.norm()).item()  # noqa: E731
+
+    def step(p, c, state, toks, backend, dtype):
+        st = _rwkv_state_copy(state, dtype)
+        before, vbefore = dict(ops.launch_count), dict(ops.variant_count)
+        with kernel_backend(backend), torch.no_grad():
+            lg, _ = api.decode_step(p, c, st, toks, pos, max_len=eng.max_len)
+        torch.cuda.synchronize()
+        launched = {k: n - before[k] for k, n in ops.launch_count.items() if n - before[k]}
+        k2 = rwkv_per_call(c)
+        v = "fma" if dtype == torch.float32 else "decode"
+        check(launched == ({} if backend == "reference" else {"quant_matmul": k2}),
+              ("rwkv step launches", dtype, backend, launched))
+        check(variant_delta(vbefore) == ({} if backend == "reference" else
+                                         {f"quant_matmul.{v}": k2}),
+              ("rwkv step designs", dtype, backend, variant_delta(vbefore)))
+        check(bool(torch.isfinite(lg).all()) and lg.shape == (S, 1, c.vocab_size),
+              ("rwkv decode-step logits", dtype, backend, lg.shape))
+        return lg.float()
+
+    p32 = _f32(params)
+    c32cfg = cfg.replace(param_dtype="float32")
+    bf16_trials = []
+    for _ in range(trials):
+        toks = torch.randint(4, 260, (S, 1), generator=gen, device="cuda")
+        c16 = step(params, cfg, eng._slot_state, toks, "cuda", torch.bfloat16)
+        r16 = step(params, cfg, eng._slot_state, toks, "reference", torch.bfloat16)
+        r32 = step(p32, c32cfg, eng._slot_state, toks, "reference", torch.float32)
+        bf16_trials.append({
+            "bf16_rms_rel_err": rms(c16, r16), "bf16_cuda_vs_f32": rms(c16, r32),
+            "bf16_plain_vs_f32": rms(r16, r32),
+            "greedy_agreement_bf16":
+                (c16[:, -1].argmax(-1) == r16[:, -1].argmax(-1)).float().mean().item()})
+    del p32
+    torch.cuda.empty_cache()
+
+    cfg_f = cfg.replace(n_layers=layers, param_dtype="float32")
+    base_f = api.init_params(gen, cfg_f)
+    p_f, _, _ = InstanceOptimizer(base_f, cfg_f).apply(
+        Recipe(name="w8-absmax", wbits=8, quant_method="absmax"))
+    del base_f
+    state = api.init_cache(cfg_f, S, eng.max_len, device="cuda")
+    for t in state["blocks"][0].values():
+        t.copy_(torch.randn(t.shape, generator=gen, device="cuda"))
+    f32_trials = []
+    for _ in range(trials):
+        toks = torch.randint(4, 260, (S, 1), generator=gen, device="cuda")
+        c32 = step(p_f, cfg_f, state, toks, "cuda", torch.float32)
+        r32 = step(p_f, cfg_f, state, toks, "reference", torch.float32)
+        f32_trials.append({"f32_rms_rel_err": rms(c32, r32),
+                           "f32_max_abs_err": errors(c32, r32)[0],
+                           "greedy_agreement_f32":
+                               (c32[:, -1].argmax(-1) == r32[:, -1].argmax(-1)).float()
+                               .mean().item()})
+    del p_f, state
+    cuda_err = sum(r["bf16_cuda_vs_f32"] for r in bf16_trials)
+    plain_err = sum(r["bf16_plain_vs_f32"] for r in bf16_trials)
+    line = {"phase": "rwkv_whole_step", "model": cfg.name, "bf16_layers": cfg.n_layers,
+            "f32_layers": layers, "bf16_trials": bf16_trials, "f32_trials": f32_trials,
+            "tolerance_f32_rms_rel": STEP_TOL_F32, "bf16_ratio_bound": STEP_BF16_RATIO,
+            "bf16_ratio": cuda_err / plain_err,
+            "launches_per_step": {"quant_matmul": rwkv_per_call(cfg)}}
+    emit(line)
+    print(f"rwkv_whole_step: bf16 ratio {line['bf16_ratio']:.3f}; f32 ({layers} layers) RMS "
+          f"error up to {max(r['f32_rms_rel_err'] for r in f32_trials):.2e}", flush=True)
+    check(all(r["f32_rms_rel_err"] < STEP_TOL_F32 for r in f32_trials), line)
+    check(cuda_err <= STEP_BF16_RATIO * plain_err, line)
+    return line
+
+
+def rwkv_session(base, cfg, device="cuda", n_rows: int = 64):
+    """An ``IOLMSession`` over the full-width rwkv6-3b base runs Q2
+    (``llm_correct``) and Q1 (``llm_map``) over ``n_rows`` rows through
+    ``Query.run`` (``_family_session``): each operator calibrates on its
+    rows (no Hessian: neither recipe reads one), builds and evaluates
+    ``w8-absmax`` and an absmax copy of the grid's ``w8-ffn75``
+    (``w8a-ffn75``: d_ff 6720, its ``cm.wv`` in groups of 120, so K2's
+    ``fma`` design in bf16; the grid has no ``w8-kv50`` for rwkv), and
+    serves the pick through the contiguous ``Engine`` (K2 on every
+    linear, no K1)."""
+    _, recipes = session_recipes(cfg)
+    check([r.name for r in recipes] == ["w8-absmax", "w8a-ffn75"], recipes)
+    k2 = rwkv_per_call(cfg)
+    pruned = int(round(0.75 * cfg.d_ff)) // 8 * 8
+    calibrated = []
+
+    def on_outcome(optimizer, out):
+        st = optimizer.stats
+        check(all(w.H is None for w in st.weights.values()), "a Hessian was calibrated")
+        calibrated.append({"tokens": st.n_tokens, "weights": len(st.weights),
+                           "configs": [(c.recipe.name, c.cfg.d_ff, c.cfg.n_layers)
+                                       for c in out.candidates]})
+        check(st.weights[f"blocks.0.{cfg.n_layers - 1}.cm.wv"].count == st.n_tokens,
+              ("channel-mix rows", calibrated[-1]))
+        check([(c.cfg.d_ff, c.cfg.n_layers) for c in out.candidates]
+              == [(cfg.d_ff, cfg.n_layers), (pruned, cfg.n_layers)],
+              ("pruned candidates", calibrated[-1]))
+
+    def served_gate(name, search, served, n_steps, calls):
+        # the pruned candidate's evaluation: 32 launches of each call
+        # (cm.wv, groups of 120) on fma, the other 225 on decode/mma
+        ffn = search["candidates"][1]["variants"]
+        fma = ffn.get("quant_matmul.fma", 0)
+        check(fma > 0 and fma * (k2 - cfg.n_layers) == cfg.n_layers * (
+            ffn.get("quant_matmul.decode", 0) + ffn.get("quant_matmul.mma", 0)),
+            (name, "w8a-ffn75 designs", ffn))
+        fma_calls = cfg.n_layers * calls if search["picked"] == "w8a-ffn75" else 0
+        check(sum(n for k, n in served.items() if k.startswith("quant_matmul."))
+              == k2 * calls and served.get("quant_matmul.fma", 0) == fma_calls
+              and set(served) <= {"quant_matmul.decode", "quant_matmul.mma",
+                                  "quant_matmul.fma"},
+              (name, "served launches", served, n_steps, calls))
+
+    line, launches = _family_session("rwkv_session", "rwkv6", base, cfg, recipes, on_outcome,
+                                     served_gate, device, n_rows)
+    line["calibrated"] = calibrated
+    emit(line)
+    if device == "cuda":
+        check(launches["quant_matmul"] > 0 and not (launches["paged_attention"]
+                                                    or launches["flash_attention"]
+                                                    or launches["block_sparse_matmul"]),
+              ("rwkv session launches", launches))
+    return line, launches
+
+
+def check_quant_matmul_rwkv(main_shapes, session_shapes, d_model=2560, d_ff=8960):
+    """K2 against its plain version at every shape that ``rwkv_main_path``
+    (its int8 run) and ``rwkv_session`` gave it (``_hold_seen``, from a
+    generator of its own, RWKV_KERNEL_SEED): the main path's ``decode`` and
+    ``mma``, and the session's pruned channel-mix ``cm.wv`` (``d_ff`` * 3/4
+    -> ``d_model`` in groups of 120) on ``fma``.  Then times that pruned
+    ``cm.wv`` and the unpruned one (groups of 128) at decode M = 8 and
+    prefill M = 512 against ``torch.matmul`` and their bound."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(RWKV_KERNEL_SEED)
+    pruned = int(round(0.75 * d_ff)) // 8 * 8
+    check({s[6] for s in main_shapes} == {"decode", "mma"},
+          ("K2 designs of the rwkv main path", sorted(set(main_shapes))))
+    g120 = {s for s in session_shapes if s[1:3] == (pruned, d_model) and s[4] == 120}
+    check(g120 and {s[6] for s in g120} == {"fma"},
+          ("the pruned cm.wv in groups of 120 on fma", sorted(g120)))
+    results, worst_abs = _hold_seen(gen, main_shapes, session_shapes, "rwkv")
+    timed = {f"{name}_M{M}": _time_dense(gen, M, K, d_model, group)
+             for name, K, group in (("cm_wv_ffn75_g120", pruned, 120), ("cm_wv_g128", d_ff, 128))
+             for M in (8, 512)}
+    line = {"phase": "kernel_quant_matmul_rwkv", "cases": results,
+            "max_rel_err": max(r["rel_err"] for r in results), "max_abs_err": worst_abs,
+            "M_main_path": sorted({s[0] for s in main_shapes}),
+            "M_session": sorted({s[0] for s in session_shapes}),
+            "g120_shapes": sorted(g120), "timed": timed,
+            "library_note": "torch.matmul on the dequantized bf16 weight"}
+    emit({**line, "cases": len(results)})   # each case in chip_smoke.json
+    print(f"K2 at {len(results)} shapes of the rwkv path ({len(g120)} at group 120): max rel "
+          f"err {line['max_rel_err']:.3g}; " + "; ".join(
+              f"{k}: {t['variant']} {t['ms']:.4f} ms (bound {t['bound_ms']:.4f}, plain "
+              f"{t['plain_ms']:.4f}, matmul {t['library_ms']:.4f})" for k, t in timed.items()),
+          flush=True)
     return line
 
 
@@ -4242,6 +4608,33 @@ def main() -> int:
     hy_parity_line = timed("hybrid_f32_parity", olap_f32_parity, hgen, hy_cfg, 15,
                            name="hybrid_f32_parity")
 
+    # the rwkv phases: full-width rwkv6-3b on the contiguous layout, from
+    # generators of their own
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"rwkv phases: memory_allocated {torch.cuda.memory_allocated()}", flush=True)
+    rgen = torch.Generator(device="cuda")
+    rgen.manual_seed(RWKV_SEED)
+    with QuantShapeProbe() as rw_shapes:
+        rw_line, rw_launches, rw_base, rw_int8, rw_eng = timed("rwkv_main_path",
+                                                                rwkv_main_path, rgen)
+    rw_cfg = rw_eng.cfg
+    rw_step_line = timed("rwkv_whole_step", rwkv_whole_step, rgen, rw_int8, rw_eng)
+    rw_prof_line = timed("rwkv_decode_profile", profile_step, rgen, rw_int8, rw_eng,
+                         name="rwkv_decode_profile")
+    del rw_int8, rw_eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    with QuantShapeProbe() as rw_sess_shapes:
+        rw_sess_line, rw_sess_launches = timed("rwkv_session", rwkv_session, rw_base, rw_cfg)
+    del rw_base
+    gc.collect()
+    torch.cuda.empty_cache()
+    kq_rwkv = timed("kernel_quant_matmul_rwkv", check_quant_matmul_rwkv, rw_shapes.shapes,
+                    rw_sess_shapes.shapes)
+    rw_parity_line = timed("rwkv_f32_parity", olap_f32_parity, rgen, rw_cfg, 4,
+                           name="rwkv_f32_parity")
+
     kernels = []
     for line, runs, variants, source, replaces in (
             (k1, launches, int8_variants, "src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -4300,6 +4693,13 @@ def main() -> int:
         else:
             check(hy_launches[name] == hy_sess_launches[name] == hy_long_launches[name] == 0,
                   ("off the hybrid path", name))
+        # the rwkv path (rwkv_main_path's int8 run, the session): K2 only
+        kernels[-1]["launches_rwkv"] = rw_launches[name]
+        kernels[-1]["launches_rwkv_session"] = rw_sess_launches[name]
+        if name == "quant_matmul":
+            check(rw_launches[name] > 0 and rw_sess_launches[name] > 0, ("the rwkv path", name))
+        else:
+            check(rw_launches[name] == rw_sess_launches[name] == 0, ("off the rwkv path", name))
         d112 = {"paged_attention": k1h, "flash_attention": k3h}.get(name)
         if d112 is not None:
             kernels[-1]["d112"] = {k: d112[k] for k in (
@@ -4322,6 +4722,13 @@ def main() -> int:
                                      "max_abs_err_seen": kq_seen["max_abs_err"],
                                      "decode": kq_seen["decode"],
                                      "prefill": kq_seen["prefill"]}
+            # every shape of the rwkv path, and its channel-mix cm.wv timed
+            # (pruned by ffn75 to groups of 120, on fma; unpruned, groups of 128)
+            kernels[-1]["rwkv"] = {"cases_seen": len(kq_rwkv["cases"]),
+                                   "max_rel_err_seen": kq_rwkv["max_rel_err"],
+                                   "max_abs_err_seen": kq_rwkv["max_abs_err"],
+                                   "g120_shapes_seen": len(kq_rwkv["g120_shapes"]),
+                                   **kq_rwkv["timed"]}
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "sass": sass, "ptxas": ptxas, "kernels": kernels,
@@ -4350,6 +4757,9 @@ def main() -> int:
                    "hybrid_decode_profile": hy_prof_line, "hybrid_long_prefill": hy_long_line,
                    "hybrid_session": hy_sess_line, "hybrid_f32_parity": hy_parity_line,
                    "quant_matmul_seen": kq_seen,
+                   "rwkv_main_path": rw_line, "rwkv_whole_step": rw_step_line,
+                   "rwkv_decode_profile": rw_prof_line, "rwkv_session": rw_sess_line,
+                   "quant_matmul_rwkv": kq_rwkv, "rwkv_f32_parity": rw_parity_line,
                    "phase_seconds": seconds, "phase_memory": memory,
                    "seconds": time.time() - t_start}, f, indent=1)
     emit({"kernels": kernels})

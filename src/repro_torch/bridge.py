@@ -14,7 +14,10 @@ expert axis: the f32 router [R, d, E], bf16 expert stacks [R, E, d, f]
 and expert-stacked quantized weights (``q`` [R, E, K, N], ``scale``
 [R, E, K/g, N], ``in_scale`` [R, E, K]) cross as any other leaf, as do
 the hybrid's Mamba groups ([G, K, ...] leaves, quantized ones too) and
-its ``mamba_tail``, ``None`` when the config has no tail layer.
+its ``mamba_tail``, ``None`` when the config has no tail layer, and
+rwkv's one layer stack (``blocks`` [32, ...] at full width: its f32
+``tm.w0`` and ``tm.u`` stay f32, its quantized ``q`` [32, K, N] as they
+are).
 """
 from __future__ import annotations
 

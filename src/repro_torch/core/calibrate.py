@@ -24,7 +24,9 @@ as the reference's does), routing statistics in float64.
 
 Weights are keyed by their path in the param tree (e.g.
 ``blocks.0.3.attn.wq``; the hybrid's ``mamba_groups.g.k.in_proj``,
-``shared.attn.wq`` and ``mamba_tail.i.out_proj``).  The interception happens inside
+``shared.attn.wq`` and ``mamba_tail.i.out_proj``; rwkv's
+``blocks.0.r.tm.wr`` and ``blocks.0.r.cm.wv``, the decay LoRA's
+``tm.wa1``/``tm.wa2`` included).  The interception happens inside
 ``repro_torch.core.compressed.matmul`` through ``set_record_hook``, so
 no model code knows about calibration.  Weights are recognised by object
 identity: a slice ``t[r]`` of a stacked tensor is a new object on every
@@ -33,9 +35,9 @@ call, so the calibration loop registers the very per-layer slices it hands to
 positions of the sample are recorded too, as in the reference.
 
 Also here: ``fit_confidence_threshold``, which fits a proxy -> base
-cascade's acceptance threshold on a held-out probe.  The dense, MoE and
-hybrid families are calibrated; the other families wait for their
-ROADMAP items.
+cascade's acceptance threshold on a held-out probe.  The dense, MoE,
+hybrid and rwkv families are calibrated; vlm and encdec wait for their
+ROADMAP item.
 """
 from __future__ import annotations
 
@@ -268,14 +270,15 @@ def calibrate(params, cfg, batch: Dict[str, Any], *, hessian: bool = True,
     """Run the model on ``batch`` ({"tokens": [B, S]}) and gather
     calibration statistics, the untied output head's included unless
     ``include_head`` is False."""
-    if cfg.family not in ("dense", "moe", "hybrid"):
+    by_family = {"dense": _calib_transformer, "moe": _calib_transformer,
+                 "hybrid": _calib_hybrid, "rwkv": _calib_rwkv}
+    if cfg.family not in by_family:
         raise NotImplementedError(
             f"calibration of family {cfg.family!r} is not ported yet "
             "(ROADMAP queue 1 item 9)")
     rec = Recorder(hessian=hessian)
     with torch.no_grad():
-        (_calib_hybrid if cfg.family == "hybrid" else _calib_transformer)(
-            rec, params, cfg, batch, include_head)
+        by_family[cfg.family](rec, params, cfg, batch, include_head)
     return rec.finish()
 
 
@@ -348,4 +351,25 @@ def _calib_hybrid(rec, params, cfg, batch, include_head):
             x = x2
         for i in range(tail):
             x = mamba(TF.layer_slice(params["mamba_tail"], i), f"mamba_tail.{i}", x)
+        _head(rec, params, cfg, x, include_head)
+
+
+def _calib_rwkv(rec, params, cfg, batch, include_head):
+    """The layers of the stack in order, from zero states over the whole
+    sample (padding included, as in the reference)."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import rwkv as RW
+    from repro_torch.models import transformer as TF
+    tokens = torch.as_tensor(batch["tokens"], device=params["embed"].device)
+    x = L.embed(params, cfg, tokens)
+    B, S, _ = x.shape
+    rec.n_tokens = B * S
+    with rec.active():
+        for r in range(RW.depth(params)):
+            bp = TF.layer_slice(params["blocks"][0], r)
+            path = f"blocks.0.{r}"
+            rec.register(path, bp)
+            x2, _ = RW.block_apply(bp, x, cfg)
+            rec.record_block(path, x, x2)
+            x = x2
         _head(rec, params, cfg, x, include_head)

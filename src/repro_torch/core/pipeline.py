@@ -26,8 +26,14 @@ compressed one expert matrix at a time, each with its own statistics
 layers: ``q`` [R, E, K, N], ``scale`` [R, E, K/g, N], ``in_scale``
 [R, E, K].  The hybrid's Mamba groups are stacked back over both of
 their axes, ``q`` [G, K, d_in, d_out], as in the reference, and the
-shared block is compressed once for all of its sites.  :func:`needs_hessian` says which recipes read a Hessian, so
-that a search over none of them calibrates without one.
+shared block is compressed once for all of its sites.  rwkv's one
+layer stack compresses as the dense ``blocks`` do (its stats keys
+``blocks.0.r.tm.wr``); its decay LoRA ``tm.wa1``/``tm.wa2``, mixes, decay
+and bonus vectors and groupnorm ``tm.gn`` are not in ``_COMPRESS_NAMES``
+and stay plain, and ``kv_keep_frac`` leaves it as it is (no attention:
+``prune_kv_groups`` returns it unchanged).
+:func:`needs_hessian` says which recipes read a Hessian, so that a search
+over none of them calibrates without one.
 """
 from __future__ import annotations
 
@@ -114,8 +120,8 @@ def _is_target(path: str, leaf) -> bool:
 
 def _stack_depth(cfg, path: str) -> int:
     """Leading stacked-layer axes of a param subtree: ``blocks`` (dense,
-    MoE) and the hybrid's ``mamba_tail`` one, its ``mamba_groups`` two
-    ([G, K, ...])."""
+    MoE, rwkv) and the hybrid's ``mamba_tail`` one, its ``mamba_groups``
+    two ([G, K, ...])."""
     if cfg.family == "hybrid":
         return {"mamba_groups": 2, "mamba_tail": 1}.get(path.split(".")[0], 0)
     return 1 if path.startswith("blocks.") else 0
@@ -223,7 +229,7 @@ class InstanceOptimizer:
 
     def apply(self, recipe: Recipe):
         _unported(recipe)
-        if self.cfg.family not in ("dense", "moe", "hybrid"):
+        if self.cfg.family not in ("dense", "moe", "hybrid", "rwkv"):
             raise NotImplementedError(
                 f"family {self.cfg.family!r} is not ported yet (ROADMAP queue 1 item 9)")
         t0 = time.time()

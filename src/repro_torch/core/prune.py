@@ -23,7 +23,10 @@ residual MLPs as dense ones), and expert pruning keeps the experts that
 this query's calibration rows routed to most.  The hybrid's KV-group
 and FFN pruning change its one shared block, so all of its sites at
 once (its Mamba inner channels are left alone, as in the reference), and
-its layer dropping removes whole Mamba groups.  Expert pruning leaves the
+its layer dropping removes whole Mamba groups.  rwkv has no attention:
+KV-group pruning returns it unchanged; FFN pruning keeps channel-mix
+channels (``cm.wv`` rows and ``cm.wk`` columns) and layer dropping takes
+single layers of its one stack.  Expert pruning leaves the
 router's statistics of the optimizer it came from as they were: the
 reference slices them in place (ROADMAP queue 3), so a second
 expert-pruned recipe of the same optimizer there ranks the wrong experts.
@@ -37,11 +40,11 @@ import torch
 
 from repro_torch.core.calibrate import CalibStats, WeightStats
 
-_FAMILIES = "rwkv, vlm and encdec: ROADMAP queue 1 item 9"
+_FAMILIES = "vlm and encdec: ROADMAP queue 1 item 9"
 
 
 def _ported(cfg, what: str) -> None:
-    if cfg.family not in ("dense", "moe", "hybrid"):
+    if cfg.family not in ("dense", "moe", "hybrid", "rwkv"):
         raise NotImplementedError(
             f"{what} of family {cfg.family!r} is not ported yet ({_FAMILIES})")
 
@@ -100,8 +103,11 @@ def _units(cfg):
 # ---------------------------------------------------------------------------
 
 def prune_kv_groups(params, cfg, stats: CalibStats, keep: int):
-    """Keep the ``keep`` most important KV groups in every attention block."""
+    """Keep the ``keep`` most important KV groups in every attention block.
+    rwkv, which has none, is returned unchanged."""
     _ported(cfg, "KV-group pruning")
+    if cfg.family == "rwkv":
+        return params, cfg, stats
     K, G = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
     hd = cfg.resolved_head_dim
     if not 1 <= keep <= K:
@@ -240,6 +246,8 @@ def prune_ffn(params, cfg, stats: CalibStats, keep_frac: float):
         params["shared"]["mlp"] = prune_mlp(params["shared"]["mlp"], ["shared.mlp"])
         new_cfg = cfg.replace(d_ff=params["shared"]["mlp"]["wo"].shape[-2])
         return params, new_cfg, CalibStats(new_stats, stats.block_sim, stats.n_tokens)
+    if cfg.family == "rwkv":
+        return _prune_channel_mix(params, cfg, stats, new_stats, keep_frac)
 
     unit, R, tail = _units(cfg)
     params["blocks"] = list(params["blocks"])
@@ -267,6 +275,30 @@ def prune_ffn(params, cfg, stats: CalibStats, keep_frac: float):
         params["tail"][i], _ = prune_block(params["tail"][i], [f"tail.{i}"])
     new_cfg = cfg.replace(**widths)
     return params, new_cfg, CalibStats(new_stats, stats.block_sim, stats.n_tokens)
+
+
+def _prune_channel_mix(params, cfg, stats: CalibStats, new_stats, keep_frac: float):
+    """rwkv's FFN pruning: each layer keeps its ``keep_frac`` most important
+    channel-mix channels (rows of ``cm.wv``, columns of ``cm.wk``), ranked
+    by ``cm.wv``'s statistics, which are sliced to them."""
+    stack = dict(params["blocks"][0])
+    cm = dict(stack["cm"])
+    R, ff = cm["wv"].shape[0], cm["wv"].shape[-2]
+    keep_ff = max(8, int(round(keep_frac * ff)) // 8 * 8)
+    idx = torch.zeros((R, keep_ff), dtype=torch.long, device=cm["wv"].device)
+    for r in range(R):
+        idx[r] = _top(_channel_importance(stats.get(f"blocks.0.{r}.cm.wv"), cm["wv"][r]),
+                      keep_ff)
+    cm["wv"] = _take_stacked(cm["wv"], idx, 0)
+    cm["wk"] = _take_stacked(cm["wk"], idx, 1)
+    for r in range(R):
+        key = f"blocks.0.{r}.cm.wv"
+        if key in new_stats:
+            new_stats[key] = _slice_stats(new_stats[key], idx[r])
+    stack["cm"] = cm
+    params["blocks"] = [stack]
+    return (params, cfg.replace(d_ff=keep_ff),
+            CalibStats(new_stats, stats.block_sim, stats.n_tokens))
 
 
 # ---------------------------------------------------------------------------
@@ -317,7 +349,7 @@ def _drop_groups(params, cfg, stats: CalibStats, n_drop: int):
 
 def drop_layers(params, cfg, stats: CalibStats, n_drop_units: int):
     """Drop the ``n_drop_units`` most redundant pattern-unit repeats (the
-    hybrid: Mamba groups).
+    hybrid: Mamba groups; rwkv: layers).
 
     Redundancy score = 1 - cos(block input, block output) averaged over
     the unit, from calibration.  Order of the surviving layers is kept.

@@ -1,21 +1,28 @@
 """Family dispatch: the entry points the serving engine and tests call.
 
-The dense and MoE families (both on ``models/transformer.py``) and the
+The dense and MoE families (both on ``models/transformer.py``), the
 hybrid (``models/hybrid.py``: Mamba2 layers and one shared attention
-block) are ported; every other family raises ``NotImplementedError``
-naming its ROADMAP item.
+block) and rwkv (``models/rwkv.py``: attention-free, served on the
+contiguous layout only) are ported; vlm and encdec raise
+``NotImplementedError`` naming their ROADMAP item, and so does training
+of the hybrid and rwkv families.
 """
 from __future__ import annotations
 
 from typing import Any, Dict
 
-from repro_torch.models import hybrid, transformer
+from repro_torch.models import hybrid, rwkv, transformer
 from repro_torch.tree import value_and_grad
+
+
+_RECURRENT = ("hybrid", "rwkv")       # families whose prefill takes ``lengths``
 
 
 def family_module(cfg):
     if cfg.family == "hybrid":
         return hybrid
+    if cfg.family == "rwkv":
+        return rwkv
     if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP queue 1 item 9)")
@@ -38,9 +45,9 @@ def forward(params, cfg, batch: Dict[str, Any], *, train: bool = False,
 def loss_fn(params, cfg, batch, *, xent_chunk: int = 0, remat: bool = True,
             aux_weight: float = 0.01):
     """Causal LM loss of ``batch`` {"tokens", "labels"} (scalar f32)."""
-    if cfg.family == "hybrid":
-        raise NotImplementedError(
-            "training of the hybrid family is not ported yet (ROADMAP queue 1 item 9)")
+    if cfg.family in _RECURRENT:
+        raise NotImplementedError(f"training of the {cfg.family} family is not ported "
+                                  "yet (ROADMAP queue 1 item 9)")
     return family_module(cfg).loss_fn(params, cfg, batch["tokens"], batch["labels"],
                                       img_embs=batch.get("img_embs"),
                                       xent_chunk=xent_chunk, remat=remat,
@@ -56,14 +63,15 @@ def prefill(params, cfg, batch, *, max_len: int, compact_local: bool = False,
     the whole batch; the engine passes a row's, for per-row dispatch)."""
     kw: Dict[str, Any] = dict(max_len=max_len, compact_local=compact_local,
                               use_flash=use_flash, cap_tokens=cap_tokens)
-    if cfg.family == "hybrid":
+    if cfg.family in _RECURRENT:
         kw["lengths"] = lengths
     return family_module(cfg).prefill(params, cfg, batch["tokens"], **kw)
 
 
 def init_cache(cfg, batch: int, max_len: int, *, compact_local: bool = False,
                device="cuda"):
-    """Contiguous cache at absolute slots (``compact_local=True`` raises)."""
+    """Contiguous cache at absolute slots (``compact_local=True`` raises,
+    but for rwkv, whose O(1) state has no positions to compact)."""
     return family_module(cfg).init_cache(cfg, batch, max_len,
                                          compact_local=compact_local, device=device)
 
@@ -88,7 +96,8 @@ def insert_rows(cfg, state, rows, slot_idxs):
 
 def supports_paged(cfg) -> bool:
     """Whether the family serves from a paged (block pool + block table)
-    KV layout; the others take the contiguous one."""
+    KV layout; the others (rwkv: no positional KV) take the contiguous
+    one."""
     return cfg.family in ("dense", "moe", "hybrid")
 
 
@@ -133,7 +142,9 @@ def paged_seed(cfg, state, entry_state, write_ids, *, block_size: int):
 # ---------------------------------------------------------------------------
 
 def supports_prefix(cfg) -> bool:
-    return cfg.family in ("dense", "moe", "hybrid")
+    """Whether the family can seed per-row state from a shared prefilled
+    prompt prefix."""
+    return cfg.family in ("dense", "moe", "hybrid", "rwkv")
 
 
 def prefill_from(params, cfg, prefix_cache_entry, suffix_tokens, prefix_len,
@@ -141,10 +152,10 @@ def prefill_from(params, cfg, prefix_cache_entry, suffix_tokens, prefix_len,
     """Continue a prefill from a stored prefix state (batch 1, broadcast to
     every row, or one per row); returns (suffix logits [B,S,V],
     fully-populated batch-B cache).  ``lengths`` [B] are the suffixes'
-    real token counts (the hybrid's recurrent states need them);
+    real token counts (the recurrent families' states need them);
     ``cap_tokens`` as in ``prefill``."""
     kw: Dict[str, Any] = dict(max_len=max_len, cap_tokens=cap_tokens)
-    if cfg.family == "hybrid":
+    if cfg.family in _RECURRENT:
         kw["lengths"] = lengths
     return family_module(cfg).prefill_from(params, cfg, prefix_cache_entry,
                                            suffix_tokens, prefix_len, **kw)

@@ -84,7 +84,8 @@ class PrefixEntry:
     """One prefilled template prefix: the family cache pytree (batch=1,
     full ``max_len`` slots for attention families; the hybrid's adds the
     recurrent states at the end of the prefix, which ``prefill_from``
-    resumes) plus the prefix token count."""
+    resumes; rwkv's is those states alone, the size of one decode slot's
+    whatever the prefix's length) plus the prefix token count."""
     state: Any
     prefix_len: int
     hits: int = 0            # rows seeded from this entry

@@ -37,14 +37,17 @@ Admission prefill is one batched call over ``[n, bucket]`` where the
 reference vmaps single rows.  Causal masking keeps right-padding out of
 every real position, and each row's real length (``lengths``) keeps it
 out of a recurrent family's carried state, so the rows agree; a
-prefix-cache entry of the hybrid carries the recurrent states at the end
-of the prefix, which ``prefill_from`` resumes.  An MoE model's capacity is
+prefix-cache entry of the hybrid or of rwkv carries the recurrent states
+at the end of the prefix, which ``prefill_from`` resumes for every row
+of the admission.  An MoE model's capacity is
 decided per row (``cap_tokens`` = the bucket), as in the reference's
 single-row prefill, so rows that together pass the 4096-token dropless
 limit are still dispatched without drops when each row is under it.
 Decode is batched over slots in both packages (its MoE dispatch sees one
-token a slot).  The dense, MoE and hybrid families are ported;
-``mesh=`` and the other families are not and raise.  The engine updates
+token a slot).  The dense, MoE, hybrid and rwkv families are ported
+(rwkv, which has no paged layout, always serves on the contiguous one:
+its slot state is O(1) in the sequence); ``mesh=``, vlm and encdec are
+not and raise.  The engine updates
 its pools and states in place (``index_copy_``) where the reference
 donates them to jit.
 """

@@ -102,7 +102,9 @@ def slot_state_bytes(cfg, max_len: int) -> int:
     computed from shapes only: the contiguous cache is built on the
     ``meta`` device, which allocates nothing.  A hybrid's slot counts
     every Mamba layer's SSD and conv state beside its sites' KV (zamba2-7b
-    at max_len 1024: 131.5 MB of state, 161.5 MB of KV), as the
+    at max_len 1024: 131.5 MB of state, 161.5 MB of KV), and an rwkv
+    slot its O(1) state alone, the same at any ``max_len`` (rwkv6-3b:
+    21,626,880 B, its f32 WKV states and token-shift carries), as the
     reference's does."""
     cache = api.init_cache(cfg, 1, max_len, compact_local=False,
                            device="meta")

@@ -138,7 +138,7 @@ def test_stage1_is_identity_at_full_keep():
     p2, cfg2, st2 = P.prune_experts(params, cfg, opt.stats, 1)
     assert p2 is params and cfg2 is cfg and st2 is opt.stats
     with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        P.prune_kv_groups(params, cfg.replace(family="rwkv"), opt.stats, 1)
+        P.prune_kv_groups(params, cfg.replace(family="encdec"), opt.stats, 1)
 
 
 STAGE1 = {
