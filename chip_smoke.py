@@ -56,7 +56,10 @@ Phases, each of which raises on failure (so the script exits non-zero):
 8. olap_f32_parity: Q2 at gemma2-2b's widths in f32 at 4 layers under a
    cuda-backend session and a reference-backend session: identical
    tables, and any prompt whose tokens differ must be a near tie;
-9. olap_pool_fleet: several tenants, each with its own data-correction
+9. olap_pool_fleet (phases 9, 10 and 12 run gemma2-2b cut to its first
+   POOL_LAYERS = 8 layers, the same weights at the published widths, to
+   keep the script within its time): several tenants, each with its own
+   data-correction
    template (so its own instance), through one byte-budgeted
    ``ModelPool`` and one fair-share ``Scheduler`` under a budget of 2.8
    base entries: a ``base`` fleet (identity recipe) and an ``iolm`` fleet
@@ -80,8 +83,8 @@ Phases, each of which raises on failure (so the script exits non-zero):
    a pooled cuda-backend session against a serial reference-backend
    session: identical tables (every differing row a near tie's, in
    order), launches on the cuda side only;
-12. service_full_width (run before phase 11, while the full-width base is
-   in memory): the HTTP service over a pooled session with phase 7's
+12. service_full_width (run before phase 11, while the base is in memory;
+   full width, cut depth): the HTTP service over a pooled session with phase 7's
    pinned recipes answers Q2 as one tenant; its rows equal ``Query.run``
    on the same session, and its warm state (``POST /checkpoint`` under
    ``OUT_DIR``) restores in a fresh session with no build and the
@@ -194,6 +197,43 @@ Phases, each of which raises on failure (so the script exits non-zero):
    -> 2560, group 128) timed at M = 8 and 512;
 35. rwkv_f32_parity: Q2 in f32 at 4 layers, cuda against reference session
    (phase 8's criteria; K2 alone on the cuda side).
+36. vlm_main_path (the vlm and encdec phases run last, from generators of
+   their own, VLM_SEED, ENCDEC_SEED and VLM_ENCDEC_KERNEL_SEED): full-width
+   paligemma-3b (18 layers, d_model 2048, 8 query heads on 1 KV head of
+   256, d_ff 16384, vocab 257216, tied; 2,508,662,784 params, random bf16
+   weights) compressed with ``w8-absmax`` and served by ``Engine(slots=8,
+   max_len=1024, extra_inputs={"img_embs": ...})``, a seeded [256, 2048]
+   image ahead of every row, then the bf16 base: the contiguous layout, no
+   prefix cache; 126 K2 launches a model call (``decode`` in the steps,
+   ``mma`` in the prefills), K1, K3 and K4 never;
+37. vlm_whole_step: one contiguous decode step of that instance at 18
+   layers in bf16, cuda against reference backend (STEP_BF16_RATIO); then
+   vlm_decode_profile, the step's profile;
+38. vlm_session: Q2 and Q1 at 64 rows, text only, through ``Query.run``
+   over a full-width paligemma session with ``w8-absmax`` and
+   ``w8a-ffn75`` (no ``w8-kv50`` for one KV head; no Hessian);
+39. vlm_f32_parity: paligemma's widths in f32 at 4 layers with a seeded
+   image: the engine's rows under both backends and ``forward``'s greedy
+   tokens on the image-prefixed sequences identical, or parted at a near
+   tie;
+40. encdec_main_path: full-width whisper-base (6 + 6 layers, d_model 512, 8
+   heads of 64, d_ff 2048, vocab 51865; 164,291,584 params, random bf16
+   weights) compressed with ``w8-absmax`` and served by ``Engine(slots=8,
+   max_len=512, extra_inputs={"enc_inputs": ...})``, 1500 seeded frames
+   for every row, then the bf16 base: per decode step 48 K2 launches on
+   ``decode`` and the untied unembed's (N 51865) on ``fma``, per prefill
+   96 on ``mma`` and the unembed's on ``fma``; then
+   encdec_decode_profile, the step's profile;
+41. encdec_build: calibration on 16 of the rows with their frames, then
+   ``w8-absmax``, ``w8a-ffn75`` and ``w8a-kv50`` built and served, their
+   seconds, designs and agreement with the base recorded (the session
+   passes no ``enc_inputs``, so ``Query.run`` over encdec raises);
+42. encdec_f32_parity: whisper-base at full width in f32, rows identical
+   across backends, or parted at a near tie;
+43. kernel_quant_matmul_vlm_encdec: K2 against its plain version at every
+   shape phases 36, 38, 40 and 41 gave it, whisper's unembed on ``fma``
+   included; paligemma's ``wi`` and whisper's unembed timed at M = 8 and
+   512.
 
 K2, K3 and K4 run their tensor-core designs on bf16 and their FMA
 designs on f32; ``ops.variant_count`` shows which design of every kernel
@@ -208,7 +248,9 @@ on the hybrid path: ``launches_hybrid``, ``launches_hybrid_session``,
 ``launches_hybrid_long_prefill``, K1's and K3's ``d112`` timings, and
 K2's ``hybrid`` cases seen and in_proj timings; on the rwkv path:
 ``launches_rwkv``, ``launches_rwkv_session``, and K2's ``rwkv`` cases seen
-and channel-mix timings),
+and channel-mix timings; on the vlm and encdec paths: ``launches_vlm``,
+``launches_vlm_session``, ``launches_encdec``, ``launches_encdec_build``,
+and K2's ``vlm_encdec`` cases seen and timings),
 the card line, and last ``{"ok": true, "device": {...}}``.  Exits non-zero
 without a card and outside a checkout of the repository.
 """
@@ -1180,16 +1222,17 @@ def sync() -> None:
 
 def session_recipes(cfg):
     """The grid, and the session's recipes: the grid's ``w8-absmax`` and
-    absmax copies of its ``w8-ffn75`` and ``w8-kv50`` (rwkv's grid has no
-    ``w8-kv50``: no attention, so two recipes)."""
+    absmax copies of its ``w8-ffn75`` and ``w8-kv50`` (the grid has no
+    ``w8-kv50`` for rwkv, which has no attention, nor for a model of one
+    KV head, paligemma: two recipes)."""
     import dataclasses
     from repro_torch.core import policy as POL
     grid = {r.name: r for r in POL.default_recipe_space(cfg)}
     check(grid["w8-ffn75"].ffn_keep_frac == 0.75, ("grid recipe", grid["w8-ffn75"]))
     recipes = [grid["w8-absmax"],
                dataclasses.replace(grid["w8-ffn75"], name="w8a-ffn75", quant_method="absmax")]
-    if cfg.family == "rwkv":
-        check("w8-kv50" not in grid, ("rwkv grid", sorted(grid)))
+    if cfg.family == "rwkv" or cfg.n_kv_heads < 2:
+        check("w8-kv50" not in grid, ("grid without w8-kv50", sorted(grid)))
         return grid, recipes
     check(grid["w8-kv50"].kv_keep_frac == 0.5, ("grid recipe", grid["w8-kv50"]))
     return grid, recipes + [dataclasses.replace(grid["w8-kv50"], name="w8a-kv50",
@@ -1601,7 +1644,11 @@ def olap_f32_parity(gen, cfg_full, layers: int = 4, name="olap_f32_parity"):
 # ---------------------------------------------------------------------------
 
 POOL_KW = SESSION_KW["engine_kw"]
-POOL_ENTRIES = 2.8        # the pool budget in base entries: 2 base or 4 w8-absmax engines
+POOL_ENTRIES = 2.8        # the pool budget in base entries: 2 base or 3 w8-absmax engines
+# the pooled phases and service_full_width run gemma2-2b cut to its first
+# POOL_LAYERS layers (the same weights, the published widths), which keeps
+# the script within its time as paths are added
+POOL_LAYERS = 8
 FLEET_ROWS, FLEET_MAX_NEW, FLEET_TENANTS = 16, 8, (1, 4)
 POOL_SHARE = 8            # in-flight rows per submission
 
@@ -1616,6 +1663,21 @@ def card_memory():
 def reset_peak() -> None:
     if torch.cuda.is_available():
         torch.cuda.reset_peak_memory_stats()
+
+
+def cut_depth(params, cfg, layers: int = POOL_LAYERS):
+    """The first ``layers`` layers of a stacked model (whole pattern units,
+    views of the same weights) and its config."""
+    from repro_torch.models.transformer import pattern_unit
+    unit, R, tail = pattern_unit(cfg)
+    k = layers // len(unit)
+    check(k * len(unit) == layers and k <= R and not tail, ("depth cut", cfg.name, layers))
+
+    def first(tree):
+        return {n: first(v) for n, v in tree.items()} if isinstance(tree, dict) else tree[:k]
+
+    cut = {**params, "blocks": [first(b) for b in params["blocks"]], "tail": []}
+    return cut, cfg.replace(n_layers=layers, attn_pattern=cfg.attn_pattern and unit * k)
 
 
 def pool_budget(params, cfg, engine_kw):
@@ -4441,6 +4503,561 @@ def check_quant_matmul_rwkv(main_shapes, session_shapes, d_model=2560, d_ff=8960
     return line
 
 
+# ---------------------------------------------------------------------------
+# the vlm and encdec phases: full-width paligemma-3b served with image
+# embeddings and full-width whisper-base served from encoder frames, both
+# on the contiguous layout through the engine's ``extra_inputs``
+# ---------------------------------------------------------------------------
+
+VLM_SEED = 47                    # the vlm phases' generator: earlier phases' draws stay
+ENCDEC_SEED = 53                 # the encdec phases' generator
+VLM_ENCDEC_KERNEL_SEED = 59      # K2 at both paths' shapes: adding a case moves no weight
+VLM_MAX_LEN = 1024
+ENCDEC_MAX_LEN = 512
+
+
+def vlm_per_call(cfg):
+    """K2 launches of one model call of paligemma's int8 instance: each
+    layer's seven linears; the tied unembed reads the bf16 embedding and
+    stays a plain matmul."""
+    return 7 * cfg.n_layers
+
+
+def encdec_per_call(cfg, prefill: bool):
+    """{design: K2 launches} of one bf16 model call of whisper's int8
+    instance.  A decode step: each decoder layer's self-attention (4),
+    cross-attention query and output (2) and MLP (2) on ``decode``, the
+    untied unembed (N 51865, not a multiple of 16) on ``fma``.  A prefill:
+    the encoder's 6 linears a layer and the decoder's 10 (the cross K/V
+    projected once) on ``mma``, the unembed on ``fma``."""
+    if prefill:
+        return {"mma": 6 * cfg.n_enc_layers + 10 * cfg.n_dec_layers, "fma": 1}
+    return {"decode": 8 * cfg.n_dec_layers, "fma": 1}
+
+
+def _img_embs(gen, cfg, device):
+    """Seeded stand-in for SigLIP's patch embeddings [n_img, d], scaled as
+    ``tests/conftest.py`` scales them."""
+    x = torch.randn((cfg.n_img_tokens, cfg.d_model), generator=gen, device=device)
+    return (x * 0.1).to(cfg.dtype)
+
+
+def _enc_frames(gen, cfg, device):
+    """Seeded stand-in for whisper's conv/mel frontend: ``enc_ctx`` frames."""
+    return torch.randn((cfg.enc_ctx, cfg.d_model), generator=gen, device=device).to(cfg.dtype)
+
+
+def serve_extra(params, cfg, version, extra, max_len, device="cuda", backend="auto",
+                max_new: int = 32):
+    """The main path's rows through ``Engine(slots=8, max_len=max_len,
+    extra_inputs=extra)``: the contiguous layout, no prefix cache (every
+    row carries the same image or frames), the duplicate row a result-cache
+    hit."""
+    from repro_torch.serving.engine import Engine
+    eng = Engine(params, cfg, slots=8, max_len=max_len, backend=backend, version=version,
+                 device=device, extra_inputs=extra)
+    check(not eng._paged and eng.prefix_cache is None,
+          ("the contiguous layout, no prefix cache", eng._paged))
+    sync()
+    reqs = eng.generate([TEMPLATE + r for r in REVIEWS], max_new=max_new, return_requests=True)
+    sync()
+    st = eng.stats
+    check(all(r.done for r in reqs), "unfinished rows")
+    check(st.rows == len(REVIEWS) and st.cache_hits >= 1 and st.prefix_hits == 0
+          and st.truncated == 0, st)
+    for r in reqs:
+        check(1 <= len(r.out_ids) <= max_new and all(0 <= t < cfg.vocab_size for t in r.out_ids),
+              ("row tokens", r.out_ids))
+        check(math.isfinite(r.confidence) and 0.0 <= r.confidence <= 1.0,
+              ("row confidence", r.confidence))
+    from repro_torch.serving.scheduler import slot_state_bytes
+    from repro_torch.tree import leaves
+    held = sum(t.numel() * t.element_size() for t in leaves(eng._slot_state))
+    check(held == eng.slots * slot_state_bytes(cfg, max_len), ("slot state bytes", held))
+    return eng, reqs
+
+
+def _tree_copy(tree, dtype=None):
+    """A copy of a cache tree, its float tensors cast to ``dtype``."""
+    if isinstance(tree, dict):
+        return {k: _tree_copy(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_copy(v, dtype) for v in tree]
+    if dtype is not None and tree.is_floating_point():
+        return tree.to(dtype, copy=True)
+    return tree.clone()
+
+
+def _family_main_path(phase, label, gen, cfg, n_params, want_params, extra, max_len,
+                      int8_gate, device):
+    """A family's main path on the contiguous layout with ``extra_inputs``:
+    ``cfg`` at random bf16 weights from ``gen``, compressed with
+    ``w8-absmax`` and served (``serve_extra``), then the base the same way.
+    The counts are zeroed just before the int8 run and read just after;
+    ``int8_gate(launches, variants, stats)`` checks them on the card; the
+    base run launches nothing."""
+    from repro_torch.core.compressed import param_bytes
+    from repro_torch.core.pipeline import InstanceOptimizer, Recipe
+    from repro_torch.kernels import ops
+    from repro_torch.models import api
+    from repro_torch.serving.scheduler import slot_state_bytes
+    from repro_torch.tree import leaves
+
+    t0 = time.time()
+    base = api.init_params(gen, cfg)
+    sync()
+    init_s = time.time() - t0
+    got = sum(t.numel() for t in leaves(base))
+    if want_params:
+        check(got == n_params, (f"full-width {cfg.name}", got))
+    extra = {k: v(gen, cfg, device) for k, v in extra.items()}
+    t0 = time.time()
+    int8, _, report = InstanceOptimizer(base, cfg).apply(
+        Recipe(name="w8-absmax", wbits=8, quant_method="absmax"))
+    sync()
+    quant_s = time.time() - t0
+    reset_peak()
+    ops.reset_launch_counts()
+    eng8, reqs8 = serve_extra(int8, cfg, "w8-absmax", extra, max_len, device)
+    launches = dict(ops.launch_count)
+    variants = {k: n for k, n in ops.variant_count.items() if n}
+    if device == "cuda":
+        int8_gate(launches, variants, eng8.stats)
+    peak = card_memory()[1]
+    ops.reset_launch_counts()
+    eng16, reqs16 = serve_extra(base, cfg, "base", extra, max_len, device)
+    base_launches = dict(ops.launch_count)
+    check(not any(base_launches.values()), (f"{label} base run launches", base_launches))
+    agree, rows_same = _agreement(reqs16, reqs8)
+    line = {"phase": phase, "model": cfg.name, "params": got, "layout": "contiguous",
+            "extra_inputs": {k: list(v.shape) for k, v in extra.items()},
+            "max_len": max_len, "slot_state_bytes": slot_state_bytes(cfg, max_len),
+            "rows": len(REVIEWS), "max_new": 32, "init_s": init_s, "quantize_s": quant_s,
+            "param_bytes_base": param_bytes(base), "param_bytes_int8": param_bytes(int8),
+            "compression": report.compression,
+            "int8": {**_serve_stats(eng8, []), "launches": launches, "variants": variants},
+            "base": {**_serve_stats(eng16, []), "launches": base_launches},
+            "max_memory_allocated_int8_run": peak, "max_memory_allocated": card_memory()[1],
+            "greedy_token_agreement_base_vs_int8": agree,
+            "rows_identical_base_vs_int8": rows_same}
+    for name in ("int8", "base"):
+        print(f"{label} {name}: {line[name]['rows_per_s']:.3f} rows/s, "
+              f"{line[name]['tokens_per_s']:.1f} tokens/s, {line[name]['decode_steps']} steps, "
+              f"{line[name]['prefills']} prefills", flush=True)
+    print(f"{label} params {got}, param_bytes base {line['param_bytes_base']}, int8 "
+          f"{line['param_bytes_int8']}; quantize {quant_s:.1f} s; slot state "
+          f"{line['slot_state_bytes']} B; max_memory_allocated {line['max_memory_allocated']}",
+          flush=True)
+    del eng16
+    return line, launches, base, int8, eng8, extra, reqs16
+
+
+def vlm_main_path(gen, cfg=None, device="cuda"):
+    """Full-width paligemma-3b (18 layers, d_model 2048, 8 query heads on 1
+    KV head of 256, d_ff 16384, vocab 257216, tied; 2,508,662,784 params,
+    random bf16 weights from ``gen``) compressed with ``w8-absmax`` and
+    served by ``Engine(slots=8, max_len=1024, extra_inputs={"img_embs":
+    ...})``, a seeded [256, 2048] image ahead of every row, then the bf16
+    base the same way: the contiguous layout, no prefix cache; per decode
+    step and per prefill 126 K2 launches (``decode`` in the steps, ``mma``
+    in the prefills at M = rows x (256 + bucket)), K1, K3 and K4 never
+    (256 + 128 positions stay under the flash threshold).  ``cfg`` and
+    ``device`` let it run at reduced widths on the CPU."""
+    from repro_torch.configs import paligemma_3b
+    cfg = cfg or paligemma_3b.CONFIG
+    k2 = vlm_per_call(cfg)
+
+    def gate(launches, variants, st):
+        check(launches == {"quant_matmul": k2 * (st.decode_steps + st.prefills),
+                           "paged_attention": 0, "block_sparse_matmul": 0,
+                           "flash_attention": 0},
+              ("vlm int8 run launches", launches, st.decode_steps, st.prefills))
+        check(variants == {"quant_matmul.decode": k2 * st.decode_steps,
+                           "quant_matmul.mma": k2 * st.prefills},
+              ("vlm int8 run designs", variants))
+
+    line, launches, base, int8, eng8, extra, _ = _family_main_path(
+        "vlm_main_path", "paligemma", gen, cfg, 2_508_662_784, cfg == paligemma_3b.CONFIG,
+        {"img_embs": _img_embs}, VLM_MAX_LEN, gate, device)
+    line["launches_per_call"] = {"quant_matmul": k2}
+    emit(line)
+    return line, launches, base, int8, eng8, extra["img_embs"]
+
+
+def vlm_whole_step(gen, params, eng, trials: int = 3):
+    """One contiguous decode step of the int8 paligemma-3b instance at all
+    18 layers in bf16 under the cuda and the reference backends, on copies
+    of the served rows' KV (each slot at position 400, past its image and
+    text), held to STEP_BF16_RATIO against the f32 plain step.  The cuda
+    side launches K2 126 times on ``decode``, the reference side nothing."""
+    from repro_torch.core.compressed import kernel_backend
+    from repro_torch.kernels import ops
+    from repro_torch.models import api
+    cfg, S = eng.cfg, eng.slots
+    pos = torch.full((S,), 400, device="cuda")
+    rms = lambda a, b: ((a - b).norm() / b.norm()).item()  # noqa: E731
+    k2 = vlm_per_call(cfg)
+
+    def step(p, c, toks, backend, dtype):
+        st = _tree_copy(eng._slot_state, dtype)
+        before, vbefore = dict(ops.launch_count), dict(ops.variant_count)
+        with kernel_backend(backend), torch.no_grad():
+            lg, _ = api.decode_step(p, c, st, toks, pos, max_len=eng.max_len)
+        torch.cuda.synchronize()
+        launched = {k: n - before[k] for k, n in ops.launch_count.items() if n - before[k]}
+        cuda = backend == "cuda"
+        check(launched == ({"quant_matmul": k2} if cuda else {}),
+              ("vlm step launches", dtype, backend, launched))
+        check(variant_delta(vbefore) == ({"quant_matmul.decode": k2} if cuda else {}),
+              ("vlm step designs", dtype, backend, variant_delta(vbefore)))
+        check(bool(torch.isfinite(lg).all()) and lg.shape == (S, 1, c.vocab_size),
+              ("vlm decode-step logits", dtype, backend, lg.shape))
+        return lg.float()
+
+    p32, c32 = _f32(params), cfg.replace(param_dtype="float32")
+    trials_out = []
+    for _ in range(trials):
+        toks = torch.randint(4, 260, (S, 1), generator=gen, device="cuda")
+        c16 = step(params, cfg, toks, "cuda", torch.bfloat16)
+        r16 = step(params, cfg, toks, "reference", torch.bfloat16)
+        r32 = step(p32, c32, toks, "reference", torch.float32)
+        trials_out.append({
+            "bf16_rms_rel_err": rms(c16, r16), "bf16_cuda_vs_f32": rms(c16, r32),
+            "bf16_plain_vs_f32": rms(r16, r32),
+            "greedy_agreement_bf16":
+                (c16[:, -1].argmax(-1) == r16[:, -1].argmax(-1)).float().mean().item()})
+    del p32
+    torch.cuda.empty_cache()
+    cuda_err = sum(r["bf16_cuda_vs_f32"] for r in trials_out)
+    plain_err = sum(r["bf16_plain_vs_f32"] for r in trials_out)
+    line = {"phase": "vlm_whole_step", "model": cfg.name, "bf16_layers": cfg.n_layers,
+            "position": 400, "bf16_trials": trials_out, "bf16_ratio_bound": STEP_BF16_RATIO,
+            "bf16_ratio": cuda_err / plain_err, "launches_per_step": {"quant_matmul": k2}}
+    emit(line)
+    print(f"vlm_whole_step: bf16 ratio {line['bf16_ratio']:.3f}", flush=True)
+    check(cuda_err <= STEP_BF16_RATIO * plain_err, line)
+    return line
+
+
+def vlm_session(base, cfg, device="cuda", n_rows: int = 64):
+    """An ``IOLMSession`` over the full-width paligemma-3b base runs Q2
+    (``llm_correct``) and Q1 (``llm_map``) over ``n_rows`` rows through
+    ``Query.run`` (``_family_session``), text only: the session passes no
+    image, as the reference's does.  Each operator calibrates on its rows
+    (no Hessian), builds and evaluates ``w8-absmax`` and ``w8a-ffn75``
+    (d_ff 12288; the grid has no ``w8-kv50`` for one KV head), and serves
+    the pick through the contiguous ``Engine`` (K2 on 126 linears a call,
+    no K1)."""
+    _, recipes = session_recipes(cfg)
+    check([r.name for r in recipes] == ["w8-absmax", "w8a-ffn75"], recipes)
+    k2 = vlm_per_call(cfg)
+    pruned = int(round(0.75 * cfg.d_ff)) // 8 * 8
+    calibrated = []
+
+    def on_outcome(optimizer, out):
+        st = optimizer.stats
+        check(all(w.H is None for w in st.weights.values()), "a Hessian was calibrated")
+        calibrated.append({"tokens": st.n_tokens, "weights": len(st.weights),
+                           "configs": [(c.recipe.name, c.cfg.d_ff) for c in out.candidates]})
+        check([c.cfg.d_ff for c in out.candidates] == [cfg.d_ff, pruned],
+              ("pruned candidates", calibrated[-1]))
+
+    def served_gate(name, search, served, n_steps, calls):
+        check(served.get("quant_matmul.decode", 0) + served.get("quant_matmul.mma", 0)
+              == k2 * calls and served.get("quant_matmul.decode", 0) == k2 * n_steps
+              and set(served) <= {"quant_matmul.decode", "quant_matmul.mma"},
+              (name, "served launches", served, n_steps, calls))
+
+    line, launches = _family_session("vlm_session", "paligemma", base, cfg, recipes,
+                                     on_outcome, served_gate, device, n_rows)
+    line["calibrated"] = calibrated
+    emit(line)
+    if device == "cuda":
+        check(launches["quant_matmul"] > 0 and not (launches["paged_attention"]
+                                                    or launches["flash_attention"]
+                                                    or launches["block_sparse_matmul"]),
+              ("vlm session launches", launches))
+    return line, launches
+
+
+def _near_tie_rows(ids_a, ids_b, gap_of):
+    """Rows whose tokens differ between two runs: (prompt, first differing
+    token, the top-two gap there from ``gap_of(prompt, prefix)``)."""
+    out = []
+    for text in sorted(ids_b):
+        a, b = ids_a[text], ids_b[text]
+        if a == b:
+            continue
+        j = next(i for i in range(min(len(a), len(b)) + 1)
+                 if i == min(len(a), len(b)) or a[i] != b[i])
+        out.append({"prompt": text, "token": j, "gap": gap_of(text, b[:j])})
+    return out
+
+
+def _f32_engine_runs(params, cfg, extra, max_len, max_new, device="cuda"):
+    """The main path's rows through an f32 ``Engine`` with ``extra`` under
+    the cuda and the reference backends: ({backend: {prompt: ids}},
+    {backend: designs launched}).  The cuda side runs K2's ``fma`` design
+    only, the reference side nothing."""
+    from repro_torch.kernels import ops
+    ids, designs = {}, {}
+    for backend in ("cuda", "reference"):
+        ops.reset_launch_counts()
+        _, reqs = serve_extra(params, cfg, "w8-absmax", extra, max_len, device, backend=backend,
+                              max_new=max_new)
+        ids[backend] = {r.src: list(r.out_ids) for r in reqs}
+        designs[backend] = {k: n for k, n in ops.variant_count.items() if n}
+    check(set(designs["cuda"]) == {"quant_matmul.fma"} and not designs["reference"],
+          ("f32 designs", designs))
+    return ids, designs
+
+
+def vlm_f32_parity(gen, cfg_full, layers: int = 4, max_new: int = 8):
+    """paligemma-3b's widths in f32 cut to ``layers`` layers, ``w8-absmax``,
+    a seeded image: the main path's rows through the engine under the cuda
+    and the reference backends, and ``forward``'s greedy tokens on each
+    image-prefixed sequence on the card (the whole sequence recomputed a
+    token at a time).  Rows must be identical, or part at a near tie:
+    the plain side's top-two logit gap at the first differing token under
+    NEAR_TIE."""
+    from repro_torch.core.compressed import kernel_backend
+    from repro_torch.core.pipeline import InstanceOptimizer, Recipe
+    from repro_torch.models import api
+    from repro_torch.training.data import ByteTokenizer
+    cfg = cfg_full.replace(n_layers=layers, param_dtype="float32")
+    base = api.init_params(gen, cfg)
+    params, _, _ = InstanceOptimizer(base, cfg).apply(
+        Recipe(name="w8-absmax", wbits=8, quant_method="absmax"))
+    del base
+    img = _img_embs(gen, cfg, "cuda")
+    ids, designs = _f32_engine_runs(params, cfg, {"img_embs": img}, VLM_MAX_LEN, max_new)
+    tok = ByteTokenizer(max(cfg.vocab_size, 260))
+
+    def logits(text, out, backend):
+        seq = tok.encode(text, bos=True) + [tok.SEP] + out
+        with kernel_backend(backend), torch.no_grad():
+            lg, _ = api.forward(params, cfg, {"tokens": torch.tensor([seq], device="cuda"),
+                                              "img_embs": img[None]})
+        return lg[0, -1].float()
+
+    def gap(text, out):
+        top = logits(text, out, "reference").topk(2).values
+        return (top[0] - top[1]).item()
+
+    greedy = {}
+    for text in ids["cuda"]:
+        out = []
+        while len(out) < max_new:
+            out.append(int(logits(text, out, "cuda").argmax()))
+            if out[-1] == tok.EOS:
+                break
+        greedy[text] = out
+    across = _near_tie_rows(ids["cuda"], ids["reference"], gap)
+    to_forward = _near_tie_rows(ids["cuda"], greedy, gap)
+    line = {"phase": "vlm_f32_parity", "model": cfg.name, "layers": layers, "dtype": "float32",
+            "recipe": "w8-absmax", "prompts": len(ids["cuda"]), "max_new": max_new,
+            "rows_differing_across_backends": across, "rows_differing_from_forward": to_forward,
+            "near_tie_bound": NEAR_TIE, "designs": designs}
+    emit(line)
+    print(f"vlm_f32_parity: {len(across)} of {len(ids['cuda'])} rows differ across backends, "
+          f"{len(to_forward)} from forward's greedy tokens", flush=True)
+    check(all(d["gap"] < NEAR_TIE for d in across + to_forward), line)
+    del params
+    torch.cuda.empty_cache()
+    return line
+
+
+def encdec_main_path(gen, cfg=None, device="cuda"):
+    """Full-width whisper-base (6 + 6 layers, d_model 512, 8 heads of 64,
+    d_ff 2048, vocab 51865, ``enc_ctx`` 1500; 164,291,584 params, random
+    bf16 weights from ``gen``) compressed with ``w8-absmax`` and served by
+    ``Engine(slots=8, max_len=512, extra_inputs={"enc_inputs": ...})``,
+    1500 seeded frames for every row, then the bf16 base the same way: the
+    contiguous layout, no prefix cache (``encdec_per_call``: per decode
+    step 48 K2 launches on ``decode`` and the unembed's on ``fma``; per
+    prefill the encoder's and decoder's 96 on ``mma`` and the unembed's on
+    ``fma``), K1, K3 and K4 never.  ``cfg`` and ``device`` let it run at
+    reduced widths on the CPU."""
+    from repro_torch.configs import whisper_base
+    cfg = cfg or whisper_base.CONFIG
+    dec, pre = encdec_per_call(cfg, False), encdec_per_call(cfg, True)
+
+    def gate(launches, variants, st):
+        steps, prefills = st.decode_steps, st.prefills
+        check(launches == {"quant_matmul": sum(dec.values()) * steps
+                           + sum(pre.values()) * prefills,
+                           "paged_attention": 0, "block_sparse_matmul": 0,
+                           "flash_attention": 0},
+              ("encdec int8 run launches", launches, steps, prefills))
+        check(variants == {"quant_matmul.decode": dec["decode"] * steps,
+                           "quant_matmul.mma": pre["mma"] * prefills,
+                           "quant_matmul.fma": steps + prefills},
+              ("encdec int8 run designs", variants))
+
+    line, launches, base, int8, eng8, extra, reqs16 = _family_main_path(
+        "encdec_main_path", "whisper", gen, cfg, 164_291_584, cfg == whisper_base.CONFIG,
+        {"enc_inputs": _enc_frames}, ENCDEC_MAX_LEN, gate, device)
+    line["launches_per_call"] = {"decode_step": dec, "prefill": pre}
+    emit(line)
+    return line, launches, base, int8, eng8, extra["enc_inputs"], reqs16
+
+
+def encdec_build(base, cfg, frames, base_reqs, device="cuda"):
+    """A per-query build of whisper-base: ``InstanceOptimizer`` calibrates
+    on 16 of the main path's rows (96 tokens each) with their
+    ``enc_inputs`` (the 1500 frames every row carries; no Hessian), then
+    applies ``w8-absmax`` and absmax copies of the grid's ``w8-ffn75``
+    (d_ff 1536) and ``w8-kv50`` (4 of 8 heads in every self- and
+    cross-attention), each served on the main path's rows; agreement with
+    the base rows, build seconds and K2's launches by design recorded.
+    This is the session's build without its search: the session passes no
+    ``enc_inputs`` (``Query.run`` over encdec raises in both packages)."""
+    from repro_torch.core.pipeline import InstanceOptimizer
+    from repro_torch.kernels import ops
+    _, recipes = session_recipes(cfg)
+    check([r.name for r in recipes] == ["w8-absmax", "w8a-ffn75", "w8a-kv50"], recipes)
+    toks = calibration_tokens(device)
+    sync()
+    t0 = time.time()
+    opt = InstanceOptimizer(base, cfg)
+    st = opt.run_calibration({"tokens": toks,
+                              "enc_inputs": frames.expand(toks.shape[0], *frames.shape)},
+                             hessian=False)
+    sync()
+    calib_s = time.time() - t0
+    check(st.n_tokens == toks.numel() and all(w.H is None for w in st.weights.values())
+          and st.weights["dec_blocks.0.xattn.wk"].count == toks.shape[0] * cfg.enc_ctx
+          and st.weights["unembed"].count == toks.numel()
+          and len(st.block_sim) == cfg.n_enc_layers + cfg.n_dec_layers,
+          ("encdec calibration", st.n_tokens, len(st.weights)))
+    dec, pre = encdec_per_call(cfg, False), encdec_per_call(cfg, True)
+    builds = []
+    launches = {k: 0 for k in ops.launch_count}
+    for r in recipes:
+        sync()
+        t0 = time.time()
+        params, c, report = opt.apply(r)
+        sync()
+        apply_s = time.time() - t0
+        ops.reset_launch_counts()
+        eng, reqs = serve_extra(params, c, r.name, {"enc_inputs": frames}, ENCDEC_MAX_LEN,
+                                device)
+        variants = {k: n for k, n in ops.variant_count.items() if n}
+        stt = eng.stats
+        if device == "cuda":
+            check(variants == {"quant_matmul.decode": dec["decode"] * stt.decode_steps,
+                               "quant_matmul.mma": pre["mma"] * stt.prefills,
+                               "quant_matmul.fma": stt.decode_steps + stt.prefills},
+                  (r.name, "served designs", variants))
+        for k, n in ops.launch_count.items():
+            launches[k] += n
+        agree, same = _agreement(base_reqs, reqs)
+        builds.append({"recipe": r.name, "apply_s": apply_s, "calibrate_s": calib_s,
+                       "build_s": calib_s + apply_s, "d_ff": c.d_ff, "n_heads": c.n_heads,
+                       "n_kv_heads": c.n_kv_heads, "param_bytes": report.bytes_after,
+                       "compression": report.compression, "rows_per_s": stt.rows_per_s,
+                       "decode_steps": stt.decode_steps, "prefills": stt.prefills,
+                       "greedy_token_agreement_with_base": agree, "rows_identical": same,
+                       "variants": variants})
+        del params, eng
+    check([(b["d_ff"], b["n_kv_heads"]) for b in builds]
+          == [(cfg.d_ff, cfg.n_kv_heads), (int(round(0.75 * cfg.d_ff)) // 8 * 8, cfg.n_kv_heads),
+              (cfg.d_ff, cfg.n_kv_heads // 2)], ("pruned builds", builds))
+    line = {"phase": "encdec_build", "model": cfg.name, "calibration_rows": list(toks.shape),
+            "calibrate_s": calib_s, "builds": builds, "launches": launches}
+    emit(line)
+    print("whisper builds: calibrate " + f"{calib_s:.2f} s; " + "; ".join(
+        f"{b['recipe']} apply {b['apply_s']:.2f} s, {b['rows_per_s']:.2f} rows/s, agreement "
+        f"{b['greedy_token_agreement_with_base']:.3f}" for b in builds), flush=True)
+    if device == "cuda":
+        check(launches["quant_matmul"] > 0 and not (launches["paged_attention"]
+                                                    or launches["flash_attention"]
+                                                    or launches["block_sparse_matmul"]),
+              ("encdec build launches", launches))
+    return line, launches
+
+
+def encdec_f32_parity(gen, cfg_full, max_new: int = 32):
+    """whisper-base at full width in f32 (0.66 GB), ``w8-absmax``, seeded
+    frames: the main path's rows through the engine under the cuda and
+    the reference backends; rows identical, or parted at a near tie (the
+    plain side's top-two logit gap at the first differing token under
+    NEAR_TIE, from ``forward``)."""
+    from repro_torch.core.compressed import kernel_backend
+    from repro_torch.core.pipeline import InstanceOptimizer, Recipe
+    from repro_torch.models import api
+    from repro_torch.training.data import ByteTokenizer
+    cfg = cfg_full.replace(param_dtype="float32")
+    base = api.init_params(gen, cfg)
+    params, _, _ = InstanceOptimizer(base, cfg).apply(
+        Recipe(name="w8-absmax", wbits=8, quant_method="absmax"))
+    del base
+    frames = _enc_frames(gen, cfg, "cuda")
+    ids, designs = _f32_engine_runs(params, cfg, {"enc_inputs": frames}, ENCDEC_MAX_LEN,
+                                    max_new)
+    tok = ByteTokenizer(max(cfg.vocab_size, 260))
+
+    def gap(text, out):
+        seq = tok.encode(text, bos=True) + [tok.SEP] + out
+        with kernel_backend("reference"), torch.no_grad():
+            lg, _ = api.forward(params, cfg, {"tokens": torch.tensor([seq], device="cuda"),
+                                              "enc_inputs": frames[None]})
+        top = lg[0, -1].float().topk(2).values
+        return (top[0] - top[1]).item()
+
+    across = _near_tie_rows(ids["cuda"], ids["reference"], gap)
+    line = {"phase": "encdec_f32_parity", "model": cfg.name, "layers": cfg.n_layers,
+            "dtype": "float32", "recipe": "w8-absmax", "prompts": len(ids["cuda"]),
+            "rows_differing_across_backends": across, "near_tie_bound": NEAR_TIE,
+            "designs": designs}
+    emit(line)
+    print(f"encdec_f32_parity: {len(across)} of {len(ids['cuda'])} rows differ across backends",
+          flush=True)
+    check(all(d["gap"] < NEAR_TIE for d in across), line)
+    del params
+    torch.cuda.empty_cache()
+    return line
+
+
+def check_quant_matmul_vlm_encdec(vlm_shapes, vlm_session_shapes, enc_shapes,
+                                  enc_build_shapes, vlm_dims=(2048, 16384),
+                                  enc_dims=(512, 51865)):
+    """K2 against its plain version at every shape that the vlm path
+    (``vlm_main_path``'s int8 run, ``vlm_session``) and the encdec path
+    (``encdec_main_path``'s int8 run, ``encdec_build``) gave it
+    (``_hold_seen``, from a generator of its own, VLM_ENCDEC_KERNEL_SEED),
+    whisper's unembed on ``fma`` included.  Then times paligemma's ``wi``
+    (``vlm_dims``) and whisper's unembed (``enc_dims``: N 51865, ``fma``)
+    at decode M = 8 and prefill M = 512 against ``torch.matmul`` and
+    their bound."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(VLM_ENCDEC_KERNEL_SEED)
+    check({s[6] for s in vlm_shapes} == {"decode", "mma"},
+          ("K2 designs of the vlm main path", sorted(set(vlm_shapes))))
+    check({s[6] for s in enc_shapes} == {"decode", "mma", "fma"},
+          ("K2 designs of the encdec main path", sorted(set(enc_shapes))))
+    unembed = {s for s in set(enc_shapes) | set(enc_build_shapes) if s[1:3] == enc_dims}
+    check(unembed and {s[6] for s in unembed} == {"fma"}, ("whisper's unembed on fma", unembed))
+    vres, vabs = _hold_seen(gen, vlm_shapes, vlm_session_shapes, "vlm")
+    eres, eabs = _hold_seen(gen, enc_shapes, enc_build_shapes, "encdec")
+    timed = {f"{name}_M{M}": _time_dense(gen, M, K, N)
+             for name, (K, N) in (("paligemma_wi", vlm_dims), ("whisper_unembed", enc_dims))
+             for M in (8, 512)}
+    results = vres + eres
+    line = {"phase": "kernel_quant_matmul_vlm_encdec", "cases": results,
+            "cases_vlm": len(vres), "cases_encdec": len(eres),
+            "max_rel_err": max(r["rel_err"] for r in results), "max_abs_err": max(vabs, eabs),
+            "unembed_shapes": sorted(unembed), "timed": timed,
+            "library_note": "torch.matmul on the dequantized bf16 weight"}
+    emit({**line, "cases": len(results)})   # each case in chip_smoke.json
+    print(f"K2 at {len(vres)} vlm and {len(eres)} encdec shapes ({len(unembed)} of the unembed "
+          f"on fma): max rel err {line['max_rel_err']:.3g}; " + "; ".join(
+              f"{k}: {t['variant']} {t['ms']:.4f} ms (bound {t['bound_ms']:.4f}, plain "
+              f"{t['plain_ms']:.4f}, matmul {t['library_ms']:.4f})" for k, t in timed.items()),
+          flush=True)
+    return line
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -4517,14 +5134,16 @@ def main() -> int:
     olap_line, olap_launches, olap_variants = timed("olap_session", olap_session, base, cfg)
     torch.cuda.empty_cache()
     parity_line = timed("olap_f32_parity", olap_f32_parity, gen, cfg)
-    fleet_line, fleet_launches = timed("olap_pool_fleet", olap_pool_fleet, base, cfg)
-    pool_line, pool_launches = timed("olap_pool_session", olap_pool_session, base, cfg)
+    pool_base, pool_cfg = cut_depth(base, cfg)
+    fleet_line, fleet_launches = timed("olap_pool_fleet", olap_pool_fleet, pool_base, pool_cfg)
+    pool_line, pool_launches = timed("olap_pool_session", olap_pool_session, pool_base,
+                                     pool_cfg)
     torch.cuda.empty_cache()
     ops.reset_launch_counts()
-    svc_full_line = timed("service_full_width", service_full_width, base, cfg)
+    svc_full_line = timed("service_full_width", service_full_width, pool_base, pool_cfg)
     service_runs = dict(ops.launch_count)
     svc_full_line["launches"] = dict(service_runs)
-    del base
+    del base, pool_base
     torch.cuda.empty_cache()
     pool_parity_line, pool_parity_launches = timed("olap_pool_f32_parity",
                                                    olap_pool_f32_parity, gen, cfg)
@@ -4635,6 +5254,53 @@ def main() -> int:
     rw_parity_line = timed("rwkv_f32_parity", olap_f32_parity, rgen, rw_cfg, 4,
                            name="rwkv_f32_parity")
 
+    # the vlm phases: full-width paligemma-3b with image embeddings, from
+    # generators of their own
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"vlm phases: memory_allocated {torch.cuda.memory_allocated()}", flush=True)
+    vgen = torch.Generator(device="cuda")
+    vgen.manual_seed(VLM_SEED)
+    with QuantShapeProbe() as vl_shapes:
+        vl_line, vl_launches, vl_base, vl_int8, vl_eng, _ = timed("vlm_main_path",
+                                                                  vlm_main_path, vgen)
+    vl_cfg = vl_eng.cfg
+    vl_step_line = timed("vlm_whole_step", vlm_whole_step, vgen, vl_int8, vl_eng)
+    vl_prof_line = timed("vlm_decode_profile", profile_step, vgen, vl_int8, vl_eng,
+                         name="vlm_decode_profile")
+    del vl_int8, vl_eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    with QuantShapeProbe() as vl_sess_shapes:
+        vl_sess_line, vl_sess_launches = timed("vlm_session", vlm_session, vl_base, vl_cfg)
+    del vl_base
+    gc.collect()
+    torch.cuda.empty_cache()
+    vl_parity_line = timed("vlm_f32_parity", vlm_f32_parity, vgen, vl_cfg)
+
+    # the encdec phases: full-width whisper-base from encoder frames
+    gc.collect()
+    torch.cuda.empty_cache()
+    egen = torch.Generator(device="cuda")
+    egen.manual_seed(ENCDEC_SEED)
+    with QuantShapeProbe() as ed_shapes:
+        (ed_line, ed_launches, ed_base, ed_int8, ed_eng, ed_frames,
+         ed_base_reqs) = timed("encdec_main_path", encdec_main_path, egen)
+    ed_cfg = ed_eng.cfg
+    ed_prof_line = timed("encdec_decode_profile", profile_step, egen, ed_int8, ed_eng,
+                         name="encdec_decode_profile")
+    del ed_int8, ed_eng
+    with QuantShapeProbe() as ed_build_shapes:
+        ed_build_line, ed_build_launches = timed("encdec_build", encdec_build, ed_base, ed_cfg,
+                                                 ed_frames, ed_base_reqs)
+    del ed_base, ed_frames
+    gc.collect()
+    torch.cuda.empty_cache()
+    ed_parity_line = timed("encdec_f32_parity", encdec_f32_parity, egen, ed_cfg)
+    kq_ve = timed("kernel_quant_matmul_vlm_encdec", check_quant_matmul_vlm_encdec,
+                  vl_shapes.shapes, vl_sess_shapes.shapes, ed_shapes.shapes,
+                  ed_build_shapes.shapes)
+
     kernels = []
     for line, runs, variants, source, replaces in (
             (k1, launches, int8_variants, "src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -4700,6 +5366,18 @@ def main() -> int:
             check(rw_launches[name] > 0 and rw_sess_launches[name] > 0, ("the rwkv path", name))
         else:
             check(rw_launches[name] == rw_sess_launches[name] == 0, ("off the rwkv path", name))
+        # the vlm and encdec paths (their main paths' int8 runs, the vlm
+        # session): K2 only
+        kernels[-1]["launches_vlm"] = vl_launches[name]
+        kernels[-1]["launches_vlm_session"] = vl_sess_launches[name]
+        kernels[-1]["launches_encdec"] = ed_launches[name]
+        kernels[-1]["launches_encdec_build"] = ed_build_launches[name]
+        if name == "quant_matmul":
+            check(vl_launches[name] > 0 and vl_sess_launches[name] > 0 and ed_launches[name] > 0
+                  and ed_build_launches[name] > 0, ("the vlm and encdec paths", name))
+        else:
+            check(vl_launches[name] == vl_sess_launches[name] == ed_launches[name]
+                  == ed_build_launches[name] == 0, ("off the vlm and encdec paths", name))
         d112 = {"paged_attention": k1h, "flash_attention": k3h}.get(name)
         if d112 is not None:
             kernels[-1]["d112"] = {k: d112[k] for k in (
@@ -4729,6 +5407,13 @@ def main() -> int:
                                    "max_abs_err_seen": kq_rwkv["max_abs_err"],
                                    "g120_shapes_seen": len(kq_rwkv["g120_shapes"]),
                                    **kq_rwkv["timed"]}
+            # every shape of the vlm and encdec paths; paligemma's wi and
+            # whisper's unembed (N 51865, on fma) timed
+            kernels[-1]["vlm_encdec"] = {"cases_seen_vlm": kq_ve["cases_vlm"],
+                                         "cases_seen_encdec": kq_ve["cases_encdec"],
+                                         "max_rel_err_seen": kq_ve["max_rel_err"],
+                                         "max_abs_err_seen": kq_ve["max_abs_err"],
+                                         **kq_ve["timed"]}
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "sass": sass, "ptxas": ptxas, "kernels": kernels,
@@ -4760,6 +5445,11 @@ def main() -> int:
                    "rwkv_main_path": rw_line, "rwkv_whole_step": rw_step_line,
                    "rwkv_decode_profile": rw_prof_line, "rwkv_session": rw_sess_line,
                    "quant_matmul_rwkv": kq_rwkv, "rwkv_f32_parity": rw_parity_line,
+                   "vlm_main_path": vl_line, "vlm_whole_step": vl_step_line,
+                   "vlm_decode_profile": vl_prof_line, "vlm_session": vl_sess_line,
+                   "vlm_f32_parity": vl_parity_line, "encdec_main_path": ed_line,
+                   "encdec_decode_profile": ed_prof_line, "encdec_build": ed_build_line,
+                   "encdec_f32_parity": ed_parity_line, "quant_matmul_vlm_encdec": kq_ve,
                    "phase_seconds": seconds, "phase_memory": memory,
                    "seconds": time.time() - t_start}, f, indent=1)
     emit({"kernels": kernels})

@@ -17,7 +17,10 @@ the hybrid's Mamba groups ([G, K, ...] leaves, quantized ones too) and
 its ``mamba_tail``, ``None`` when the config has no tail layer, and
 rwkv's one layer stack (``blocks`` [32, ...] at full width: its f32
 ``tm.w0`` and ``tm.u`` stay f32, its quantized ``q`` [32, K, N] as they
-are).
+are), a vlm's tree as a dense one's, and encdec's unrolled lists
+(``enc_blocks`` and ``dec_blocks``, one dict a layer, quantized leaves
+[K, N] without a layer axis), its ``pos_enc``/``pos_dec`` tables and its
+untied ``unembed``.
 """
 from __future__ import annotations
 

@@ -4,7 +4,8 @@ from __future__ import annotations
 from typing import Dict
 
 from repro_torch.configs import (arctic_480b, gemma2_2b, gemma3_1b, mistral_nemo_12b,
-                                 qwen2_moe_a2_7b, rwkv6_3b, zamba2_7b)
+                                 paligemma_3b, qwen2_moe_a2_7b, rwkv6_3b, whisper_base,
+                                 zamba2_7b)
 from repro_torch.configs.base import ModelConfig
 
 _MODULES = {
@@ -15,6 +16,8 @@ _MODULES = {
     "qwen2-moe-a2.7b": qwen2_moe_a2_7b,
     "zamba2-7b": zamba2_7b,
     "rwkv6-3b": rwkv6_3b,
+    "paligemma-3b": paligemma_3b,
+    "whisper-base": whisper_base,
 }
 
 ARCH_IDS = tuple(_MODULES)

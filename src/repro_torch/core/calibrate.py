@@ -26,7 +26,9 @@ Weights are keyed by their path in the param tree (e.g.
 ``blocks.0.3.attn.wq``; the hybrid's ``mamba_groups.g.k.in_proj``,
 ``shared.attn.wq`` and ``mamba_tail.i.out_proj``; rwkv's
 ``blocks.0.r.tm.wr`` and ``blocks.0.r.cm.wv``, the decay LoRA's
-``tm.wa1``/``tm.wa2`` included).  The interception happens inside
+``tm.wa1``/``tm.wa2`` included; encdec's unrolled ``enc_blocks.i.attn.wq``
+and ``dec_blocks.i.xattn.wk``, its block similarities under
+``enc_blocks.i`` and ``dec_blocks.i``).  The interception happens inside
 ``repro_torch.core.compressed.matmul`` through ``set_record_hook``, so
 no model code knows about calibration.  Weights are recognised by object
 identity: a slice ``t[r]`` of a stacked tensor is a new object on every
@@ -35,9 +37,10 @@ call, so the calibration loop registers the very per-layer slices it hands to
 positions of the sample are recorded too, as in the reference.
 
 Also here: ``fit_confidence_threshold``, which fits a proxy -> base
-cascade's acceptance threshold on a held-out probe.  The dense, MoE,
-hybrid and rwkv families are calibrated; vlm and encdec wait for their
-ROADMAP item.
+cascade's acceptance threshold on a held-out probe.  Every family is
+calibrated: a vlm's sample may carry ``img_embs`` (spliced ahead of the
+text, counted in ``n_tokens``), an encdec's must carry ``enc_inputs``
+(``n_tokens`` then counts the decoder tokens only, as the reference's).
 """
 from __future__ import annotations
 
@@ -267,15 +270,15 @@ def _leaves(tree, path: str):
 
 def calibrate(params, cfg, batch: Dict[str, Any], *, hessian: bool = True,
               include_head: bool = True) -> CalibStats:
-    """Run the model on ``batch`` ({"tokens": [B, S]}) and gather
+    """Run the model on ``batch`` ({"tokens": [B, S]}, with ``img_embs``
+    or ``enc_inputs`` as ``api.forward`` takes them) and gather
     calibration statistics, the untied output head's included unless
     ``include_head`` is False."""
     by_family = {"dense": _calib_transformer, "moe": _calib_transformer,
-                 "hybrid": _calib_hybrid, "rwkv": _calib_rwkv}
+                 "vlm": _calib_transformer, "hybrid": _calib_hybrid,
+                 "rwkv": _calib_rwkv, "encdec": _calib_encdec}
     if cfg.family not in by_family:
-        raise NotImplementedError(
-            f"calibration of family {cfg.family!r} is not ported yet "
-            "(ROADMAP queue 1 item 9)")
+        raise ValueError(f"unknown family {cfg.family!r}")
     rec = Recorder(hessian=hessian)
     with torch.no_grad():
         by_family[cfg.family](rec, params, cfg, batch, include_head)
@@ -294,7 +297,9 @@ def _calib_transformer(rec, params, cfg, batch, include_head):
     from repro_torch.models import layers as L
     from repro_torch.models import transformer as TF
     tokens = torch.as_tensor(batch["tokens"], device=params["embed"].device)
-    x = L.embed(params, cfg, tokens)
+    img = batch.get("img_embs")
+    x = TF.embed_inputs(params, cfg, tokens,
+                        None if img is None else torch.as_tensor(img, device=tokens.device))
     B, S, _ = x.shape
     rec.n_tokens = B * S
     positions = torch.arange(S, device=x.device).expand(B, S)
@@ -370,6 +375,35 @@ def _calib_rwkv(rec, params, cfg, batch, include_head):
             path = f"blocks.0.{r}"
             rec.register(path, bp)
             x2, _ = RW.block_apply(bp, x, cfg)
+            rec.record_block(path, x, x2)
+            x = x2
+        _head(rec, params, cfg, x, include_head)
+
+
+def _calib_encdec(rec, params, cfg, batch, include_head):
+    """The encoder's blocks over ``enc_inputs``, then the decoder's over
+    the tokens against the encoder's output, each list's block
+    similarities under its own keys."""
+    from repro_torch.models import encdec as ED
+    from repro_torch.models import layers as L
+    dev = params["embed"].device
+    tokens = torch.as_tensor(batch["tokens"], device=dev)
+    enc_inputs = torch.as_tensor(batch["enc_inputs"], device=dev)
+    rec.n_tokens = tokens.numel()
+    with rec.active():
+        x = enc_inputs + params["pos_enc"][None, :enc_inputs.shape[1]]
+        for i, p in enumerate(params["enc_blocks"]):
+            path = f"enc_blocks.{i}"
+            rec.register(path, p)
+            x2 = ED._enc_block(p, x, cfg)
+            rec.record_block(path, x, x2)
+            x = x2
+        enc_out = L.norm(x, params["ln_enc"], cfg)
+        x = L.embed(params, cfg, tokens) + params["pos_dec"][None, :tokens.shape[1]]
+        for i, p in enumerate(params["dec_blocks"]):
+            path = f"dec_blocks.{i}"
+            rec.register(path, p)
+            x2 = ED._dec_block(p, x, enc_out, cfg)
             rec.record_block(path, x, x2)
             x = x2
         _head(rec, params, cfg, x, include_head)

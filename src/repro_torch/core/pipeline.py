@@ -31,7 +31,11 @@ layer stack compresses as the dense ``blocks`` do (its stats keys
 ``blocks.0.r.tm.wr``); its decay LoRA ``tm.wa1``/``tm.wa2``, mixes, decay
 and bonus vectors and groupnorm ``tm.gn`` are not in ``_COMPRESS_NAMES``
 and stay plain, and ``kv_keep_frac`` leaves it as it is (no attention:
-``prune_kv_groups`` returns it unchanged).
+``prune_kv_groups`` returns it unchanged).  A vlm compresses as the dense
+stack does.  encdec's unrolled ``enc_blocks`` and ``dec_blocks`` have no
+stacked axis (stack depth 0): each weight is compressed on its own, its
+stats key its tree path (``dec_blocks.3.xattn.wq``), and its untied
+``unembed`` is quantized like any other linear.
 :func:`needs_hessian` says which recipes read a Hessian, so that a search
 over none of them calibrates without one.
 """
@@ -120,8 +124,8 @@ def _is_target(path: str, leaf) -> bool:
 
 def _stack_depth(cfg, path: str) -> int:
     """Leading stacked-layer axes of a param subtree: ``blocks`` (dense,
-    MoE, rwkv) and the hybrid's ``mamba_tail`` one, its ``mamba_groups``
-    two ([G, K, ...])."""
+    MoE, vlm, rwkv) and the hybrid's ``mamba_tail`` one, its
+    ``mamba_groups`` two ([G, K, ...]); encdec's unrolled lists none."""
     if cfg.family == "hybrid":
         return {"mamba_groups": 2, "mamba_tail": 1}.get(path.split(".")[0], 0)
     return 1 if path.startswith("blocks.") else 0
@@ -229,9 +233,6 @@ class InstanceOptimizer:
 
     def apply(self, recipe: Recipe):
         _unported(recipe)
-        if self.cfg.family not in ("dense", "moe", "hybrid", "rwkv"):
-            raise NotImplementedError(
-                f"family {self.cfg.family!r} is not ported yet (ROADMAP queue 1 item 9)")
         t0 = time.time()
         if self.stats is None:
             self.stats = C.CalibStats({}, {}, 0)

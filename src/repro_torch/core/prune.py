@@ -17,7 +17,7 @@ where calibration left them (on the card for a model that lives there);
 a float64 Hessian is sliced there too (``H[idx][:, idx]``).  Ties in
 importance resolve as ``np.argsort(kind="stable")`` does, through a
 stable sort of the negated importance, so both packages keep the same
-members.  The dense, MoE and hybrid families are ported: an MoE block's
+members.  Every family prunes: an MoE block's
 FFN pruning keeps channels per expert (and prunes its shared and dense
 residual MLPs as dense ones), and expert pruning keeps the experts that
 this query's calibration rows routed to most.  The hybrid's KV-group
@@ -26,7 +26,12 @@ once (its Mamba inner channels are left alone, as in the reference), and
 its layer dropping removes whole Mamba groups.  rwkv has no attention:
 KV-group pruning returns it unchanged; FFN pruning keeps channel-mix
 channels (``cm.wv`` rows and ``cm.wk`` columns) and layer dropping takes
-single layers of its one stack.  Expert pruning leaves the
+single layers of its one stack.  A vlm prunes as the dense stack does.
+encdec's unrolled lists prune each layer on its own: KV groups in every
+``enc_blocks.i.attn``, ``dec_blocks.i.attn`` and ``dec_blocks.i.xattn``,
+channels of every ungated GELU MLP, and layer dropping takes the blocks
+of least change from either list by ``block_sim``, keeping at least one
+block in each.  Expert pruning leaves the
 router's statistics of the optimizer it came from as they were: the
 reference slices them in place (ROADMAP queue 3), so a second
 expert-pruned recipe of the same optimizer there ranks the wrong experts.
@@ -40,13 +45,12 @@ import torch
 
 from repro_torch.core.calibrate import CalibStats, WeightStats
 
-_FAMILIES = "vlm and encdec: ROADMAP queue 1 item 9"
+_FAMILIES = ("dense", "moe", "vlm", "hybrid", "rwkv", "encdec")
 
 
-def _ported(cfg, what: str) -> None:
-    if cfg.family not in ("dense", "moe", "hybrid", "rwkv"):
-        raise NotImplementedError(
-            f"{what} of family {cfg.family!r} is not ported yet ({_FAMILIES})")
+def _known(cfg, what: str) -> None:
+    if cfg.family not in _FAMILIES:
+        raise ValueError(f"{what} of unknown family {cfg.family!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -105,7 +109,7 @@ def _units(cfg):
 def prune_kv_groups(params, cfg, stats: CalibStats, keep: int):
     """Keep the ``keep`` most important KV groups in every attention block.
     rwkv, which has none, is returned unchanged."""
-    _ported(cfg, "KV-group pruning")
+    _known(cfg, "KV-group pruning")
     if cfg.family == "rwkv":
         return params, cfg, stats
     K, G = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
@@ -155,6 +159,12 @@ def prune_kv_groups(params, cfg, stats: CalibStats, keep: int):
     if cfg.family == "hybrid":
         params["shared"] = dict(params["shared"])
         params["shared"]["attn"] = prune_one(params["shared"]["attn"], ["shared.attn"])
+    elif cfg.family == "encdec":
+        for lst, nm in (("enc_blocks", "attn"), ("dec_blocks", "attn"),
+                        ("dec_blocks", "xattn")):
+            params[lst] = list(params[lst])
+            for i, blk in enumerate(params[lst]):
+                params[lst][i] = {**blk, nm: prune_one(blk[nm], [f"{lst}.{i}.{nm}"])}
     else:
         unit, R, tail = _units(cfg)
         params["blocks"] = list(params["blocks"])
@@ -180,13 +190,13 @@ def prune_kv_groups(params, cfg, stats: CalibStats, keep: int):
 
 def prune_ffn(params, cfg, stats: CalibStats, keep_frac: float):
     """Keep the top ``keep_frac`` FFN hidden channels (each layer its own)."""
-    _ported(cfg, "FFN pruning")
+    _known(cfg, "FFN pruning")
     if keep_frac >= 1.0:
         return params, cfg, stats
     params = dict(params)
     new_stats = dict(stats.weights)
 
-    def prune_mlp(mlp: Dict, paths: List[str]) -> Dict:
+    def prune_mlp(mlp: Dict, paths: List[str], gated: bool = True) -> Dict:
         stacked = mlp["wo"].dim() == 3
         R = mlp["wo"].shape[0] if stacked else 1
         ff = mlp["wo"].shape[-2]
@@ -196,7 +206,7 @@ def prune_ffn(params, cfg, stats: CalibStats, keep_frac: float):
             wo = mlp["wo"][r] if stacked else mlp["wo"]
             idx[r] = _top(_channel_importance(stats.get(paths[r] + ".wo"), wo), keep_ff)
         out = dict(mlp)
-        names = [("wo", 0), ("wi", 1)] + ([("wg", 1)] if "wg" in mlp else [])
+        names = [("wo", 0), ("wi", 1)] + ([("wg", 1)] if gated and "wg" in mlp else [])
         for name, axis in names:
             out[name] = (_take_stacked(mlp[name], idx, axis) if stacked
                          else torch.index_select(mlp[name], axis, idx[0]))
@@ -248,6 +258,12 @@ def prune_ffn(params, cfg, stats: CalibStats, keep_frac: float):
         return params, new_cfg, CalibStats(new_stats, stats.block_sim, stats.n_tokens)
     if cfg.family == "rwkv":
         return _prune_channel_mix(params, cfg, stats, new_stats, keep_frac)
+    if cfg.family == "encdec":
+        for lst in ("enc_blocks", "dec_blocks"):
+            params[lst] = [{**blk, "mlp": prune_mlp(blk["mlp"], [f"{lst}.{i}.mlp"], gated=False)}
+                           for i, blk in enumerate(params[lst])]
+        new_cfg = cfg.replace(d_ff=params["dec_blocks"][0]["mlp"]["wo"].shape[-2])
+        return params, new_cfg, CalibStats(new_stats, stats.block_sim, stats.n_tokens)
 
     unit, R, tail = _units(cfg)
     params["blocks"] = list(params["blocks"])
@@ -347,18 +363,45 @@ def _drop_groups(params, cfg, stats: CalibStats, n_drop: int):
     return params, new_cfg, CalibStats(new_stats, stats.block_sim, stats.n_tokens)
 
 
+def _drop_blocks(params, cfg, stats: CalibStats, n_drop: int):
+    """encdec's layer dropping: the ``n_drop`` blocks of least change,
+    1 - block_sim, taken from both lists in one ascending order (ties by
+    list, then index, as the reference's sort of tuples), each list
+    keeping at least one block; the survivors' stats re-keyed."""
+    scores = sorted([(1.0 - stats.block_sim.get(f"{lst}.{i}", 0.0), lst, i)
+                     for lst in ("enc_blocks", "dec_blocks")
+                     for i in range(len(params[lst]))])
+    drop = {"enc_blocks": set(), "dec_blocks": set()}
+    for _, lst, i in scores:
+        if sum(map(len, drop.values())) >= n_drop:
+            break
+        if len(params[lst]) - len(drop[lst]) > 1:
+            drop[lst].add(i)
+    params = dict(params)
+    new_stats = dict(stats.weights)
+    for lst in ("enc_blocks", "dec_blocks"):
+        kept = [i for i in range(len(params[lst])) if i not in drop[lst]]
+        params[lst] = [params[lst][i] for i in kept]
+        _rekey(new_stats, lst, torch.tensor(kept, dtype=torch.long), len(kept), 1)
+    new_cfg = cfg.replace(n_enc_layers=cfg.n_enc_layers - len(drop["enc_blocks"]),
+                          n_dec_layers=cfg.n_dec_layers - len(drop["dec_blocks"]))
+    return params, new_cfg, CalibStats(new_stats, stats.block_sim, stats.n_tokens)
+
+
 def drop_layers(params, cfg, stats: CalibStats, n_drop_units: int):
     """Drop the ``n_drop_units`` most redundant pattern-unit repeats (the
-    hybrid: Mamba groups; rwkv: layers).
+    hybrid: Mamba groups; rwkv: layers; encdec: blocks of either list).
 
     Redundancy score = 1 - cos(block input, block output) averaged over
     the unit, from calibration.  Order of the surviving layers is kept.
     """
-    _ported(cfg, "layer dropping")
+    _known(cfg, "layer dropping")
     if n_drop_units <= 0:
         return params, cfg, stats
     if cfg.family == "hybrid":
         return _drop_groups(params, cfg, stats, n_drop_units)
+    if cfg.family == "encdec":
+        return _drop_blocks(params, cfg, stats, n_drop_units)
     params = dict(params)
     new_stats = dict(stats.weights)
     unit, R, tail = _units(cfg)

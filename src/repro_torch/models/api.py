@@ -1,32 +1,33 @@
 """Family dispatch: the entry points the serving engine and tests call.
 
-The dense and MoE families (both on ``models/transformer.py``), the
-hybrid (``models/hybrid.py``: Mamba2 layers and one shared attention
-block) and rwkv (``models/rwkv.py``: attention-free, served on the
-contiguous layout only) are ported; vlm and encdec raise
-``NotImplementedError`` naming their ROADMAP item, and so does training
-of the hybrid and rwkv families.
+Every family of the reference is ported: dense, MoE and vlm (all on
+``models/transformer.py``; a vlm's ``img_embs`` go ahead of the text),
+the hybrid (``models/hybrid.py``: Mamba2 layers and one shared attention
+block), rwkv (``models/rwkv.py``: attention-free) and encdec
+(``models/encdec.py``: whisper, its decoder fed by ``enc_inputs``).  rwkv,
+vlm and encdec serve on the contiguous layout only, and vlm and encdec
+without a prefix cache.  Training of the hybrid and rwkv families raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
 from typing import Any, Dict
 
-from repro_torch.models import hybrid, rwkv, transformer
+from repro_torch.models import encdec, hybrid, rwkv, transformer
 from repro_torch.tree import value_and_grad
 
 
 _RECURRENT = ("hybrid", "rwkv")       # families whose prefill takes ``lengths``
 
 
+_MODULES = {"dense": transformer, "moe": transformer, "vlm": transformer,
+            "encdec": encdec, "rwkv": rwkv, "hybrid": hybrid}
+
+
 def family_module(cfg):
-    if cfg.family == "hybrid":
-        return hybrid
-    if cfg.family == "rwkv":
-        return rwkv
-    if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP queue 1 item 9)")
-    return transformer
+    if cfg.family not in _MODULES:
+        raise ValueError(f"unknown family {cfg.family!r}")
+    return _MODULES[cfg.family]
 
 
 def init_params(gen, cfg):
@@ -36,18 +37,30 @@ def init_params(gen, cfg):
 
 def forward(params, cfg, batch: Dict[str, Any], *, train: bool = False,
             remat: bool = True, capture: bool = False, use_flash: bool = False):
-    """batch: {"tokens": [B, S]}.  Returns (logits, aux)."""
-    return family_module(cfg).forward(params, cfg, batch["tokens"], train=train,
-                                      remat=remat, capture=capture,
-                                      use_flash=use_flash)
+    """batch: {"tokens": [B, S]}, with ``enc_inputs`` [B, Te, d] (encdec)
+    or, optionally, ``img_embs`` [B, n_img, d] (vlm).  Returns (logits,
+    aux)."""
+    kw: Dict[str, Any] = dict(train=train, remat=remat, capture=capture,
+                              use_flash=use_flash)
+    if cfg.family == "encdec":
+        kw["enc_inputs"] = batch["enc_inputs"]
+    elif cfg.family == "vlm":
+        kw["img_embs"] = batch.get("img_embs")
+    return family_module(cfg).forward(params, cfg, batch["tokens"], **kw)
 
 
 def loss_fn(params, cfg, batch, *, xent_chunk: int = 0, remat: bool = True,
             aux_weight: float = 0.01):
-    """Causal LM loss of ``batch`` {"tokens", "labels"} (scalar f32)."""
+    """Causal LM loss of ``batch`` {"tokens", "labels"} (scalar f32); a
+    vlm's on its text positions, an encdec's over every decoder position
+    of ``forward``."""
     if cfg.family in _RECURRENT:
         raise NotImplementedError(f"training of the {cfg.family} family is not ported "
                                   "yet (ROADMAP queue 1 item 9)")
+    if cfg.family == "encdec":
+        logits, aux = forward(params, cfg, batch, train=True, remat=remat)
+        loss = transformer._xent(logits, batch["labels"]) / batch["labels"].numel()
+        return loss + aux_weight * aux["moe_aux"]
     return family_module(cfg).loss_fn(params, cfg, batch["tokens"], batch["labels"],
                                       img_embs=batch.get("img_embs"),
                                       xent_chunk=xent_chunk, remat=remat,
@@ -60,18 +73,26 @@ def prefill(params, cfg, batch, *, max_len: int, compact_local: bool = False,
     padding out of a recurrent family's carried state; attention
     families ignore it (causality already isolates right-padding).
     ``cap_tokens``: the token count that decides MoE capacity (default
-    the whole batch; the engine passes a row's, for per-row dispatch)."""
+    the whole batch; the engine passes a row's, for per-row dispatch).
+    ``batch`` carries ``enc_inputs`` (encdec) or ``img_embs`` (vlm), as
+    in ``forward``; a vlm's logits then cover its image positions too."""
     kw: Dict[str, Any] = dict(max_len=max_len, compact_local=compact_local,
                               use_flash=use_flash, cap_tokens=cap_tokens)
     if cfg.family in _RECURRENT:
         kw["lengths"] = lengths
+    elif cfg.family == "encdec":
+        kw["enc_inputs"] = batch["enc_inputs"]
+    elif cfg.family == "vlm":
+        kw["img_embs"] = batch.get("img_embs")
     return family_module(cfg).prefill(params, cfg, batch["tokens"], **kw)
 
 
 def init_cache(cfg, batch: int, max_len: int, *, compact_local: bool = False,
                device="cuda"):
     """Contiguous cache at absolute slots (``compact_local=True`` raises,
-    but for rwkv, whose O(1) state has no positions to compact)."""
+    but for rwkv, whose O(1) state has no positions to compact); an
+    encdec's also holds each slot's cross-attention K/V at ``enc_ctx``
+    positions and its ``enc_len``."""
     return family_module(cfg).init_cache(cfg, batch, max_len,
                                          compact_local=compact_local, device=device)
 
@@ -96,8 +117,8 @@ def insert_rows(cfg, state, rows, slot_idxs):
 
 def supports_paged(cfg) -> bool:
     """Whether the family serves from a paged (block pool + block table)
-    KV layout; the others (rwkv: no positional KV) take the contiguous
-    one."""
+    KV layout; the others (rwkv: no positional KV; vlm and encdec, which
+    take the full-prefill path) take the contiguous one."""
     return cfg.family in ("dense", "moe", "hybrid")
 
 
@@ -143,7 +164,8 @@ def paged_seed(cfg, state, entry_state, write_ids, *, block_size: int):
 
 def supports_prefix(cfg) -> bool:
     """Whether the family can seed per-row state from a shared prefilled
-    prompt prefix."""
+    prompt prefix: not encdec, whose decoder needs its encoder inputs, nor
+    vlm, whose image embeddings sit ahead of the text."""
     return cfg.family in ("dense", "moe", "hybrid", "rwkv")
 
 

@@ -1,6 +1,13 @@
-"""Decoder-only transformer LM (dense and MoE families), and the block the
-hybrid family shares across its sites (``init_block``, ``block_apply``,
+"""Decoder-only transformer LM (dense, MoE and vlm families), and the block
+the hybrid family shares across its sites (``init_block``, ``block_apply``,
 ``block_decode``, ``paged_block_decode``, ``block_prefill_from``).
+
+A vlm (paligemma) is the dense stack with precomputed image embeddings
+``img_embs`` [B, n_img, d] spliced ahead of the text in ``forward``,
+``prefill`` and ``loss_fn``: cast to the activations' dtype and not
+scaled (``emb_scale`` multiplies the text embeddings only), positions
+running over the whole image-prefixed sequence, and the loss taken on the
+text positions only.
 
 The reference runs the layer stack with ``lax.scan`` over the repeating
 pattern unit of the architecture (gemma2's (local, global) pair); the
@@ -81,9 +88,8 @@ def _layers(tree, cfg) -> Iterator[Tuple[str, Any]]:
 
 def init_block(gen, cfg, dtype, lead: Tuple[int, ...] = ()) -> Params:
     """One block's params (the hybrid's shared attention + MLP block too)."""
-    if cfg.family not in ("dense", "moe", "hybrid"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP queue 1 item 9)")
+    if cfg.family not in ("dense", "moe", "vlm", "hybrid"):
+        raise ValueError(f"family {cfg.family!r} has no transformer block")
     d, dev = cfg.d_model, gen.device
     p: Params = {
         "ln1": L.norm_init(d, dtype, cfg.norm_type, device=dev, lead=lead),
@@ -195,13 +201,22 @@ def _trunk(params: Params, cfg, x, *, train: bool, use_flash: bool, remat: bool)
     return norm(x, params["ln_f"], cfg), aux
 
 
-def forward(params: Params, cfg, tokens, *, train: bool = False,
+def embed_inputs(params: Params, cfg, tokens, img_embs=None):
+    """The token embeddings [B, S, d], a vlm's image embeddings [B, n_img,
+    d] ahead of them when given (cast to their dtype, not scaled)."""
+    x = L.embed(params, cfg, tokens)
+    if cfg.family == "vlm" and img_embs is not None:
+        x = torch.cat([img_embs.to(x.dtype), x], dim=1)
+    return x
+
+
+def forward(params: Params, cfg, tokens, *, img_embs=None, train: bool = False,
             use_flash: bool = False, remat: bool = True, capture: bool = False):
-    """Returns (logits [B,S,V], aux dict)."""
+    """Returns (logits [B, n_img + S, V], aux dict)."""
     if capture:
         raise NotImplementedError(
             "capture is for calibration: ROADMAP queue 1 item 5")
-    x, aux = _trunk(params, cfg, L.embed(params, cfg, tokens), train=train,
+    x, aux = _trunk(params, cfg, embed_inputs(params, cfg, tokens, img_embs), train=train,
                     use_flash=use_flash, remat=remat)
     logits = L.unembed(params, cfg, x)
     return logits, {"moe_aux": aux}
@@ -214,15 +229,19 @@ def loss_fn(params: Params, cfg, tokens, labels, *, img_embs=None,
     the reference), plus ``aux_weight`` times the summed MoE aux.  ``xent_chunk`` > 0 streams the vocab projection
     over sequence chunks so [B, S, V] logits are never materialized;
     with ``remat`` each chunk's logits are recomputed in the backward
-    pass instead of kept."""
-    if img_embs is not None:
-        raise NotImplementedError(
-            "img_embs (the vlm family) is not ported yet (ROADMAP queue 1 item 9)")
+    pass instead of kept.  A vlm's loss is taken on the text positions
+    only, after its ``img_embs``."""
+    n_text = tokens.shape[1]
     if not xent_chunk:
-        logits, aux = forward(params, cfg, tokens, train=True, remat=remat)
+        logits, aux = forward(params, cfg, tokens, img_embs=img_embs, train=True,
+                              remat=remat)
+        if cfg.family == "vlm":
+            logits = logits[:, -n_text:]
         return _xent(logits, labels) / labels.numel() + aux_weight * aux["moe_aux"]
-    x, aux = _trunk(params, cfg, L.embed(params, cfg, tokens), train=True,
+    x, aux = _trunk(params, cfg, embed_inputs(params, cfg, tokens, img_embs), train=True,
                     use_flash=False, remat=remat)
+    if cfg.family == "vlm":
+        x = x[:, -n_text:]
     B, S, d = x.shape
     nchunks = max(S // xent_chunk, 1)
     xcs = x.reshape(B, nchunks, -1, d)
@@ -266,20 +285,21 @@ def _empty_cache(cfg, batch: int, T: int, dtype, device):
             "tail": [entry(()) for _ in range(tail)]}
 
 
-def prefill(params: Params, cfg, tokens, *, max_len: int,
+def prefill(params: Params, cfg, tokens, *, img_embs=None, max_len: int,
             compact_local: bool = False, use_flash: bool = False,
             cap_tokens: Optional[int] = None):
-    """Run the prompt, return (logits [B,S,V], populated cache).
+    """Run the prompt, return (logits [B, n_img + S, V], populated cache).
 
     Rows are right-padded; the caller gathers each row's last-valid-token
-    logits.  Cache slots are absolute (``compact_local=False``, the
-    serving layout; the reference's circular dry-run layout is not
+    logits (a vlm's text follows its ``img_embs``, whose KV fills the
+    first n_img slots).  Cache slots are absolute (``compact_local=False``,
+    the serving layout; the reference's circular dry-run layout is not
     ported).  ``cap_tokens``: the token count that decides MoE capacity
     (``L.moe_block``; default the whole batch).
     """
     if compact_local:
         raise NotImplementedError("compact_local caches are dry-run only")
-    x = L.embed(params, cfg, tokens)
+    x = embed_inputs(params, cfg, tokens, img_embs)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
     cache = _empty_cache(cfg, B, max_len, cfg.dtype, x.device)

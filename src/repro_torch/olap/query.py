@@ -119,6 +119,19 @@ class ModelCache:
         return len(self._d)
 
 
+def _require_text_model(cfg) -> None:
+    """A session feeds its models tokens only, as the reference's does: an
+    encdec model's decoder needs ``enc_inputs`` for every row, which no
+    operator carries, so its queries are refused before any build (the
+    reference's fail in calibration, which reads ``batch["enc_inputs"]``).
+    A vlm's queries run on the text alone."""
+    if getattr(cfg, "family", None) == "encdec":
+        raise ValueError(
+            f"{cfg.name}: an encdec model's queries need enc_inputs for every row, "
+            "which the session does not pass; serve it through Engine(extra_inputs="
+            "{'enc_inputs': ...})")
+
+
 class IOLMSession:
     """Holds the base model + optimization machinery across queries.
 
@@ -194,6 +207,7 @@ class IOLMSession:
 
     # -- engines --------------------------------------------------------
     def base_engine(self) -> Engine:
+        _require_text_model(self.cfg)
         if self.pool is not None:
             return self.pool.engine_for("base", optimize=False)
         return Engine(self.params, self.cfg, tokenizer=self.tok,
@@ -262,6 +276,7 @@ class IOLMSession:
 
     # -- the instance-optimization workflow ------------------------------
     def _optimize(self, qsig: str, prompts: List[str]) -> OptimizedModel:
+        _require_text_model(self.cfg)
         dsig = ModelCache.data_signature(prompts)
         cached = self.model_cache.get(qsig, dsig)
         if cached is not None:
@@ -615,6 +630,7 @@ class Query:
         """Serial execution: drive the plan coroutine op by op through
         the session's engines (pooled when the session has a
         ModelPool, private otherwise)."""
+        _require_text_model(getattr(self.session, "cfg", None))   # fakes carry none
         gen = self._ops()
         send = None
         self.last_run_stats = []

@@ -44,12 +44,17 @@ decided per row (``cap_tokens`` = the bucket), as in the reference's
 single-row prefill, so rows that together pass the 4096-token dropless
 limit are still dispatched without drops when each row is under it.
 Decode is batched over slots in both packages (its MoE dispatch sees one
-token a slot).  The dense, MoE, hybrid and rwkv families are ported
-(rwkv, which has no paged layout, always serves on the contiguous one:
-its slot state is O(1) in the sequence); ``mesh=``, vlm and encdec are
-not and raise.  The engine updates
-its pools and states in place (``index_copy_``) where the reference
-donates them to jit.
+token a slot).  Every family is ported; rwkv, vlm and encdec, which have
+no paged layout, always serve on the contiguous one.  ``extra_inputs``
+is one engine-wide entry that every admitted row gets: ``img_embs``
+[n_img, d] (vlm), spliced ahead of each row's text, or ``enc_inputs``
+[Te, d] (encdec), the frames its decoder cross-attends to.  An engine
+with one keeps no prefix cache.  A vlm row's first token is read at its
+last text position, n_img + len - 1 of the image-prefixed sequence, and
+its decode starts at n_img + len; the reference reads it at len - 1 and
+decodes from len, inside the image's KV (ROADMAP queue 3).  ``mesh=``
+is not ported and raises.  The engine updates its pools and states in
+place (``index_copy_``) where the reference donates them to jit.
 """
 from __future__ import annotations
 
@@ -60,6 +65,7 @@ from typing import Any, Dict, List, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.bridge import to_tensor
 from repro_torch.core.compressed import kernel_backend
 from repro_torch.kernels.backend import resolve_backend, resolve_device
 from repro_torch.models import api
@@ -140,9 +146,6 @@ class Engine:
         if mesh is not None:
             raise NotImplementedError(
                 "mesh= (tensor parallel) is not ported yet: ROADMAP queue 1 item 11")
-        if extra_inputs:
-            raise NotImplementedError(
-                "extra_inputs (vlm/encdec) are not ported yet: ROADMAP queue 1 item 9")
         if kv_layout not in ("auto", "paged", "contiguous"):
             raise ValueError(f"kv_layout must be auto/paged/contiguous, "
                              f"got {kv_layout!r}")
@@ -166,9 +169,21 @@ class Engine:
         self.buckets = tuple(ladder) or (cap,)
         self.result_cache = ResultCache() if use_result_cache else None
         self.version = version
+        # one engine-wide input (image embeddings or encoder frames) for
+        # every row: it sits ahead of or beside the text, so no prefix cache
+        self.extra_inputs = {k: v.to(self.device) if torch.is_tensor(v)
+                             else to_tensor(v, self.device)
+                             for k, v in (extra_inputs or {}).items()}
+        img = self.extra_inputs.get("img_embs")
+        self._n_img = img.shape[0] if cfg.family == "vlm" and img is not None else 0
+        if self._n_img + self.buckets[-1] > max_len - 1:
+            raise ValueError(
+                f"{self._n_img} image positions and the top bucket {self.buckets[-1]} "
+                f"leave no room to decode within max_len {max_len}")
         self.prefix_cache = (
             (prefix_cache if prefix_cache is not None else PrefixCache())
-            if use_prefix_cache and api.supports_prefix(cfg) else None)
+            if use_prefix_cache and api.supports_prefix(cfg) and not self.extra_inputs
+            else None)
         self._prefix_ids_memo: Dict[str, tuple] = {}
         self.batcher = Batcher(self.buckets)
         self.stats = EngineStats()
@@ -192,7 +207,10 @@ class Engine:
 
     # -- device steps ---------------------------------------------------
     def _prefill(self, toks, lens=None):
-        return api.prefill(self.params, self.cfg, {"tokens": toks},
+        n = toks.shape[0]
+        batch = {"tokens": toks, **{k: v.expand(n, *v.shape)
+                                    for k, v in self.extra_inputs.items()}}
+        return api.prefill(self.params, self.cfg, batch,
                            max_len=self.max_len, compact_local=False,
                            lengths=lens, cap_tokens=toks.shape[1])
 
@@ -411,8 +429,9 @@ class Engine:
         self.stats.prefills += 1
         self.stats.prefill_tokens += len(take) * b
         # rows are right-padded: each row's logits at its last REAL position
+        # (after a vlm's image positions)
         last = logits[torch.arange(len(take), device=self.device),
-                      self._dev(lens - 1)]
+                      self._dev(self._n_img + lens - 1)]
         first_dev = sample(last, self._gen,
                            temperature=self.sampling.temperature,
                            top_k=self.sampling.top_k)
@@ -433,7 +452,7 @@ class Engine:
                 continue
             self._active[s] = r
             self._cur_tok[s] = t0
-            self._cur_pos[s] = plen + int(lens[i])
+            self._cur_pos[s] = plen + self._n_img + int(lens[i])
         return finished
 
     def step_finish(self, pending: StepPending) -> List[Request]:

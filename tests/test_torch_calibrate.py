@@ -81,8 +81,8 @@ def test_calibrate_unregistered_weights_and_hook_scope(tiny):
     compressed.matmul(x, params["unembed"])               # hook removed
     st = rec.finish().get("unembed")
     assert st.count == 2 and torch.equal(st.sqnorm, torch.full((64,), 2.0))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        C.calibrate(params, cfg.replace(family="encdec"), {"tokens": torch.zeros((1, 4))})
+    with pytest.raises(ValueError, match="nonesuch"):      # a family neither package knows
+        C.calibrate(params, cfg.replace(family="nonesuch"), {"tokens": torch.zeros((1, 4))})
 
 
 def _problem(seed, K=256, N=96):

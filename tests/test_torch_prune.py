@@ -134,11 +134,11 @@ def test_stage1_is_identity_at_full_keep():
     with pytest.raises(ValueError):
         P.prune_kv_groups(params, cfg, opt.stats, cfg.n_kv_heads + 1)
     # expert pruning leaves a dense model as it is (as the reference's);
-    # families not ported yet raise
+    # a family neither package knows raises
     p2, cfg2, st2 = P.prune_experts(params, cfg, opt.stats, 1)
     assert p2 is params and cfg2 is cfg and st2 is opt.stats
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        P.prune_kv_groups(params, cfg.replace(family="encdec"), opt.stats, 1)
+    with pytest.raises(ValueError, match="nonesuch"):
+        P.prune_kv_groups(params, cfg.replace(family="nonesuch"), opt.stats, 1)
 
 
 STAGE1 = {
