@@ -8,8 +8,9 @@ Phases, each of which raises on failure (so the script exits non-zero):
 1. card: prints the card's name and power limit, builds the four CUDA
    kernels of ``src/repro_torch/kernels/csrc`` (one nvcc per source, in
    parallel) and counts the tensor-core instructions (HGMMA, HMMA) in
-   each library's machine code and the bytes ptxas spills: K2's, K3's
-   and K4's must have tensor-core instructions, K1 and K2 no spill;
+   each library's machine code and the bytes ptxas spills: every library
+   must have tensor-core instructions (K1's in its ``mma`` design), K1 and
+   K2 no spill;
 2. kernels: calls each kernel's wrapper at the main paths' shapes and at
    edge cases, holds it against its plain PyTorch version, and times
    kernel, plain version and a library call (CUDA events, L2 flushed
@@ -234,10 +235,42 @@ Phases, each of which raises on failure (so the script exits non-zero):
    shape phases 36, 38, 40 and 41 gave it, whisper's unembed on ``fma``
    included; paligemma's ``wi`` and whisper's unembed timed at M = 8 and
    512.
+44. kernel_paged_attention_g48 and kernel_flash_attention_g48 (the granite
+   phases run last, from generators of their own, GRANITE_SEED and
+   GRANITE_KERNEL_SEED): K1 at granite's MQA (8 slots, one KV head, D 128,
+   blocks of 32) at G 48 and at G 9, 16 and 24 around the 8-row boundary,
+   lengths 1 to 1024 around the split edges, plain and aliased tables, bf16
+   (``mma``) and f32 (``chunked``), a window and a softcap, bf16 at G 72
+   (``chunked``); at G 8 ``mma`` and ``chunked`` beside ``split`` on the
+   same inputs; timed at 128 and 1024 positions.  K3 at granite's layout
+   (S = T = 4096, H 48, Kh 1, D 128, tile edges), bf16 and f32, timed;
+45. granite_main_path: full-width granite-20b (52 layers, d_model 6144, 48
+   query heads on one KV head of 128, an ungated GELU MLP of 24576, vocab
+   49152, untied; 20,315,111,424 params, random bf16 weights) compressed
+   with ``w8-absmax`` and served by ``Engine(slots=8, max_len=1024)``
+   (paged), then the bf16 base: per decode step 313 K2 launches on
+   ``decode`` and 52 of K1 on its ``mma`` design, per prefill 313 on
+   ``mma``; no K3 or K4; params, bytes of both versions and peak memory;
+46. granite_whole_step: one decode step of that instance at 52 layers, cuda
+   against reference backend (STEP_TOL_F32 in f32, where K1 runs
+   ``chunked``; STEP_BF16_RATIO in bf16); then granite_decode_profile, the
+   step's profile beside its byte floor;
+47. granite_session: Q2 at 64 rows through ``Query.run`` over a copy of
+   granite's first 26 layers (GRANITE_SESSION_LAYERS: at 52 the ffn75
+   candidate's pruned bf16 weights beside the base and the kept
+   ``w8-absmax`` candidate outgrow the card) with ``w8-absmax`` and
+   ``w8a-ffn75`` (d_ff 18432; no ``w8-kv50`` for one KV head; no Hessian);
+48. kernel_quant_matmul_granite: K2 against its plain version at every
+   shape phases 45 (its int8 run) and 47 gave it; granite's ``wi`` and
+   untied unembed timed at M = 8 and 512;
+49. granite_f32_parity: Q2 in f32 at 4 layers, cuda against reference
+   session (phase 8's criteria; K1 on ``chunked`` on the cuda side).
 
 K2, K3 and K4 run their tensor-core designs on bf16 and their FMA
-designs on f32; ``ops.variant_count`` shows which design of every kernel
-ran, and every phase checks it.
+designs on f32; K1 runs ``split`` up to 8 query heads per KV head in
+either dtype and above that ``mma`` (bf16) or ``chunked`` (f32);
+``ops.variant_count`` shows which design of every kernel ran, and every
+phase checks it.
 Prints one JSON line per phase and each phase's seconds and
 ``memory_allocated`` before and after it, the
 ``{"kernels": [...]}`` summary (with each kernel's launches on its own
@@ -250,7 +283,9 @@ K2's ``hybrid`` cases seen and in_proj timings; on the rwkv path:
 ``launches_rwkv``, ``launches_rwkv_session``, and K2's ``rwkv`` cases seen
 and channel-mix timings; on the vlm and encdec paths: ``launches_vlm``,
 ``launches_vlm_session``, ``launches_encdec``, ``launches_encdec_build``,
-and K2's ``vlm_encdec`` cases seen and timings),
+and K2's ``vlm_encdec`` cases seen and timings; on the granite path:
+``launches_granite``, ``launches_granite_session``, K1's and K3's ``g48``
+timings, and K2's ``granite`` cases seen and timings),
 the card line, and last ``{"ok": true, "device": {...}}``.  Exits non-zero
 without a card and outside a checkout of the repository.
 """
@@ -274,6 +309,12 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12              # dense bf16 tensor-core peak
 K2_TOL = 2e-2                    # bf16 bound of tests/test_kernels.py
 K1_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}
+# K1 at granite's G, per slot (slot_errors) against the plain version's
+# unrounded f32 output: a bf16 output is off by at most half an ulp of
+# itself, 2^-8 = 3.9e-3 of the slot's largest value, plus f32 summation
+# order; a skipped or mis-merged split moves a slot by 1e-1 or more of its
+# scale (_k1_planted_faults)
+K1_SLOT_TOL = {torch.bfloat16: 5e-3, torch.float32: 1e-5}
 # whole decode step, kernels vs plain path, as the RMS of the logit difference
 # over the RMS logit.  In f32 the two differ only in summation order, so they
 # must agree closely.  In bf16, through 26 layers of random weights, one bf16
@@ -377,6 +418,16 @@ def errors(got, want):
     """(max abs error, max abs error / max |want|) in f32."""
     d = (got.float() - want.float()).abs().max().item()
     return d, d / max(want.float().abs().max().item(), 1e-30)
+
+
+def slot_errors(got, want):
+    """(max abs error, the largest over slots of a slot's max abs error over
+    that slot's own max |want|) in f32, slots on dim 0.  A long slot's
+    outputs average many V rows and are far smaller than a length-1
+    slot's (a V row), so a tensor-wide scale would hide its faults."""
+    d = (got.float() - want.float()).abs().flatten(1).amax(1)
+    scale = want.float().abs().flatten(1).amax(1).clamp(min=1e-30)
+    return d.max().item(), (d / scale).max().item()
 
 
 def bound(nbytes: float, flops: float):
@@ -966,11 +1017,11 @@ def variant_delta(before):
     return {k: n for k, n in d.items() if n}
 
 
-def variants_of(launched, dtype, rows):
+def variants_of(launched, dtype, rows, G: int = 2):
     """The designs that the kernels' launches must have run for params of
-    ``dtype`` and x of ``rows`` rows (0: prefill-sized).  K2's rule sees
-    gemma2-2b's linears, whose N are all multiples of 16, and w8-absmax's
-    groups of 128 rows."""
+    ``dtype`` and x of ``rows`` rows (0: prefill-sized), with ``G`` query
+    heads per KV head.  K2's rule sees gemma2-2b's linears, whose N are all
+    multiples of 16, and w8-absmax's groups of 128 rows."""
     from repro_torch.kernels import ops
     rows = rows or 10**6
     want = {}
@@ -978,7 +1029,8 @@ def variants_of(launched, dtype, rows):
         key = f"quant_matmul.{ops.quant_matmul_variant(dtype, rows, 2304, 128)}"
         want[key] = launched["quant_matmul"]
     if launched.get("paged_attention"):
-        want["paged_attention.split"] = launched["paged_attention"]
+        want[f"paged_attention.{ops.paged_attention_variant(dtype, G)}"] = \
+            launched["paged_attention"]
     if launched.get("flash_attention"):
         want[f"flash_attention.{ops.flash_variant(dtype)}"] = launched["flash_attention"]
     if launched.get("block_sparse_matmul"):
@@ -1022,7 +1074,8 @@ def whole_step(gen, params, eng, per_step, trials: int = 6, name="whole_step"):
                 launched = {k: ops.launch_count[k] - before[k] for k in before}
                 want = {k: per_step.get(k, 0) if backend == "cuda" else 0 for k in before}
                 check(launched == want, ("launches of the step", dtype, backend, launched))
-                check(variant_delta(vbefore) == variants_of(launched, dtype, S),
+                check(variant_delta(vbefore) == variants_of(launched, dtype, S,
+                                                            cfg.n_heads // cfg.n_kv_heads),
                       ("designs of the step", dtype, backend, variant_delta(vbefore)))
                 check(bool(torch.isfinite(lg).all()) and lg.shape == (S, 1, cfg.vocab_size),
                       ("decode-step logits", dtype, backend, lg.shape))
@@ -1593,7 +1646,8 @@ def olap_f32_parity(gen, cfg_full, layers: int = 4, name="olap_f32_parity"):
         if backend == "cuda":
             want = {"quant_matmul.fma"}
             if api.supports_paged(cfg):
-                want.add("paged_attention.split")
+                G = cfg.n_heads // cfg.n_kv_heads
+                want.add(f"paged_attention.{ops.paged_attention_variant(torch.float32, G)}")
             if cfg.family == "moe":
                 want.add("quant_matmul.expert_fma")
             check(set(variants) == want, ("f32 session designs", variants))
@@ -4008,9 +4062,9 @@ def hybrid_long_prefill(gen, base, cfg, S: int = 8192):
 
 
 def _family_session(phase, label, base, cfg, recipes, on_outcome, served_gate,
-                    device="cuda", n_rows: int = 64):
-    """Q2 (``llm_correct``) and Q1 (``llm_map``) over ``n_rows`` rows each
-    through ``Query.run`` on an ``IOLMSession`` over ``base`` with
+                    device="cuda", n_rows: int = 64, queries=("Q2", "Q1")):
+    """Q2 (``llm_correct``) and Q1 (``llm_map``), or those of ``queries``,
+    over ``n_rows`` rows each through ``Query.run`` on an ``IOLMSession`` over ``base`` with
     ``recipes``: each operator calibrates on its rows, builds and
     evaluates every recipe (``on_outcome(optimizer, outcome)`` checks the
     calibration and the candidates) and serves the pick.  On the card
@@ -4029,11 +4083,12 @@ def _family_session(phase, label, base, cfg, recipes, on_outcome, served_gate,
     sess = IOLMSession(base, cfg, device=device, recipes=recipes, **SESSION_KW)
     commits = Table({"lang": [r.text for r in workload_rows("correct", n_rows)]})
     reviews = Table({"review": [r.text for r in workload_rows("summarize", n_rows)]})
-    queries = [("Q2", Query(commits, sess).llm_correct("lang", prompt=PROMPTS["correct"]),
-                ["lang", "lang_fixed"]),
-               ("Q1", Query(reviews, sess).llm_map("review", prompt=PROMPTS["summarize"],
-                                                   out_col="summary"),
-                ["review", "summary"])]
+    built = {"Q2": (Query(commits, sess).llm_correct("lang", prompt=PROMPTS["correct"]),
+                    ["lang", "lang_fixed"]),
+             "Q1": (Query(reviews, sess).llm_map("review", prompt=PROMPTS["summarize"],
+                                                 out_col="summary"),
+                    ["review", "summary"])}
+    queries = [(name, *built[name]) for name in queries]
     results, peak = [], 0
     ops.reset_launch_counts()
     with SessionProbe(on_outcome=on_outcome) as probe:
@@ -5058,6 +5113,434 @@ def check_quant_matmul_vlm_encdec(vlm_shapes, vlm_session_shapes, enc_shapes,
     return line
 
 
+# ---------------------------------------------------------------------------
+# the granite phases: full-width granite-20b, MQA of 48 query heads on one
+# KV head, which K1 serves with its `mma` design
+# ---------------------------------------------------------------------------
+
+GRANITE_SEED = 61                # the granite phases' generator: earlier phases' draws stay
+GRANITE_KERNEL_SEED = 67         # K1, K2 and K3 at granite's shapes: adding a case moves no weight
+# K1 at granite's decode: 8 slots, one KV head of 48 query heads, head dim
+# 128, blocks of 32 at max_len 1024; no window or softcap
+GRANITE_PA = {"Kh": 1, "G": 48, "D": 128, "bs": 32, "nblk": 32}
+# the granite session's depth: the ffn75 candidate's pruned bf16 wi and wo
+# (23.6 GB at 52 layers) beside the base (40.6 GB) and the kept w8-absmax
+# candidate (21.2 GB) outgrow the card's 80 GB, so the session serves a
+# copy of the first 26 layers of the same weights, at the published widths
+GRANITE_SESSION_LAYERS = 26
+
+
+def _k1_planted_faults(gen, ref, ops):
+    """Shows that the per-slot measure of check_paged_attention_g48 fails
+    two faults of the split merge that a kernel could make, at granite's
+    bf16 decode shape (plan of 11 splits of 96): the plain version's
+    output with, in every slot of two or more live splits, the last live
+    split's PV partial left out (``drop_last_split``), or each split's
+    probabilities normalised by its own (max, sum) and the splits'
+    outputs added (``split_local_softmax``); and, in the slots of 700 and
+    1024 positions alone, the partial of their middle live split left out
+    (``drop_middle_split_long``).  Each must be past K1_SLOT_TOL in bf16;
+    the tensor-wide measure is recorded beside it."""
+    lengths = [1, 33, 95, 96, 97, 193, 700, 1024]
+    q, k, v, tables, ln = _paged_inputs(gen, torch.bfloat16, lengths, **GRANITE_PA)
+    S, _, H, D = q.shape
+    qr = q[:, 0].reshape(S, 1, H, D)
+    splits, per = ops.paged_attention_plan(S, 1, 1024, 0, 32, 2 * H)
+    want = ref.paged_attention(qr.float(), k, v, tables, ln)
+    T = tables.shape[1] * k.shape[1]
+    kk = k[tables.long()].reshape(S, T, 1, D).float()
+    vv = v[tables.long()].reshape(S, T, 1, D).float()
+    sc = torch.einsum("skgd,stkd->skgt", qr.float(), kk) / math.sqrt(D)
+    t = torch.arange(T, device="cuda")[None, :]
+    n = ln.long()[:, None]
+    sc = sc.masked_fill(~(t < n)[:, None, None], -math.inf)
+    p = torch.softmax(sc, -1)
+    multi = n > per                              # two or more live splits
+    last = (t >= (n - 1) // per * per) & multi   # the last live split's positions
+    drop = p.masked_fill(last[:, None, None], 0.0)
+    mid = ((n - 1) // per + 1) // 2 * per
+    middle = (t >= mid) & (t < mid + per) & (n >= 700)
+    drop_mid = p.masked_fill(middle[:, None, None], 0.0)
+    sz = torch.nn.functional.pad(sc, (0, splits * per - T), value=-math.inf)
+    sz = sz.reshape(S, 1, H, splits, per)
+    e = torch.exp(sz - sz.amax(-1, keepdim=True).clamp(min=-1e30))
+    local = (e / e.sum(-1, keepdim=True).clamp(min=1e-30)).reshape(S, 1, H, -1)[..., :T]
+    local = torch.where(multi[:, None, None], local, p)
+    out = {}
+    for name, probs in (("drop_last_split", drop), ("split_local_softmax", local),
+                        ("drop_middle_split_long", drop_mid)):
+        got = torch.einsum("skgt,stkd->skgd", probs.to(torch.bfloat16).float(), vv)
+        got = got.to(torch.bfloat16)
+        out[name] = {"rel_err": slot_errors(got, want)[1],
+                     "tensor_rel_err": errors(got, want.to(torch.bfloat16))[1]}
+        check(out[name]["rel_err"] > K1_SLOT_TOL[torch.bfloat16], ("planted fault passes",
+                                                                  name, out[name]))
+    return out
+
+
+def check_paged_attention_g48():
+    """K1 at granite's MQA (8 slots, one KV head, D 128, blocks of 32)
+    against its plain version: G 48 and, around the 8-row boundary of the
+    ``split`` design, G 9, 16 and 24; tables of 128 and 1024 positions with
+    lengths around the split edges (1 to 1024), plain and aliased tables,
+    bf16 (``mma``) and f32 (``chunked``); a window and a softcap at G 48;
+    bf16 at G 72 (``chunked``, past the ``mma`` design's 64 rows).  At G 8
+    ``mma`` (bf16) and ``chunked`` (f32) run beside ``split`` on the same
+    inputs, and each must agree with the plain version and with ``split``.
+    Every output is held per slot (:func:`slot_errors`, K1_SLOT_TOL), and
+    two planted faults of the split merge must fail that measure
+    (:func:`_k1_planted_faults`).  Then one bf16 decode call at G 48 is
+    timed at 128 and 1024 positions a slot."""
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(GRANITE_KERNEL_SEED)
+    # mma's splits are 96 positions at G 48 (min_per 2 G), 64 at G 24, else 32
+    ragged = {4: [1, 31, 32, 33, 64, 96, 97, 128],
+              32: [1, 33, 95, 96, 97, 193, 700, 1024]}
+    cases = [(dtype, G, nblk, lengths, alias, 0, 0.0)
+             for dtype in (torch.bfloat16, torch.float32) for G in (48, 9, 16, 24)
+             for nblk, lengths in ragged.items() for alias in (False, True)]
+    cases += [(dtype, 48, 32, ragged[32], True, 64, 50.0)
+              for dtype in (torch.bfloat16, torch.float32)]
+    cases += [(torch.bfloat16, 72, 4, ragged[4], False, 0, 0.0)]
+    worst_abs, results = 0.0, []
+
+    def hold(got, want, dtype, rec):
+        """got against the plain version's f32 output ``want``, per slot
+        (K1_SLOT_TOL); ``tensor_rel_err`` is the tensor-wide measure of
+        the other K1 phases, for comparison."""
+        nonlocal worst_abs
+        err_abs, err_rel = slot_errors(got, want)
+        rec["rel_err"] = err_rel
+        rec["tensor_rel_err"] = errors(got, want.to(dtype))[1]
+        results.append(rec)
+        check(got.dtype == dtype and bool(torch.isfinite(got).all())
+              and err_rel < K1_SLOT_TOL[dtype], rec)
+        worst_abs = max(worst_abs, err_abs)
+
+    for dtype, G, nblk, lengths, alias, window, cap in cases:
+        shape = {**GRANITE_PA, "G": G, "nblk": nblk, "alias": alias}
+        q, k, v, tables, ln = _paged_inputs(gen, dtype, lengths, **shape)
+        variant = ops.paged_attention_variant(dtype, G)
+        before = dict(ops.variant_count)
+        got = ops.paged_attention(q, k, v, tables, ln, softcap=cap, window=window)
+        S, _, H, D = q.shape
+        want = ref.paged_attention(q[:, 0].reshape(S, 1, G, D).float(), k, v, tables, ln,
+                                   softcap=cap, window=window).reshape(S, 1, H, D)
+        torch.cuda.synchronize()
+        check(variant_delta(before) == {f"paged_attention.{variant}": 1},
+              ("K1 design", G, dtype, variant_delta(before)))
+        hold(got, want, dtype, {"dtype": str(dtype).split(".")[-1], "G": G, "lengths": lengths,
+                                "window": window, "softcap": cap, "variant": variant,
+                                "plan": ops.paged_attention_plan(
+                                    S, 1, nblk * 32, window, 32,
+                                    2 * G if variant == "mma" else 0), **shape})
+    # G 8: the rule picks `split`; `mma` (bf16) and `chunked` (f32, one
+    # chunk of 8) take the same inputs
+    agree = {}
+    for dtype, other in ((torch.bfloat16, "mma"), (torch.float32, "chunked")):
+        for nblk, lengths in ragged.items():
+            q, k, v, tables, ln = _paged_inputs(gen, dtype, lengths,
+                                                **{**GRANITE_PA, "G": 8, "nblk": nblk})
+            qr = q[:, 0].reshape(8, 1, 8, 128)
+            before = dict(ops.variant_count)
+            a = ops.paged_attention(q, k, v, tables, ln).reshape(qr.shape)
+            b = ops._launch_paged_attention(qr, k, v, tables, ln, 0.0, 0, other)
+            want = ref.paged_attention(qr.float(), k, v, tables, ln)
+            torch.cuda.synchronize()
+            check(variant_delta(before) == {"paged_attention.split": 1,
+                                            f"paged_attention.{other}": 1},
+                  ("K1 designs at G 8", variant_delta(before)))
+            for name, got in (("split", a), (other, b)):
+                hold(got, want, dtype, {"dtype": str(dtype).split(".")[-1], "G": 8,
+                                        "lengths": lengths, "variant": name, "nblk": nblk})
+            key = f"{str(dtype).split('.')[-1]}_{nblk * 32}"
+            # each is within K1_SLOT_TOL of want, so the two within twice that
+            agree[key] = slot_errors(b, a)[1]
+            check(agree[key] < 2 * K1_SLOT_TOL[dtype],
+                  ("split and", other, "differ at G 8", agree))
+    planted = _k1_planted_faults(gen, ref, ops)
+
+    timed = {}
+    for L in (128, 1024):
+        lengths = [L] * 8
+        q, k, v, tables, ln = _paged_inputs(gen, torch.bfloat16, lengths, **GRANITE_PA)
+        S, _, H, D = q.shape
+        qr = q[:, 0].reshape(S, 1, H, D)
+        ms = time_ms(lambda: ops.paged_attention(q, k, v, tables, ln))
+        plain_ms = time_ms(lambda: ref.paged_attention(qr, k, v, tables, ln))
+        # one KV head: the 48 query heads are 48 query rows of one SDPA head
+        kc = k[tables.long()].reshape(S, -1, 1, D)[:, :L].permute(0, 2, 1, 3).contiguous()
+        vc = v[tables.long()].reshape(S, -1, 1, D)[:, :L].permute(0, 2, 1, 3).contiguous()
+        lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qr, kc, vc))
+        nbytes = sum(lengths) * D * 2 * 2 + 2 * q.numel() * 2 + tables.numel() * 4 + S * 4
+        flops = sum(lengths) * H * D * 2 * 2
+        bound_ms, bound_by = bound(nbytes, flops)
+        timed[L] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by, "bound_share": bound_ms / ms,
+                    "bytes": nbytes, "flops": flops,
+                    "plan": ops.paged_attention_plan(S, 1, 1024, 0, 32, 2 * H)}
+    line = {"phase": "kernel", "name": "paged_attention_g48", "cases": len(results),
+            "max_rel_err": max(r["rel_err"] for r in results), "max_abs_err": worst_abs,
+            "measure": "per slot: a slot's max abs error over its own max |want|, want the "
+                       "plain version's f32 output", "tolerance": {
+                           str(d).split(".")[-1]: t for d, t in K1_SLOT_TOL.items()},
+            "g8_rel_to_split": agree, "planted_faults": planted,
+            "timed": "one granite decode call, S=8 Kh=1 G=48 D=128 bs=32, 128 positions a "
+                     "slot, bf16 (1024 positions under L1024)",
+            "variant": ops.paged_attention_variant(torch.bfloat16, 48), **timed[128],
+            "L1024": timed[1024],
+            "library_note": "SDPA on K/V gathered beforehand, the 48 query heads as 48 rows "
+                            "of one head"}
+    emit(line)
+    print(f"K1 at G 48: {len(results)} cases, max rel err per slot {line['max_rel_err']:.3g} "
+          f"(tensor-wide {max(r['tensor_rel_err'] for r in results):.3g}); planted faults "
+          + ", ".join(f"{n} {f['rel_err']:.3g} (tensor-wide {f['tensor_rel_err']:.3g})"
+                      for n, f in planted.items()) + "; "
+          + "; ".join(f"{L} positions {t['ms']:.4f} ms (bound {t['bound_ms']:.4f}, plain "
+                      f"{t['plain_ms']:.4f}, SDPA {t['library_ms']:.4f})"
+                      for L, t in timed.items()), flush=True)
+    return line, results
+
+
+def check_flash_attention_g48():
+    """K3 at granite's head layout (48 query heads on one KV head, D 128)
+    against its plain version: the prefill of a 4096-token document (S = T
+    = 4096), a ragged ``t_real``, and tile edges (S of 127 and 129, T not a
+    multiple of the 64-key stage, a window, q_offset), bf16 (``mma``) and
+    f32 (``fma``).  Then the 4096-token call is timed in bf16."""
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(GRANITE_KERNEL_SEED + 1)
+    # (B, S, T, H, Kh, D, window, softcap, q_offset, t_real)
+    shapes = [(1, 4096, 4096, 48, 1, 128, 0, 0.0, 0, 0),
+              (1, 4096, 4096, 48, 1, 128, 0, 0.0, 0, 4001),
+              (2, 127, 127, 48, 1, 128, 0, 0.0, 0, 0),
+              (1, 129, 300, 48, 1, 128, 70, 0.0, 171, 290)]
+    worst_abs, results = 0.0, []
+    for dtype in (torch.bfloat16, torch.float32):
+        for B, S, T, H, Kh, D, win, cap, off, t_real in shapes:
+            q, k, v = _attn_inputs(gen, B, S, T, H, Kh, D, dtype)
+            kw = dict(causal=True, window=win, softcap=cap, q_offset=off, t_real=t_real)
+            before = dict(ops.variant_count)
+            got = ops.flash_attention(q, k, v, **kw)
+            want = ref.flash_attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            check(got.dtype == dtype and got.shape == q.shape, ("output", got.shape))
+            check(variant_delta(before) == {f"flash_attention.{ops.flash_variant(dtype)}": 1},
+                  ("K3 design", variant_delta(before)))
+            err_abs, err_rel = errors(got, want)
+            results.append({"B": B, "S": S, "T": T, "H": H, "Kh": Kh, "D": D,
+                            "window": win, "softcap": cap, "q_offset": off,
+                            "t_real": t_real, "dtype": str(dtype).split(".")[-1],
+                            "rel_err": err_rel, "variant": ops.flash_variant(dtype)})
+            check(bool(torch.isfinite(got).all()) and err_rel < K34_TOL[dtype], results[-1])
+            worst_abs = max(worst_abs, err_abs)
+            del q, k, v, got, want
+    B, S, H, D = 1, 4096, 48, 128
+    q, k, v = _attn_inputs(gen, B, S, S, H, 1, D, torch.bfloat16)
+    t = {"ms": time_ms(lambda: ops.flash_attention(q, k, v, causal=True), reps=10),
+         "plain_ms": time_ms(lambda: ref.flash_attention(q, k, v, causal=True), reps=3)}
+    qs = q.transpose(1, 2).contiguous()
+    ks = k.transpose(1, 2).repeat_interleave(H, dim=1).contiguous()
+    vs = v.transpose(1, 2).repeat_interleave(H, dim=1).contiguous()
+    t["library_ms"] = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qs, ks, vs, is_causal=True), reps=10)
+    t["flops"] = 4.0 * B * H * D * (S * (S + 1) / 2)
+    t["bound_ms"], t["bound_by"] = bound(2 * (2 * q.numel() + k.numel() + v.numel()),
+                                         t["flops"])
+    t["bound_share"] = t["bound_ms"] / t["ms"]
+    line = {"phase": "kernel", "name": "flash_attention_g48", "cases": len(results),
+            "max_rel_err": max(r["rel_err"] for r in results), "max_abs_err": worst_abs,
+            "timed": "granite's prefill attention of one layer, B=1 S=T=4096 H=48 Kh=1 "
+                     "D=128, causal, bf16", "variant": ops.flash_variant(torch.bfloat16),
+            "library_note": "SDPA is_causal, the KV head pre-expanded to 48", **t}
+    emit(line)
+    print(f"K3 at granite's layout: {len(results)} cases, max rel err "
+          f"{line['max_rel_err']:.3g}; {t['ms']:.4f} ms (bound {t['bound_ms']:.4f}, plain "
+          f"{t['plain_ms']:.4f}, SDPA {t['library_ms']:.4f})", flush=True)
+    return line, results
+
+
+def granite_per_call(cfg):
+    """(K2, K1) launches of one model call of granite's int8 instance: each
+    layer's six linears (wq, wk, wv, attn wo; the ungated MLP's wi and wo)
+    and the untied, quantized unembed; K1 once a layer in a decode step."""
+    return 6 * cfg.n_layers + 1, cfg.n_layers
+
+
+def _k1_design(cfg, dtype=torch.bfloat16):
+    from repro_torch.kernels import ops
+    return f"paged_attention.{ops.paged_attention_variant(dtype, cfg.n_heads // cfg.n_kv_heads)}"
+
+
+def granite_main_path(gen, cfg=None, device="cuda"):
+    """Full-width granite-20b (52 layers, d_model 6144, 48 query heads on one
+    KV head of 128, an ungated GELU MLP of 24576, vocab 49152, untied;
+    20,315,111,424 params, 20,315,756,544 with the norms' weights, random
+    bf16 weights from ``gen``) compressed with ``w8-absmax`` and served by
+    ``Engine(slots=8, max_len=1024)`` (paged) on the main path's rows and
+    template, then the bf16 base the same way: per decode step 313 K2
+    launches on ``decode`` and 52 of K1, all on its
+    ``mma`` design; per prefill 313 on ``mma``; no K3 or K4.  The base run
+    launches K1 alone.  ``cfg`` and ``device`` let it run at reduced widths
+    on the CPU."""
+    from repro_torch.configs import granite_20b
+    from repro_torch.core.compressed import param_bytes
+    from repro_torch.core.pipeline import InstanceOptimizer, Recipe
+    from repro_torch.kernels import ops
+    from repro_torch.models import api
+    from repro_torch.serving.scheduler import slot_state_bytes
+    from repro_torch.tree import leaves
+
+    cfg = cfg or granite_20b.CONFIG
+    k2, k1 = granite_per_call(cfg)
+    k1_design = _k1_design(cfg)
+    t0 = time.time()
+    base = api.init_params(gen, cfg)
+    sync()
+    init_s = time.time() - t0
+    n_params = sum(t.numel() for t in leaves(base))
+    if cfg == granite_20b.CONFIG:         # param_count() leaves out the 105 norms' weights
+        check(n_params == 20_315_756_544 and cfg.param_count() == 20_315_111_424,
+              ("granite params", n_params, cfg.param_count()))
+    t0 = time.time()
+    int8, _, report = InstanceOptimizer(base, cfg).apply(
+        Recipe(name="w8-absmax", wbits=8, quant_method="absmax"))
+    sync()
+    quant_s = time.time() - t0
+    check(getattr(int8["unembed"], "q", None) is not None, "the untied unembed is quantized")
+
+    reset_peak()
+    ops.reset_launch_counts()
+    eng8, reqs8 = serve(int8, cfg, "w8-absmax", device)
+    launches = dict(ops.launch_count)
+    variants = {k: n for k, n in ops.variant_count.items() if n}
+    st8 = eng8.stats
+    check(eng8._paged and eng8._block_size == 32, ("granite serves paged KV", eng8._block_size))
+    if device == "cuda":
+        check(launches == {"quant_matmul": k2 * (st8.decode_steps + st8.prefills),
+                           "paged_attention": k1 * st8.decode_steps,
+                           "block_sparse_matmul": 0, "flash_attention": 0},
+              ("granite int8 run launches", launches, st8.decode_steps, st8.prefills))
+        check(variants == {"quant_matmul.decode": k2 * st8.decode_steps,
+                           "quant_matmul.mma": k2 * st8.prefills,
+                           k1_design: k1 * st8.decode_steps},
+              ("granite int8 run designs", variants))
+    peak8 = card_memory()[1]
+    ops.reset_launch_counts()
+    eng16, reqs16 = serve(base, cfg, "base", device)
+    base_launches = dict(ops.launch_count)
+    base_variants = {k: n for k, n in ops.variant_count.items() if n}
+    if device == "cuda":
+        check(base_launches["quant_matmul"] == 0 and base_launches["paged_attention"] > 0
+              and base_variants == {k1_design: base_launches["paged_attention"]},
+              ("granite base run", base_launches, base_variants))
+    agree, rows_same = _agreement(reqs16, reqs8)
+    line = {"phase": "granite_main_path", "model": cfg.name, "params": n_params,
+            "layers": cfg.n_layers, "layout": "paged", "block_size": eng8._block_size,
+            "slot_state_bytes": slot_state_bytes(cfg, 1024),
+            "rows": len(REVIEWS), "max_new": 32, "init_s": init_s, "quantize_s": quant_s,
+            "param_bytes_base": param_bytes(base), "param_bytes_int8": param_bytes(int8),
+            "param_count": cfg.param_count(), "compression": report.compression,
+            "byte_floor_ms_int8": param_bytes(int8) / HBM_BYTES_PER_S * 1e3,
+            "byte_floor_ms_base": param_bytes(base) / HBM_BYTES_PER_S * 1e3,
+            "int8": {**_serve_stats(eng8, []), "launches": launches, "variants": variants},
+            "base": {**_serve_stats(eng16, []), "launches": base_launches,
+                     "variants": base_variants},
+            "launches_per_call": {"quant_matmul": k2, "paged_attention": k1},
+            "max_memory_allocated_int8_run": peak8, "max_memory_allocated": card_memory()[1],
+            "greedy_token_agreement_base_vs_int8": agree,
+            "rows_identical_base_vs_int8": rows_same}
+    emit(line)
+    for name in ("int8", "base"):
+        print(f"granite {name}: {line[name]['rows_per_s']:.3f} rows/s, "
+              f"{line[name]['tokens_per_s']:.1f} tokens/s, {line[name]['decode_steps']} steps, "
+              f"{line[name]['prefills']} prefills", flush=True)
+    print(f"granite params {n_params}, param_bytes base {line['param_bytes_base']}, int8 "
+          f"{line['param_bytes_int8']}; quantize {quant_s:.1f} s; max_memory_allocated "
+          f"{line['max_memory_allocated']}", flush=True)
+    del eng16
+    return line, launches, base, int8, eng8
+
+
+def granite_session(base, cfg, device="cuda", n_rows: int = 64):
+    """An ``IOLMSession`` over granite-20b's weights (on the card, a copy of
+    their first GRANITE_SESSION_LAYERS layers, ``cut_depth``; that constant
+    says why) runs Q2 (``llm_correct`` over ``n_rows`` values) through
+    ``Query.run`` (``_family_session``): the operator calibrates on its rows
+    (``wi`` with no ``wg``; no Hessian), builds and evaluates ``w8-absmax``
+    and ``w8a-ffn75`` (d_ff 18432; the grid has no ``w8-kv50`` for one KV
+    head) and serves the pick through the paged ``Engine``: K2 on 6 linears
+    a layer and the unembed, K1 once a layer in each decode step on
+    ``mma``."""
+    _, recipes = session_recipes(cfg)
+    check([r.name for r in recipes] == ["w8-absmax", "w8a-ffn75"], recipes)
+    k2, k1 = granite_per_call(cfg)
+    k1_design = _k1_design(cfg)
+    pruned = int(round(0.75 * cfg.d_ff)) // 8 * 8
+    calibrated = []
+
+    def on_outcome(optimizer, out):
+        st = optimizer.stats
+        check(all(w.H is None for w in st.weights.values()), "a Hessian was calibrated")
+        check(not any(k.endswith(".wg") for k in st.weights)
+              and any(k.endswith(".wi") for k in st.weights),
+              ("ungated MLP statistics", sorted(st.weights)))
+        calibrated.append({"tokens": st.n_tokens, "weights": len(st.weights),
+                           "configs": [(c.recipe.name, c.cfg.d_ff, c.cfg.n_kv_heads)
+                                       for c in out.candidates]})
+        check([(c.cfg.d_ff, c.cfg.n_kv_heads) for c in out.candidates]
+              == [(cfg.d_ff, 1), (pruned, 1)], ("pruned candidates", calibrated[-1]))
+
+    def served_gate(name, search, served, n_steps, calls):
+        # a prefill of at most DECODE_M rows (a short template prefix's)
+        # runs K2's `decode` design too
+        check(served.get("quant_matmul.decode", 0) + served.get("quant_matmul.mma", 0)
+              == k2 * calls and served.get("quant_matmul.decode", 0) >= k2 * n_steps
+              and served.get(k1_design) == k1 * n_steps
+              and set(served) <= {"quant_matmul.decode", "quant_matmul.mma", k1_design},
+              (name, "served launches", served, n_steps, calls))
+
+    line, launches = _family_session("granite_session", "granite", base, cfg, recipes,
+                                     on_outcome, served_gate, device, n_rows, queries=("Q2",))
+    line["layers"] = cfg.n_layers
+    line["calibrated"] = calibrated
+    emit(line)
+    if device == "cuda":
+        check(launches["quant_matmul"] > 0 and launches["paged_attention"] > 0
+              and not (launches["flash_attention"] or launches["block_sparse_matmul"]),
+              ("granite session launches", launches))
+    return line, launches
+
+
+def check_quant_matmul_granite(main_shapes, session_shapes, d_model=6144, d_ff=24576,
+                               vocab=49152):
+    """K2 against its plain version at every shape that ``granite_main_path``
+    (its int8 run) and ``granite_session`` gave it (``_hold_seen``, from a
+    generator of its own), on the design each launch there ran; then times
+    the MLP's ``wi`` (``d_model`` -> ``d_ff``) and the untied unembed
+    (``d_model`` -> ``vocab``) at M = 8 (decode) and 512 (prefill)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(GRANITE_KERNEL_SEED + 2)
+    check({s[6] for s in main_shapes} == {"decode", "mma"},
+          ("K2 designs of the granite main path", sorted(set(main_shapes))))
+    results, worst_abs = _hold_seen(gen, main_shapes, session_shapes, "granite")
+    timed = {f"{name}_M{M}": _time_dense(gen, M, d_model, N)
+             for name, N in (("wi", d_ff), ("unembed", vocab)) for M in (8, 512)}
+    line = {"phase": "kernel_quant_matmul_granite", "cases": results,
+            "max_rel_err": max(r["rel_err"] for r in results), "max_abs_err": worst_abs,
+            "M_main_path": sorted({s[0] for s in main_shapes}),
+            "M_session": sorted({s[0] for s in session_shapes}),
+            "timed": timed, "library_note": "torch.matmul on the dequantized bf16 weight"}
+    emit({**line, "cases": len(results)})   # each case in chip_smoke.json
+    print(f"K2 at {len(results)} shapes of the granite path: max rel err "
+          f"{line['max_rel_err']:.3g}; " + "; ".join(
+              f"{k} {t['ms']:.4f} ms (bound {t['bound_ms']:.4f}, plain {t['plain_ms']:.4f}, "
+              f"matmul {t['library_ms']:.4f})" for k, t in timed.items()), flush=True)
+    return line
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -5087,7 +5570,7 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.time() - t0, "sass": sass, "spill_stores": spill})
     print("sass: " + ", ".join(f"{n} HGMMA {c['HGMMA']} HMMA {c['HMMA']} spill {spill[n]}"
                                for n, c in sass.items()), flush=True)
-    for n in ("quant_matmul", "flash_attention", "block_sparse"):
+    for n in ("paged_attention", "quant_matmul", "flash_attention", "block_sparse"):
         check(sass[n]["HGMMA"] + sass[n]["HMMA"] > 0, (n, "has no tensor-core instruction"))
     for n in ("quant_matmul", "paged_attention"):
         check(spill[n] == 0, (n, "spills registers", ptxas[n]))
@@ -5301,6 +5784,49 @@ def main() -> int:
                   vl_shapes.shapes, vl_sess_shapes.shapes, ed_shapes.shapes,
                   ed_build_shapes.shapes)
 
+    # the granite phases: full-width granite-20b, 48 query heads on one KV
+    # head (K1's `mma` design), from generators of their own
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"granite phases: memory_allocated {torch.cuda.memory_allocated()}", flush=True)
+    ggen = torch.Generator(device="cuda")
+    ggen.manual_seed(GRANITE_SEED)
+    k1g, k1g_cases = timed("kernel_paged_attention_g48", check_paged_attention_g48)
+    k3g, k3g_cases = timed("kernel_flash_attention_g48", check_flash_attention_g48)
+    with QuantShapeProbe() as gr_shapes:
+        gr_line, gr_launches, gr_base, gr_int8, gr_eng = timed("granite_main_path",
+                                                                granite_main_path, ggen)
+    gr_cfg = gr_eng.cfg
+    gr_k2, gr_k1 = granite_per_call(gr_cfg)
+    gr_step_line = timed("granite_whole_step", whole_step, ggen, gr_int8, gr_eng,
+                         {"quant_matmul": gr_k2, "paged_attention": gr_k1}, trials=3,
+                         name="granite_whole_step")
+    gr_prof_line = timed("granite_decode_profile", profile_step, ggen, gr_int8, gr_eng,
+                         name="granite_decode_profile")
+    gr_prof_line["byte_floor_ms_int8"] = gr_line["byte_floor_ms_int8"]
+    print(f"granite decode step: {gr_prof_line['wall_ms_per_step']:.3f} ms wall, "
+          f"{gr_prof_line['device_busy_ms_per_step']:.3f} ms device busy, idle share "
+          f"{gr_prof_line['device_idle_share']:.3f}, byte floor "
+          f"{gr_line['byte_floor_ms_int8']:.3f} ms", flush=True)
+    del gr_int8, gr_eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    gr_cut, gr_cut_cfg = cut_depth(gr_base, gr_cfg, GRANITE_SESSION_LAYERS)
+    gr_cut = _tree_copy(gr_cut)
+    del gr_base
+    gc.collect()
+    torch.cuda.empty_cache()
+    with QuantShapeProbe() as gr_sess_shapes:
+        gr_sess_line, gr_sess_launches = timed("granite_session", granite_session, gr_cut,
+                                               gr_cut_cfg)
+    del gr_cut
+    gc.collect()
+    torch.cuda.empty_cache()
+    kq_gr = timed("kernel_quant_matmul_granite", check_quant_matmul_granite, gr_shapes.shapes,
+                  gr_sess_shapes.shapes)
+    gr_parity_line = timed("granite_f32_parity", olap_f32_parity, ggen, gr_cfg, 4,
+                           name="granite_f32_parity")
+
     kernels = []
     for line, runs, variants, source, replaces in (
             (k1, launches, int8_variants, "src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -5378,6 +5904,21 @@ def main() -> int:
         else:
             check(vl_launches[name] == vl_sess_launches[name] == ed_launches[name]
                   == ed_build_launches[name] == 0, ("off the vlm and encdec paths", name))
+        # the granite path (granite_main_path's int8 run, the session): K1
+        # on its `mma` design and K2
+        kernels[-1]["launches_granite"] = gr_launches[name]
+        kernels[-1]["launches_granite_session"] = gr_sess_launches[name]
+        if name in ("paged_attention", "quant_matmul"):
+            check(gr_launches[name] > 0 and gr_sess_launches[name] > 0, ("the granite path", name))
+        else:
+            check(gr_launches[name] == gr_sess_launches[name] == 0, ("off the granite path", name))
+        g48 = {"paged_attention": k1g, "flash_attention": k3g}.get(name)
+        if g48 is not None:
+            kernels[-1]["g48"] = {k: g48[k] for k in (
+                "variant", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                "bound_share", "cases", "max_rel_err", "max_abs_err", "timed")}
+            if name == "paged_attention":
+                kernels[-1]["g48"]["L1024"] = g48["L1024"]
         d112 = {"paged_attention": k1h, "flash_attention": k3h}.get(name)
         if d112 is not None:
             kernels[-1]["d112"] = {k: d112[k] for k in (
@@ -5409,6 +5950,11 @@ def main() -> int:
                                    **kq_rwkv["timed"]}
             # every shape of the vlm and encdec paths; paligemma's wi and
             # whisper's unembed (N 51865, on fma) timed
+            # every shape of the granite path; its wi and untied unembed timed
+            kernels[-1]["granite"] = {"cases_seen": len(kq_gr["cases"]),
+                                      "max_rel_err_seen": kq_gr["max_rel_err"],
+                                      "max_abs_err_seen": kq_gr["max_abs_err"],
+                                      **kq_gr["timed"]}
             kernels[-1]["vlm_encdec"] = {"cases_seen_vlm": kq_ve["cases_vlm"],
                                          "cases_seen_encdec": kq_ve["cases_encdec"],
                                          "max_rel_err_seen": kq_ve["max_rel_err"],
@@ -5450,6 +5996,11 @@ def main() -> int:
                    "vlm_f32_parity": vl_parity_line, "encdec_main_path": ed_line,
                    "encdec_decode_profile": ed_prof_line, "encdec_build": ed_build_line,
                    "encdec_f32_parity": ed_parity_line, "quant_matmul_vlm_encdec": kq_ve,
+                   "paged_attention_g48": k1g, "paged_attention_g48_cases": k1g_cases,
+                   "flash_attention_g48": k3g, "flash_attention_g48_cases": k3g_cases,
+                   "granite_main_path": gr_line, "granite_whole_step": gr_step_line,
+                   "granite_decode_profile": gr_prof_line, "granite_session": gr_sess_line,
+                   "quant_matmul_granite": kq_gr, "granite_f32_parity": gr_parity_line,
                    "phase_seconds": seconds, "phase_memory": memory,
                    "seconds": time.time() - t_start}, f, indent=1)
     emit({"kernels": kernels})

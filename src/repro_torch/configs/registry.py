@@ -3,13 +3,14 @@ from __future__ import annotations
 
 from typing import Dict
 
-from repro_torch.configs import (arctic_480b, gemma2_2b, gemma3_1b, mistral_nemo_12b,
-                                 paligemma_3b, qwen2_moe_a2_7b, rwkv6_3b, whisper_base,
-                                 zamba2_7b)
+from repro_torch.configs import (arctic_480b, gemma2_2b, gemma3_1b, granite_20b,
+                                 mistral_nemo_12b, paligemma_3b, qwen2_moe_a2_7b, rwkv6_3b,
+                                 whisper_base, zamba2_7b)
 from repro_torch.configs.base import ModelConfig
 
 _MODULES = {
     "mistral-nemo-12b": mistral_nemo_12b,
+    "granite-20b": granite_20b,
     "gemma2-2b": gemma2_2b,
     "gemma3-1b": gemma3_1b,
     "arctic-480b": arctic_480b,

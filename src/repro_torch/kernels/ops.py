@@ -10,11 +10,12 @@ current stream, adds one to ``launch_count[name]`` and raises
 :class:`KernelError` if the build or the launch fails.  It never falls
 back from a CUDA tensor to the plain version.
 
-K2, K3 and K4 have several designs, chosen by a documented rule on dtype
-and shape (:func:`quant_matmul_variant`, :func:`flash_variant`,
-:func:`block_sparse_variant`): f32 runs the FMA kernels, whose exact f32
-products the 1e-5 checks need, and bf16 the tensor-core kernels.  K1 has
-one, ``split`` (:func:`paged_attention_plan`).  Each launch also adds one
+Each kernel has several designs, chosen by a documented rule on dtype
+and shape (:func:`quant_matmul_variant`, :func:`paged_attention_variant`,
+:func:`flash_variant`, :func:`block_sparse_variant`): f32 runs the FMA
+kernels, whose exact f32 products the 1e-5 checks need, and bf16 the
+tensor-core kernels, but for K1 with at most 8 query rows per KV head,
+where ``split`` runs on the FMA pipes in both dtypes.  Each launch also adds one
 to ``variant_count["<name>.<variant>"]``, so a run shows which design ran.
 K2 over experts (:func:`quant_matmul_experts`, an MoE expert stack in one
 launch) counts under ``quant_matmul`` and its designs as
@@ -47,9 +48,10 @@ _SMS = 132                 # H100 SXM streaming multiprocessors
 _SIGS: Dict[str, list] = {
     "quant_matmul_launch": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
     + [ctypes.c_void_p],
-    "paged_attention_launch": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 12
+    "paged_attention_launch": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 14
     + [ctypes.c_void_p],
     "paged_attention_max_g": [],
+    "paged_attention_mma_max_g": [],
     "paged_attention_workspace": [ctypes.c_int] * 6,
     "block_sparse_launch": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
     + [ctypes.c_void_p],
@@ -69,7 +71,8 @@ variant_count: Dict[str, int] = {name: 0 for name in
                                  ("quant_matmul.decode", "quant_matmul.mma",
                                   "quant_matmul.fma", "quant_matmul.expert_decode",
                                   "quant_matmul.expert_mma", "quant_matmul.expert_fma",
-                                  "paged_attention.split",
+                                  "paged_attention.split", "paged_attention.mma",
+                                  "paged_attention.chunked",
                                   "flash_attention.mma", "flash_attention.fma",
                                   "block_sparse_matmul.decode", "block_sparse_matmul.mma",
                                   "block_sparse_matmul.fma")}
@@ -296,9 +299,31 @@ def quant_matmul_experts(x, q, scale, *, group: int, in_scale=None):
 PA_HEAD_DIMS = (16, 32, 64, 112, 128, 256)
 PA_MAX_PER = 256           # positions per split (paged_attention.cu's MAX_PER refuses more)
 PA_BLOCKS_PER_SM = 8       # blocks per SM K1's split plan aims for
+PA_SPLIT_MAX_G = 8         # query rows per KV head of the `split` design (its MAX_G)
+PA_MMA_MAX_G = 64          # ... of the `mma` design (wide::MAX_G)
+# K1's designs as the library numbers them
+_PA_DESIGNS = {"split": 0, "mma": 1, "chunked": 2}
 
 
-def paged_attention_plan(S: int, Kh: int, T: int, window: int, bs: int):
+def paged_attention_variant(dtype: torch.dtype, G: int) -> str:
+    """K1's design for ``G`` query rows per KV head in ``dtype``: ``split``
+    for G <= PA_SPLIT_MAX_G in either dtype (the rows in registers, FMA
+    pipes); ``mma`` for bf16 up to PA_MMA_MAX_G (the rows as tensor-core
+    tiles); else ``chunked``, the split kernels over chunks of at most
+    PA_SPLIT_MAX_G rows (:func:`paged_attention_chunk`), which keeps f32's
+    exact products."""
+    if G <= PA_SPLIT_MAX_G:
+        return "split"
+    return "mma" if dtype == torch.bfloat16 and G <= PA_MMA_MAX_G else "chunked"
+
+
+def paged_attention_chunk(G: int) -> int:
+    """Query rows per block of K1's ``chunked`` design: the largest divisor
+    of G that the split kernels take (at most PA_SPLIT_MAX_G)."""
+    return max(d for d in range(1, PA_SPLIT_MAX_G + 1) if G % d == 0)
+
+
+def paged_attention_plan(S: int, Kh: int, T: int, window: int, bs: int, min_per: int = 0):
     """(splits, positions per split) of K1 for S slots, Kh KV heads and
     tables of T positions in pool blocks of ``bs``.  Planned from the span
     (T, or the window if smaller), never from the lengths, which live on
@@ -306,10 +331,14 @@ def paged_attention_plan(S: int, Kh: int, T: int, window: int, bs: int):
     slot's live range [lo, len), lo = max(0, len - window), so ``splits``
     * ``per`` covers the span.  A split is a whole number of pool blocks,
     at most PA_MAX_PER positions, and S * Kh * splits aims at
-    PA_BLOCKS_PER_SM blocks per SM when the span is long enough."""
+    PA_BLOCKS_PER_SM blocks per SM when the span is long enough; a split
+    takes at least ``min_per`` positions where PA_MAX_PER allows (the
+    ``mma`` design asks for 2 G, so that a split's f32 partial is no
+    larger than its bf16 V rows)."""
     span = min(T, window) if window else T
     want = math.ceil(PA_BLOCKS_PER_SM * _SMS / (S * Kh))
-    per = bs * max(1, min(math.ceil(math.ceil(span / bs) / want), PA_MAX_PER // bs))
+    blocks = max(1, math.ceil(math.ceil(span / bs) / want), math.ceil(min_per / bs))
+    per = bs * min(blocks, PA_MAX_PER // bs)
     return math.ceil(span / per), per
 
 
@@ -321,6 +350,10 @@ def paged_attention(q, k_pool, v_pool, tables, lengths, *,
     [num_blocks, block_size, Kh, D], tables [S, T // block_size] block
     ids per slot, lengths [S] valid KV lengths (1 <= lengths <= T) ->
     [S, 1, H, D].
+
+    On the card: D in PA_HEAD_DIMS, a block size of at most PA_MAX_PER,
+    pools contiguous and 16-byte aligned, any G = H / Kh; the design
+    follows :func:`paged_attention_variant`.
     """
     name = "paged_attention"
     S, one, H, D = q.shape
@@ -342,32 +375,64 @@ def paged_attention(q, k_pool, v_pool, tables, lengths, *,
         out = ref.paged_attention(qr, k_pool, v_pool, tables, lengths,
                                   softcap=softcap, window=window)
         return out.reshape(S, 1, H, D)
-    _no_grad_inputs(name, q, k_pool, v_pool)
-    fn = _fn(name, "paged_attention_launch")
-    _require(G <= _fn(name, "paged_attention_max_g")(), name, f"G={G} is too large")
+    out = _launch_paged_attention(qr, k_pool, v_pool, tables, lengths, softcap, window,
+                                  paged_attention_variant(q.dtype, G))
+    return out.reshape(S, 1, H, D)
+
+
+def _paged_attention_fn():
+    """K1's launch entry point.  At first use it also checks that the
+    library's row limits are PA_SPLIT_MAX_G and PA_MMA_MAX_G, which the
+    wrapper then holds G to."""
+    name = "paged_attention"
+    if "paged_attention_launch" not in _FNS:
+        limits = (_fn(name, "paged_attention_max_g")(), _fn(name, "paged_attention_mma_max_g")())
+        if limits != (PA_SPLIT_MAX_G, PA_MMA_MAX_G):
+            raise KernelError(f"{name}: the library's row limits {limits} are not "
+                              f"{(PA_SPLIT_MAX_G, PA_MMA_MAX_G)}")
+    return _fn(name, "paged_attention_launch")
+
+
+def _launch_paged_attention(qr, k_pool, v_pool, tables, lengths, softcap: float,
+                            window: int, variant: str):
+    """Launch K1's ``variant`` on CUDA qr [S, Kh, G, D] and count it as
+    ``paged_attention.<variant>``.  The wrapper picks the variant by its
+    rule; ``chip_smoke.py`` also runs ``mma`` at G <= 8 through here, to
+    hold it against ``split`` where the rule could pick either."""
+    name = "paged_attention"
+    S, Kh, G, D = qr.shape
+    bs = k_pool.shape[1]
+    _no_grad_inputs(name, qr, k_pool, v_pool)
+    fn = _paged_attention_fn()
     _require(D in PA_HEAD_DIMS, name, f"head dim {D} is not one of {PA_HEAD_DIMS}")
     _require(bs <= PA_MAX_PER, name, f"block size {bs} is above {PA_MAX_PER}")
     _require(k_pool.is_contiguous() and v_pool.is_contiguous()
              and k_pool.data_ptr() % 16 == 0 and v_pool.data_ptr() % 16 == 0, name,
              "pools must be contiguous and 16-byte aligned")
+    limit = {"split": PA_SPLIT_MAX_G, "mma": PA_MMA_MAX_G}.get(variant, G)
+    _require(G <= limit, name, f"G={G} is above the {limit} rows of the {variant} design")
+    _require(variant != "mma" or qr.dtype == torch.bfloat16, name, "mma takes bf16 only")
     qr = qr.contiguous()
     if qr.data_ptr() % 16:
         qr = qr.clone()
     tbl = tables.to(torch.int32).contiguous()
     ln = lengths.to(torch.int32).contiguous()
     nblk = tbl.shape[1]
-    splits, per = paged_attention_plan(S, Kh, nblk * bs, window, bs)
-    work = torch.empty(_fn(name, "paged_attention_workspace")(S, Kh, G, D, splits, per),
-                       dtype=torch.uint8, device=dev)
+    chunks = G // paged_attention_chunk(G) if variant == "chunked" else 1
+    splits, per = paged_attention_plan(S, Kh, nblk * bs, window, bs,
+                                       2 * G if variant == "mma" else 0)
+    work = torch.empty(_fn(name, "paged_attention_workspace")(S, Kh * chunks, G // chunks, D,
+                                                              splits, per),
+                       dtype=torch.uint8, device=qr.device)
     out = torch.empty_like(qr)
     err = fn(qr.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), tbl.data_ptr(),
              ln.data_ptr(), work.data_ptr(), out.data_ptr(), S, Kh, G, D, bs, nblk,
              _f32_bits(1.0 / math.sqrt(D)), _f32_bits(softcap), int(window), splits, per,
-             int(q.dtype == torch.bfloat16), _stream())
+             int(qr.dtype == torch.bfloat16), _PA_DESIGNS[variant], chunks, _stream())
     _check(err, name)
     launch_count[name] += 1
-    variant_count[f"{name}.split"] += 1
-    return out.reshape(S, 1, H, D)
+    variant_count[f"{name}.{variant}"] += 1
+    return out
 
 
 # ---------------------------------------------------------------------------

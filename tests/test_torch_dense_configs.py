@@ -1,6 +1,7 @@
 """Dense configs the ported transformer covers beyond gemma2-2b:
-``mistral-nemo-12b`` (GQA 32/8, head dim 128) and ``gemma3-1b`` (MQA,
-``LLLLLG``, a local rope theta of 10k, window 512, a tied vocab).
+``mistral-nemo-12b`` (GQA 32/8, head dim 128), ``gemma3-1b`` (MQA,
+``LLLLLG``, a local rope theta of 10k, window 512, a tied vocab) and
+``granite-20b`` (MQA 48/1, an ungated GELU MLP, an untied vocab).
 
 Each config equals the reference's field for field, at full width and
 reduced.  The reduced forms in f32, the reference's weights bridged into
@@ -24,7 +25,7 @@ from repro_torch import bridge  # noqa: E402
 from repro_torch.configs import from_reference, registry  # noqa: E402
 from repro_torch.models import api  # noqa: E402
 
-ARCHS = ["mistral-nemo-12b", "gemma3-1b"]
+ARCHS = ["mistral-nemo-12b", "gemma3-1b", "granite-20b"]
 
 
 def _rel(got, want):

@@ -1,6 +1,6 @@
-"""Host-side plans of the port's kernel designs: which design of K2, K3
-and K4 runs for a dtype and shape, K2's and K4's grid and split plans, the
-column-group schedule of K4's ``mma`` design, and K1's split plan.  The
+"""Host-side plans of the port's kernel designs: which design of K1, K2,
+K3 and K4 runs for a dtype and shape, K2's and K4's grid and split plans,
+the column-group schedule of K4's ``mma`` design, and K1's split plan.  The
 kernels themselves run only on the card, where ``chip_smoke.py`` holds
 them to their plain versions."""
 from __future__ import annotations
@@ -223,3 +223,54 @@ def test_head_dim_112_accepted_and_planned():
             assert per % 32 == 0 and splits * per >= T > (splits - 1) * per
     assert ops.paged_attention_plan(8, 32, 1024, 0, 32) == (5, 224)
     assert ops.paged_attention_plan(8, 16, 1024, 0, 32) == (8, 128)
+
+
+@pytest.mark.parametrize("G", [1, 2, 7, 8, 9, 11, 16, 24, 48, 64, 65, 72, 96])
+def test_paged_attention_variant_by_dtype_and_g(G):
+    """``split`` up to 8 query rows per KV head in either dtype; above,
+    ``mma`` for bf16 up to 64 rows, else ``chunked``: the split kernels
+    over chunks of the largest divisor of G up to 8."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    if G <= ops.PA_SPLIT_MAX_G:
+        assert ops.paged_attention_variant(bf16, G) == "split"
+        assert ops.paged_attention_variant(f32, G) == "split"
+    else:
+        assert ops.paged_attention_variant(bf16, G) == ("mma" if G <= ops.PA_MMA_MAX_G
+                                                        else "chunked")
+        assert ops.paged_attention_variant(f32, G) == "chunked"
+    c = ops.paged_attention_chunk(G)
+    assert G % c == 0 and 1 <= c <= ops.PA_SPLIT_MAX_G
+    assert all(G % d for d in range(c + 1, ops.PA_SPLIT_MAX_G + 1))
+    assert {f"paged_attention.{ops.paged_attention_variant(d, G)}" for d in (bf16, f32)} \
+        <= {k for k in ops.variant_count if k.startswith("paged_attention.")}
+
+
+def test_paged_attention_designs_are_counted():
+    assert {k for k in ops.variant_count if k.startswith("paged_attention.")} == {
+        "paged_attention.split", "paged_attention.mma", "paged_attention.chunked"}
+    assert (ops.paged_attention_chunk(48), ops.paged_attention_chunk(9),
+            ops.paged_attention_chunk(11)) == (8, 3, 1)
+
+
+@pytest.mark.parametrize("T", [128, 1024])
+@pytest.mark.parametrize("G", [9, 16, 24, 48, 64])
+def test_paged_attention_plan_at_one_kv_head(T, G):
+    """granite's decode (8 slots, one KV head, blocks of 32): ``mma``'s plan
+    takes at least 2 G positions a split (whole blocks, at most
+    PA_MAX_PER), so a split's f32 partial [G, D] is no larger than its
+    bf16 V rows, and still covers the span once; the ``split`` plan at one
+    KV head is one block a split."""
+    splits, per = ops.paged_attention_plan(8, 1, T, 0, 32, 2 * G)
+    assert per % 32 == 0 and min(ops.PA_MAX_PER, 2 * G) <= per <= ops.PA_MAX_PER
+    assert splits * per >= T > (splits - 1) * per
+    assert ops.paged_attention_plan(8, 1, T, 0, 32) == (T // 32, 32)
+
+
+def test_paged_attention_plan_granite():
+    """At granite's shape (8 slots, Kh 1, G 48, T 1024, bs 32) ``mma`` takes
+    11 splits of 96 positions; a window of 64 takes one split of 96."""
+    assert ops.paged_attention_plan(8, 1, 1024, 0, 32, 96) == (11, 96)
+    assert ops.paged_attention_plan(8, 1, 1024, 64, 32, 96) == (1, 96)
+    assert ops.paged_attention_plan(8, 1, 128, 0, 32, 96) == (2, 96)
+    # min_per 0 is the plan of `split`, unchanged
+    assert ops.paged_attention_plan(8, 4, 1024, 0, 32, 0) == (32, 32)
