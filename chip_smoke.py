@@ -42,7 +42,7 @@ Phases, each of which raises on failure (so the script exits non-zero):
    cuda and the reference backends (no K3 launch), in bf16 and f32, held
    to the whole-step criteria;
 7. olap_session: the main path of a query.  An ``IOLMSession`` over the
-   bf16 base runs the queries of ``examples/olap_queries.py`` (Q1
+   bf16 base (its first 12 layers since PR 23, ``SESSION_LAYERS``) runs the queries of ``examples/olap_queries.py`` (Q1
    ``llm_map`` over 64 reviews, Q2 ``llm_correct`` over 64 values, Q3
    ``llm_join`` of 16 x 16 names, Q4 ``llm_correct`` + a pushed-down
    filter with dedup, EXPLAINed first) and Q5, Q2 as a forced cascade
@@ -94,7 +94,8 @@ Phases, each of which raises on failure (so the script exits non-zero):
    widths in f32 at 4 layers on the card and on the CPU from the same
    params and batch (loss, grad norm, updated params), and on the card
    remat on against off and two microbatches against one; a K3 call on
-   inputs that require grad is refused;
+   inputs that require grad is refused (phase 51 runs the same for the
+   other families);
 14. train_full_width: five AdamW steps of gemma2-2b at all 26 layers in
    bf16 (batch 4 x 1024 tokens, two microbatches, remat, the unembed
    streamed in chunks of 256): loss and grad norm finite, step wall,
@@ -128,7 +129,7 @@ Phases, each of which raises on failure (so the script exits non-zero):
    reference backend, in bf16 at full width (STEP_BF16_RATIO; tokens
    whose expert sets differ counted) and in f32 at 4 layers (STEP_TOL_F32,
    identical routes); then moe_decode_profile, the step's profile;
-20. moe_session: an ``IOLMSession`` over the full-width base runs Q2 and
+20. moe_session: an ``IOLMSession`` over the base's first 12 layers runs Q2 and
    Q1 (64 rows each) with ``w8-absmax`` and absmax copies of
    ``w8-expert50`` and ``w8-expert25``: no Hessian calibrated, each
    router's counts summing to calibration tokens x top_k, the pruned
@@ -166,9 +167,10 @@ Phases, each of which raises on failure (so the script exits non-zero):
    ``prefill`` (K3 at each of the 11 sites), bf16 and f32, cuda against
    reference backend, seconds and peak memory;
 28. hybrid_session: Q2 and Q1 at 64 rows through ``Query.run`` over a
-   full-width zamba2 session with ``w8-absmax`` and absmax copies of
-   ``w8-ffn75`` and ``w8-kv50`` (no Hessian; the shared block's
-   statistics summed over its 11 sites); K1 and K2 on the served engines;
+   zamba2 session on the base's first 5 groups (35 block applications)
+   with ``w8-absmax`` and absmax copies of ``w8-ffn75`` and ``w8-kv50``
+   (no Hessian; the shared block's statistics summed over its 5 sites);
+   K1 and K2 on the served engines;
 29. kernel_quant_matmul_seen: K2 against its plain version at every shape
    phases 24 (its int8 run) and 28 gave it (``QuantShapeProbe`` records
    them), ``decode`` and ``mma`` alike, on the design each ran; zamba2's
@@ -265,6 +267,30 @@ Phases, each of which raises on failure (so the script exits non-zero):
    untied unembed timed at M = 8 and 512;
 49. granite_f32_parity: Q2 in f32 at 4 layers, cuda against reference
    session (phase 8's criteria; K1 on ``chunked`` on the cuda side).
+50. qembed_serve (run after phase 4, while the base is in memory):
+   ``w8-absmax`` and ``w8-absmax`` with ``quant_embed=True`` built from the
+   full-width base, each served on phase 3's paged engine: the ``QEmbed``
+   instance (gemma2-2b's tied 256000 x 2304 table as int8 codes and f32
+   row scales) saves exactly 588,800,000 bytes more, its run launches K1
+   and K2 as phase 3's int8 run does, its rows equal the ``w8-absmax``
+   rows but where they part at a near tie (``tie_at``, sigma from the
+   ``QEmbed`` instance's bf16 path; a control row must not pass); the
+   tied product and ``QEmbed.logits`` at M = 8 hold the f32 product of
+   their bf16 operands to TIED_RTOL (rounding through bf16 misses it by
+   two orders of magnitude), and both are timed at M = 8 and 512;
+51. train_family_parity (the training phases run last, from
+   TRAIN_FAMILY_SEED): phase 13 for zamba2-7b at one group of its layout
+   (Adafactor), rwkv6-3b at 2 layers and qwen2-moe-a2.7b at 1 layer
+   (AdamW), each at its published widths in f32; the MoE's two
+   microbatches are held against two on the CPU (its loss does not split
+   over rows);
+52. train_full_width_<family>: three bf16 steps at the published widths,
+   remat on, batch 4 in two microbatches: zamba2-7b at all 81 layers
+   with Adafactor, rwkv6-3b (32 layers), paligemma-3b with seeded
+   ``img_embs`` (the loss on the text positions), whisper-base with
+   seeded encoder frames and 448-token targets, and qwen2-moe-a2.7b at
+   its first 4 of 24 layers (57.3 GB of bf16 params and grads at full
+   depth), the last four with AdamW: phase 14's record and checks.
 
 K2, K3 and K4 run their tensor-core designs on bf16 and their FMA
 designs on f32; K1 runs ``split`` up to 8 query heads per KV head in
@@ -285,7 +311,8 @@ and channel-mix timings; on the vlm and encdec paths: ``launches_vlm``,
 ``launches_vlm_session``, ``launches_encdec``, ``launches_encdec_build``,
 and K2's ``vlm_encdec`` cases seen and timings; on the granite path:
 ``launches_granite``, ``launches_granite_session``, K1's and K3's ``g48``
-timings, and K2's ``granite`` cases seen and timings),
+timings, and K2's ``granite`` cases seen and timings; on the QEmbed
+instance's serve: ``launches_qembed``),
 the card line, and last ``{"ok": true, "device": {...}}``.  Exits non-zero
 without a card and outside a checkout of the repository.
 """
@@ -996,6 +1023,118 @@ def main_path(gen):
 
 
 # ---------------------------------------------------------------------------
+# qembed_serve: gemma2-2b's tied table as int8 codes (QEmbed)
+# ---------------------------------------------------------------------------
+
+QEMBED_SEED = 73                 # the phase's own inputs: no other phase's draw moves
+# 256000 x 2304 bf16 (1,179,648,000 B) against int8 codes and f32 row scales
+# (589,824,000 + 1,024,000 B)
+QEMBED_SAVED = 588_800_000
+# f32 logits of bf16 operands against the f32 product of the same operands
+# upcast: f32 accumulation in another order, about 1e-6 of the largest
+# logit; rounding the logits through bf16 puts them about 3.5e-3 of it away
+TIED_RTOL = 2e-5
+QEMBED_M = (8, 512)
+
+
+def qembed_serve(base, cfg, device="cuda"):
+    """``w8-absmax`` and the same recipe with ``quant_embed=True`` built by
+    ``InstanceOptimizer`` from the full-width base, each served on the
+    paged ``Engine`` (``serve``): the ``QEmbed`` instance saves exactly
+    QEMBED_SAVED more bytes, launches K1 and K2 on every step as the int8
+    run of ``main_path`` does, and serves the ``w8-absmax`` rows but where
+    they part at a near tie (``tie_at`` on the ``w8-absmax`` instance's
+    f32 path, sigma from the ``QEmbed`` instance's bf16 path; a control row
+    given another row's ids must not pass).  The tied product and
+    ``QEmbed.logits`` are held at M = 8 against the f32 product of their
+    bf16 operands (TIED_RTOL) and timed at QEMBED_M beside their bounds."""
+    from repro_torch.core.compressed import tied_logits
+    from repro_torch.core.pipeline import InstanceOptimizer, Recipe
+    from repro_torch.kernels import ops
+
+    opt = InstanceOptimizer(base, cfg)
+    w8, _, rep = opt.apply(Recipe(name="w8-absmax", wbits=8, quant_method="absmax"))
+    t0 = time.time()
+    qe, _, rep_qe = opt.apply(Recipe(name="w8-absmax-qembed", wbits=8, quant_method="absmax",
+                                     quant_embed=True))
+    sync()
+    build_s = time.time() - t0
+    saved, saved_qe = rep.bytes_before - rep.bytes_after, rep_qe.bytes_before - rep_qe.bytes_after
+    table = base["embed"]
+    V, d = table.shape
+    want_saved = V * d * table.element_size() - (V * d + 4 * V)
+    check(saved_qe - saved == want_saved, ("QEmbed bytes", saved_qe - saved, want_saved))
+    check((V, d) != (256000, 2304) or want_saved == QEMBED_SAVED, ("gemma2-2b", want_saved))
+
+    _, reqs_w8 = serve(w8, cfg, "w8-absmax", device=device)
+    ops.reset_launch_counts()
+    eng, reqs = serve(qe, cfg, "w8-absmax-qembed", device=device)
+    launches = dict(ops.launch_count)
+    st = eng.stats
+    on_card = torch.device(device).type == "cuda"
+    check(not on_card or launches == {
+        "quant_matmul": 7 * cfg.n_layers * (st.decode_steps + st.prefills),
+        "paged_attention": cfg.n_layers * st.decode_steps,
+        "block_sparse_matmul": 0, "flash_attention": 0},
+        ("QEmbed run launches", launches, st.decode_steps, st.prefills))
+    agree, rows_same = _agreement(reqs_w8, reqs)
+    prompts = [TEMPLATE + r for r in REVIEWS]
+    top, p32, parted = max(eng.buckets), _f32(w8), []
+    for prompt, a, b in zip(prompts, reqs, reqs_w8):
+        if a.out_ids != b.out_ids:
+            parted.append({"prompt": prompt, **tie_at(w8, cfg, eng.tok, prompt, a.out_ids,
+                                                      b.out_ids, top, p32, noisy=qe)})
+    # the control: row 0 given the ids of the first row whose first token differs
+    donor = next(r for r in reqs_w8 if r.out_ids[:1] != reqs_w8[0].out_ids[:1])
+    control = tie_at(w8, cfg, eng.tok, prompts[0], donor.out_ids, reqs_w8[0].out_ids, top,
+                     p32, noisy=qe)
+    del p32
+    check(all(r["near_tie"] for r in parted), ("QEmbed rows part off a near tie", parted))
+    check(not control["near_tie"], ("the control row passed as a near tie", control))
+
+    # the tied product and QEmbed.logits against the f32 product of their operands
+    gen = torch.Generator(device=device)
+    gen.manual_seed(QEMBED_SEED)
+    qt = qe["embed"]
+    x8 = torch.randn((8, d), generator=gen, device=device).to(torch.bfloat16)
+    want = x8.float() @ table.float().t()
+    tied_err = errors(tied_logits(x8, table), want)
+    rounded_err = errors(torch.matmul(x8, table.t()).float(), want)
+    del want
+    q_err = errors(qt.logits(x8), (x8.float() @ qt.q.float().t()) * qt.scale)
+    check(tied_err[1] <= TIED_RTOL and q_err[1] <= TIED_RTOL,
+          ("f32 logits", tied_err, q_err, TIED_RTOL))
+    timing = {}
+    for M in QEMBED_M if on_card else ():
+        x = torch.randn((M, d), generator=gen, device=device).to(torch.bfloat16)
+        out = M * V * 4 + M * d * 2
+        t_tied, t_q = _turns([lambda: tied_logits(x, table), lambda: qt.logits(x)])
+        timing[f"M{M}"] = {
+            "tied_ms": t_tied, "qembed_ms": t_q,
+            "tied_bound_ms": bound(V * d * 2 + out, 2.0 * M * V * d)[0],
+            "qembed_bound_ms": bound(V * d + 4 * V + out, 2.0 * M * V * d)[0]}
+    line = {"phase": "qembed_serve", "model": cfg.name, "build_s": build_s,
+            "bytes_before": rep.bytes_before, "bytes_after_w8": rep.bytes_after,
+            "bytes_after_qembed": rep_qe.bytes_after, "saved_extra": saved_qe - saved,
+            "params_after_w8": rep.params_after, "params_after_qembed": rep_qe.params_after,
+            "launches": launches, "decode_steps": st.decode_steps, "prefills": st.prefills,
+            "rows_per_s": st.rows_per_s, "tokens_per_s": st.tokens_out / st.wall_s,
+            "greedy_token_agreement_vs_w8": agree, "rows_identical_vs_w8": rows_same,
+            "parted": parted, "control": control,
+            "tied_max_abs_err": tied_err[0], "tied_max_rel_err": tied_err[1],
+            "qembed_max_abs_err": q_err[0], "qembed_max_rel_err": q_err[1],
+            "bf16_rounded_max_abs_err": rounded_err[0],
+            "bf16_rounded_max_rel_err": rounded_err[1], "tol_rel": TIED_RTOL,
+            "timing": timing}
+    del w8, qe, eng, reqs, reqs_w8
+    emit(line)
+    print(f"qembed_serve: {line['saved_extra']} more bytes saved, rows identical "
+          f"{rows_same}/{len(REVIEWS)}, tied logits rel err {tied_err[1]:.2e} "
+          f"(bf16-rounded {rounded_err[1]:.2e})", flush=True)
+    return line, launches
+
+
+# ---------------------------------------------------------------------------
 # phase 4: one decode step, cuda backend vs reference backend
 # ---------------------------------------------------------------------------
 
@@ -1449,8 +1588,8 @@ def _engine_launches(engines):
 
 
 def olap_session(base, cfg):
-    """A query's main path: an ``IOLMSession`` over the full-width model
-    runs Q1-Q5 through ``Query.run``, each LLM operator calibrating on its
+    """A query's main path: an ``IOLMSession`` over the model (at its
+    published widths, cut in depth by the caller) runs Q1-Q5 through ``Query.run``, each LLM operator calibrating on its
     own rows, searching three recipes (two of them pruned) and serving
     the picked instance through ``Engine`` on the card.  The grid's own
     ``w8-ffn75`` (GPTQ) is applied once on Q1's calibration statistics,
@@ -1703,6 +1842,11 @@ POOL_ENTRIES = 2.8        # the pool budget in base entries: 2 base or 3 w8-absm
 # POOL_LAYERS layers (the same weights, the published widths), which keeps
 # the script within its time as paths are added
 POOL_LAYERS = 8
+# olap_session, moe_session and hybrid_session run the first layers of their
+# bases in the same way (PR 23's cut, when the script passed 1000 s):
+# gemma2-2b 12 of 26, qwen2-moe-a2.7b 12 of 24, zamba2-7b 5 of its 11 groups
+# (35 of 81 block applications)
+SESSION_LAYERS = {"gemma2-2b": 12, "qwen2-moe-a2.7b": 12, "zamba2-7b": 35}
 FLEET_ROWS, FLEET_MAX_NEW, FLEET_TENANTS = 16, 8, (1, 4)
 POOL_SHARE = 8            # in-flight rows per submission
 
@@ -1719,18 +1863,27 @@ def reset_peak() -> None:
         torch.cuda.reset_peak_memory_stats()
 
 
+def _first(tree, k: int):
+    """The first ``k`` entries of every leaf of a stacked subtree (views)."""
+    return {n: _first(v, k) for n, v in tree.items()} if isinstance(tree, dict) else tree[:k]
+
+
 def cut_depth(params, cfg, layers: int = POOL_LAYERS):
-    """The first ``layers`` layers of a stacked model (whole pattern units,
-    views of the same weights) and its config."""
+    """The first ``layers`` layers of a stacked model (whole pattern units;
+    for the hybrid whole groups of Mamba layers and the shared block, and
+    no Mamba tail), views of the same weights, and its config."""
+    if cfg.family == "hybrid":
+        from repro_torch.models import hybrid
+        G, K, _, _ = hybrid.layout(cfg)
+        g = layers // (K + 1)
+        check(g * (K + 1) == layers and g <= G, ("depth cut", cfg.name, layers))
+        cut = {**params, "mamba_groups": _first(params["mamba_groups"], g), "mamba_tail": None}
+        return cut, cfg.replace(n_layers=layers)
     from repro_torch.models.transformer import pattern_unit
     unit, R, tail = pattern_unit(cfg)
     k = layers // len(unit)
     check(k * len(unit) == layers and k <= R and not tail, ("depth cut", cfg.name, layers))
-
-    def first(tree):
-        return {n: first(v) for n, v in tree.items()} if isinstance(tree, dict) else tree[:k]
-
-    cut = {**params, "blocks": [first(b) for b in params["blocks"]], "tail": []}
+    cut = {**params, "blocks": [_first(b, k) for b in params["blocks"]], "tail": []}
     return cut, cfg.replace(n_layers=layers, attn_pattern=cfg.attn_pattern and unit * k)
 
 
@@ -1758,7 +1911,7 @@ def tenant_workload(i: int, n_rows: int, *, seed0: int = 100):
 NEAR_TIE_SIGMAS = 4       # bf16: near tie within this many standard deviations
 
 
-def tie_at(params, cfg, tok, prompt, a, b, top, p32=None):
+def tie_at(params, cfg, tok, prompt, a, b, top, p32=None, noisy=None):
     """Where two runs' token ids ``a`` and ``b`` for ``prompt`` part, and
     whether that is a near tie.  The plain path (reference backend) runs
     the prompt as the engine saw it (clipped to the top bucket ``top``
@@ -1770,7 +1923,9 @@ def tie_at(params, cfg, tok, prompt, a, b, top, p32=None):
     of the bf16 path's logit error over the vocabulary at that position,
     a difference of two logits carries sqrt(2) sigma, and two bf16 runs
     can order ``x`` and ``y`` either way only if the gap is within
-    NEAR_TIE_SIGMAS of that."""
+    NEAR_TIE_SIGMAS of that.  ``noisy``: the params whose bf16 path gives
+    ``sigma`` when they are not ``params`` (another instance of the same
+    model, whose own error then counts in ``sigma``)."""
     from repro_torch.core.compressed import kernel_backend
     from repro_torch.models import api
     n = min(len(a), len(b))
@@ -1780,7 +1935,8 @@ def tie_at(params, cfg, tok, prompt, a, b, top, p32=None):
     ids = (tok.encode(prompt, bos=True) + [tok.SEP])[-top:] + a[:j]
     toks = torch.tensor([ids], device=params["embed"].device)
     with kernel_backend("reference"), torch.no_grad():
-        lg = api.forward(params, cfg, {"tokens": toks})[0][0, -1].float()
+        lg = api.forward(params if noisy is None else noisy, cfg,
+                         {"tokens": toks})[0][0, -1].float()
         if cfg.dtype == torch.float32:
             top2 = lg.topk(2).values
             gap = (top2[0] - top2[1]).item()
@@ -2370,6 +2526,31 @@ FLIP = 2.0 * PARITY_LR * (1 + 1e-3)
 # direction of its gradient; on random weights at gemma2-2b's widths 3e-4
 # (reached at step 2) sent the loss from 3.4 to 44, so the steps stay small
 FULL_LR = 1e-5
+# the other families' training phases draw from a generator of their own
+TRAIN_FAMILY_SEED = 79
+# train_family_parity: (arch, layers, optimizer), one f32 step each at its
+# published widths, cut so that the CPU's step stays near 25 s: zamba2-7b
+# at one group of its layout (6 Mamba layers and the shared block;
+# Adafactor, its optimizer at full width), rwkv6-3b at 2 layers,
+# qwen2-moe-a2.7b at 1 of its 24 layers (570 M params a layer, and its two
+# microbatches run on the CPU too)
+TRAIN_FAMILY_PARITY = (("zamba2-7b", 7, "adafactor"), ("rwkv6-3b", 2, "adamw"),
+                       ("qwen2-moe-a2.7b", 1, "adamw"))
+# train_full_width_<family>: three bf16 steps at the published widths, batch
+# 4 in 2 microbatches (PERF.md reckons each peak).  zamba2-7b trains with
+# Adafactor: its bf16 params and grads (23.6 GB) and AdamW's two f32 moments
+# (47.1 GB) leave no room on the card.  whisper-base's targets are 448 tokens,
+# its decoder context.  qwen2-moe-a2.7b runs its first 4 of 24 layers: at
+# full depth its 14.3 B params take 57.3 GB in bf16 params and grads alone
+TRAIN_FULL_WIDTH = (
+    ("hybrid", "zamba2-7b", dict(opt="adafactor", steps=3)),
+    ("rwkv", "rwkv6-3b", dict(steps=3)),
+    ("vlm", "paligemma-3b", dict(steps=3)),
+    ("encdec", "whisper-base", dict(steps=3, seq_len=448)),
+    ("moe", "qwen2-moe-a2.7b", dict(steps=3, layers=4, note=(
+        "first 4 of 24 layers at the published widths: 14.3 B params at full depth "
+        "take 57.3 GB in bf16 params and grads alone"))),
+)
 
 
 def update_errors(new_a, new_b, old):
@@ -2393,31 +2574,37 @@ def _batch(step, cfg, device, batch, seq_len):
     return {k: torch.from_numpy(b[k]).to(device) for k in ("tokens", "labels")}
 
 
-def train_parity(gen, cfg_full, layers: int = 4, device="cuda", batch=2, seq_len=128):
-    """One ``make_train_step`` step with AdamW at gemma2-2b's widths in f32
-    (``layers`` layers), on the card and on the CPU from the same params
-    and batch: loss, grad norm and updated params agree (LOSS_RTOL,
+def make_optimizer(name: str, lr: float, total_steps: int):
+    """The port's AdamW or Adafactor, constant ``lr`` (no warmup)."""
+    from repro_torch.training import optimizer as OPT
+    return {"adamw": OPT.adamw, "adafactor": OPT.adafactor}[name](
+        lr=lr, warmup=0, total_steps=total_steps)
+
+
+def train_parity(gen, cfg, device="cuda", batch=2, seq_len=128, opt="adamw",
+                 name="train_parity"):
+    """One ``make_train_step`` step with ``opt`` (AdamW or Adafactor) of
+    ``cfg``, a depth cut of a published config at its widths in f32, on
+    the card and on the CPU from the same params (drawn from ``gen``) and
+    batch: loss, grad norm and updated params agree (LOSS_RTOL,
     GNORM_RTOL, UPDATE_RMS_RTOL and FLIP).  On the card ``remat=True``
     equals ``remat=False`` and two microbatches equal one, within the
     same tolerances.  The step launches none of the four kernels, and K3
     refuses inputs that require grad."""
     from repro_torch.kernels import ops
     from repro_torch.models import api
-    from repro_torch.training import optimizer as OPT
     from repro_torch.training import train_loop as TL
     from repro_torch.tree import leaves, tree_map
 
-    cfg = cfg_full.replace(n_layers=layers, attn_pattern="LG" * (layers // 2),
-                           param_dtype="float32")
     params = api.init_params(gen, cfg)
-    opt = OPT.adamw(lr=PARITY_LR, warmup=0, total_steps=10)
+    optimizer = make_optimizer(opt, PARITY_LR, 10)
     ops.reset_launch_counts()
 
     def step(p, dev, **kw):
         b = _batch(0, cfg, dev, batch, seq_len)
-        fn = TL.make_train_step(cfg, opt, **kw)
+        fn = TL.make_train_step(cfg, optimizer, **kw)
         p = tree_map(torch.clone, p)            # the step writes into its params
-        state = opt.init(p)
+        state = optimizer.init(p)
         sync()
         t0 = time.time()
         p2, _, m = fn(p, state, b, 0)
@@ -2427,28 +2614,43 @@ def train_parity(gen, cfg_full, layers: int = 4, device="cuda", batch=2, seq_len
 
     card, card_m = step(params, device, remat=True)
     runs = {"card": card_m}
+    # an MoE's loss does not split over rows (expert capacity and the aux
+    # loss see the whole batch), so its two microbatches are held against
+    # two on the CPU instead of one on the card
+    split = cfg.family != "moe"
+    against = {"no_remat": "card", "cpu": "card",
+               "microbatches_2": "card" if split else "cpu_microbatches_2"}
     errs = {}
-    for name, kw in (("no_remat", dict(remat=False)), ("microbatches_2", dict(microbatches=2))):
-        other, runs[name] = step(params, device, **kw)
-        errs[name] = update_errors(other, card, params)
-        del other
+    other, runs["no_remat"] = step(params, device, remat=False)
+    errs["no_remat"] = update_errors(other, card, params)
+    del other
+    mb2, runs["microbatches_2"] = step(params, device, microbatches=2)
+    if split:
+        errs["microbatches_2"] = update_errors(mb2, card, params)
     launched = {k: n for k, n in ops.launch_count.items() if n}
     host = tree_map(lambda t: t.cpu(), params)
     cpu, runs["cpu"] = step(host, "cpu", remat=True)
     errs["cpu"] = update_errors(cpu, card, host)
-    del cpu, host
-    line = {"phase": "train_parity", "layers": layers, "batch": batch, "seq_len": seq_len,
+    del cpu
+    if not split:
+        cpu, runs["cpu_microbatches_2"] = step(host, "cpu", microbatches=2)
+        errs["microbatches_2"] = update_errors(mb2, cpu, host)
+        del cpu
+    del host, mb2
+    line = {"phase": name, "model": cfg.name, "family": cfg.family, "layers": cfg.n_layers,
+            "optimizer": opt, "batch": batch, "seq_len": seq_len,
             "lr": PARITY_LR, "params": sum(t.numel() for t in leaves(params)),
-            "runs": runs, "update_errors": {k: {"max_over_flip": a, "rms_rel": r}
-                                            for k, (a, r) in errs.items()},
+            "runs": runs, "against": against,
+            "update_errors": {k: {"max_over_flip": a, "rms_rel": r}
+                              for k, (a, r) in errs.items()},
             "launches": launched}
-    for name in ("no_remat", "microbatches_2", "cpu"):
-        check(abs(runs[name]["loss"] / runs["card"]["loss"] - 1) <= LOSS_RTOL,
-              (name, "loss", runs[name]["loss"], runs["card"]["loss"]))
-        check(abs(runs[name]["grad_norm"] / runs["card"]["grad_norm"] - 1) <= GNORM_RTOL,
-              (name, "grad norm", runs[name]["grad_norm"], runs["card"]["grad_norm"]))
-        check(errs[name][0] <= 1.0 and errs[name][1] <= UPDATE_RMS_RTOL,
-              (name, "updated params", errs[name]))
+    for run, ref in against.items():
+        check(abs(runs[run]["loss"] / runs[ref]["loss"] - 1) <= LOSS_RTOL,
+              (cfg.name, run, "loss", runs[run]["loss"], runs[ref]["loss"]))
+        check(abs(runs[run]["grad_norm"] / runs[ref]["grad_norm"] - 1) <= GNORM_RTOL,
+              (cfg.name, run, "grad norm", runs[run]["grad_norm"], runs[ref]["grad_norm"]))
+        check(errs[run][0] <= 1.0 and errs[run][1] <= UPDATE_RMS_RTOL,
+              (cfg.name, run, "updated params", errs[run]))
     check(not launched, ("the training step launched a kernel", launched))
     if torch.device(device).type == "cuda":
         # no backward kernel: a K3 launch on inputs that require grad is refused
@@ -2468,20 +2670,60 @@ def train_parity(gen, cfg_full, layers: int = 4, device="cuda", batch=2, seq_len
     return line
 
 
+def active_params(cfg) -> int:
+    """Params one position passes through: an MoE's top-k routed experts
+    (and its shared ones), every param of the other families."""
+    n = cfg.param_count()
+    if cfg.family == "moe":
+        n -= cfg.n_layers * (cfg.n_experts - cfg.top_k) * 3 * cfg.d_model * cfg.moe_d_ff
+    return n
+
+
+def train_flops(cfg, batch: int, seq_len: int) -> float:
+    """6 N P model flops of a step of ``batch`` rows of ``seq_len`` tokens:
+    every position (a vlm's image positions too) through ``active_params``;
+    an encdec's ``enc_ctx`` frames through its encoder and its tokens
+    through the rest."""
+    n = active_params(cfg)
+    if cfg.family == "encdec":
+        d, hd = cfg.d_model, cfg.resolved_head_dim
+        attn = d * cfg.n_heads * hd + 2 * d * cfg.n_kv_heads * hd + cfg.n_heads * hd * d
+        enc = cfg.n_enc_layers * (attn + 2 * d * cfg.d_ff)
+        return 6.0 * batch * (enc * cfg.enc_ctx + (n - enc) * seq_len)
+    if cfg.family == "vlm":
+        seq_len += cfg.n_img_tokens
+    return 6.0 * n * batch * seq_len
+
+
+def family_extra(gen, cfg, batch: int, device):
+    """A batch's inputs beyond tokens and labels: a vlm's ``img_embs``
+    [batch, n_img, d], an encdec's ``enc_inputs`` [batch, enc_ctx, d],
+    drawn from ``gen`` (``_img_embs`` and ``_enc_frames`` per row)."""
+    if cfg.family == "vlm":
+        return {"img_embs": torch.stack([_img_embs(gen, cfg, device) for _ in range(batch)])}
+    if cfg.family == "encdec":
+        return {"enc_inputs": torch.stack([_enc_frames(gen, cfg, device)
+                                           for _ in range(batch)])}
+    return {}
+
+
 def train_full_width(cfg, device="cuda", steps=5, batch=4, seq_len=1024, microbatches=2,
-                     xent_chunk=256, seed=0):
-    """Training steps of gemma2-2b at its published widths in bf16 with
-    AdamW, remat on, ``xent_chunk`` streaming the 256000-way unembed: params
-    from a seeded generator on the card, then ``steps`` steps of
-    ``make_train_step`` on ``train_batch``es.  Records each step's loss
+                     xent_chunk=256, seed=0, opt="adamw", name="train_full_width", note=None):
+    """Training steps of ``cfg`` at its published widths in bf16 with
+    ``opt`` (AdamW or Adafactor), remat on, ``xent_chunk`` streaming the
+    unembed (dense, MoE and vlm; the other families' loss ignores it, as
+    the reference's does): params from a seeded generator on the card,
+    then ``steps`` steps of ``make_train_step`` on ``train_batch``es, a
+    vlm's with ``img_embs`` and an encdec's with ``enc_inputs`` drawn
+    from the same generator (``family_extra``).  Records each step's loss
     and grad norm (finite), its wall time between syncs, positions/s
-    (every position of the batch, padding included: the loss counts
-    them all), the positions that are not padding, the peak memory and
-    6 N positions / (step s x BF16_FLOPS)."""
+    (every position of the batch, padding and a vlm's image positions
+    included: the loss counts them all, but the images), the positions
+    that are not padding, the peak memory and ``train_flops`` / (step s x
+    BF16_FLOPS)."""
     from repro_torch.kernels import ops
     from repro_torch.models import api
     from repro_torch.training import data as D
-    from repro_torch.training import optimizer as OPT
     from repro_torch.training import train_loop as TL
     from repro_torch.tree import leaves
 
@@ -2492,19 +2734,20 @@ def train_full_width(cfg, device="cuda", steps=5, batch=4, seq_len=1024, microba
     before = card_memory()[0]
     t0 = time.time()
     params = api.init_params(gen, cfg)
-    opt = OPT.adamw(lr=FULL_LR, warmup=0, total_steps=steps)
-    state = opt.init(params)
+    optimizer = make_optimizer(opt, FULL_LR, steps)
+    state = optimizer.init(params)
     sync()
     init_s = time.time() - t0
-    fn = TL.make_train_step(cfg, opt, microbatches=microbatches, xent_chunk=xent_chunk,
+    fn = TL.make_train_step(cfg, optimizer, microbatches=microbatches, xent_chunk=xent_chunk,
                             remat=True)
     reset_peak()
     ops.reset_launch_counts()
     n_params = cfg.param_count()
-    tokens = batch * seq_len
+    positions = batch * (seq_len + (cfg.n_img_tokens if cfg.family == "vlm" else 0))
+    flops = train_flops(cfg, batch, seq_len)
     per_step = []
     for i in range(steps):
-        b = _batch(i, cfg, device, batch, seq_len)
+        b = {**_batch(i, cfg, device, batch, seq_len), **family_extra(gen, cfg, batch, device)}
         real = D.train_batch(i, batch=batch, seq_len=seq_len, tok=tok)["weights"].sum()
         sync()
         t0 = time.time()
@@ -2512,25 +2755,30 @@ def train_full_width(cfg, device="cuda", steps=5, batch=4, seq_len=1024, microba
         loss, gnorm = float(m["loss"]), float(m["grad_norm"])
         sync()
         dt = time.time() - t0
-        check(math.isfinite(loss) and math.isfinite(gnorm), ("step", i, loss, gnorm))
+        check(math.isfinite(loss) and math.isfinite(gnorm), (name, "step", i, loss, gnorm))
         per_step.append({"step": i, "loss": loss, "grad_norm": gnorm, "seconds": dt,
-                         "positions_per_s": tokens / dt, "real_tokens": int(real),
-                         "flop_share": 6 * n_params * tokens / (dt * BF16_FLOPS)})
+                         "positions_per_s": positions / dt, "real_tokens": int(real),
+                         "flop_share": flops / (dt * BF16_FLOPS)})
+        del b
     alloc, peak = card_memory()
     launched = {k: n for k, n in ops.launch_count.items() if n}
-    check(not launched, ("the training step launched a kernel", launched))
+    check(not launched, (name, "the training step launched a kernel", launched))
     steady = per_step[1:] or per_step
-    line = {"phase": "train_full_width", "layers": cfg.n_layers, "params": n_params,
+    line = {"phase": name, "model": cfg.name, "family": cfg.family, "layers": cfg.n_layers,
+            "params": n_params, "active_params": active_params(cfg), "optimizer": opt,
             "batch": batch, "seq_len": seq_len, "microbatches": microbatches,
-            "xent_chunk": xent_chunk, "remat": True, "init_s": init_s, "steps": per_step,
+            "xent_chunk": xent_chunk if cfg.family in ("dense", "moe", "vlm") else 0,
+            "remat": True, "init_s": init_s, "steps": per_step,
             "steady_seconds": sum(s["seconds"] for s in steady) / len(steady),
             "steady_positions_per_s": sum(s["positions_per_s"] for s in steady) / len(steady),
-            "positions_per_step": tokens,
+            "positions_per_step": positions, "flops_per_step": flops,
             "steady_flop_share": sum(s["flop_share"] for s in steady) / len(steady),
             "memory_before": before, "peak_memory": peak, "memory_after": alloc,
             "peak_over_before": peak - before,
             "state_bytes": sum(t.numel() * t.element_size() for t in leaves((params, state)))}
-    del params, state
+    if note:
+        line["note"] = note
+    del params, state, fn
     emit(line)
     return line
 
@@ -3319,7 +3567,7 @@ def moe_session_recipes(cfg):
 
 
 def moe_session(base, cfg):
-    """An ``IOLMSession`` over the full-width qwen2-moe base runs Q2
+    """An ``IOLMSession`` over the qwen2-moe base (cut in depth by the caller) runs Q2
     (``llm_correct`` over 64 values) and Q1 (``llm_map`` over 64 reviews)
     through ``Query.run``: each operator calibrates on its rows (no
     Hessian: none of the three recipes reads one), builds and evaluates
@@ -4156,10 +4404,11 @@ def _family_session(phase, label, base, cfg, recipes, on_outcome, served_gate,
 
 
 def hybrid_session(base, cfg, device="cuda", n_rows: int = 64):
-    """An ``IOLMSession`` over the full-width zamba2 base runs Q2
+    """An ``IOLMSession`` over the zamba2 base (cut in groups by the
+    caller) runs Q2
     (``llm_correct``) and Q1 (``llm_map``) over ``n_rows`` rows through
     ``Query.run`` (``_family_session``): each operator calibrates on its
-    rows (Mamba layers, the shared block's statistics summed over its 11
+    rows (Mamba layers, the shared block's statistics summed over its
     sites; no Hessian: none of the three recipes reads one), builds and
     evaluates ``w8-absmax`` and absmax copies of the grid's ``w8-ffn75``
     (the shared MLP at d_ff 10752, all sites at once) and ``w8-kv50`` (16
@@ -5600,6 +5849,8 @@ def main() -> int:
     prof_line = timed("decode_profile", profile_step, gen, int8, eng8)
     del int8, eng8
     torch.cuda.empty_cache()
+    qe_line, qe_launches = timed("qembed_serve", qembed_serve, base, cfg)
+    torch.cuda.empty_cache()
     bs_line, bs_launches, bs_variants, bsp, eng_bs = timed("block_sparse", block_sparse_path,
                                                            base, cfg)
     bs_step_line = timed("whole_step_block_sparse", whole_step, gen, bsp, eng_bs,
@@ -5614,7 +5865,8 @@ def main() -> int:
     long_launches = dict(ops.launch_count)
     long_variants = {k: n for k, n in ops.variant_count.items() if n}
     torch.cuda.empty_cache()
-    olap_line, olap_launches, olap_variants = timed("olap_session", olap_session, base, cfg)
+    olap_line, olap_launches, olap_variants = timed("olap_session", olap_session,
+                                                    *cut_depth(base, cfg, SESSION_LAYERS[cfg.name]))
     torch.cuda.empty_cache()
     parity_line = timed("olap_f32_parity", olap_f32_parity, gen, cfg)
     pool_base, pool_cfg = cut_depth(base, cfg)
@@ -5634,7 +5886,9 @@ def main() -> int:
     pool_runs = {k: fleet_launches.get(k, 0) + pool_launches.get(k, 0)
                  + pool_parity_launches.get(k, 0) for k in ops.launch_count}
     torch.cuda.empty_cache()
-    train_parity_line = timed("train_parity", train_parity, gen, cfg)
+    train_parity_line = timed("train_parity", train_parity, gen,
+                              cfg.replace(n_layers=4, attn_pattern="LG" * 2,
+                                          param_dtype="float32"))
     torch.cuda.empty_cache()
     train_full_line = timed("train_full_width", train_full_width, cfg)
     torch.cuda.empty_cache()
@@ -5662,8 +5916,8 @@ def main() -> int:
     del moe_int8, moe_eng
     gc.collect()
     torch.cuda.empty_cache()
-    moe_sess_line, moe_sess_launches, moe_sess_shapes = timed("moe_session", moe_session,
-                                                             moe_base, moe_cfg)
+    moe_sess_line, moe_sess_launches, moe_sess_shapes = timed(
+        "moe_session", moe_session, *cut_depth(moe_base, moe_cfg, SESSION_LAYERS[moe_cfg.name]))
     del moe_base
     gc.collect()
     torch.cuda.empty_cache()
@@ -5700,8 +5954,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     with QuantShapeProbe() as hy_sess_shapes:
-        hy_sess_line, hy_sess_launches = timed("hybrid_session", hybrid_session, hy_base,
-                                               hy_cfg)
+        hy_sess_line, hy_sess_launches = timed(
+            "hybrid_session", hybrid_session, *cut_depth(hy_base, hy_cfg,
+                                                         SESSION_LAYERS[hy_cfg.name]))
     del hy_base
     gc.collect()
     torch.cuda.empty_cache()
@@ -5827,6 +6082,31 @@ def main() -> int:
     gr_parity_line = timed("granite_f32_parity", olap_f32_parity, ggen, gr_cfg, 4,
                            name="granite_f32_parity")
 
+    # every family trains: one f32 step at a cut depth on the card and the
+    # CPU, then three bf16 steps at the published widths
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"training phases: memory_allocated {torch.cuda.memory_allocated()}", flush=True)
+    from repro_torch.configs import registry
+    tgen = torch.Generator(device="cuda")
+    tgen.manual_seed(TRAIN_FAMILY_SEED)
+    family_parity = {}
+    for arch, layers, opt in TRAIN_FAMILY_PARITY:
+        c = registry.get_config(arch).replace(n_layers=layers, param_dtype="float32")
+        family_parity[arch] = timed(f"train_family_parity_{arch}", train_parity, tgen, c,
+                                    opt=opt, name="train_family_parity")
+        gc.collect()
+        torch.cuda.empty_cache()
+    family_full = {}
+    for family, arch, kw in TRAIN_FULL_WIDTH:
+        kw = dict(kw)
+        c = registry.get_config(arch)
+        c = c.replace(n_layers=kw.pop("layers", c.n_layers))
+        family_full[family] = timed(f"train_full_width_{family}", train_full_width, c,
+                                    name=f"train_full_width_{family}", **kw)
+        gc.collect()
+        torch.cuda.empty_cache()
+
     kernels = []
     for line, runs, variants, source, replaces in (
             (k1, launches, int8_variants, "src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -5904,6 +6184,12 @@ def main() -> int:
         else:
             check(vl_launches[name] == vl_sess_launches[name] == ed_launches[name]
                   == ed_build_launches[name] == 0, ("off the vlm and encdec paths", name))
+        # the QEmbed instance's paged serve: K1 and K2 on every step
+        kernels[-1]["launches_qembed"] = qe_launches[name]
+        if name in ("paged_attention", "quant_matmul"):
+            check(qe_launches[name] > 0, ("the QEmbed path", name))
+        else:
+            check(qe_launches[name] == 0, ("off the QEmbed path", name))
         # the granite path (granite_main_path's int8 run, the session): K1
         # on its `mma` design and K2
         kernels[-1]["launches_granite"] = gr_launches[name]
@@ -6001,6 +6287,8 @@ def main() -> int:
                    "granite_main_path": gr_line, "granite_whole_step": gr_step_line,
                    "granite_decode_profile": gr_prof_line, "granite_session": gr_sess_line,
                    "quant_matmul_granite": kq_gr, "granite_f32_parity": gr_parity_line,
+                   "qembed_serve": qe_line, "train_family_parity": family_parity,
+                   "train_full_width_families": family_full,
                    "phase_seconds": seconds, "phase_memory": memory,
                    "seconds": time.time() - t_start}, f, indent=1)
     emit({"kernels": kernels})

@@ -3,7 +3,8 @@
 ``from_reference(tree, cfg, device)`` walks the reference's pytree of
 dicts and lists.  Its leaves are arrays (anything ``np.asarray`` accepts),
 quantized weights (any object with ``q/scale/bits/group/shape/in_scale``
-attributes) or block-sparse weights (``w/mask/bs/idx``), so the bridge
+attributes), block-sparse weights (``w/mask/bs/idx``) or int8 embedding tables
+(``q/scale`` without ``bits``: a ``QEmbed``), so the bridge
 needs no JAX.  A block-sparse leaf whose ``idx`` is None (the reference
 drops it when it stacks layers) gets its indices rebuilt from ``mask``,
 per layer.  bf16 arrays arrive
@@ -27,7 +28,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.compressed import BlockSparseTensor, QTensor, check_idx
+from repro_torch.core.compressed import BlockSparseTensor, QEmbed, QTensor, check_idx
 from repro_torch.kernels.backend import resolve_device
 
 
@@ -54,6 +55,8 @@ def from_reference(tree, cfg=None, device="cuda"):
                        tree.bits, tree.group, tree.shape,
                        None if tree.in_scale is None
                        else to_tensor(tree.in_scale, device))
+    if hasattr(tree, "q") and hasattr(tree, "scale"):
+        return QEmbed(to_tensor(tree.q, device), to_tensor(tree.scale, device))
     if hasattr(tree, "mask") and hasattr(tree, "bs"):
         w = to_tensor(tree.w, device)
         return BlockSparseTensor(w, to_tensor(tree.mask, device), tree.bs,

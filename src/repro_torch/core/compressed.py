@@ -21,7 +21,12 @@ dispatch (and the MoE block, through :func:`record`) feeds with
 that the MoE block feeds with routing statistics;
 ``repro_torch.core.calibrate`` uses them to gather Hessians, channel
 norms and expert routing counts without any model-code changes.
-``QEmbed`` is not ported yet.
+
+:class:`QEmbed` is an int8 embedding table with per-row scales
+(``Recipe.quant_embed``): ``models/layers.py`` gathers rows from it and,
+when the embedding is tied, takes the logits from its codes.
+:func:`tied_logits` is that product on a plain table: f32 logits from
+bf16 operands with f32 accumulation, never rounded through bf16.
 """
 from __future__ import annotations
 
@@ -164,6 +169,96 @@ class QTensor:
         return w.to(torch.bfloat16)
 
 
+class _TiedLogits(torch.autograd.Function):
+    """``x @ table.T`` with an f32 output from bf16 operands on the card.
+    ``torch.mm(..., out_dtype=torch.float32)`` has no derivative, so the
+    backward products run in the operands' dtype (f32 accumulation), as
+    those of a bf16 product whose output is upcast do."""
+
+    @staticmethod
+    def forward(ctx, x, table):
+        ctx.save_for_backward(x, table)
+        return torch.mm(x, table.t(), out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, table = ctx.saved_tensors
+        g = g.to(x.dtype)
+        gx = torch.mm(g, table) if ctx.needs_input_grad[0] else None
+        gt = torch.mm(g.t(), x) if ctx.needs_input_grad[1] else None
+        return gx, gt
+
+
+def tied_logits(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """f32 logits ``x [..., d] @ table [V, d].T`` with f32 accumulation,
+    as the reference's ``preferred_element_type=float32`` product.  bf16
+    operands on the card take ``torch.mm``'s f32 output (the table is
+    never upcast); elsewhere the product of the operands upcast to f32."""
+    if x.is_cuda and x.dtype == table.dtype == torch.bfloat16:
+        y = _TiedLogits.apply(x.reshape(-1, x.shape[-1]), table)
+        return y.reshape(*x.shape[:-1], table.shape[0])
+    return torch.matmul(x.float(), table.float().t())
+
+
+class QEmbed:
+    """Int8 embedding table with per-row (per-vocab-entry) scales.
+
+    q      int8 codes ``[V, d]``
+    scale  f32 ``[V]``: row ``v`` is ``q[v] * scale[v]``
+
+    It serves the two operations an embedding needs: the row gather
+    (:meth:`lookup`, bf16 whatever the model's dtype, as in the
+    reference) and the tied unembedding's logits ``x @ W.T = (x @ q.T) *
+    s`` (:meth:`logits`): the per-row scale factors out of the reduction,
+    so the product runs on the codes, converted to bf16 (exact: |q| <=
+    127) on every call, as the reference's does.
+    """
+
+    def __init__(self, q, scale):
+        self.q = q
+        self.scale = scale
+
+    @property
+    def shape(self):
+        return tuple(self.q.shape)
+
+    @property
+    def ndim(self) -> int:
+        return self.q.dim()
+
+    @property
+    def dtype(self):
+        return torch.bfloat16
+
+    @property
+    def device(self):
+        return self.q.device
+
+    @property
+    def nbytes(self) -> int:
+        return int(self.q.numel() + self.scale.numel() * 4)
+
+    def to(self, device) -> "QEmbed":
+        return QEmbed(self.q.to(device), self.scale.to(device))
+
+    def lookup(self, tokens) -> torch.Tensor:
+        return (self.q[tokens].float() * self.scale[tokens][..., None]).to(torch.bfloat16)
+
+    def logits(self, x) -> torch.Tensor:
+        return tied_logits(x.to(torch.bfloat16), self.q.to(torch.bfloat16)) * self.scale
+
+
+def quantize_embed(table, bits: int = 8) -> QEmbed:
+    """Per-row absmax int8 quantization of an embedding table [V, d]:
+    ``s = max|w| / 127 + 1e-12``, codes ``rint(w / s)`` clipped to +-127."""
+    if bits != 8:
+        raise ValueError("embedding tables are int8 only")
+    w = table.float()
+    s = w.abs().amax(1) / 127.0 + 1e-12
+    q = torch.clamp(torch.round(w / s[:, None]), -127, 127).to(torch.int8)
+    return QEmbed(q, s)
+
+
 def pack_int4(codes: torch.Tensor) -> torch.Tensor:
     """int8 codes in [-8, 7], even first dim -> packed uint8 pairs."""
     lo = (codes[0::2].to(torch.int16) & 0xF).to(torch.uint8)
@@ -254,7 +349,7 @@ def param_bytes(tree) -> int:
         return sum(param_bytes(v) for v in tree.values())
     if isinstance(tree, (list, tuple)):
         return sum(param_bytes(v) for v in tree)
-    if isinstance(tree, (QTensor, BlockSparseTensor)):
+    if isinstance(tree, (QTensor, BlockSparseTensor, QEmbed)):
         return tree.nbytes
     return 0 if tree is None else int(tree.numel() * tree.element_size())
 

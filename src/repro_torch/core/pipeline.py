@@ -18,7 +18,10 @@ Stages (paper §3.2), in order:
      GPTQ sweep.
 
 Without calibration statistics a ``gptq`` recipe quantizes with absmax
-and masks score with unit activation norms, as in the reference.  A
+and masks score with unit activation norms, as in the reference.
+``quant_embed`` then replaces the embedding table with a per-row int8
+``QEmbed`` (after every prune: the table is never pruned), counted in
+``Report`` as the reference counts it (codes plus scales).  A
 layer-stacked block-sparse weight keeps its gather indices per layer, so
 the kernel runs on every block-sparse linear.  An MoE expert stack is
 compressed one expert matrix at a time, each with its own statistics
@@ -51,8 +54,8 @@ from repro_torch.core import calibrate as C
 from repro_torch.core import prune as P
 from repro_torch.core import quantize as Q
 from repro_torch.core import sparsify as S
-from repro_torch.core.compressed import (BlockSparseTensor, QTensor, pack_int4,
-                                         param_bytes)
+from repro_torch.core.compressed import (BlockSparseTensor, QEmbed, QTensor, pack_int4,
+                                         param_bytes, quantize_embed)
 
 
 @dataclass(frozen=True)
@@ -104,12 +107,6 @@ _COMPRESS_NAMES = frozenset({
     "wq", "wk", "wv", "wo", "wi", "wg", "wr", "unembed",
     "in_proj", "out_proj",
 })
-
-def _unported(recipe: Recipe) -> None:
-    if recipe.quant_embed:
-        raise NotImplementedError(
-            "Recipe.quant_embed is not ported yet: ROADMAP queue 1 item 2 (QEmbed)")
-
 
 def _leaf_name(path: str) -> str:
     return path.rsplit(".", 1)[-1]
@@ -188,6 +185,8 @@ def _param_count(tree) -> int:
         return tree.q.numel() * (2 if tree.bits == 4 else 1)
     if isinstance(tree, BlockSparseTensor):
         return int(tree.w.numel() * tree.density())
+    if isinstance(tree, QEmbed):                  # the reference counts both arrays
+        return tree.q.numel() + tree.scale.numel()
     return 0 if tree is None else tree.numel()
 
 
@@ -232,7 +231,6 @@ class InstanceOptimizer:
         return self.stats
 
     def apply(self, recipe: Recipe):
-        _unported(recipe)
         t0 = time.time()
         if self.stats is None:
             self.stats = C.CalibStats({}, {}, 0)
@@ -255,6 +253,9 @@ class InstanceOptimizer:
                 or recipe.block_bs):
             with torch.no_grad():
                 params = self._compress(params, cfg, stats, recipe, per_weight, "")
+        if recipe.quant_embed:
+            with torch.no_grad():
+                params = {**params, "embed": quantize_embed(params["embed"])}
         report = Report(recipe=recipe, bytes_before=param_bytes(self.params),
                         bytes_after=param_bytes(params),
                         params_before=_param_count(self.params),

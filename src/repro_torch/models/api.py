@@ -6,8 +6,9 @@ the hybrid (``models/hybrid.py``: Mamba2 layers and one shared attention
 block), rwkv (``models/rwkv.py``: attention-free) and encdec
 (``models/encdec.py``: whisper, its decoder fed by ``enc_inputs``).  rwkv,
 vlm and encdec serve on the contiguous layout only, and vlm and encdec
-without a prefix cache.  Training of the hybrid and rwkv families raises
-``NotImplementedError`` naming its ROADMAP item.
+without a prefix cache.  Every family trains through :func:`loss_fn`;
+``forward(capture=True)`` returns the reference's per-layer captures
+(none for encdec, as in the reference).
 """
 from __future__ import annotations
 
@@ -52,12 +53,10 @@ def forward(params, cfg, batch: Dict[str, Any], *, train: bool = False,
 def loss_fn(params, cfg, batch, *, xent_chunk: int = 0, remat: bool = True,
             aux_weight: float = 0.01):
     """Causal LM loss of ``batch`` {"tokens", "labels"} (scalar f32); a
-    vlm's on its text positions, an encdec's over every decoder position
-    of ``forward``."""
-    if cfg.family in _RECURRENT:
-        raise NotImplementedError(f"training of the {cfg.family} family is not ported "
-                                  "yet (ROADMAP queue 1 item 9)")
-    if cfg.family == "encdec":
+    vlm's on its text positions, the other families' over every position
+    of ``forward`` (the hybrid, rwkv and encdec ignore ``xent_chunk``, as
+    in the reference)."""
+    if cfg.family not in ("dense", "moe", "vlm"):
         logits, aux = forward(params, cfg, batch, train=True, remat=remat)
         loss = transformer._xent(logits, batch["labels"]) / batch["labels"].numel()
         return loss + aux_weight * aux["moe_aux"]

@@ -146,10 +146,8 @@ def decode_train(params: Params, cfg, tokens, enc_out, pos_offset: int = 0, *,
 
 def forward(params: Params, cfg, tokens, *, enc_inputs, train: bool = False,
             remat: bool = True, capture: bool = False, **_):
-    """Returns (logits [B, S, V], aux dict)."""
-    if capture:
-        raise NotImplementedError(
-            "capture is for calibration: ROADMAP queue 1 item 5")
+    """Returns (logits [B, S, V], aux dict).  ``capture`` is accepted and
+    returns no captures, as the reference's encdec ``forward`` does."""
     enc_out = encode(params, cfg, enc_inputs, remat=remat and train)
     logits = decode_train(params, cfg, tokens, enc_out, remat=remat and train)
     return logits, {"moe_aux": torch.zeros((), dtype=torch.float32, device=logits.device)}

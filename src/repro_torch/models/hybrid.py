@@ -82,14 +82,15 @@ def forward(params: Params, cfg, tokens, *, train: bool = False, remat: bool = T
     on) each group runs under ``torch.utils.checkpoint``, as
     ``jax.checkpoint`` of the reference's scan body.  The shared block's
     attention is ``best_attention``: the reference's hybrid takes no
-    ``use_flash``."""
-    if capture:
-        raise NotImplementedError("capture is for calibration: ROADMAP queue 1 item 5")
+    ``use_flash``.  ``capture`` adds ``aux["captures"]`` ({"blocks": [the
+    groups' inputs, G x [B, S, d] stacked], "tail": []}) and
+    ``aux["final_hidden"]``, as the reference's, and turns remat off."""
     x = L.embed(params, cfg, tokens)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
     G, K, _, _ = layout(cfg)
-    remat = remat and torch.is_grad_enabled()
+    remat = remat and torch.is_grad_enabled() and not capture
+    inputs = []
 
     def body(group, xc):
         for u in range(K):
@@ -98,13 +99,19 @@ def forward(params: Params, cfg, tokens, *, train: bool = False, remat: bool = T
                               train=train)[0]
 
     for g in range(G):
+        if capture:
+            inputs.append(x)
         group = layer_slice(params["mamba_groups"], g)
         x = checkpoint(body, group, x, use_reentrant=False) if remat else body(group, x)
     if params["mamba_tail"] is not None:
         for i in range(params["mamba_tail"]["A_log"].shape[0]):
             x, _ = M.block_apply(layer_slice(params["mamba_tail"], i), x, cfg)
-    logits = _head(params, cfg, x)
-    return logits, {"moe_aux": torch.zeros((), dtype=torch.float32, device=x.device)}
+    h = norm(x, params["ln_f"], cfg)
+    aux = {"moe_aux": torch.zeros((), dtype=torch.float32, device=x.device)}
+    if capture:
+        aux["captures"] = {"blocks": [torch.stack(inputs)], "tail": []}
+        aux["final_hidden"] = h
+    return L.unembed(params, cfg, h), aux
 
 
 # ---------------------------------------------------------------------------

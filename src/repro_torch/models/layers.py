@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import compressed
-from repro_torch.core.compressed import current_backend, matmul
+from repro_torch.core.compressed import QEmbed, current_backend, matmul, tied_logits
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 
@@ -405,18 +405,21 @@ def init_embed(gen, cfg, dtype):
 
 
 def embed(params, cfg, tokens):
-    x = params["embed"][tokens.long()]
+    """The rows of ``tokens``; a ``QEmbed`` table gives them in bf16."""
+    t = params["embed"]
+    x = t.lookup(tokens.long()) if isinstance(t, QEmbed) else t[tokens.long()]
     if cfg.emb_scale:
         x = (x.float() * math.sqrt(cfg.d_model)).to(x.dtype)
     return x
 
 
 def unembed(params, cfg, x):
-    """f32 logits [..., V].  The tied product runs in the working dtype
-    (f32 accumulation), so bf16 logits are rounded to bf16 before the
-    softcap; the reference keeps them in f32."""
+    """f32 logits [..., V].  The tied product (a plain table's, or a
+    ``QEmbed``'s on its codes) keeps its f32 accumulation: the logits are
+    never rounded to bf16, as in the reference."""
     if cfg.tie_embeddings:
-        logits = torch.matmul(x, params["embed"].to(x.dtype).t()).float()
+        t = params["embed"]
+        logits = t.logits(x) if isinstance(t, QEmbed) else tied_logits(x, t)
     else:
         logits = matmul(x, params["unembed"]).float()
     return softcap(logits, cfg.final_softcap)

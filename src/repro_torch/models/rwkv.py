@@ -267,20 +267,27 @@ def forward(params: Params, cfg, tokens, *, train: bool = False, remat: bool = T
             capture: bool = False, use_flash: bool = False):
     """Returns (logits [B,S,V], aux dict).  With ``remat`` (and grad mode
     on) each layer runs under ``torch.utils.checkpoint``; ``use_flash``
-    does not apply (no attention)."""
-    if capture:
-        raise NotImplementedError("capture is for calibration: ROADMAP queue 1 item 5")
+    does not apply (no attention).  ``capture`` adds ``aux["captures"]``
+    ({"blocks": [the layers' inputs, L x [B, S, d] stacked], "tail": []})
+    and ``aux["final_hidden"]``, as the reference's, and turns remat off."""
     x = L.embed(params, cfg, tokens)
-    remat = remat and torch.is_grad_enabled()
+    remat = remat and torch.is_grad_enabled() and not capture
+    inputs = []
 
     def body(p, xc):
         return block_apply(p, xc, cfg)[0]
 
     for r in range(depth(params)):
+        if capture:
+            inputs.append(x)
         p = layer_slice(params["blocks"][0], r)
         x = checkpoint(body, p, x, use_reentrant=False) if remat else body(p, x)
-    return _head(params, cfg, x), {"moe_aux": torch.zeros((), dtype=torch.float32,
-                                                          device=x.device)}
+    h = L.norm(x, params["ln_f"], cfg)
+    aux = {"moe_aux": torch.zeros((), dtype=torch.float32, device=x.device)}
+    if capture:
+        aux["captures"] = {"blocks": [torch.stack(inputs)], "tail": []}
+        aux["final_hidden"] = h
+    return L.unembed(params, cfg, h), aux
 
 
 def init_cache(cfg, batch: int, max_len: int, *, compact_local: bool = False,

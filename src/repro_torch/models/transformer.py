@@ -174,18 +174,20 @@ def init_params(gen: torch.Generator, cfg) -> Params:
 # full-sequence forward
 # ---------------------------------------------------------------------------
 
-def _trunk(params: Params, cfg, x, *, train: bool, use_flash: bool, remat: bool):
+def _trunk(params: Params, cfg, x, *, train: bool, use_flash: bool, remat: bool,
+           inputs: Optional[list] = None):
     """Every block over x [B, S, d], then the final norm -> (x, the summed
     MoE aux).  With ``remat``
     (and grad mode on) each layer of ``blocks`` runs under
     ``torch.utils.checkpoint``, which keeps only its input for the
     backward pass and recomputes the rest, as ``jax.checkpoint`` of the
     reference's scan body does; the ``tail`` layers are not
-    rematerialized, as in the reference."""
+    rematerialized, as in the reference.  ``inputs``, a list, receives
+    every layer's input in execution order, and turns remat off."""
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
     unit, R, _ = pattern_unit(cfg)
-    remat = remat and torch.is_grad_enabled()
+    remat = remat and torch.is_grad_enabled() and inputs is None
 
     def one(p, x, kind):
         return block_apply(p, x, cfg, kind=kind, positions=positions,
@@ -193,6 +195,8 @@ def _trunk(params: Params, cfg, x, *, train: bool, use_flash: bool, remat: bool)
 
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, (kind, p) in enumerate(_layers(params, cfg)):
+        if inputs is not None:
+            inputs.append(x)
         if remat and i < R * len(unit):
             x, a = checkpoint(one, p, x, kind, use_reentrant=False)
         else:
@@ -212,14 +216,25 @@ def embed_inputs(params: Params, cfg, tokens, img_embs=None):
 
 def forward(params: Params, cfg, tokens, *, img_embs=None, train: bool = False,
             use_flash: bool = False, remat: bool = True, capture: bool = False):
-    """Returns (logits [B, n_img + S, V], aux dict)."""
-    if capture:
-        raise NotImplementedError(
-            "capture is for calibration: ROADMAP queue 1 item 5")
+    """Returns (logits [B, n_img + S, V], aux dict).  ``capture`` adds the
+    reference's ``aux["captures"]`` (``"blocks"``: for each member of the
+    pattern unit its layers' inputs [R, B, S, d]; ``"tail"``: the tail
+    layers' inputs, each [B, S, d]; a vlm's include its image positions)
+    and ``aux["final_hidden"]`` (after the final norm), and turns remat
+    off."""
+    inputs = [] if capture else None
     x, aux = _trunk(params, cfg, embed_inputs(params, cfg, tokens, img_embs), train=train,
-                    use_flash=use_flash, remat=remat)
+                    use_flash=use_flash, remat=remat, inputs=inputs)
     logits = L.unembed(params, cfg, x)
-    return logits, {"moe_aux": aux}
+    out = {"moe_aux": aux}
+    if capture:
+        unit, R, _ = pattern_unit(cfg)
+        n = R * len(unit)
+        out["captures"] = {"blocks": [torch.stack(inputs[u:n:len(unit)])
+                                      for u in range(len(unit))],
+                           "tail": inputs[n:]}
+        out["final_hidden"] = x
+    return logits, out
 
 
 def loss_fn(params: Params, cfg, tokens, labels, *, img_embs=None,

@@ -12,7 +12,7 @@ saved:
     (``repro_torch.tree``: dict keys sorted, sequences in order, ``None``
     dropped), compressed containers counting as one leaf; its manifest
     entry holds its ``path`` (keys joined by ``/``) and ``kind``
-    (``array``, ``qtensor``, ``blocksparse``), with the container's
+    (``array``, ``qtensor``, ``blocksparse``, ``qembed``), with the container's
     static fields; ``structure_only`` lists the empty containers and
     ``None`` leaves that flattening drops; ``extra`` is the caller's
     JSON; ``sha256`` hashes ``arrays.npz`` and is checked on load;
@@ -24,8 +24,8 @@ A ``QTensor`` is one entry whatever its leading axes (a layer, and an
 MoE stack's expert axis), as in the reference.  A layer-stacked
 ``BlockSparseTensor`` is written as the reference holds it, without its
 gather indices; on load ``idx`` is rebuilt from ``mask``
-per layer.  ``qembed`` entries (the reference's quantized embedding)
-raise: ``QEmbed`` is ROADMAP queue 1 item 2.
+per layer.  A ``QEmbed`` (the int8 embedding table) is a ``qembed``
+entry of two arrays, ``.q`` and ``.scale``, as in the reference.
 """
 from __future__ import annotations
 
@@ -39,11 +39,11 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.compressed import BlockSparseTensor, QTensor, check_idx
+from repro_torch.core.compressed import BlockSparseTensor, QEmbed, QTensor, check_idx
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.tree import flatten_with_path, unflatten_like
 
-_CONTAINERS = (QTensor, BlockSparseTensor)
+_CONTAINERS = (QTensor, BlockSparseTensor, QEmbed)
 
 
 def _is_container(x) -> bool:
@@ -123,6 +123,10 @@ def save(ckpt_dir: str, step: int, state, *, extra: Optional[Dict] = None,
             meta["has_idx"] = has_idx
             if has_idx:
                 arrays[name + ".idx"] = _np(leaf.idx)
+        elif isinstance(leaf, QEmbed):
+            meta["kind"] = "qembed"
+            arrays[name + ".q"] = _np(leaf.q)
+            arrays[name + ".scale"] = _np(leaf.scale)
         else:
             meta["kind"] = "array"
             arrays[name] = _np(leaf)
@@ -203,9 +207,7 @@ def _leaf_from_meta(meta, name, get, device):
                if meta.get("has_idx") else None)
         return BlockSparseTensor(w, get(name + ".mask").to(device), meta["bs"], idx)
     if kind == "qembed":
-        raise NotImplementedError(
-            f"checkpoint entry {meta['path']!r} is a QEmbed (quantized embedding), "
-            "which is not ported yet: ROADMAP queue 1 item 2")
+        return QEmbed(get(name + ".q").to(device), get(name + ".scale").to(device))
     if kind != "array":
         raise ValueError(f"unknown checkpoint entry kind {kind!r}")
     return get(name).to(device)

@@ -10,6 +10,15 @@ The maths runs in f32 under ``torch.no_grad()`` and casts back to the
 param dtype; gradients are clipped at their global norm before the
 update and weight decay applies only where ``ndim >= 2``.
 
+A leaf stacked over layers is updated slice by slice along its leading
+axes (``_slices``), so that the f32 temporaries of an update are those
+of one slice: zamba2-7b's Mamba ``in_proj`` is one [11, 6, 3584, 14576]
+leaf of 3.4 G elements, 13.8 GB in f32 per temporary.  Every operation
+is elementwise or reduces over a matrix's own axes, so the slices give
+the leaf's values; Adafactor's RMS rule over the whole leaf takes a
+second pass.  The clip's scale is applied per slice too (rounded to the
+gradient's dtype, as the clipped tree the reference builds).
+
 ``update`` writes the new params and state into the tensors it was
 given and returns them: the counterpart of the reference's training
 step, which donates both to ``jax.jit``, so that a trainer holds one
@@ -27,17 +36,35 @@ import torch
 from repro_torch.tree import leaves, tree_map, tree_unzip
 
 
+SLICE_ELEMS = 1 << 27        # the most elements of a leaf one update step holds in f32
+
+
+def _slices(*ts):
+    """Matching pieces of tensors that share ``ts[0]``'s leading axes:
+    ``ts`` itself, or their entries along the first axis, cut again until
+    each piece of ``ts[0]`` has at most SLICE_ELEMS elements; a matrix
+    (the last two axes of ``ts[0]``) is never cut."""
+    if ts[0].numel() <= SLICE_ELEMS or ts[0].dim() <= 2:
+        yield ts
+        return
+    for i in range(ts[0].shape[0]):
+        yield from _slices(*(t[i] for t in ts))
+
+
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in f32."""
-    ls = leaves(tree)
-    return torch.sqrt(sum(torch.sum(torch.square(l.float())) for l in ls))
+    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                          for l in leaves(tree) for (x,) in _slices(l)))
 
 
-def clip_by_global_norm(tree, max_norm: float):
-    """(tree scaled to at most ``max_norm`` in global norm, the norm)."""
-    norm = global_norm(tree)
-    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
-    return tree_map(lambda g: (g.float() * scale).to(g.dtype), tree), norm
+def _clip_scale(tree, max_norm: float) -> torch.Tensor:
+    """The factor that brings ``tree`` to at most ``max_norm`` in global norm."""
+    return torch.clamp(max_norm / torch.clamp(global_norm(tree), min=1e-9), max=1.0)
+
+
+def _clipped(g, scale) -> torch.Tensor:
+    """``g`` scaled by the clip's ``scale`` and rounded to its dtype, in f32."""
+    return (g.float() * scale).to(g.dtype).float()
 
 
 @dataclass(frozen=True)
@@ -84,19 +111,22 @@ def adamw(lr: float = 3e-4, b1: float = 0.9, b2: float = 0.95,
 
     @torch.no_grad()
     def update(params, grads, state, step):
-        grads, _ = clip_by_global_norm(grads, clip)
+        scale = _clip_scale(grads, clip)
         t = torch.tensor(float(step), dtype=torch.float32) + 1
         lr_t, bc1, bc2 = _on_device_of(params, sched(step), 1.0 - b1 ** t, 1.0 - b2 ** t)
 
         def upd(p, g, m, v):
-            gf = g.float()
-            m2 = b1 * m + (1 - b1) * gf
-            v2 = b2 * v + (1 - b2) * gf * gf
-            u = (m2 / bc1) / (torch.sqrt(v2 / bc2) + eps)
-            if p.dim() >= 2:
-                u = u + weight_decay * p.float()
-            new_p = p.float() - lr_t * u
-            return _out(p, new_p), m.copy_(m2), v.copy_(v2)
+            for ps, gs, ms, vs in _slices(p, g, m, v):
+                gf = _clipped(gs, scale)
+                m2 = b1 * ms + (1 - b1) * gf
+                v2 = b2 * vs + (1 - b2) * gf * gf
+                u = (m2 / bc1) / (torch.sqrt(v2 / bc2) + eps)
+                if p.dim() >= 2:
+                    u = u + weight_decay * ps.float()
+                _out(ps, ps.float() - lr_t * u)
+                ms.copy_(m2)
+                vs.copy_(v2)
+            return p, m, v
 
         out = tree_map(upd, params, grads, state["m"], state["v"])
         p2, m2, v2 = tree_unzip(out, 3, params)
@@ -121,30 +151,50 @@ def adafactor(lr: float = 1e-3, decay: float = 0.8, eps: float = 1e-30,
 
     @torch.no_grad()
     def update(params, grads, state, step):
-        grads, _ = clip_by_global_norm(grads, clip)
+        scale = _clip_scale(grads, clip)
         t = torch.tensor(float(step), dtype=torch.float32) + 1.0
         lr_t, b = _on_device_of(params, sched(step), 1.0 - t ** (-decay))
 
-        def upd(p, g, s):
-            gf = g.float()
+        def moments(g, s):
+            """The second moments ``s`` of a piece (factored for matrices)
+            updated in place from its gradient ``g``."""
+            gf = _clipped(g, scale)
             g2 = gf * gf + eps
-            if p.dim() >= 2:
-                vr = b * s["vr"] + (1 - b) * g2.mean(-1)
-                vc = b * s["vc"] + (1 - b) * g2.mean(-2)
-                denom = vr[..., :, None] * vc[..., None, :] \
-                    / torch.clamp(vr.mean(-1)[..., None, None], min=eps)
-                u = gf * torch.rsqrt(denom + eps)
-                s2 = {"vr": s["vr"].copy_(vr), "vc": s["vc"].copy_(vc)}
+            if "v" in s:
+                s["v"].copy_(b * s["v"] + (1 - b) * g2)
             else:
-                v = b * s["v"] + (1 - b) * g2
-                u = gf * torch.rsqrt(v + eps)
-                s2 = {"v": s["v"].copy_(v)}
-            # update clipping (Adafactor RMS rule)
-            rms = torch.sqrt(torch.mean(u * u) + 1e-30)
-            u = u / torch.clamp(rms, min=1.0)
-            if p.dim() >= 2 and weight_decay:
-                u = u + weight_decay * p.float()
-            return _out(p, p.float() - lr_t * u), s2
+                s["vr"].copy_(b * s["vr"] + (1 - b) * g2.mean(-1))
+                s["vc"].copy_(b * s["vc"] + (1 - b) * g2.mean(-2))
+
+        def direction(g, s):
+            """``g`` over the square root of its second moment ``s``."""
+            gf = _clipped(g, scale)
+            if "v" in s:
+                return gf * torch.rsqrt(s["v"] + eps)
+            vr, vc = s["vr"], s["vc"]
+            denom = vr[..., :, None] * vc[..., None, :] \
+                / torch.clamp(vr.mean(-1)[..., None, None], min=eps)
+            return gf * torch.rsqrt(denom + eps)
+
+        def upd(p, g, s):
+            keys = sorted(s)
+            pieces = [(ps, gs, dict(zip(keys, ss)))
+                      for ps, gs, *ss in _slices(p, g, *(s[k] for k in keys))]
+            for _, gs, ss in pieces:
+                moments(gs, ss)
+            # update clipping (Adafactor RMS rule) over the whole leaf: a
+            # leaf of several pieces takes each piece's direction twice
+            us = [direction(gs, ss) for _, gs, ss in pieces] if len(pieces) == 1 \
+                else [None] * len(pieces)
+            sq = sum(torch.sum(torch.square(direction(gs, ss) if u is None else u))
+                     for (_, gs, ss), u in zip(pieces, us))
+            rms = torch.sqrt(sq / p.numel() + 1e-30)
+            for (ps, gs, ss), u in zip(pieces, us):
+                u = (direction(gs, ss) if u is None else u) / torch.clamp(rms, min=1.0)
+                if p.dim() >= 2 and weight_decay:
+                    u = u + weight_decay * ps.float()
+                _out(ps, ps.float() - lr_t * u)
+            return p, s
 
         out = tree_map(upd, params, grads, state["f"])
         p2, f2 = tree_unzip(out, 2, params)

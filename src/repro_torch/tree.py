@@ -7,7 +7,9 @@ in the order ``jax.tree_util`` does: dict keys sorted, sequences in
 order, ``None`` dropped.  That order names a checkpoint's arrays
 (``a0``, ``a1``, ...), so a checkpoint written by either package pairs
 the same arrays with the same leaves in the other.  ``is_leaf`` stops
-the descent at a node (the compressed containers, for instance).
+the descent at a node; any object that is not a dict, list or tuple (a
+tensor, or a compressed container: ``QTensor``, ``BlockSparseTensor``,
+``QEmbed``) is a leaf already.
 """
 from __future__ import annotations
 
@@ -104,17 +106,30 @@ def tree_unzip(tree, n: int, like):
     return [tree_map(lambda _, t, i=i: t[i], like, tree) for i in range(n)]
 
 
+def _differentiable(leaf) -> bool:
+    return isinstance(leaf, torch.Tensor) and leaf.is_floating_point()
+
+
 def value_and_grad(fn, params):
     """(``fn(params)``, its gradient as a tree like ``params``): the
     counterpart of ``jax.value_and_grad``.  The params are not modified;
     their leaves are differentiated through detached aliases, so no
-    ``.grad`` is left behind.  Each gradient has its param's dtype."""
+    ``.grad`` is left behind.  Each gradient has its param's dtype.  A
+    leaf that is not a float tensor (a compressed container such as
+    ``QTensor`` or ``QEmbed``, integer codes) is passed as it is and its
+    gradient is ``None``."""
     ls = leaves(params)
-    alias = [p.detach().requires_grad_(True) for p in ls]
+    alias = [p.detach().requires_grad_(True) if _differentiable(p) else p for p in ls]
+    diff = [a for a in alias if _differentiable(a)]
     with torch.enable_grad():
         value = fn(unflatten_like(params, alias))
-        grads = torch.autograd.grad(value, alias, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(ls, grads)]
+        got = iter(torch.autograd.grad(value, diff, allow_unused=True))
+    grads = []
+    for p in ls:
+        g = next(got) if _differentiable(p) else None
+        if g is None and _differentiable(p):
+            g = torch.zeros_like(p)
+        grads.append(g)
     return value.detach(), unflatten_like(params, grads)
 
 

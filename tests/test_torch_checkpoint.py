@@ -15,7 +15,7 @@ against the reference's ``repro.training.checkpoint``.
   kinds; forwards agree (f32, within 1e-5 relative of the reference's).
 - Training that stops at a checkpoint and resumes ends where an
   uninterrupted run does, bit for bit.
-- A ``qembed`` entry raises, naming ROADMAP queue 1 item 2.
+- A ``qembed`` entry crosses the packages both ways.
 """
 import json
 import os
@@ -39,7 +39,7 @@ from repro.training import checkpoint as RCK  # noqa: E402
 from repro.training import optimizer as ROPT  # noqa: E402
 from repro_torch import bridge  # noqa: E402
 from repro_torch.configs import from_reference  # noqa: E402
-from repro_torch.core.compressed import BlockSparseTensor, QTensor  # noqa: E402
+from repro_torch.core.compressed import BlockSparseTensor, QEmbed, QTensor  # noqa: E402
 from repro_torch.core.pipeline import InstanceOptimizer, Recipe  # noqa: E402
 from repro_torch.models import api  # noqa: E402
 from repro_torch.training import checkpoint as CK  # noqa: E402
@@ -263,15 +263,26 @@ def test_forwards_agree_across_packages(ref_trees, which, tmp_path):
     assert rel <= FWD_RTOL
 
 
-def test_qembed_entry_raises(tmp_path):
-    d = str(tmp_path)
-    table = jax.random.normal(jax.random.PRNGKey(0), (260, 64))
-    RCK.save(d, 0, {"embed": quantize_embed(table), "ln_f": {"w": jnp.ones((64,))}})
-    with pytest.raises(NotImplementedError, match="item 2"):
-        CK.restore_tree(d, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 2"):
-        CK.restore(d, {"embed": torch.zeros(1), "ln_f": {"w": torch.zeros(1)}},
-                   device="cpu")
+def test_qembed_entry_crosses_both_ways(tmp_path):
+    """A reference ``qembed`` entry restores as the port's ``QEmbed`` (codes
+    and scales bit for bit, through ``restore_tree`` and ``restore``), and
+    the port's entry restores in the reference."""
+    d = str(tmp_path / "ref")
+    rq = quantize_embed(jax.random.normal(jax.random.PRNGKey(0), (260, 64)))
+    RCK.save(d, 0, {"embed": rq, "ln_f": {"w": jnp.ones((64,))}})
+    tree, _, _ = CK.restore_tree(d, device="cpu")
+    got, _, _ = CK.restore(d, {"embed": tree["embed"], "ln_f": {"w": torch.zeros(1)}},
+                           device="cpu")
+    for t in (tree["embed"], got["embed"]):
+        assert isinstance(t, QEmbed)
+        assert torch.equal(t.q, torch.from_numpy(np.array(rq.q)))
+        assert torch.equal(t.scale, torch.from_numpy(np.array(rq.scale)))
+    d2 = str(tmp_path / "port")
+    CK.save(d2, 0, tree)
+    back, _, _ = RCK.restore_tree(d2)
+    assert type(back["embed"]).__name__ == "QEmbed"
+    assert np.array_equal(np.asarray(back["embed"].q), np.asarray(rq.q))
+    assert np.array_equal(np.asarray(back["embed"].scale), np.asarray(rq.scale))
 
 
 # ---------------------------------------------------------------------------

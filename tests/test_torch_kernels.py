@@ -231,11 +231,11 @@ def test_int4_matmul_matches_reference():
     {"drop_units": 1}, {"kv_keep_frac": 0.5}, {"ffn_keep_frac": 0.5},
     {"experts_keep": 2}, {"quant_embed": True},
 ])
-def test_unported_recipe_fields_raise(field):
-    """Of the recipe fields that once raised, only ``quant_embed`` (QEmbed)
-    still does; the structural ones apply on a dense model (stage 1,
-    ``core/prune.py``) and ``experts_keep`` is a no-op there, as in the
-    reference."""
+def test_once_unported_recipe_fields_apply(field):
+    """Every recipe field that once raised applies: the structural ones on
+    a dense model (stage 1, ``core/prune.py``), ``experts_keep`` as a
+    no-op there, as in the reference, and ``quant_embed`` as an int8
+    ``QEmbed`` table of V d + 4 V bytes."""
     from repro_torch.configs import gemma2_2b
     from repro_torch.core.pipeline import InstanceOptimizer, Recipe
     from repro_torch.models import api
@@ -244,11 +244,13 @@ def test_unported_recipe_fields_raise(field):
     gen.manual_seed(0)
     opt = InstanceOptimizer(api.init_params(gen, cfg), cfg)
     recipe = Recipe(wbits=8, quant_method="absmax", **field)
+    params2, cfg2, report = opt.apply(recipe)
     if "quant_embed" in field:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            opt.apply(recipe)
+        from repro_torch.core.compressed import QEmbed
+        V, d = cfg.vocab_size, cfg.d_model
+        assert isinstance(params2["embed"], QEmbed) and cfg2 == cfg
+        assert params2["embed"].nbytes == V * d + 4 * V
         return
-    _, cfg2, report = opt.apply(recipe)
     want = {"drop_units": dict(n_layers=2, attn_pattern="LG"),
             "kv_keep_frac": dict(n_kv_heads=1, n_heads=2, head_dim=cfg.resolved_head_dim),
             "ffn_keep_frac": dict(d_ff=64), "experts_keep": {}}[next(iter(field))]

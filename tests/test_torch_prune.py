@@ -11,7 +11,8 @@ config, and the re-sliced statistics within the calibration tolerance
 ``w8-kv50`` (GPTQ) and of ``drop_units=1`` must give the reference's
 codes (on at least 99.9% of entries) and scales (1e-6), as
 tests/test_torch_pipeline.py holds GPTQ; ``experts_keep`` on a dense
-model is a no-op on both sides.
+model is a no-op on both sides.  ``quant_embed`` gives the reference's
+int8 table and report.
 """
 import numpy as np
 import pytest
@@ -31,7 +32,7 @@ from repro.models import api as rapi  # noqa: E402
 from repro_torch import bridge  # noqa: E402
 from repro_torch.configs import from_reference  # noqa: E402
 from repro_torch.core import prune as P  # noqa: E402
-from repro_torch.core.compressed import QTensor  # noqa: E402
+from repro_torch.core.compressed import QEmbed, QTensor  # noqa: E402
 from repro_torch.core.pipeline import InstanceOptimizer, Recipe  # noqa: E402
 
 MODELS = ["tiny", "gemma2"]
@@ -197,10 +198,18 @@ def test_experts_keep_is_a_noop_on_dense():
                 assert torch.equal(g, other), path
 
 
-def test_quant_embed_still_raises():
-    _, _, _, cfg, params, opt = _model("tiny")
-    with pytest.raises(NotImplementedError, match="QEmbed"):
-        opt.apply(Recipe(name="qe", wbits=8, quant_embed=True))
+def test_quant_embed_gives_reference_table_and_report():
+    """``quant_embed`` after the prunes: the reference's int8 table (codes
+    equal, scales within 1e-6) and its report's bytes and param counts."""
+    _, _, ropt, _, _, opt = _model("tiny")
+    kw = dict(name="qe", wbits=8, quant_method="absmax", ffn_keep_frac=0.5, quant_embed=True)
+    rq, _, rrep = ropt.apply(RRecipe(**kw))
+    pq, _, rep = opt.apply(Recipe(**kw))
+    assert isinstance(pq["embed"], QEmbed)
+    assert torch.equal(pq["embed"].q, torch.from_numpy(np.array(rq["embed"].q)))
+    assert _rel(pq["embed"].scale, rq["embed"].scale) < 1e-6
+    assert (rep.bytes_before, rep.bytes_after, rep.params_before, rep.params_after) == \
+        (rrep.bytes_before, rrep.bytes_after, rrep.params_before, rrep.params_after)
 
 
 def test_calibrate_without_head_matches_reference():

@@ -121,7 +121,7 @@ def _tokens(B, S, seed, vocab=256):
     return np.random.default_rng(seed).integers(4, vocab, (B, S)).astype(np.int32)
 
 
-def test_config_dispatch_and_slot_bytes_match_reference():
+def test_config_dispatch_slot_bytes_and_loss_match_reference():
     for mine, ref in ((registry.get_config("rwkv6-3b"), rregistry.get_config("rwkv6-3b")),
                       (registry.get_reduced("rwkv6-3b"), rregistry.get_reduced("rwkv6-3b"))):
         assert dataclasses.asdict(mine) == dataclasses.asdict(from_reference(ref))
@@ -145,9 +145,13 @@ def test_config_dispatch_and_slot_bytes_match_reference():
     assert slot_state_bytes(full, 1024) == ref_slot_bytes(rregistry.get_config("rwkv6-3b"),
                                                           1024) == 21_626_880
     assert slot_state_bytes(cfg, 64) == ref_slot_bytes(rcfg, 64)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        api.loss_fn(_model()[3], cfg, {"tokens": torch.zeros((1, 4), dtype=torch.long),
-                                       "labels": torch.zeros((1, 4), dtype=torch.long)})
+    # training: the causal LM loss equals the reference's (1e-5 relative)
+    toks, labels = _tokens(2, 16, 11), _tokens(2, 16, 12)
+    got = api.loss_fn(_model()[3], cfg, {"tokens": torch.from_numpy(toks).long(),
+                                         "labels": torch.from_numpy(labels).long()})
+    want = float(rapi.loss_fn(rparams, rcfg, {"tokens": jnp.asarray(toks),
+                                              "labels": jnp.asarray(labels)}))
+    assert abs(float(got) - want) <= 1e-5 * abs(want)
 
 
 def _leaves(tree, path=""):
