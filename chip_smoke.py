@@ -291,6 +291,18 @@ Phases, each of which raises on failure (so the script exits non-zero):
    seeded encoder frames and 448-token targets, and qwen2-moe-a2.7b at
    its first 4 of 24 layers (57.3 GB of bf16 params and grads at full
    depth), the last four with AdamW: phase 14's record and checks.
+53. static_analysis (run after phase 4, on phase 3's int8 engine) and
+   static_analysis_rwkv (after phase 32, on phase 31's): the hot-path
+   audit (``analysis/jit_audit.py``) of full-width gemma2-2b's paged
+   ``w8-absmax`` engine and rwkv6-3b's contiguous one under
+   ``set_sync_debug_mode("warn")``: every step method's calls and
+   signatures, the diagnostics by code, the decode step's measured FLOPs
+   and bytes against 2 N_active slots and params + 2 x slot state, K1 and
+   K2 launched during the audit (K2 alone on rwkv), and the step's
+   analytic bound (``launch/roofline.py``) beside the phase's profile;
+   the engine's targets restored, no diagnostic outside
+   ``tools/torch_analysis_baseline.json``, no slot-state copy (JIT002),
+   the analytic bytes within 5% of PERF.md's byte floors.
 
 K2, K3 and K4 run their tensor-core designs on bf16 and their FMA
 designs on f32; K1 runs ``split`` up to 8 query heads per KV head in
@@ -312,7 +324,8 @@ and channel-mix timings; on the vlm and encdec paths: ``launches_vlm``,
 and K2's ``vlm_encdec`` cases seen and timings; on the granite path:
 ``launches_granite``, ``launches_granite_session``, K1's and K3's ``g48``
 timings, and K2's ``granite`` cases seen and timings; on the QEmbed
-instance's serve: ``launches_qembed``),
+instance's serve: ``launches_qembed``; during the audits:
+``launches_static_analysis`` and ``launches_static_analysis_rwkv``),
 the card line, and last ``{"ok": true, "device": {...}}``.  Exits non-zero
 without a card and outside a checkout of the repository.
 """
@@ -325,6 +338,7 @@ import re
 import subprocess
 import sys
 import time
+import warnings
 
 import torch
 
@@ -332,8 +346,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out")      # the run's record (gitignored)
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
-BF16_FLOPS = 989e12              # dense bf16 tensor-core peak
+# the card's HBM rate and dense bf16 peak, and the least time for given bytes
+# and operations: launch/roofline.py keeps them, with their source
+from repro_torch.launch.roofline import BF16_FLOPS, HBM_BYTES_PER_S, bound  # noqa: E402,F401
+
 K2_TOL = 2e-2                    # bf16 bound of tests/test_kernels.py
 K1_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}
 # K1 at granite's G, per slot (slot_errors) against the plain version's
@@ -455,11 +471,6 @@ def slot_errors(got, want):
     d = (got.float() - want.float()).abs().flatten(1).amax(1)
     scale = want.float().abs().flatten(1).amax(1).clamp(min=1e-30)
     return d.max().item(), (d / scale).max().item()
-
-
-def bound(nbytes: float, flops: float):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
 # ---------------------------------------------------------------------------
@@ -2670,21 +2681,13 @@ def train_parity(gen, cfg, device="cuda", batch=2, seq_len=128, opt="adamw",
     return line
 
 
-def active_params(cfg) -> int:
-    """Params one position passes through: an MoE's top-k routed experts
-    (and its shared ones), every param of the other families."""
-    n = cfg.param_count()
-    if cfg.family == "moe":
-        n -= cfg.n_layers * (cfg.n_experts - cfg.top_k) * 3 * cfg.d_model * cfg.moe_d_ff
-    return n
-
-
 def train_flops(cfg, batch: int, seq_len: int) -> float:
     """6 N P model flops of a step of ``batch`` rows of ``seq_len`` tokens:
-    every position (a vlm's image positions too) through ``active_params``;
+    every position (a vlm's image positions too) through its active params
+    (an MoE's top-k routed experts and its shared ones);
     an encdec's ``enc_ctx`` frames through its encoder and its tokens
     through the rest."""
-    n = active_params(cfg)
+    n = cfg.active_param_count()
     if cfg.family == "encdec":
         d, hd = cfg.d_model, cfg.resolved_head_dim
         attn = d * cfg.n_heads * hd + 2 * d * cfg.n_kv_heads * hd + cfg.n_heads * hd * d
@@ -2765,7 +2768,7 @@ def train_full_width(cfg, device="cuda", steps=5, batch=4, seq_len=1024, microba
     check(not launched, (name, "the training step launched a kernel", launched))
     steady = per_step[1:] or per_step
     line = {"phase": name, "model": cfg.name, "family": cfg.family, "layers": cfg.n_layers,
-            "params": n_params, "active_params": active_params(cfg), "optimizer": opt,
+            "params": n_params, "active_params": cfg.active_param_count(), "optimizer": opt,
             "batch": batch, "seq_len": seq_len, "microbatches": microbatches,
             "xent_chunk": xent_chunk if cfg.family in ("dense", "moe", "vlm") else 0,
             "remat": True, "init_s": init_s, "steps": per_step,
@@ -4512,6 +4515,102 @@ def profile_step(gen, params, eng, steps: int = 5, name="decode_profile"):
 
 
 # ---------------------------------------------------------------------------
+# static_analysis: the hot-path audit of a served engine
+# ---------------------------------------------------------------------------
+
+# PERF.md section 5's decode-step byte floors (ms at 3.35 TB/s) of the audited
+# int8 engines; the analytic step at profile_step's position must be within
+# STEP_FLOOR_RTOL of them
+STEP_FLOOR_MS = {"gemma2-2b": 0.98, "rwkv6-3b": 1.00}
+STEP_FLOOR_RTOL = 0.05
+PROFILE_POSITIONS = 101          # profile_step decodes at position 100: 101 positions
+BASELINE = os.path.join(ROOT, "tools", "torch_analysis_baseline.json")
+
+
+def static_analysis(eng, prof_line, name="static_analysis", kernels=("quant_matmul",)):
+    """The hot-path audit (``analysis/jit_audit.py``) of a served engine on
+    the card, under ``set_sync_debug_mode("warn")``: every target's calls
+    and signatures, the diagnostics by code, the decode step's measured
+    FLOPs and bytes against 2 N_active slots and params + 2 x state, the
+    kernels launched during the audit by design, and the analytic step
+    (``launch/roofline.py`` ``decode_step_cost``, at ``profile_step``'s
+    position) beside ``prof_line``'s device-busy and wall ms.  Gates: the
+    engine's targets restored, each of ``kernels`` launched, no diagnostic
+    outside ``tools/torch_analysis_baseline.json``, none of JIT002, and the
+    analytic bytes within STEP_FLOOR_RTOL of PERF.md's byte floor."""
+    from repro_torch.analysis import diagnostics as D
+    from repro_torch.analysis import jit_audit as JA
+    from repro_torch.kernels import ops
+    from repro_torch.launch import roofline
+
+    ops.reset_launch_counts()
+    t0 = time.time()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            report = JA.audit_engine(eng)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    sync()
+    audit_s = time.time() - t0
+    # the engine's own reads between the step methods (a tick's tokens, the
+    # host-to-device copies of its inputs): by design, counted by line
+    outside = {}
+    for w in caught:
+        if JA.SYNC_WARNING in str(w.message):
+            where = f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}"
+            outside[where] = outside.get(where, 0) + 1
+    launches = dict(ops.launch_count)
+    variants = {k: n for k, n in ops.variant_count.items() if n}
+    shadowed = {"_insert", "_decode", "_seed", "_prefill", "_prefill_from"} & set(eng.__dict__)
+    check(not shadowed and all(getattr(fn, "__self__", None) is eng
+                               for fn in eng.jit_targets().values()),
+          ("the audit left its recorders on the engine", shadowed))
+    for k in kernels:
+        check(launches[k] > 0, (name, "no launch of", k, launches))
+    by_code = {}
+    for d in report.diagnostics:
+        by_code.setdefault(d.code, []).append(d.to_dict())
+    new = D.load_baseline(BASELINE).new_findings(report.diagnostics)
+    check(not new, (name, "findings outside the baseline", [d.to_dict() for d in new]))
+    check("JIT002" not in by_code, (name, "slot state copied", by_code.get("JIT002")))
+    cfg = eng.cfg
+    cost = roofline.decode_step_cost(eng.params, cfg, eng.slots, eng.max_len, eng._slot_state,
+                                     positions=PROFILE_POSITIONS)
+    bound_ms = cost.t_bound * 1e3
+    floor = STEP_FLOOR_MS[cfg.name]
+    check(abs(cost.t_memory * 1e3 / floor - 1) <= STEP_FLOOR_RTOL,
+          (name, "analytic step bytes vs the byte floor", cost.t_memory * 1e3, floor))
+    busy, wall = prof_line["device_busy_ms_per_step"], prof_line["wall_ms_per_step"]
+    line = {"phase": name, "model": cfg.name, "layers": cfg.n_layers,
+            "layout": "paged" if eng._paged else "contiguous", "audit_s": audit_s,
+            "cache_stats": report.cache_stats, "diagnostics_by_code": by_code,
+            "syncs_outside_steps": outside,
+            "budget": report.budget, "launches": launches, "variants": variants,
+            "step_cost": cost.to_dict(), "step_bound_ms": bound_ms,
+            "step_bound_by": cost.bound, "byte_floor_ms": floor,
+            "profile_device_busy_ms": busy, "profile_wall_ms": wall,
+            "bound_share_of_device_busy": bound_ms / busy,
+            "bound_share_of_wall": bound_ms / wall}
+    emit(line)
+    for target, st in report.cache_stats.items():
+        print(f"{name} {target}: {st['calls']} calls, {st['signatures']} signatures, "
+              f"{st['compiles']} library loads", flush=True)
+    print(f"{name} diagnostics: {({c: len(v) for c, v in by_code.items()}) or 'none'}; "
+          f"syncs outside the step methods: {outside}", flush=True)
+    b = report.budget
+    print(f"{name} budget: {b['flops']:.4g} FLOPs a step (2 N_active slots "
+          f"{b['expected_flops']:.4g}), {b['bytes']:.4g} bytes (params + 2 x state "
+          f"{b['expected_bytes']:.4g}), collective bytes {b['coll_bytes']}", flush=True)
+    print(f"{name} launches: {launches}, designs {variants}; audit {audit_s:.2f} s", flush=True)
+    print(f"{name} step: bound {bound_ms:.4f} ms ({cost.bound}; byte floor {floor} ms), "
+          f"device busy {busy:.3f} ms, wall {wall:.3f} ms: {bound_ms / busy:.3f} of busy, "
+          f"{bound_ms / wall:.4f} of wall", flush=True)
+    return line, launches
+
+
+# ---------------------------------------------------------------------------
 # the rwkv phases: full-width rwkv6-3b on the contiguous layout
 # ---------------------------------------------------------------------------
 
@@ -5638,6 +5737,7 @@ def granite_main_path(gen, cfg=None, device="cuda"):
     from repro_torch.core.compressed import param_bytes
     from repro_torch.core.pipeline import InstanceOptimizer, Recipe
     from repro_torch.kernels import ops
+    from repro_torch.launch.roofline import decode_step_cost
     from repro_torch.models import api
     from repro_torch.serving.scheduler import slot_state_bytes
     from repro_torch.tree import leaves
@@ -5692,8 +5792,11 @@ def granite_main_path(gen, cfg=None, device="cuda"):
             "rows": len(REVIEWS), "max_new": 32, "init_s": init_s, "quantize_s": quant_s,
             "param_bytes_base": param_bytes(base), "param_bytes_int8": param_bytes(int8),
             "param_count": cfg.param_count(), "compression": report.compression,
-            "byte_floor_ms_int8": param_bytes(int8) / HBM_BYTES_PER_S * 1e3,
-            "byte_floor_ms_base": param_bytes(base) / HBM_BYTES_PER_S * 1e3,
+            # the step's bytes at its first decode position (launch/roofline.py)
+            "byte_floor_ms_int8": decode_step_cost(int8, cfg, eng8.slots, eng8.max_len,
+                                                   positions=1).t_memory * 1e3,
+            "byte_floor_ms_base": decode_step_cost(base, cfg, eng8.slots, eng8.max_len,
+                                                   positions=1).t_memory * 1e3,
             "int8": {**_serve_stats(eng8, []), "launches": launches, "variants": variants},
             "base": {**_serve_stats(eng16, []), "launches": base_launches,
                      "variants": base_variants},
@@ -5847,6 +5950,8 @@ def main() -> int:
     step_line = timed("whole_step", whole_step, gen, int8, eng8,
                       {"quant_matmul": 7 * cfg.n_layers, "paged_attention": cfg.n_layers})
     prof_line = timed("decode_profile", profile_step, gen, int8, eng8)
+    sa_line, sa_launches = timed("static_analysis", static_analysis, eng8, prof_line,
+                                 kernels=("quant_matmul", "paged_attention"))
     del int8, eng8
     torch.cuda.empty_cache()
     qe_line, qe_launches = timed("qembed_serve", qembed_serve, base, cfg)
@@ -5979,6 +6084,8 @@ def main() -> int:
     rw_step_line = timed("rwkv_whole_step", rwkv_whole_step, rgen, rw_int8, rw_eng)
     rw_prof_line = timed("rwkv_decode_profile", profile_step, rgen, rw_int8, rw_eng,
                          name="rwkv_decode_profile")
+    sa_rw_line, sa_rw_launches = timed("static_analysis_rwkv", static_analysis, rw_eng,
+                                       rw_prof_line, name="static_analysis_rwkv")
     del rw_int8, rw_eng
     gc.collect()
     torch.cuda.empty_cache()
@@ -6184,6 +6291,16 @@ def main() -> int:
         else:
             check(vl_launches[name] == vl_sess_launches[name] == ed_launches[name]
                   == ed_build_launches[name] == 0, ("off the vlm and encdec paths", name))
+        # the hot-path audits: gemma2-2b's paged int8 engine (K1 and K2) and
+        # rwkv6-3b's contiguous one (K2)
+        kernels[-1]["launches_static_analysis"] = sa_launches[name]
+        kernels[-1]["launches_static_analysis_rwkv"] = sa_rw_launches[name]
+        if name == "quant_matmul":
+            check(sa_launches[name] > 0 and sa_rw_launches[name] > 0, ("the audits", name))
+        elif name == "paged_attention":
+            check(sa_launches[name] > 0 and sa_rw_launches[name] == 0, ("the audits", name))
+        else:
+            check(sa_launches[name] == sa_rw_launches[name] == 0, ("off the audits", name))
         # the QEmbed instance's paged serve: K1 and K2 on every step
         kernels[-1]["launches_qembed"] = qe_launches[name]
         if name in ("paged_attention", "quant_matmul"):
@@ -6288,6 +6405,7 @@ def main() -> int:
                    "granite_decode_profile": gr_prof_line, "granite_session": gr_sess_line,
                    "quant_matmul_granite": kq_gr, "granite_f32_parity": gr_parity_line,
                    "qembed_serve": qe_line, "train_family_parity": family_parity,
+                   "static_analysis": sa_line, "static_analysis_rwkv": sa_rw_line,
                    "train_full_width_families": family_full,
                    "phase_seconds": seconds, "phase_memory": memory,
                    "seconds": time.time() - t_start}, f, indent=1)

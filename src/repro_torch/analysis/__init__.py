@@ -1,5 +1,6 @@
-"""Static analysis: unified diagnostics (the plan verifier that emits
-them lives in ``repro_torch.olap.analysis``)."""
+"""Static analysis: unified diagnostics, emitted by the plan verifier
+(``repro_torch.olap.analysis``) and the serving engine's hot-path auditor
+(``analysis/jit_audit.py``)."""
 from repro_torch.analysis.diagnostics import (  # noqa: F401
     CODES,
     Baseline,

@@ -7,8 +7,9 @@ nothing of the JAX package).  Every finding of the plan verifier
 Codes are API — tests, baselines, and suppression files key on them, so
 a code is never renamed or reused (retired codes stay in ``CODES`` with
 a tombstone note).  The table keeps the reference's ``JIT0xx`` codes so
-that both packages speak one code namespace; the port has no jit
-auditor yet (ROADMAP queue 1 item 12).
+that both packages speak one code namespace; the port's hot-path
+auditor (``analysis/jit_audit.py``) reports under them, each code meaning
+in eager PyTorch what it means under JAX.
 
 A **baseline** gates findings monotonically: only findings that are not
 in it (matched by fingerprint) and whose code is not in its

@@ -119,6 +119,16 @@ class ModelConfig:
             return n_mamba * mamba + attn + mlp_dense + emb
         raise ValueError(self.family)
 
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: only routed top-k + shared)."""
+        if self.family != "moe":
+            return self.param_count()
+        d = self.d_model
+        full = self.param_count()
+        all_experts = self.n_layers * self.n_experts * 3 * d * self.moe_d_ff
+        active_experts = self.n_layers * self.top_k * 3 * d * self.moe_d_ff
+        return full - all_experts + active_experts
+
     def hybrid_layout(self) -> Tuple[int, int]:
         """(n_mamba_layers, n_shared_attn_sites) for zamba2-style hybrids."""
         assert self.family == "hybrid"

@@ -43,6 +43,10 @@ class KernelInputError(KernelError, ValueError):
 launch_count: Dict[str, int] = {name: 0 for name in
                                 ("quant_matmul", "paged_attention",
                                  "block_sparse_matmul", "flash_attention")}
+# FLOPs and bytes of those launches, from their shapes (a ctypes launch is
+# invisible to PyTorch's dispatcher, so its cost is counted here); same reset
+launch_flops: Dict[str, float] = dict.fromkeys(launch_count, 0.0)
+launch_bytes: Dict[str, float] = dict.fromkeys(launch_count, 0.0)
 
 _SMS = 132                 # H100 SXM streaming multiprocessors
 _SIGS: Dict[str, list] = {
@@ -79,9 +83,20 @@ variant_count: Dict[str, int] = {name: 0 for name in
 
 
 def reset_launch_counts() -> None:
-    for counts in (launch_count, variant_count):
+    for counts in (launch_count, variant_count, launch_flops, launch_bytes):
         for name in counts:
             counts[name] = 0
+
+
+def _cost(name: str, flops: float, nbytes: float) -> None:
+    """Add one launch's FLOPs and bytes (each input read once, each output
+    written once) to ``launch_flops`` and ``launch_bytes``."""
+    launch_flops[name] += flops
+    launch_bytes[name] += nbytes
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
 _FNS: Dict[str, object] = {}
@@ -278,6 +293,7 @@ def _launch_quant_matmul(x3, q, scale, group: int, variant: str, tag: str = ""):
     _check(err, name)
     launch_count[name] += 1
     variant_count[f"{name}.{tag}{variant}"] += 1
+    _cost(name, 2.0 * E * M * N * K, _nbytes(x3, q, scale, y))
     return y
 
 
@@ -432,6 +448,11 @@ def _launch_paged_attention(qr, k_pool, v_pool, tables, lengths, softcap: float,
     _check(err, name)
     launch_count[name] += 1
     variant_count[f"{name}.{variant}"] += 1
+    # K/V over the span the plan covers: the lengths live on the card, and
+    # reading them here would sync the step
+    span = min(nblk * bs, splits * per)
+    kv = 2 * S * span * Kh * D * k_pool.element_size()
+    _cost(name, 4.0 * S * Kh * G * span * D, kv + _nbytes(qr, tbl, ln, out))
     return out
 
 
@@ -531,6 +552,8 @@ def block_sparse_matmul(x, w, idx, *, bs: int):
     _check(err, name)
     launch_count[name] += 1
     variant_count[f"{name}.{variant}"] += 1
+    kept = ix.numel() * bs * bs                 # weight elements in kept tiles
+    _cost(name, 2.0 * M * kept, kept * w.element_size() + _nbytes(x2, ix, y))
     return y.reshape(*x.shape[:-1], N)
 
 
@@ -585,4 +608,18 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     _check(err, name)
     launch_count[name] += 1
     variant_count[f"{name}.{flash_variant(q.dtype)}"] += 1
+    keys = flash_keys(S, t_real, q_offset, window, causal)
+    _cost(name, 4.0 * B * H * keys * D, _nbytes(q, k, v, out))
     return out
+
+
+def flash_keys(S: int, t_real: int, q_offset: int, window: int, causal: bool) -> int:
+    """Key positions K3's S query rows attend in all (row i at position
+    q_offset + i sees keys up to it when causal, the last ``window`` of
+    them when windowed, none at or past ``t_real``)."""
+    total = 0
+    for i in range(S):
+        hi = min(t_real, q_offset + i + 1) if causal else t_real
+        lo = max(0, q_offset + i + 1 - window) if window else 0
+        total += max(0, hi - lo)
+    return total

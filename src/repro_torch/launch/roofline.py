@@ -1,0 +1,322 @@
+"""Roofline terms of the port's steps on one NVIDIA H100.
+
+The counterpart of the reference's ``src/repro/launch/hlo_analysis.py``.
+The reference reads FLOPs and bytes from XLA's ``cost_analysis`` of a
+compiled step; the port runs eager PyTorch and ``ctypes`` kernel
+launches, so there is no HLO to parse.  It keeps the reference's
+:class:`Roofline` terms and :func:`model_flops`, and adds an analytic
+model of one decode step (:func:`decode_step_cost`), which is what
+``cost_analysis`` gave the reference's auditor:
+
+    compute term    = FLOPs / BF16_FLOPS        (989e12, dense bf16)
+    memory term     = bytes / HBM_BYTES_PER_S   (3.35e12 B/s)
+    collective term = collective bytes / link rate
+
+Hardware constants: H100 SXM5 80GB, from NVIDIA's data sheet (dense, no
+2:4 sparsity).  There is no collective constant: a mesh is not ported
+(ROADMAP queue 1 item 11), and on one card ``coll_bytes`` is 0.
+
+A decode step of ``slots`` rows reads every weight once, with three
+exceptions that follow what the step runs: an untied input embedding
+table is read only at the ``slots`` looked-up rows (a tied one is read
+whole by the unembedding), an encoder-decoder's encoder (its blocks,
+``ln_enc`` and ``pos_enc``) does not run, and its decoder position
+table is read at ``slots`` rows.  Compressed weights count as stored
+(``QTensor`` codes, scales and input scales; a ``BlockSparseTensor``'s
+kept tiles and bitmap; ``QEmbed`` codes and row scales): the bytes that
+``core.compressed.param_bytes`` counts.  An MoE's every expert is read,
+since K2 over experts runs every expert's tile.  The slot state is
+touched as the step touches it: a self-attention K/V leaf at the
+positions each slot attends (a local layer within its window), the
+cross-attention K/V read whole, a recurrent state (SSD, conv, WKV and
+token-shift carries) read and written whole.  FLOPs are 2·N_active per
+row, as :func:`model_flops` counts a decode step.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Dict, Sequence, Union
+
+import torch
+from torch.overrides import TorchFunctionMode
+
+from repro_torch.core.compressed import BlockSparseTensor, QTensor, param_bytes
+from repro_torch.tree import flatten_with_path
+
+# --- H100 SXM5 constants (per card), NVIDIA data sheet ---
+BF16_FLOPS = 989e12              # dense bf16 tensor-core peak, FLOP/s
+HBM_BYTES_PER_S = 3.35e12        # HBM3, bytes/s
+
+
+def bound(nbytes: float, flops: float):
+    """(least ms the card takes to move ``nbytes`` and do ``flops``, the
+    term that sets it: ``"bytes"`` or ``"operations"``)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+@dataclass
+class Roofline:
+    flops: float
+    bytes_accessed: float
+    coll_bytes: float
+    chips: int
+    coll_detail: Dict[str, float] = field(default_factory=dict)
+    detail: Dict[str, float] = field(default_factory=dict)
+    peak_flops: float = BF16_FLOPS
+    hbm_bw: float = HBM_BYTES_PER_S
+    link_bw: float = 0.0             # no link rate until a mesh is ported
+
+    @property
+    def t_compute(self) -> float:
+        return self.flops / self.peak_flops
+
+    @property
+    def t_memory(self) -> float:
+        return self.bytes_accessed / self.hbm_bw
+
+    @property
+    def t_collective(self) -> float:
+        """0 without collectives; with some, their bytes over ``link_bw``
+        (which must then be given)."""
+        return self.coll_bytes / self.link_bw if self.coll_bytes else 0.0
+
+    @property
+    def bound(self) -> str:
+        terms = {"compute": self.t_compute, "memory": self.t_memory,
+                 "collective": self.t_collective}
+        return max(terms, key=terms.get)
+
+    @property
+    def t_bound(self) -> float:
+        return max(self.t_compute, self.t_memory, self.t_collective)
+
+    def to_dict(self) -> Dict:
+        return {
+            "flops": self.flops, "bytes": self.bytes_accessed,
+            "coll_bytes": self.coll_bytes, "chips": self.chips,
+            "t_compute": self.t_compute, "t_memory": self.t_memory,
+            "t_collective": self.t_collective, "bound": self.bound,
+            "coll_detail": self.coll_detail, **self.detail,
+        }
+
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    """The reference's ``configs.base.ShapeSpec``: one cell's shapes."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+def model_flops(cfg, shape_spec) -> float:
+    """MODEL_FLOPS = 6 N D (dense train) / 2 N D (inference fwd), with
+    N = active params; D = processed tokens."""
+    n = cfg.active_param_count()
+    if shape_spec.kind == "train":
+        per_tok = 6 * n
+        toks = shape_spec.global_batch * shape_spec.seq_len
+    elif shape_spec.kind == "prefill":
+        per_tok = 2 * n
+        toks = shape_spec.global_batch * shape_spec.seq_len
+    else:  # decode: one token per row
+        per_tok = 2 * n
+        toks = shape_spec.global_batch
+    return float(per_tok) * toks
+
+
+# ---------------------------------------------------------------------------
+# the decode step
+# ---------------------------------------------------------------------------
+
+_ENCODER = ("enc_blocks", "ln_enc", "pos_enc")
+
+
+def _weight_bytes(params, cfg, slots: int) -> float:
+    """Bytes of the weights one decode step of ``slots`` rows reads."""
+    total = 0.0
+    for key, leaf in params.items():
+        if key in _ENCODER:
+            continue
+        if key == "pos_dec" or (key == "embed" and not cfg.tie_embeddings):
+            rows = min(slots, leaf.shape[0])           # a lookup of one row a slot
+            total += param_bytes(leaf) * rows / leaf.shape[0]
+            continue
+        total += sum(_leaf_bytes(t) for _, t in flatten_with_path(leaf))
+    return total
+
+
+def _leaf_bytes(t) -> float:
+    if isinstance(t, BlockSparseTensor):
+        # kept tiles from the kernel's gather list (uniform keep per block
+        # column), and the bitmap: BlockSparseTensor.nbytes from shapes alone
+        return (t.idx.numel() * t.bs * t.bs * t.w.element_size()
+                + int(t.mask.numel() / 8 + 1))
+    return param_bytes(t)
+
+
+def _positions(positions, slots: int):
+    if isinstance(positions, int):
+        return [positions] * slots
+    out = [int(p) for p in positions]
+    if len(out) != slots:
+        raise ValueError(f"{len(out)} positions for {slots} slots")
+    return out
+
+
+def _kv_kinds(cfg):
+    """{("blocks", u) / ("tail", i): "L" or "G"} for the transformer
+    families' KV sections."""
+    from repro_torch.models.transformer import pattern_unit
+    unit, R, tail = pattern_unit(cfg)
+    pat = cfg.pattern()
+    kinds = {("blocks", u): k for u, k in enumerate(unit)}
+    kinds.update({("tail", i): pat[len(unit) * R + i] for i in range(tail)})
+    return kinds
+
+
+def _state_bytes(state, cfg, slots: int, positions) -> Dict[str, float]:
+    """Bytes of the slot state one decode step reads and writes."""
+    pos = _positions(positions, slots)
+    kinds = _kv_kinds(cfg) if cfg.family in ("dense", "moe", "vlm") else {}
+    read = written = 0.0
+    for path, t in flatten_with_path(state):
+        if not torch.is_tensor(t):
+            continue
+        nbytes = t.numel() * t.element_size()
+        if path[-1] in ("k", "v") and "cross" not in path:
+            # [..., B, T, K, hd] (contiguous) or [..., blocks, bs, K, hd]
+            # (paged): bytes of one position of one slot
+            per_pos = nbytes / (t.shape[-4] * t.shape[-3])
+            window = cfg.window_size if kinds.get(tuple(path[:2])) == "L" else 0
+            touched = sum(min(p, window) if window else p for p in pos)
+            read += per_pos * (touched - slots)       # the cached positions
+            written += per_pos * slots                # this step's K/V
+        elif "cross" in path or not t.is_floating_point():
+            read += nbytes                            # encoder K/V, lengths
+        else:
+            read += nbytes                            # recurrent state
+            written += nbytes
+    return {"state_read": read, "state_written": written}
+
+
+def decode_step_cost(params, cfg, slots: int, max_len: int, state=None, *,
+                     positions: Union[int, Sequence[int], None] = None) -> Roofline:
+    """Analytic FLOPs and bytes of one decode step of ``slots`` rows (see
+    the module docstring) as a one-card :class:`Roofline`.
+
+    ``state`` is the engine's slot state (contiguous or paged), by default
+    the contiguous cache of ``slots`` rows at ``max_len`` on the meta
+    device.  ``positions`` (one count, or one per slot) are the cached
+    positions each slot's step touches: at decode position p it reads the
+    p before it and writes one, p + 1 in all; by default ``max_len``, every
+    slot at the end of its context, the most a step touches.
+    ``detail`` splits the bytes into ``weight_bytes``, ``state_read`` and
+    ``state_written``."""
+    from repro_torch.models import api
+    if state is None:
+        state = api.init_cache(cfg, slots, max_len, device="meta")
+    weights = _weight_bytes(params, cfg, slots)
+    st = _state_bytes(state, cfg, slots, max_len if positions is None else positions)
+    flops = model_flops(cfg, ShapeSpec("decode_step", max_len, slots, "decode"))
+    return Roofline(flops=flops, bytes_accessed=weights + st["state_read"] + st["state_written"],
+                    coll_bytes=0.0, chips=1, detail={"weight_bytes": weights, **st})
+
+
+class _OnMeta(TorchFunctionMode):
+    """Every factory call with a ``device`` lands on the meta device:
+    shapes and dtypes without storage."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = dict(kwargs or {})
+        if "device" in kwargs:
+            kwargs["device"] = "meta"
+        return func(*args, **kwargs)
+
+
+def _meta_block_sparse(tree, bs: int, density: float):
+    """A block-sparse recipe's instance from shapes alone: every matrix
+    the recipe compresses (the ``QTensor`` leaves of an int8 build of the
+    same model) as a meta ``BlockSparseTensor`` keeping ``max(1,
+    round(density * d_in / bs))`` input blocks per output block column
+    (``core/sparsify.py`` ``block_sparse_mask``), or dense bf16 where bs
+    does not divide it."""
+    if isinstance(tree, dict):
+        return {k: _meta_block_sparse(v, bs, density) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_meta_block_sparse(v, bs, density) for v in tree]
+    if not isinstance(tree, QTensor):
+        return tree
+    *lead, K, N = tree.q.shape
+    w = torch.empty((*lead, K, N), dtype=torch.bfloat16, device="meta")
+    if K % bs or N % bs:
+        return w
+    keep = max(1, int(round(density * (K // bs))))
+    mask = torch.empty((*lead, K // bs, N // bs), device="meta")
+    idx = torch.empty((*lead, N // bs, keep), dtype=torch.int32, device="meta")
+    return BlockSparseTensor(w, mask, bs, idx)
+
+
+def meta_instance(cfg, recipe=None):
+    """(params, cfg) of ``cfg``'s model, or of ``recipe`` applied to it,
+    on the meta device: every shape and dtype at the published widths, no
+    storage.  A block-sparse recipe's masks are drawn from weight values
+    on the host, so its instance comes from :func:`_meta_block_sparse`."""
+    from repro_torch.core.pipeline import InstanceOptimizer, Recipe
+    from repro_torch.models import api
+    with _OnMeta():
+        params = api.init_params(torch.Generator(), cfg)
+        if recipe is None:
+            return params, cfg
+        if recipe.block_bs and recipe.block_density < 1.0:
+            if recipe.wbits < 16:
+                raise NotImplementedError("block sparsity composed with quantization")
+            q, out_cfg, _ = InstanceOptimizer(params, cfg).apply(
+                Recipe(name="shapes", wbits=8, quant_method="absmax"))
+            return _meta_block_sparse(q, recipe.block_bs, recipe.block_density), out_cfg
+        out, out_cfg, _ = InstanceOptimizer(params, cfg).apply(recipe)
+        return out, out_cfg
+
+
+def decode_step_cost_shapes(cfg, slots: int, max_len: int, *, recipe=None,
+                            positions: Union[int, Sequence[int], None] = None
+                            ) -> Roofline:
+    """:func:`decode_step_cost` from shapes alone, at any width: the model
+    (or ``recipe``'s instance of it) and its contiguous slot state built
+    on the meta device."""
+    params, out_cfg = meta_instance(cfg, recipe)
+    return decode_step_cost(params, out_cfg, slots, max_len, positions=positions)
+
+
+# the models the port serves on one card, with their engines' max_len
+SERVED = (("gemma2-2b", 1024), ("qwen2-moe-a2.7b", 1024), ("zamba2-7b", 1024),
+          ("rwkv6-3b", 1024), ("paligemma-3b", 1024), ("whisper-base", 512),
+          ("granite-20b", 1024))
+
+
+def main() -> None:
+    """Print each served model's decode-step byte floor at its published
+    widths, bf16 and ``w8-absmax`` (and gemma2-2b's ``bs16@75``): 8 slots
+    at the first decode position, from shapes alone.
+
+        PYTHONPATH=src python -m repro_torch.launch.roofline
+    """
+    from repro_torch.configs import registry
+    from repro_torch.core.pipeline import Recipe
+    recipes = {"bf16": None, "w8-absmax": Recipe(name="w8-absmax", wbits=8,
+                                                 quant_method="absmax")}
+    for arch, max_len in SERVED:
+        cfg = registry.get_config(arch)
+        if arch == "gemma2-2b":
+            recipes["bs16@75"] = Recipe(name="bs16@75", block_bs=16, block_density=0.75)
+        for name, recipe in recipes.items():
+            c = decode_step_cost_shapes(cfg, 8, max_len, recipe=recipe, positions=1)
+            print(f"{arch} {name}: {c.t_memory * 1e3:.4f} ms, weights "
+                  f"{c.detail['weight_bytes']:.0f} B, state read {c.detail['state_read']:.0f} "
+                  f"B, written {c.detail['state_written']:.0f} B", flush=True)
+        recipes.pop("bs16@75", None)
+
+
+if __name__ == "__main__":
+    main()

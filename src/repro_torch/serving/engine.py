@@ -289,7 +289,7 @@ class Engine:
                 if shared is not None:
                     w = np.full((1, A.nblk), A.trash, np.int32)
                     w[0, :n_full] = shared
-                    self._seed(entry.state, w)
+                    self._seed(entry.state, self._dev(w))
         w_ids = np.empty((len(slot_idxs), A.nblk), np.int32)
         for i, s in enumerate(slot_idxs):
             s = int(s)
@@ -440,7 +440,8 @@ class Engine:
         slot_idxs = np.asarray(free[:len(take)], np.int32)
         w_ids = (self._paged_admit_ids(slot_idxs, pk, plen, entry) if self._paged
                  else None)
-        self._slot_state = self._insert(rows, slot_idxs, w_ids)
+        self._slot_state = self._insert(rows, self._dev(slot_idxs),
+                                        None if w_ids is None else self._dev(w_ids))
         for i, r in enumerate(take):
             s = int(slot_idxs[i])
             t0 = int(first[i])
@@ -486,6 +487,24 @@ class Engine:
         while self.has_work():
             finished.extend(self.step())
         return finished
+
+    # -- introspection --------------------------------------------------
+    def jit_targets(self) -> Dict[str, object]:
+        """Every step method on the tick hot path, by the reference's
+        stable names: the surface the hot-path auditor
+        (``analysis/jit_audit.py``) wraps.  The port has one ``_prefill``
+        and one ``_prefill_from`` for every bucket; they are named
+        ``[bucket]`` for each bucket of the ladder, as the reference's
+        per-bucket jits are."""
+        out: Dict[str, object] = {"_insert": self._insert, "_decode": self._decode}
+        if self._paged:
+            out["_seed"] = self._seed
+        for b in self.buckets:
+            out[f"_prefill[{b}]"] = self._prefill
+        if self.prefix_cache is not None:
+            for b in self.buckets:
+                out[f"_prefill_from[{b}]"] = self._prefill_from
+        return out
 
     # -- prefix sharing -------------------------------------------------
     def _build_prefix_entry(self, key, prefix_ids):

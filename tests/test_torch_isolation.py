@@ -44,7 +44,8 @@ def _imports(path):
             yield node.module or ""
 
 
-@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
+                         + [ROOT / "chip_smoke.py", ROOT / "tools" / "torch_analyze.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_port_source_imports_jax_or_reference(path):
     for name in _imports(path):
