@@ -303,6 +303,27 @@ Phases, each of which raises on failure (so the script exits non-zero):
    the engine's targets restored, no diagnostic outside
    ``tools/torch_analysis_baseline.json``, no slot-state copy (JIT002),
    the analytic bytes within 5% of PERF.md's byte floors.
+54. tensor-parallel serving, every mesh position on this card (from
+   TP_SEED): tp_main_path (after static_analysis): phase 3's int8
+   instance behind ``Engine(mesh=)`` at (1, 4), 16 rows of 16 tokens,
+   against the unsharded contiguous engine; K2 at the rule table's count
+   (728 a decode step and a prefill, 182 unsharded) on ``decode``/``mma``
+   only, nothing else; the first decode step within STEP_BF16_RATIO of the
+   plain step's error against f32; parted rows near ties (``tie_at``);
+   each position's bytes; both steps profiled;
+   tp_kernel_shapes: K2 against its plain version at every piece shape
+   launched, each (K, N) timed at M = 8 and the prefill's M; tp_pool
+   (after service_full_width): ``ModelPool(mesh=)`` admits the 8-layer
+   ``w8-absmax`` instance sharded beside two placed tenants, rows equal to
+   private engines of the same placement run serially;
+   parallel_training: ``pipeline_forward`` over 2 stages of 4 full-width
+   layers in f32 against the sequential forward, ``compressed_allreduce``
+   over 2 "pod" positions on every gradient of the 8-layer model (the tied
+   table's included) against the CPU's; tp_f32_parity: gemma2-2b and granite-20b cut to 4 layers in
+   f32 at (1, 4) and (2, 2), tokens equal to the unsharded engine's or
+   parted at a near tie; tp_moe (after moe_session): qwen2-moe cut to 4
+   layers, ``w8-absmax`` at (2, 2), experts over "data", K2 over experts
+   on every piece, the first step held as tp_main_path's.
 
 K2, K3 and K4 run their tensor-core designs on bf16 and their FMA
 designs on f32; K1 runs ``split`` up to 8 query heads per KV head in
@@ -325,7 +346,9 @@ and K2's ``vlm_encdec`` cases seen and timings; on the granite path:
 ``launches_granite``, ``launches_granite_session``, K1's and K3's ``g48``
 timings, and K2's ``granite`` cases seen and timings; on the QEmbed
 instance's serve: ``launches_qembed``; during the audits:
-``launches_static_analysis`` and ``launches_static_analysis_rwkv``),
+``launches_static_analysis`` and ``launches_static_analysis_rwkv``; on
+the sharded runs: ``launches_tp``, ``launches_tp_pool``,
+``launches_tp_moe``, and K2's ``tp`` piece shapes and timings),
 the card line, and last ``{"ok": true, "device": {...}}``.  Exits non-zero
 without a card and outside a checkout of the repository.
 """
@@ -4457,7 +4480,10 @@ def profile_step(gen, params, eng, steps: int = 5, name="decode_profile"):
     (ending in a sync) against device kernel time from torch.profiler,
     split by kernel name, and the device's busy time (the union of the
     kernels' intervals), from which the idle share is taken.  The step is
-    the engine's own: paged, or the contiguous layout's ``decode_step``."""
+    the engine's own: paged, or the contiguous layout's ``decode_step``.
+    The profiler traces the device alone: nothing here reads the host's
+    operators, which are most of its own cost on a step of thousands of
+    them."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.compressed import kernel_backend
@@ -4485,7 +4511,7 @@ def profile_step(gen, params, eng, steps: int = 5, name="decode_profile"):
         step()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
             step()
         torch.cuda.synchronize()
@@ -5893,6 +5919,507 @@ def check_quant_matmul_granite(main_shapes, session_shapes, d_model=6144, d_ff=2
     return line
 
 
+# ---------------------------------------------------------------------------
+# tensor-parallel serving on a mesh whose positions share one card
+# ---------------------------------------------------------------------------
+
+TP_SEED = 83                     # the TP phases' generator: earlier phases' draws stay
+TP_KERNEL_SEED = 89              # K2 at the pieces' shapes: adding a case moves no weight
+TP_MESH = (1, 4)                 # (data, model) of the main path's mesh
+TP_ENGINE = dict(slots=16, max_len=256, buckets=(32, 64))
+TP_ROWS = 16
+TP_MAX_NEW = 16
+TP_LAYERS = 4                    # depth of tp_f32_parity's and tp_moe's models
+TP_POOL_ENGINE = dict(slots=2, max_len=256, buckets=(32, 64), kv_layout="contiguous")
+TP_POOL_SIZES = {"big": 300, "small0": 20, "small1": 20}   # bytes charged per tenant
+TP_POOL_BUDGET = 100             # per position: big shards at 75, beside a small
+PIPE_TOL = 1e-5                  # pipeline_forward against the sequential forward
+ALLREDUCE_TOL = 1e-6             # compressed_allreduce on the card against the CPU
+
+
+def tp_mesh(shape, device="cuda", axes=("data", "model")):
+    from repro_torch.launch.mesh import make_mesh
+    return make_mesh(shape, axes, device=device)
+
+
+def k2_per_step(params):
+    """K2 launches of one model call (decode step or prefill) of an int8
+    instance, from its tree alone: each ``QTensor`` (each piece of a
+    sharded one) once per layer of its stack; a stacked expert stack is
+    one launch a piece per layer (K2 over experts)."""
+    from repro_torch.core.compressed import QTensor, ShardedTensor
+    from repro_torch.tree import flatten_with_path
+
+    def pieces(w):
+        if isinstance(w, ShardedTensor):
+            return sum(pieces(p) for p in w.pieces)
+        return int(isinstance(w, QTensor))
+
+    n = 0
+    for path, leaf in flatten_with_path(params):
+        k = pieces(leaf)
+        if not k:
+            continue
+        main = leaf
+        while isinstance(main, ShardedTensor):
+            main = main.pieces[0]
+        matrix = 3 if "moe" in path and path[-1] in ("wi", "wg", "wo") else 2
+        n += k * math.prod(main.q.shape[:main.q.dim() - matrix])
+    return n
+
+
+def k2_rule_count(params, cfg, mesh):
+    """K2 launches of one model call of the int8 instance ``params`` placed
+    on ``mesh``, from the reference's rule table: each ``QTensor`` in as
+    many pieces as its codes' spec splits it (a row split the port drops
+    for its groups, ``replicated_qtensor_leaves``, not counted), once per
+    layer of its stack."""
+    from repro_torch.core.compressed import QTensor
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.tree import flatten_with_path
+    fn = SH.param_spec_fn(cfg, mesh)
+    kept_whole = {r["path"] for r in SH.replicated_qtensor_leaves(params, cfg, mesh)}
+    n = 0
+    for path, leaf in flatten_with_path(params):
+        if not isinstance(leaf, QTensor):
+            continue
+        k = math.prod(SH.axis_size(mesh, ax) for ax in fn(path + (0,), tuple(leaf.q.shape))
+                      if ax is not None)
+        if ".".join(map(str, path)) in kept_whole:
+            k //= SH.axis_size(mesh, "model")
+        matrix = 3 if "moe" in path and path[-1] in ("wi", "wg", "wo") else 2
+        n += k * math.prod(leaf.q.shape[:leaf.q.dim() - matrix])
+    return n
+
+
+def _tp_tokens(tok, prompts, bucket, device):
+    """The prompts as the engine's rows (BOS, text, SEP), right-padded to
+    ``bucket``: (tokens [n, bucket], lengths [n])."""
+    ids = [(tok.encode(p, bos=True) + [tok.SEP])[-bucket:] for p in prompts]
+    toks = torch.zeros((len(ids), bucket), dtype=torch.long, device=device)
+    for i, r in enumerate(ids):
+        toks[i, :len(r)] = torch.tensor(r, device=device)
+    return toks, torch.tensor([len(r) for r in ids], device=device)
+
+
+def _route_rows(a, b, n):
+    """[n] bool: the rows whose expert set is the same in every MoE layer
+    of two runs' routes (all True without an MoE)."""
+    same = torch.ones(n, dtype=torch.bool)
+    for x, y in zip(a, b):
+        same &= ~(torch.sort(x, -1).values != torch.sort(y, -1).values).any(-1).cpu()
+    return same
+
+
+def _tp_step_check(flat, sharded, cfg, tok, prompts, device, label, max_len=256):
+    """One decode step of every prompt's row after its prefill (the
+    unsharded instance's, on the served backend; its greedy token fed), on
+    copies of that one state: the sharded instance on the served backend,
+    the unsharded one on it and on the reference backend in bf16, and the
+    f32 plain path (every float param and the state cast, codes kept).
+    Over the rows that every run routes to the same experts (all rows
+    without an MoE; at least half of them), the sharded step's RMS error
+    against f32 must be within STEP_BF16_RATIO of the plain bf16 step's
+    (whole_step's bf16 criterion)."""
+    from repro_torch.core.compressed import kernel_backend
+    from repro_torch.models import api
+    from repro_torch.tree import tree_map
+    rms = lambda a, b: ((a - b).norm() / b.norm()).item()  # noqa: E731
+    backend = "cuda" if torch.device(device).type == "cuda" else "reference"
+    toks, lens = _tp_tokens(tok, prompts, 64, device)
+    n = len(prompts)
+    with kernel_backend(backend), torch.no_grad():
+        lg, cache = api.prefill(flat, cfg, {"tokens": toks}, max_len=max_len, lengths=lens,
+                                cap_tokens=toks.shape[1])
+    nxt = lg[torch.arange(n, device=toks.device), lens - 1].argmax(-1)[:, None]
+    del lg
+
+    def step(params, c, be, dtype):
+        st = tree_map(lambda t: t.to(dtype, copy=True) if t.is_floating_point() else t.clone(),
+                      cache)
+        with RouteProbe() as probe, kernel_backend(be), torch.no_grad():
+            out, _ = api.decode_step(params, c, st, nxt, lens, max_len=max_len)
+        return out[:, -1].float(), probe.routes
+
+    t16, rt = step(sharded, cfg, backend, cfg.dtype)
+    c16, rc = step(flat, cfg, backend, cfg.dtype)
+    r16, rr = step(flat, cfg, "reference", cfg.dtype)
+    p32 = _f32(flat)
+    r32, r3 = step(p32, cfg.replace(param_dtype="float32"), "reference", torch.float32)
+    del p32, cache
+    check(bool(torch.isfinite(t16).all()) and t16.shape == (n, cfg.vocab_size),
+          (label, "sharded step logits", t16.shape))
+    keep = _route_rows(rt, rc, n) & _route_rows(rt, rr, n) & _route_rows(rt, r3, n)
+    k = keep.to(t16.device)
+    line = {"rows": n, "rows_same_routes": int(keep.sum()),
+            "sharded_vs_f32": rms(t16[k], r32[k]), "unsharded_vs_f32": rms(c16[k], r32[k]),
+            "plain_bf16_vs_f32": rms(r16[k], r32[k]), "sharded_vs_unsharded": rms(t16, c16),
+            "greedy_agreement_sharded_vs_unsharded":
+                (t16.argmax(-1) == c16.argmax(-1)).float().mean().item(),
+            "bf16_ratio_bound": STEP_BF16_RATIO}
+    line["bf16_ratio"] = line["sharded_vs_f32"] / line["plain_bf16_vs_f32"]
+    check(2 * line["rows_same_routes"] >= n, (label, "rows routed alike", line))
+    check(line["sharded_vs_f32"] <= STEP_BF16_RATIO * line["plain_bf16_vs_f32"], (label, line))
+    return line
+
+
+def tp_main_path(gen, int8, cfg, device="cuda"):
+    """Tensor-parallel serving of full-width gemma2-2b's ``w8-absmax``
+    instance: ``Engine(mesh=)`` over a TP_MESH mesh whose positions are all
+    on ``device`` (the params placed by the reference's rule table, every
+    linear cut into 4 column or row pieces), TP_ROWS rows of TP_MAX_NEW
+    tokens, against the unsharded contiguous engine on the same instance.
+    The launch counts are zeroed just before the sharded run and read just
+    after.  Gates: K2 launched at the rule table's count (28 pieces a layer,
+    7 unsharded) per decode step and prefill, on ``decode`` and ``mma``,
+    never ``fma``, and nothing else; the first decode step within whole_step's
+    bf16 criterion (``_tp_step_check``); rows that part from the unsharded
+    run near ties (``tie_at``).  Prints each position's bytes and, on the
+    card, the sharded and unsharded decode steps' profiles."""
+    from repro_torch.core.compressed import param_bytes, position_bytes
+    from repro_torch.distributed.sharding import replicated_qtensor_leaves
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import Engine
+    on_card = torch.device(device).type == "cuda"
+    mesh = tp_mesh(TP_MESH, device)
+    M = mesh.shape["model"]
+    prompts = [TEMPLATE + r for r in REVIEWS[:TP_ROWS]]
+    flat = Engine(int8, cfg, device=device, kv_layout="contiguous", version="w8-absmax",
+                  **TP_ENGINE)
+    sync()
+    t0 = time.time()
+    want = flat.generate(prompts, max_new=TP_MAX_NEW, prefix=TEMPLATE, return_requests=True)
+    sync()
+    flat_s = time.time() - t0
+    ops.reset_launch_counts()
+    with QuantShapeProbe() as probe:
+        tp = Engine(int8, cfg, mesh=mesh, version="w8-absmax", **TP_ENGINE)
+        sync()
+        t0 = time.time()
+        got = tp.generate(prompts, max_new=TP_MAX_NEW, prefix=TEMPLATE, return_requests=True)
+        sync()
+        tp_s = time.time() - t0
+    launches = dict(ops.launch_count)
+    variants = {k: n for k, n in ops.variant_count.items() if n}
+    st = tp.stats
+    per_step, flat_step = k2_per_step(tp.params), k2_per_step(int8)
+    kept_whole = replicated_qtensor_leaves(int8, cfg, mesh)
+    check(flat_step == 7 * cfg.n_layers and per_step == k2_rule_count(int8, cfg, mesh),
+          ("K2 launches a step by the rule table", per_step, flat_step))
+    # at full width every linear splits into M pieces: 28 a layer at (1, 4)
+    check(bool(kept_whole) or per_step == M * flat_step, ("K2 pieces", per_step, flat_step))
+    if on_card:
+        check(launches == {"quant_matmul": per_step * (st.decode_steps + st.prefills),
+                           "paged_attention": 0, "block_sparse_matmul": 0, "flash_attention": 0},
+              ("sharded run launches", launches, st.decode_steps, st.prefills))
+        check(variants == {"quant_matmul.decode": per_step * st.decode_steps,
+                           "quant_matmul.mma": per_step * st.prefills},
+              ("sharded run designs", variants))
+    check(all(r.done for r in got) and st.rows == TP_ROWS, ("sharded rows", st))
+    t0 = time.time()
+    step = _tp_step_check(int8, tp.params, cfg, tp.tok, prompts, device, "tp_main_path")
+    step["seconds"] = time.time() - t0
+    agree, rows_same = _agreement(want, got)
+    parted, t0 = [], time.time()
+    if rows_same < TP_ROWS:
+        p32 = _f32(int8)
+        for a, b in zip(got, want):
+            if a.out_ids != b.out_ids:
+                parted.append({"prompt": b.src, **tie_at(int8, cfg, tp.tok, b.src, a.out_ids,
+                                                         b.out_ids, tp.buckets[-1], p32)})
+        del p32
+    pos_bytes = [position_bytes(tp.params, i) for i in range(mesh.size)]
+    line = {"phase": "tp_main_path", "model": cfg.name, "layers": cfg.n_layers,
+            "mesh": dict(mesh.shape), "devices": [str(d) for d in mesh.devices.flat],
+            "rows": TP_ROWS, "max_new": TP_MAX_NEW, "engine": {**TP_ENGINE, "kv_layout": "contiguous"},
+            "k2_per_step": per_step, "k2_per_step_unsharded": flat_step,
+            "qtensors_kept_whole": kept_whole, "decode_steps": st.decode_steps, "prefills": st.prefills,
+            "launches": launches, "variants": variants,
+            "position_bytes": pos_bytes, "param_bytes_unsharded": param_bytes(int8),
+            "wall_s": tp_s, "wall_s_unsharded": flat_s, "first_step": step,
+            "greedy_token_agreement": agree, "rows_identical": rows_same, "parted": parted,
+            "near_tie_s": time.time() - t0}
+    check(all(p["near_tie"] for p in parted), ("rows parted beyond a near tie", parted))
+    if on_card:
+        t0 = time.time()
+        line["profile"] = profile_step(gen, tp.params, tp, name="tp_decode_profile")
+        line["profile_unsharded"] = profile_step(gen, int8, flat,
+                                                 name="tp_decode_profile_unsharded")
+        line["profile_s"] = time.time() - t0
+    emit(line)
+    print(f"tp_main_path: mesh {dict(mesh.shape)}, K2 {per_step} launches a step "
+          f"({flat_step} unsharded), position bytes {pos_bytes} of {param_bytes(int8)}; "
+          f"first step RMS vs f32 {step['sharded_vs_f32']:.3e} (unsharded "
+          f"{step['unsharded_vs_f32']:.3e}, plain {step['plain_bf16_vs_f32']:.3e}); "
+          f"agreement {agree:.4f}, {rows_same}/{TP_ROWS} rows identical, "
+          f"{len(parted)} parted at near ties", flush=True)
+    if on_card:
+        for k in ("profile", "profile_unsharded"):
+            p = line[k]
+            print(f"  {k}: {p['wall_ms_per_step']:.3f} ms wall, {p['device_busy_ms_per_step']:.3f} "
+                  f"ms device busy a decode step", flush=True)
+    del tp, flat
+    return line, launches, variants, probe.shapes
+
+
+def check_quant_matmul_tp(shapes):
+    """K2 against its plain version at every piece shape the sharded main
+    path launched (``_hold_seen``, fresh codes from a generator of its
+    own, on the design each launch ran), then each piece's (K, N) timed at
+    M = 8 and at the main path's most frequent prefill M: K2, its plain
+    version, ``torch.matmul`` on the dequantized weight, and the bound."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(TP_KERNEL_SEED)
+    check({s[6] for s in shapes} == {"decode", "mma"}, ("K2 designs of the TP path",
+                                                        sorted(set(shapes))))
+    results, worst_abs = _hold_seen(gen, shapes, {}, "tp")
+    prefills = {s: n for s, n in shapes.items() if s[6] == "mma"}
+    Mp = max(prefills, key=lambda s: (prefills[s], s[0]))[0]
+    timed = {f"{K}x{N}_M{M}": _time_dense(gen, M, K, N)
+             for K, N in sorted({(s[1], s[2]) for s in shapes}) for M in (8, Mp)}
+    line = {"phase": "tp_kernel_shapes", "cases": results,
+            "max_rel_err": max(r["rel_err"] for r in results), "max_abs_err": worst_abs,
+            "tolerance": K2_TOL, "M_seen": sorted({s[0] for s in shapes}),
+            "timed": timed, "library_note": "torch.matmul on the dequantized bf16 weight"}
+    emit({**line, "cases": len(results)})
+    print(f"K2 at {len(results)} shapes of the TP path: max rel err {line['max_rel_err']:.3g}; "
+          + "; ".join(f"{k} {t['ms']:.4f} ms (bound {t['bound_ms']:.4f}, plain "
+                      f"{t['plain_ms']:.4f}, matmul {t['library_ms']:.4f})"
+                      for k, t in timed.items()), flush=True)
+    return line
+
+
+def tp_f32_parity(cases, device="cuda", n_rows: int = 8, max_new: int = 8):
+    """Each (name, params, cfg) case in f32 (raw weights: no kernel) served
+    through the unsharded contiguous engine and through ``Engine(mesh=)``
+    at (1, 4) and (2, 2): greedy tokens identical, or parted at a near
+    tie of the f32 plain path (top-two gap under NEAR_TIE)."""
+    from repro_torch.serving.engine import Engine
+    prompts = [TEMPLATE + r for r in REVIEWS[:n_rows]]
+    out = {}
+    for name, params, cfg in cases:
+        check(cfg.dtype == torch.float32, (name, "is not f32"))
+        flat = Engine(params, cfg, device=device, kv_layout="contiguous", **TP_ENGINE)
+        want = flat.generate(prompts, max_new=max_new, return_requests=True)
+        res = {}
+        for shape in ((1, 4), (2, 2)):
+            eng = Engine(params, cfg, mesh=tp_mesh(shape, device), **TP_ENGINE)
+            got = eng.generate(prompts, max_new=max_new, return_requests=True)
+            parted = [{"prompt": b.src, **tie_at(params, cfg, flat.tok, b.src, a.out_ids,
+                                                 b.out_ids, flat.buckets[-1])}
+                      for a, b in zip(got, want) if a.out_ids != b.out_ids]
+            res["x".join(map(str, shape))] = {"rows_identical": n_rows - len(parted),
+                                              "parted": parted}
+            check(all(p["near_tie"] for p in parted), (name, shape, "parted beyond a near tie",
+                                                       parted))
+            del eng
+        out[name] = {"layers": cfg.n_layers, **res}
+    line = {"phase": "tp_f32_parity", "rows": n_rows, "max_new": max_new, "models": out}
+    emit(line)
+    print("tp_f32_parity: " + "; ".join(
+        f"{n}: " + ", ".join(f"{s} {r['rows_identical']}/{n_rows} identical"
+                             for s, r in m.items() if s != "layers") for n, m in out.items()),
+          flush=True)
+    return line
+
+
+def tp_moe(base, cfg, device="cuda", shape=(2, 2)):
+    """qwen2-moe-a2.7b cut to TP_LAYERS layers, ``w8-absmax``, served
+    through ``Engine(mesh=)`` at (2, 2): every expert stack split over
+    "data" (its experts) and, where the groups allow, over "model", K2 over
+    experts launched on every piece.  The counts are zeroed just before
+    the sharded run and read just after.  Gates: K2 at the rule table's
+    count per model call, nothing else; the first decode step within
+    whole_step's bf16 criterion against the unsharded instance."""
+    from repro_torch.core.compressed import ShardedTensor, position_bytes
+    from repro_torch.core.pipeline import InstanceOptimizer, Recipe
+    from repro_torch.distributed.sharding import replicated_qtensor_leaves
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import Engine
+    on_card = torch.device(device).type == "cuda"
+    cut, ccfg = cut_depth(base, cfg, TP_LAYERS)
+    int8, qcfg, _ = InstanceOptimizer(cut, ccfg).apply(
+        Recipe(name="w8-absmax", wbits=8, quant_method="absmax"))
+    mesh = tp_mesh(shape, device)
+    prompts = [TEMPLATE + r for r in REVIEWS[:TP_ROWS]]
+    flat = Engine(int8, qcfg, device=device, kv_layout="contiguous", **TP_ENGINE)
+    want = flat.generate(prompts, max_new=8, prefix=TEMPLATE, return_requests=True)
+    ops.reset_launch_counts()
+    tp = Engine(int8, qcfg, mesh=mesh, **TP_ENGINE)
+    got = tp.generate(prompts, max_new=8, prefix=TEMPLATE, return_requests=True)
+    launches = dict(ops.launch_count)
+    variants = {k: n for k, n in ops.variant_count.items() if n}
+    st = tp.stats
+    moe = tp.params["blocks"][0]["moe"]
+    check(all(isinstance(moe[n], ShardedTensor) and moe[n].axis == "data" for n in ("wi", "wg", "wo")),
+          ("expert stacks not split over data", {n: repr(moe[n]) for n in ("wi", "wg", "wo")}))
+    per_step = k2_per_step(tp.params)
+    check(per_step == k2_rule_count(int8, qcfg, mesh), ("MoE K2 pieces", per_step))
+    if on_card:
+        check(launches == {"quant_matmul": per_step * (st.decode_steps + st.prefills),
+                           "paged_attention": 0, "block_sparse_matmul": 0, "flash_attention": 0},
+              ("MoE sharded launches", launches, st.decode_steps, st.prefills))
+        check(variants.get("quant_matmul.expert_decode", 0) > 0
+              and not any(k.endswith("fma") for k in variants), ("MoE sharded designs", variants))
+    step = _tp_step_check(int8, tp.params, qcfg, tp.tok, prompts, device, "tp_moe")
+    agree, rows_same = _agreement(want, got)
+    line = {"phase": "tp_moe", "model": cfg.name, "layers": TP_LAYERS, "mesh": dict(mesh.shape),
+            "k2_per_step": per_step, "k2_per_step_unsharded": k2_per_step(int8),
+            "launches": launches, "variants": variants, "first_step": step,
+            "replicated_qtensors": replicated_qtensor_leaves(int8, qcfg, mesh),
+            "position_bytes": [position_bytes(tp.params, i) for i in range(mesh.size)],
+            "greedy_token_agreement": agree, "rows_identical": rows_same}
+    emit(line)
+    print(f"tp_moe: mesh {dict(mesh.shape)}, K2 {per_step} launches a call "
+          f"({line['k2_per_step_unsharded']} unsharded), first step RMS vs f32 "
+          f"{step['sharded_vs_f32']:.3e} (plain {step['plain_bf16_vs_f32']:.3e}); "
+          f"agreement {agree:.4f}, {rows_same}/{TP_ROWS} rows identical", flush=True)
+    return line, launches
+
+
+class _SameParamsSession:
+    """Every qsig resolves to the same params under its own version, so the
+    pool builds a real engine per tenant without a search."""
+
+    def __init__(self, params, cfg, tok):
+        self.params, self.cfg, self.tok = params, cfg, tok
+
+    def _optimize(self, qsig, probe):
+        from types import SimpleNamespace
+        return SimpleNamespace(params=self.params, cfg=self.cfg, version=qsig)
+
+
+def tp_pool(base, cfg, device="cuda"):
+    """``ModelPool(mesh=)`` over a TP_MESH mesh, every tenant the
+    ``w8-absmax`` instance of ``base`` under its own version: the "big" tenant charged
+    over one position's budget (TP_POOL_SIZES) is admitted as one sharded
+    engine over every position, beside two small tenants placed on one
+    position each, and a ``Scheduler`` serves the three.  The counts are
+    zeroed just before the run and read just after.  Gates: one sharded
+    admission at placement (0, 1, 2, 3), the smalls on one position each,
+    and every tenant's rows identical to a private engine with the same
+    placement run serially."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.scheduler import ModelPool, Scheduler
+    from repro_torch.core.pipeline import InstanceOptimizer, Recipe
+    from repro_torch.training.data import ByteTokenizer
+    params, cfg, _ = InstanceOptimizer(base, cfg).apply(
+        Recipe(name="w8-absmax", wbits=8, quant_method="absmax"))
+    tok = ByteTokenizer(max(cfg.vocab_size, 260))
+    mesh = tp_mesh(TP_MESH, device)
+    pool = ModelPool(_SameParamsSession(params, cfg, tok), TP_POOL_BUDGET,
+                     engine_kw={**TP_POOL_ENGINE, "device": device}, mesh=mesh,
+                     entry_bytes=lambda m: TP_POOL_SIZES[m.version])
+    sched = Scheduler(pool, share=2)
+    prompts = {v: [TEMPLATE + r for r in REVIEWS[2 * i:2 * i + 2]]
+               for i, v in enumerate(TP_POOL_SIZES)}
+    ops.reset_launch_counts()
+    subs = [sched.submit(v, ps, qsig=v, max_new=TP_MAX_NEW) for v, ps in prompts.items()]
+    sched.run()
+    launches = dict(ops.launch_count)
+    check(pool.stats.sharded_admissions == 1 and pool.placement_of("big") == (0, 1, 2, 3),
+          ("sharded admission", pool.stats, pool.placement_of("big")))
+    places = {v: pool.placement_of(v) for v in TP_POOL_SIZES}
+    check(all(len(places[v]) == 1 for v in ("small0", "small1")), ("small placements", places))
+    rows = {}
+    for sub in subs:
+        kw = dict(TP_POOL_ENGINE)
+        if sub.qsig == "big":
+            kw["mesh"] = tp_mesh(TP_MESH, device)
+        else:
+            kw["device"] = pool.devices[places[sub.qsig][0]]
+        ref = Engine(params, cfg, tokenizer=tok, version=sub.qsig,
+                     **kw).generate(prompts[sub.tenant], max_new=TP_MAX_NEW)
+        rows[sub.qsig] = {"identical": sub.results() == ref}
+        check(sub.results() == ref, ("tenant rows differ from the serial run", sub.qsig,
+                                     sub.results(), ref))
+    line = {"phase": "tp_pool", "model": cfg.name, "layers": cfg.n_layers,
+            "mesh": dict(mesh.shape), "budget_per_position": TP_POOL_BUDGET,
+            "sizes": TP_POOL_SIZES, "placements": places, "pool_stats": vars(pool.stats),
+            "device_bytes": [pool.device_bytes(i) for i in range(mesh.size)],
+            "launches": launches, "tenants": rows}
+    emit(line)
+    print(f"tp_pool: sharded admissions {pool.stats.sharded_admissions}, placements {places}, "
+          f"every tenant identical to its serial run", flush=True)
+    return line, launches
+
+
+def parallel_training(gen, base, cfg, device="cuda", layers: int = 4, grad_layers=None):
+    """GPipe and the compressed all-reduce on the card.  ``pipeline_forward``
+    runs gemma2-2b's first ``layers`` blocks (published widths, f32) as 2
+    stages over a "stage" axis on 4 microbatches, against the sequential
+    forward (within PIPE_TOL, relative to the largest output).  Then
+    ``compressed_allreduce`` over a 2-position "pod" axis on every
+    gradient of the model cut to ``grad_layers`` (POOL_LAYERS) on one
+    batch, the tied table's included, against the same function on the
+    CPU (grads and residuals within ALLREDUCE_TOL)."""
+    from repro_torch.models import api
+    from repro_torch.models.transformer import block_apply, layer_slice, pattern_unit
+    from repro_torch.training.grad_compress import compressed_allreduce, init_residual
+    from repro_torch.training.pipeline import pipeline_forward, split_stages
+    from repro_torch.tree import flatten_with_path, tree_map, value_and_grad
+    t0 = time.time()
+    cut, ccfg = cut_depth(base, cfg, layers)
+    c32 = ccfg.replace(param_dtype="float32")
+    unit, _, _ = pattern_unit(c32)
+    stages = split_stages(_f32(cut["blocks"]), 2)
+    mb, S = 2, 64
+    pos = torch.arange(S, device=device).expand(mb, S)
+
+    def stage_fn(p, x):
+        for r in range(p[0]["ln1"]["w"].shape[0]):
+            for u, kind in enumerate(unit):
+                x = block_apply(layer_slice(p[u], r), x, c32, kind=kind, positions=pos)[0]
+        return x
+
+    x_mb = torch.randn((4, mb, S, cfg.d_model), generator=gen, device=device)
+    with torch.no_grad():
+        got = pipeline_forward(stage_fn, stages, x_mb, mesh=tp_mesh((2,), device, ("stage",)))
+        want = []
+        for m in range(x_mb.shape[0]):
+            x = x_mb[m]
+            for s in range(2):
+                x = stage_fn(tree_map(lambda a, s=s: a[s], stages), x)
+            want.append(x)
+        want = torch.stack(want)
+    pipe_err = errors(got, want)
+    del stages
+    pipe_s = time.time() - t0
+    t0 = time.time()
+    gcut, gcfg = cut_depth(base, cfg, grad_layers or POOL_LAYERS)
+    toks = torch.randint(4, 260, (1, S + 1), generator=gen, device=device)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    _, grads = value_and_grad(lambda p: api.loss_fn(p, gcfg, batch, remat=False), gcut)
+    n_grad = sum(t.numel() for _, t in flatten_with_path(grads))
+    res = init_residual(grads)
+    g_card, r_card = compressed_allreduce(grads, res, axis="pod",
+                                          mesh=tp_mesh((2,), device, ("pod",)))
+    cpu = lambda t: t.detach().cpu()  # noqa: E731
+    g_cpu, r_cpu = compressed_allreduce(tree_map(cpu, grads), tree_map(cpu, res), axis="pod",
+                                        mesh=tp_mesh((2,), "cpu", ("pod",)))
+    g_err = max((cpu(a).float() - b.float()).abs().max().item()
+                for (_, a), (_, b) in zip(flatten_with_path(g_card), flatten_with_path(g_cpu)))
+    r_err = max((cpu(a) - b).abs().max().item()
+                for (_, a), (_, b) in zip(flatten_with_path(r_card), flatten_with_path(r_cpu)))
+    line = {"phase": "parallel_training", "pipeline": {
+                "model": cfg.name, "layers": layers, "stages": 2, "microbatches": x_mb.shape[0],
+                "microbatch": [mb, S, cfg.d_model], "dtype": "float32",
+                "max_abs_err": pipe_err[0], "max_rel_err": pipe_err[1], "tolerance": PIPE_TOL,
+                "seconds": pipe_s},
+            "compressed_allreduce": {
+                "layers": gcfg.n_layers, "axis": "pod", "positions": 2, "elements": n_grad,
+                "grad_max_abs_err_vs_cpu": g_err, "residual_max_abs_err_vs_cpu": r_err,
+                "tolerance": ALLREDUCE_TOL, "seconds": time.time() - t0}}
+    emit(line)
+    print(f"parallel_training: pipeline max rel err {pipe_err[1]:.3g} over {layers} layers in 2 "
+          f"stages; compressed all-reduce of {n_grad} gradient elements, card vs CPU: grads "
+          f"{g_err:.3g}, residuals {r_err:.3g}", flush=True)
+    check(pipe_err[1] <= PIPE_TOL, ("pipeline_forward", line))
+    check(g_err <= ALLREDUCE_TOL and r_err <= ALLREDUCE_TOL, ("compressed_allreduce", line))
+    return line
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -5952,7 +6479,15 @@ def main() -> int:
     prof_line = timed("decode_profile", profile_step, gen, int8, eng8)
     sa_line, sa_launches = timed("static_analysis", static_analysis, eng8, prof_line,
                                  kernels=("quant_matmul", "paged_attention"))
-    del int8, eng8
+    del eng8
+    torch.cuda.empty_cache()
+    # tensor-parallel serving on a (1, 4) mesh whose positions are all this card
+    tgen = torch.Generator(device="cuda")
+    tgen.manual_seed(TP_SEED)
+    tp_line, tp_launches, tp_variants, tp_shapes = timed("tp_main_path", tp_main_path, tgen,
+                                                         int8, cfg)
+    kq_tp = timed("tp_kernel_shapes", check_quant_matmul_tp, tp_shapes)
+    del int8
     torch.cuda.empty_cache()
     qe_line, qe_launches = timed("qembed_serve", qembed_serve, base, cfg)
     torch.cuda.empty_cache()
@@ -5983,6 +6518,19 @@ def main() -> int:
     svc_full_line = timed("service_full_width", service_full_width, pool_base, pool_cfg)
     service_runs = dict(ops.launch_count)
     svc_full_line["launches"] = dict(service_runs)
+    torch.cuda.empty_cache()
+    tp_pool_line, tp_pool_launches = timed("tp_pool", tp_pool, pool_base, pool_cfg)
+    torch.cuda.empty_cache()
+    par_line = timed("parallel_training", parallel_training, tgen, base, cfg)
+    torch.cuda.empty_cache()
+    from repro_torch.configs import granite_20b
+    from repro_torch.models import api
+    g4 = granite_20b.CONFIG.replace(n_layers=TP_LAYERS, param_dtype="float32")
+    tp_cases = [("gemma2-2b", _f32(cut_depth(base, cfg, TP_LAYERS)[0]),
+                 cut_depth(base, cfg, TP_LAYERS)[1].replace(param_dtype="float32")),
+                ("granite-20b", api.init_params(tgen, g4), g4)]
+    tp_parity_line = timed("tp_f32_parity", tp_f32_parity, tp_cases)
+    del tp_cases
     del base, pool_base
     torch.cuda.empty_cache()
     pool_parity_line, pool_parity_launches = timed("olap_pool_f32_parity",
@@ -6023,6 +6571,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     moe_sess_line, moe_sess_launches, moe_sess_shapes = timed(
         "moe_session", moe_session, *cut_depth(moe_base, moe_cfg, SESSION_LAYERS[moe_cfg.name]))
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp_moe_line, tp_moe_launches = timed("tp_moe", tp_moe, moe_base, moe_cfg)
     del moe_base
     gc.collect()
     torch.cuda.empty_cache()
@@ -6301,6 +6852,17 @@ def main() -> int:
             check(sa_launches[name] > 0 and sa_rw_launches[name] == 0, ("the audits", name))
         else:
             check(sa_launches[name] == sa_rw_launches[name] == 0, ("off the audits", name))
+        # tensor-parallel serving (the sharded runs of tp_main_path, tp_pool
+        # and tp_moe): K2 on every piece, nothing else
+        kernels[-1]["launches_tp"] = tp_launches[name]
+        kernels[-1]["launches_tp_pool"] = tp_pool_launches[name]
+        kernels[-1]["launches_tp_moe"] = tp_moe_launches[name]
+        if name == "quant_matmul":
+            check(tp_launches[name] > 0 and tp_pool_launches[name] > 0
+                  and tp_moe_launches[name] > 0, ("the TP paths", name))
+        else:
+            check(tp_launches[name] == tp_pool_launches[name] == tp_moe_launches[name] == 0,
+                  ("off the TP paths", name))
         # the QEmbed instance's paged serve: K1 and K2 on every step
         kernels[-1]["launches_qembed"] = qe_launches[name]
         if name in ("paged_attention", "quant_matmul"):
@@ -6358,6 +6920,13 @@ def main() -> int:
                                       "max_rel_err_seen": kq_gr["max_rel_err"],
                                       "max_abs_err_seen": kq_gr["max_abs_err"],
                                       **kq_gr["timed"]}
+            # every piece shape of the sharded main path, each (K, N) timed
+            kernels[-1]["tp"] = {"cases_seen": len(kq_tp["cases"]),
+                                 "max_rel_err_seen": kq_tp["max_rel_err"],
+                                 "max_abs_err_seen": kq_tp["max_abs_err"],
+                                 "k2_per_step": tp_line["k2_per_step"],
+                                 "k2_per_step_unsharded": tp_line["k2_per_step_unsharded"],
+                                 "variants": tp_variants, **kq_tp["timed"]}
             kernels[-1]["vlm_encdec"] = {"cases_seen_vlm": kq_ve["cases_vlm"],
                                          "cases_seen_encdec": kq_ve["cases_encdec"],
                                          "max_rel_err_seen": kq_ve["max_rel_err"],
@@ -6407,6 +6976,9 @@ def main() -> int:
                    "qembed_serve": qe_line, "train_family_parity": family_parity,
                    "static_analysis": sa_line, "static_analysis_rwkv": sa_rw_line,
                    "train_full_width_families": family_full,
+                   "tp_main_path": tp_line, "tp_kernel_shapes": kq_tp, "tp_pool": tp_pool_line,
+                   "parallel_training": par_line, "tp_f32_parity": tp_parity_line,
+                   "tp_moe": tp_moe_line,
                    "phase_seconds": seconds, "phase_memory": memory,
                    "seconds": time.time() - t_start}, f, indent=1)
     emit({"kernels": kernels})

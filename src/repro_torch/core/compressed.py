@@ -22,6 +22,13 @@ that the MoE block feeds with routing statistics;
 ``repro_torch.core.calibrate`` uses them to gather Hessians, channel
 norms and expert routing counts without any model-code changes.
 
+:class:`ShardedTensor` is a weight placed on a mesh: one piece per
+position along one axis, each piece a tensor or one of the containers
+above (or, for a leaf sharded over two axes, a ``ShardedTensor`` itself).
+:func:`matmul` and :func:`expert_matmul` run every piece through the same
+dispatch, so each piece launches its kernel at its own shape, and combine
+the pieces' outputs with ``distributed/collectives.py``.
+
 :class:`QEmbed` is an int8 embedding table with per-row scales
 (``Recipe.quant_embed``): ``models/layers.py`` gathers rows from it and,
 when the embedding is tied, takes the logits from its codes.
@@ -343,15 +350,100 @@ def check_idx(idx: torch.Tensor, shape, bs: int) -> torch.Tensor:
     return idx
 
 
+class ShardedTensor:
+    """A weight placed on a mesh: ``pieces[j]`` is position ``j``'s piece
+    along mesh axis ``axis``, cut along ``dim`` of the weight: ``-1``
+    (column: d_out, or the vocabulary of an unembedding), ``-2`` (row:
+    d_in, or the vocabulary of an embedding table) or ``-3`` (the expert
+    axis of an expert stack).  Each piece lives on its position's device
+    and is a tensor, a ``QTensor``, a ``BlockSparseTensor``, a ``QEmbed``
+    or, for a leaf sharded over a second axis, a ``ShardedTensor``.
+
+    :meth:`layer` slices every piece, as ``QTensor.layer`` does.  Nothing
+    else reads a sharded weight: :func:`matmul`, :func:`expert_matmul` and
+    ``models/layers.py``'s ``embed``/``unembed`` take it piece by piece,
+    and any other use fails (it is not a tensor), so a model path that
+    reads a weight directly shows up instead of gathering it silently."""
+
+    def __init__(self, pieces, dim: int, axis: str, mesh):
+        if dim not in (-1, -2, -3):
+            raise ValueError(f"a weight is sharded along dim -1, -2 or -3, not {dim}")
+        self.pieces = list(pieces)
+        self.dim = int(dim)
+        self.axis = axis
+        self.mesh = mesh
+
+    @property
+    def shape(self):
+        """The unsharded leaf's ``shape`` (a ``QTensor``'s is its matrix's)."""
+        shape = list(self.pieces[0].shape)
+        if -self.dim <= len(shape):
+            shape[self.dim] = sum(p.shape[self.dim] for p in self.pieces)
+        return tuple(shape)
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+    @property
+    def dtype(self):
+        return self.pieces[0].dtype
+
+    @property
+    def device(self) -> torch.device:
+        return piece_device(self.pieces[0])
+
+    @property
+    def nbytes(self) -> int:
+        return sum(param_bytes(p) for p in self.pieces)
+
+    def layer(self, r: int) -> "ShardedTensor":
+        return ShardedTensor([p.layer(r) if hasattr(p, "layer") else p[r]
+                              for p in self.pieces], self.dim, self.axis, self.mesh)
+
+    def piece_at(self, i: int):
+        """The piece flat mesh position ``i`` holds (recursively)."""
+        p = self.pieces[self.mesh.coords(i)[self.axis]]
+        return p.piece_at(i) if isinstance(p, ShardedTensor) else p
+
+    def __repr__(self) -> str:
+        return (f"ShardedTensor(dim {self.dim} over {self.axis!r}, {len(self.pieces)} pieces, "
+                f"shape={self.shape})")
+
+
+def piece_device(p) -> torch.device:
+    """The device a piece's tensors live on."""
+    if isinstance(p, ShardedTensor):
+        return p.device
+    if isinstance(p, (QTensor, QEmbed)):
+        return p.q.device
+    if isinstance(p, BlockSparseTensor):
+        return p.w.device
+    return p.device
+
+
 def param_bytes(tree) -> int:
-    """Total stored bytes of a (possibly compressed) param tree."""
+    """Total stored bytes of a (possibly compressed or sharded) param tree;
+    a sharded leaf counts each of its pieces once."""
     if isinstance(tree, dict):
         return sum(param_bytes(v) for v in tree.values())
     if isinstance(tree, (list, tuple)):
         return sum(param_bytes(v) for v in tree)
-    if isinstance(tree, (QTensor, BlockSparseTensor, QEmbed)):
+    if isinstance(tree, (QTensor, BlockSparseTensor, QEmbed, ShardedTensor)):
         return tree.nbytes
     return 0 if tree is None else int(tree.numel() * tree.element_size())
+
+
+def position_bytes(tree, i: int) -> int:
+    """Bytes mesh position ``i`` holds of a sharded param tree: its piece
+    of each sharded leaf and the whole of every replicated one."""
+    if isinstance(tree, dict):
+        return sum(position_bytes(v, i) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(position_bytes(v, i) for v in tree)
+    if isinstance(tree, ShardedTensor):
+        return param_bytes(tree.piece_at(i))
+    return param_bytes(tree)
 
 
 def _q_matmul_plain(x: torch.Tensor, w: QTensor) -> torch.Tensor:
@@ -362,8 +454,37 @@ def _q_matmul_plain(x: torch.Tensor, w: QTensor) -> torch.Tensor:
                              in_scale=w.in_scale)
 
 
+def _sharded_matmul(x: torch.Tensor, w: ShardedTensor, fn) -> torch.Tensor:
+    """``fn(x, w)`` over the pieces of ``w``, the result on the mesh's
+    first device: a column-sharded weight's outputs gathered along the
+    last dim; a row-sharded one's input split along its last dim and the
+    partial products summed in f32 in mesh order (one cast); an expert
+    stack's rows of ``x`` [E, C, d] split by expert and gathered back."""
+    from repro_torch.distributed import collectives
+    first = w.mesh.first_device
+    if w.dim == -1:
+        outs = [fn(x.to(piece_device(p)), p) for p in w.pieces]
+        return collectives.all_gather(outs, dim=-1, device=first)
+    sizes = [p.shape[-2] if w.dim == -2 else _experts(p) for p in w.pieces]
+    xs = torch.split(x, sizes, dim=-1 if w.dim == -2 else -3)
+    outs = [fn(xj.to(piece_device(p)), p) for xj, p in zip(xs, w.pieces)]
+    if w.dim == -2:
+        return collectives.all_reduce_sum(outs, device=first)
+    return collectives.all_gather(outs, dim=-3, device=first)
+
+
+def _experts(p) -> int:
+    """Experts in one piece of an expert stack."""
+    if isinstance(p, ShardedTensor):
+        return _experts(p.pieces[0])
+    return (p.q if isinstance(p, QTensor) else p).shape[-3]
+
+
 def matmul(x: torch.Tensor, w) -> torch.Tensor:
-    """Universal ``x @ w`` over raw / quantized / block-sparse weights."""
+    """Universal ``x @ w`` over raw / quantized / block-sparse / sharded
+    weights."""
+    if isinstance(w, ShardedTensor):
+        return _sharded_matmul(x, w, matmul)
     if isinstance(w, QTensor):
         if w.bits == 8 and current_backend(x.device) == "cuda":
             return kops.quant_matmul(x, w.q, w.scale, group=w.group,
@@ -383,7 +504,11 @@ def expert_matmul(x: torch.Tensor, w) -> torch.Tensor:
     raw or quantized expert stack (the MoE block calls this).  An int8
     stack on the ``"cuda"`` backend runs K2 over experts, one launch for
     every expert; int4 stacks and the other backends take the plain
-    version, which applies ``in_scale`` once, as the kernel does."""
+    version, which applies ``in_scale`` once, as the kernel does.  A
+    sharded stack runs every piece so (K2 over experts at each piece's
+    shape)."""
+    if isinstance(w, ShardedTensor):
+        return _sharded_matmul(x, w, expert_matmul)
     if isinstance(w, QTensor):
         if w.bits == 8 and current_backend(x.device) == "cuda":
             return kops.quant_matmul_experts(x, w.q, w.scale, group=w.group,

@@ -13,8 +13,16 @@ model of one decode step (:func:`decode_step_cost`), which is what
     collective term = collective bytes / link rate
 
 Hardware constants: H100 SXM5 80GB, from NVIDIA's data sheet (dense, no
-2:4 sparsity).  There is no collective constant: a mesh is not ported
-(ROADMAP queue 1 item 11), and on one card ``coll_bytes`` is 0.
+2:4 sparsity).  The link rate is NVLink 4's: 900 GB/s bidirectional per
+GPU, so 450e9 B/s a direction.
+
+On a mesh (``decode_step_cost`` of a ``shard_params`` tree) the
+collective bytes are the result bytes of every gather and reduce the
+sharded step runs, by the reference's convention
+(``launch/hlo_analysis.py``: result-shape bytes per collective kind;
+:func:`collective_bytes`), and ``chips`` is the mesh's size.  A
+one-card mesh runs them as copies on the card; the term says what
+NVLink would take for them between cards.
 
 A decode step of ``slots`` rows reads every weight once, with three
 exceptions that follow what the step runs: an untied input embedding
@@ -34,18 +42,21 @@ row, as :func:`model_flops` counts a decode step.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, field
 from typing import Dict, Sequence, Union
 
 import torch
 from torch.overrides import TorchFunctionMode
 
-from repro_torch.core.compressed import BlockSparseTensor, QTensor, param_bytes
+from repro_torch.core.compressed import (BlockSparseTensor, QEmbed, QTensor, ShardedTensor,
+                                         param_bytes)
 from repro_torch.tree import flatten_with_path
 
 # --- H100 SXM5 constants (per card), NVIDIA data sheet ---
 BF16_FLOPS = 989e12              # dense bf16 tensor-core peak, FLOP/s
 HBM_BYTES_PER_S = 3.35e12        # HBM3, bytes/s
+LINK_BYTES_PER_S = 450e9         # NVLink 4: 900 GB/s bidirectional, per direction
 
 
 def bound(nbytes: float, flops: float):
@@ -65,7 +76,7 @@ class Roofline:
     detail: Dict[str, float] = field(default_factory=dict)
     peak_flops: float = BF16_FLOPS
     hbm_bw: float = HBM_BYTES_PER_S
-    link_bw: float = 0.0             # no link rate until a mesh is ported
+    link_bw: float = LINK_BYTES_PER_S
 
     @property
     def t_compute(self) -> float:
@@ -77,8 +88,6 @@ class Roofline:
 
     @property
     def t_collective(self) -> float:
-        """0 without collectives; with some, their bytes over ``link_bw``
-        (which must then be given)."""
         return self.coll_bytes / self.link_bw if self.coll_bytes else 0.0
 
     @property
@@ -148,6 +157,8 @@ def _weight_bytes(params, cfg, slots: int) -> float:
 
 
 def _leaf_bytes(t) -> float:
+    if isinstance(t, ShardedTensor):
+        return sum(_leaf_bytes(p) for p in t.pieces)
     if isinstance(t, BlockSparseTensor):
         # kept tiles from the kernel's gather list (uniform keep per block
         # column), and the bitmap: BlockSparseTensor.nbytes from shapes alone
@@ -201,6 +212,84 @@ def _state_bytes(state, cfg, slots: int, positions) -> Dict[str, float]:
     return {"state_read": read, "state_written": written}
 
 
+def _gathers(w, lead: int, act: int, out: Dict[str, float]) -> None:
+    """Add one use of ``w`` on ``lead`` activation rows to ``out``: a
+    column-sharded weight's all-gather of its output [lead, d_out], a
+    row-sharded one's all-reduce of it, an expert stack's all-gather of
+    [E, C, d_out] (``lead`` = E * C), each in the activation's ``act``
+    bytes, and its pieces' own collectives."""
+    if not isinstance(w, ShardedTensor):
+        return
+    kind = "all-reduce" if w.dim == -2 else "all-gather"
+    out[kind] = out.get(kind, 0.0) + lead * w.shape[-1] * act
+    for p in w.pieces:
+        share = lead * _experts(p) // _experts(w) if w.dim == -3 else lead
+        _gathers(p, share, act, out)
+
+
+def _experts(w) -> int:
+    if isinstance(w, ShardedTensor):
+        return (sum(_experts(p) for p in w.pieces) if w.dim == -3
+                else _experts(w.pieces[0]))
+    return (w.q if isinstance(w, QTensor) else w).shape[-3]
+
+
+def collective_bytes(params, cfg, rows: int) -> Dict[str, float]:
+    """Result bytes per collective kind of one step of ``rows`` tokens
+    through a sharded param tree (``distributed/sharding.py``
+    ``shard_params``): every sharded linear once per layer that runs it
+    (the hybrid's shared block at every site; a decode step runs neither
+    the encoder nor the cross-attention's K/V projections, which are
+    cached), an expert stack on its [E, C, d] dispatch (C = ``rows``, the
+    dropless capacity up to 4096 tokens), a vocab-sharded table's lookup
+    all-reduce [rows, d] and its tied logits' all-gather [rows, V] in f32.
+    The count the collectives of ``distributed/collectives.py`` record
+    when the step runs."""
+    from repro_torch.models.layers import moe_capacity
+    act = torch.empty((), dtype=cfg.dtype).element_size()
+    out: Dict[str, float] = {}
+    sites = 1
+    if cfg.family == "hybrid":
+        from repro_torch.models.hybrid import layout
+        sites = layout(cfg)[3]
+    for path, leaf in flatten_with_path(params):
+        if not isinstance(leaf, ShardedTensor) or path[0] in _ENCODER:
+            continue
+        name = [k for k in path if isinstance(k, str)][-1]
+        if "xattn" in path and name in ("wk", "wv"):
+            continue
+        if name == "embed":
+            size = torch.empty((), dtype=leaf.dtype).element_size()     # QEmbed rows: bf16
+            out["all-reduce"] = out.get("all-reduce", 0.0) + rows * leaf.shape[-1] * size
+            if cfg.tie_embeddings:
+                out["all-gather"] = out.get("all-gather", 0.0) + rows * leaf.shape[-2] * 4
+            continue
+        expert = "moe" in path and name in ("wi", "wg", "wo")
+        matrix = 3 if expert else 2
+        main = _main(leaf)
+        uses = math.prod(main.shape[:main.dim() - matrix])
+        if path[0] == "shared":
+            uses *= sites
+        lead = rows
+        if expert:
+            lead = _experts(leaf) * moe_capacity(rows, cfg, train=False)
+        one: Dict[str, float] = {}
+        _gathers(leaf, lead, act, one)
+        for k, v in one.items():
+            out[k] = out.get(k, 0.0) + v * uses
+    return out
+
+
+def _main(w) -> torch.Tensor:
+    """A sharded leaf's first piece's main tensor (its lead axes are the
+    unsharded leaf's)."""
+    while isinstance(w, ShardedTensor):
+        w = w.pieces[0]
+    if isinstance(w, (QTensor, QEmbed)):
+        return w.q
+    return w.w if isinstance(w, BlockSparseTensor) else w
+
+
 def decode_step_cost(params, cfg, slots: int, max_len: int, state=None, *,
                      positions: Union[int, Sequence[int], None] = None) -> Roofline:
     """Analytic FLOPs and bytes of one decode step of ``slots`` rows (see
@@ -213,15 +302,24 @@ def decode_step_cost(params, cfg, slots: int, max_len: int, state=None, *,
     p before it and writes one, p + 1 in all; by default ``max_len``, every
     slot at the end of its context, the most a step touches.
     ``detail`` splits the bytes into ``weight_bytes``, ``state_read`` and
-    ``state_written``."""
+    ``state_written``.
+
+    Where ``params`` were placed on a mesh (``shard_params``), they give
+    the step's collective bytes (:func:`collective_bytes`, per kind in
+    ``coll_detail``) and ``chips`` the mesh's size; FLOPs and bytes stay
+    the whole step's."""
     from repro_torch.models import api
     if state is None:
         state = api.init_cache(cfg, slots, max_len, device="meta")
+    sharded = [t for _, t in flatten_with_path(params) if isinstance(t, ShardedTensor)]
+    coll = collective_bytes(params, cfg, slots) if sharded else {}
     weights = _weight_bytes(params, cfg, slots)
     st = _state_bytes(state, cfg, slots, max_len if positions is None else positions)
     flops = model_flops(cfg, ShapeSpec("decode_step", max_len, slots, "decode"))
     return Roofline(flops=flops, bytes_accessed=weights + st["state_read"] + st["state_written"],
-                    coll_bytes=0.0, chips=1, detail={"weight_bytes": weights, **st})
+                    coll_bytes=sum(coll.values()),
+                    chips=sharded[0].mesh.size if sharded else 1,
+                    coll_detail=coll, detail={"weight_bytes": weights, **st})
 
 
 class _OnMeta(TorchFunctionMode):

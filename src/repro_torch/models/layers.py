@@ -19,7 +19,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import compressed
-from repro_torch.core.compressed import QEmbed, current_backend, matmul, tied_logits
+from repro_torch.core.compressed import (QEmbed, ShardedTensor, current_backend, matmul,
+                                         piece_device, tied_logits)
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 
@@ -404,10 +405,38 @@ def init_embed(gen, cfg, dtype):
     return p
 
 
+def _lookup(t, tokens):
+    return t.lookup(tokens) if isinstance(t, QEmbed) else t[tokens]
+
+
+def _sharded_lookup(t: ShardedTensor, tokens):
+    """Rows of a vocab-sharded table: each piece looks up the tokens in its
+    range (the others read row 0 and are zeroed), and the pieces' rows are
+    summed (one piece is nonzero per token, so the sum is exact)."""
+    from repro_torch.distributed import collectives
+    rows, lo = [], 0
+    for p in t.pieces:
+        n = p.shape[0]
+        tok = tokens.to(piece_device(p))
+        mine = (tok >= lo) & (tok < lo + n)
+        r = _lookup(p, torch.where(mine, tok - lo, torch.zeros_like(tok)))
+        rows.append(r * mine[..., None].to(r.dtype))
+        lo += n
+    return collectives.all_reduce_sum(rows, device=t.mesh.first_device)
+
+
+def _tied_logits(t, x):
+    return t.logits(x) if isinstance(t, QEmbed) else tied_logits(x, t)
+
+
 def embed(params, cfg, tokens):
-    """The rows of ``tokens``; a ``QEmbed`` table gives them in bf16."""
+    """The rows of ``tokens``; a ``QEmbed`` table gives them in bf16.  A
+    vocab-sharded table is looked up piece by piece."""
     t = params["embed"]
-    x = t.lookup(tokens.long()) if isinstance(t, QEmbed) else t[tokens.long()]
+    if isinstance(t, ShardedTensor):
+        x = _sharded_lookup(t, tokens.long())
+    else:
+        x = _lookup(t, tokens.long())
     if cfg.emb_scale:
         x = (x.float() * math.sqrt(cfg.d_model)).to(x.dtype)
     return x
@@ -416,10 +445,17 @@ def embed(params, cfg, tokens):
 def unembed(params, cfg, x):
     """f32 logits [..., V].  The tied product (a plain table's, or a
     ``QEmbed``'s on its codes) keeps its f32 accumulation: the logits are
-    never rounded to bf16, as in the reference."""
+    never rounded to bf16, as in the reference.  A vocab-sharded table
+    gives each piece's logits, gathered along the vocabulary."""
     if cfg.tie_embeddings:
         t = params["embed"]
-        logits = t.logits(x) if isinstance(t, QEmbed) else tied_logits(x, t)
+        if isinstance(t, ShardedTensor):
+            from repro_torch.distributed import collectives
+            logits = collectives.all_gather(
+                [_tied_logits(p, x.to(piece_device(p))) for p in t.pieces], dim=-1,
+                device=t.mesh.first_device)
+        else:
+            logits = _tied_logits(t, x)
     else:
         logits = matmul(x, params["unembed"]).float()
     return softcap(logits, cfg.final_softcap)

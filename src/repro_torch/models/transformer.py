@@ -35,7 +35,7 @@ from typing import Any, Dict, Iterator, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.core.compressed import BlockSparseTensor, QTensor, current_backend
+from repro_torch.core.compressed import BlockSparseTensor, QTensor, ShardedTensor, current_backend
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
 from repro_torch.models.layers import matmul, norm
@@ -66,7 +66,7 @@ def layer_slice(tree, r: int):
     """The ``r``-th layer of a stacked param or cache subtree."""
     if isinstance(tree, dict):
         return {k: layer_slice(v, r) for k, v in tree.items()}
-    if isinstance(tree, (QTensor, BlockSparseTensor)):
+    if isinstance(tree, (QTensor, BlockSparseTensor, ShardedTensor)):
         return tree.layer(r)
     return tree[r]
 

@@ -26,8 +26,8 @@ every engine sit there.  The session's kernel backend scopes the recipe
 search as well as its engines, so a ``"reference"`` session launches no
 kernel at all.  With ``pool_budget=`` (or ``pool=``) the engines come
 from one shared byte-budgeted ``ModelPool`` (serving/scheduler.py),
-which a ``Scheduler`` drives across tenants; ``mesh=`` (tensor
-parallel) is not ported yet (ROADMAP queue 1 item 11) and raises.
+which a ``Scheduler`` drives across tenants; with ``mesh=`` that pool
+admits a model too big for one position as one tensor-parallel engine.
 """
 from __future__ import annotations
 
@@ -146,9 +146,13 @@ class IOLMSession:
 
     ``devices=`` (a list of ``torch.device``s) makes that pool
     device-aware: the budget turns per-device and ``placement=`` picks
-    each engine's device.  Without a pool every operator gets a private
-    engine on the session's ``device``.  ``mesh=`` raises: tensor
-    parallel serving is ROADMAP queue 1 item 11.
+    each engine's device.  ``mesh=`` (a ``launch/mesh.py`` ``Mesh``) makes
+    it mesh-aware: the budget turns per position, and a model over it
+    whose share of the mesh fits is admitted as one tensor-parallel
+    engine over every position.  Both configure a NEW pool, so they need
+    ``pool_budget=`` and refuse ``pool=``, as in the reference.  Without
+    a pool every operator gets a private engine on the session's
+    ``device``, where the recipe search runs too.
     """
 
     def __init__(self, params, cfg, *, tokenizer: Optional[ByteTokenizer] = None,
@@ -163,17 +167,14 @@ class IOLMSession:
                  placement: str = "least_loaded",
                  backend: str = "auto",
                  device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "IOLMSession(mesh=...) (tensor-parallel serving) is not "
-                "ported yet: ROADMAP queue 1 item 11")
-        if pool is not None and devices is not None:
-            raise ValueError("devices= configures a NEW ModelPool and is "
-                             "ignored with an explicit pool= — construct "
-                             "the pool with it instead")
-        if pool is None and pool_budget is None and devices is not None:
-            raise ValueError("devices= requires pool_budget= (it "
-                             "configures the shared ModelPool)")
+        if pool is not None and (devices is not None or mesh is not None):
+            raise ValueError("devices=/mesh= configure a NEW ModelPool and "
+                             "are ignored with an explicit pool= — "
+                             "construct the pool with them instead")
+        if pool is None and pool_budget is None and (devices is not None
+                                                     or mesh is not None):
+            raise ValueError("devices=/mesh= require pool_budget= "
+                             "(they configure the shared ModelPool)")
         self.device = resolve_device(device)
         self.params = _to_device(params, self.device)
         self.cfg = cfg
@@ -203,7 +204,7 @@ class IOLMSession:
         self.pool = pool
         if pool is None and pool_budget is not None:
             self.pool = ModelPool(self, pool_budget, engine_kw=self.engine_kw,
-                                  devices=devices, placement=placement)
+                                  devices=devices, mesh=mesh, placement=placement)
 
     # -- engines --------------------------------------------------------
     def base_engine(self) -> Engine:

@@ -52,9 +52,22 @@ is one engine-wide entry that every admitted row gets: ``img_embs``
 with one keeps no prefix cache.  A vlm row's first token is read at its
 last text position, n_img + len - 1 of the image-prefixed sequence, and
 its decode starts at n_img + len; the reference reads it at len - 1 and
-decodes from len, inside the image's KV (ROADMAP queue 3).  ``mesh=``
-is not ported and raises.  The engine updates its pools and states in
-place (``index_copy_``) where the reference donates them to jit.
+decodes from len, inside the image's KV (ROADMAP queue 3).  The engine
+updates its pools and states in place (``index_copy_``) where the
+reference donates them to jit.
+
+``mesh=`` (a ``launch/mesh.py`` ``Mesh``) serves tensor-parallel: the
+params are placed by the reference's rule table
+(``distributed/sharding.py`` ``shard_params``), so every sharded linear
+runs piece by piece, each piece's kernel at its own shape, and the
+pieces' outputs are gathered or summed on the mesh's first device.  One
+process drives every position (single-controller, as the reference).  A
+mesh engine keeps the contiguous layout, as the reference's does (block
+gathers would defeat the sharding rules); its slot state, norms,
+attention and sampling run on the mesh's first device, where the
+reference's slot state follows ``cache_shardings`` (sharding it over KV
+heads is ROADMAP queue 1 item 14).  ``device=`` and ``mesh=`` together
+raise.
 """
 from __future__ import annotations
 
@@ -140,12 +153,12 @@ class Engine:
                  prefix_cache: Optional[PrefixCache] = None,
                  extra_inputs: Optional[Dict] = None,
                  sampling: Optional[SamplingConfig] = None,
-                 device="cuda", mesh=None,
+                 device=None, mesh=None,
                  backend: str = "auto", kv_layout: str = "auto",
                  kv_block_size: int = 32):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (tensor parallel) is not ported yet: ROADMAP queue 1 item 11")
+        if device is not None and mesh is not None:
+            raise ValueError("pass device= (single-device placement) OR "
+                             "mesh= (sharded), not both")
         if kv_layout not in ("auto", "paged", "contiguous"):
             raise ValueError(f"kv_layout must be auto/paged/contiguous, "
                              f"got {kv_layout!r}")
@@ -155,11 +168,20 @@ class Engine:
         while bs * 2 <= kv_block_size and max_len % (bs * 2) == 0:
             bs *= 2
         self._paged = (kv_layout != "contiguous" and api.supports_paged(cfg)
-                       and not (kv_layout == "auto" and bs < 8))
-        self.device = resolve_device(device)
+                       and mesh is None and not (kv_layout == "auto" and bs < 8))
+        self.mesh = mesh
+        if mesh is not None:
+            from repro_torch.distributed.sharding import shard_params
+            self.device = mesh.first_device
+            self.params = shard_params(params, cfg, mesh)
+            # distinct placements never share prefilled state: the tag keys
+            # the prefix cache per placement
+            self._placement_tag = "@" + mesh.tag()
+        else:
+            self.device = resolve_device("cuda" if device is None else device)
+            self.params = _to_device(params, self.device)
+            self._placement_tag = f"@{self.device}"
         self.backend = resolve_backend(backend, self.device)
-        self._placement_tag = f"@{self.device}"
-        self.params = _to_device(params, self.device)
         self.cfg = cfg
         self.tok = tokenizer or ByteTokenizer(max(cfg.vocab_size, 260))
         self.slots = slots

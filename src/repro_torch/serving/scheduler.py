@@ -63,11 +63,14 @@ any ``step_finish()``, so engines on distinct devices overlap their
 decode steps while outputs stay identical to the serial executor
 (dispatch order is deterministic and per-engine sequencing is
 unchanged).  Engines sharing one card still step one after another on
-the host thread.  ``mesh=`` (one tensor-parallel engine across the
-devices, for a model larger than one device's budget) is not ported
-yet: it raises (ROADMAP queue 1 item 11), and a model larger than the
-budget is refused for good, as on a reference pool without a mesh.
-``devices=None`` is the single-device pool.
+the host thread.  ``mesh=`` (a ``launch/mesh.py`` ``Mesh``) makes the
+mesh's positions the pool's devices, and a model larger than one
+position's budget whose ``ceil(need / positions)`` fits is admitted as
+ONE tensor-parallel engine over the whole mesh (``Engine(mesh=)``),
+charged that share on every position, as in the reference.  Positions
+are logical: on one card every position of a ``(1, 4)`` mesh is
+``cuda:0``, and the budget is still charged per position.
+``devices=None, mesh=None`` is the single-device pool.
 """
 from __future__ import annotations
 
@@ -139,7 +142,7 @@ class PoolEntry:
     nbytes: int
     hits: int = 0
     # device-aware pools: indices into pool.devices this entry occupies
-    # (one for a placed replica; a sharded entry would hold all of them)
+    # (one for a placed replica, all of them for a sharded TP entry)
     # and the bytes charged against EACH of those devices' budgets.
     devices: Tuple[int, ...] = ()
     dev_bytes: int = 0
@@ -152,7 +155,7 @@ class PoolStats:
     evictions: int = 0
     peak_resident_models: int = 0
     peak_resident_bytes: int = 0
-    sharded_admissions: int = 0   # tensor-parallel admissions: 0 until mesh=
+    sharded_admissions: int = 0   # models admitted tensor-parallel
 
 
 class ModelPool:
@@ -181,8 +184,13 @@ class ModelPool:
     * The budget stays a hard per-device invariant: admission evicts
       LRU unpinned entries *on the chosen device* and refuses rather
       than overshoot.  A model larger than one device's budget is
-      refused for good: sharding it over the devices needs ``mesh=``,
-      which raises until ROADMAP queue 1 item 11.
+      refused for good, unless the pool has a mesh.
+
+    ``mesh=`` (a ``Mesh``; exclusive with ``devices=``): its positions
+    are the devices, and a model over the per-device budget whose
+    ``ceil(need / positions)`` fits is admitted as one sharded engine
+    over every position (``stats.sharded_admissions``); evicting it frees
+    every position.
 
     ``devices=None`` (the default) is the single-device pool:
     ``byte_budget`` is the total budget and engines are built on
@@ -210,13 +218,13 @@ class ModelPool:
         if placement not in ("least_loaded", "affinity"):
             raise ValueError(f"unknown placement policy {placement!r}")
         self.placement = placement
+        self.mesh = mesh
         if mesh is not None:
             if devices is not None:
                 raise ValueError("pass devices= or mesh=, not both")
-            raise NotImplementedError(
-                "ModelPool(mesh=...) (tensor-parallel admission) is not "
-                "ported yet: ROADMAP queue 1 item 11")
-        self.devices = list(devices) if devices is not None else None
+            self.devices = list(mesh.devices.flat)
+        else:
+            self.devices = list(devices) if devices is not None else None
         self._homes: Dict[str, int] = {}   # version -> last device index
 
     @property
@@ -224,10 +232,13 @@ class ModelPool:
         return self.devices is not None
 
     # -- defaults -------------------------------------------------------
-    def _default_factory(self, model, *, device=None) -> Engine:
+    def _default_factory(self, model, *, device=None, mesh=None) -> Engine:
         kw = dict(self.engine_kw)
         if device is not None:          # a placed engine: its device wins
             kw["device"] = device
+        if mesh is not None:            # a sharded engine: no single device
+            kw.pop("device", None)
+            kw["mesh"] = mesh
         return Engine(model.params, model.cfg, tokenizer=self.session.tok,
                       version=model.version, prefix_cache=self.prefix_cache,
                       **kw)
@@ -362,9 +373,9 @@ class ModelPool:
         return min(cand, key=lambda i: (self.device_bytes(i), i))
 
     def _admit_placed(self, model, need: int) -> PoolEntry:
-        """Per-device-budget admission: place on one device.  A model
-        that fits no single device would shard over a mesh, which is
-        not ported (``mesh=`` raises), so it is refused for good."""
+        """Per-device-budget admission: place on one device, or shard
+        over the whole mesh when the model cannot fit any single one."""
+        ndev = len(self.devices)
         if need <= self.byte_budget:
             dev = self._pick_device(model.version, need)
             if dev is None:
@@ -377,10 +388,25 @@ class ModelPool:
             self._homes[model.version] = dev
             return PoolEntry(engine=engine, nbytes=need,
                              devices=(dev,), dev_bytes=need)
+        per = -(-need // ndev)          # ceil: bytes charged per device
+        if self.mesh is not None and per <= self.byte_budget:
+            if any(self._pinned_device_bytes(i) + per > self.byte_budget
+                   for i in range(ndev)):
+                raise PoolBudgetError(
+                    f"cannot admit sharded {model.version!r} ({per} "
+                    f"bytes/device): pinned residents block the room",
+                    retryable=True)
+            for i in range(ndev):
+                self._evict_device_until(i, self.byte_budget - per)
+            engine = self._engine_factory(model, mesh=self.mesh)
+            self.stats.sharded_admissions += 1
+            return PoolEntry(engine=engine, nbytes=need,
+                             devices=tuple(range(ndev)), dev_bytes=per)
         raise PoolBudgetError(
             f"model {model.version!r} needs {need} bytes but the "
             f"per-device budget is {self.byte_budget}"
-            " (no mesh: sharded admission unavailable)",
+            + ("" if self.mesh is not None
+               else " (no mesh: sharded admission unavailable)"),
             retryable=False)
 
     def engine_for(self, qsig: str, probe: Iterable[str] = (), *,
@@ -753,9 +779,15 @@ class Scheduler:
                 # flight: a tick whose rows all retired at admission
                 # (handle.nxt is None) overlapped nothing, and split-
                 # less fallback engines run serially at collect time.
-                # Engines placed on one physical device count once.
+                # Engines placed on one physical device count once.  A
+                # mesh-sharded engine's decode occupies EVERY position's
+                # device, so each one counts (on one card, once).
                 if handle.nxt is not None:
-                    devs.add(getattr(eng, "device", None))
+                    mesh = getattr(eng, "mesh", None)
+                    if mesh is not None:
+                        devs.update(mesh.devices.flat)
+                    else:
+                        devs.add(getattr(eng, "device", None))
             else:            # fakes / remote backends without the split
                 pending.append((eid, eng, _WHOLE_STEP))
         self.stats.peak_concurrent_devices = max(

@@ -214,11 +214,16 @@ def _leaf_from_meta(meta, name, get, device):
 
 
 def restore(ckpt_dir: str, target, *, step: Optional[int] = None,
-            verify: bool = True, device="cuda") -> Tuple[Any, int, Dict]:
+            shardings=None, verify: bool = True, device="cuda") -> Tuple[Any, int, Dict]:
     """Rebuild ``target``-structured state from disk onto ``device``.
 
     ``target``: a tree with the desired structure (its leaves only name
-    positions; their values are not read)."""
+    positions; their values are not read).  ``shardings``: a matching
+    tree of ``distributed/sharding.py`` ``NamedSharding``s (as
+    ``param_shardings`` gives; ``None`` leaves a leaf on ``device``): the
+    restored leaves are then placed on their mesh (``sharding.place``),
+    so a checkpoint written on one layout is read onto another (the
+    reference's elastic re-shard)."""
     dev = resolve_device(device)
     step, manifest, get = _open(ckpt_dir, step, verify)
     n = len(_flatten(target))
@@ -227,6 +232,9 @@ def restore(ckpt_dir: str, target, *, step: Optional[int] = None,
     leaves = [_leaf_from_meta(manifest["arrays"][f"a{i}"], f"a{i}", get, dev)
               for i in range(n)]
     state = unflatten_like(target, leaves, is_leaf=_is_container)
+    if shardings is not None:
+        from repro_torch.distributed.sharding import place
+        state = place(state, shardings)
     return state, step, manifest.get("extra", {})
 
 

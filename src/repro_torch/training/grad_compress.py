@@ -1,0 +1,122 @@
+"""Gradient compression for the cross-pod all-reduce (int8 + error feedback).
+
+The counterpart of the reference's ``training/grad_compress.py``, on
+``distributed/collectives.py``.  The multi-pod mesh pays ~4 bytes/param
+a step of inter-pod traffic for the gradient all-reduce; this is a
+*compressed all-reduce*:
+
+    reduce-scatter phase:  all_to_all of int8-quantized gradient chunks
+    local sum:             f32 accumulation of the received chunks
+    all-gather phase:      all_gather of the requantized int8 partials
+
+Wire bytes drop 4x (int8 and one f32 scale per chunk against f32).  The
+quantization error is carried in a local *error-feedback residual* that
+is added to the next step's gradient before quantization.
+
+The reference runs the per-leaf algorithm inside ``shard_map``; the port
+runs it for every position of the axis from one controller
+(:func:`compressed_allreduce_positions`, different gradients per
+position, as pods hold them), and :func:`compressed_allreduce` keeps the
+reference's replicated-in, replicated-out meaning: every position holds
+the same gradients, and the first position's result is returned, as
+``shard_map`` with ``check_rep=False`` does.
+"""
+from __future__ import annotations
+
+from typing import Any, List, Sequence, Tuple
+
+import torch
+
+from repro_torch.distributed import collectives
+from repro_torch.tree import tree_map, tree_unzip
+
+
+def _div(a: torch.Tensor, b: float) -> torch.Tensor:
+    """``a / b`` rounded once, as the reference's division: a divisor given
+    as a Python number would be applied as a reciprocal product on the
+    card, which rounds differently from the CPU."""
+    return a / torch.tensor(b, dtype=a.dtype, device=a.device)
+
+
+def _quantize(g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One absmax scale for the whole of ``g``: int8 codes, f32 scale."""
+    scale = _div(torch.max(torch.abs(g)), 127.0) + 1e-12
+    q = torch.clamp(torch.round(g / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def init_residual(params) -> Any:
+    """Zero f32 residuals shaped like ``params``."""
+    return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
+                    params)
+
+
+def _compressed_allreduce_leaf(gs: Sequence[torch.Tensor], rs: Sequence[torch.Tensor]
+                               ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+    """Mean-all-reduce one gradient leaf over the ``n`` positions of an
+    axis (``gs[i]``, ``rs[i]``: position ``i``'s gradient and residual)
+    with an int8 wire format and error feedback -> (every position's
+    result, every position's new residual)."""
+    n = len(gs)
+    shape, dtype = gs[0].shape, gs[0].dtype
+    qs, scales, errs, local = [], [], [], {}
+    for g, r in zip(gs, rs):
+        key = (id(g), id(r))        # positions handed the same tensors compute once
+        if key not in local:
+            flat = (g.float() + r).reshape(-1)
+            flat = torch.nn.functional.pad(flat, (0, (-flat.numel()) % n))
+            c = flat.reshape(n, -1)
+            # --- reduce-scatter (int8 on the wire) ---
+            q, scale = _quantize(c)                    # one scale per step
+            local[key] = (q, scale, c - q.float() * scale)   # error feedback
+            err = local[key][2]
+        else:
+            err = local[key][2].clone()
+        qs.append(local[key][0])
+        scales.append(local[key][1])
+        errs.append(err)
+    recv = collectives.all_to_all(qs)                  # [n, chunk] each
+    sc = collectives.all_gather(scales, stack=True)    # [n]
+    q2s, s2s = [], []
+    for i in range(n):
+        part = _div(torch.sum(recv[i].float() * sc.to(recv[i].device)[:, None], dim=0), n)
+        # --- all-gather (int8 on the wire) ---
+        q2, scale2 = _quantize(part)
+        errs[i][i] += (part - q2.float() * scale2) * n
+        q2s.append(q2)
+        s2s.append(scale2)
+    got = collectives.all_gather(q2s, stack=True)      # [n, chunk]
+    scs = collectives.all_gather(s2s, stack=True)
+    out = (got.float() * scs[:, None]).reshape(-1)[: shape.numel()].reshape(shape)
+    outs = [out.to(dtype=dtype, device=g.device) for g in gs]
+    res = [e.reshape(-1)[: shape.numel()].reshape(shape) for e in errs]
+    return outs, res
+
+
+def compressed_allreduce_positions(grads: Sequence[Any], residuals: Sequence[Any]
+                                   ) -> Tuple[List[Any], List[Any]]:
+    """Every leaf mean-all-reduced over the positions of one axis:
+    ``grads[i]``/``residuals[i]`` are position ``i``'s trees; returns
+    (the positions' gradient trees, their new residual trees)."""
+    n = len(grads)
+    pairs = tree_map(lambda *leaves: _compressed_allreduce_leaf(leaves[:n], leaves[n:]),
+                     grads[0], *grads[1:], *residuals)
+    outs, res = tree_unzip(pairs, 2, grads[0])
+    return ([tree_map(lambda _, t, i=i: t[i], grads[0], outs) for i in range(n)],
+            [tree_map(lambda _, t, i=i: t[i], grads[0], res) for i in range(n)])
+
+
+def compressed_allreduce(grads, residual, *, axis: str, mesh):
+    """Mean-all-reduce every leaf over the mesh ``axis`` with an int8 wire
+    format; returns (grads, new_residual).  Leaves are replicated over
+    ``axis`` before the call (each pod holds its own pod-local mean): every
+    position starts from ``grads`` and ``residual``, and the first
+    position's result is returned."""
+    n = mesh.shape[axis]
+    if n == 1:
+        return grads, residual
+    outs, res = compressed_allreduce_positions([grads] * n, [residual] * n)
+    return outs[0], res[0]
+
+
+__all__ = ["compressed_allreduce", "compressed_allreduce_positions", "init_residual"]

@@ -10,9 +10,13 @@ The reference's trainer (``training/train_loop.py``) on PyTorch:
   - gradient accumulation over ``microbatches`` in f32, divided by M,
     keeps the activation footprint at 1/M;
   - an optional ``grad_compressor`` hook ``(grads, residual) -> (grads,
-    residual)`` between the gradients and the update (the reference's
-    int8 error-feedback compressor over a mesh is ROADMAP queue 1
-    item 11).
+    residual)`` between the gradients and the update: the int8
+    error-feedback all-reduce over a mesh axis is
+    ``functools.partial(grad_compress.compressed_allreduce, axis=...,
+    mesh=...)`` (``training/grad_compress.py``).  The params themselves
+    are not sharded: training a ``shard_params`` tree is ROADMAP queue 1
+    item 15 (the kernel wrappers refuse gradients, and the optimizers know
+    no ``ShardedTensor``).
 
 Params come from a seeded ``torch.Generator`` on ``device`` (default
 ``"cuda"``, which raises without a card), or from ``params=``.
@@ -25,12 +29,13 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
+from repro_torch.core.compressed import ShardedTensor
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.models import api
 from repro_torch.training import checkpoint as ckpt
 from repro_torch.training import data as D
 from repro_torch.training.optimizer import Optimizer, global_norm
-from repro_torch.tree import tree_map, value_and_grad
+from repro_torch.tree import leaves, tree_map, value_and_grad
 
 
 @dataclass
@@ -62,6 +67,10 @@ def make_train_step(model_cfg, optimizer: Optimizer, *,
                            aux_weight=aux_weight)
 
     def train_step(params, opt_state, batch, step, residual=None):
+        if any(isinstance(t, ShardedTensor) for t in leaves(params)):
+            raise NotImplementedError(
+                "training a sharded param tree (shard_params) is not supported: "
+                "ROADMAP queue 1 item 15")
         if microbatches == 1:
             lv, grads = value_and_grad(lambda p: loss(p, batch), params)
         else:

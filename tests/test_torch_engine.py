@@ -112,8 +112,10 @@ def test_engine_cuda_device_raises_without_card():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="cuda"):
         Engine(params, cfg, **KW)
-    with pytest.raises(NotImplementedError):
-        Engine(params, cfg, device="cpu", mesh=object(), **KW)
+    from repro_torch.launch.mesh import make_mesh
+    with pytest.raises(ValueError, match="not both"):
+        Engine(params, cfg, device="cpu", mesh=make_mesh((1, 2), ("data", "model"),
+                                                         device="cpu"), **KW)
 
 
 # ---------------------------------------------------------------------------

@@ -15,7 +15,7 @@
   with budget 0 equals the base-only run.
 - ``to_spec`` equals the reference's dict and ``query_from_spec``
   round-trips; the model pool's arguments get the reference's checks
-  (``mesh=`` raises).
+  (``mesh=`` needs ``pool_budget=``).
 """
 import dataclasses
 import json
@@ -343,7 +343,8 @@ def test_pool_arguments_raise(tiny, arg):
     """The model pool's arguments take the reference's checks:
     ``pool_budget=`` builds a pool (EXPLAIN says so), ``pool=`` with
     ``devices=`` and ``devices=`` without a budget raise ``ValueError``,
-    and ``mesh=`` raises until ROADMAP queue 1 item 11."""
+    and so do ``mesh=`` without a budget and ``mesh=`` with ``pool=``;
+    with a budget, ``mesh=`` makes the pool's devices its positions."""
     _, _, cfg, params = tiny
     cpu = [torch.device("cpu")]
     if arg == "pool_budget":
@@ -360,8 +361,15 @@ def test_pool_arguments_raise(tiny, arg):
         with pytest.raises(ValueError, match="pool_budget="):
             Q.IOLMSession(params, cfg, device="cpu", devices=cpu)
     else:
-        with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-            Q.IOLMSession(params, cfg, device="cpu", mesh=object())
+        from repro_torch.launch.mesh import make_mesh
+        mesh = make_mesh((1, 2), ("data", "model"), device="cpu")
+        with pytest.raises(ValueError, match="pool_budget="):
+            Q.IOLMSession(params, cfg, device="cpu", mesh=mesh)
+        shared = Q.IOLMSession(params, cfg, device="cpu", pool_budget=1 << 30).pool
+        with pytest.raises(ValueError, match="pool="):
+            Q.IOLMSession(params, cfg, device="cpu", pool=shared, mesh=mesh)
+        sess = Q.IOLMSession(params, cfg, device="cpu", pool_budget=1 << 30, mesh=mesh)
+        assert sess.pool.mesh is mesh and sess.pool.devices == list(mesh.devices.flat)
 
 
 def test_session_defaults_to_the_card(tiny):

@@ -9,7 +9,7 @@
 - The device-aware pool over ``devices=[torch.device("cpu")] * 4``
   (per-device budget, placement policies) as
   ``tests/test_device_parallel.py`` holds the reference's; ``mesh=``
-  raises (ROADMAP queue 1 item 11).
+  is held in ``tests/test_torch_device_parallel.py``.
 - Quarantine: an engine that raises in ``step_finish`` gives one
   ``retry_base`` event, keeps every finished row and replays the rest,
   in order, on the pooled base engine.
@@ -536,21 +536,28 @@ class TestShardedAdmission:
 
     @pytest.mark.parametrize("where", ["pool", "pooled_session", "session", "engine"])
     def test_mesh_raises_naming_item_11(self, where, tiny):
-        """The reference's sharded admissions need ``mesh=``: every
-        entry point that takes one raises until it is ported."""
+        """Every entry point takes ``mesh=`` (ported from ROADMAP queue 1
+        item 11) and keeps the reference's refusals: a pool given both
+        ``devices=`` and ``mesh=``, a session's ``mesh=`` without
+        ``pool_budget=``, an engine given ``device=`` and ``mesh=``."""
+        from repro_torch.launch.mesh import make_mesh
         _, _, cfg, params = tiny
-        mesh = SimpleNamespace(devices=np.array(["d0", "d1", "d2"], dtype=object))
-        calls = {
-            "pool": lambda: ModelPool(FakeSession(), 100, mesh=mesh),
-            "pooled_session": lambda: IOLMSession(params, cfg, device="cpu",
-                                                  pool_budget=1 << 30, mesh=mesh),
-            "session": lambda: IOLMSession(params, cfg, device="cpu", mesh=mesh),
-            "engine": lambda: Engine(params, cfg, device="cpu", mesh=mesh)}
-        with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-            calls[where]()
+        mesh = make_mesh((1, 3), ("data", "model"), device="cpu")
         if where == "pool":
+            pool = ModelPool(FakeSession(), 100, mesh=mesh)
+            assert pool.mesh is mesh and pool.devices == list(mesh.devices.flat)
             with pytest.raises(ValueError, match="not both"):
                 ModelPool(FakeSession(), 100, mesh=mesh, devices=[CPU])
+        elif where == "pooled_session":
+            sess = IOLMSession(params, cfg, device="cpu", pool_budget=1 << 30, mesh=mesh)
+            assert sess.pool.mesh is mesh
+        elif where == "session":
+            with pytest.raises(ValueError, match="pool_budget="):
+                IOLMSession(params, cfg, device="cpu", mesh=mesh)
+        else:
+            with pytest.raises(ValueError, match="not both"):
+                Engine(params, cfg, device="cpu", mesh=mesh)
+            assert Engine(params, cfg, mesh=mesh).mesh is mesh
 
 
 class TestSchedulerFanOut:
