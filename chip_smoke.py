@@ -42,7 +42,7 @@ Phases, each of which raises on failure (so the script exits non-zero):
    cuda and the reference backends (no K3 launch), in bf16 and f32, held
    to the whole-step criteria;
 7. olap_session: the main path of a query.  An ``IOLMSession`` over the
-   bf16 base (its first 12 layers since PR 23, ``SESSION_LAYERS``) runs the queries of ``examples/olap_queries.py`` (Q1
+   bf16 base (its first 8 layers, ``SESSION_LAYERS``) runs the queries of ``examples/olap_queries.py`` (Q1
    ``llm_map`` over 64 reviews, Q2 ``llm_correct`` over 64 values, Q3
    ``llm_join`` of 16 x 16 names, Q4 ``llm_correct`` + a pushed-down
    filter with dedup, EXPLAINed first) and Q5, Q2 as a forced cascade
@@ -129,7 +129,7 @@ Phases, each of which raises on failure (so the script exits non-zero):
    reference backend, in bf16 at full width (STEP_BF16_RATIO; tokens
    whose expert sets differ counted) and in f32 at 4 layers (STEP_TOL_F32,
    identical routes); then moe_decode_profile, the step's profile;
-20. moe_session: an ``IOLMSession`` over the base's first 12 layers runs Q2 and
+20. moe_session: an ``IOLMSession`` over the base's first 4 layers runs Q2 and
    Q1 (64 rows each) with ``w8-absmax`` and absmax copies of
    ``w8-expert50`` and ``w8-expert25``: no Hessian calibrated, each
    router's counts summing to calibration tokens x top_k, the pruned
@@ -167,9 +167,9 @@ Phases, each of which raises on failure (so the script exits non-zero):
    ``prefill`` (K3 at each of the 11 sites), bf16 and f32, cuda against
    reference backend, seconds and peak memory;
 28. hybrid_session: Q2 and Q1 at 64 rows through ``Query.run`` over a
-   zamba2 session on the base's first 5 groups (35 block applications)
+   zamba2 session on the base's first 2 groups (14 block applications)
    with ``w8-absmax`` and absmax copies of ``w8-ffn75`` and ``w8-kv50``
-   (no Hessian; the shared block's statistics summed over its 5 sites);
+   (no Hessian; the shared block's statistics summed over its 2 sites);
    K1 and K2 on the served engines;
 29. kernel_quant_matmul_seen: K2 against its plain version at every shape
    phases 24 (its int8 run) and 28 gave it (``QuantShapeProbe`` records
@@ -190,10 +190,10 @@ Phases, each of which raises on failure (so the script exits non-zero):
    against reference backend, bf16 at 32 layers (STEP_BF16_RATIO) and f32
    cut to 4 (STEP_TOL_F32); then rwkv_decode_profile, the step's profile;
 33. rwkv_session: Q2 and Q1 at 64 rows through ``Query.run`` over a
-   full-width rwkv6-3b session with ``w8-absmax`` and ``w8a-ffn75`` (the
-   grid has no ``w8-kv50`` for rwkv; no Hessian): the pruned candidate at
-   d_ff 6720, its ``cm.wv`` in groups of 120 on K2's ``fma`` design, 32
-   of each call's 257 launches;
+   rwkv6-3b session on the base's first 8 layers (``SESSION_LAYERS``) with
+   ``w8-absmax`` and ``w8a-ffn75`` (the grid has no ``w8-kv50`` for rwkv;
+   no Hessian): the pruned candidate at d_ff 6720, its ``cm.wv`` in groups
+   of 120 on K2's ``fma`` design, one launch a layer of each call;
 34. kernel_quant_matmul_rwkv: K2 against its plain version at every shape
    phases 31 (its int8 run) and 33 gave it, group 120 included; the pruned
    ``cm.wv`` (6720 -> 2560, group 120, ``fma``) and the unpruned one (8960
@@ -213,7 +213,7 @@ Phases, each of which raises on failure (so the script exits non-zero):
    layers in bf16, cuda against reference backend (STEP_BF16_RATIO); then
    vlm_decode_profile, the step's profile;
 38. vlm_session: Q2 and Q1 at 64 rows, text only, through ``Query.run``
-   over a full-width paligemma session with ``w8-absmax`` and
+   over a paligemma session on the base's first 6 layers with ``w8-absmax`` and
    ``w8a-ffn75`` (no ``w8-kv50`` for one KV head; no Hessian);
 39. vlm_f32_parity: paligemma's widths in f32 at 4 layers with a seeded
    image: the engine's rows under both backends and ``forward``'s greedy
@@ -308,8 +308,9 @@ Phases, each of which raises on failure (so the script exits non-zero):
    instance behind ``Engine(mesh=)`` at (1, 4), 16 rows of 16 tokens,
    against the unsharded contiguous engine; K2 at the rule table's count
    (728 a decode step and a prefill, 182 unsharded) on ``decode``/``mma``
-   only, nothing else; the first decode step within STEP_BF16_RATIO of the
-   plain step's error against f32; parted rows near ties (``tie_at``);
+   only, nothing else; the first decode step, over the slot state placed
+   as the engine places it, within STEP_BF16_RATIO of the plain step's
+   error against f32; parted rows near ties (``tie_at``);
    each position's bytes; both steps profiled;
    tp_kernel_shapes: K2 against its plain version at every piece shape
    launched, each (K, N) timed at M = 8 and the prefill's M; tp_pool
@@ -323,7 +324,22 @@ Phases, each of which raises on failure (so the script exits non-zero):
    f32 at (1, 4) and (2, 2), tokens equal to the unsharded engine's or
    parted at a near tie; tp_moe (after moe_session): qwen2-moe cut to 4
    layers, ``w8-absmax`` at (2, 2), experts over "data", K2 over experts
-   on every piece, the first step held as tp_main_path's.
+   on every piece, the first step held as tp_main_path's.  The mesh
+   engine's slot state follows ``cache_shardings`` (``models/
+   sharded_cache.py``): tp_main_path and tp_f32_parity hold each
+   position's slot-state bytes to the rule's share (109,051,904 B of the
+   main path's 436,207,616 at (1, 4)) and one decode step's collectives
+   to ``roofline.collective_bytes`` (the main path: 3 all-gathers a layer
+   fewer than over an unsharded cache, the q/k/v gathers); tp_pool
+   records what each position holds beside what the pool charges.
+55. examples (after service_trained, on train_tiny_olap's checkpoint,
+   kept for it): the five ``examples/torch_*.py`` ``main``s on the card
+   at EXAMPLE_ROWS rows: quickstart (its three recipes' bytes equal the
+   CPU's, K2 launched for ``w8-gptq``), train_lm (EXAMPLE_TRAIN_STEPS:
+   a short run whose loss falls, then a resume that logs it), multi_tenant
+   (K1 and K2 launched), serve_compressed (the full nine-recipe grid; K1)
+   and olap_queries (the grid for each query; K1; Q4's invocations equal
+   its distinct surviving values); every engine on the cuda backend.
 
 K2, K3 and K4 run their tensor-core designs on bf16 and their FMA
 designs on f32; K1 runs ``split`` up to 8 query heads per KV head in
@@ -348,7 +364,8 @@ timings, and K2's ``granite`` cases seen and timings; on the QEmbed
 instance's serve: ``launches_qembed``; during the audits:
 ``launches_static_analysis`` and ``launches_static_analysis_rwkv``; on
 the sharded runs: ``launches_tp``, ``launches_tp_pool``,
-``launches_tp_moe``, and K2's ``tp`` piece shapes and timings),
+``launches_tp_moe``, and K2's ``tp`` piece shapes and timings; over the
+examples: ``launches_examples``),
 the card line, and last ``{"ok": true, "device": {...}}``.  Exits non-zero
 without a card and outside a checkout of the repository.
 """
@@ -1876,11 +1893,13 @@ POOL_ENTRIES = 2.8        # the pool budget in base entries: 2 base or 3 w8-absm
 # POOL_LAYERS layers (the same weights, the published widths), which keeps
 # the script within its time as paths are added
 POOL_LAYERS = 8
-# olap_session, moe_session and hybrid_session run the first layers of their
-# bases in the same way (PR 23's cut, when the script passed 1000 s):
-# gemma2-2b 12 of 26, qwen2-moe-a2.7b 12 of 24, zamba2-7b 5 of its 11 groups
-# (35 of 81 block applications)
-SESSION_LAYERS = {"gemma2-2b": 12, "qwen2-moe-a2.7b": 12, "zamba2-7b": 35}
+# the session phases run the first layers of their bases in the same way
+# (cut as phases were added, to keep the script within its 1200 s limit on
+# the slower hosts, within 1100 s on the others): gemma2-2b 8 of 26, qwen2-moe-a2.7b 4 of
+# 24, zamba2-7b 2 of its 11 groups (14 of 81 block applications), rwkv6-3b
+# 8 of 32, paligemma-3b 6 of 18
+SESSION_LAYERS = {"gemma2-2b": 8, "qwen2-moe-a2.7b": 4, "zamba2-7b": 14, "rwkv6-3b": 8,
+                  "paligemma-3b": 6}
 FLEET_ROWS, FLEET_MAX_NEW, FLEET_TENANTS = 16, 8, (1, 4)
 POOL_SHARE = 8            # in-flight rows per submission
 
@@ -2542,6 +2561,7 @@ TINY_OLAP = dict(name="tiny-olap", family="dense", n_layers=4, d_model=128, n_he
                  n_kv_heads=2, d_ff=384, vocab_size=260, rope_theta=10000.0, max_seq=512)
 TINY_TRAIN = dict(steps=300, batch=16, seq_len=96, log_every=100, ckpt_every=150)
 TINY_ADAMW = dict(lr=2e-3, warmup=30, total_steps=300)
+TINY_CKPT = os.path.join(OUT_DIR, "tiny_olap_ckpt")
 # benchmarks/common.make_engine's settings and benchmarks/service.py's budget
 SERVICE_ENGINE_KW = dict(slots=8, max_len=160, buckets=(48, 96, 128))
 SERVICE_ENTRIES = 3
@@ -2822,8 +2842,9 @@ def train_tiny_olap(device="cuda", train_kw=None):
     Gates: the last logged loss below 0.7 of the first (the reference's
     bar); ``restore`` and ``restore_tree`` of the last step equal to the
     state in memory, bit for bit; ``train`` over a directory holding only
-    step 150 resumes from it and writes the last step.  Returns (line,
-    cfg, trained params)."""
+    step 150 resumes from it and writes the last step.  The checkpoint
+    directory (``TINY_CKPT``) stays for the examples phase, which the
+    caller removes after it.  Returns (line, cfg, trained params)."""
     import shutil
     from repro_torch.configs.base import ModelConfig
     from repro_torch.kernels import ops
@@ -2835,7 +2856,7 @@ def train_tiny_olap(device="cuda", train_kw=None):
     cfg = ModelConfig(**TINY_OLAP)
     kw = dict(TINY_TRAIN, **(train_kw or {}))
     steps, every = kw["steps"], kw["ckpt_every"]
-    d, d2 = os.path.join(OUT_DIR, "tiny_olap_ckpt"), os.path.join(OUT_DIR, "tiny_olap_resume")
+    d, d2 = TINY_CKPT, os.path.join(OUT_DIR, "tiny_olap_resume")
     for x in (d, d2):
         shutil.rmtree(x, ignore_errors=True)
     adamw = dict(TINY_ADAMW, total_steps=steps)
@@ -2880,10 +2901,159 @@ def train_tiny_olap(device="cuda", train_kw=None):
             "restore_s": restore_s, "ckpt_bytes": ckpt_bytes, "resume_s": resume_s,
             "resume_log": logs2, "resumed_losses": out2["losses"],
             "resume_bit_identical": _same_bits(state, state2), "resume_max_abs_diff": drift}
-    for x in (d, d2):
-        shutil.rmtree(x, ignore_errors=True)
+    shutil.rmtree(d2, ignore_errors=True)
     emit(line)
     return line, cfg, out["params"]
+
+
+EXAMPLE_ROWS = 4                   # --rows of the serving examples on the card
+EXAMPLE_TRAIN_STEPS = (40, 60)     # train_lm: a short run, then its resume to more steps
+
+
+class EngineInitProbe:
+    """Every ``Engine`` constructed inside the ``with`` block (a wrapper
+    around ``Engine.__init__``, restored on exit)."""
+
+    def __enter__(self):
+        from repro_torch.serving.engine import Engine
+        self.engines, self._real = [], Engine.__init__
+        real, engines = self._real, self.engines
+
+        def init(eng, *a, **kw):
+            real(eng, *a, **kw)
+            engines.append(eng)
+
+        Engine.__init__ = init
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.serving.engine import Engine
+        Engine.__init__ = self._real
+
+
+def _example(name, fn, argv, backend="cuda"):
+    """``fn(argv)`` (an example's ``main``) with the launch counts zeroed
+    just before it and read just after, its standard output captured and
+    echoed: (result, launches, engines built, output, seconds).  Gate:
+    every engine it built on ``backend``."""
+    import contextlib
+    import io
+    from repro_torch.kernels import ops
+    buf = io.StringIO()
+    ops.reset_launch_counts()
+    sync()
+    t0 = time.time()
+    with EngineInitProbe() as probe, contextlib.redirect_stdout(buf):
+        out = fn(argv)
+    sync()
+    dt = time.time() - t0
+    launches = dict(ops.launch_count)
+    text = buf.getvalue()
+    print(f"--- examples/torch_{name}.py {' '.join(argv)} ({dt:.1f} s, launches "
+          f"{ {k: n for k, n in launches.items() if n} })\n{text.rstrip()}", flush=True)
+    for eng in probe.engines:
+        check(eng.backend == backend and eng.stats.backend == backend,
+              (name, "engine off the backend", backend, eng.stats.backend))
+    return out, launches, probe.engines, text, dt
+
+
+def examples_phase(ckpt_dir, device="cuda"):
+    """The port's five examples (``examples/torch_*.py``) driven through
+    their ``main`` on the card, ``torch_common.CKPT_DIR`` pointed at
+    ``train_tiny_olap``'s checkpoint (300 steps, so no example trains
+    ``tiny-olap`` again).  Gates: every engine on the cuda backend; the
+    quickstart's three recipes' bytes equal the CPU's reckoning (the same
+    recipes on the quickstart model built on the CPU) and K2 launched;
+    train_lm's loss falls and its second invocation resumes from the
+    first's checkpoint, launching no kernel; K1 launched by every serving
+    example and K2 by multi_tenant; Q4's invocations equal its distinct
+    surviving values.  Off the card (a rehearsal) the launch gates do not
+    apply.  Returns (line, launches summed over the examples)."""
+    import shutil
+    sys.path.insert(0, os.path.join(ROOT, "examples"))
+    import torch_common
+    import torch_multi_tenant
+    import torch_olap_queries
+    import torch_quickstart
+    import torch_serve_compressed
+    import torch_train_lm
+    from repro_torch.models import api
+    from repro_torch.training import checkpoint as CK
+    check(CK.latest_step(ckpt_dir) == TINY_TRAIN["steps"], ("tiny-olap checkpoint", ckpt_dir))
+    torch_common.CKPT_DIR = ckpt_dir
+    dev = ["--device", device]
+    on_card = torch.device(device).type == "cuda"
+    be = "cuda" if on_card else "reference"
+    line = {"phase": "examples", "rows": EXAMPLE_ROWS, "checkpoint_step": TINY_TRAIN["steps"]}
+    total = {}
+
+    def add(launches):
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+
+    # quickstart: its bytes against the same recipes on the CPU
+    res, launches, _, _, dt = _example("quickstart", torch_quickstart.main, dev, be)
+    cpu = torch_quickstart.compress_and_score(
+        api.init_params(torch.Generator().manual_seed(0), torch_quickstart.CFG),
+        torch_quickstart.CFG, "cpu", out=lambda _: None)
+    got = [rep.bytes_after for rep, _ in res]
+    check(got == [rep.bytes_after for rep, _ in cpu], ("quickstart bytes", got))
+    check(launches["quant_matmul"] > 0 or not on_card, ("quickstart: no K2 launch", launches))
+    add(launches)
+    line["quickstart"] = {"seconds": dt, "launches": launches, "bytes": got,
+                          "token_agreement": [r.token_agreement for _, r in res],
+                          "recipes": [rep.recipe.name for rep, _ in res]}
+    # train_lm: a short run, then its resume to more steps
+    ck = os.path.join(OUT_DIR, "torch_train_lm_ckpt")
+    shutil.rmtree(ck, ignore_errors=True)
+    runs = []
+    for steps in EXAMPLE_TRAIN_STEPS:
+        out, launches, _, text, dt = _example("train_lm", torch_train_lm.main,
+                                              ["--steps", str(steps), "--ckpt", ck, *dev], be)
+        check(not any(launches.values()), ("train_lm launched a kernel", launches))
+        runs.append({"steps": steps, "seconds": dt, "losses": out["losses"],
+                     "resumed": f"[train] resumed from step {EXAMPLE_TRAIN_STEPS[0]}" in text})
+    check(runs[0]["losses"][-1][1] < runs[0]["losses"][0][1], ("train_lm loss", runs[0]))
+    check(not runs[0]["resumed"] and runs[1]["resumed"], ("train_lm resume", runs))
+    shutil.rmtree(ck, ignore_errors=True)
+    line["train_lm"] = runs
+    # multi_tenant: three tenants on one pool, the w8 recipe
+    (session, sched, results), launches, engines, _, dt = _example(
+        "multi_tenant", torch_multi_tenant.main, ["--rows", str(EXAMPLE_ROWS), *dev], be)
+    check((launches["paged_attention"] > 0 and launches["quant_matmul"] > 0) or not on_card,
+          ("multi_tenant: K1 and K2", launches))
+    check(len(results["tenant-b"]) == EXAMPLE_ROWS, ("multi_tenant rows", results))
+    add(launches)
+    line["multi_tenant"] = {"seconds": dt, "launches": launches, "engines": len(engines),
+                            "rows": sched.stats.rows, "ticks": sched.stats.ticks,
+                            "resident": session.pool.resident_versions, "log": session.log}
+    # serve_compressed: the full grid, Baseline / Perf / Acc served
+    (outcome, served), launches, engines, _, dt = _example(
+        "serve_compressed", torch_serve_compressed.main, ["--rows", str(EXAMPLE_ROWS), *dev], be)
+    check(launches["paged_attention"] > 0 or not on_card, ("serve_compressed: K1", launches))
+    check(all(e._paged for e in served.values()), ("serve_compressed layout", served))
+    add(launches)
+    line["serve_compressed"] = {
+        "seconds": dt, "launches": launches, "engines": len(engines),
+        "grid": [c.recipe.name for c in outcome.candidates],
+        "perf": outcome.perf.recipe.name if outcome.perf else None,
+        "acc": outcome.acc.recipe.name if outcome.acc else None,
+        "rows_per_s": {k: e.stats.rows_per_s for k, e in served.items()}}
+    # olap_queries: Q1-Q4, the grid searched for each query
+    got, launches, engines, text, dt = _example(
+        "olap_queries", torch_olap_queries.main, ["--rows", str(EXAMPLE_ROWS), *dev], be)
+    c4 = got["commits4"]
+    distinct = len({v for v, st in zip(c4["lang"], c4["status"]) if st == "ok"})
+    check(got["invocations"] == distinct, ("Q4 invocations", got["invocations"], distinct))
+    check(launches["paged_attention"] > 0 or not on_card, ("olap_queries: K1", launches))
+    check(f"backend={be}" in text, ("olap_queries: EXPLAIN without", be))
+    add(launches)
+    line["olap_queries"] = {"seconds": dt, "launches": launches, "engines": len(engines),
+                            "q4_invocations": got["invocations"], "q4_distinct": distinct,
+                            "log": got["session"].log}
+    line["launches"] = total
+    emit(line)
+    return line, total
 
 
 def service_specs(n_rows: int = SERVICE_ROWS):
@@ -6011,18 +6181,23 @@ def _route_rows(a, b, n):
     return same
 
 
-def _tp_step_check(flat, sharded, cfg, tok, prompts, device, label, max_len=256):
+def _tp_step_check(flat, sharded, cfg, tok, prompts, mesh, device, label, max_len=256):
     """One decode step of every prompt's row after its prefill (the
     unsharded instance's, on the served backend; its greedy token fed), on
-    copies of that one state: the sharded instance on the served backend,
-    the unsharded one on it and on the reference backend in bf16, and the
-    f32 plain path (every float param and the state cast, codes kept).
-    Over the rows that every run routes to the same experts (all rows
-    without an MoE; at least half of them), the sharded step's RMS error
-    against f32 must be within STEP_BF16_RATIO of the plain bf16 step's
-    (whole_step's bf16 criterion)."""
+    copies of that one state: the sharded instance on the served backend
+    over the copy placed on ``mesh`` as ``Engine(mesh=)`` places its slot
+    state (``place_slot_state``: attention piece by piece), the unsharded
+    one on it and on the reference backend in bf16, and the f32 plain path
+    (every float param and the state cast, codes kept).  Over the rows that
+    every run routes to the same experts (all rows without an MoE; at least
+    half of them), the sharded step's RMS error against f32 must be within
+    STEP_BF16_RATIO of the plain bf16 step's (whole_step's bf16 criterion).
+    The collectives of one more sharded step, over an unsharded copy (q/k/v
+    gathered to the first device to attend, the route before the slot
+    state followed ``cache_shardings``), are recorded for comparison."""
     from repro_torch.core.compressed import kernel_backend
     from repro_torch.models import api
+    from repro_torch.models.sharded_cache import place_slot_state
     from repro_torch.tree import tree_map
     rms = lambda a, b: ((a - b).norm() / b.norm()).item()  # noqa: E731
     backend = "cuda" if torch.device(device).type == "cuda" else "reference"
@@ -6034,14 +6209,21 @@ def _tp_step_check(flat, sharded, cfg, tok, prompts, device, label, max_len=256)
     nxt = lg[torch.arange(n, device=toks.device), lens - 1].argmax(-1)[:, None]
     del lg
 
-    def step(params, c, be, dtype):
+    def step(params, c, be, dtype, placed=False):
         st = tree_map(lambda t: t.to(dtype, copy=True) if t.is_floating_point() else t.clone(),
                       cache)
+        if placed:
+            st = place_slot_state(st, c, mesh)
         with RouteProbe() as probe, kernel_backend(be), torch.no_grad():
             out, _ = api.decode_step(params, c, st, nxt, lens, max_len=max_len)
         return out[:, -1].float(), probe.routes
 
-    t16, rt = step(sharded, cfg, backend, cfg.dtype)
+    from repro_torch.distributed import collectives
+    collectives.reset_result_bytes()
+    step(sharded, cfg, backend, cfg.dtype)
+    before = {"calls": {k: n for k, n in collectives.calls.items() if n},
+              "bytes": {k: n for k, n in collectives.result_bytes.items() if n}}
+    t16, rt = step(sharded, cfg, backend, cfg.dtype, placed=True)
     c16, rc = step(flat, cfg, backend, cfg.dtype)
     r16, rr = step(flat, cfg, "reference", cfg.dtype)
     p32 = _f32(flat)
@@ -6056,11 +6238,47 @@ def _tp_step_check(flat, sharded, cfg, tok, prompts, device, label, max_len=256)
             "plain_bf16_vs_f32": rms(r16[k], r32[k]), "sharded_vs_unsharded": rms(t16, c16),
             "greedy_agreement_sharded_vs_unsharded":
                 (t16.argmax(-1) == c16.argmax(-1)).float().mean().item(),
-            "bf16_ratio_bound": STEP_BF16_RATIO}
+            "bf16_ratio_bound": STEP_BF16_RATIO, "collectives_unsharded_cache": before}
     line["bf16_ratio"] = line["sharded_vs_f32"] / line["plain_bf16_vs_f32"]
     check(2 * line["rows_same_routes"] >= n, (label, "rows routed alike", line))
     check(line["sharded_vs_f32"] <= STEP_BF16_RATIO * line["plain_bf16_vs_f32"], (label, line))
     return line
+
+
+def spec_state_bytes(eng):
+    """[bytes] each position of a mesh engine should hold of its slot
+    state: every k/v leaf's ``spec_bytes`` under the reference's rule
+    (``cache_shardings``), every other leaf whole at position 0 alone (the
+    mesh's first device: ROADMAP item 14b)."""
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.models import api
+    from repro_torch.tree import flatten_with_path
+    meta = api.init_cache(eng.cfg, eng.slots, eng.max_len, device="meta")
+    specs = dict(flatten_with_path(SH.cache_shardings(eng.cfg, meta, eng.mesh),
+                                   is_leaf=lambda x: isinstance(x, SH.P)))
+    return [sum(SH.spec_bytes(t.shape, t.element_size(), specs[p], eng.mesh)
+                if p[-1] in ("k", "v") else (t.numel() * t.element_size() if i == 0 else 0)
+                for p, t in flatten_with_path(meta)) for i in range(eng.mesh.size)]
+
+
+def decode_collectives(eng, label):
+    """One decode step of the mesh engine ``eng`` on its sharded slot state
+    (its current tokens and positions): the collectives' calls and result
+    bytes by kind.  Gate: the bytes ``roofline.collective_bytes`` counts
+    over that state."""
+    from repro_torch.core.compressed import kernel_backend
+    from repro_torch.distributed import collectives
+    from repro_torch.launch import roofline
+    collectives.reset_result_bytes()
+    with kernel_backend(eng.backend), torch.no_grad():
+        eng._decode(None, eng._dev(eng._cur_tok), eng._dev(eng._cur_pos))
+    sync()
+    got = {"calls": {k: n for k, n in collectives.calls.items() if n},
+           "bytes": {k: n for k, n in collectives.result_bytes.items() if n}}
+    want = roofline.collective_bytes(eng.params, eng.cfg, eng.slots, eng._slot_state)
+    check(got["bytes"] == {k: v for k, v in want.items() if v},
+          (label, "collective bytes against the roofline", got, want))
+    return got
 
 
 def tp_main_path(gen, int8, cfg, device="cuda"):
@@ -6074,12 +6292,18 @@ def tp_main_path(gen, int8, cfg, device="cuda"):
     7 unsharded) per decode step and prefill, on ``decode`` and ``mma``,
     never ``fma``, and nothing else; the first decode step within whole_step's
     bf16 criterion (``_tp_step_check``); rows that part from the unsharded
-    run near ties (``tie_at``).  Prints each position's bytes and, on the
+    run near ties (``tie_at``); each position's slot state the rule's
+    share (``spec_state_bytes``: 1/4 of the K/V at (1, 4), where KV heads
+    split); one decode step's collectives the roofline's count, and where
+    KV heads split 3 all-gathers a layer fewer than over an unsharded
+    cache (no q/k/v gather).  Prints each position's bytes and, on the
     card, the sharded and unsharded decode steps' profiles."""
-    from repro_torch.core.compressed import param_bytes, position_bytes
+    from repro_torch.core.compressed import ShardedTensor, param_bytes, position_bytes
     from repro_torch.distributed.sharding import replicated_qtensor_leaves
     from repro_torch.kernels import ops
+    from repro_torch.models.sharded_cache import layout, state_position_bytes
     from repro_torch.serving.engine import Engine
+    from repro_torch.serving.scheduler import slot_state_bytes
     on_card = torch.device(device).type == "cuda"
     mesh = tp_mesh(TP_MESH, device)
     M = mesh.shape["model"]
@@ -6117,7 +6341,7 @@ def tp_main_path(gen, int8, cfg, device="cuda"):
               ("sharded run designs", variants))
     check(all(r.done for r in got) and st.rows == TP_ROWS, ("sharded rows", st))
     t0 = time.time()
-    step = _tp_step_check(int8, tp.params, cfg, tp.tok, prompts, device, "tp_main_path")
+    step = _tp_step_check(int8, tp.params, cfg, tp.tok, prompts, mesh, device, "tp_main_path")
     step["seconds"] = time.time() - t0
     agree, rows_same = _agreement(want, got)
     parted, t0 = [], time.time()
@@ -6129,6 +6353,22 @@ def tp_main_path(gen, int8, cfg, device="cuda"):
                                                          b.out_ids, tp.buckets[-1], p32)})
         del p32
     pos_bytes = [position_bytes(tp.params, i) for i in range(mesh.size)]
+    state_bytes = [state_position_bytes(tp._slot_state, i) for i in range(mesh.size)]
+    state_whole = TP_ENGINE["slots"] * slot_state_bytes(cfg, TP_ENGINE["max_len"])
+    check(state_bytes == spec_state_bytes(tp) and state_bytes == [state_whole // M] * mesh.size,
+          ("slot state per position", state_bytes, state_whole))
+    split = layout(tp._slot_state["blocks"][0]["k"])
+    after = decode_collectives(tp, "tp_main_path")
+    before = step["collectives_unsharded_cache"]
+    if split[1] == -2:
+        # 3 gathers a layer fewer (q, k, v), less one a layer whose attention
+        # wo is kept whole (its heads gathered instead of summed)
+        whole = sum(cfg.n_layers // len(tp.params["blocks"]) for b in tp.params["blocks"]
+                    if not isinstance(b["attn"]["wo"], ShardedTensor))
+        check(before["calls"]["all-gather"] - after["calls"]["all-gather"]
+              == 3 * cfg.n_layers - whole
+              and before["calls"]["all-reduce"] == after["calls"]["all-reduce"],
+              ("no q/k/v gather", before, after, whole))
     line = {"phase": "tp_main_path", "model": cfg.name, "layers": cfg.n_layers,
             "mesh": dict(mesh.shape), "devices": [str(d) for d in mesh.devices.flat],
             "rows": TP_ROWS, "max_new": TP_MAX_NEW, "engine": {**TP_ENGINE, "kv_layout": "contiguous"},
@@ -6136,6 +6376,9 @@ def tp_main_path(gen, int8, cfg, device="cuda"):
             "qtensors_kept_whole": kept_whole, "decode_steps": st.decode_steps, "prefills": st.prefills,
             "launches": launches, "variants": variants,
             "position_bytes": pos_bytes, "param_bytes_unsharded": param_bytes(int8),
+            "slot_state_position_bytes": state_bytes, "slot_state_bytes_unsharded": state_whole,
+            "cache_split": {"data": split[0], "model_dim": split[1], "model": split[2]},
+            "collectives_per_step": after, "collectives_per_step_unsharded_cache": before,
             "wall_s": tp_s, "wall_s_unsharded": flat_s, "first_step": step,
             "greedy_token_agreement": agree, "rows_identical": rows_same, "parted": parted,
             "near_tie_s": time.time() - t0}
@@ -6148,7 +6391,9 @@ def tp_main_path(gen, int8, cfg, device="cuda"):
         line["profile_s"] = time.time() - t0
     emit(line)
     print(f"tp_main_path: mesh {dict(mesh.shape)}, K2 {per_step} launches a step "
-          f"({flat_step} unsharded), position bytes {pos_bytes} of {param_bytes(int8)}; "
+          f"({flat_step} unsharded), position bytes {pos_bytes} of {param_bytes(int8)}, "
+          f"slot state {state_bytes} of {state_whole}; collective calls a decode step "
+          f"{after['calls']} ({before['calls']} over an unsharded cache); "
           f"first step RMS vs f32 {step['sharded_vs_f32']:.3e} (unsharded "
           f"{step['unsharded_vs_f32']:.3e}, plain {step['plain_bf16_vs_f32']:.3e}); "
           f"agreement {agree:.4f}, {rows_same}/{TP_ROWS} rows identical, "
@@ -6193,7 +6438,10 @@ def tp_f32_parity(cases, device="cuda", n_rows: int = 8, max_new: int = 8):
     """Each (name, params, cfg) case in f32 (raw weights: no kernel) served
     through the unsharded contiguous engine and through ``Engine(mesh=)``
     at (1, 4) and (2, 2): greedy tokens identical, or parted at a near
-    tie of the f32 plain path (top-two gap under NEAR_TIE)."""
+    tie of the f32 plain path (top-two gap under NEAR_TIE); each position's
+    slot state the rule's share (``spec_state_bytes``) and one decode
+    step's collectives the roofline's count (``decode_collectives``)."""
+    from repro_torch.models.sharded_cache import layout, state_position_bytes
     from repro_torch.serving.engine import Engine
     prompts = [TEMPLATE + r for r in REVIEWS[:n_rows]]
     out = {}
@@ -6208,8 +6456,17 @@ def tp_f32_parity(cases, device="cuda", n_rows: int = 8, max_new: int = 8):
             parted = [{"prompt": b.src, **tie_at(params, cfg, flat.tok, b.src, a.out_ids,
                                                  b.out_ids, flat.buckets[-1])}
                       for a, b in zip(got, want) if a.out_ids != b.out_ids]
+            state_bytes = [state_position_bytes(eng._slot_state, i)
+                           for i in range(eng.mesh.size)]
+            check(state_bytes == spec_state_bytes(eng),
+                  (name, shape, "slot state per position", state_bytes))
             res["x".join(map(str, shape))] = {"rows_identical": n_rows - len(parted),
-                                              "parted": parted}
+                                              "parted": parted,
+                                              "slot_state_position_bytes": state_bytes,
+                                              "cache_split": layout(
+                                                  eng._slot_state["blocks"][0]["k"]),
+                                              "collectives_per_step": decode_collectives(
+                                                  eng, f"tp_f32_parity {name} {shape}")}
             check(all(p["near_tie"] for p in parted), (name, shape, "parted beyond a near tie",
                                                        parted))
             del eng
@@ -6261,7 +6518,7 @@ def tp_moe(base, cfg, device="cuda", shape=(2, 2)):
               ("MoE sharded launches", launches, st.decode_steps, st.prefills))
         check(variants.get("quant_matmul.expert_decode", 0) > 0
               and not any(k.endswith("fma") for k in variants), ("MoE sharded designs", variants))
-    step = _tp_step_check(int8, tp.params, qcfg, tp.tok, prompts, device, "tp_moe")
+    step = _tp_step_check(int8, tp.params, qcfg, tp.tok, prompts, mesh, device, "tp_moe")
     agree, rows_same = _agreement(want, got)
     line = {"phase": "tp_moe", "model": cfg.name, "layers": TP_LAYERS, "mesh": dict(mesh.shape),
             "k2_per_step": per_step, "k2_per_step_unsharded": k2_per_step(int8),
@@ -6338,10 +6595,12 @@ def tp_pool(base, cfg, device="cuda"):
             "mesh": dict(mesh.shape), "budget_per_position": TP_POOL_BUDGET,
             "sizes": TP_POOL_SIZES, "placements": places, "pool_stats": vars(pool.stats),
             "device_bytes": [pool.device_bytes(i) for i in range(mesh.size)],
+            "held_bytes_sharded": [pool.held_bytes(i) for i in range(mesh.size)],
             "launches": launches, "tenants": rows}
     emit(line)
     print(f"tp_pool: sharded admissions {pool.stats.sharded_admissions}, placements {places}, "
-          f"every tenant identical to its serial run", flush=True)
+          f"charged {line['device_bytes']} a position, the sharded engine holding "
+          f"{line['held_bytes_sharded']}; every tenant identical to its serial run", flush=True)
     return line, launches
 
 
@@ -6551,6 +6810,9 @@ def main() -> int:
     svc_line["launches"] = dict(ops.launch_count)
     service_runs = {k: service_runs[k] + ops.launch_count[k] for k in ops.launch_count}
     del tiny_params
+    ex_line, ex_launches = timed("examples", examples_phase, TINY_CKPT)
+    import shutil
+    shutil.rmtree(TINY_CKPT, ignore_errors=True)
 
     # the MoE phases: full-width qwen2-moe-a2.7b, from a generator of their own
     import gc
@@ -6641,7 +6903,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     with QuantShapeProbe() as rw_sess_shapes:
-        rw_sess_line, rw_sess_launches = timed("rwkv_session", rwkv_session, rw_base, rw_cfg)
+        rw_sess_line, rw_sess_launches = timed(
+            "rwkv_session", rwkv_session, *cut_depth(rw_base, rw_cfg, SESSION_LAYERS[rw_cfg.name]))
     del rw_base
     gc.collect()
     torch.cuda.empty_cache()
@@ -6668,7 +6931,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     with QuantShapeProbe() as vl_sess_shapes:
-        vl_sess_line, vl_sess_launches = timed("vlm_session", vlm_session, vl_base, vl_cfg)
+        vl_sess_line, vl_sess_launches = timed(
+            "vlm_session", vlm_session, *cut_depth(vl_base, vl_cfg, SESSION_LAYERS[vl_cfg.name]))
     del vl_base
     gc.collect()
     torch.cuda.empty_cache()
@@ -6854,6 +7118,11 @@ def main() -> int:
             check(sa_launches[name] == sa_rw_launches[name] == 0, ("off the audits", name))
         # tensor-parallel serving (the sharded runs of tp_main_path, tp_pool
         # and tp_moe): K2 on every piece, nothing else
+        # the five examples on the card: K1 on every serving example, K2 on
+        # the int8 picks and multi_tenant's w8 pool
+        kernels[-1]["launches_examples"] = ex_launches.get(name, 0)
+        if name in ("paged_attention", "quant_matmul"):
+            check(ex_launches.get(name, 0) > 0, ("the examples", name))
         kernels[-1]["launches_tp"] = tp_launches[name]
         kernels[-1]["launches_tp_pool"] = tp_pool_launches[name]
         kernels[-1]["launches_tp_moe"] = tp_moe_launches[name]
@@ -6947,7 +7216,7 @@ def main() -> int:
                    "olap_pool_session": pool_line, "olap_pool_f32_parity": pool_parity_line,
                    "service_full_width": svc_full_line, "train_parity": train_parity_line,
                    "train_full_width": train_full_line, "train_tiny_olap": tiny_line,
-                   "service_trained": svc_line,
+                   "service_trained": svc_line, "examples": ex_line,
                    "quant_matmul_experts": kx, "quant_matmul_experts_cases": kx_cases,
                    "quant_matmul_experts_seen": kx_seen,
                    "moe_main_path": moe_line, "moe_whole_step": moe_step_line,

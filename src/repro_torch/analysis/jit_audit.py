@@ -61,7 +61,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.analysis.diagnostics import Diagnostic
-from repro_torch.core.compressed import param_bytes
+from repro_torch.core.compressed import ShardedTensor, param_bytes
 from repro_torch.kernels import build
 from repro_torch.kernels import ops as kops
 from repro_torch.launch import roofline
@@ -90,6 +90,9 @@ STATE_TARGETS = ("_insert", "_decode", "_seed")
 def _tensors(tree):
     if torch.is_tensor(tree):
         yield tree
+    elif isinstance(tree, ShardedTensor):          # a mesh engine's k/v: its pieces
+        for p in tree.pieces:
+            yield from _tensors(p)
     elif isinstance(tree, dict):
         for v in tree.values():
             yield from _tensors(v)
@@ -216,8 +219,16 @@ def host_arguments(args: Tuple, kwargs: Dict, device: torch.device) -> List[str]
 
 
 def _storages(state) -> Dict[Tuple, int]:
-    return {tuple(p): t.untyped_storage().data_ptr()
-            for p, t in flatten_with_path(state) if torch.is_tensor(t)}
+    """Each state tensor's storage by path (a sharded leaf's pieces under
+    the leaf's path and their index)."""
+    out = {}
+    for p, leaf in flatten_with_path(state):
+        if torch.is_tensor(leaf):
+            out[tuple(p)] = leaf.untyped_storage().data_ptr()
+        elif isinstance(leaf, ShardedTensor):
+            for i, t in enumerate(_tensors(leaf)):
+                out[tuple(p) + (i,)] = t.untyped_storage().data_ptr()
+    return out
 
 
 class JitCallRecorder:

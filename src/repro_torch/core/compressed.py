@@ -351,23 +351,29 @@ def check_idx(idx: torch.Tensor, shape, bs: int) -> torch.Tensor:
 
 
 class ShardedTensor:
-    """A weight placed on a mesh: ``pieces[j]`` is position ``j``'s piece
-    along mesh axis ``axis``, cut along ``dim`` of the weight: ``-1``
-    (column: d_out, or the vocabulary of an unembedding), ``-2`` (row:
-    d_in, or the vocabulary of an embedding table) or ``-3`` (the expert
-    axis of an expert stack).  Each piece lives on its position's device
-    and is a tensor, a ``QTensor``, a ``BlockSparseTensor``, a ``QEmbed``
-    or, for a leaf sharded over a second axis, a ``ShardedTensor``.
+    """A weight or a slot-state leaf placed on a mesh: ``pieces[j]`` is
+    position ``j``'s piece along mesh axis ``axis``, cut along ``dim``.  A
+    weight is cut along ``-1`` (column: d_out, or the vocabulary of an
+    unembedding), ``-2`` (row: d_in, or the vocabulary of an embedding
+    table) or ``-3`` (the expert axis of an expert stack); a mesh engine's
+    attention k/v leaf [..., B, T, K, hd] along ``-4`` (its slots, over
+    "data"), ``-2`` (its KV heads) or ``-1`` (its head_dim, both over
+    "model").  Each piece lives on its position's device and is a tensor,
+    a ``QTensor``, a ``BlockSparseTensor``, a ``QEmbed`` or, for a leaf
+    sharded over a second axis, a ``ShardedTensor``.
 
     :meth:`layer` slices every piece, as ``QTensor.layer`` does.  Nothing
-    else reads a sharded weight: :func:`matmul`, :func:`expert_matmul` and
-    ``models/layers.py``'s ``embed``/``unembed`` take it piece by piece,
-    and any other use fails (it is not a tensor), so a model path that
-    reads a weight directly shows up instead of gathering it silently."""
+    else reads a sharded leaf: :func:`matmul`, :func:`expert_matmul` and
+    ``models/layers.py``'s ``embed``/``unembed`` take a weight piece by
+    piece, and ``models/sharded_cache.py`` a k/v leaf (its
+    ``decode_attention``, called by ``transformer._decode_attn_block`` and
+    encdec's decode, and its ``write_rows`` at admission).  Any other use
+    fails (it is not a tensor), so a model path that reads a leaf directly
+    shows up instead of gathering it silently."""
 
     def __init__(self, pieces, dim: int, axis: str, mesh):
-        if dim not in (-1, -2, -3):
-            raise ValueError(f"a weight is sharded along dim -1, -2 or -3, not {dim}")
+        if dim not in (-1, -2, -3, -4):
+            raise ValueError(f"a leaf is sharded along dim -1, -2, -3 or -4, not {dim}")
         self.pieces = list(pieces)
         self.dim = int(dim)
         self.axis = axis
@@ -436,7 +442,8 @@ def param_bytes(tree) -> int:
 
 def position_bytes(tree, i: int) -> int:
     """Bytes mesh position ``i`` holds of a sharded param tree: its piece
-    of each sharded leaf and the whole of every replicated one."""
+    of each sharded leaf and the whole of every replicated one (a slot
+    state: ``sharded_cache.state_position_bytes``)."""
     if isinstance(tree, dict):
         return sum(position_bytes(v, i) for v in tree.values())
     if isinstance(tree, (list, tuple)):

@@ -9,7 +9,8 @@ one axis's per-position tensors (position ``j`` of the axis at index
 so a result never depends on timing.  Every call adds its result's bytes
 to :data:`result_bytes` under its kind (the reference's convention in
 ``launch/hlo_analysis.py``: result-shape bytes per collective), which
-``launch/roofline.py`` reads to hold its count of a sharded step.
+``launch/roofline.py`` reads to hold its count of a sharded step, and one
+to :data:`calls`.
 """
 from __future__ import annotations
 
@@ -19,15 +20,19 @@ import torch
 
 KINDS = ("all-gather", "all-reduce", "all-to-all", "collective-permute")
 result_bytes: Dict[str, int] = {k: 0 for k in KINDS}
+calls: Dict[str, int] = {k: 0 for k in KINDS}
 
 
 def reset_result_bytes() -> None:
+    """Zero :data:`result_bytes` and :data:`calls`."""
     for k in KINDS:
         result_bytes[k] = 0
+        calls[k] = 0
 
 
 def _count(kind: str, ts) -> None:
     result_bytes[kind] += sum(int(t.numel() * t.element_size()) for t in ts)
+    calls[kind] += 1
 
 
 def _on(t: torch.Tensor, device) -> torch.Tensor:
@@ -86,5 +91,5 @@ def ppermute(pieces: Sequence[torch.Tensor],
     return out
 
 
-__all__ = ["KINDS", "all_gather", "all_reduce_sum", "all_to_all", "ppermute",
+__all__ = ["KINDS", "all_gather", "all_reduce_sum", "all_to_all", "calls", "ppermute",
            "reset_result_bytes", "result_bytes"]

@@ -22,7 +22,12 @@ and reports, per cell:
   of every gather and reduce the sharded forward runs
   (``roofline.collective_bytes``: a decode step's ``B`` rows, a
   prefill's or a train step's ``B * S``; a train step's backward is not
-  counted).
+  counted).  A decode step's attention runs over the cache placed as a
+  mesh engine places it (``models/sharded_cache.py``
+  ``place_slot_state``).  Where the mesh engine cannot place it (the
+  sequence split of ``long_500k``; the multi-pod mesh's slots over two
+  axes), its attention's collectives are not counted and
+  ``cache_collectives`` says why.
 
 Activations are not counted.  It touches no card.
 
@@ -198,7 +203,14 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, compress: str = "") -> 
                                                                        is_leaf=SH._is_spec)))
         rows = B
     per_position = sum(mem.values())
-    coll = RL.collective_bytes(SH.shard_params(params, cfg, mesh), cfg, rows)
+    state, cache_note = None, "counted"
+    if spec.kind == "decode":
+        from repro_torch.models.sharded_cache import place_slot_state
+        try:
+            state = place_slot_state(cache, cfg, mesh)
+        except NotImplementedError as e:
+            cache_note = f"not counted: a mesh engine does not place this cache ({e})"
+    coll = RL.collective_bytes(SH.shard_params(params, cfg, mesh), cfg, rows, state)
     mf = RL.model_flops(cfg, spec)
     roof = RL.Roofline(flops=mf / chips, bytes_accessed=per_position,
                        coll_bytes=sum(coll.values()), chips=chips, coll_detail=coll)
@@ -208,6 +220,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, compress: str = "") -> 
             "param_bytes_per_position": mem["params"], "memory": mem,
             "fits": per_position <= CARD_BYTES, "card_bytes": CARD_BYTES,
             "roofline": roof.to_dict(), "model_flops": mf,
+            **({"cache_collectives": cache_note} if spec.kind == "decode" else {}),
             "seconds": time.time() - t0}
 
 

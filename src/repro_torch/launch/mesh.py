@@ -50,8 +50,8 @@ class Mesh:
 
     @property
     def first_device(self) -> torch.device:
-        """Where a sharded step's gathered results, slot state, norms,
-        attention and sampling live."""
+        """Where a sharded step's gathered results, the slot state's
+        unsharded leaves (recurrent state), norms and sampling live."""
         return self.devices.flat[0]
 
     def coords(self, i: int) -> Dict[str, int]:

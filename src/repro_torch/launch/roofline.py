@@ -193,9 +193,12 @@ def _state_bytes(state, cfg, slots: int, positions) -> Dict[str, float]:
     kinds = _kv_kinds(cfg) if cfg.family in ("dense", "moe", "vlm") else {}
     read = written = 0.0
     for path, t in flatten_with_path(state):
-        if not torch.is_tensor(t):
+        if isinstance(t, ShardedTensor):          # a mesh engine's k/v: its pieces
+            nbytes = t.nbytes
+        elif torch.is_tensor(t):
+            nbytes = t.numel() * t.element_size()
+        else:
             continue
-        nbytes = t.numel() * t.element_size()
         if path[-1] in ("k", "v") and "cross" not in path:
             # [..., B, T, K, hd] (contiguous) or [..., blocks, bs, K, hd]
             # (paged): bytes of one position of one slot
@@ -204,7 +207,7 @@ def _state_bytes(state, cfg, slots: int, positions) -> Dict[str, float]:
             touched = sum(min(p, window) if window else p for p in pos)
             read += per_pos * (touched - slots)       # the cached positions
             written += per_pos * slots                # this step's K/V
-        elif "cross" in path or not t.is_floating_point():
+        elif "cross" in path or not t.dtype.is_floating_point:
             read += nbytes                            # encoder K/V, lengths
         else:
             read += nbytes                            # recurrent state
@@ -234,7 +237,7 @@ def _experts(w) -> int:
     return (w.q if isinstance(w, QTensor) else w).shape[-3]
 
 
-def collective_bytes(params, cfg, rows: int) -> Dict[str, float]:
+def collective_bytes(params, cfg, rows: int, state=None) -> Dict[str, float]:
     """Result bytes per collective kind of one step of ``rows`` tokens
     through a sharded param tree (``distributed/sharding.py``
     ``shard_params``): every sharded linear once per layer that runs it
@@ -243,8 +246,10 @@ def collective_bytes(params, cfg, rows: int) -> Dict[str, float]:
     cached), an expert stack on its [E, C, d] dispatch (C = ``rows``, the
     dropless capacity up to 4096 tokens), a vocab-sharded table's lookup
     all-reduce [rows, d] and its tied logits' all-gather [rows, V] in f32.
-    The count the collectives of ``distributed/collectives.py`` record
-    when the step runs."""
+    ``state``, a mesh engine's slot state, makes it a decode step over
+    that state's sharded k/v (:func:`_cache_collectives`).  The count the
+    collectives of ``distributed/collectives.py`` record when the step
+    runs."""
     from repro_torch.models.layers import moe_capacity
     act = torch.empty((), dtype=cfg.dtype).element_size()
     out: Dict[str, float] = {}
@@ -277,7 +282,54 @@ def collective_bytes(params, cfg, rows: int) -> Dict[str, float]:
         _gathers(leaf, lead, act, one)
         for k, v in one.items():
             out[k] = out.get(k, 0.0) + v * uses
+    if state is not None:
+        _cache_collectives(params, state, cfg, rows, act, out)
     return out
+
+
+def _attn_params(params, path):
+    """The attention params that read the slot-state leaf at ``path``."""
+    if path[0] == "shared_kv":
+        return params["shared"]["attn"]
+    if path[0] in ("self", "cross"):
+        return params["dec_blocks"][path[1]]["attn" if path[0] == "self" else "xattn"]
+    return params[path[0]][path[1]]["attn"]
+
+
+def _cache_collectives(params, state, cfg, rows: int, act: int, out: Dict[str, float]) -> None:
+    """What attention over a sharded slot state (``models/sharded_cache.py``)
+    changes in a decode step's collectives, per use of each k leaf (a
+    stacked leaf's layers, the hybrid's sites).  KV heads split: no
+    gather of the q (and k/v) column pieces' outputs.  ``head_dim``
+    split: the partial scores' all-reduce [rows, H, T] in f32 and the
+    ``p @ v`` pieces' all-gather [rows, H, hd].  Over "data": the rows'
+    attention outputs gathered [rows, H, hd]; likewise the heads where
+    ``wo`` is not cut into the same pieces.  Outputs in the cache's
+    dtype."""
+    from repro_torch.models.sharded_cache import layout
+    H, hd = cfg.n_heads, cfg.resolved_head_dim
+    for path, leaf in flatten_with_path(state):
+        if path[-1] != "k" or not isinstance(leaf, ShardedTensor):
+            continue
+        n_d, mdim, n_m = layout(leaf)
+        uses = math.prod(leaf.shape[:-4])
+        T, K = leaf.shape[-3], leaf.shape[-2]
+        c_act = torch.empty((), dtype=leaf.dtype).element_size()
+        heads = rows * H * hd * c_act
+        gather = heads if n_d > 1 else 0.0
+        if mdim == -1:
+            out["all-reduce"] = out.get("all-reduce", 0.0) + rows * H * T * 4 * uses
+            gather += heads
+        else:
+            if mdim == -2:
+                qkv = H + (0 if path[0] == "cross" else 2 * K)
+                out["all-gather"] = out.get("all-gather", 0.0) - rows * qkv * hd * act * uses
+            wo = _attn_params(params, path)["wo"]
+            if n_m > 1 and not (isinstance(wo, ShardedTensor) and wo.axis == "model"
+                                and wo.dim == -2 and len(wo.pieces) == n_m):
+                gather += heads
+        if gather:
+            out["all-gather"] = out.get("all-gather", 0.0) + gather * uses
 
 
 def _main(w) -> torch.Tensor:
@@ -306,13 +358,14 @@ def decode_step_cost(params, cfg, slots: int, max_len: int, state=None, *,
 
     Where ``params`` were placed on a mesh (``shard_params``), they give
     the step's collective bytes (:func:`collective_bytes`, per kind in
-    ``coll_detail``) and ``chips`` the mesh's size; FLOPs and bytes stay
+    ``coll_detail``, over ``state``'s sharded k/v where a mesh engine's
+    state is given) and ``chips`` the mesh's size; FLOPs and bytes stay
     the whole step's."""
     from repro_torch.models import api
     if state is None:
         state = api.init_cache(cfg, slots, max_len, device="meta")
     sharded = [t for _, t in flatten_with_path(params) if isinstance(t, ShardedTensor)]
-    coll = collective_bytes(params, cfg, slots) if sharded else {}
+    coll = collective_bytes(params, cfg, slots, state) if sharded else {}
     weights = _weight_bytes(params, cfg, slots)
     st = _state_bytes(state, cfg, slots, max_len if positions is None else positions)
     flops = model_flops(cfg, ShapeSpec("decode_step", max_len, slots, "decode"))

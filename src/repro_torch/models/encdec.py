@@ -28,7 +28,9 @@ from typing import Any, Dict
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core.compressed import ShardedTensor
 from repro_torch.models import layers as L
+from repro_torch.models import sharded_cache as SC
 from repro_torch.models import transformer as TF
 from repro_torch.models.layers import matmul, norm
 
@@ -228,6 +230,9 @@ def decode_step(params: Params, cfg, cache, tokens, pos, *, max_len: int):
     enc_len = cache["enc_len"].long()
     for p, cs, cx in zip(params["dec_blocks"], cache["self"], cache["cross"]):
         h = norm(x, p["ln1"], cfg)
+        if isinstance(cs["k"], ShardedTensor):
+            x = _sharded_decode_layer(p, cs, cx, x, h, cfg, pos, enc_len)
+            continue
         q = _heads(matmul(h, p["attn"]["wq"]), cfg, H)
         k = _heads(matmul(h, p["attn"]["wk"]), cfg, K)
         v = _heads(matmul(h, p["attn"]["wv"]), cfg, K)
@@ -244,14 +249,27 @@ def decode_step(params: Params, cfg, cache, tokens, pos, *, max_len: int):
     return L.unembed(params, cfg, x), cache
 
 
+def _sharded_decode_layer(p, cs, cx, x, h, cfg, pos, enc_len):
+    """One decoder layer of ``decode_step`` over a mesh engine's sharded
+    self and cross caches: both attentions run where their pieces live
+    (``models/sharded_cache.py``); the cross cache is read only."""
+    T = cs["k"].shape[-3]
+    valid = torch.arange(T, device=x.device)[None, :] <= pos[:, None]
+    x = x + SC.decode_attention(p["attn"], h, cs, cfg, pos=pos, valid=valid)
+    h = norm(x, p["lnx"], cfg)
+    valid = torch.arange(cx["k"].shape[-3], device=x.device)[None, :] < enc_len[:, None]
+    x = x + SC.decode_attention(p["xattn"], h, cx, cfg, pos=pos, valid=valid, write=False)
+    return x + _gelu_mlp(p["mlp"], norm(x, p["ln2"], cfg))
+
+
 def insert_rows(cfg, state, rows, slot_idxs):
     """The contiguous serving layout's admission: the batch-n caches
     ``rows`` (from ``prefill``) written into the batch-slots cache
-    ``state`` at ``slot_idxs``, in place."""
-    idx = torch.as_tensor(slot_idxs, device=state["enc_len"].device).long()
+    ``state`` at ``slot_idxs`` (a tensor, or a mesh engine's
+    ``sharded_cache.RowSplit``), in place."""
     for sec in ("self", "cross"):
         for pool, row in zip(state[sec], rows[sec]):
             for n in ("k", "v"):
-                pool[n].index_copy_(0, idx, row[n].to(pool[n].dtype))
-    state["enc_len"].index_copy_(0, idx, rows["enc_len"].to(torch.int32))
+                SC.write_rows(pool[n], 0, slot_idxs, row[n])
+    SC.write_rows(state["enc_len"], 0, slot_idxs, rows["enc_len"])
     return state

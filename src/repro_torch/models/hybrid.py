@@ -27,6 +27,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
+from repro_torch.models import sharded_cache as SC
 from repro_torch.models import transformer as TF
 from repro_torch.models.layers import norm
 from repro_torch.models.transformer import layer_slice
@@ -135,7 +136,7 @@ def init_cache(cfg, batch: int, max_len: int, *, compact_local: bool = False,
 
 
 def _site(kv, g: int):
-    return {"k": kv["k"][g], "v": kv["v"][g]}
+    return layer_slice(kv, g)
 
 
 def decode_step(params: Params, cfg, cache, tokens, pos, *, max_len: int):
@@ -214,14 +215,15 @@ _RECURRENT = (("mamba_groups", 2), ("mamba_tail", 1))       # (section, slot axi
 
 
 def _scatter(state, rows, slot_idxs, sections):
-    """Write batch-n ``rows`` into ``state``'s slots ``slot_idxs``, in
-    place, for each (section, slot axis) of ``sections``."""
+    """Write batch-n ``rows`` into ``state``'s slots ``slot_idxs`` (a
+    tensor or a ``sharded_cache.RowSplit``), in place, for each (section,
+    slot axis) of ``sections``; a mesh engine's sharded ``shared_kv``
+    pieces each take their share."""
     for sec, axis in sections:
         if state[sec] is None:
             continue
         for n, t in state[sec].items():
-            idx = torch.as_tensor(slot_idxs, device=t.device).long()
-            t.index_copy_(axis, idx, rows[sec][n].to(t.dtype))
+            SC.write_rows(t, axis, slot_idxs, rows[sec][n])
     return state
 
 

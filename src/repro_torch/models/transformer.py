@@ -38,6 +38,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core.compressed import BlockSparseTensor, QTensor, ShardedTensor, current_backend
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
+from repro_torch.models import sharded_cache as SC
 from repro_torch.models.layers import matmul, norm
 
 Params = Dict[str, Any]
@@ -443,17 +444,22 @@ def _decode_attn_block(p, c, x, cfg, *, kind: str, pos):
     """One decode block's attention: writes this step's k/v into ``c``
     ([B, T, K, hd], absolute slots, in place) at slot ``pos`` of each row
     and attends to the valid slots.  pos: [B] int, each row's own
-    position."""
+    position.  A mesh engine's sharded ``c`` is attended piece by piece
+    where it lives (``models/sharded_cache.py``)."""
     B = x.shape[0]
     h = norm(x, p["ln1"], cfg)
+    slots = torch.arange(c["k"].shape[-3], device=x.device)[None, :]
+    valid = slots <= pos[:, None]
+    if kind == "L":
+        valid &= slots > pos[:, None] - cfg.window_size
+    if isinstance(c["k"], ShardedTensor):
+        a = SC.decode_attention(p["attn"], h, c, cfg, pos=pos, valid=valid,
+                                theta=_theta(cfg, kind), cap=cfg.attn_softcap)
+        return norm(a, p["ln1_post"], cfg) if "ln1_post" in p else a
     q, k, v = L._qkv(p["attn"], h, cfg, pos[:, None], _theta(cfg, kind))
     bidx = torch.arange(B, device=x.device)
     c["k"][bidx, pos] = k[:, 0].to(c["k"].dtype)
     c["v"][bidx, pos] = v[:, 0].to(c["v"].dtype)
-    slots = torch.arange(c["k"].shape[1], device=x.device)[None, :]
-    valid = slots <= pos[:, None]
-    if kind == "L":
-        valid &= slots > pos[:, None] - cfg.window_size
     out = _masked_decode(q, c["k"], c["v"], valid, cfg.attn_softcap)
     a = matmul(out.reshape(B, 1, -1), p["attn"]["wo"])
     if "ln1_post" in p:
@@ -488,12 +494,12 @@ def decode_step(params: Params, cfg, cache, tokens, pos, *, max_len: int):
 def insert_rows(cfg, state, rows, slot_idxs):
     """The contiguous serving layout's admission: the batch-n caches
     ``rows`` (from ``prefill``) written into the batch-slots cache
-    ``state`` at ``slot_idxs``, in place."""
+    ``state`` at ``slot_idxs`` (a tensor, or a mesh engine's
+    ``sharded_cache.RowSplit``), in place."""
     for sec, axis in (("blocks", 1), ("tail", 0)):
         for pool, row in zip(state[sec], rows[sec]):
             for n in ("k", "v"):
-                idx = torch.as_tensor(slot_idxs, device=pool[n].device).long()
-                pool[n].index_copy_(axis, idx, row[n].to(pool[n].dtype))
+                SC.write_rows(pool[n], axis, slot_idxs, row[n])
     return state
 
 

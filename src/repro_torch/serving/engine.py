@@ -63,11 +63,14 @@ runs piece by piece, each piece's kernel at its own shape, and the
 pieces' outputs are gathered or summed on the mesh's first device.  One
 process drives every position (single-controller, as the reference).  A
 mesh engine keeps the contiguous layout, as the reference's does (block
-gathers would defeat the sharding rules); its slot state, norms,
-attention and sampling run on the mesh's first device, where the
-reference's slot state follows ``cache_shardings`` (sharding it over KV
-heads is ROADMAP queue 1 item 14).  ``device=`` and ``mesh=`` together
-raise.
+gathers would defeat the sharding rules), and places its slot state at
+construction: every attention k/v leaf follows the reference's
+``cache_shardings`` (slots over "data", KV heads or else head_dim over
+"model"), and decode attention runs where each piece lives
+(``models/sharded_cache.py``); an admission hands each data position its
+rows.  Recurrent state, norms and sampling stay on the mesh's first
+device.  :meth:`Engine.position_bytes` is what each position holds.
+``device=`` and ``mesh=`` together raise.
 """
 from __future__ import annotations
 
@@ -79,9 +82,10 @@ import numpy as np
 import torch
 
 from repro_torch.bridge import to_tensor
-from repro_torch.core.compressed import kernel_backend
+from repro_torch.core.compressed import kernel_backend, position_bytes
 from repro_torch.kernels.backend import resolve_backend, resolve_device
 from repro_torch.models import api
+from repro_torch.models import sharded_cache as SC
 from repro_torch.serving.batcher import Batcher, Request, bucket_len
 from repro_torch.serving.cache import PrefixCache, ResultCache
 from repro_torch.serving.paged import BlockTableAllocator
@@ -226,6 +230,9 @@ class Engine:
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(self.sampling.seed)
         self._slot_state = None
+        self._data_split = 1
+        if mesh is not None:
+            self._init_slots()
 
     # -- device steps ---------------------------------------------------
     def _prefill(self, toks, lens=None):
@@ -268,6 +275,9 @@ class Engine:
         if not self._paged:
             self._slot_state = api.init_cache(self.cfg, self.slots, self.max_len,
                                               device=self.device)
+            if self.mesh is not None:
+                self._slot_state = SC.place_slot_state(self._slot_state, self.cfg, self.mesh)
+                self._data_split = SC.data_split(self._slot_state)
             return
         self._slot_state = api.init_paged_cache(
             self.cfg, self.slots, self._alloc.num_blocks, self._block_size,
@@ -462,7 +472,10 @@ class Engine:
         slot_idxs = np.asarray(free[:len(take)], np.int32)
         w_ids = (self._paged_admit_ids(slot_idxs, pk, plen, entry) if self._paged
                  else None)
-        self._slot_state = self._insert(rows, self._dev(slot_idxs),
+        # each data position's rows of a mesh engine's slot state, as tensors
+        idx = (SC.split_rows(slot_idxs, self.slots, self._data_split, self._dev)
+               if self._data_split > 1 else self._dev(slot_idxs))
+        self._slot_state = self._insert(rows, idx,
                                         None if w_ids is None else self._dev(w_ids))
         for i, r in enumerate(take):
             s = int(slot_idxs[i])
@@ -511,6 +524,12 @@ class Engine:
         return finished
 
     # -- introspection --------------------------------------------------
+    def position_bytes(self, i: int) -> int:
+        """Bytes mesh position ``i`` holds of a mesh engine's params
+        (``compressed.position_bytes``) and slot state
+        (``sharded_cache.state_position_bytes``)."""
+        return position_bytes(self.params, i) + SC.state_position_bytes(self._slot_state, i)
+
     def jit_targets(self) -> Dict[str, object]:
         """Every step method on the tick hot path, by the reference's
         stable names: the surface the hot-path auditor

@@ -146,6 +146,10 @@ class PoolEntry:
     # and the bytes charged against EACH of those devices' budgets.
     devices: Tuple[int, ...] = ()
     dev_bytes: int = 0
+    # a sharded entry: the bytes each position holds (params and slot
+    # state, ``Engine.position_bytes``) beside the ``dev_bytes`` charged
+    # to each
+    held: Tuple[int, ...] = ()
 
 
 @dataclass
@@ -190,7 +194,11 @@ class ModelPool:
     are the devices, and a model over the per-device budget whose
     ``ceil(need / positions)`` fits is admitted as one sharded engine
     over every position (``stats.sharded_admissions``); evicting it frees
-    every position.
+    every position.  The charge stays ``ceil(need / positions)`` a
+    position; :meth:`held_bytes` is what the sharded engines hold there
+    (``Engine.position_bytes``: their params' pieces, a replicated param
+    counted whole as the reference counts it, and their slot state as
+    placed, its unsharded leaves at position 0 alone).
 
     ``devices=None`` (the default) is the single-device pool:
     ``byte_budget`` is the total budget and engines are built on
@@ -262,6 +270,12 @@ class ModelPool:
         """Bytes charged against device ``i``'s budget (device-aware)."""
         return sum(e.dev_bytes for e in self._entries.values()
                    if i in e.devices)
+
+    def held_bytes(self, i: int) -> int:
+        """Bytes the sharded entries' engines hold at position ``i``
+        (``Engine.position_bytes``; each is charged ``ceil(need /
+        positions)`` there instead)."""
+        return sum(e.held[i] for e in self._entries.values() if e.held)
 
     def _pinned_device_bytes(self, i: int) -> int:
         return sum(e.dev_bytes for v, e in self._entries.items()
@@ -400,8 +414,10 @@ class ModelPool:
                 self._evict_device_until(i, self.byte_budget - per)
             engine = self._engine_factory(model, mesh=self.mesh)
             self.stats.sharded_admissions += 1
+            held = (tuple(engine.position_bytes(i) for i in range(ndev))
+                    if hasattr(engine, "position_bytes") else ())
             return PoolEntry(engine=engine, nbytes=need,
-                             devices=tuple(range(ndev)), dev_bytes=per)
+                             devices=tuple(range(ndev)), dev_bytes=per, held=held)
         raise PoolBudgetError(
             f"model {model.version!r} needs {need} bytes but the "
             f"per-device budget is {self.byte_budget}"

@@ -6,7 +6,11 @@
   reference's specs of the reference's shapes.
 - The collective bytes of ``tiny_dense``'s sharded decode step at (1, 4)
   equal a count by hand, and the bytes the collectives record when the
-  step runs.
+  step runs; likewise over a mesh engine's sharded cache, at (1, 4)
+  (``head_dim`` split) and (1, 2) (KV heads split).
+- A single-pod decode cell counts attention over the cache placed as a
+  mesh engine places it (both branches, by hand); a cell whose cache a
+  mesh engine cannot place says so.
 - ``--all`` finishes on meta tensors.
 """
 import json
@@ -100,6 +104,78 @@ def test_tiny_dense_decode_step_collective_bytes_by_hand(tiny_dense):
         api.decode_step(placed, cfg, cache, torch.ones((S, 1), dtype=torch.long),
                         torch.full((S,), 3), max_len=64)
     assert {k: v for k, v in collectives.result_bytes.items() if v} == cost.coll_detail
+
+
+@pytest.mark.parametrize("shape,gather,reduce", [
+    # head_dim split: the step above, plus in each of the 2 layers the
+    # partial scores' f32 sum [2 slots, 4 heads, 64 positions] and the
+    # p @ v pieces' gather [2, 4, 16]
+    ((1, 4), 2 * 2 * (64 + 128 + 128) * 4 + 2 * 260 * 4 + 2 * 2 * 4 * 16 * 4,
+     2 * 2 * (64 + 64) * 4 + 2 * 64 * 4 + 2 * 2 * 4 * 64 * 4),
+    # KV heads split: wq 64, wk/wv 32, wi/wg 128 and the logits gathered, less
+    # the q/k/v gathers, which the per-head step no longer runs
+    ((1, 2), 2 * 2 * (64 + 32 + 32 + 128 + 128) * 4 + 2 * 260 * 4 - 2 * 2 * 128 * 4,
+     2 * 2 * (64 + 64) * 4 + 2 * 64 * 4)])
+def test_tiny_dense_sharded_cache_collective_bytes_by_hand(tiny_dense, shape, gather, reduce):
+    from repro_torch.models import sharded_cache as SC
+    rcfg, rparams = tiny_dense
+    rcfg = rcfg.replace(param_dtype="float32")
+    cfg = from_reference(rcfg)
+    params = bridge.from_reference(jax.tree.map(lambda a: a.astype("float32"), rparams),
+                                   device="cpu")
+    mesh = make_mesh(shape, ("data", "model"), device="cpu")
+    S = 2
+    placed = SH.shard_params(params, cfg, mesh)
+    cache = SC.place_slot_state(api.init_cache(cfg, S, 64, device="cpu"), cfg, mesh)
+    assert SC.layout(cache["blocks"][0]["k"])[1] == (-1 if shape == (1, 4) else -2)
+    cost = roofline.decode_step_cost(placed, cfg, S, 64, cache)
+    assert cost.coll_detail == {"all-gather": gather, "all-reduce": reduce}
+    collectives.reset_result_bytes()
+    with torch.no_grad():
+        api.decode_step(placed, cfg, cache, torch.ones((S, 1), dtype=torch.long),
+                        torch.full((S,), 3), max_len=64)
+    assert {k: v for k, v in collectives.result_bytes.items() if v} == cost.coll_detail
+
+
+@pytest.mark.parametrize("arch,branch", [("gemma2-2b", "hd"), ("qwen2-moe-a2.7b", "heads")])
+def test_decode_cells_count_the_sharded_cache(arch, branch):
+    """A single-pod decode cell's collectives are the params' plus what
+    attention over the cache placed as a mesh engine places it changes:
+    its 128 slots over 16 "data" positions gather each layer's attention
+    output [B, H, hd]; where ``head_dim`` splits (gemma2's 4 KV heads over
+    16) the partial scores' f32 sum [B, H, T] and the ``p @ v`` pieces'
+    gather are added, and where KV heads split (qwen2-moe's 16) the q/k/v
+    column gathers are gone."""
+    from repro_torch.configs import registry
+    cfg = registry.get_config(arch)
+    res = dryrun.run_cell(arch, "decode_32k", "single")
+    assert res["status"] == "ok" and res["cache_collectives"] == "counted"
+    params, _ = roofline.meta_instance(cfg)
+    mesh = make_mesh((16, 16), ("data", "model"), device="meta")
+    unsharded = roofline.collective_bytes(SH.shard_params(params, cfg, mesh), cfg, 128)
+    B, T, H, K, hd, L = 128, 32768, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, \
+        cfg.n_layers
+    act = torch.empty((), dtype=cfg.dtype).element_size()
+    heads = B * H * hd * act * L
+    got = res["roofline"]["coll_detail"]
+    if branch == "hd":
+        assert K % 16 and got == {"all-reduce": unsharded["all-reduce"] + B * H * T * 4 * L,
+                                  "all-gather": unsharded["all-gather"] + 2 * heads}
+    else:
+        assert K % 16 == 0 and got == {
+            "all-reduce": unsharded["all-reduce"],
+            "all-gather": unsharded["all-gather"] + heads - B * (H + 2 * K) * hd * act * L}
+
+
+@pytest.mark.parametrize("arch,shape,mesh_kind", [("gemma3-1b", "long_500k", "single"),
+                                                 ("gemma2-2b", "decode_32k", "multi")])
+def test_decode_cells_a_mesh_engine_cannot_place_say_so(arch, shape, mesh_kind):
+    """A sequence-split cache (one slot over "data") and slots over two
+    axes ("pod" and "data") are not placed by a mesh engine: the cell says
+    so instead of counting its attention's collectives."""
+    res = dryrun.run_cell(arch, shape, mesh_kind)
+    assert res["status"] == "ok"
+    assert res["cache_collectives"].startswith("not counted: a mesh engine does not place")
 
 
 def test_all_cells_finish_on_meta_tensors(tmp_path, capsys):

@@ -1,5 +1,6 @@
 """The port stands alone: importing it loads neither JAX, ``ml_dtypes``
-nor the reference."""
+nor the reference; the port's examples (``examples/torch_*.py``) import
+neither those nor ``benchmarks``."""
 import ast
 import os
 import subprocess
@@ -51,3 +52,12 @@ def test_no_port_source_imports_jax_or_reference(path):
     for name in _imports(path):
         top = name.split(".")[0]
         assert top not in ("jax", "jaxlib", "ml_dtypes", "repro"), f"{path}: imports {name}"
+
+
+@pytest.mark.parametrize("path", sorted((ROOT / "examples").glob("torch_*.py")),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_port_example_imports_jax_reference_or_benchmarks(path):
+    for name in _imports(path):
+        top = name.split(".")[0]
+        assert top not in ("jax", "jaxlib", "ml_dtypes", "repro", "benchmarks"), \
+            f"{path}: imports {name}"
