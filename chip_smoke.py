@@ -318,11 +318,21 @@ Phases, each of which raises on failure (so the script exits non-zero):
    ``w8-absmax`` instance sharded beside two placed tenants, rows equal to
    private engines of the same placement run serially;
    parallel_training: ``pipeline_forward`` over 2 stages of 4 full-width
-   layers in f32 against the sequential forward, ``compressed_allreduce``
-   over 2 "pod" positions on every gradient of the 8-layer model (the tied
-   table's included) against the CPU's; tp_f32_parity: gemma2-2b and granite-20b cut to 4 layers in
-   f32 at (1, 4) and (2, 2), tokens equal to the unsharded engine's or
-   parted at a near tie; tp_moe (after moe_session): qwen2-moe cut to 4
+   layers in f32 against the sequential forward; a train step of a placed
+   tree against the same step unsharded on the card (``sharded_step_check``:
+   (a) those 4 layers in f32 at (2, 2) with FSDP, AdamW, at the CPU gate's
+   tolerances; (b) zamba2-7b at one group in f32 at (1, 4), Adafactor, at
+   train_parity's, and the unsharded optimizer on its own gradients at the
+   CPU gate's; both with each position's param and state bytes the
+   specs'), ``compressed_allreduce`` over 2 "data" positions on (a)'s
+   sharded gradients (the tied table's included) against the CPU's, and
+   (c) ``sharded_full_width``: 2 bf16 AdamW steps of all 26 layers at
+   (1, 4), then 2 unsharded (losses within SHARDED_BF16_RTOL), the
+   sharded params saved and restored unsharded bit for bit;
+   tp_f32_parity: gemma2-2b, granite-20b and rwkv6-3b cut to 4 layers
+   and zamba2-7b to one group in f32 at (1, 4) and (2, 2), tokens equal
+   to the unsharded engine's or parted at a near tie, rwkv's ``S`` and
+   mamba's ``h`` over heads; tp_moe (after moe_session): qwen2-moe cut to 4
    layers, ``w8-absmax`` at (2, 2), experts over "data", K2 over experts
    on every piece, the first step held as tp_main_path's.  The mesh
    engine's slot state follows ``cache_shardings`` (``models/
@@ -332,6 +342,11 @@ Phases, each of which raises on failure (so the script exits non-zero):
    to ``roofline.collective_bytes`` (the main path: 3 all-gathers a layer
    fewer than over an unsharded cache, the q/k/v gathers); tp_pool
    records what each position holds beside what the pool charges.
+   tp_rwkv (after rwkv_session): rwkv6-3b's ``w8-absmax`` at its session
+   depth behind ``Engine(mesh=)`` at (1, 4), ``S`` over heads, K2 at the
+   rule table's count, the first step held as tp_main_path's, rows near
+   ties where they part, the decode steps profiled;
+   tp_rwkv_kernel_shapes: K2 at each piece shape it ran.
 55. examples (after service_trained, on train_tiny_olap's checkpoint,
    kept for it): the five ``examples/torch_*.py`` ``main``s on the card
    at EXAMPLE_ROWS rows: quickstart (its three recipes' bytes equal the
@@ -371,6 +386,7 @@ without a card and outside a checkout of the repository.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -2587,18 +2603,21 @@ TRAIN_FAMILY_SEED = 79
 # at one group of its layout (6 Mamba layers and the shared block;
 # Adafactor, its optimizer at full width), rwkv6-3b at 2 layers,
 # qwen2-moe-a2.7b at 1 of its 24 layers (570 M params a layer, and its two
-# microbatches run on the CPU too)
-TRAIN_FAMILY_PARITY = (("zamba2-7b", 7, "adafactor"), ("rwkv6-3b", 2, "adamw"),
-                       ("qwen2-moe-a2.7b", 1, "adamw"))
+# microbatches run on the CPU too) on rows of 64 tokens (128 before the
+# sharded training runs took the time)
+TRAIN_FAMILY_PARITY = (("zamba2-7b", 7, "adafactor", 128), ("rwkv6-3b", 2, "adamw", 128),
+                       ("qwen2-moe-a2.7b", 1, "adamw", 64))
 # train_full_width_<family>: three bf16 steps at the published widths, batch
 # 4 in 2 microbatches (PERF.md reckons each peak).  zamba2-7b trains with
 # Adafactor: its bf16 params and grads (23.6 GB) and AdamW's two f32 moments
 # (47.1 GB) leave no room on the card.  whisper-base's targets are 448 tokens,
 # its decoder context.  qwen2-moe-a2.7b runs its first 4 of 24 layers: at
-# full depth its 14.3 B params take 57.3 GB in bf16 params and grads alone
+# full depth its 14.3 B params take 57.3 GB in bf16 params and grads alone.
+# rwkv6-3b runs 2 steps (3 before the sharded training runs took the time:
+# its steps are 12 s each)
 TRAIN_FULL_WIDTH = (
     ("hybrid", "zamba2-7b", dict(opt="adafactor", steps=3)),
-    ("rwkv", "rwkv6-3b", dict(steps=3)),
+    ("rwkv", "rwkv6-3b", dict(steps=2)),
     ("vlm", "paligemma-3b", dict(steps=3)),
     ("encdec", "whisper-base", dict(steps=3, seq_len=448)),
     ("moe", "qwen2-moe-a2.7b", dict(steps=3, layers=4, note=(
@@ -6104,6 +6123,16 @@ TP_POOL_ENGINE = dict(slots=2, max_len=256, buckets=(32, 64), kv_layout="contigu
 TP_POOL_SIZES = {"big": 300, "small0": 20, "small1": 20}   # bytes charged per tenant
 TP_POOL_BUDGET = 100             # per position: big shards at 75, beside a small
 PIPE_TOL = 1e-5                  # pipeline_forward against the sequential forward
+SHARDED_TRAIN_SEED = 97          # the sharded training runs' generator
+# a sharded train step against the unsharded one on the card, at the CPU
+# gate's schedule and tolerances (tests/test_torch_sharded_training.py):
+# lr 3e-3 warmed up over 2 steps, taken at step 1 (lr 1.5e-3)
+SHARDED_LR, SHARDED_WARMUP, SHARDED_STEP = 3e-3, 2, 1
+SHARDED_ATOL = 2e-6              # every gathered param and state element
+SHARDED_GRAD_FLOOR = 1e-6        # below it an AdamW element's direction is f32 noise
+SHARDED_BF16_RTOL = 2e-2         # the full-width bf16 steps' losses
+SHARDED_FULL = dict(batch=2, seq_len=1024, xent_chunk=256, steps=2)
+TP_RWKV_ROWS = 8                 # the w8-absmax rwkv6-3b mesh engine's rows
 ALLREDUCE_TOL = 1e-6             # compressed_allreduce on the card against the CPU
 
 
@@ -6247,9 +6276,8 @@ def _tp_step_check(flat, sharded, cfg, tok, prompts, mesh, device, label, max_le
 
 def spec_state_bytes(eng):
     """[bytes] each position of a mesh engine should hold of its slot
-    state: every k/v leaf's ``spec_bytes`` under the reference's rule
-    (``cache_shardings``), every other leaf whole at position 0 alone (the
-    mesh's first device: ROADMAP item 14b)."""
+    state: every leaf's ``spec_bytes`` under the reference's rule
+    (``cache_shardings``), recurrent leaves and ``enc_len`` included."""
     from repro_torch.distributed import sharding as SH
     from repro_torch.models import api
     from repro_torch.tree import flatten_with_path
@@ -6257,8 +6285,24 @@ def spec_state_bytes(eng):
     specs = dict(flatten_with_path(SH.cache_shardings(eng.cfg, meta, eng.mesh),
                                    is_leaf=lambda x: isinstance(x, SH.P)))
     return [sum(SH.spec_bytes(t.shape, t.element_size(), specs[p], eng.mesh)
-                if p[-1] in ("k", "v") else (t.numel() * t.element_size() if i == 0 else 0)
                 for p, t in flatten_with_path(meta)) for i in range(eng.mesh.size)]
+
+
+def state_split(state):
+    """How a mesh engine's slot state is cut: the first k/v leaf's
+    (data pieces, model dim, model pieces) and the first rwkv ``S`` or
+    mamba ``h`` leaf's (data pieces, model pieces)."""
+    from repro_torch.core.compressed import ShardedTensor
+    from repro_torch.models.sharded_cache import head_layout, layout
+    from repro_torch.tree import flatten_with_path
+    out = {}
+    for path, t in flatten_with_path(state):
+        name = path[-1]
+        if name == "k" and "kv" not in out:
+            out["kv"] = list(layout(t)) if isinstance(t, ShardedTensor) else [1, None, 1]
+        if name in ("S", "h") and "recurrent" not in out:
+            out["recurrent"] = list(head_layout(t))
+    return out
 
 
 def decode_collectives(eng, label):
@@ -6407,31 +6451,131 @@ def tp_main_path(gen, int8, cfg, device="cuda"):
     return line, launches, variants, probe.shapes
 
 
-def check_quant_matmul_tp(shapes):
-    """K2 against its plain version at every piece shape the sharded main
-    path launched (``_hold_seen``, fresh codes from a generator of its
-    own, on the design each launch ran), then each piece's (K, N) timed at
-    M = 8 and at the main path's most frequent prefill M: K2, its plain
-    version, ``torch.matmul`` on the dequantized weight, and the bound."""
+def check_quant_matmul_tp(shapes, name="tp_kernel_shapes"):
+    """K2 against its plain version at every piece shape a sharded path
+    launched (``_hold_seen``, fresh codes from a generator of its own, on
+    the design each launch ran), then each piece's (K, N) timed at M = 8
+    and at the path's most frequent prefill M: K2, its plain version,
+    ``torch.matmul`` on the dequantized weight, and the bound.  The path
+    ran ``decode`` and ``mma``, never ``fma``."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(TP_KERNEL_SEED)
-    check({s[6] for s in shapes} == {"decode", "mma"}, ("K2 designs of the TP path",
-                                                        sorted(set(shapes))))
-    results, worst_abs = _hold_seen(gen, shapes, {}, "tp")
+    seen = {s[6] for s in shapes}
+    check(seen == {"decode", "mma"}, ("K2 designs of the path", name, sorted(set(shapes))))
+    results, worst_abs = _hold_seen(gen, shapes, {}, name)
     prefills = {s: n for s, n in shapes.items() if s[6] == "mma"}
     Mp = max(prefills, key=lambda s: (prefills[s], s[0]))[0]
     timed = {f"{K}x{N}_M{M}": _time_dense(gen, M, K, N)
              for K, N in sorted({(s[1], s[2]) for s in shapes}) for M in (8, Mp)}
-    line = {"phase": "tp_kernel_shapes", "cases": results,
+    line = {"phase": name, "cases": results,
             "max_rel_err": max(r["rel_err"] for r in results), "max_abs_err": worst_abs,
             "tolerance": K2_TOL, "M_seen": sorted({s[0] for s in shapes}),
             "timed": timed, "library_note": "torch.matmul on the dequantized bf16 weight"}
     emit({**line, "cases": len(results)})
-    print(f"K2 at {len(results)} shapes of the TP path: max rel err {line['max_rel_err']:.3g}; "
+    print(f"K2 at {len(results)} shapes of {name}: max rel err {line['max_rel_err']:.3g}; "
           + "; ".join(f"{k} {t['ms']:.4f} ms (bound {t['bound_ms']:.4f}, plain "
                       f"{t['plain_ms']:.4f}, matmul {t['library_ms']:.4f})"
                       for k, t in timed.items()), flush=True)
     return line
+
+
+def tp_rwkv(gen, base, cfg, device="cuda"):
+    """rwkv6-3b's ``w8-absmax`` instance (published widths, its first
+    ``SESSION_LAYERS`` layers, bf16) served by ``Engine(mesh=)`` at (1, 4)
+    against the unsharded contiguous engine: TP_RWKV_ROWS rows of
+    TP_MAX_NEW tokens.  ``S`` splits over its 40 heads (10 a position),
+    ``wr``/``wk``/``wv``/``wg`` by columns in head order, so each position
+    runs its heads' scan from its own pieces.  The counts are zeroed just
+    before the sharded run and read just after.  Gates: K2 launched at the
+    rule table's count per decode step and prefill, nothing else; the
+    first decode step over the placed state within whole_step's bf16
+    criterion (``_tp_step_check``); rows that part from the unsharded run
+    near ties (``tie_at``); each position's slot state the spec's share
+    (``spec_state_bytes``); one decode step's collectives the roofline's
+    count.  Records both engines' decode-step profiles on the card."""
+    from repro_torch.core.compressed import param_bytes, position_bytes
+    from repro_torch.core.pipeline import InstanceOptimizer, Recipe
+    from repro_torch.kernels import ops
+    from repro_torch.models.sharded_cache import state_position_bytes
+    from repro_torch.serving.engine import Engine
+    on_card = torch.device(device).type == "cuda"
+    cut, ccfg = cut_depth(base, cfg, SESSION_LAYERS[cfg.name])
+    int8, ccfg, _ = InstanceOptimizer(cut, ccfg).apply(
+        Recipe(name="w8-absmax", wbits=8, quant_method="absmax"))
+    mesh = tp_mesh(TP_MESH, device)
+    prompts = [TEMPLATE + r for r in REVIEWS[:TP_RWKV_ROWS]]
+    flat = Engine(int8, ccfg, device=device, kv_layout="contiguous", version="w8-absmax",
+                  **TP_ENGINE)
+    sync()
+    t0 = time.time()
+    want = flat.generate(prompts, max_new=TP_MAX_NEW, prefix=TEMPLATE, return_requests=True)
+    sync()
+    flat_s = time.time() - t0
+    ops.reset_launch_counts()
+    with QuantShapeProbe() as probe:
+        tp = Engine(int8, ccfg, mesh=mesh, version="w8-absmax", **TP_ENGINE)
+        sync()
+        t0 = time.time()
+        got = tp.generate(prompts, max_new=TP_MAX_NEW, prefix=TEMPLATE, return_requests=True)
+        sync()
+        tp_s = time.time() - t0
+    launches = dict(ops.launch_count)
+    variants = {k: n for k, n in ops.variant_count.items() if n}
+    st = tp.stats
+    per_step = k2_per_step(tp.params)
+    check(per_step == k2_rule_count(int8, ccfg, mesh), ("rwkv K2 by the rule table", per_step))
+    if on_card:
+        check(launches == {"quant_matmul": per_step * (st.decode_steps + st.prefills),
+                           "paged_attention": 0, "block_sparse_matmul": 0, "flash_attention": 0},
+              ("rwkv sharded run launches", launches, st.decode_steps, st.prefills))
+    check(all(r.done for r in got) and st.rows == TP_RWKV_ROWS, ("rwkv sharded rows", st))
+    split = state_split(tp._slot_state)
+    check(split["recurrent"] == [1, mesh.shape["model"]], ("rwkv S over heads", split))
+    state_bytes = [state_position_bytes(tp._slot_state, i) for i in range(mesh.size)]
+    check(state_bytes == spec_state_bytes(tp), ("rwkv slot state per position", state_bytes))
+    t0 = time.time()
+    step = _tp_step_check(int8, tp.params, ccfg, tp.tok, prompts, mesh, device, "tp_rwkv")
+    step["seconds"] = time.time() - t0
+    agree, rows_same = _agreement(want, got)
+    parted = []
+    if rows_same < TP_RWKV_ROWS:
+        p32 = _f32(int8)
+        for a, b in zip(got, want):
+            if a.out_ids != b.out_ids:
+                parted.append({"prompt": b.src, **tie_at(int8, ccfg, tp.tok, b.src, a.out_ids,
+                                                         b.out_ids, tp.buckets[-1], p32)})
+        del p32
+    after = decode_collectives(tp, "tp_rwkv")
+    line = {"phase": "tp_rwkv", "model": ccfg.name, "layers": ccfg.n_layers,
+            "mesh": dict(mesh.shape), "rows": TP_RWKV_ROWS, "max_new": TP_MAX_NEW,
+            "engine": {**TP_ENGINE, "kv_layout": "contiguous"}, "k2_per_step": per_step,
+            "k2_per_step_unsharded": k2_per_step(int8), "decode_steps": st.decode_steps,
+            "prefills": st.prefills, "launches": launches, "variants": variants,
+            "position_bytes": [position_bytes(tp.params, i) for i in range(mesh.size)],
+            "param_bytes_unsharded": param_bytes(int8), "slot_state_position_bytes": state_bytes,
+            "state_split": split, "collectives_per_step": after, "wall_s": tp_s,
+            "wall_s_unsharded": flat_s, "first_step": step, "greedy_token_agreement": agree,
+            "rows_identical": rows_same, "parted": parted}
+    check(all(p["near_tie"] for p in parted), ("rwkv rows parted beyond a near tie", parted))
+    if on_card:
+        line["profile"] = profile_step(gen, tp.params, tp, name="tp_rwkv_decode_profile")
+        line["profile_unsharded"] = profile_step(gen, int8, flat,
+                                                 name="tp_rwkv_decode_profile_unsharded")
+    emit(line)
+    print(f"tp_rwkv: mesh {dict(mesh.shape)}, K2 {per_step} launches a step "
+          f"({line['k2_per_step_unsharded']} unsharded), slot state {state_bytes}; collective "
+          f"calls a decode step {after['calls']}; first step RMS vs f32 "
+          f"{step['sharded_vs_f32']:.3e} (unsharded {step['unsharded_vs_f32']:.3e}, plain "
+          f"{step['plain_bf16_vs_f32']:.3e}, ratio {step['bf16_ratio']:.4f}); agreement "
+          f"{agree:.4f}, {rows_same}/{TP_RWKV_ROWS} rows identical, {len(parted)} parted at "
+          f"near ties", flush=True)
+    if on_card:
+        for k in ("profile", "profile_unsharded"):
+            p = line[k]
+            print(f"  {k}: {p['wall_ms_per_step']:.3f} ms wall, {p['device_busy_ms_per_step']:.3f} "
+                  f"ms device busy a decode step", flush=True)
+    del tp, flat
+    return line, launches, probe.shapes
 
 
 def tp_f32_parity(cases, device="cuda", n_rows: int = 8, max_new: int = 8):
@@ -6441,7 +6585,7 @@ def tp_f32_parity(cases, device="cuda", n_rows: int = 8, max_new: int = 8):
     tie of the f32 plain path (top-two gap under NEAR_TIE); each position's
     slot state the rule's share (``spec_state_bytes``) and one decode
     step's collectives the roofline's count (``decode_collectives``)."""
-    from repro_torch.models.sharded_cache import layout, state_position_bytes
+    from repro_torch.models.sharded_cache import state_position_bytes
     from repro_torch.serving.engine import Engine
     prompts = [TEMPLATE + r for r in REVIEWS[:n_rows]]
     out = {}
@@ -6463,8 +6607,7 @@ def tp_f32_parity(cases, device="cuda", n_rows: int = 8, max_new: int = 8):
             res["x".join(map(str, shape))] = {"rows_identical": n_rows - len(parted),
                                               "parted": parted,
                                               "slot_state_position_bytes": state_bytes,
-                                              "cache_split": layout(
-                                                  eng._slot_state["blocks"][0]["k"]),
+                                              "cache_split": state_split(eng._slot_state),
                                               "collectives_per_step": decode_collectives(
                                                   eng, f"tp_f32_parity {name} {shape}")}
             check(all(p["near_tie"] for p in parted), (name, shape, "parted beyond a near tie",
@@ -6604,20 +6747,285 @@ def tp_pool(base, cfg, device="cuda"):
     return line, launches
 
 
-def parallel_training(gen, base, cfg, device="cuda", layers: int = 4, grad_layers=None):
-    """GPipe and the compressed all-reduce on the card.  ``pipeline_forward``
-    runs gemma2-2b's first ``layers`` blocks (published widths, f32) as 2
-    stages over a "stage" axis on 4 microbatches, against the sequential
-    forward (within PIPE_TOL, relative to the largest output).  Then
-    ``compressed_allreduce`` over a 2-position "pod" axis on every
-    gradient of the model cut to ``grad_layers`` (POOL_LAYERS) on one
-    batch, the tied table's included, against the same function on the
-    CPU (grads and residuals within ALLREDUCE_TOL)."""
+def _sharded_opt(kind):
+    from repro_torch.training import optimizer as OPT
+    return getattr(OPT, kind)(lr=SHARDED_LR, warmup=SHARDED_WARMUP, total_steps=5)
+
+
+def sharded_step_check(label, params, cfg, shape, fsdp, kind, device="cuda", capture=False,
+                       strict=True):
+    """One ``make_train_step`` step of ``params`` (f32) placed by
+    ``place(params, param_shardings(cfg, params, mesh, fsdp=fsdp))`` on a
+    mesh of ``shape`` on ``device``, against the same step of the tree
+    unsharded on ``device``, with the CPU gate's schedule: loss and grad
+    norm within LOSS_RTOL; each position's param and state bytes the
+    ``spec_bytes`` of ``param_shardings`` and ``opt_state_shardings``.
+    ``strict``: the CPU gate's tolerances too, every gathered param and
+    state element within SHARDED_ATOL (an AdamW param element whose
+    gradient is below SHARDED_GRAD_FLOOR within a flipped direction, 2 lr,
+    and fewer than one in a thousand of them beyond SHARDED_ATOL).  Not
+    ``strict``: where the gradients' f32 noise at full width moves an
+    update by more than that, ``train_parity``'s gates of a step on two
+    devices: the params' RMS difference within UPDATE_RMS_RTOL of their
+    RMS update and no element beyond a flip (2 lr), the state's RMS
+    difference within UPDATE_RMS_RTOL of its RMS; the largest differences
+    are recorded either way, and the sharded step is held apart from its
+    gradients (``_same_grads``): the unsharded optimizer on the sharded
+    step's own gradients, gathered, gives its params and state within
+    SHARDED_ATOL.  ``capture`` returns the sharded step's gradients too (a
+    ``grad_compressor`` hook that keeps them)."""
+    from repro_torch.core.compressed import ShardedTensor, position_bytes
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch.dryrun import bytes_per_position
+    from repro_torch.training.train_loop import make_train_step
+    from repro_torch.tree import flatten_with_path, leaves, tree_map
+    mesh = tp_mesh(shape, device)
+    sh = SH.param_shardings(cfg, params, mesh, fsdp=fsdp)
+    o = _sharded_opt(kind)
+    batch = _batch(0, cfg, device, 2, 128)
+    flat = tree_map(torch.clone, params)
+    fstate = o.init(flat)
+    kept, flat_kept = [], []
+
+    def keep(into):                   # a grad_compressor hook that keeps the gradients
+        return lambda g, r: (into.append(g) or g, r)
+
+    sync()
+    t0 = time.time()
+    out = make_train_step(cfg, o, grad_compressor=None if strict else keep(flat_kept))(
+        flat, fstate, batch, SHARDED_STEP)
+    flat, fstate, fm = out[0], out[1], out[-1]
+    sync()
+    flat_s = time.time() - t0
+    placed = SH.place(tree_map(torch.clone, params), sh)
+    state = o.init(placed)
+    osh = SH.opt_state_shardings(sh, mesh, kind)
+    want_p = bytes_per_position(params, sh)
+    want_s = bytes_per_position(o.init(tree_map(lambda t: t.to("meta"), params)), osh)
+    pos = [(position_bytes(placed, i), position_bytes(state, i)) for i in range(mesh.size)]
+    check(all(abs(a - want_p) <= 1e-9 * want_p and abs(b - want_s) <= 1e-9 * want_s
+              for a, b in pos), (label, "bytes per position", pos, want_p, want_s))
+    check([SH.spec_of(t) for t in leaves(state)]
+          == [x.spec for x in leaves(osh, is_leaf=SH._is_sharding)],
+          (label, "optimizer state placed as opt_state_shardings"))
+    step = make_train_step(cfg, o, grad_compressor=keep(kept) if capture or not strict
+                           else None)
+    sync()
+    t0 = time.time()
+    out = step(placed, state, batch, SHARDED_STEP)
+    sync()
+    sharded_s = time.time() - t0
+    placed, state, m = out[0], out[1], out[-1]
+    loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+    floss, fgnorm = float(fm["loss"]), float(fm["grad_norm"])
+    m_flat = dict(flatten_with_path(fstate["m"])) if kind == "adamw" else {}
+    worst, worst_noise, undetermined, total = 0.0, 0.0, 0, 0
+    sums = {"param_diff2": 0.0, "param_update2": 0.0, "state_diff2": 0.0, "state2": 0.0}
+    worst_of = {"params": 0.0, "state": 0.0}
+    leaf_errs = []
+    before = dict(flatten_with_path(params))     # the params before the step (not written)
+    for (path, a), b in zip(flatten_with_path([placed, state]), leaves([flat, fstate])):
+        a = SH.gather(a) if isinstance(a, ShardedTensor) else a
+        err = (a.float() - b.float()).abs()
+        group = "params" if path[0] == 0 else "state"
+        worst_of[group] = max(worst_of[group], err.max().item())
+        leaf_errs.append((err.max().item(), ".".join(map(str, path))))
+        if group == "params":
+            sums["param_diff2"] += torch.sum(err.double() ** 2).item()
+            sums["param_update2"] += torch.sum((b.double() - before[path[1:]].double()) ** 2
+                                               ).item()
+        else:
+            sums["state_diff2"] += torch.sum(err.double() ** 2).item()
+            sums["state2"] += torch.sum(b.double() ** 2).item()
+        if path[0] == 0 and kind == "adamw":
+            noise = m_flat[path[1:]].abs() < (1 - 0.9) * SHARDED_GRAD_FLOOR
+            worst = max(worst, err[~noise].max().item() if (~noise).any() else 0.0)
+            if noise.any():
+                worst_noise = max(worst_noise, err[noise].max().item())
+            undetermined += int((noise & (err > SHARDED_ATOL)).sum())
+            total += a.numel()
+        else:
+            worst = max(worst, err.max().item())
+        del a, err
+    lr_t = SHARDED_LR * SHARDED_STEP / SHARDED_WARMUP
+    rms_rel = {"params": math.sqrt(sums["param_diff2"] / max(sums["param_update2"], 1e-300)),
+               "state": math.sqrt(sums["state_diff2"] / max(sums["state2"], 1e-300))}
+    line = {"model": cfg.name, "layers": cfg.n_layers, "mesh": list(shape), "fsdp": fsdp,
+            "optimizer": kind, "dtype": "float32", "batch": [2, 128],
+            "sharded_leaves": sum(isinstance(t, ShardedTensor) for t in leaves(placed)),
+            "loss": loss, "loss_unsharded": floss, "grad_norm": gnorm,
+            "grad_norm_unsharded": fgnorm, "max_abs_err": worst,
+            "max_abs_err_undetermined": worst_noise, "undetermined_elements": undetermined,
+            "param_elements": total, "tolerance": SHARDED_ATOL, "strict": strict,
+            "max_abs_err_params": worst_of["params"], "max_abs_err_state": worst_of["state"],
+            "rms_rel_err": rms_rel, "rms_rel_tolerance": UPDATE_RMS_RTOL,
+            "worst_leaves": sorted(leaf_errs, reverse=True)[:4],
+            "position_bytes": [a for a, _ in pos], "state_position_bytes": [b for _, b in pos],
+            "seconds": sharded_s, "seconds_unsharded": flat_s}
+    check(abs(loss / floss - 1) <= LOSS_RTOL and abs(gnorm / fgnorm - 1) <= LOSS_RTOL,
+          (label, "loss and grad norm", line))
+    if strict:
+        check(worst <= SHARDED_ATOL and worst_noise <= 2 * lr_t * (1 + 1e-3)
+              and undetermined * 1000 <= max(total, 1), (label, "params and state", line))
+    else:
+        check(rms_rel["params"] <= UPDATE_RMS_RTOL and rms_rel["state"] <= UPDATE_RMS_RTOL
+              and worst_of["params"] <= 2 * lr_t * (1 + 1e-3),
+              (label, "params and state (train_parity's gates)", line))
+        worst_param = max(e for e in leaf_errs if e[1].startswith("0."))[1][2:]
+        line["same_grads"] = _same_grads(label, params, o, kept[0], flat_kept[0], placed,
+                                         state, flat, worst_param)
+    del flat, fstate, state, flat_kept
+    return line, placed, (kept[0] if capture else None), mesh
+
+
+def _same_grads(label, params, o, grads, flat_grads, placed, state, flat, path):
+    """The sharded step apart from its gradients: the unsharded optimizer
+    ``o`` run on ``params`` with the sharded step's ``grads`` gathered gives
+    the sharded step's ``placed`` params and ``state`` within SHARDED_ATOL
+    (gate).  Records how those gradients differ from the unsharded step's
+    ``flat_grads`` (largest, and RMS over that of the unsharded ones), and
+    at leaf ``path`` (dotted, the params' worst against the unsharded step
+    ``flat``) the element that parts most: its row's gradient difference
+    over the row's gradient (RMS) and the row's mean square gradient over
+    the mean of all its matrix's rows (Adafactor's ``vr``, which scales the
+    row's update to its own size)."""
+    from repro_torch.core.compressed import ShardedTensor
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.tree import flatten_with_path, leaves, tree_map
+    whole = lambda t: SH.gather(t) if isinstance(t, ShardedTensor) else t  # noqa: E731
+    g_s = tree_map(whole, grads)
+    x = tree_map(torch.clone, params)
+    xs = o.init(x)
+    x, xs = o.update(x, g_s, xs, SHARDED_STEP)
+    err = max((whole(a).float() - b.float()).abs().max().item()
+              for a, b in zip(leaves([placed, state]), leaves([x, xs])))
+    del x, xs
+    diff2 = ref2 = 0.0
+    g_max = 0.0
+    for a, b in zip(leaves(g_s), leaves(flat_grads)):
+        d = (a.float() - b.float()).double()
+        diff2 += torch.sum(d * d).item()
+        ref2 += torch.sum(b.double() ** 2).item()
+        g_max = max(g_max, d.abs().max().item())
+    ps = dict(flatten_with_path(placed))
+    key = next(k for k in ps if ".".join(map(str, k)) == path)
+    a, b = whole(ps[key]).float(), dict(flatten_with_path(flat))[key].float()
+    at = torch.unravel_index(torch.argmax((a - b).abs()), a.shape)
+    row = tuple(int(i) for i in at[:-1])
+    gs_l, gu_l = g_s, flat_grads
+    for k in key:
+        gs_l, gu_l = gs_l[k], gu_l[k]
+    gu = gu_l.float()
+    line = {"of": "the unsharded optimizer on the sharded step's gradients",
+            "max_abs_err": err, "tolerance": SHARDED_ATOL,
+            "grad_max_abs_diff": g_max, "grad_rms_rel_diff": math.sqrt(diff2 / ref2),
+            "leaf": path, "element": [int(i) for i in at],
+            "param_diff": (a - b)[at].item(),
+            "leaf_grad_rms_rel_diff": ((gs_l.float() - gu).norm() / gu.norm()).item()}
+    if a.dim() >= 2:
+        rows2 = torch.mean(gu * gu, -1)           # each row's mean square gradient
+        line["row_grad_rms_rel_diff"] = ((gs_l.float()[row] - gu[row]).norm()
+                                         / gu[row].norm()).item()
+        line["row_mean_square_over_mean"] = (rows2[row] / rows2.mean(-1)[row[:-1]]).item()
+    check(err <= SHARDED_ATOL, (label, "optimizer on the same gradients", line))
+    return line
+
+
+def sharded_full_width(base, cfg, device="cuda"):
+    """gemma2-2b at all its layers in bf16, AdamW, placed at (1, 4):
+    SHARDED_FULL's steps of ``make_train_step``, then the same steps
+    unsharded from the same params, run after the sharded ones (not
+    beside them).  Gates: each step's loss within SHARDED_BF16_RTOL of the
+    unsharded one's; the sharded params saved (``checkpoint.save`` writes
+    each leaf gathered whole), restored unsharded and equal bit for bit.
+    Records each run's step wall, peak memory and FLOP share."""
+    import shutil
+    import tempfile
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training.train_loop import make_train_step
+    from repro_torch.tree import leaves, tree_map
+    kw = SHARDED_FULL
+    mesh = tp_mesh((1, 4), device)
+    flops = train_flops(cfg, kw["batch"], kw["seq_len"])
+    runs = {}
+
+    def run(params, label):
+        o = make_optimizer("adamw", FULL_LR, kw["steps"])
+        state = o.init(params)
+        fn = make_train_step(cfg, o, xent_chunk=kw["xent_chunk"], remat=True)
+        reset_peak()
+        steps = []
+        for i in range(kw["steps"]):
+            b = _batch(i, cfg, device, kw["batch"], kw["seq_len"])
+            sync()
+            t0 = time.time()
+            params, state, m = fn(params, state, b, i)
+            loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+            sync()
+            dt = time.time() - t0
+            check(math.isfinite(loss) and math.isfinite(gnorm), (label, i, loss, gnorm))
+            steps.append({"step": i, "loss": loss, "grad_norm": gnorm, "seconds": dt,
+                          "flop_share": flops / (dt * BF16_FLOPS)})
+        runs[label] = {"steps": steps, "peak_memory": card_memory()[1],
+                       "steady_seconds": steps[-1]["seconds"],
+                       "steady_flop_share": steps[-1]["flop_share"]}
+        del state
+        return params
+
+    placed = run(SH.place(tree_map(torch.clone, base), SH.param_shardings(cfg, base, mesh)),
+                 "sharded")
+    d = tempfile.mkdtemp(prefix="sharded_ckpt.", dir=os.path.join(ROOT, "build"))
+    try:
+        t0 = time.time()
+        ckpt.save(d, kw["steps"], placed)
+        # the bit-for-bit comparison below checks what restore's hash would
+        restored, _, _ = ckpt.restore(d, base, device=device, verify=False)
+        same = all(_same_bits(SH.gather(a), b) for a, b in zip(leaves(placed), leaves(restored)))
+        save_s = time.time() - t0
+        ckpt_bytes = _dir_bytes(d)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    del placed, restored
+    gc.collect()
+    torch.cuda.empty_cache()
+    flat = run(tree_map(torch.clone, base), "unsharded")
+    del flat
+    gc.collect()
+    torch.cuda.empty_cache()
+    rel = [abs(a["loss"] / b["loss"] - 1)
+           for a, b in zip(runs["sharded"]["steps"], runs["unsharded"]["steps"])]
+    line = {"model": cfg.name, "layers": cfg.n_layers, "dtype": "bfloat16", "mesh": [1, 4],
+            "optimizer": "adamw", "lr": FULL_LR, **kw, "flops_per_step": flops, **runs,
+            "loss_rel_err": rel, "tolerance": SHARDED_BF16_RTOL,
+            "checkpoint": {"same_bits": same, "bytes": ckpt_bytes, "seconds": save_s}}
+    check(max(rel) <= SHARDED_BF16_RTOL, ("sharded bf16 steps' losses", line))
+    check(same, ("sharded checkpoint restored unsharded", line["checkpoint"]))
+    return line
+
+
+def parallel_training(gen, base, cfg, device="cuda", layers: int = 4):
+    """GPipe, the compressed all-reduce and sharded train steps on the card.
+    ``pipeline_forward`` runs gemma2-2b's first ``layers`` blocks
+    (published widths, f32) as 2 stages over a "stage" axis on 4
+    microbatches, against the sequential forward (within PIPE_TOL,
+    relative to the largest output).  Then a train step of a placed tree
+    against the same step unsharded (``sharded_step_check``): (a) those
+    ``layers`` layers in f32 at (2, 2) with FSDP, AdamW; (b) zamba2-7b at
+    one group of its layout in f32 at (1, 4), Adafactor, held apart from its
+    gradients too (``_same_grads``).  (a)'s sharded
+    gradients, kept from its one backward, go through
+    ``compressed_allreduce`` over the mesh's 2-position "data" axis,
+    against the same function on the CPU (grads and residuals within
+    ALLREDUCE_TOL).  (c) ``sharded_full_width``."""
+    from repro_torch.configs import zamba2_7b
+    from repro_torch.core.compressed import ShardedTensor
+    from repro_torch.distributed import sharding as SH
     from repro_torch.models import api
     from repro_torch.models.transformer import block_apply, layer_slice, pattern_unit
     from repro_torch.training.grad_compress import compressed_allreduce, init_residual
     from repro_torch.training.pipeline import pipeline_forward, split_stages
-    from repro_torch.tree import flatten_with_path, tree_map, value_and_grad
+    from repro_torch.tree import flatten_with_path, leaves, tree_map
     t0 = time.time()
     cut, ccfg = cut_depth(base, cfg, layers)
     c32 = ccfg.replace(param_dtype="float32")
@@ -6646,36 +7054,76 @@ def parallel_training(gen, base, cfg, device="cuda", layers: int = 4, grad_layer
     del stages
     pipe_s = time.time() - t0
     t0 = time.time()
-    gcut, gcfg = cut_depth(base, cfg, grad_layers or POOL_LAYERS)
-    toks = torch.randint(4, 260, (1, S + 1), generator=gen, device=device)
-    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
-    _, grads = value_and_grad(lambda p: api.loss_fn(p, gcfg, batch, remat=False), gcut)
-    n_grad = sum(t.numel() for _, t in flatten_with_path(grads))
+    step_a, _, grads, mesh = sharded_step_check("sharded step (a)", _f32(cut), c32, (2, 2), True,
+                                                "adamw", device, capture=True)
+    step_a["seconds_all"] = time.time() - t0
+    t0 = time.time()
+    n_grad = sum(math.prod(g.shape) for g in leaves(grads))
     res = init_residual(grads)
-    g_card, r_card = compressed_allreduce(grads, res, axis="pod",
-                                          mesh=tp_mesh((2,), device, ("pod",)))
-    cpu = lambda t: t.detach().cpu()  # noqa: E731
-    g_cpu, r_cpu = compressed_allreduce(tree_map(cpu, grads), tree_map(cpu, res), axis="pod",
-                                        mesh=tp_mesh((2,), "cpu", ("pod",)))
+    g_card, r_card = compressed_allreduce(grads, res, axis="data", mesh=mesh)
+
+    def cpu(t):                       # a leaf whole on the host
+        return SH.gather(t, torch.device("cpu")) if isinstance(t, ShardedTensor) \
+            else t.detach().cpu()
+
+    g_cpu, r_cpu = compressed_allreduce(tree_map(cpu, grads), tree_map(cpu, res), axis="data",
+                                        mesh=tp_mesh((2,), "cpu", ("data",)))
     g_err = max((cpu(a).float() - b.float()).abs().max().item()
                 for (_, a), (_, b) in zip(flatten_with_path(g_card), flatten_with_path(g_cpu)))
     r_err = max((cpu(a) - b).abs().max().item()
                 for (_, a), (_, b) in zip(flatten_with_path(r_card), flatten_with_path(r_cpu)))
+    del grads, res, g_card, r_card, g_cpu, r_cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    allreduce_s = time.time() - t0
+    t0 = time.time()
+    sgen = torch.Generator(device=device)
+    sgen.manual_seed(SHARDED_TRAIN_SEED)
+    zcfg = zamba2_7b.CONFIG.replace(n_layers=zamba2_7b.CONFIG.shared_attn_every + 1,
+                                    param_dtype="float32")
+    zparams = api.init_params(sgen, zcfg)
+    step_b, _, _, _ = sharded_step_check("sharded step (b)", zparams, zcfg, (1, 4), False,
+                                         "adafactor", device, strict=False)
+    del zparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    step_b["seconds_all"] = time.time() - t0
+    t0 = time.time()
+    full = sharded_full_width(base, cfg, device)
+    full["seconds_all"] = time.time() - t0
     line = {"phase": "parallel_training", "pipeline": {
                 "model": cfg.name, "layers": layers, "stages": 2, "microbatches": x_mb.shape[0],
                 "microbatch": [mb, S, cfg.d_model], "dtype": "float32",
                 "max_abs_err": pipe_err[0], "max_rel_err": pipe_err[1], "tolerance": PIPE_TOL,
                 "seconds": pipe_s},
+            "sharded_step_a": step_a, "sharded_step_b": step_b, "sharded_full_width": full,
             "compressed_allreduce": {
-                "layers": gcfg.n_layers, "axis": "pod", "positions": 2, "elements": n_grad,
+                "of": "sharded step (a)'s gradients", "layers": layers, "axis": "data",
+                "positions": 2, "elements": n_grad,
                 "grad_max_abs_err_vs_cpu": g_err, "residual_max_abs_err_vs_cpu": r_err,
-                "tolerance": ALLREDUCE_TOL, "seconds": time.time() - t0}}
+                "tolerance": ALLREDUCE_TOL, "seconds": allreduce_s}}
     emit(line)
     print(f"parallel_training: pipeline max rel err {pipe_err[1]:.3g} over {layers} layers in 2 "
-          f"stages; compressed all-reduce of {n_grad} gradient elements, card vs CPU: grads "
-          f"{g_err:.3g}, residuals {r_err:.3g}", flush=True)
-    check(pipe_err[1] <= PIPE_TOL, ("pipeline_forward", line))
-    check(g_err <= ALLREDUCE_TOL and r_err <= ALLREDUCE_TOL, ("compressed_allreduce", line))
+          f"stages; compressed all-reduce of {n_grad} sharded gradient elements, card vs CPU: "
+          f"grads {g_err:.3g}, residuals {r_err:.3g}", flush=True)
+    for k in ("sharded_step_a", "sharded_step_b"):
+        r = line[k]
+        print(f"  {k}: {r['model']} {r['layers']} layers at {r['mesh']} fsdp={r['fsdp']} "
+              f"{r['optimizer']}: loss {r['loss']:.6f} ({r['loss_unsharded']:.6f} unsharded), "
+              f"max abs err {r['max_abs_err']:.3g}, {r['undetermined_elements']} undetermined; "
+              f"{r['seconds']:.2f} s a step ({r['seconds_unsharded']:.2f} unsharded)", flush=True)
+        if "same_grads" in r:
+            print(f"    {r['same_grads']}", flush=True)
+    print(f"  sharded_full_width: losses {[s['loss'] for s in full['sharded']['steps']]} vs "
+          f"{[s['loss'] for s in full['unsharded']['steps']]}; step "
+          f"{full['sharded']['steady_seconds']:.3f} s ({full['unsharded']['steady_seconds']:.3f} "
+          f"unsharded), peak {full['sharded']['peak_memory']} "
+          f"({full['unsharded']['peak_memory']}); "
+          f"checkpoint {full['checkpoint']['bytes']} B same bits {full['checkpoint']['same_bits']} "
+          f"in {full['checkpoint']['seconds']:.1f} s", flush=True)
+    check(pipe_err[1] <= PIPE_TOL, ("pipeline_forward", line["pipeline"]))
+    check(g_err <= ALLREDUCE_TOL and r_err <= ALLREDUCE_TOL,
+          ("compressed_allreduce", line["compressed_allreduce"]))
     return line
 
 
@@ -6785,9 +7233,17 @@ def main() -> int:
     from repro_torch.configs import granite_20b
     from repro_torch.models import api
     g4 = granite_20b.CONFIG.replace(n_layers=TP_LAYERS, param_dtype="float32")
+    # rwkv6-3b (40 heads of 64: S over "model" at both meshes) and zamba2-7b
+    # at one group of its layout (112 SSD heads: h over "model")
+    from repro_torch.configs import rwkv6_3b, zamba2_7b
+    r4 = rwkv6_3b.CONFIG.replace(n_layers=TP_LAYERS, param_dtype="float32")
+    z1 = zamba2_7b.CONFIG.replace(n_layers=zamba2_7b.CONFIG.shared_attn_every + 1,
+                                  param_dtype="float32")
     tp_cases = [("gemma2-2b", _f32(cut_depth(base, cfg, TP_LAYERS)[0]),
                  cut_depth(base, cfg, TP_LAYERS)[1].replace(param_dtype="float32")),
-                ("granite-20b", api.init_params(tgen, g4), g4)]
+                ("granite-20b", api.init_params(tgen, g4), g4),
+                ("rwkv6-3b", api.init_params(tgen, r4), r4),
+                ("zamba2-7b", api.init_params(tgen, z1), z1)]
     tp_parity_line = timed("tp_f32_parity", tp_f32_parity, tp_cases)
     del tp_cases
     del base, pool_base
@@ -6905,6 +7361,12 @@ def main() -> int:
     with QuantShapeProbe() as rw_sess_shapes:
         rw_sess_line, rw_sess_launches = timed(
             "rwkv_session", rwkv_session, *cut_depth(rw_base, rw_cfg, SESSION_LAYERS[rw_cfg.name]))
+    # the w8-absmax instance of the session's depth on a (1, 4) mesh: S over heads
+    trgen = torch.Generator(device="cuda")
+    trgen.manual_seed(TP_SEED)
+    tp_rw_line, tp_rw_launches, tp_rw_shapes = timed("tp_rwkv", tp_rwkv, trgen, rw_base, rw_cfg)
+    kq_tp_rw = timed("tp_rwkv_kernel_shapes", check_quant_matmul_tp, tp_rw_shapes,
+                     "tp_rwkv_kernel_shapes")
     del rw_base
     gc.collect()
     torch.cuda.empty_cache()
@@ -7013,10 +7475,10 @@ def main() -> int:
     tgen = torch.Generator(device="cuda")
     tgen.manual_seed(TRAIN_FAMILY_SEED)
     family_parity = {}
-    for arch, layers, opt in TRAIN_FAMILY_PARITY:
+    for arch, layers, opt, seq_len in TRAIN_FAMILY_PARITY:
         c = registry.get_config(arch).replace(n_layers=layers, param_dtype="float32")
         family_parity[arch] = timed(f"train_family_parity_{arch}", train_parity, tgen, c,
-                                    opt=opt, name="train_family_parity")
+                                    opt=opt, seq_len=seq_len, name="train_family_parity")
         gc.collect()
         torch.cuda.empty_cache()
     family_full = {}
@@ -7126,12 +7588,14 @@ def main() -> int:
         kernels[-1]["launches_tp"] = tp_launches[name]
         kernels[-1]["launches_tp_pool"] = tp_pool_launches[name]
         kernels[-1]["launches_tp_moe"] = tp_moe_launches[name]
+        kernels[-1]["launches_tp_rwkv"] = tp_rw_launches[name]
         if name == "quant_matmul":
             check(tp_launches[name] > 0 and tp_pool_launches[name] > 0
-                  and tp_moe_launches[name] > 0, ("the TP paths", name))
+                  and tp_moe_launches[name] > 0 and tp_rw_launches[name] > 0,
+                  ("the TP paths", name))
         else:
-            check(tp_launches[name] == tp_pool_launches[name] == tp_moe_launches[name] == 0,
-                  ("off the TP paths", name))
+            check(tp_launches[name] == tp_pool_launches[name] == tp_moe_launches[name]
+                  == tp_rw_launches[name] == 0, ("off the TP paths", name))
         # the QEmbed instance's paged serve: K1 and K2 on every step
         kernels[-1]["launches_qembed"] = qe_launches[name]
         if name in ("paged_attention", "quant_matmul"):
@@ -7196,6 +7660,13 @@ def main() -> int:
                                  "k2_per_step": tp_line["k2_per_step"],
                                  "k2_per_step_unsharded": tp_line["k2_per_step_unsharded"],
                                  "variants": tp_variants, **kq_tp["timed"]}
+            # every piece shape of the rwkv mesh engine, each (K, N) timed
+            kernels[-1]["tp_rwkv"] = {"cases_seen": len(kq_tp_rw["cases"]),
+                                      "max_rel_err_seen": kq_tp_rw["max_rel_err"],
+                                      "max_abs_err_seen": kq_tp_rw["max_abs_err"],
+                                      "k2_per_step": tp_rw_line["k2_per_step"],
+                                      "k2_per_step_unsharded": tp_rw_line["k2_per_step_unsharded"],
+                                      "variants": tp_rw_line["variants"], **kq_tp_rw["timed"]}
             kernels[-1]["vlm_encdec"] = {"cases_seen_vlm": kq_ve["cases_vlm"],
                                          "cases_seen_encdec": kq_ve["cases_encdec"],
                                          "max_rel_err_seen": kq_ve["max_rel_err"],
@@ -7247,7 +7718,8 @@ def main() -> int:
                    "train_full_width_families": family_full,
                    "tp_main_path": tp_line, "tp_kernel_shapes": kq_tp, "tp_pool": tp_pool_line,
                    "parallel_training": par_line, "tp_f32_parity": tp_parity_line,
-                   "tp_moe": tp_moe_line,
+                   "tp_moe": tp_moe_line, "tp_rwkv": tp_rw_line,
+                   "tp_rwkv_kernel_shapes": kq_tp_rw,
                    "phase_seconds": seconds, "phase_memory": memory,
                    "seconds": time.time() - t_start}, f, indent=1)
     emit({"kernels": kernels})

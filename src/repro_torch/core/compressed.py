@@ -358,18 +358,24 @@ class ShardedTensor:
     table) or ``-3`` (the expert axis of an expert stack); a mesh engine's
     attention k/v leaf [..., B, T, K, hd] along ``-4`` (its slots, over
     "data"), ``-2`` (its KV heads) or ``-1`` (its head_dim, both over
-    "model").  Each piece lives on its position's device and is a tensor,
-    a ``QTensor``, a ``BlockSparseTensor``, a ``QEmbed`` or, for a leaf
-    sharded over a second axis, a ``ShardedTensor``.
+    "model"), a recurrent leaf along its slots and rwkv ``S``/mamba ``h``
+    along ``-3`` (their heads, over "model").  Each piece lives on its
+    position's device and is a tensor, a ``QTensor``, a
+    ``BlockSparseTensor``, a ``QEmbed`` or, for a leaf sharded over a
+    second axis (FSDP's "data" split of a weight, a slot state's slots),
+    a ``ShardedTensor``.
 
-    :meth:`layer` slices every piece, as ``QTensor.layer`` does.  Nothing
-    else reads a sharded leaf: :func:`matmul`, :func:`expert_matmul` and
-    ``models/layers.py``'s ``embed``/``unembed`` take a weight piece by
-    piece, and ``models/sharded_cache.py`` a k/v leaf (its
-    ``decode_attention``, called by ``transformer._decode_attn_block`` and
-    encdec's decode, and its ``write_rows`` at admission).  Any other use
-    fails (it is not a tensor), so a model path that reads a leaf directly
-    shows up instead of gathering it silently."""
+    :meth:`layer` slices every piece, as ``QTensor.layer`` does, and
+    :meth:`map` maps a function over the pieces of matching leaves (a
+    gradient, an optimizer's state).  Nothing else reads a sharded leaf:
+    :func:`matmul`, :func:`expert_matmul` and ``models/layers.py``'s
+    ``embed``/``unembed`` take a weight piece by piece (differentiably:
+    ``tree.value_and_grad`` trains a placed tree), the optimizers update
+    it piece by piece, and ``models/sharded_cache.py`` reads a slot state
+    (its ``decode_attention``, the recurrent decodes' helpers and its
+    ``write_rows`` at admission).  Any other use fails (it is not a
+    tensor), so a model path that reads a leaf directly shows up instead
+    of gathering it silently."""
 
     def __init__(self, pieces, dim: int, axis: str, mesh):
         if dim not in (-1, -2, -3, -4):
@@ -406,6 +412,20 @@ class ShardedTensor:
     def layer(self, r: int) -> "ShardedTensor":
         return ShardedTensor([p.layer(r) if hasattr(p, "layer") else p[r]
                               for p in self.pieces], self.dim, self.axis, self.mesh)
+
+    def map(self, fn, *others) -> "ShardedTensor":
+        """``fn(piece, *matching pieces)`` over the innermost pieces of this
+        leaf and of ``others`` (``ShardedTensor``s cut the same way), as a
+        ``ShardedTensor`` of the same layout: an optimizer's elementwise
+        update, a gradient's cast."""
+        return ShardedTensor([p.map(fn, *qs) if isinstance(p, ShardedTensor) else fn(p, *qs)
+                              for p, *qs in zip(self.pieces, *(o.pieces for o in others))],
+                             self.dim, self.axis, self.mesh)
+
+    def tensors(self) -> list:
+        """The innermost pieces, in mesh order."""
+        return [t for p in self.pieces
+                for t in (p.tensors() if isinstance(p, ShardedTensor) else [p])]
 
     def piece_at(self, i: int):
         """The piece flat mesh position ``i`` holds (recursively)."""

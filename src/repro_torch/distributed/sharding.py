@@ -33,6 +33,13 @@ row-parallel ``QTensor``'s pieces would start inside a quantization
 group (``(d_in / n) % group != 0``: the reference shards its codes and
 replicates its scales), the port keeps that ``QTensor`` whole along that
 axis (:func:`replicated_qtensor_leaves` lists them).
+
+A placed tree trains as it is (``training/``): :func:`placed_zeros`
+builds an optimizer state placed by :func:`opt_state_shardings` with no
+whole copy, :func:`spec_of` and :func:`shardings_of` read a placed
+tree's layout back (a checkpoint is restored onto it), and
+:func:`gather` and :func:`split_like` take a leaf whole and cut it
+again (a checkpoint's write, the compressed all-reduce's whole leaves).
 """
 from __future__ import annotations
 
@@ -42,7 +49,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.compressed import (BlockSparseTensor, QEmbed, QTensor,
-                                         ShardedTensor, idx_from_mask)
+                                         ShardedTensor, idx_from_mask, piece_device)
 from repro_torch.tree import flatten_with_path, tree_map, unflatten_like
 
 
@@ -469,6 +476,65 @@ def place(tree, shardings):
     return unflatten_like(tree, out)
 
 
+def spec_of(leaf) -> P:
+    """The spec a placed leaf was cut by: each split of a (nested)
+    ``ShardedTensor`` names its axis at its dim; a whole leaf's is all
+    ``None``."""
+    entries = [None] * len(leaf.shape)
+    while isinstance(leaf, ShardedTensor):
+        entries[len(entries) + leaf.dim] = leaf.axis
+        leaf = leaf.pieces[0]
+    return P(*entries)
+
+
+def shardings_of(tree):
+    """The shardings of a placed tree, read back from its leaves: a
+    ``NamedSharding`` of :func:`spec_of` for each ``ShardedTensor`` leaf,
+    ``None`` for a whole one (it stays where ``restore`` puts it, the
+    mesh's first device).  ``checkpoint.restore(..., shardings=)`` places
+    a checkpoint onto the layout of a tree already placed."""
+    return tree_map(lambda t: NamedSharding(t.mesh, spec_of(t))
+                    if isinstance(t, ShardedTensor) else None, tree)
+
+
+def placed_zeros(shape, spec: P, mesh, dtype=torch.float32):
+    """Zeros of ``shape`` placed by ``spec`` (as :func:`place` would cut
+    them), each piece made on its own device: no whole copy is built."""
+    def build(shape, splits, coords):
+        if not splits:
+            return torch.zeros(shape, dtype=dtype, device=_device_at(mesh, coords))
+        (dim, axis), rest = splits[0], splits[1:]
+        n = axis_size(mesh, axis)
+        sub = list(shape)
+        sub[dim] //= n
+        return ShardedTensor([build(tuple(sub), rest, {**coords, axis: j}) for j in range(n)],
+                             dim, axis, mesh)
+    return build(tuple(shape), _splits(spec), {})
+
+
+def gather(leaf, device=None) -> torch.Tensor:
+    """A sharded leaf of tensor pieces gathered whole (``all_gather`` along
+    each split, innermost first) on ``device`` (default the first
+    piece's); a whole tensor as it is."""
+    from repro_torch.distributed import collectives
+    if not isinstance(leaf, ShardedTensor):
+        return leaf if device is None else leaf.to(device)
+    device = leaf.device if device is None else device
+    return collectives.all_gather([gather(p, device) for p in leaf.pieces], dim=leaf.dim,
+                                  device=device)
+
+
+def split_like(t: torch.Tensor, like):
+    """The whole tensor ``t`` cut as the placed leaf ``like`` is, each piece
+    on the device of ``like``'s piece; ``t`` itself where ``like`` is
+    whole."""
+    if not isinstance(like, ShardedTensor):
+        return t
+    return ShardedTensor([split_like(c.contiguous().to(piece_device(p)), p)
+                          for c, p in zip(torch.chunk(t, len(like.pieces), dim=like.dim),
+                                          like.pieces)], like.dim, like.axis, like.mesh)
+
+
 def shard_params(params, cfg, mesh):
     """``params`` placed on ``mesh`` by the rule table (:func:`place` of
     :func:`param_shardings`, without FSDP): the counterpart of the
@@ -501,6 +567,7 @@ def replicated_qtensor_leaves(params, cfg, mesh) -> List[Dict[str, Any]]:
 
 
 __all__ = ["ChildShardings", "NamedSharding", "P", "axis_size", "batch_shardings", "cache_shardings", "dp_axes",
-           "logits_sharding", "opt_state_shardings", "param_shardings", "param_spec_fn",
-           "place", "replicated_qtensor_leaves", "shard_params",
-           "spec_bytes"]
+           "gather", "logits_sharding", "opt_state_shardings", "param_shardings",
+           "param_spec_fn", "place", "placed_zeros",
+           "replicated_qtensor_leaves", "shard_params", "shardings_of", "spec_bytes",
+           "spec_of", "split_like"]

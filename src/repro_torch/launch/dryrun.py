@@ -22,12 +22,16 @@ and reports, per cell:
   of every gather and reduce the sharded forward runs
   (``roofline.collective_bytes``: a decode step's ``B`` rows, a
   prefill's or a train step's ``B * S``; a train step's backward is not
-  counted).  A decode step's attention runs over the cache placed as a
-  mesh engine places it (``models/sharded_cache.py``
-  ``place_slot_state``).  Where the mesh engine cannot place it (the
-  sequence split of ``long_500k``; the multi-pod mesh's slots over two
-  axes), its attention's collectives are not counted and
-  ``cache_collectives`` says why.
+  counted).  A decode step runs over the cache placed as a mesh engine
+  places it (``models/sharded_cache.py`` ``place_slot_state``): its
+  attention over the k/v pieces, and the rwkv and zamba2 cells' scans
+  over their recurrent pieces (``S``/``h`` over heads and slots, the
+  carries and conv window over slots), whose gathers are counted too.
+  Where the mesh engine cannot place it (the sequence split of
+  ``long_500k``; the multi-pod mesh's slots over two axes), its
+  collectives over the cache are not counted and ``cache_collectives``
+  says why.  A train step's backward, and the reduction of its
+  gradients over "data", are not counted (ROADMAP queue 1 item 15b).
 
 Activations are not counted.  It touches no card.
 
@@ -204,6 +208,8 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, compress: str = "") -> 
         rows = B
     per_position = sum(mem.values())
     state, cache_note = None, "counted"
+    if cfg.family in ("rwkv", "hybrid"):
+        cache_note = "counted, recurrent pieces included"
     if spec.kind == "decode":
         from repro_torch.models.sharded_cache import place_slot_state
         try:

@@ -308,6 +308,7 @@ def _cache_collectives(params, state, cfg, rows: int, act: int, out: Dict[str, f
     dtype."""
     from repro_torch.models.sharded_cache import layout
     H, hd = cfg.n_heads, cfg.resolved_head_dim
+    _recurrent_collectives(params, state, cfg, rows, act, out)
     for path, leaf in flatten_with_path(state):
         if path[-1] != "k" or not isinstance(leaf, ShardedTensor):
             continue
@@ -330,6 +331,50 @@ def _cache_collectives(params, state, cfg, rows: int, act: int, out: Dict[str, f
                 gather += heads
         if gather:
             out["all-gather"] = out.get("all-gather", 0.0) + gather * uses
+
+
+def _recurrent_collectives(params, state, cfg, rows: int, act: int,
+                           out: Dict[str, float]) -> None:
+    """What a sharded recurrent state changes in a decode step's
+    collectives (rwkv's ``_sharded_decode``, mamba's ``_sharded_decode``),
+    per use of each leaf (a stacked leaf's layers).  A slot-split carry
+    (rwkv ``tm_x``/``cm_x``, mamba ``conv``) is gathered over its slots
+    [rows, ...] in its own dtype.  rwkv ``S`` split over heads: no gather
+    of the r/k/v/g column pieces' outputs [rows, d]; the time mix's rows
+    gathered over slots [rows, d], and its heads where ``wo`` is not cut
+    into the same pieces.  mamba ``h``: ``y`` [rows, d_inner] in f32
+    gathered once over slots and once over heads, where each splits."""
+    from repro_torch.models.sharded_cache import head_layout
+    for path, leaf in flatten_with_path(state):
+        name = path[-1]
+        if not isinstance(leaf, ShardedTensor) or name not in ("S", "h", "tm_x", "cm_x",
+                                                                 "conv"):
+            continue
+        size = leaf.dtype.itemsize
+        if name in ("tm_x", "cm_x", "conv"):
+            rank = 2 if name != "conv" else 3
+            each = rows * math.prod(leaf.shape[-rank + 1:]) * size
+            out["all-gather"] = out.get("all-gather", 0.0) + each * math.prod(
+                leaf.shape[:-rank])
+            continue
+        n_d, n_m = head_layout(leaf)
+        uses = math.prod(leaf.shape[:-4])
+        if name == "h":
+            y = rows * leaf.shape[-3] * leaf.shape[-2] * 4
+            out["all-gather"] = out.get("all-gather", 0.0) + y * uses * (
+                (n_d > 1) + (n_m > 1))
+            continue
+        tm = params[path[0]][path[1]]["tm"]
+        d = cfg.d_model
+        gather = rows * d * act if n_d > 1 else 0.0
+        if n_m > 1:
+            gather -= sum(rows * tm[n].shape[-1] * act for n in ("wr", "wk", "wv", "wg")
+                          if isinstance(tm[n], ShardedTensor))
+            wo = tm["wo"]
+            if not (isinstance(wo, ShardedTensor) and wo.axis == "model" and wo.dim == -2
+                    and len(wo.pieces) == n_m):
+                gather += rows * d * act
+        out["all-gather"] = out.get("all-gather", 0.0) + gather * uses
 
 
 def _main(w) -> torch.Tensor:

@@ -227,7 +227,9 @@ def decode_step(params: Params, cfg, cache, tokens, pos, *, max_len: int):
     x = L.embed(params, cfg, tokens)
     x = x + params["pos_dec"][pos][:, None]
     bidx = torch.arange(B, device=x.device)
-    enc_len = cache["enc_len"].long()
+    enc_len = cache["enc_len"]
+    if not isinstance(enc_len, ShardedTensor):
+        enc_len = enc_len.long()
     for p, cs, cx in zip(params["dec_blocks"], cache["self"], cache["cross"]):
         h = norm(x, p["ln1"], cfg)
         if isinstance(cs["k"], ShardedTensor):
@@ -252,12 +254,19 @@ def decode_step(params: Params, cfg, cache, tokens, pos, *, max_len: int):
 def _sharded_decode_layer(p, cs, cx, x, h, cfg, pos, enc_len):
     """One decoder layer of ``decode_step`` over a mesh engine's sharded
     self and cross caches: both attentions run where their pieces live
-    (``models/sharded_cache.py``); the cross cache is read only."""
+    (``models/sharded_cache.py``); the cross cache is read only, and a
+    slot-split ``enc_len`` masks each data position's rows with its own
+    piece."""
     T = cs["k"].shape[-3]
     valid = torch.arange(T, device=x.device)[None, :] <= pos[:, None]
     x = x + SC.decode_attention(p["attn"], h, cs, cfg, pos=pos, valid=valid)
     h = norm(x, p["lnx"], cfg)
-    valid = torch.arange(cx["k"].shape[-3], device=x.device)[None, :] < enc_len[:, None]
+    Tc = cx["k"].shape[-3]
+    if isinstance(enc_len, ShardedTensor):     # each data position's rows, where they live
+        valid = [torch.arange(Tc, device=e.device)[None, :] < e.long()[:, None]
+                 for e in enc_len.pieces]
+    else:
+        valid = torch.arange(Tc, device=x.device)[None, :] < enc_len[:, None]
     x = x + SC.decode_attention(p["xattn"], h, cx, cfg, pos=pos, valid=valid, write=False)
     return x + _gelu_mlp(p["mlp"], norm(x, p["ln2"], cfg))
 

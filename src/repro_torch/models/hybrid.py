@@ -57,8 +57,9 @@ def init_params(gen: torch.Generator, cfg) -> Params:
 
 
 def _group(tree, g: int):
-    """Group ``g`` of a [G, K, ...] state tree."""
-    return {n: t[g] for n, t in tree.items()}
+    """Group ``g`` of a [G, K, ...] state tree (a mesh engine's sharded
+    leaves sliced piece by piece)."""
+    return layer_slice(tree, g)
 
 
 def _tail(params, cfg, cache, x, lengths=None):

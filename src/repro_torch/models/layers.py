@@ -406,6 +406,14 @@ def init_embed(gen, cfg, dtype):
 
 
 def _lookup(t, tokens):
+    """Rows of a table, or of a vocab piece whose model dim is split again
+    (FSDP's "data" split of ``d_model``): each piece's columns gathered."""
+    if isinstance(t, ShardedTensor):
+        from repro_torch.distributed import collectives
+        if t.dim != -1:
+            raise NotImplementedError(f"a table piece split along dim {t.dim}")
+        return collectives.all_gather([_lookup(p, tokens.to(piece_device(p)))
+                                       for p in t.pieces], dim=-1, device=tokens.device)
     return t.lookup(tokens) if isinstance(t, QEmbed) else t[tokens]
 
 
@@ -426,6 +434,17 @@ def _sharded_lookup(t: ShardedTensor, tokens):
 
 
 def _tied_logits(t, x):
+    """f32 logits of ``x`` against a table; a piece whose model dim is split
+    again takes ``x``'s matching columns and sums the partial logits in
+    f32, in mesh order."""
+    if isinstance(t, ShardedTensor):
+        from repro_torch.distributed import collectives
+        if t.dim != -1:
+            raise NotImplementedError(f"a table piece split along dim {t.dim}")
+        xs = torch.split(x, [p.shape[-1] for p in t.pieces], dim=-1)
+        return collectives.all_reduce_sum(
+            [_tied_logits(p, xj.to(piece_device(p))) for xj, p in zip(xs, t.pieces)],
+            dtype=torch.float32, device=x.device)
     return t.logits(x) if isinstance(t, QEmbed) else tied_logits(x, t)
 
 

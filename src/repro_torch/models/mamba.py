@@ -21,7 +21,9 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.compressed import ShardedTensor
 from repro_torch.models import layers as L
+from repro_torch.models import sharded_cache as SC
 from repro_torch.models.layers import matmul
 
 Params = Dict[str, Any]
@@ -158,13 +160,66 @@ def stack_apply(stacked_params, states, x, cfg, *, chunk: int = 64, lengths=None
     reference returns them stacked anew); returns (x, states)."""
     from repro_torch.models.transformer import layer_slice
     K = stacked_params["A_log"].shape[0]          # never compressed: a plain tensor
+    sharded = any(isinstance(s, ShardedTensor) for s in states.values())
     for u in range(K):
+        if sharded:             # a mesh engine's decode writes its pieces in place
+            x = _sharded_decode(layer_slice(stacked_params, u), x, cfg,
+                                layer_slice(states, u))
+            continue
         x, st = block_apply(layer_slice(stacked_params, u), x, cfg,
                             state={n: s[u] for n, s in states.items()},
                             chunk=chunk, lengths=lengths)
         for n, s in st.items():
             states[n][u] = s
     return x, states
+
+
+def _sharded_decode(p: Params, x, cfg, state):
+    """One decode token of :func:`block_apply` against a mesh engine's
+    state placed by ``cache_shardings`` (``h`` over slots and heads, the
+    conv window over slots), written in place; returns x.
+
+    ``in_proj``'s output ``[z | x B C | dt]`` does not fall on head
+    boundaries, so the projection stays whole (gathered from its column
+    pieces) and the conv window, gathered over slots where it is split,
+    runs on it as before.  Each (data, model) position then runs
+    ``ssd_sequential`` on its rows and heads (``xs``, ``dt``, ``A_log``
+    and ``D`` sliced to them; ``B``/``C``, one group, whole) against its
+    ``h`` piece; ``y`` is gathered over rows and heads before ``norm_y``,
+    which normalizes over the whole ``d_inner``."""
+    B, T, d = x.shape
+    d_inner, H, P, N = dims(cfg)
+    n_d, n_m = SC.head_layout(state["h"])
+    b, hm = B // n_d, H // n_m
+    first = x.device
+    h_in = L.norm(x, p["ln"], cfg)
+    proj = matmul(h_in, p["in_proj"])
+    z, xbc, dt_raw = torch.split(proj, [d_inner, d_inner + 2 * N, H], dim=-1)
+    xbc, conv_state = _conv1d(xbc, p["conv_w"], p["conv_b"], SC.read_slots(state["conv"], first))
+    SC.write_slots(state["conv"], conv_state)
+    xbc = F.silu(xbc)
+    xs, Bm, Cm = torch.split(xbc, [d_inner, N, N], dim=-1)
+    u = dt_raw.float() + p["dt_bias"]
+    dt = torch.logaddexp(u, torch.zeros((), device=u.device))        # softplus
+    a = torch.exp(-dt * torch.exp(p["A_log"]))
+    xh = xs.reshape(B, T, H, P)
+    ys = []                                        # per model position: [b, T, hm, P] rows
+    for j in range(n_m):
+        hs = slice(j * hm, (j + 1) * hm)
+        rows = []
+        for i in range(n_d):
+            hij = SC.piece_of(state["h"], i, j)
+            at = hij.device
+            y, h_new = ssd_sequential(*(SC.rows_of(t, i, b, n_d).to(at)
+                                        for t in (xh[:, :, hs], dt[..., hs], a[..., hs], Bm, Cm)),
+                                      p["D"][hs].to(at), hij)
+            hij.copy_(h_new)
+            rows.append(y)
+        ys.append(rows)
+    y = SC.gather_heads(ys, n_d, n_m, first).reshape(B, T, d_inner)
+    y = (y * F.silu(z.float())).to(x.dtype)
+    y = L.rmsnorm(y, p["norm_y"])
+    return x + matmul(y, p["out_proj"])
 
 
 def block_apply(p: Params, x, cfg, *, state: Optional[Params] = None, chunk: int = 64,

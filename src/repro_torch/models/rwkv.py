@@ -36,7 +36,10 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core.compressed import ShardedTensor, piece_device
+from repro_torch.distributed import collectives
 from repro_torch.models import layers as L
+from repro_torch.models import sharded_cache as SC
 from repro_torch.models.layers import matmul
 from repro_torch.models.transformer import layer_slice
 
@@ -320,13 +323,101 @@ def _stacked(states):
 def decode_step(params: Params, cfg, cache, tokens, pos, *, max_len: int = 0):
     """One token for every row.  tokens [B,1]; ``pos`` is unused (the
     state is position-free).  Writes the new states into ``cache`` in
-    place, in its dtypes; returns (logits [B,1,V], cache)."""
+    place, in its dtypes; returns (logits [B,1,V], cache).  A mesh
+    engine's sharded state (``models/sharded_cache.py``) takes
+    :func:`_sharded_decode`."""
     states = cache["blocks"][0]
+    if any(isinstance(t, ShardedTensor) for t in states.values()):
+        return _sharded_decode(params, cfg, cache, tokens)
     x, new = _layers(params, cfg, L.embed(params, cfg, tokens), states)
     for r, st in enumerate(new):
         for n, t in st.items():
             states[n][r].copy_(t)
     return _head(params, cfg, x), cache
+
+
+def _sharded_decode(params: Params, cfg, cache, tokens):
+    """:func:`decode_step` over a mesh engine's slot state placed by
+    ``cache_shardings``: ``S`` split over slots ("data") and heads
+    ("model") where they divide, the token-shift carries over slots.
+    Each layer's time mix runs where its ``S`` pieces live
+    (:func:`_sharded_time_mix`); the carries of a slot-split state are
+    gathered for the shift and written back into their pieces."""
+    states = cache["blocks"][0]
+    x = L.embed(params, cfg, tokens)
+    for r in range(depth(params)):
+        p = layer_slice(params["blocks"][0], r)
+        st = layer_slice(states, r)
+        h = L.norm(x, p["ln1"], cfg)
+        a, tm_x = _sharded_time_mix(p["tm"], h, cfg, st["S"],
+                                    SC.read_slots(st["tm_x"], h.device).to(h.dtype))
+        SC.write_slots(st["tm_x"], tm_x)
+        x = x + a
+        h = L.norm(x, p["ln2"], cfg)
+        m, cm_x = channel_mix(p["cm"], h,
+                              shift_prev=SC.read_slots(st["cm_x"], h.device).to(h.dtype))
+        SC.write_slots(st["cm_x"], cm_x)
+        x = x + m
+    return _head(params, cfg, x), cache
+
+
+def _sharded_time_mix(p, x, cfg, S, shift_prev):
+    """One decode token of :func:`time_mix` (x [B, 1, d], post-ln) against
+    the sharded ``S``, written in place; returns (out, the shift carry).
+
+    Where the heads split (``S`` over "model", M pieces), the rule table
+    has cut ``wr``/``wk``/``wv``/``wg`` by columns in head order, so model
+    position ``j`` computes its heads' r, k, v and g from its own pieces
+    (no gather); the decay ``w`` (whole after ``wa2``'s row-parallel
+    sum), ``u`` and the group norm's ``gn`` are sliced to its heads; each
+    data position runs ``wkv6_sequential`` on its rows against its
+    ``S`` piece and takes the per-head group norm there; position ``j``'s
+    rows are gathered and multiplied by ``wo``'s row piece ``j``, and the
+    partial products summed in f32 in mesh order.  Where the heads do not
+    split, r/k/v/g are whole and each data position runs its rows."""
+    B, T, d = x.shape
+    H, N = cfg.n_heads, cfg.rwkv_head_dim
+    n_d, n_m = SC.head_layout(S)
+    b, hm = B // n_d, H // n_m
+    first = x.device
+    xx = _token_shift(x, shift_prev)
+    mu = p["mu"].float()
+    xr, xk, xv, xg, xw = (_lerp(x, xx, mu[i]) for i in range(5))
+    dd = matmul(torch.tanh(matmul(xw, p["wa1"])), p["wa2"]).float()
+    w = torch.exp(-torch.exp(p["w0"][None, None] + dd)).reshape(B, T, H, N)
+    u = p["u"].float().reshape(H, N)
+    gw, gb = (p["gn"][k].float().reshape(H, N) for k in ("w", "b"))
+    names = ("wr", "wk", "wv", "wg")
+    cuts = {n: SC.model_pieces(p[n], n_m, n) for n in names}
+    outs = []                                      # per model position: [b, T, hm * N] rows
+    for j in range(n_m):
+        dev = piece_device(cuts["wr"][j]) if n_m > 1 else first
+        r, k, v, g = (matmul(a.to(dev), cuts[n][j])
+                      for a, n in zip((xr, xk, xv, xg), names))
+        r, k, v = (t.reshape(B, T, hm, N) for t in (r, k, v))
+        g = F.silu(g)
+        hs = slice(j * hm, (j + 1) * hm)
+        rows = []
+        for i in range(n_d):
+            Sij = SC.piece_of(S, i, j)
+            at = Sij.device
+            out, Snew = wkv6_sequential(*(SC.rows_of(t, i, b, n_d).to(at) for t in (r, k, v)),
+                                        SC.rows_of(w[:, :, hs], i, b, n_d).to(at),
+                                        u[hs].to(at), Sij)
+            Sij.copy_(Snew)
+            mean = out.mean(-1, keepdim=True)
+            var = ((out - mean) ** 2).mean(-1, keepdim=True)
+            out = (out - mean) * torch.rsqrt(var + 64e-5) * gw[hs].to(at) + gb[hs].to(at)
+            gi = SC.rows_of(g, i, b, n_d).to(at)
+            rows.append((out.reshape(b, T, hm * N) * gi.float()).to(x.dtype))
+        outs.append(rows)
+    wo = p["wo"]
+    if n_m > 1 and isinstance(wo, ShardedTensor) and wo.axis == "model" and wo.dim == -2 \
+            and len(wo.pieces) == n_m:
+        parts = [matmul(SC.gather_heads([outs[j]], n_d, 1, piece_device(wo.pieces[j])),
+                        wo.pieces[j]) for j in range(n_m)]
+        return collectives.all_reduce_sum(parts, device=first), x[:, -1]
+    return matmul(SC.gather_heads(outs, n_d, n_m, first, dim=-1), wo), x[:, -1]
 
 
 def prefill(params: Params, cfg, tokens, *, max_len: int = 0, lengths=None,
@@ -356,9 +447,9 @@ def prefill_from(params: Params, cfg, cache, tokens, start, *, max_len: int = 0,
 
 def insert_rows(cfg, state, rows, slot_idxs):
     """The contiguous serving layout's admission: batch-n ``rows`` (from
-    ``prefill``) written into the batch-slots ``state`` at ``slot_idxs``,
-    in place, in the slot state's dtypes."""
+    ``prefill``) written into the batch-slots ``state`` at ``slot_idxs`` (a
+    tensor, or a mesh engine's ``sharded_cache.RowSplit``), in place, in
+    the slot state's dtypes."""
     for n, t in state["blocks"][0].items():
-        idx = torch.as_tensor(slot_idxs, device=t.device).long()
-        t.index_copy_(1, idx, rows["blocks"][0][n].to(t.dtype))
+        SC.write_rows(t, 1, slot_idxs, rows["blocks"][0][n])
     return state

@@ -3,18 +3,27 @@ run where each piece of it lives.
 
 The counterpart of the reference's ``cache_shardings`` placement of a
 tensor-parallel engine's slot state (``distributed/sharding.py``): every
-attention ``k``/``v`` leaf [..., B, T, K, hd] becomes a ``ShardedTensor``
-(:func:`place_slot_state`), its slots over "data" where they divide,
-its KV heads over "model" where they divide, else its ``head_dim``; a
-leaf split over both is a "data" ``ShardedTensor`` of "model" ones.
-Recurrent leaves (rwkv ``S``/``tm_x``/``cm_x``, mamba ``h``/``conv``) and
-whisper's ``enc_len`` stay on the mesh's first device.  A sequence split
-(slots that do not divide "data" while the positions do) is not handled
-and raises.
+leaf whose spec splits it becomes a ``ShardedTensor``
+(:func:`place_slot_state`).  An attention ``k``/``v`` leaf [..., B, T,
+K, hd] has its slots over "data" where they divide, its KV heads over
+"model" where they divide, else its ``head_dim``; rwkv ``S`` [..., B, H,
+N, N] and mamba ``h`` [..., B, H, P, N] their slots over "data" and
+their heads over "model"; the token-shift carries ``tm_x``/``cm_x``,
+the conv window and whisper's ``enc_len`` their slots over "data".  A
+leaf split over both is a "data" ``ShardedTensor`` of "model" ones; a
+leaf its spec replicates stays whole on the mesh's first device.  A
+sequence split (slots that do not divide "data" while the positions do)
+is not handled and raises.
 
-Decode attention over such a cache (:func:`decode_attention`, called by
-``transformer._decode_attn_block`` and encdec's decode, the only readers
-of a sharded cache leaf) runs piece by piece:
+The recurrent pieces are read where they live by rwkv's and mamba's
+``_sharded_decode`` (model position ``j`` runs the scan over its heads,
+data position ``i`` over its rows; :func:`head_layout`,
+:func:`piece_of`), and a slot-split carry is gathered over its slots
+for the step and written back (:func:`read_slots`,
+:func:`write_slots`).  Decode attention over a sharded k/v cache
+(:func:`decode_attention`, called by ``transformer._decode_attn_block``
+and encdec's decode, the only readers of a sharded k/v leaf) runs piece
+by piece:
 
 * KV heads split (K divides M): the rule table cuts ``wq``, ``wk`` and
   ``wv`` by columns in the same head order, so model position ``j``
@@ -32,10 +41,10 @@ of a sharded cache leaf) runs piece by piece:
   block of ``B / D`` rows); the rows' outputs are gathered before
   ``wo``.
 
-Admission (:func:`write_rows`) splits each prefilled row's k/v into the
-pieces by the same rule; the engine hands the rows of each data position
-over as device tensors (:class:`RowSplit`), computed on the host outside
-the step methods.
+Admission (:func:`write_rows`) splits each prefilled row's state into
+the pieces by the same rules; the engine hands the rows of each data
+position over as device tensors (:class:`RowSplit`), computed on the
+host outside the step methods.
 """
 from __future__ import annotations
 
@@ -80,8 +89,11 @@ def _kv_leaf(path, t) -> bool:
 
 def place_slot_state(state, cfg, mesh):
     """``state`` (a contiguous slot state on the mesh's first device) with
-    every attention k/v leaf placed by the reference's ``cache_shardings``
-    through ``sharding.place``; every other leaf stays where it is."""
+    every leaf placed by the reference's ``cache_shardings`` through
+    ``sharding.place``: k/v over slots and KV heads (or head_dim), rwkv
+    ``S`` and mamba ``h`` over slots and heads, the other recurrent leaves
+    and ``enc_len`` over slots; a leaf whose spec splits nothing stays
+    where it is."""
     from repro_torch.distributed.sharding import P, NamedSharding, cache_shardings, place
     specs = cache_shardings(cfg, state, mesh)
     flat = flatten_with_path(state)
@@ -89,10 +101,10 @@ def place_slot_state(state, cfg, mesh):
     shardings = []
     for path, t in flat:
         spec = spec_of[path]
-        if not _kv_leaf(path, t) or all(ax is None for ax in spec):
+        if all(ax is None for ax in spec):
             shardings.append(None)
             continue
-        if spec[-3] is not None:
+        if _kv_leaf(path, t) and spec[-3] is not None:
             raise NotImplementedError(
                 f"{'.'.join(map(str, path))}: a sequence-split slot state ({spec}): "
                 "give the engine a slot count the 'data' axis divides")
@@ -102,18 +114,16 @@ def place_slot_state(state, cfg, mesh):
 
 def state_position_bytes(state, i: int) -> int:
     """Bytes mesh position ``i`` holds of a slot state placed by
-    :func:`place_slot_state`: its piece of each k/v leaf, and every other
-    leaf whole at position 0 alone (the mesh's first device, where it
-    stays; the reference's ``cache_shardings`` also shards rwkv ``S`` and
-    mamba ``h`` over "model" and every recurrent leaf over "data", which
-    the port does not yet: ROADMAP item 14b)."""
-    return sum(param_bytes(t.piece_at(i)) if isinstance(t, ShardedTensor)
-               else (param_bytes(t) if i == 0 else 0)
+    :func:`place_slot_state`, by the reference's accounting (as
+    ``compressed.position_bytes`` counts params): its piece of each
+    sharded leaf, and every leaf the spec replicates whole (the port keeps
+    one copy of it, on the mesh's first device)."""
+    return sum(param_bytes(t.piece_at(i)) if isinstance(t, ShardedTensor) else param_bytes(t)
                for _, t in flatten_with_path(state))
 
 
 def data_split(state) -> int:
-    """How many data positions split the slots of ``state``'s k/v leaves."""
+    """How many data positions split the slots of ``state``."""
     for _, t in flatten_with_path(state):
         if isinstance(t, ShardedTensor) and t.axis == "data":
             return len(t.pieces)
@@ -130,7 +140,7 @@ def write_rows(leaf, axis: int, slot_idxs, rows) -> None:
         idx = torch.as_tensor(idx, device=leaf.device).long()
         leaf.index_copy_(axis, idx, rows.to(leaf.device, leaf.dtype))
         return
-    if leaf.axis == "data" and leaf.dim == -4:
+    if leaf.axis == "data" and leaf.dim == axis - rows.dim():
         if not isinstance(slot_idxs, RowSplit):
             raise ValueError("a slot state split over 'data' is written through a RowSplit")
         for piece, part in zip(leaf.pieces, slot_idxs.parts):
@@ -138,12 +148,56 @@ def write_rows(leaf, axis: int, slot_idxs, rows) -> None:
                 sel, local = part
                 write_rows(piece, axis, local, rows.index_select(axis, sel.to(rows.device)))
         return
-    if leaf.axis == "model" and leaf.dim in (-2, -1):
+    if leaf.axis == "model":
         for piece, r in zip(leaf.pieces, torch.chunk(rows, len(leaf.pieces), dim=leaf.dim)):
             write_rows(piece, axis, slot_idxs, r)
         return
     raise NotImplementedError(f"a slot-state leaf sharded along dim {leaf.dim} "
                               f"over {leaf.axis!r}")
+
+
+def read_slots(leaf, device) -> torch.Tensor:
+    """A recurrent leaf's rows for every slot on ``device``: a data-split
+    leaf's pieces gathered along its slots, a whole one as it is."""
+    if not isinstance(leaf, ShardedTensor):
+        return leaf.to(device)
+    return collectives.all_gather(list(leaf.pieces), dim=leaf.dim, device=device)
+
+
+def write_slots(leaf, value: torch.Tensor) -> None:
+    """``value`` (every slot's rows, on the first device) written into the
+    leaf in place, in its dtype: each data piece takes its own rows."""
+    if not isinstance(leaf, ShardedTensor):
+        leaf.copy_(value)
+        return
+    for piece, rows in zip(leaf.pieces, torch.chunk(value, len(leaf.pieces), dim=leaf.dim)):
+        piece.copy_(rows)
+
+
+def head_layout(leaf) -> Tuple[int, int]:
+    """(data pieces, model pieces) of one layer's recurrent state over
+    heads, rwkv ``S`` [B, H, N, N] or mamba ``h`` [B, H, P, N]: slots over
+    "data", heads over "model"."""
+    n_d, n_m = 1, 1
+    t = leaf
+    while isinstance(t, ShardedTensor):
+        if t.axis == "data" and t.dim == -4:
+            n_d = len(t.pieces)
+        elif t.axis == "model" and t.dim == -3:
+            n_m = len(t.pieces)
+        else:
+            raise NotImplementedError(f"a recurrent leaf sharded along dim {t.dim} "
+                                      f"over {t.axis!r}")
+        t = t.pieces[0]
+    return n_d, n_m
+
+
+def gather_heads(outs, n_d: int, n_m: int, device, dim: int = -2):
+    """Per model position ``j`` its data positions' rows ``outs[j]``
+    ([b, ..., heads of j, ...] each): the rows gathered, then the heads
+    along ``dim``, on ``device``."""
+    per_j = [_gather_rows(o, n_d, device) for o in outs]
+    return per_j[0] if n_m == 1 else collectives.all_gather(per_j, dim=dim, device=device)
 
 
 def layout(leaf) -> Tuple[int, Optional[int], int]:
@@ -163,7 +217,7 @@ def layout(leaf) -> Tuple[int, Optional[int], int]:
     return n_d, mdim, n_m
 
 
-def _piece(leaf, i: int, j: int) -> torch.Tensor:
+def piece_of(leaf, i: int, j: int) -> torch.Tensor:
     """Data position ``i``'s, model position ``j``'s piece of a leaf."""
     t = leaf
     if isinstance(t, ShardedTensor) and t.axis == "data":
@@ -173,7 +227,7 @@ def _piece(leaf, i: int, j: int) -> torch.Tensor:
     return t
 
 
-def _model_pieces(w, n: int, what: str) -> list:
+def model_pieces(w, n: int, what: str) -> list:
     """``w``'s ``n`` column pieces along "model" (``[w]`` when ``n`` is 1)."""
     if n == 1:
         return [w]
@@ -183,8 +237,14 @@ def _model_pieces(w, n: int, what: str) -> list:
     raise NotImplementedError(f"{what} is not cut into the cache's {n} head pieces: {w!r}")
 
 
-def _rows(t, i: int, b: int, n_d: int):
+def rows_of(t, i: int, b: int, n_d: int):
     return t if n_d == 1 else t[i * b:(i + 1) * b]
+
+
+def _valid_rows(valid, i: int, b: int, n_d: int):
+    """Data position ``i``'s rows of ``valid``: a whole [B, T] mask, or a
+    list holding each data position's own (built where its rows live)."""
+    return valid[i] if isinstance(valid, (list, tuple)) else rows_of(valid, i, b, n_d)
 
 
 def _gather_rows(pieces, n_d: int, device):
@@ -210,9 +270,9 @@ def decode_attention(p, h, c, cfg, *, pos, valid, theta: Optional[float] = None,
     B, hd = h.shape[0], cfg.resolved_head_dim
     b = B // n_d
     first = h.device
-    wq = _model_pieces(p["wq"], n_m, "wq")
-    wk = _model_pieces(p["wk"], n_m, "wk") if write else None
-    wv = _model_pieces(p["wv"], n_m, "wv") if write else None
+    wq = model_pieces(p["wq"], n_m, "wq")
+    wk = model_pieces(p["wk"], n_m, "wk") if write else None
+    wv = model_pieces(p["wv"], n_m, "wv") if write else None
     outs = []                                    # per model position: [B, 1, H/M, hd]
     for j in range(n_m):
         dev = piece_device(wq[j]) if n_m > 1 else first
@@ -227,17 +287,17 @@ def decode_attention(p, h, c, cfg, *, pos, valid, theta: Optional[float] = None,
                 k = L.apply_rope(k, posj[:, None], theta)
         rows_out = []
         for i in range(n_d):
-            ck, cv = _piece(c["k"], i, j), _piece(c["v"], i, j)
+            ck, cv = piece_of(c["k"], i, j), piece_of(c["v"], i, j)
             at = ck.device
-            pi = _rows(pos, i, b, n_d).to(at)
+            pi = rows_of(pos, i, b, n_d).to(at)
             if write:
                 bidx = torch.arange(b, device=at)
-                ck[bidx, pi] = _rows(k, i, b, n_d)[:, 0].to(at, ck.dtype)
-                cv[bidx, pi] = _rows(v, i, b, n_d)[:, 0].to(at, cv.dtype)
-            qg = _rows(q, i, b, n_d).to(at)
+                ck[bidx, pi] = rows_of(k, i, b, n_d)[:, 0].to(at, ck.dtype)
+                cv[bidx, pi] = rows_of(v, i, b, n_d)[:, 0].to(at, cv.dtype)
+            qg = rows_of(q, i, b, n_d).to(at)
             G = qg.shape[2] // ck.shape[2]
             o = L._sdpa(qg.reshape(b, 1, ck.shape[2], G, hd), ck, cv,
-                        _rows(valid, i, b, n_d).to(at)[:, None, None, None, :], cap)
+                        _valid_rows(valid, i, b, n_d).to(at)[:, None, None, None, :], cap)
             rows_out.append(o.reshape(b, 1, -1, hd))
         outs.append(rows_out)
     wo = p["wo"]
@@ -267,26 +327,26 @@ def _decode_hd_split(p, h, c, cfg, *, pos, valid, theta, cap, write, n_d, n_m):
     scale = 1.0 / math.sqrt(hd)
     rows_out = []
     for i in range(n_d):
-        qg = _rows(q, i, b, n_d).reshape(b, 1, K, H // K, hd)
-        pi = _rows(pos, i, b, n_d)
+        qg = rows_of(q, i, b, n_d).reshape(b, 1, K, H // K, hd)
+        pi = rows_of(pos, i, b, n_d)
         partial = []
         for j in range(n_m):
-            ck, cv = _piece(c["k"], i, j), _piece(c["v"], i, j)
+            ck, cv = piece_of(c["k"], i, j), piece_of(c["v"], i, j)
             at, sl = ck.device, slice(j * hj, (j + 1) * hj)
             if write:
                 bidx = torch.arange(b, device=at)
-                ck[bidx, pi.to(at)] = _rows(k, i, b, n_d)[:, 0, :, sl].to(at, ck.dtype)
-                cv[bidx, pi.to(at)] = _rows(v, i, b, n_d)[:, 0, :, sl].to(at, cv.dtype)
+                ck[bidx, pi.to(at)] = rows_of(k, i, b, n_d)[:, 0, :, sl].to(at, ck.dtype)
+                cv[bidx, pi.to(at)] = rows_of(v, i, b, n_d)[:, 0, :, sl].to(at, cv.dtype)
             partial.append(torch.einsum("bskgd,btkd->bkgst", qg[..., sl].to(at).float(),
                                         ck.float()))
         logits = collectives.all_reduce_sum(partial, dtype=torch.float32, device=first) * scale
         logits = L.softcap(logits, cap)
-        logits = logits.masked_fill(~_rows(valid, i, b, n_d)[:, None, None, None, :],
-                                    L.NEG_INF)
+        mask = _valid_rows(valid, i, b, n_d).to(first)
+        logits = logits.masked_fill(~mask[:, None, None, None, :], L.NEG_INF)
         probs = torch.softmax(logits, dim=-1)
         pv = []
         for j in range(n_m):
-            cv = _piece(c["v"], i, j)
+            cv = piece_of(c["v"], i, j)
             pv.append(torch.einsum("bkgst,btkd->bskgd", probs.to(cv.device, cv.dtype).float(),
                                    cv.float()).to(cv.dtype))
         rows_out.append(collectives.all_gather(pv, dim=-1, device=first).reshape(b, 1, H, hd))
@@ -294,5 +354,6 @@ def _decode_hd_split(p, h, c, cfg, *, pos, valid, theta, cap, write, n_d, n_m):
     return matmul(out.reshape(B, 1, -1), p["wo"])
 
 
-__all__ = ["RowSplit", "data_split", "decode_attention", "layout", "place_slot_state",
-           "split_rows", "state_position_bytes", "write_rows"]
+__all__ = ["RowSplit", "data_split", "decode_attention", "gather_heads", "head_layout",
+           "layout", "model_pieces", "piece_of", "place_slot_state", "read_slots", "rows_of",
+           "split_rows", "state_position_bytes", "write_rows", "write_slots"]

@@ -64,12 +64,14 @@ pieces' outputs are gathered or summed on the mesh's first device.  One
 process drives every position (single-controller, as the reference).  A
 mesh engine keeps the contiguous layout, as the reference's does (block
 gathers would defeat the sharding rules), and places its slot state at
-construction: every attention k/v leaf follows the reference's
-``cache_shardings`` (slots over "data", KV heads or else head_dim over
-"model"), and decode attention runs where each piece lives
-(``models/sharded_cache.py``); an admission hands each data position its
-rows.  Recurrent state, norms and sampling stay on the mesh's first
-device.  :meth:`Engine.position_bytes` is what each position holds.
+construction: every leaf follows the reference's ``cache_shardings``
+(k/v slots over "data", KV heads or else head_dim over "model"; rwkv
+``S`` and mamba ``h`` slots and heads; the other recurrent leaves and
+``enc_len`` slots), and decode attention and the recurrent scans run
+where each piece lives (``models/sharded_cache.py``); an admission hands
+each data position its rows.  Norms, sampling and the leaves a spec
+replicates stay on the mesh's first device.  :meth:`Engine.position_bytes`
+is what each position holds.
 ``device=`` and ``mesh=`` together raise.
 """
 from __future__ import annotations

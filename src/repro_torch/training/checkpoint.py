@@ -39,7 +39,8 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.compressed import BlockSparseTensor, QEmbed, QTensor, check_idx
+from repro_torch.core.compressed import (BlockSparseTensor, QEmbed, QTensor, ShardedTensor,
+                                         check_idx)
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.tree import flatten_with_path, unflatten_like
 
@@ -88,9 +89,22 @@ def _np(t) -> Tuple[np.ndarray, bool]:
     return t.numpy(), False
 
 
+def _whole(leaf, path) -> torch.Tensor:
+    """A sharded leaf of tensor pieces gathered whole on the host."""
+    from repro_torch.distributed.sharding import gather
+    if not all(torch.is_tensor(t) for t in leaf.tensors()):
+        raise NotImplementedError(f"{_path_str(path)}: a sharded leaf of compressed pieces "
+                                  "is not written; save it before placing it")
+    return gather(leaf, torch.device("cpu"))
+
+
 def save(ckpt_dir: str, step: int, state, *, extra: Optional[Dict] = None,
          keep: int = 3) -> str:
-    """Write ``state`` (a tree of tensors, compressed containers included)."""
+    """Write ``state`` (a tree of tensors, compressed containers included).
+    A sharded leaf (``ShardedTensor`` of tensor pieces, as a placed train
+    state holds) is written gathered whole, so the checkpoint is the one
+    its unsharded tree writes: either package's ``restore`` reads it, and
+    ``restore(..., shardings=)`` places it onto any layout."""
     os.makedirs(ckpt_dir, exist_ok=True)
     flat = _flatten(state)
     tmp = tempfile.mkdtemp(prefix="tmp.", dir=ckpt_dir)
@@ -103,6 +117,8 @@ def save(ckpt_dir: str, step: int, state, *, extra: Optional[Dict] = None,
     arrays: Dict[str, Tuple[np.ndarray, bool]] = {}
     for i, (path, leaf) in enumerate(flat):
         name = f"a{i}"
+        if isinstance(leaf, ShardedTensor):
+            leaf = _whole(leaf, path)
         meta: Dict[str, Any] = {"path": _path_str(path)}
         if isinstance(leaf, QTensor):
             meta["kind"] = "qtensor"

@@ -27,7 +27,9 @@ from typing import Any, List, Sequence, Tuple
 
 import torch
 
+from repro_torch.core.compressed import ShardedTensor
 from repro_torch.distributed import collectives
+from repro_torch.distributed.sharding import gather, split_like
 from repro_torch.tree import tree_map, tree_unzip
 
 
@@ -46,7 +48,8 @@ def _quantize(g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def init_residual(params) -> Any:
-    """Zero f32 residuals shaped like ``params``."""
+    """Zero f32 residuals shaped like ``params`` (a sharded leaf's whole,
+    on its first piece's device)."""
     return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
                     params)
 
@@ -111,12 +114,21 @@ def compressed_allreduce(grads, residual, *, axis: str, mesh):
     format; returns (grads, new_residual).  Leaves are replicated over
     ``axis`` before the call (each pod holds its own pod-local mean): every
     position starts from ``grads`` and ``residual``, and the first
-    position's result is returned."""
+    position's result is returned.
+
+    A sharded gradient (a placed tree's ``ShardedTensor``) enters whole:
+    the reference's ``shard_map`` takes every leaf with ``in_specs=P()``,
+    so a leaf split over another axis is gathered before the body runs
+    and its int8 scale is the whole leaf's.  Its residual is whole too
+    (``init_residual``: ``P()`` as well), and the reduced gradient comes
+    back cut as it came in, each piece on its own device, as the jitted
+    step hands the replicated result to the optimizer's sharded update."""
     n = mesh.shape[axis]
     if n == 1:
         return grads, residual
-    outs, res = compressed_allreduce_positions([grads] * n, [residual] * n)
-    return outs[0], res[0]
+    whole = tree_map(lambda g: gather(g) if isinstance(g, ShardedTensor) else g, grads)
+    outs, res = compressed_allreduce_positions([whole] * n, [residual] * n)
+    return tree_map(split_like, outs[0], grads), res[0]
 
 
 __all__ = ["compressed_allreduce", "compressed_allreduce_positions", "init_residual"]

@@ -13,13 +13,18 @@ The reference's trainer (``training/train_loop.py``) on PyTorch:
     residual)`` between the gradients and the update: the int8
     error-feedback all-reduce over a mesh axis is
     ``functools.partial(grad_compress.compressed_allreduce, axis=...,
-    mesh=...)`` (``training/grad_compress.py``).  The params themselves
-    are not sharded: training a ``shard_params`` tree is ROADMAP queue 1
-    item 15 (the kernel wrappers refuse gradients, and the optimizers know
-    no ``ShardedTensor``).
+    mesh=...)`` (``training/grad_compress.py``);
+  - a sharded param tree trains as it is: ``params=`` placed by
+    ``sharding.place(params, sharding.param_shardings(cfg, params, mesh,
+    fsdp=...))`` gives gradients cut as the params are
+    (``tree.value_and_grad``), an optimizer state placed as the
+    reference's ``opt_state_shardings`` says (``Optimizer.init``), and a
+    checkpoint restored onto the params' own layout.  Like the
+    reference's ``train``, it takes no mesh: the params carry it.
 
 Params come from a seeded ``torch.Generator`` on ``device`` (default
-``"cuda"``, which raises without a card), or from ``params=``.
+``"cuda"``, which raises without a card), or from ``params=``; a placed
+tree's whole leaves and the batch live on ``device``, its mesh's first.
 """
 from __future__ import annotations
 
@@ -30,12 +35,13 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from repro_torch.core.compressed import ShardedTensor
+from repro_torch.distributed.sharding import shardings_of
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.models import api
 from repro_torch.training import checkpoint as ckpt
 from repro_torch.training import data as D
 from repro_torch.training.optimizer import Optimizer, global_norm
-from repro_torch.tree import leaves, tree_map, value_and_grad
+from repro_torch.tree import tree_map, value_and_grad
 
 
 @dataclass
@@ -50,6 +56,13 @@ class TrainConfig:
     log_every: int = 20
     xent_chunk: int = 0
     aux_weight: float = 0.01
+
+
+def _leafwise(fn):
+    """``fn`` over matching leaves, piece by piece where they are sharded."""
+    def one(a, *rest):
+        return a.map(fn, *rest) if isinstance(a, ShardedTensor) else fn(a, *rest)
+    return one
 
 
 def make_train_step(model_cfg, optimizer: Optimizer, *,
@@ -67,10 +80,6 @@ def make_train_step(model_cfg, optimizer: Optimizer, *,
                            aux_weight=aux_weight)
 
     def train_step(params, opt_state, batch, step, residual=None):
-        if any(isinstance(t, ShardedTensor) for t in leaves(params)):
-            raise NotImplementedError(
-                "training a sharded param tree (shard_params) is not supported: "
-                "ROADMAP queue 1 item 15")
         if microbatches == 1:
             lv, grads = value_and_grad(lambda p: loss(p, batch), params)
         else:
@@ -84,13 +93,13 @@ def make_train_step(model_cfg, optimizer: Optimizer, *,
                 mb = {k: v[i * (B // M):(i + 1) * (B // M)] for k, v in batch.items()}
                 li, gi = value_and_grad(lambda p: loss(p, mb), params)
                 if grads is None:
-                    lv, grads = li.float(), tree_map(lambda g: g.float(), gi)
+                    lv, grads = li.float(), tree_map(_leafwise(lambda g: g.float()), gi)
                 else:
                     lv = lv + li
-                    grads = tree_map(lambda a, g: a.add_(g), grads, gi)
+                    grads = tree_map(_leafwise(lambda a, g: a.add_(g)), grads, gi)
                 del gi
             lv = lv / M
-            grads = tree_map(lambda g: g.div_(M), grads)
+            grads = tree_map(_leafwise(lambda g: g.div_(M)), grads)
         if grad_compressor is not None:
             grads, residual = grad_compressor(grads, residual)
         gnorm = global_norm(grads)
@@ -106,7 +115,8 @@ def make_train_step(model_cfg, optimizer: Optimizer, *,
 def train(model_cfg, tcfg: TrainConfig, optimizer: Optimizer, *,
           params=None, log: Callable[[str], None] = print,
           batch_fn: Optional[Callable] = None, device="cuda") -> Dict[str, Any]:
-    """End-to-end single-device training with restart support."""
+    """End-to-end training with restart support, on one device or, for a
+    placed ``params=`` tree, on its mesh."""
     dev = resolve_device(device)
     tok = D.ByteTokenizer(max(model_cfg.vocab_size, 260))
     if batch_fn is None:
@@ -120,8 +130,9 @@ def train(model_cfg, tcfg: TrainConfig, optimizer: Optimizer, *,
     opt_state = optimizer.init(params)
     start = 0
     if tcfg.ckpt_dir and ckpt.latest_step(tcfg.ckpt_dir) is not None:
-        (params, opt_state), start, _ = ckpt.restore(tcfg.ckpt_dir, (params, opt_state),
-                                                     device=dev)
+        target = (params, opt_state)
+        (params, opt_state), start, _ = ckpt.restore(tcfg.ckpt_dir, target, device=dev,
+                                                     shardings=shardings_of(target))
         log(f"[train] resumed from step {start}")
 
     step_fn = make_train_step(model_cfg, optimizer, microbatches=tcfg.microbatches,

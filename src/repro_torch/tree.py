@@ -110,26 +110,50 @@ def _differentiable(leaf) -> bool:
     return isinstance(leaf, torch.Tensor) and leaf.is_floating_point()
 
 
+def _alias(leaf, diff: list):
+    """``leaf`` with each float tensor (a sharded leaf's float pieces
+    included) replaced by a detached alias that requires grad, appended to
+    ``diff``."""
+    from repro_torch.core.compressed import ShardedTensor
+    if isinstance(leaf, ShardedTensor):
+        return leaf.map(lambda p: _alias(p, diff))
+    if _differentiable(leaf):
+        diff.append(leaf.detach().requires_grad_(True))
+        return diff[-1]
+    return leaf
+
+
+def _grad_of(leaf, got):
+    """The gradient of ``leaf`` from the iterator ``got`` (in the order
+    :func:`_alias` listed its tensors): zeros for an unused float tensor,
+    ``None`` for anything else, and a sharded leaf's as a ``ShardedTensor``
+    of the same layout, each piece's on its own device."""
+    from repro_torch.core.compressed import ShardedTensor
+    if isinstance(leaf, ShardedTensor):
+        return leaf.map(lambda p: _grad_of(p, got))
+    if not _differentiable(leaf):
+        return None
+    g = next(got)
+    return torch.zeros_like(leaf) if g is None else g
+
+
 def value_and_grad(fn, params):
     """(``fn(params)``, its gradient as a tree like ``params``): the
     counterpart of ``jax.value_and_grad``.  The params are not modified;
     their leaves are differentiated through detached aliases, so no
     ``.grad`` is left behind.  Each gradient has its param's dtype.  A
-    leaf that is not a float tensor (a compressed container such as
-    ``QTensor`` or ``QEmbed``, integer codes) is passed as it is and its
-    gradient is ``None``."""
+    sharded leaf (``ShardedTensor``, nested ones included) is
+    differentiated piece by piece and its gradient is a ``ShardedTensor``
+    cut the same way.  A leaf that is not a float tensor (a compressed
+    container such as ``QTensor`` or ``QEmbed``, integer codes) is passed
+    as it is and its gradient is ``None``."""
     ls = leaves(params)
-    alias = [p.detach().requires_grad_(True) if _differentiable(p) else p for p in ls]
-    diff = [a for a in alias if _differentiable(a)]
+    diff: list = []
+    alias = [_alias(p, diff) for p in ls]
     with torch.enable_grad():
         value = fn(unflatten_like(params, alias))
         got = iter(torch.autograd.grad(value, diff, allow_unused=True))
-    grads = []
-    for p in ls:
-        g = next(got) if _differentiable(p) else None
-        if g is None and _differentiable(p):
-            g = torch.zeros_like(p)
-        grads.append(g)
+    grads = [_grad_of(p, got) for p in ls]
     return value.detach(), unflatten_like(params, grads)
 
 

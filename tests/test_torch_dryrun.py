@@ -167,6 +167,30 @@ def test_decode_cells_count_the_sharded_cache(arch, branch):
             "all-gather": unsharded["all-gather"] + heads - B * (H + 2 * K) * hd * act * L}
 
 
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "zamba2-7b"])
+def test_decode_cells_count_the_recurrent_pieces(arch):
+    """A single-pod decode cell of a recurrent family runs its scans over
+    the state placed as a mesh engine places it.  rwkv6-3b's 40 heads do
+    not divide 16, so ``S`` is split over its 128 slots alone: each layer
+    gathers its two f32 carries and its time mix's rows [B, d] over
+    "data".  zamba2's notes say the same of its ``h``/``conv`` pieces."""
+    from repro_torch.configs import registry
+    cfg = registry.get_config(arch)
+    res = dryrun.run_cell(arch, "decode_32k", "single")
+    assert res["status"] == "ok"
+    assert res["cache_collectives"] == "counted, recurrent pieces included"
+    if arch != "rwkv6-3b":
+        return
+    params, _ = roofline.meta_instance(cfg)
+    mesh = make_mesh((16, 16), ("data", "model"), device="meta")
+    unsharded = roofline.collective_bytes(SH.shard_params(params, cfg, mesh), cfg, 128)
+    act = torch.empty((), dtype=cfg.dtype).element_size()
+    B, d, L = 128, cfg.d_model, cfg.n_layers
+    assert cfg.n_heads % 16 and res["roofline"]["coll_detail"] == {
+        "all-reduce": unsharded["all-reduce"],
+        "all-gather": unsharded["all-gather"] + L * B * d * (2 * 4 + act)}
+
+
 @pytest.mark.parametrize("arch,shape,mesh_kind", [("gemma3-1b", "long_500k", "single"),
                                                  ("gemma2-2b", "decode_32k", "multi")])
 def test_decode_cells_a_mesh_engine_cannot_place_say_so(arch, shape, mesh_kind):

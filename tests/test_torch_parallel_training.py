@@ -159,19 +159,3 @@ def test_restore_with_shardings_equals_restore_then_shard(tiny_dense, tmp_path):
             assert type(a) is type(b), path
             for x, y in zip(_pieces(a), _pieces(b)):
                 assert torch.equal(x, y), path
-
-
-def test_training_a_sharded_tree_is_refused_naming_its_item(tiny_dense):
-    """Training with sharded params is later work: the step refuses a
-    ``shard_params`` tree and names ROADMAP queue 1 item 15."""
-    from repro_torch.training import optimizer as OPT
-    from repro_torch.training.train_loop import make_train_step
-    rcfg, rparams = tiny_dense
-    cfg = from_reference(rcfg)
-    placed = SH.shard_params(bridge.from_reference(rparams, device="cpu"), cfg,
-                             make_mesh((1, 4), ("data", "model"), device="cpu"))
-    step = make_train_step(cfg, OPT.adamw())
-    batch = {"tokens": torch.ones((2, 8), dtype=torch.long),
-             "labels": torch.ones((2, 8), dtype=torch.long)}
-    with pytest.raises(NotImplementedError, match="queue 1 item 15"):
-        step(placed, None, batch, 0)

@@ -1,23 +1,26 @@
-"""A mesh engine's slot state sharded by ``cache_shardings``, attended where
-its pieces live (``models/sharded_cache.py``).
+"""A mesh engine's slot state sharded by ``cache_shardings``, run where its
+pieces live (``models/sharded_cache.py``).
 
 Every family of ``test_torch_tp.py`` at (1, 4) and (2, 2) in f32: each
-k/v leaf of ``Engine(mesh=)``'s slot state is a ``ShardedTensor`` whose
-splits are the spec of ``distributed/sharding.py``'s ``cache_shardings``
-(held leaf for leaf to the reference's by ``test_torch_sharding.py``),
-every other leaf a tensor on the first device, and each position's state
-bytes the k/v specs' ``spec_bytes`` plus, at position 0 alone, every
-other leaf whole (where the reference's spec splits a recurrent leaf, the
-difference is counted leaf by leaf: ROADMAP item 14b).  Both branches are covered: KV heads over "model" (qwen2-moe,
-zamba2, whisper, gemma2 at (2, 2)) and ``head_dim`` over "model"
-(granite, paligemma, gemma2 at (1, 4)).  ``test_torch_tp.py`` holds every
+leaf of ``Engine(mesh=)``'s slot state, k/v and recurrent ones alike, is
+cut as the spec of ``distributed/sharding.py``'s ``cache_shardings``
+says (held leaf for leaf to the reference's by ``test_torch_sharding.py``)
+and each position's state bytes are the specs' ``spec_bytes``: k/v over
+slots and KV heads (or ``head_dim``), rwkv ``S`` and mamba ``h`` over
+slots and heads, the carries, the conv window and whisper's ``enc_len``
+over slots.  Both k/v branches are covered: KV heads over "model"
+(qwen2-moe, zamba2, whisper, gemma2 at (2, 2)) and ``head_dim`` over
+"model" (granite, paligemma, gemma2 at (1, 4)); rwkv's heads split at
+(2, 2), and at (1, 4), where its 2 heads do not divide 4, ``wr`` is cut
+by columns while ``S`` stays whole.  ``test_torch_tp.py`` holds every
 family's greedy tokens on this state to the unsharded engine's and the
 reference's; here the ``w8`` instance and prefix-seeded rows too, the
 decode step's recorded collectives against ``roofline.collective_bytes``
-(no q/k/v gather where KV heads split, the partial-score sums and no
-cache gather where ``head_dim`` splits), a planted fault (one piece's
-heads written into another piece), the hot-path auditor and the pool's
-record of what each position holds.
+(no q/k/v gather where KV heads split, no r/k/v/g gather where rwkv's
+heads split, the partial-score sums and no cache gather where
+``head_dim`` splits), a planted fault (one piece's heads written into
+another piece), the hot-path auditor and the pool's record of what each
+position holds.
 """
 import math
 
@@ -39,14 +42,15 @@ from repro_torch.models import sharded_cache as SC  # noqa: E402
 from repro_torch.serving.engine import Engine  # noqa: E402
 from repro_torch.tree import flatten_with_path  # noqa: E402
 
-# which dim "model" cuts each family's k/v at each mesh (None: no k/v)
+# which dim "model" cuts each family's k/v (and rwkv S, mamba h) at each
+# mesh: their heads, or head_dim (None: nothing split over "model")
 BRANCH = {"gemma2-2b": {(1, 4): "hd", (2, 2): "heads"},
           "granite-20b": {(1, 4): "hd", (2, 2): "hd"},
           "paligemma-3b": {(1, 4): "hd", (2, 2): "hd"},
           "qwen2-moe-a2.7b": {(1, 4): "heads", (2, 2): "heads"},
           "zamba2-7b": {(1, 4): "heads", (2, 2): "heads"},
           "whisper-base": {(1, 4): "heads", (2, 2): "heads"},
-          "rwkv6-3b": {(1, 4): None, (2, 2): None}}
+          "rwkv6-3b": {(1, 4): None, (2, 2): "heads"}}
 PREFIX = "fix: "
 PREFIX_ROWS = [PREFIX + w for w in ("pythn", "jvaa", "rubby", "golng")]
 
@@ -78,39 +82,52 @@ def test_kv_leaves_follow_cache_shardings(arch, shape):
         SH.cache_shardings(cfg, api.init_cache(cfg, eng.slots, eng.max_len, device="meta"),
                            mesh), is_leaf=lambda x: isinstance(x, SH.P)))
     spec_total = [0.0] * mesh.size            # every leaf by the reference's spec
-    item_14b = [0.0] * mesh.size              # placed minus spec, recurrent leaves
+    item_14b = [0.0] * mesh.size              # placed minus spec
     branches = set()
     for path, leaf in flatten_with_path(eng._slot_state):
         spec = specs[path]
-        if path[-1] in ("k", "v"):
-            assert isinstance(leaf, ShardedTensor), (arch, shape, path)
-            assert _splits(leaf) == _spec_splits(spec), (arch, shape, path, spec)
-            branches |= {"heads" if d == -2 else "hd" for d, ax in _splits(leaf)
+        assert _splits(leaf) == _spec_splits(spec), (arch, shape, path, spec)
+        if path[-1] in ("k", "v", "S", "h"):
+            branches |= {"hd" if d == -1 else "heads" for d, ax in _splits(leaf)
                          if ax == "model"}
-            itemsize = leaf.dtype.itemsize
-            for i in range(mesh.size):
-                spec_total[i] += SH.spec_bytes(leaf.shape, itemsize, spec, mesh)
+        itemsize = leaf.dtype.itemsize
+        for i in range(mesh.size):
+            part = SH.spec_bytes(leaf.shape, itemsize, spec, mesh)
+            spec_total[i] += part
+            if isinstance(leaf, ShardedTensor):
                 piece = leaf.piece_at(i)
-                assert piece.device == mesh.devices.flat[i]
-                assert piece.numel() * itemsize == SH.spec_bytes(leaf.shape, itemsize, spec,
-                                                                 mesh)
-        else:                 # recurrent leaves and enc_len stay whole on the first device
-            assert torch.is_tensor(leaf) and leaf.device == mesh.first_device, path
-            whole = leaf.numel() * leaf.element_size()
-            for i in range(mesh.size):
-                part = SH.spec_bytes(leaf.shape, leaf.element_size(), spec, mesh)
-                spec_total[i] += part
-                item_14b[i] += (whole if i == 0 else 0) - part
+                coords = mesh.coords(i)
+                assert piece.device == SH._device_at(
+                    mesh, {ax: coords[ax] for _, ax in _splits(leaf)}), (path, i)
+            else:                 # replicated by the spec: one copy, on the first device
+                piece = leaf
+                assert leaf.device == mesh.first_device, path
+            item_14b[i] += piece.numel() * itemsize - part
     assert branches == ({BRANCH[arch][shape]} if BRANCH[arch][shape] else set())
-    # the reference holds its share of every recurrent leaf and of whisper's
-    # enc_len at every position (split over "data", rwkv S and mamba h over
-    # "model" too); the port keeps them whole on position 0 alone (item 14b)
-    kept_on_first = arch in ("rwkv6-3b", "zamba2-7b", "whisper-base")
-    assert any(item_14b) == kept_on_first, (arch, shape, item_14b)
-    want = [s + d for s, d in zip(spec_total, item_14b)]
-    assert [SC.state_position_bytes(eng._slot_state, i) for i in range(mesh.size)] == want
+    # every leaf, recurrent ones and whisper's enc_len included, holds the
+    # reference's share at every position: nothing is left to ROADMAP item 14b
+    assert not any(item_14b), (arch, shape, item_14b)
+    assert [SC.state_position_bytes(eng._slot_state, i) for i in range(mesh.size)] == \
+        spec_total
     assert [eng.position_bytes(i) for i in range(mesh.size)] == [
-        position_bytes(eng.params, i) + want[i] for i in range(mesh.size)]
+        position_bytes(eng.params, i) + spec_total[i] for i in range(mesh.size)]
+
+
+def test_rwkv_columns_split_where_its_heads_do_not():
+    """rwkv's 2 heads on 4 model positions: ``wr`` (128 columns) is cut by
+    columns, ``S`` stays whole (its spec does not split the heads), and
+    decode takes the whole-head route, still giving the unsharded tokens."""
+    _, _, cfg, params, _ = _models("rwkv6-3b")
+    eng = _engine("rwkv6-3b", (1, 4))
+    tm = eng.params["blocks"][0]["tm"]
+    assert cfg.n_heads % 4 and isinstance(tm["wr"], ShardedTensor) and tm["wr"].dim == -1
+    assert all(torch.is_tensor(t) for t in eng._slot_state["blocks"][0].values())
+    want = _ids(Engine(params, cfg, device="cpu", kv_layout="contiguous", **KW))
+    assert _ids(eng) == want
+    split = _engine("rwkv6-3b", (2, 2))
+    S = split._slot_state["blocks"][0]["S"]
+    assert _splits(S) == [(-4, "data"), (-3, "model")]
+    assert _ids(split) == want
 
 
 @pytest.mark.parametrize("shape", SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
@@ -145,7 +162,8 @@ def _faulty_write_rows(real):
 
 
 @pytest.mark.parametrize("arch,shape", [("gemma2-2b", (1, 4)), ("gemma2-2b", (2, 2)),
-                                        ("qwen2-moe-a2.7b", (1, 4))])
+                                        ("qwen2-moe-a2.7b", (1, 4)), ("rwkv6-3b", (2, 2)),
+                                        ("zamba2-7b", (1, 4))])
 def test_planted_fault_fails_the_token_check(arch, shape, monkeypatch):
     _, _, cfg, params, _ = _models(arch)
     want = _ids(Engine(params, cfg, device="cpu", kv_layout="contiguous", **KW))
@@ -156,7 +174,9 @@ def test_planted_fault_fails_the_token_check(arch, shape, monkeypatch):
 @pytest.mark.parametrize("arch,shape", [("gemma2-2b", (1, 4)), ("gemma2-2b", (2, 2)),
                                         ("granite-20b", (2, 2)), ("qwen2-moe-a2.7b", (1, 4)),
                                         ("zamba2-7b", (2, 2)), ("whisper-base", (1, 4)),
-                                        ("paligemma-3b", (1, 4))])
+                                        ("paligemma-3b", (1, 4)), ("rwkv6-3b", (1, 4)),
+                                        ("rwkv6-3b", (2, 2)), ("zamba2-7b", (1, 4)),
+                                        ("whisper-base", (2, 2))])
 def test_decode_step_collectives_equal_the_roofline_count(arch, shape, monkeypatch):
     """One decode step of four live slots records what
     ``collective_bytes`` counts over the engine's sharded state; where KV
@@ -182,9 +202,18 @@ def test_decode_step_collectives_equal_the_roofline_count(arch, shape, monkeypat
     assert cost.coll_detail == want
     unsharded = roofline.collective_bytes(eng.params, eng.cfg, eng.slots)
     kv = [(p, leaf) for p, leaf in flatten_with_path(eng._slot_state) if p[-1] == "k"]
-    if BRANCH[arch][shape] == "heads" and shape[0] == 1:
-        # the q (and k/v) projections' gathers are gone, nothing replaces them
-        assert got["all-gather"] < unsharded["all-gather"]
+    recurrent = {}
+    roofline._recurrent_collectives(eng.params, eng._slot_state, eng.cfg, eng.slots,
+                                    eng.cfg.dtype.itemsize, recurrent)
+    if arch == "rwkv6-3b" and BRANCH[arch][shape] == "heads":
+        # no gather of the r/k/v/g projections (4 [slots, d] a layer); the
+        # time mix's rows and the two f32 carries gathered over the slots
+        L, B, d, act = eng.cfg.n_layers, eng.slots, eng.cfg.d_model, eng.cfg.dtype.itemsize
+        assert recurrent == {"all-gather": L * B * d * (-4 * act + act + 2 * 4)}
+    elif BRANCH[arch][shape] == "heads" and shape[0] == 1:
+        # the q (and k/v) projections' gathers are gone, nothing replaces
+        # them (beyond a mamba y's gather over heads)
+        assert got["all-gather"] - recurrent.get("all-gather", 0) < unsharded["all-gather"]
         assert got["all-reduce"] == unsharded["all-reduce"]
     elif BRANCH[arch][shape] == "hd":
         # one f32 sum of the partial scores [slots, H, T] per attention
@@ -203,6 +232,16 @@ def test_auditor_finds_nothing_in_the_mesh_engines_steps():
         meta = api.init_cache(eng.cfg, eng.slots, eng.max_len, device="meta")
         assert report.budget["state_bytes"] == sum(t.numel() * t.element_size()
                                                    for _, t in flatten_with_path(meta))
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "zamba2-7b", "whisper-base"])
+def test_auditor_finds_nothing_over_split_recurrent_state(arch):
+    """Admission hands the recurrent pieces (and ``enc_len``'s) their rows
+    through ``RowSplit`` with no host copy inside a step method."""
+    eng = _engine(arch, (2, 2))
+    assert SC.data_split(eng._slot_state) == 2
+    report = jit_audit.audit_engine(eng)
+    assert report.diagnostics == [], [d.to_dict() for d in report.diagnostics]
 
 
 def test_sequence_split_raises():
