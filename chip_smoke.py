@@ -355,6 +355,23 @@ Phases, each of which raises on failure (so the script exits non-zero):
    (K1 and K2 launched), serve_compressed (the full nine-recipe grid; K1)
    and olap_queries (the grid for each query; K1; Q4's invocations equal
    its distinct surviving values); every engine on the cuda backend.
+56. long_decode (after the granite phases, from a generator of its own,
+   LONG_DECODE_SEED): full-width gemma3-1b (26 layers ``"LLLLLG" * 4 +
+   "LL"``, d_model 1152, 4/1 heads of 256, d_ff 6912, vocab 262144,
+   window 512) at the reference's ``long_500k`` decode shape (one row,
+   ``max_len`` 524,288): an 8192-token prompt through
+   ``api.build_prefill_step(use_flash=True)`` (K3 on every layer) and 16
+   steps through ``api.build_serve_step``, over the compact local-window
+   cache and over the absolute one, each cache freed before the next; the
+   f32 base's prefill logits identical bit for bit between the layouts,
+   its greedy tokens identical and its steps' logits within
+   LONG_DECODE_F32_TOL (the bf16 base's distance from them recorded
+   beside); the ``w8-absmax`` instance's bf16 layouts
+   (K2 on every linear) fed the tokens of its f32 copy, the compact one
+   held to the absolute one (RMS within LONG_DECODE_BF16_LAYOUT_TOL, every
+   greedy token the same) and to the whole-step rule; the bf16 caches'
+   bytes equal 2,159,017,984 and 13,958,643,712; K2 and K3 launched as
+   ``long_decode_launches`` says.
 
 K2, K3 and K4 run their tensor-core designs on bf16 and their FMA
 designs on f32; K1 runs ``split`` up to 8 query heads per KV head in
@@ -375,7 +392,8 @@ and channel-mix timings; on the vlm and encdec paths: ``launches_vlm``,
 ``launches_vlm_session``, ``launches_encdec``, ``launches_encdec_build``,
 and K2's ``vlm_encdec`` cases seen and timings; on the granite path:
 ``launches_granite``, ``launches_granite_session``, K1's and K3's ``g48``
-timings, and K2's ``granite`` cases seen and timings; on the QEmbed
+timings, and K2's ``granite`` cases seen and timings; on the
+long-context decode: ``launches_long_decode``; on the QEmbed
 instance's serve: ``launches_qembed``; during the audits:
 ``launches_static_analysis`` and ``launches_static_analysis_rwkv``; on
 the sharded runs: ``launches_tp``, ``launches_tp_pool``,
@@ -1410,7 +1428,7 @@ def long_prefill(gen, base, cfg):
         t0 = time.time()
         with kernel_backend(backend), torch.no_grad():
             lg, _ = api.prefill(params, cfg, {"tokens": toks}, max_len=toks.shape[1],
-                                use_flash=use_flash)
+                                compact_local=False, use_flash=use_flash)
         torch.cuda.synchronize()
         secs = time.time() - t0
         launched = {k: ops.launch_count[k] - before[k] for k in before}
@@ -4486,7 +4504,7 @@ def hybrid_long_prefill(gen, base, cfg, S: int = 8192):
             torch.cuda.synchronize()
             t0 = time.time()
             with kernel_backend(backend), torch.no_grad():
-                lg, _ = api.prefill(params, c, {"tokens": toks}, max_len=S)
+                lg, _ = api.prefill(params, c, {"tokens": toks}, max_len=S, compact_local=False)
             torch.cuda.synchronize()
             key = f"{backend}_{str(dtype).split('.')[-1]}"
             secs[key], peaks[key] = time.time() - t0, torch.cuda.max_memory_allocated()
@@ -5002,7 +5020,7 @@ def rwkv_whole_step(gen, params, eng, trials: int = 3, layers: int = 4):
     p_f, _, _ = InstanceOptimizer(base_f, cfg_f).apply(
         Recipe(name="w8-absmax", wbits=8, quant_method="absmax"))
     del base_f
-    state = api.init_cache(cfg_f, S, eng.max_len, device="cuda")
+    state = api.init_cache(cfg_f, S, eng.max_len, compact_local=False, device="cuda")
     for t in state["blocks"][0].values():
         t.copy_(torch.randn(t.shape, generator=gen, device="cuda"))
     f32_trials = []
@@ -6109,6 +6127,220 @@ def check_quant_matmul_granite(main_shapes, session_shapes, d_model=6144, d_ff=2
 
 
 # ---------------------------------------------------------------------------
+# phase long_decode: full-width gemma3-1b over the compact local-window cache
+# ---------------------------------------------------------------------------
+
+LONG_DECODE_SEED = 101           # the phase's generator: earlier phases' draws stay
+LONG_DECODE_PROMPT = 8192        # a multiple of the window (512) and of 1024
+LONG_DECODE_STEPS = 16
+# compact against absolute in f32: the whole-step rule's RMS bound, and the
+# same bound on the largest |diff| over the largest |logit|
+LONG_DECODE_F32_TOL = STEP_TOL_F32
+# the int8 instance's compact bf16 logits against its absolute bf16 ones,
+# fed the same tokens: RMS over the RMS of the absolute ones.  The layouts
+# differ only in the attention's slots, and read 0.0685 apart on an H100;
+# the whole-step rule's ratio (their distances from the f32 run's, 0.95
+# each on these random weights) cannot see a fault of that size
+LONG_DECODE_BF16_LAYOUT_TOL = 0.2
+# one row's K/V at the reference's long_500k shape in bf16: 4 global layers at
+# 524,288 positions and 22 local ones at 512, against all 26 at 524,288
+LONG_DECODE_BYTES = {True: 2_159_017_984, False: 13_958_643_712}
+
+
+def kv_bytes(cfg, max_len: int, compact: bool, itemsize: int) -> int:
+    """One row's K/V bytes: a local layer keeps min(window, max_len) slots
+    in the compact layout, every other layer ``max_len``."""
+    slots = sum(min(cfg.window_size, max_len) if kind == "L" and compact else max_len
+                for kind in cfg.pattern())
+    return slots * cfg.n_kv_heads * cfg.resolved_head_dim * 2 * itemsize
+
+
+def long_decode_launches(cfg=None, steps: int = LONG_DECODE_STEPS):
+    """The launches ``long_decode`` makes: K3 on every layer of its six
+    prefills (the f32 base on both layouts, the bf16 base, the int8
+    instance's f32 copy and its two bf16 layouts), K2 on the int8
+    instance's seven linears a layer in each of its three prefills and
+    their steps; K1 and K4 none."""
+    from repro_torch.configs import gemma3_1b
+    cfg = cfg or gemma3_1b.CONFIG
+    return {"paged_attention": 0, "block_sparse_matmul": 0,
+            "flash_attention": 6 * cfg.n_layers,
+            "quant_matmul": 3 * 7 * cfg.n_layers * (1 + steps)}
+
+
+def long_decode(cfg=None, device="cuda", prompt: int = LONG_DECODE_PROMPT,
+                steps: int = LONG_DECODE_STEPS, max_len=None):
+    """gemma3-1b at its published widths (random weights from LONG_DECODE_SEED)
+    at the reference's ``long_500k`` decode shape: one row, ``max_len``
+    524,288.  A prompt of ``prompt`` equal-length tokens is prefilled with
+    ``use_flash=True`` (K3 on every layer) through ``api.build_prefill_step``,
+    then ``steps`` tokens are decoded through ``api.build_serve_step``, once
+    over the compact cache (``compact_local=True``: 22 local layers at 512
+    slots) and once over the absolute one, each layout's cache freed before
+    the next is built:
+
+    - the f32 base: the prefill's last logits identical bit for bit
+      between the layouts (the layout changes no prefill arithmetic),
+      greedy tokens identical, the steps' logits within
+      LONG_DECODE_F32_TOL in RMS and in the largest |diff| over the
+      largest |logit|; the bf16 base on the compact layout, fed the same
+      tokens, gives the bf16 noise on these random weights beside it;
+    - the ``w8-absmax`` instance (K2 on every linear): its f32 copy on the
+      absolute layout decodes greedily, and both bf16 layouts are fed the
+      same tokens; the compact bf16 logits are held to the absolute ones
+      (RMS within LONG_DECODE_BF16_LAYOUT_TOL, every greedy token the
+      same) and to the whole-step rule (their RMS distance from the f32
+      run's within STEP_BF16_RATIO of the absolute bf16 run's);
+    - every cache's bytes equal ``kv_bytes`` (LONG_DECODE_BYTES in bf16),
+      each run's ``max_memory_allocated`` recorded.
+
+    Every run is on the cuda backend; the launches are read by the caller."""
+    from repro_torch.configs import gemma3_1b
+    from repro_torch.core.compressed import kernel_backend
+    from repro_torch.core.pipeline import InstanceOptimizer, Recipe
+    from repro_torch.launch.dryrun import SHAPES
+    from repro_torch.launch.roofline import ShapeSpec
+    from repro_torch.models import api
+    from repro_torch.tree import flatten_with_path
+    cfg = cfg or gemma3_1b.CONFIG
+    spec = SHAPES["long_500k"]
+    if max_len is not None:
+        spec = ShapeSpec(spec.name, max_len, spec.global_batch, spec.kind)
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
+               cfg.d_ff, cfg.vocab_size, cfg.window_size, spec.seq_len, spec.global_batch)
+              == (26, 1152, 4, 1, 256, 6912, 262144, 512, 524288, 1),
+              ("long_decode runs gemma3-1b's published widths at long_500k", cfg))
+        check(all(kv_bytes(cfg, spec.seq_len, c, 2) == n for c, n in LONG_DECODE_BYTES.items()),
+              ("the analytic K/V bytes", LONG_DECODE_BYTES))
+    gen = torch.Generator(device=device)
+    gen.manual_seed(LONG_DECODE_SEED)
+    base = api.init_params(gen, cfg)
+    toks = torch.randint(4, cfg.vocab_size, (1, prompt), generator=gen, device=device)
+    rms = lambda a, b: ((a - b).norm() / b.norm()).item()  # noqa: E731
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def run(params, c, compact, feed=None):
+        """Prefill and ``steps`` decode steps: greedy, or fed ``feed``."""
+        reset_peak()
+        sync()
+        t0 = time.time()
+        with kernel_backend("cuda"), torch.no_grad():
+            last, cache = api.build_prefill_step(c, spec, compact_local=compact,
+                                                 use_flash=True)(params, {"tokens": toks})
+            sync()
+            t_prefill = time.time() - t0
+            nbytes = sum(t.numel() * t.element_size() for _, t in flatten_with_path(cache))
+            serve = api.build_serve_step(c, spec)
+            logits = [last[:, -1].float()]
+            tok = last[:, -1].argmax(-1).to(torch.int32)[:, None]
+            fed = []
+            t1 = time.time()
+            for i in range(steps):
+                if feed is not None:
+                    tok = feed[i].view(1, 1)
+                fed.append(tok.view(1))
+                tok, lg, cache = serve(params, cache, tok,
+                                       torch.full((1,), prompt + i, dtype=torch.long,
+                                                  device=device))
+                logits.append(lg[:, -1].float())
+            sync()
+            t_decode = time.time() - t1
+        del cache
+        if cuda:
+            torch.cuda.empty_cache()
+        logits = torch.cat(logits)
+        check(bool(torch.isfinite(logits).all()) and logits.shape == (steps + 1, cfg.vocab_size),
+              ("long_decode logits", c.param_dtype, compact, logits.shape))
+        want = kv_bytes(c, spec.seq_len, compact, torch.empty((), dtype=c.dtype).element_size())
+        check(nbytes == want, ("long_decode cache bytes", c.param_dtype, compact, nbytes, want))
+        return {"logits": logits, "fed": torch.cat(fed), "greedy": logits.argmax(-1),
+                "cache_bytes": nbytes, "max_memory_allocated": card_memory()[1],
+                "prefill_s": t_prefill, "decode_ms_per_step": t_decode / steps * 1e3}
+
+    def summary(r):
+        return {k: r[k] for k in ("cache_bytes", "max_memory_allocated", "prefill_s",
+                                  "decode_ms_per_step")}
+
+    # the f32 base: greedy on each layout
+    c32 = cfg.replace(param_dtype="float32")
+    p32 = _f32(base)
+    f32 = {compact: run(p32, c32, compact) for compact in (True, False)}
+    del p32
+    same_tokens = torch.equal(f32[True]["greedy"], f32[False]["greedy"])
+    same_prefill = torch.equal(f32[True]["logits"][0], f32[False]["logits"][0])
+    f32_diff = ((f32[True]["logits"] - f32[False]["logits"]).abs().max()
+                / f32[False]["logits"].abs().max()).item()
+    f32_rms = rms(f32[True]["logits"], f32[False]["logits"])
+    b16 = run(base, cfg, True, feed=f32[False]["fed"])
+    base_noise = {"bf16_vs_f32": rms(b16["logits"], f32[False]["logits"]),
+                  "token_agreement": (b16["greedy"] == f32[False]["greedy"]).float().mean().item()}
+    # the w8-absmax instance: its f32 copy on the absolute layout decodes greedily
+    int8, _, _ = InstanceOptimizer(base, cfg).apply(
+        Recipe(name="w8-absmax", wbits=8, quant_method="absmax"))
+    del base
+    i32 = _f32(int8)
+    ref = run(i32, c32, False)
+    del i32
+    bf16 = {compact: run(int8, cfg, compact, feed=ref["fed"]) for compact in (True, False)}
+    del int8
+    if cuda:
+        torch.cuda.empty_cache()
+    r32 = ref["logits"]
+    c16, a16 = bf16[True]["logits"], bf16[False]["logits"]
+    line = {"phase": "long_decode", "model": cfg.name, "batch": spec.global_batch,
+            "max_len": spec.seq_len, "prompt": prompt, "steps": steps,
+            "window": cfg.window_size, "local_layers": cfg.pattern().count("L"),
+            "f32": {"greedy_identical": same_tokens, "prefill_logits_identical": same_prefill,
+                    "max_rel_logit_diff": f32_diff, "rms_rel_diff": f32_rms,
+                    "bound": LONG_DECODE_F32_TOL, "compact": summary(f32[True]),
+                    "absolute": summary(f32[False])},
+            "bf16_base_compact": {**base_noise, **summary(b16)},
+            "w8_absmax_bf16": {
+                "compact_vs_f32": rms(c16, r32), "absolute_vs_f32": rms(a16, r32),
+                "ratio": rms(c16, r32) / rms(a16, r32), "ratio_bound": STEP_BF16_RATIO,
+                "compact_vs_absolute": rms(c16, a16),
+                "compact_vs_absolute_bound": LONG_DECODE_BF16_LAYOUT_TOL,
+                "token_agreement_compact_absolute":
+                    (c16.argmax(-1) == a16.argmax(-1)).float().mean().item(),
+                "token_agreement_compact_f32":
+                    (c16.argmax(-1) == r32.argmax(-1)).float().mean().item(),
+                "token_agreement_absolute_f32":
+                    (a16.argmax(-1) == r32.argmax(-1)).float().mean().item(),
+                "compact": summary(bf16[True]), "absolute": summary(bf16[False]),
+                "f32_absolute": summary(ref)},
+            "cache_bytes_ratio": bf16[False]["cache_bytes"] / bf16[True]["cache_bytes"]}
+    emit(line)
+    q = line["w8_absmax_bf16"]
+    print(f"long_decode {cfg.name} B 1 max_len {spec.seq_len}: K/V bytes compact "
+          f"{bf16[True]['cache_bytes']} against absolute {bf16[False]['cache_bytes']} (bf16, "
+          f"{line['cache_bytes_ratio']:.3f}x); f32 greedy identical {same_tokens}, prefill "
+          f"identical {same_prefill}, max rel logit diff {f32_diff:.3e}, RMS {f32_rms:.3e} "
+          f"(bound {LONG_DECODE_F32_TOL}); bf16 base against f32 RMS "
+          f"{base_noise['bf16_vs_f32']:.3f}, agreement {base_noise['token_agreement']:.3f}; "
+          f"int8 bf16 RMS ratio "
+          f"{q['ratio']:.4f} (bound {STEP_BF16_RATIO}), compact against absolute RMS "
+          f"{q['compact_vs_absolute']:.4f} (bound {LONG_DECODE_BF16_LAYOUT_TOL}), token "
+          f"agreement {q['token_agreement_compact_absolute']:.3f}; bf16 decode "
+          f"{bf16[True]['decode_ms_per_step']:.2f} ms/step compact, "
+          f"{bf16[False]['decode_ms_per_step']:.2f} absolute; peaks "
+          f"{bf16[True]['max_memory_allocated']} and {bf16[False]['max_memory_allocated']}",
+          flush=True)
+    check(same_tokens and same_prefill, ("long_decode f32 greedy tokens and prefill", line))
+    check(f32_diff < LONG_DECODE_F32_TOL and f32_rms < LONG_DECODE_F32_TOL,
+          ("long_decode f32 logits", line))
+    check(q["compact_vs_absolute"] < LONG_DECODE_BF16_LAYOUT_TOL
+          and q["token_agreement_compact_absolute"] == 1.0,
+          ("long_decode bf16 compact against absolute", line))
+    check(q["ratio"] <= STEP_BF16_RATIO, ("long_decode bf16 whole-step rule", line))
+    return line
+
+
+# ---------------------------------------------------------------------------
 # tensor-parallel serving on a mesh whose positions share one card
 # ---------------------------------------------------------------------------
 
@@ -6234,7 +6466,7 @@ def _tp_step_check(flat, sharded, cfg, tok, prompts, mesh, device, label, max_le
     n = len(prompts)
     with kernel_backend(backend), torch.no_grad():
         lg, cache = api.prefill(flat, cfg, {"tokens": toks}, max_len=max_len, lengths=lens,
-                                cap_tokens=toks.shape[1])
+                                compact_local=False, cap_tokens=toks.shape[1])
     nxt = lg[torch.arange(n, device=toks.device), lens - 1].argmax(-1)[:, None]
     del lg
 
@@ -6281,7 +6513,7 @@ def spec_state_bytes(eng):
     from repro_torch.distributed import sharding as SH
     from repro_torch.models import api
     from repro_torch.tree import flatten_with_path
-    meta = api.init_cache(eng.cfg, eng.slots, eng.max_len, device="meta")
+    meta = api.init_cache(eng.cfg, eng.slots, eng.max_len, compact_local=False, device="meta")
     specs = dict(flatten_with_path(SH.cache_shardings(eng.cfg, meta, eng.mesh),
                                    is_leaf=lambda x: isinstance(x, SH.P)))
     return [sum(SH.spec_bytes(t.shape, t.element_size(), specs[p], eng.mesh)
@@ -7466,6 +7698,20 @@ def main() -> int:
     gr_parity_line = timed("granite_f32_parity", olap_f32_parity, ggen, gr_cfg, 4,
                            name="granite_f32_parity")
 
+    # full-width gemma3-1b at long_500k over the compact local-window cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"long_decode: memory_allocated {torch.cuda.memory_allocated()}", flush=True)
+    ops.reset_launch_counts()
+    ld_line = timed("long_decode", long_decode)
+    ld_launches = dict(ops.launch_count)
+    ld_line["launches"] = ld_launches
+    ld_line["variants"] = {k: n for k, n in ops.variant_count.items() if n}
+    ld_want = long_decode_launches()
+    print(f"long_decode launches: {ld_launches} (designs {ld_line['variants']}), "
+          f"{seconds['long_decode']:.1f} s", flush=True)
+    check(ld_launches == ld_want, ("long_decode launches", ld_launches, ld_want))
+
     # every family trains: one f32 step at a cut depth on the card and the
     # CPU, then three bf16 steps at the published widths
     gc.collect()
@@ -7604,6 +7850,8 @@ def main() -> int:
             check(qe_launches[name] == 0, ("off the QEmbed path", name))
         # the granite path (granite_main_path's int8 run, the session): K1
         # on its `mma` design and K2
+        # the long-context decode (long_decode): K2 and K3 only
+        kernels[-1]["launches_long_decode"] = ld_launches[name]
         kernels[-1]["launches_granite"] = gr_launches[name]
         kernels[-1]["launches_granite_session"] = gr_sess_launches[name]
         if name in ("paged_attention", "quant_matmul"):
@@ -7713,6 +7961,7 @@ def main() -> int:
                    "granite_main_path": gr_line, "granite_whole_step": gr_step_line,
                    "granite_decode_profile": gr_prof_line, "granite_session": gr_sess_line,
                    "quant_matmul_granite": kq_gr, "granite_f32_parity": gr_parity_line,
+                   "long_decode": ld_line,
                    "qembed_serve": qe_line, "train_family_parity": family_parity,
                    "static_analysis": sa_line, "static_analysis_rwkv": sa_rw_line,
                    "train_full_width_families": family_full,

@@ -1,7 +1,7 @@
 """Architecture registry of the port: only the architectures ported so far."""
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List, Tuple
 
 from repro_torch.configs import (arctic_480b, gemma2_2b, gemma3_1b, granite_20b,
                                  mistral_nemo_12b, paligemma_3b, qwen2_moe_a2_7b, rwkv6_3b,
@@ -38,4 +38,16 @@ def all_configs() -> Dict[str, ModelConfig]:
     return {k: m.CONFIG for k, m in _MODULES.items()}
 
 
-__all__ = ["ARCH_IDS", "get_config", "get_reduced", "all_configs"]
+def all_cells() -> List[Tuple[str, str, bool, str]]:
+    """Every (arch, shape) cell of the dry run's shapes with its
+    supported/skip status: (arch, shape, ok, reason)."""
+    from repro_torch.launch.dryrun import SHAPES, shape_supported
+    out = []
+    for arch, mod in _MODULES.items():
+        for shape in SHAPES:
+            ok, reason = shape_supported(mod.CONFIG, shape)
+            out.append((arch, shape, ok, reason))
+    return out
+
+
+__all__ = ["ARCH_IDS", "get_config", "get_reduced", "all_configs", "all_cells"]

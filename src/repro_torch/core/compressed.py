@@ -542,3 +542,9 @@ def expert_matmul(x: torch.Tensor, w) -> torch.Tensor:
                                              in_scale=w.in_scale)
         return _q_matmul_plain(x, w)
     return torch.matmul(x, w.to(x.dtype))
+
+
+def is_weight_leaf(x) -> bool:
+    """Whether ``x`` is a weight leaf of a param tree: a compressed
+    container or anything with a shape."""
+    return isinstance(x, (QTensor, BlockSparseTensor)) or hasattr(x, "shape")

@@ -13,9 +13,9 @@ and reports, per cell:
   ``QTensor`` twin of every compressible leaf with ``--compress
   wbits=8``), the optimizer state for train shapes (AdamW, Adafactor above
   50 B params; FSDP above 5 B, as the reference) and the cache for decode
-  shapes.  The cache is the port's contiguous one at absolute positions
-  (the reference's compact local-window layout is not ported), so a
-  windowed model's decode cache is the whole context's;
+  shapes.  The cache is the reference's compact one
+  (``init_cache(compact_local=True)``): a local layer keeps a circular
+  buffer of its window, a global layer the whole context;
 - whether that fits an 80 GB card;
 - the roofline terms of ``launch/roofline.py``: the cell's model FLOPs
   shared over the mesh, the bytes above read once, and the result bytes
@@ -23,7 +23,9 @@ and reports, per cell:
   (``roofline.collective_bytes``: a decode step's ``B`` rows, a
   prefill's or a train step's ``B * S``; a train step's backward is not
   counted).  A decode step runs over the cache placed as a mesh engine
-  places it (``models/sharded_cache.py`` ``place_slot_state``): its
+  places its own (``models/sharded_cache.py`` ``place_slot_state``; the
+  engine keeps absolute slots, the rules are the same, and the sharded
+  attention writes a compact local buffer at slot ``pos % T``): its
   attention over the k/v pieces, and the rwkv and zamba2 cells' scans
   over their recurrent pieces (``S``/``h`` over heads and slots, the
   carries and conv window over slots), whose gathers are counted too.
@@ -163,49 +165,68 @@ def _compress_cfg(cfg, compress: str):
     return cfg, kv
 
 
-def run_cell(arch: str, shape_name: str, mesh_kind: str, compress: str = "") -> dict:
-    """One cell's report (see the module docstring)."""
+def build_cell(arch: str, shape_name: str, mesh, compress: str = "") -> dict:
+    """The cell's pieces on the ``meta`` device under ``mesh``'s rules:
+    ``cfg``, ``spec``, ``params`` and ``param_shardings`` (``fsdp``),
+    ``batch`` and ``batch_shardings``; a train cell's optimizer
+    (``opt_kind``, ``opt_state``, ``opt_state_shardings``), a decode
+    cell's compact ``cache`` and ``cache_shardings``; and ``step``, the
+    step function the cell runs (``api.build_train_step``,
+    ``build_prefill_step`` or ``build_serve_step``)."""
     from repro_torch.models import api
     from repro_torch.training import optimizer as OPT
-    cfg = registry.get_config(arch)
-    ok, reason = shape_supported(cfg, shape_name)
+    cfg, kv = _compress_cfg(registry.get_config(arch), compress)
+    spec = SHAPES[shape_name]
+    params, _ = RL.meta_instance(cfg)
+    if "wbits" in kv:
+        params = quantize_specs(params, cfg)
+    fsdp = spec.kind == "train" and cfg.param_count() > FSDP_ABOVE
+    batch = input_specs(cfg, shape_name)
+    cell = {"cfg": cfg, "spec": spec, "params": params, "fsdp": fsdp,
+            "param_shardings": SH.param_shardings(cfg, params, mesh, fsdp=fsdp),
+            "batch": batch, "batch_shardings": SH.batch_shardings(cfg, batch, mesh)}
+    if spec.kind == "train":
+        kind = "adafactor" if cfg.param_count() > BIG_FOR_ADAFACTOR else "adamw"
+        opt = OPT.adafactor() if kind == "adafactor" else OPT.adamw()
+        cell.update(opt_kind=kind, opt_state=opt.init(params),
+                    opt_state_shardings=SH.opt_state_shardings(cell["param_shardings"],
+                                                               mesh, kind),
+                    step=api.build_train_step(cfg, opt))
+    elif spec.kind == "prefill":
+        cell["step"] = api.build_prefill_step(cfg, spec)
+    else:
+        cache = api.init_cache(cfg, spec.global_batch, spec.seq_len, compact_local=True,
+                               device="meta")
+        cell.update(cache=cache, cache_shardings=SH.cache_shardings(cfg, cache, mesh),
+                    step=api.build_serve_step(cfg, spec))
+    return cell
+
+
+def run_cell(arch: str, shape_name: str, mesh_kind: str, compress: str = "") -> dict:
+    """One cell's report (see the module docstring)."""
+    ok, reason = shape_supported(registry.get_config(arch), shape_name)
     if not ok:
         return {"arch": arch, "shape": shape_name, "mesh": mesh_kind,
                 "status": "skipped", "reason": reason}
     t0 = time.time()
-    cfg, kv = _compress_cfg(cfg, compress)
-    spec = SHAPES[shape_name]
     mesh = make_production_mesh(multi_pod=(mesh_kind == "multi"))
     chips = mesh.size
-    params, _ = RL.meta_instance(cfg)
-    if "wbits" in kv:
-        params = quantize_specs(params, cfg)
-    nparams = cfg.param_count()
-    fsdp = spec.kind == "train" and nparams > FSDP_ABOVE
-    param_sh = SH.param_shardings(cfg, params, mesh, fsdp=fsdp)
-    mem = {"params": bytes_per_position(params, param_sh)}
-    batch = input_specs(cfg, shape_name)
-    batch_sh = SH.batch_shardings(cfg, batch, mesh)
+    cell = build_cell(arch, shape_name, mesh, compress)
+    cfg, spec, params, fsdp = cell["cfg"], cell["spec"], cell["params"], cell["fsdp"]
+    mem = {"params": bytes_per_position(params, cell["param_shardings"])}
+    batch, batch_sh = cell["batch"], cell["batch_shardings"]
     mem["batch"] = sum(SH.spec_bytes(t.shape, t.element_size(), batch_sh[k], mesh)
                        for k, t in batch.items())
     B, S = spec.global_batch, spec.seq_len
+    rows = B if spec.kind == "decode" else B * S
     if spec.kind == "train":
-        kind = "adafactor" if nparams > BIG_FOR_ADAFACTOR else "adamw"
-        opt = OPT.adafactor() if kind == "adafactor" else OPT.adamw()
-        state = opt.init(params)
-        mem["opt_state"] = bytes_per_position(
-            state, SH.opt_state_shardings(param_sh, mesh, kind))
-        rows = B * S
-    elif spec.kind == "prefill":
-        rows = B * S
-    else:
-        cache = api.init_cache(cfg, B, S, device="meta")
-        cache_sh = SH.cache_shardings(cfg, cache, mesh)
+        mem["opt_state"] = bytes_per_position(cell["opt_state"], cell["opt_state_shardings"])
+    elif spec.kind == "decode":
+        cache = cell["cache"]
         mem["cache"] = sum(SH.spec_bytes(t.shape, t.element_size(), s, mesh)
                            for (_, t), (_, s) in zip(flatten_with_path(cache),
-                                                     flatten_with_path(cache_sh,
+                                                     flatten_with_path(cell["cache_shardings"],
                                                                        is_leaf=SH._is_spec)))
-        rows = B
     per_position = sum(mem.values())
     state, cache_note = None, "counted"
     if cfg.family in ("rwkv", "hybrid"):

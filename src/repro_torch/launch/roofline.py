@@ -408,7 +408,7 @@ def decode_step_cost(params, cfg, slots: int, max_len: int, state=None, *,
     the whole step's."""
     from repro_torch.models import api
     if state is None:
-        state = api.init_cache(cfg, slots, max_len, device="meta")
+        state = api.init_cache(cfg, slots, max_len, compact_local=False, device="meta")
     sharded = [t for _, t in flatten_with_path(params) if isinstance(t, ShardedTensor)]
     coll = collective_bytes(params, cfg, slots, state) if sharded else {}
     weights = _weight_bytes(params, cfg, slots)

@@ -14,6 +14,8 @@ from __future__ import annotations
 
 from typing import Any, Dict
 
+import torch
+
 from repro_torch.models import encdec, hybrid, rwkv, transformer
 from repro_torch.tree import value_and_grad
 
@@ -66,7 +68,7 @@ def loss_fn(params, cfg, batch, *, xent_chunk: int = 0, remat: bool = True,
                                       aux_weight=aux_weight)
 
 
-def prefill(params, cfg, batch, *, max_len: int, compact_local: bool = False,
+def prefill(params, cfg, batch, *, max_len: int, compact_local: bool = True,
             use_flash: bool = False, lengths=None, cap_tokens=None):
     """``lengths`` [B] (real token count per right-padded row) keeps the
     padding out of a recurrent family's carried state; attention
@@ -74,7 +76,9 @@ def prefill(params, cfg, batch, *, max_len: int, compact_local: bool = False,
     ``cap_tokens``: the token count that decides MoE capacity (default
     the whole batch; the engine passes a row's, for per-row dispatch).
     ``batch`` carries ``enc_inputs`` (encdec) or ``img_embs`` (vlm), as
-    in ``forward``; a vlm's logits then cover its image positions too."""
+    in ``forward``; a vlm's logits then cover its image positions too.
+    ``compact_local`` as in :func:`init_cache`; callers that serve rows of
+    different lengths pass ``False``."""
     kw: Dict[str, Any] = dict(max_len=max_len, compact_local=compact_local,
                               use_flash=use_flash, cap_tokens=cap_tokens)
     if cfg.family in _RECURRENT:
@@ -86,12 +90,14 @@ def prefill(params, cfg, batch, *, max_len: int, compact_local: bool = False,
     return family_module(cfg).prefill(params, cfg, batch["tokens"], **kw)
 
 
-def init_cache(cfg, batch: int, max_len: int, *, compact_local: bool = False,
+def init_cache(cfg, batch: int, max_len: int, *, compact_local: bool = True,
                device="cuda"):
-    """Contiguous cache at absolute slots (``compact_local=True`` raises,
-    but for rwkv, whose O(1) state has no positions to compact); an
-    encdec's also holds each slot's cross-attention K/V at ``enc_ctx``
-    positions and its ``enc_len``."""
+    """Contiguous cache.  With ``compact_local`` (the default, as the
+    reference's) a transformer's local layers keep a circular buffer of
+    min(window, max_len) slots, for rows of equal length; without it every
+    layer keeps ``max_len`` absolute slots, the serving layout.  The other
+    families ignore it.  An encdec's cache also holds each slot's
+    cross-attention K/V at ``enc_ctx`` positions and its ``enc_len``."""
     return family_module(cfg).init_cache(cfg, batch, max_len,
                                          compact_local=compact_local, device=device)
 
@@ -203,3 +209,31 @@ def build_train_step(cfg, optimizer, *, xent_chunk: int = 0,
         gnorm = optimizer.global_norm(grads)
         return params, opt_state, {"loss": loss, "grad_norm": gnorm}
     return train_step
+
+
+def build_prefill_step(cfg, shape_spec, *, compact_local: bool = True,
+                       use_flash: bool = False):
+    """(params, batch) -> (last-position logits [B, 1, V], cache) over a
+    ``shape_spec.seq_len``-deep cache (``launch/roofline.py``
+    ``ShapeSpec``); the engine gathers per-row lengths itself."""
+    max_len = shape_spec.seq_len
+
+    def prefill_step(params, batch):
+        logits, cache = prefill(params, cfg, batch, max_len=max_len,
+                                compact_local=compact_local, use_flash=use_flash)
+        return logits[:, -1:], cache
+    return prefill_step
+
+
+def build_serve_step(cfg, shape_spec):
+    """(params, cache, tokens [B, 1], pos) -> (greedy next token [B, 1],
+    logits [B, 1, V], cache): one decode token against a
+    ``shape_spec.seq_len``-deep cache (the dry run's ``decode_*`` and
+    ``long_*`` cells)."""
+    max_len = shape_spec.seq_len
+
+    def serve_step(params, cache, tokens, pos):
+        logits, cache = decode_step(params, cfg, cache, tokens, pos, max_len=max_len)
+        next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+        return next_tok[:, None], logits, cache
+    return serve_step

@@ -159,12 +159,10 @@ def forward(params: Params, cfg, tokens, *, enc_inputs, train: bool = False,
 # serving: decoder self-attention KV + precomputed cross KV
 # ---------------------------------------------------------------------------
 
-def init_cache(cfg, batch: int, max_len: int, *, compact_local: bool = False,
+def init_cache(cfg, batch: int, max_len: int, *, compact_local: bool = True,
                device="cuda"):
-    """The contiguous cache (``compact_local`` raises: there is no local
-    layer to compact)."""
-    if compact_local:
-        raise NotImplementedError("compact_local caches are dry-run only")
+    """The contiguous cache (``compact_local`` does not apply: there is no
+    local layer to compact)."""
     dt, K, hd = cfg.dtype, cfg.n_kv_heads, cfg.resolved_head_dim
 
     def kv(T):

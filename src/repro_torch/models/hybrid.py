@@ -120,12 +120,12 @@ def forward(params: Params, cfg, tokens, *, train: bool = False, remat: bool = T
 # contiguous cache / decode / prefill
 # ---------------------------------------------------------------------------
 
-def init_cache(cfg, batch: int, max_len: int, *, compact_local: bool = False,
+def init_cache(cfg, batch: int, max_len: int, *, compact_local: bool = True,
                device="cuda"):
     """Zero recurrent states and per-site KV at absolute slots (``device``
-    may be ``"meta"``: the pool sizes a slot from the shapes alone)."""
-    if compact_local:
-        raise NotImplementedError("compact_local caches are dry-run only")
+    may be ``"meta"``: the pool sizes a slot from the shapes alone).
+    ``compact_local`` does not apply: the shared sites are global (the
+    reference ignores it too)."""
     G, K, tail, n_sites = layout(cfg)
     Kh, hd = cfg.n_kv_heads, cfg.resolved_head_dim
     shape = (n_sites, batch, max_len, Kh, hd)
@@ -152,20 +152,19 @@ def decode_step(params: Params, cfg, cache, tokens, pos, *, max_len: int):
         states = _group(cache["mamba_groups"], g)
         x, _ = M.stack_apply(layer_slice(params["mamba_groups"], g), states, x, cfg)
         x = TF.block_decode(params["shared"], _site(cache["shared_kv"], g), x, cfg,
-                            kind="G", pos=pos)
+                            kind="G", pos=pos, max_len=max_len)
     x = _tail(params, cfg, cache, x)
     return _head(params, cfg, x), cache
 
 
 def prefill(params: Params, cfg, tokens, *, max_len: int, lengths=None,
-            compact_local: bool = False, use_flash: bool = False, cap_tokens=None):
+            compact_local: bool = True, use_flash: bool = False, cap_tokens=None):
     """Run the prompt, return (logits [B,S,V], populated cache).  Rows are
     right-padded; ``lengths`` [B] (their real token counts) keeps the
     padding out of the recurrent states.  The shared sites' attention is
     ``best_attention`` (K3 for long prompts on the cuda backend), as in
-    the reference; ``use_flash`` and ``cap_tokens`` do not apply."""
-    if compact_local:
-        raise NotImplementedError("compact_local caches are dry-run only")
+    the reference; ``compact_local``, ``use_flash`` and ``cap_tokens`` do
+    not apply."""
     x = L.embed(params, cfg, tokens)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
@@ -176,7 +175,7 @@ def prefill(params: Params, cfg, tokens, *, max_len: int, lengths=None,
         x, _ = M.stack_apply(layer_slice(params["mamba_groups"], g), states, x, cfg,
                              lengths=lengths)
         x = TF.block_prefill(params["shared"], _site(cache["shared_kv"], g), x, cfg,
-                             kind="G", positions=positions, max_len=max_len, ring=False)
+                             kind="G", positions=positions, ring=False)
     x = _tail(params, cfg, cache, x, lengths)
     return _head(params, cfg, x), cache
 

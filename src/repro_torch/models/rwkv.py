@@ -293,7 +293,7 @@ def forward(params: Params, cfg, tokens, *, train: bool = False, remat: bool = T
     return L.unembed(params, cfg, h), aux
 
 
-def init_cache(cfg, batch: int, max_len: int, *, compact_local: bool = False,
+def init_cache(cfg, batch: int, max_len: int, *, compact_local: bool = True,
                device="cuda"):
     """Zero recurrent states per layer, stacked along the layer axis, in
     ``init_layer_state``'s f32.  The state is O(1) in the sequence:
@@ -421,7 +421,7 @@ def _sharded_time_mix(p, x, cfg, S, shift_prev):
 
 
 def prefill(params: Params, cfg, tokens, *, max_len: int = 0, lengths=None,
-            compact_local: bool = False, use_flash: bool = False, cap_tokens=None):
+            compact_local: bool = True, use_flash: bool = False, cap_tokens=None):
     """Run the prompt from zero states, return (logits [B,S,V], cache
     with the token-shift carries in the model's dtype).  Rows are
     right-padded; ``lengths`` [B] keeps the padding out of the states.

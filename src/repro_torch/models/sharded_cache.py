@@ -261,8 +261,9 @@ def decode_attention(p, h, c, cfg, *, pos, valid, theta: Optional[float] = None,
     K, hd] leaves), then ``wo``: the [B, 1, d] result on the mesh's first
     device.  ``h`` [B, 1, d] is the normed input, ``pos`` [B] each row's
     position, ``valid`` [B, T] the slots each row attends to; ``theta``
-    applies rope; ``write`` stores this step's k/v at ``pos`` (a cross
-    cache is read only)."""
+    applies rope; ``write`` stores this step's k/v at slot ``pos % T`` (a
+    compact local cache is a circular buffer of T slots; an absolute one
+    has ``pos < T``; a cross cache is read only)."""
     n_d, mdim, n_m = layout(c["k"])
     if mdim == -1:
         return _decode_hd_split(p, h, c, cfg, pos=pos, valid=valid, theta=theta, cap=cap,
@@ -289,7 +290,7 @@ def decode_attention(p, h, c, cfg, *, pos, valid, theta: Optional[float] = None,
         for i in range(n_d):
             ck, cv = piece_of(c["k"], i, j), piece_of(c["v"], i, j)
             at = ck.device
-            pi = rows_of(pos, i, b, n_d).to(at)
+            pi = rows_of(pos, i, b, n_d).to(at) % ck.shape[1]
             if write:
                 bidx = torch.arange(b, device=at)
                 ck[bidx, pi] = rows_of(k, i, b, n_d)[:, 0].to(at, ck.dtype)
@@ -328,7 +329,7 @@ def _decode_hd_split(p, h, c, cfg, *, pos, valid, theta, cap, write, n_d, n_m):
     rows_out = []
     for i in range(n_d):
         qg = rows_of(q, i, b, n_d).reshape(b, 1, K, H // K, hd)
-        pi = rows_of(pos, i, b, n_d)
+        pi = rows_of(pos, i, b, n_d) % c["k"].shape[-3]
         partial = []
         for j in range(n_m):
             ck, cv = piece_of(c["k"], i, j), piece_of(c["v"], i, j)

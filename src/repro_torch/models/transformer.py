@@ -287,52 +287,64 @@ def _xent(logits, labels) -> torch.Tensor:
 # prefill: forward + cache population
 # ---------------------------------------------------------------------------
 
-def _empty_cache(cfg, batch: int, T: int, dtype, device):
-    """Contiguous cache of zeros, [R, batch, T, K, hd] per unit position."""
+def _slots(cfg, kind: str, max_len: int, compact_local: bool) -> int:
+    """A layer's cache length: a local layer of the compact layout keeps
+    a circular buffer of min(window, max_len) slots, every other layer
+    ``max_len``."""
+    if kind == "L" and compact_local:
+        return min(cfg.window_size, max_len)
+    return max_len
+
+
+def _empty_cache(cfg, batch: int, max_len: int, dtype, device, compact_local: bool):
+    """Contiguous cache of zeros, [R, batch, T, K, hd] per unit position
+    (T from :func:`_slots`)."""
     unit, R, tail = pattern_unit(cfg)
     K, hd = cfg.n_kv_heads, cfg.resolved_head_dim
 
-    def entry(lead):
-        shape = (*lead, batch, T, K, hd)
+    def entry(kind, lead):
+        shape = (*lead, batch, _slots(cfg, kind, max_len, compact_local), K, hd)
         return {"k": torch.zeros(shape, dtype=dtype, device=device),
                 "v": torch.zeros(shape, dtype=dtype, device=device)}
 
-    return {"blocks": [entry((R,)) for _ in unit],
-            "tail": [entry(()) for _ in range(tail)]}
+    return {"blocks": [entry(kind, (R,)) for kind in unit],
+            "tail": [entry(unit[i % len(unit)], ()) for i in range(tail)]}
 
 
 def prefill(params: Params, cfg, tokens, *, img_embs=None, max_len: int,
-            compact_local: bool = False, use_flash: bool = False,
+            compact_local: bool = True, use_flash: bool = False,
             cap_tokens: Optional[int] = None):
     """Run the prompt, return (logits [B, n_img + S, V], populated cache).
 
     Rows are right-padded; the caller gathers each row's last-valid-token
     logits (a vlm's text follows its ``img_embs``, whose KV fills the
-    first n_img slots).  Cache slots are absolute (``compact_local=False``,
-    the serving layout; the reference's circular dry-run layout is not
-    ported).  ``cap_tokens``: the token count that decides MoE capacity
-    (``L.moe_block``; default the whole batch).
+    first n_img slots).  Cache slots are absolute with
+    ``compact_local=False`` (the serving layout); by default a local
+    layer keeps only its window, circular (:func:`init_cache`), which
+    holds only for rows of equal length: a right-padded shorter row
+    would lose its real positions to the roll.  ``cap_tokens``: the token
+    count that decides MoE capacity (``L.moe_block``; default the whole
+    batch).
     """
-    if compact_local:
-        raise NotImplementedError("compact_local caches are dry-run only")
     x = embed_inputs(params, cfg, tokens, img_embs)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
-    cache = _empty_cache(cfg, B, max_len, cfg.dtype, x.device)
+    cache = _empty_cache(cfg, B, max_len, cfg.dtype, x.device, compact_local)
     for (kind, p), (_, c) in zip(_layers(params, cfg), _layers(cache, cfg)):
-        x = block_prefill(p, c, x, cfg, kind=kind, positions=positions, max_len=max_len,
+        x = block_prefill(p, c, x, cfg, kind=kind, positions=positions,
                           use_flash=use_flash, cap_tokens=cap_tokens)
     x = norm(x, params["ln_f"], cfg)
     return L.unembed(params, cfg, x), cache
 
 
-def block_prefill(p, c, x, cfg, *, kind: str, positions, max_len: int, ring: bool = True,
+def block_prefill(p, c, x, cfg, *, kind: str, positions, ring: bool = True,
                   use_flash: bool = False, cap_tokens: Optional[int] = None):
     """Full block (attn + FFN) over a whole prompt x [B, S, d]: the last
-    min(S, max_len) positions' k/v go into the per-row cache ``c`` ([B, T,
-    K, hd], written in place), rolled so that position p sits at slot
-    p % max_len when ``ring`` (the dense layout), in order otherwise (the
-    hybrid's shared sites, as the reference keeps them)."""
+    min(S, T) positions' k/v go into the per-row cache ``c`` ([B, T, K,
+    hd], written in place; T is the cache's ``max_len``, or a compact
+    local layer's window), rolled so that position p sits at slot p % T when ``ring``
+    (the dense layout), in order otherwise (the hybrid's shared sites, as
+    the reference keeps them)."""
     B, S, _ = x.shape
     h = norm(x, p["ln1"], cfg)
     q, k, v = L._qkv(p["attn"], h, cfg, positions, _theta(cfg, kind))
@@ -348,8 +360,9 @@ def block_prefill(p, c, x, cfg, *, kind: str, positions, max_len: int, ring: boo
     x = x + a
     h = norm(x, p["ln2"], cfg)
     x = x + _mlp_section(p, h, cfg, cap_tokens)
-    keep = min(S, max_len)
-    shift = (S - max_len) % max_len if ring and S >= max_len else 0
+    T = c["k"].shape[-3]
+    keep = min(S, T)
+    shift = (S - T) % T if ring and S >= T else 0
     for name, t in (("k", k), ("v", v)):
         t = t[:, S - keep:].to(cfg.dtype)
         if shift:
@@ -429,37 +442,51 @@ def prefill_from(params: Params, cfg, cache, tokens, start: int, *, max_len: int
 # contiguous KV cache: per-row decode at absolute slots
 # ---------------------------------------------------------------------------
 
-def init_cache(cfg, batch: int, max_len: int, *, compact_local: bool = False,
+def init_cache(cfg, batch: int, max_len: int, *, compact_local: bool = True,
                device="cuda"):
-    """Cache tree mirroring the block structure, absolute slots
-    ([R, batch, max_len, K, hd] per unit position), the layout ``prefill``
-    returns.  The reference's circular ``compact_local`` layout is a
-    dry-run device and is not ported."""
-    if compact_local:
-        raise NotImplementedError("compact_local caches are dry-run only")
-    return _empty_cache(cfg, batch, max_len, cfg.dtype, device)
+    """Cache tree mirroring the block structure ([R, batch, T, K, hd] per
+    unit position), the layout ``prefill`` returns.  With
+    ``compact_local`` a local (``"L"``) layer keeps a circular buffer of
+    T = min(window, max_len) slots, position p at slot p % T (gemma3-1b's
+    long-context decode keeps 22 of its 26 layers at 512 slots); every
+    other layer, and every layer without it (the serving engine's layout,
+    which serves rows of different lengths), keeps ``max_len`` absolute
+    slots."""
+    return _empty_cache(cfg, batch, max_len, cfg.dtype, device, compact_local)
 
 
-def _decode_attn_block(p, c, x, cfg, *, kind: str, pos):
+def cache_spec(cfg, batch: int, max_len: int, *, compact_local: bool = True):
+    """:func:`init_cache`'s tree on the ``meta`` device: shapes and dtypes,
+    no storage (the dry run's)."""
+    return init_cache(cfg, batch, max_len, compact_local=compact_local, device="meta")
+
+
+def _decode_attn_block(p, c, x, cfg, *, kind: str, pos, max_len: int):
     """One decode block's attention: writes this step's k/v into ``c``
-    ([B, T, K, hd], absolute slots, in place) at slot ``pos`` of each row
-    and attends to the valid slots.  pos: [B] int, each row's own
-    position.  A mesh engine's sharded ``c`` is attended piece by piece
-    where it lives (``models/sharded_cache.py``)."""
+    ([B, T, K, hd], in place) at slot ``pos % T`` of each row and attends
+    to the valid slots.  pos: [B] int, each row's own position.  A local
+    layer whose T is below ``max_len`` is a compact circular buffer, every
+    slot of which is valid once pos >= T; otherwise slots are absolute.
+    A sharded ``c`` (a mesh engine's, or the dry run's placed cache) is
+    written at the same slot and attended piece by piece where it lives
+    (``models/sharded_cache.py``)."""
     B = x.shape[0]
     h = norm(x, p["ln1"], cfg)
-    slots = torch.arange(c["k"].shape[-3], device=x.device)[None, :]
+    T = c["k"].shape[-3]
+    slots = torch.arange(T, device=x.device)[None, :]
     valid = slots <= pos[:, None]
-    if kind == "L":
+    if kind == "L" and T < max_len:
+        valid |= pos[:, None] >= T
+    elif kind == "L":
         valid &= slots > pos[:, None] - cfg.window_size
     if isinstance(c["k"], ShardedTensor):
         a = SC.decode_attention(p["attn"], h, c, cfg, pos=pos, valid=valid,
                                 theta=_theta(cfg, kind), cap=cfg.attn_softcap)
         return norm(a, p["ln1_post"], cfg) if "ln1_post" in p else a
     q, k, v = L._qkv(p["attn"], h, cfg, pos[:, None], _theta(cfg, kind))
-    bidx = torch.arange(B, device=x.device)
-    c["k"][bidx, pos] = k[:, 0].to(c["k"].dtype)
-    c["v"][bidx, pos] = v[:, 0].to(c["v"].dtype)
+    bidx, idx = torch.arange(B, device=x.device), pos % T
+    c["k"][bidx, idx] = k[:, 0].to(c["k"].dtype)
+    c["v"][bidx, idx] = v[:, 0].to(c["v"].dtype)
     out = _masked_decode(q, c["k"], c["v"], valid, cfg.attn_softcap)
     a = matmul(out.reshape(B, 1, -1), p["attn"]["wo"])
     if "ln1_post" in p:
@@ -467,10 +494,10 @@ def _decode_attn_block(p, c, x, cfg, *, kind: str, pos):
     return a
 
 
-def block_decode(p, c, x, cfg, *, kind: str, pos):
+def block_decode(p, c, x, cfg, *, kind: str, pos, max_len: int):
     """Full block (attn + FFN) for one decode token per row against the
     contiguous cache ``c`` ([B, T, K, hd], written in place)."""
-    x = x + _decode_attn_block(p, c, x, cfg, kind=kind, pos=pos)
+    x = x + _decode_attn_block(p, c, x, cfg, kind=kind, pos=pos, max_len=max_len)
     h = norm(x, p["ln2"], cfg)
     return x + _mlp_section(p, h, cfg)
 
@@ -481,12 +508,15 @@ def decode_step(params: Params, cfg, cache, tokens, pos, *, max_len: int):
     ``cache`` in place; returns (logits [B,1,V], cache).  ``max_len`` is
     the cache's slot count (the reference's signature).  The linears go
     through ``matmul``, so the scoped kernel backend picks K2 or K4 for
-    compressed weights; attention is the plain masked decode."""
+    compressed weights; attention is the plain masked decode.  On a
+    compact cache (``init_cache(compact_local=True)``) every row must
+    have been prefilled at the same length: ``prefill`` rolls every row
+    by the padded length."""
     B = tokens.shape[0]
     pos = torch.as_tensor(pos, device=tokens.device).long().expand(B)
     x = L.embed(params, cfg, tokens)
     for (kind, p), (_, c) in zip(_layers(params, cfg), _layers(cache, cfg)):
-        x = block_decode(p, c, x, cfg, kind=kind, pos=pos)
+        x = block_decode(p, c, x, cfg, kind=kind, pos=pos, max_len=max_len)
     x = norm(x, params["ln_f"], cfg)
     return L.unembed(params, cfg, x), cache
 

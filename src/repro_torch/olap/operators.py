@@ -182,6 +182,56 @@ def _invoke(engine: Engine, prompts: Iterable[str], *,
                                   prefix=prefix)
 
 
+def run_spec(spec: OpSpec, engine: Engine, *,
+             chunk: int = DEFAULT_CHUNK) -> Table:
+    """Synchronous executor: stream the spec through one engine."""
+    outs = _invoke(engine, spec.prompts, max_new=spec.max_new,
+                   chunk=chunk, prefix=spec.prefix)
+    return spec.finish(outs)
+
+
+def llm_map(table: Table, col: str, engine: Engine, *,
+            prompt: str = PROMPTS["summarize"], out_col: str = "summary",
+            max_new: int = 24, chunk: int = DEFAULT_CHUNK) -> Table:
+    """SELECT *, LLM('<prompt> ' || col) AS out_col FROM table"""
+    return run_spec(map_spec(table, col, prompt=prompt, out_col=out_col,
+                             max_new=max_new), engine, chunk=chunk)
+
+
+def llm_correct(table: Table, col: str, engine: Engine, *,
+                prompt: str = PROMPTS["correct"],
+                out_col: Optional[str] = None,
+                max_new: int = 16, chunk: int = DEFAULT_CHUNK) -> Table:
+    """Per-row error correction of a column (typos, format drift)."""
+    return run_spec(correct_spec(table, col, prompt=prompt, out_col=out_col,
+                                 max_new=max_new), engine, chunk=chunk)
+
+
+def llm_filter(table: Table, col: str, engine: Engine, *, prompt: str,
+               max_new: int = 8,
+               keep: Optional[Callable[[str], bool]] = None,
+               chunk: int = DEFAULT_CHUNK) -> Table:
+    """SELECT * FROM table WHERE LLM('<prompt> ' || col) ≈ 'yes'."""
+    return run_spec(filter_spec(table, col, prompt=prompt, max_new=max_new,
+                                keep=keep), engine, chunk=chunk)
+
+
 def _block_key(v: str) -> str:
     s = "".join(ch for ch in str(v).lower() if ch.isalnum())
     return s[:1]
+
+
+def llm_join(left: Table, right: Table, on: Tuple[str, str],
+             engine: Engine, *, prompt: str = PROMPTS["join"],
+             max_new: int = 12, chunk: int = DEFAULT_CHUNK,
+             blocker: Callable[[str], str] = _block_key) -> Table:
+    """Fuzzy (semantic) join: rows match when the model says 'same'.
+
+    Candidate pairs are generated by a cheap blocking key first; the LLM
+    adjudicates only within blocks (classic entity-resolution shape).
+    Candidate prompts stream lazily into the engine, so peak prompt
+    residency is bounded by ``chunk``, not by the O(n·k) pair count.
+    """
+    return run_spec(join_spec(left, right, on, prompt=prompt,
+                              max_new=max_new, blocker=blocker),
+                    engine, chunk=chunk)

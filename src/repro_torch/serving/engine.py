@@ -276,7 +276,7 @@ class Engine:
     def _init_slots(self):
         if not self._paged:
             self._slot_state = api.init_cache(self.cfg, self.slots, self.max_len,
-                                              device=self.device)
+                                              compact_local=False, device=self.device)
             if self.mesh is not None:
                 self._slot_state = SC.place_slot_state(self._slot_state, self.cfg, self.mesh)
                 self._data_split = SC.data_split(self._slot_state)

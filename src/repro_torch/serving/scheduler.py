@@ -151,6 +151,10 @@ class PoolEntry:
     # to each
     held: Tuple[int, ...] = ()
 
+    @property
+    def sharded(self) -> bool:
+        return len(self.devices) > 1
+
 
 @dataclass
 class PoolStats:

@@ -8,6 +8,9 @@ block's input/output cosine, within 1e-5 relative (the two sum in other
 orders).  GPTQ runs on the same Hessian in float64 on both sides: codes
 equal on at least 99.9% of entries, scales within 1e-6 relative.
 """
+import importlib
+import inspect
+
 import numpy as np
 import pytest
 
@@ -93,6 +96,21 @@ def _problem(seed, K=256, N=96):
     H[3] = H[:, 3] = 0.0                                  # a dead input channel
     amax = np.abs(x).max(0).astype(np.float32)
     return w, H, amax
+
+
+@pytest.mark.parametrize("fn,name", [("quantize.gptq_quantize", "percdamp"),
+                                     ("quantize.gptq_quantize", "blocksize"),
+                                     ("sparsify.sparsegpt_prune", "percdamp"),
+                                     ("sparsify.sparsegpt_prune", "blocksize")])
+def test_damping_and_block_constants_are_the_references_defaults(fn, name):
+    """The port keeps the reference's ``percdamp``/``blocksize`` options as
+    the constants ``PERCDAMP``/``BLOCKSIZE``: no caller passes another
+    value, so each constant must be the reference's default."""
+    mod, func = fn.split(".")
+    ref = getattr(importlib.import_module(f"repro.core.{mod}"), func)
+    port = importlib.import_module(f"repro_torch.core.{mod}")
+    assert name not in inspect.signature(getattr(port, func)).parameters
+    assert getattr(Q, name.upper()) == inspect.signature(ref).parameters[name].default
 
 
 @pytest.mark.parametrize("kw", [dict(bits=8, group=128), dict(bits=4, group=64),

@@ -65,7 +65,8 @@ def test_reduced_forward_and_prefill_match_reference(arch):
     assert np.array_equal(got.numpy().argmax(-1), np.asarray(want).argmax(-1))
     wl, _ = rapi.prefill(rparams, rcfg, {"tokens": jnp.asarray(toks)}, max_len=160,
                          compact_local=False)
-    gl, _ = api.prefill(params, cfg, {"tokens": torch.from_numpy(toks)}, max_len=160)
+    gl, _ = api.prefill(params, cfg, {"tokens": torch.from_numpy(toks)}, max_len=160,
+                        compact_local=False)
     assert _rel(gl.numpy(), wl) < 1e-4
     assert np.array_equal(gl.numpy().argmax(-1), np.asarray(wl).argmax(-1))
 

@@ -11,6 +11,12 @@
 - A single-pod decode cell counts attention over the cache placed as a
   mesh engine places it (both branches, by hand); a cell whose cache a
   mesh engine cannot place says so.
+- Decode cells build the compact cache (``compact_local=True``):
+  gemma2-2b ``decode_32k`` and gemma3-1b ``long_500k`` hold the bytes
+  per position that the reference's ``cache_spec(..., compact_local=True)``
+  shapes hold under its ``cache_shardings`` rule, on both meshes.
+- ``build_cell`` gives each kind of cell its pieces and step builder;
+  ``registry.all_cells`` equals the reference's.
 - ``--all`` finishes on meta tensors.
 """
 import json
@@ -26,6 +32,7 @@ import jax  # noqa: E402
 from repro.configs import registry as rregistry  # noqa: E402
 from repro.distributed import sharding as RSH  # noqa: E402
 from repro.models import api as rapi  # noqa: E402
+from repro.models import transformer as rT  # noqa: E402
 from repro_torch import bridge  # noqa: E402
 from repro_torch.configs import from_reference  # noqa: E402
 from repro_torch.distributed import collectives  # noqa: E402
@@ -98,7 +105,7 @@ def test_tiny_dense_decode_step_collective_bytes_by_hand(tiny_dense):
     assert unsharded.coll_bytes == 0 and unsharded.chips == 1
     assert cost.flops == unsharded.flops and cost.bytes_accessed == unsharded.bytes_accessed
     # what the collectives record when the step runs
-    cache = api.init_cache(cfg, S, 64, device="cpu")
+    cache = api.init_cache(cfg, S, 64, compact_local=False, device="cpu")
     collectives.reset_result_bytes()
     with torch.no_grad():
         api.decode_step(placed, cfg, cache, torch.ones((S, 1), dtype=torch.long),
@@ -126,7 +133,7 @@ def test_tiny_dense_sharded_cache_collective_bytes_by_hand(tiny_dense, shape, ga
     mesh = make_mesh(shape, ("data", "model"), device="cpu")
     S = 2
     placed = SH.shard_params(params, cfg, mesh)
-    cache = SC.place_slot_state(api.init_cache(cfg, S, 64, device="cpu"), cfg, mesh)
+    cache = SC.place_slot_state(api.init_cache(cfg, S, 64, compact_local=False, device="cpu"), cfg, mesh)
     assert SC.layout(cache["blocks"][0]["k"])[1] == (-1 if shape == (1, 4) else -2)
     cost = roofline.decode_step_cost(placed, cfg, S, 64, cache)
     assert cost.coll_detail == {"all-gather": gather, "all-reduce": reduce}
@@ -145,7 +152,8 @@ def test_decode_cells_count_the_sharded_cache(arch, branch):
     output [B, H, hd]; where ``head_dim`` splits (gemma2's 4 KV heads over
     16) the partial scores' f32 sum [B, H, T] and the ``p @ v`` pieces'
     gather are added, and where KV heads split (qwen2-moe's 16) the q/k/v
-    column gathers are gone."""
+    column gathers are gone.  The cache is the compact one: T is a local
+    layer's window (gemma2's 4096), a global layer's 32768."""
     from repro_torch.configs import registry
     cfg = registry.get_config(arch)
     res = dryrun.run_cell(arch, "decode_32k", "single")
@@ -159,7 +167,9 @@ def test_decode_cells_count_the_sharded_cache(arch, branch):
     heads = B * H * hd * act * L
     got = res["roofline"]["coll_detail"]
     if branch == "hd":
-        assert K % 16 and got == {"all-reduce": unsharded["all-reduce"] + B * H * T * 4 * L,
+        Ts = sum(min(cfg.window_size, T) if k == "L" else T for k in cfg.pattern())
+        assert Ts == 13 * 4096 + 13 * 32768
+        assert K % 16 and got == {"all-reduce": unsharded["all-reduce"] + B * H * Ts * 4,
                                   "all-gather": unsharded["all-gather"] + 2 * heads}
     else:
         assert K % 16 == 0 and got == {
@@ -200,6 +210,60 @@ def test_decode_cells_a_mesh_engine_cannot_place_say_so(arch, shape, mesh_kind):
     res = dryrun.run_cell(arch, shape, mesh_kind)
     assert res["status"] == "ok"
     assert res["cache_collectives"].startswith("not counted: a mesh engine does not place")
+
+
+def _ref_cache_bytes(arch, shape, mesh_kind, monkeypatch):
+    """Bytes one position holds of the reference's compact cache spec
+    under its ``cache_shardings`` rule, on a duck-typed production mesh
+    (the rule reads only the axis names and shape; its ``NamedSharding``
+    is replaced by the bare spec)."""
+    from jax.sharding import PartitionSpec
+    shp, axes = MESH[mesh_kind]
+    mesh = SimpleNamespace(axis_names=axes, devices=np.empty(shp, dtype=object))
+    rcfg = rregistry.get_config(arch)
+    spec = rregistry.SHAPES[shape]
+    sds = rT.cache_spec(rcfg, spec.global_batch, spec.seq_len, compact_local=True)
+    monkeypatch.setattr(RSH, "NamedSharding", lambda m, p: p)
+    specs = jax.tree_util.tree_leaves(RSH.cache_shardings(rcfg, sds, mesh),
+                                      is_leaf=lambda x: isinstance(x, PartitionSpec))
+    total = 0.0
+    for leaf, ps in zip(jax.tree_util.tree_leaves(sds), specs):
+        n = float(np.prod(leaf.shape)) * leaf.dtype.itemsize
+        for ax in ps:
+            if ax is not None:
+                n /= RSH.axis_size(mesh, ax)
+        total += n
+    return total
+
+
+@pytest.mark.parametrize("arch,shape", [("gemma2-2b", "decode_32k"),
+                                        ("gemma3-1b", "long_500k")])
+@pytest.mark.parametrize("mesh_kind", ["single", "multi"])
+def test_decode_cell_cache_bytes_equal_the_reference_compact_spec(arch, shape, mesh_kind,
+                                                                  monkeypatch):
+    res = dryrun.run_cell(arch, shape, mesh_kind)
+    assert res["status"] == "ok"
+    assert res["memory"]["cache"] == pytest.approx(
+        _ref_cache_bytes(arch, shape, mesh_kind, monkeypatch), rel=1e-12)
+
+
+@pytest.mark.parametrize("shape,kind", [("train_4k", "train"), ("prefill_32k", "prefill"),
+                                        ("long_500k", "decode")])
+def test_build_cell_gives_each_kind_its_pieces(shape, kind):
+    from repro_torch.launch.mesh import make_production_mesh
+    cell = dryrun.build_cell("gemma3-1b", shape, make_production_mesh())
+    assert cell["spec"].kind == kind and callable(cell["step"])
+    assert ("opt_state" in cell) == (kind == "train")
+    assert ("cache" in cell) == (kind == "decode")
+    if kind == "decode":
+        Ts = {c["k"].shape[-3] for c in cell["cache"]["blocks"]}
+        assert Ts == {512, 524288} and cell["cache"]["blocks"][0]["k"].device.type == "meta"
+
+
+def test_all_cells_equal_the_reference():
+    from repro_torch.configs import registry
+    assert sorted(registry.all_cells()) == sorted(rregistry.all_cells())
+    assert len(registry.all_cells()) == len(registry.ARCH_IDS) * len(dryrun.SHAPES) == 40
 
 
 def test_all_cells_finish_on_meta_tensors(tmp_path, capsys):

@@ -174,10 +174,12 @@ def test_wide_g_paged_decode_matches_reference_and_contiguous():
                             compact_local=False)
     rstate = rapi.paged_insert(rcfg, rapi.init_paged_cache(rcfg, _B, _B * nblk + 3, _BS),
                                _rows_vmapped(rrows), None, jnp.asarray(tables), block_size=_BS)
-    _, rows = api.prefill(params, cfg, {"tokens": torch.from_numpy(toks)}, max_len=_MAX_LEN)
+    _, rows = api.prefill(params, cfg, {"tokens": torch.from_numpy(toks)}, max_len=_MAX_LEN,
+                          compact_local=False)
     state = api.init_paged_cache(cfg, _B, tables.size + 3, _BS, device="cpu")
     api.paged_insert(cfg, state, rows, None, tables, block_size=_BS)
-    _, contig = api.prefill(params, cfg, {"tokens": torch.from_numpy(toks)}, max_len=_MAX_LEN)
+    _, contig = api.prefill(params, cfg, {"tokens": torch.from_numpy(toks)}, max_len=_MAX_LEN,
+                          compact_local=False)
     tok, pos = toks[np.arange(_B), lens - 1], lens.copy()
     step = jax.jit(lambda st, t, p: rapi.paged_decode_step(
         rparams, rcfg, st, jnp.asarray(tables), t, p, block_size=_BS, max_len=_MAX_LEN))

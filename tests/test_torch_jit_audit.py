@@ -219,7 +219,8 @@ class TestInjectedRegressions:
 
         def prefilling(tables, toks, pos):
             full = torch.zeros((eng.slots, eng.max_len - 1), dtype=torch.long)
-            api.prefill(eng.params, CFG, {"tokens": full}, max_len=eng.max_len)
+            api.prefill(eng.params, CFG, {"tokens": full}, max_len=eng.max_len,
+                        compact_local=False)
             return orig(tables, toks, pos)
 
         eng._decode = prefilling

@@ -109,7 +109,7 @@ def test_prefill_matches_reference(model, dtype):
     want, wcache = rapi.prefill(rparams, rcfg, {"tokens": jnp.asarray(toks)},
                                 max_len=MAX_LEN, compact_local=False)
     got, gcache = api.prefill(params, cfg, {"tokens": torch.from_numpy(toks)},
-                              max_len=MAX_LEN)
+                              max_len=MAX_LEN, compact_local=False)
     _check(got, want, model, dtype)
     assert gcache["blocks"][0]["k"].shape == wcache["blocks"][0]["k"].shape
     _check_cache(gcache, wcache, model, dtype)
@@ -127,7 +127,7 @@ def test_prefill_from_matches_reference(model, dtype):
     want, wcache = rapi.prefill_from(rparams, rcfg, rpre2, jnp.asarray(suffix), 16,
                                      max_len=MAX_LEN)
     _, pre = api.prefill(params, cfg, {"tokens": torch.from_numpy(prefix)},
-                         max_len=MAX_LEN)
+                         max_len=MAX_LEN, compact_local=False)
     got, gcache = api.prefill_from(params, cfg, pre, torch.from_numpy(suffix), 16,
                                    max_len=MAX_LEN)
     _check(got, want, model, dtype)
@@ -192,7 +192,7 @@ def test_paged_decode_matches_reference(model, dtype, backend):
     _, _, cfg, params = _model(model, dtype)
     toks, tables, inserted, feeds, logits, final = _reference_decode(model, dtype)
     _, rows = api.prefill(params, cfg, {"tokens": torch.from_numpy(toks)},
-                          max_len=MAX_LEN)
+                          max_len=MAX_LEN, compact_local=False)
     state = api.init_paged_cache(cfg, _B, tables.size + 3, _BS, device="cpu")
     api.paged_insert(cfg, state, rows, None, tables, block_size=_BS)
     _check_cache(state, inserted, model, dtype)

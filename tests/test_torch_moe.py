@@ -569,7 +569,7 @@ def test_batched_admission_past_4096_tokens_equals_per_row_prefill():
             < 1e-4
     # one dispatch over the batch would have dropped entries
     batch, _ = api.prefill(params, cfg, {"tokens": torch.from_numpy(toks).long()},
-                           max_len=max_len)
+                           max_len=max_len, compact_local=False)
     assert _rel(_np(batch), _np(logits)) > 1e-3
 
 

@@ -16,6 +16,10 @@
 - ``to_spec`` equals the reference's dict and ``query_from_spec``
   round-trips; the model pool's arguments get the reference's checks
   (``mesh=`` needs ``pool_budget=``).
+- The eager operators (``run_spec``, ``llm_map``, ``llm_correct``,
+  ``llm_filter``, ``llm_join``) give the reference's tables over a fake
+  engine and over the tiny model's engine, with the reference's bound on
+  a streamed join's resident requests.
 """
 import dataclasses
 import json
@@ -379,3 +383,109 @@ def test_session_defaults_to_the_card(tiny):
     else:
         with pytest.raises(RuntimeError, match="cuda"):
             Q.IOLMSession(params, cfg)
+
+
+# ---------------------------------------------------------------------------
+# the eager operators (run_spec, llm_map, llm_correct, llm_filter, llm_join)
+# ---------------------------------------------------------------------------
+
+class FnEngine:
+    """Output is ``fn(prompt)``; no async API, so ``_invoke`` falls back
+    to ``generate`` (the reference's ``tests/test_serving_olap.py`` fake)."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def generate(self, prompts, max_new=8):
+        return [self.fn(p) for p in prompts]
+
+
+def _same_verdict(seen):
+    def fn(p):
+        seen.append(p)
+        body = p.split(":", 1)[1]
+        a, b = [s.strip().lower().replace(",", "").replace(" inc.", "")
+                for s in body.split("|")]
+        return "same" if a == b else "different"
+    return fn
+
+
+def test_eager_operators_over_a_fake_engine_match_reference():
+    """``llm_map`` adds the column and ``llm_join`` blocks its candidate
+    pairs by first character, as in the reference's operator tests."""
+    from repro.olap import operators as ROPS
+    from repro_torch.olap import operators as OPS
+    t2 = OPS.llm_map(Table({"review": ["good mouse", "bad lamp"]}), "review",
+                     FnEngine(lambda p: p.split()[-2]), out_col="s")
+    assert t2["s"] == ["good", "bad"]
+    rt2 = ROPS.llm_map(RTable({"review": ["good mouse", "bad lamp"]}), "review",
+                       FnEngine(lambda p: p.split()[-2]), out_col="s")
+    assert t2.columns == rt2.columns
+    names = (["Acme Corp", "Globex"], ["Acme Corp Inc.", "Initech", "acme corp"])
+    seen, rseen = [], []
+    out = OPS.llm_join(Table({"name": names[0]}), Table({"name": names[1]}),
+                       ("name", "name"), FnEngine(_same_verdict(seen)))
+    rout = ROPS.llm_join(RTable({"name": names[0]}), RTable({"name": names[1]}),
+                         ("name", "name"), FnEngine(_same_verdict(rseen)))
+    assert all("globex" not in p.lower() or "initech" not in p.lower() for p in seen)
+    assert len(out) == 2 and out.columns == rout.columns and seen == rseen
+
+
+def _op_engines(tiny, **kw):
+    from repro.serving.engine import Engine as REngine
+    from repro_torch.serving.engine import Engine
+    rcfg, rparams, cfg, params = tiny
+    kw = dict(slots=2, max_len=64, use_result_cache=False, **kw)
+    return REngine(rparams, rcfg, **kw), Engine(params, cfg, device="cpu", **kw)
+
+
+def test_llm_join_residency_bounded_by_chunk(tiny):
+    """O(n·k) join candidates stream through the engine: peak resident
+    requests track the chunk bound, not the pair count; the joined table
+    is the reference's."""
+    from repro.olap import operators as ROPS
+    from repro_torch.olap import operators as OPS
+    n, chunk = 6, 4
+    names = ([f"acme{i}" for i in range(n)], [f"acme{i}x" for i in range(n)])
+    outs = []
+    for ops, table_cls, eng in zip((ROPS, OPS), (RTable, Table),
+                                   _op_engines(tiny, buckets=(32,))):
+        outs.append(ops.llm_join(table_cls({"name": names[0]}), table_cls({"name": names[1]}),
+                                 ("name", "name"), eng, max_new=2, chunk=chunk))
+        assert eng.stats.rows == n * n          # one block: every left x every right
+        assert eng.stats.peak_inflight <= chunk + eng.slots < n * n
+    assert outs[1].columns == outs[0].columns
+
+
+def test_streamed_map_matches_generate(tiny):
+    from repro.olap import operators as ROPS
+    from repro_torch.olap import operators as OPS
+    vals = [f"row {i}" for i in range(9)]
+    reng, eng = _op_engines(tiny, buckets=(32,))
+    t = OPS.llm_map(Table({"c": vals}), "c", eng, prompt="sum: ", out_col="o",
+                    max_new=4, chunk=3)
+    rt = ROPS.llm_map(RTable({"c": vals}), "c", reng, prompt="sum: ", out_col="o",
+                      max_new=4, chunk=3)
+    assert t.columns == rt.columns
+    _, fresh = _op_engines(tiny, buckets=(32,))
+    assert t["o"] == fresh.generate(["sum: " + v for v in vals], max_new=4)
+
+
+def test_llm_correct_filter_and_run_spec_match_reference(tiny):
+    """``llm_correct``, ``llm_filter`` (kept by a predicate on the model's
+    output) and ``run_spec`` of a ``map_spec`` give the reference's
+    tables on the tiny model."""
+    from repro.olap import operators as ROPS
+    from repro_torch.olap import operators as OPS
+    langs = [r.text for r in RD.workload_rows("correct", 4)]
+    keep = lambda s: len(s) % 2 == 0  # noqa: E731
+    got, want = [], []
+    for ops, table_cls, eng, out in zip((ROPS, OPS), (RTable, Table),
+                                        _op_engines(tiny, buckets=(32, 48)), (want, got)):
+        t = table_cls({"lang": langs})
+        out.append(ops.llm_correct(t, "lang", eng, max_new=4))
+        out.append(ops.llm_filter(t, "lang", eng, prompt="is it a language? ", max_new=3,
+                                  keep=keep))
+        out.append(ops.run_spec(ops.map_spec(t, "lang", out_col="m", max_new=3), eng, chunk=2))
+    for g, w in zip(got, want):
+        assert g.columns == w.columns

@@ -248,7 +248,7 @@ def test_prefill_use_flash_matches_reference(model, backend):
         ops.flash_attention = spy
         with kernel_backend(backend):
             got, gcache = api.prefill(params, cfg, {"tokens": torch.from_numpy(toks)},
-                                      max_len=64, use_flash=True)
+                                      max_len=64, compact_local=False, use_flash=True)
             fwd, _ = api.forward(params, cfg, {"tokens": torch.from_numpy(toks)},
                                  use_flash=True)
     finally:

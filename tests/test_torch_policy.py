@@ -82,7 +82,7 @@ def test_contiguous_decode_step_matches_reference_and_paged(tiny, prompts):
                              max_len=max_len, compact_local=False)
     with torch.no_grad():
         _, cache = api.prefill(params, cfg, {"tokens": torch.from_numpy(toks)},
-                               max_len=max_len)
+                               max_len=max_len, compact_local=False)
     nxt = np.array([[5], [77], [130], [259]], np.int32)
     pos = lens.copy()
     for step in range(3):
@@ -98,9 +98,9 @@ def test_contiguous_decode_step_matches_reference_and_paged(tiny, prompts):
     # the port's paged decode on the same KV gives the same logits
     with torch.no_grad():
         _, rows = api.prefill(params, cfg, {"tokens": torch.from_numpy(toks)},
-                              max_len=max_len)
+                              max_len=max_len, compact_local=False)
         _, contig = api.prefill(params, cfg, {"tokens": torch.from_numpy(toks)},
-                                max_len=max_len)
+                                max_len=max_len, compact_local=False)
         bs, nblk = 8, max_len // 8
         state = api.init_paged_cache(cfg, 4, 4 * nblk + 1, bs, device="cpu")
         tables = torch.arange(4 * nblk, dtype=torch.int32).reshape(4, nblk).flip(0)
@@ -115,11 +115,17 @@ def test_contiguous_decode_step_matches_reference_and_paged(tiny, prompts):
 
 
 def test_init_cache_matches_prefill_layout(tiny):
-    _, _, cfg, _ = tiny
-    cache = api.init_cache(cfg, 3, 24, device="cpu")
+    """The serving layout's absolute slots; the tiny model has no local
+    layer, so its compact cache (the default) is the same tree, as the
+    reference's."""
+    rcfg, _, cfg, _ = tiny
+    cache = api.init_cache(cfg, 3, 24, compact_local=False, device="cpu")
     assert cache["blocks"][0]["k"].shape == (2, 3, 24, cfg.n_kv_heads, cfg.resolved_head_dim)
-    with pytest.raises(NotImplementedError):
-        api.init_cache(cfg, 3, 24, compact_local=True, device="cpu")
+    compact = api.init_cache(cfg, 3, 24, device="cpu")
+    want = jax.eval_shape(lambda: rapi.init_cache(rcfg, 3, 24))
+    assert [tuple(t.shape) for t in jax.tree_util.tree_leaves(want)] == \
+        [tuple(c[n].shape) for c in compact["blocks"] for n in ("k", "v")] == \
+        [tuple(c[n].shape) for c in cache["blocks"] for n in ("k", "v")]
 
 
 @pytest.mark.parametrize("which", ["base", "w8"])

@@ -76,7 +76,7 @@ def test_bytes_equal_instance_plus_slot_state(reduced_gemma2, version):
     (gemma2's table is tied) and touches every cached position."""
     params, cfg = reduced_gemma2[version]
     slots, max_len = 4, 64                  # max_len within the local window
-    state = api.init_cache(cfg, slots, max_len, device="cpu")
+    state = api.init_cache(cfg, slots, max_len, compact_local=False, device="cpu")
     cost = R.decode_step_cost(params, cfg, slots, max_len, state)
     assert cost.bytes_accessed == param_bytes(params) + _state_nbytes(state)
     assert cost.detail["weight_bytes"] == param_bytes(params)
@@ -116,6 +116,20 @@ def test_positions_and_windows(reduced_gemma2):
     assert late.detail["state_written"] == slots * 4 * per_pos
 
 
+def test_compact_state_reads_its_own_slots(reduced_gemma2):
+    """Over the compact cache (local layers at 64 circular slots) a step
+    touches the same positions, each of the same bytes, as over the
+    absolute one."""
+    params, cfg = reduced_gemma2["base"]
+    slots, max_len = 2, 128
+    compact = api.init_cache(cfg, slots, max_len, device="meta")
+    assert {c["k"].shape[-3] for c in compact["blocks"]} == {64, 128}
+    for positions in (1, [100, 10], 128):
+        got = R.decode_step_cost(params, cfg, slots, max_len, compact, positions=positions)
+        want = R.decode_step_cost(params, cfg, slots, max_len, positions=positions)
+        assert got.detail == want.detail and got.bytes_accessed == want.bytes_accessed
+
+
 @pytest.mark.parametrize("arch", ["rwkv6-3b", "zamba2-7b", "whisper-base"])
 def test_recurrent_cross_and_untied_tables(arch):
     """A recurrent state is read and written whole, an encoder's K/V read
@@ -124,7 +138,7 @@ def test_recurrent_cross_and_untied_tables(arch):
     cfg = registry.get_reduced(arch)
     params = api.init_params(torch.Generator().manual_seed(0), cfg)
     slots, max_len = 3, 32
-    state = api.init_cache(cfg, slots, max_len, device="cpu")
+    state = api.init_cache(cfg, slots, max_len, compact_local=False, device="cpu")
     cost = R.decode_step_cost(params, cfg, slots, max_len, state, positions=1)
     skip = {"embed": params["embed"]}
     if arch == "whisper-base":

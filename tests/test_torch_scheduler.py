@@ -905,3 +905,9 @@ def test_scheduler_byte_identical_to_serial(p1, p2):
     sched.run()
     assert s1.results() == env["serial"].generate(list(p1), max_new=4)
     assert s2.results() == env["serial"].generate(list(p2), max_new=4)
+
+
+@pytest.mark.parametrize("devices", [(), (0,), (0, 1), (0, 1, 2, 3)])
+def test_pool_entry_sharded_equals_reference(devices):
+    assert PoolEntry(engine=None, nbytes=1, devices=devices).sharded == \
+        RS.PoolEntry(engine=None, nbytes=1, devices=devices).sharded == (len(devices) > 1)

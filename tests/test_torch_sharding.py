@@ -158,7 +158,7 @@ def test_cache_batch_logits_shardings_equal_reference(family, quad_devices):
     cfg = from_reference(rcfg)
     for B, T in ((4, 16), (1, 32), (2, 8)):
         rcache = jax.eval_shape(lambda: rapi.init_cache(rcfg, B, T, compact_local=False))
-        cache = api.init_cache(cfg, B, T, device="meta")
+        cache = api.init_cache(cfg, B, T, compact_local=False, device="meta")
         batch = {"tokens": (B, T), "labels": (B, T), "img_embs": (B, 8, rcfg.d_model),
                  "pos": (B,)}
         for shape, rmesh in _meshes(quad_devices):

@@ -167,3 +167,18 @@ def test_block_sparse_matmul_dispatch_equals_reference_einsum():
         for got in (plain, kern):
             assert got.dtype == x.dtype and got.shape == (3, 5, 96)
             assert np.abs(got.float().numpy() - want).max() <= tol * np.abs(want).max()
+
+
+def test_is_weight_leaf_equals_reference():
+    """Compressed containers and anything with a shape are weight leaves;
+    None, numbers and strings are not."""
+    w = _w(np.random.default_rng(3), 64, 32)
+    mask = np.ones((4, 2), np.float32)
+    port = [torch.from_numpy(w), C.QTensor(torch.zeros((64, 32), dtype=torch.int8),
+                                           torch.ones((1, 32)), 8, 64, (64, 32)),
+            C.BlockSparseTensor(torch.from_numpy(w), torch.from_numpy(mask), 16), None, 3, "wq"]
+    ref = [jnp.asarray(w), RC.QTensor(jnp.zeros((64, 32), jnp.int8), jnp.ones((1, 32)), 8, 64,
+                                      (64, 32)),
+           RC.BlockSparseTensor(jnp.asarray(w), jnp.asarray(mask), 16), None, 3, "wq"]
+    assert [C.is_weight_leaf(x) for x in port] == [RC.is_weight_leaf(x) for x in ref] == \
+        [True, True, True, False, False, False]

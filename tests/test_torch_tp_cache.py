@@ -79,7 +79,8 @@ def test_kv_leaves_follow_cache_shardings(arch, shape):
     eng = _engine(arch, shape)
     cfg, mesh = eng.cfg, eng.mesh
     specs = dict(flatten_with_path(
-        SH.cache_shardings(cfg, api.init_cache(cfg, eng.slots, eng.max_len, device="meta"),
+        SH.cache_shardings(cfg, api.init_cache(cfg, eng.slots, eng.max_len,
+                                               compact_local=False, device="meta"),
                            mesh), is_leaf=lambda x: isinstance(x, SH.P)))
     spec_total = [0.0] * mesh.size            # every leaf by the reference's spec
     item_14b = [0.0] * mesh.size              # placed minus spec
@@ -229,7 +230,8 @@ def test_auditor_finds_nothing_in_the_mesh_engines_steps():
         eng = _engine("gemma2-2b", shape)
         report = jit_audit.audit_engine(eng)
         assert report.diagnostics == [], [d.to_dict() for d in report.diagnostics]
-        meta = api.init_cache(eng.cfg, eng.slots, eng.max_len, device="meta")
+        meta = api.init_cache(eng.cfg, eng.slots, eng.max_len, compact_local=False,
+                              device="meta")
         assert report.budget["state_bytes"] == sum(t.numel() * t.element_size()
                                                    for _, t in flatten_with_path(meta))
 

@@ -169,7 +169,7 @@ def test_forward_prefill_and_decode_match_reference():
     max_len = 48
     rlog, rcache = rapi.prefill(rparams, rcfg, rb, max_len=max_len, compact_local=False)
     with torch.no_grad():
-        plog, cache = api.prefill(params, cfg, pb, max_len=max_len)
+        plog, cache = api.prefill(params, cfg, pb, max_len=max_len, compact_local=False)
     assert _rel(_np(plog), np.asarray(rlog)) < 1e-4
     # each row's first token at its last text position, after the image
     last = 8 + lens - 1
