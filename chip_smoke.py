@@ -3,9 +3,17 @@
 
     python3 chip_smoke.py
 
-Phases, each of which raises on failure (so the script exits non-zero):
+Phases, each of which raises on failure (so the script exits non-zero).
+The nvcc runs of phase 1 start first and compile while phases 51 and 52,
+which launch no kernel, train on the card; every CPU reference of the
+training parities (phases 13 and 51) and of the compressed all-reduce
+(phase 54), and phase 54's checkpoint round trip, run on a worker
+thread (``Background``) while the card's phases go on, and their checks
+fail the run when it is joined; phases 15, 16 and 55 (``tiny-olap``) run
+in a second process (``tiny_phases``) from after ``multi_pod_engine``
+to before phase 17:
 
-1. card: prints the card's name and power limit, builds the four CUDA
+1. card: prints the card's name and power limit and the host's CPUs, builds the four CUDA
    kernels of ``src/repro_torch/kernels/csrc`` (one nvcc per source, in
    parallel) and counts the tensor-core instructions (HGMMA, HMMA) in
    each library's machine code and the bytes ptxas spills: every library
@@ -278,8 +286,8 @@ Phases, each of which raises on failure (so the script exits non-zero):
    tied product and ``QEmbed.logits`` at M = 8 hold the f32 product of
    their bf16 operands to TIED_RTOL (rounding through bf16 misses it by
    two orders of magnitude), and both are timed at M = 8 and 512;
-51. train_family_parity (the training phases run last, from
-   TRAIN_FAMILY_SEED): phase 13 for zamba2-7b at one group of its layout
+51. train_family_parity (the training phases run first, beside the
+   build, from TRAIN_FAMILY_SEED): phase 13 for zamba2-7b at one group of its layout
    (Adafactor), rwkv6-3b at 2 layers and qwen2-moe-a2.7b at 1 layer
    (AdamW), each at its published widths in f32; the MoE's two
    microbatches are held against two on the CPU (its loss does not split
@@ -411,6 +419,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 import warnings
 
@@ -529,6 +538,83 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         pairs.append((a, b))
     torch.cuda.synchronize()
     return sum(a.elapsed_time(b) for a, b in pairs) / reps
+
+
+def usable_cpus() -> int:
+    """The CPUs this process may use: its affinity, capped by its cgroup's
+    quota (``cpu.max``) where one is set."""
+    n = len(os.sched_getaffinity(0))
+    try:
+        with open("/sys/fs/cgroup/cpu.max") as f:
+            quota, period = f.read().split()
+        if quota != "max":
+            n = min(n, max(1, math.ceil(int(quota) / int(period))))
+    except (OSError, ValueError):
+        pass
+    return n
+
+
+class Background:
+    """Card-free work off the card's critical path: the CPU references of
+    the training parities and of the compressed all-reduce run on one
+    worker thread, in submission order, while the card's phases go on.
+    The worker takes its first job once ``open()`` is called (after the
+    kernel build, whose nvcc runs it would slow), on half the host's CPUs.  A job returns the line
+    its phase emits, or None; ``fence(tag)`` waits for the jobs submitted
+    with ``tag`` (all of them without one), emits their lines and
+    re-raises the first failure.  A job that moves a process-wide counter
+    (``collectives``' counts) carries its name as a tag, and every reader
+    of that counter fences on it first.  Without a worker (``start()``
+    not called, as in CPU rehearsals) a job runs at once."""
+
+    def __init__(self):
+        self._pool, self._jobs, self._open = None, [], threading.Event()
+        self.waited_s = 0.0             # the card's phases' time spent in fence()
+
+    def start(self):
+        from concurrent.futures import ThreadPoolExecutor
+        self._pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="cpu_reference")
+
+    def open(self):
+        self._open.set()
+
+    def run(self, fn, tags=()):
+        if self._pool is None:
+            out = fn()
+            if out is not None:
+                emit(out)
+            return
+        self._jobs.append((self._pool.submit(self._job, fn), set(tags)))
+
+    def _job(self, fn):
+        self._open.wait()
+        # half the host's CPUs: the main thread and the tiny-olap process
+        # (``tiny_phases``) keep cores of their own
+        torch.set_num_threads(max(1, usable_cpus() // 2))
+        return fn()
+
+    def fence(self, tag=None) -> None:
+        t0 = time.time()
+        keep = []
+        for fut, tags in self._jobs:
+            if tag is None or tag in tags:
+                out = fut.result()
+                if out is not None:
+                    emit(out)
+            else:
+                keep.append((fut, tags))
+        self._jobs = keep
+        self.waited_s += time.time() - t0
+
+    def close(self):
+        """Drop the jobs not begun and wait for the running one."""
+        if self._pool is not None:
+            self._open.set()
+            self._pool.shutdown(wait=True, cancel_futures=True)
+            self._pool = None
+
+
+BACKGROUND = Background()
 
 
 def errors(got, want):
@@ -2681,7 +2767,9 @@ def train_parity(gen, cfg, device="cuda", batch=2, seq_len=128, opt="adamw",
     GNORM_RTOL, UPDATE_RMS_RTOL and FLIP).  On the card ``remat=True``
     equals ``remat=False`` and two microbatches equal one, within the
     same tolerances.  The step launches none of the four kernels, and K3
-    refuses inputs that require grad."""
+    refuses inputs that require grad.  The CPU steps and the comparisons
+    with them run as a ``BACKGROUND`` job on host copies of the card's
+    results; the line is emitted when that job ends."""
     from repro_torch.kernels import ops
     from repro_torch.models import api
     from repro_torch.training import train_loop as TL
@@ -2692,15 +2780,18 @@ def train_parity(gen, cfg, device="cuda", batch=2, seq_len=128, opt="adamw",
     ops.reset_launch_counts()
 
     def step(p, dev, **kw):
+        on_card = torch.device(dev).type == "cuda"
         b = _batch(0, cfg, dev, batch, seq_len)
         fn = TL.make_train_step(cfg, optimizer, **kw)
         p = tree_map(torch.clone, p)            # the step writes into its params
         state = optimizer.init(p)
-        sync()
+        if on_card:
+            sync()
         t0 = time.time()
         p2, _, m = fn(p, state, b, 0)
         loss, gnorm = float(m["loss"]), float(m["grad_norm"])
-        sync()
+        if on_card:
+            sync()
         return p2, {"loss": loss, "grad_norm": gnorm, "seconds": time.time() - t0}
 
     card, card_m = step(params, device, remat=True)
@@ -2719,30 +2810,38 @@ def train_parity(gen, cfg, device="cuda", batch=2, seq_len=128, opt="adamw",
     if split:
         errs["microbatches_2"] = update_errors(mb2, card, params)
     launched = {k: n for k, n in ops.launch_count.items() if n}
-    host = tree_map(lambda t: t.cpu(), params)
-    cpu, runs["cpu"] = step(host, "cpu", remat=True)
-    errs["cpu"] = update_errors(cpu, card, host)
-    del cpu
-    if not split:
-        cpu, runs["cpu_microbatches_2"] = step(host, "cpu", microbatches=2)
-        errs["microbatches_2"] = update_errors(mb2, cpu, host)
-        del cpu
-    del host, mb2
+    check(not launched, ("the training step launched a kernel", launched))
+
+    def host_copy(tree):
+        return tree_map(lambda t: t.detach().to("cpu", copy=True), tree)
+
+    host, card_h = host_copy(params), host_copy(card)
+    mb2_h = None if split else host_copy(mb2)
     line = {"phase": name, "model": cfg.name, "family": cfg.family, "layers": cfg.n_layers,
             "optimizer": opt, "batch": batch, "seq_len": seq_len,
             "lr": PARITY_LR, "params": sum(t.numel() for t in leaves(params)),
-            "runs": runs, "against": against,
-            "update_errors": {k: {"max_over_flip": a, "rms_rel": r}
-                              for k, (a, r) in errs.items()},
-            "launches": launched}
-    for run, ref in against.items():
-        check(abs(runs[run]["loss"] / runs[ref]["loss"] - 1) <= LOSS_RTOL,
-              (cfg.name, run, "loss", runs[run]["loss"], runs[ref]["loss"]))
-        check(abs(runs[run]["grad_norm"] / runs[ref]["grad_norm"] - 1) <= GNORM_RTOL,
-              (cfg.name, run, "grad norm", runs[run]["grad_norm"], runs[ref]["grad_norm"]))
-        check(errs[run][0] <= 1.0 and errs[run][1] <= UPDATE_RMS_RTOL,
-              (cfg.name, run, "updated params", errs[run]))
-    check(not launched, ("the training step launched a kernel", launched))
+            "runs": runs, "against": against, "launches": launched}
+    del mb2
+
+    def cpu_reference():
+        cpu, runs["cpu"] = step(host, "cpu", remat=True)
+        errs["cpu"] = update_errors(cpu, card_h, host)
+        del cpu
+        if not split:
+            cpu, runs["cpu_microbatches_2"] = step(host, "cpu", microbatches=2)
+            errs["microbatches_2"] = update_errors(mb2_h, cpu, host)
+            del cpu
+        line["update_errors"] = {k: {"max_over_flip": a, "rms_rel": r}
+                                 for k, (a, r) in errs.items()}
+        for run, ref in against.items():
+            check(abs(runs[run]["loss"] / runs[ref]["loss"] - 1) <= LOSS_RTOL,
+                  (cfg.name, run, "loss", runs[run]["loss"], runs[ref]["loss"]))
+            check(abs(runs[run]["grad_norm"] / runs[ref]["grad_norm"] - 1) <= GNORM_RTOL,
+                  (cfg.name, run, "grad norm", runs[run]["grad_norm"], runs[ref]["grad_norm"]))
+            check(errs[run][0] <= 1.0 and errs[run][1] <= UPDATE_RMS_RTOL,
+                  (cfg.name, run, "updated params", errs[run]))
+        return line
+
     if torch.device(device).type == "cuda":
         # no backward kernel: a K3 launch on inputs that require grad is refused
         q = torch.randn((1, 1024, 8, 256), device=device, dtype=torch.bfloat16,
@@ -2757,7 +2856,7 @@ def train_parity(gen, cfg, device="cuda", batch=2, seq_len=128, opt="adamw",
         check(ops.launch_count["flash_attention"] == 0, "K3 launched on a grad input")
         line["k3_grad_refused"] = refused
     del params, card
-    emit(line)
+    BACKGROUND.run(cpu_reference)
     return line
 
 
@@ -3545,14 +3644,19 @@ def moe_variants(cfg, steps: int, prefills: int):
 class RouteProbe:
     """Records the experts each MoE block routes every token to (the
     top-k of the router's probabilities, recomputed from the block's own
-    inputs), for the length of a ``with`` block, from outside the package."""
+    inputs), for the length of a ``with`` block, from outside the package.
+    Only the entering thread's blocks are recorded: a background CPU
+    reference (``Background``) runs its own MoE blocks unobserved."""
 
     def __enter__(self):
         from repro_torch.models import layers as L
         self._L, self._real = L, L.moe_block
         self.routes = []
+        thread = threading.get_ident()
 
         def moe_block(p, x, cfg, **kw):
+            if threading.get_ident() != thread:
+                return self._real(p, x, cfg, **kw)
             with torch.no_grad():
                 logits = L.matmul(x.reshape(-1, x.shape[-1]), p["router"]).float()
                 self.routes.append(torch.topk(torch.softmax(logits, -1), cfg.top_k)[1])
@@ -6169,7 +6273,7 @@ def long_decode_launches(cfg=None, steps: int = LONG_DECODE_STEPS):
 
 
 def long_decode(cfg=None, device="cuda", prompt: int = LONG_DECODE_PROMPT,
-                steps: int = LONG_DECODE_STEPS, max_len=None):
+                steps: int = LONG_DECODE_STEPS, max_len=None, keep: bool = False):
     """gemma3-1b at its published widths (random weights from LONG_DECODE_SEED)
     at the reference's ``long_500k`` decode shape: one row, ``max_len``
     524,288.  A prompt of ``prompt`` equal-length tokens is prefilled with
@@ -6194,14 +6298,18 @@ def long_decode(cfg=None, device="cuda", prompt: int = LONG_DECODE_PROMPT,
     - every cache's bytes equal ``kv_bytes`` (LONG_DECODE_BYTES in bf16),
       each run's ``max_memory_allocated`` recorded.
 
-    Every run is on the cuda backend; the launches are read by the caller."""
+    Every run is on the cuda backend; the launches are read by the caller.
+    With ``keep`` it also returns what ``seq_split_decode`` decodes from:
+    the f32 base and the int8 instance, each one's compact cache as its
+    prefill left it, the tokens each compact run was fed and its logits
+    (so the peaks recorded include the kept caches)."""
     from repro_torch.configs import gemma3_1b
     from repro_torch.core.compressed import kernel_backend
     from repro_torch.core.pipeline import InstanceOptimizer, Recipe
     from repro_torch.launch.dryrun import SHAPES
     from repro_torch.launch.roofline import ShapeSpec
     from repro_torch.models import api
-    from repro_torch.tree import flatten_with_path
+    from repro_torch.tree import flatten_with_path, tree_map
     cfg = cfg or gemma3_1b.CONFIG
     spec = SHAPES["long_500k"]
     if max_len is not None:
@@ -6234,6 +6342,7 @@ def long_decode(cfg=None, device="cuda", prompt: int = LONG_DECODE_PROMPT,
                                                  use_flash=True)(params, {"tokens": toks})
             sync()
             t_prefill = time.time() - t0
+            prefilled = tree_map(torch.clone, cache) if keep and compact else None
             nbytes = sum(t.numel() * t.element_size() for _, t in flatten_with_path(cache))
             serve = api.build_serve_step(c, spec)
             logits = [last[:, -1].float()]
@@ -6260,7 +6369,8 @@ def long_decode(cfg=None, device="cuda", prompt: int = LONG_DECODE_PROMPT,
         check(nbytes == want, ("long_decode cache bytes", c.param_dtype, compact, nbytes, want))
         return {"logits": logits, "fed": torch.cat(fed), "greedy": logits.argmax(-1),
                 "cache_bytes": nbytes, "max_memory_allocated": card_memory()[1],
-                "prefill_s": t_prefill, "decode_ms_per_step": t_decode / steps * 1e3}
+                "prefill_s": t_prefill, "decode_ms_per_step": t_decode / steps * 1e3,
+                "prefilled": prefilled}
 
     def summary(r):
         return {k: r[k] for k in ("cache_bytes", "max_memory_allocated", "prefill_s",
@@ -6270,6 +6380,7 @@ def long_decode(cfg=None, device="cuda", prompt: int = LONG_DECODE_PROMPT,
     c32 = cfg.replace(param_dtype="float32")
     p32 = _f32(base)
     f32 = {compact: run(p32, c32, compact) for compact in (True, False)}
+    kept = {"f32": {"params": p32, "cfg": c32}} if keep else {}
     del p32
     same_tokens = torch.equal(f32[True]["greedy"], f32[False]["greedy"])
     same_prefill = torch.equal(f32[True]["logits"][0], f32[False]["logits"][0])
@@ -6287,6 +6398,8 @@ def long_decode(cfg=None, device="cuda", prompt: int = LONG_DECODE_PROMPT,
     ref = run(i32, c32, False)
     del i32
     bf16 = {compact: run(int8, cfg, compact, feed=ref["fed"]) for compact in (True, False)}
+    if keep:
+        kept["bf16"] = {"params": int8, "cfg": cfg}
     del int8
     if cuda:
         torch.cuda.empty_cache()
@@ -6337,6 +6450,194 @@ def long_decode(cfg=None, device="cuda", prompt: int = LONG_DECODE_PROMPT,
           and q["token_agreement_compact_absolute"] == 1.0,
           ("long_decode bf16 compact against absolute", line))
     check(q["ratio"] <= STEP_BF16_RATIO, ("long_decode bf16 whole-step rule", line))
+    if not keep:
+        return line
+    for which, r in (("f32", f32[True]), ("bf16", bf16[True])):
+        kept[which].update(cache=r["prefilled"], fed=r["fed"], logits=r["logits"],
+                           decode_ms_per_step=r["decode_ms_per_step"])
+    kept["bf16"]["f32_logits"] = r32
+    return line, {**kept, "spec": spec, "prompt": prompt, "steps": steps}
+
+
+# ---------------------------------------------------------------------------
+# phase seq_split_decode: long_decode's compact caches split along their positions
+# ---------------------------------------------------------------------------
+
+# (data, model) meshes whose positions are all one card: the production cell's
+# own combination (positions over "data", head_dim over "model") and positions
+# over 4
+SEQ_SPLIT_MESHES = ((2, 2), (4, 1))
+# a quarter of the compact cache's 2,159,017,984 B of bf16 K/V at every position
+# of either mesh: each splits every k/v leaf in 4 (a local layer's 512 slots in
+# pieces of 256 or 128, a global one's 524,288 in pieces of 262,144 or 131,072)
+SEQ_SPLIT_BYTES = 539_754_496
+
+
+def seq_split_decode_launches(cfg=None, steps: int = LONG_DECODE_STEPS,
+                              meshes=SEQ_SPLIT_MESHES):
+    """The launches ``seq_split_decode`` makes: K2 on every linear piece of
+    the int8 instance's bf16 steps at each mesh (at "model" size M,
+    ``wq``, the attention's ``wo``, ``wi``, ``wg`` and the MLP's ``wo`` in
+    M pieces, ``wk`` and ``wv`` whole: gemma3-1b's one KV head does not
+    divide M), twice where M > 1 (the placed cache's steps, and the same
+    placed params' over the unplaced cache); no prefill, so no K3; the
+    f32 base runs no kernel; K1 and K4 none."""
+    from repro_torch.configs import gemma3_1b
+    cfg = cfg or gemma3_1b.CONFIG
+    return {"paged_attention": 0, "block_sparse_matmul": 0, "flash_attention": 0,
+            "quant_matmul": steps * cfg.n_layers * sum((5 * m + 2) * (1 + (m > 1))
+                                                       for _, m in meshes)}
+
+
+def seq_split_decode(kept, device="cuda", meshes=SEQ_SPLIT_MESHES):
+    """gemma3-1b at ``long_500k`` over its cache split along the positions
+    (the reference's sequence parallelism: one row, which "data" cannot
+    split): ``long_decode``'s compact caches as their prefills left them
+    (``long_decode(keep=True)``), cloned and placed by ``place_slot_state``
+    on each (data, model) mesh of ``meshes`` whose positions are all on
+    ``device``, the params placed by ``shard_params``, then the same steps
+    through ``api.build_serve_step``:
+
+    - the f32 base, greedy: every token that of long_decode's compact f32
+      run, the logits within LONG_DECODE_F32_TOL of its (the largest
+      |diff| over the largest |logit|, and RMS);
+    - the ``w8-absmax`` instance in bf16 (K2 on every linear piece), fed
+      long_decode's tokens, held to the same placed params' steps over the
+      unplaced compact cache (long_decode's own run where "model" splits
+      nothing): RMS within LONG_DECODE_BF16_LAYOUT_TOL, and every step
+      whose greedy token parts a near tie of the unplaced run's logits
+      (NEAR_TIE_SIGMAS, as ``tie_at`` counts bf16 rows).  Where "model" splits the linears, their row pieces' bf16
+      outputs are summed (the tensor-parallel rounding, ``tp_main_path``'s),
+      which these random weights amplify beyond that bound, so against
+      long_decode's unplaced run the step is held to the whole-step rule:
+      its RMS distance from the instance's f32 run within STEP_BF16_RATIO
+      of the unplaced run's;
+    - every position holds a quarter of each cache (SEQ_SPLIT_BYTES in
+      bf16), each k/v leaf's positions over "data" (and its head_dim over
+      "model" at (2, 2)); K2 a step at the rule table's count.
+
+    Each run's step wall (host clock, synchronized) is recorded beside
+    long_decode's.  The launches are read by the caller."""
+    from repro_torch.core.compressed import kernel_backend
+    from repro_torch.distributed.sharding import shard_params
+    from repro_torch.models import api
+    from repro_torch.models.sharded_cache import KVLayout, layout, place_slot_state, \
+        state_position_bytes
+    from repro_torch.tree import tree_map
+    spec, prompt, steps = kept["spec"], kept["prompt"], kept["steps"]
+    cuda = torch.device(device).type == "cuda"
+    rms = lambda a, b: ((a - b).norm() / b.norm()).item()  # noqa: E731
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def decode(k, params, cache):
+        """``steps`` serve steps of ``k``'s run (f32 greedy, bf16 fed):
+        (logits [steps, V], ms a step)."""
+        serve = api.build_serve_step(k["cfg"], spec)
+        tok, logits = k["fed"][0].view(1, 1).to(torch.int32), []
+        sync()
+        t0 = time.time()
+        with kernel_backend("cuda" if cuda else "reference"), torch.no_grad():
+            for i in range(steps):
+                if k["cfg"].dtype != torch.float32:
+                    tok = k["fed"][i].view(1, 1).to(torch.int32)
+                tok, lg, cache = serve(params, cache, tok,
+                                       torch.full((1,), prompt + i, dtype=torch.long,
+                                                  device=device))
+                logits.append(lg[:, -1].float())
+        sync()
+        return torch.cat(logits), (time.time() - t0) / steps * 1e3
+
+    def diff(got, want):
+        """How far ``got``'s logits are from ``want``'s, and each step whose
+        greedy token parts: a near tie where ``want``'s gap between the two
+        tokens is within NEAR_TIE_SIGMAS * sqrt(2) * sigma, sigma the RMS of
+        that step's logit difference (``tie_at``'s bf16 criterion)."""
+        a, b = got.argmax(-1), want.argmax(-1)
+        sigma = (got - want).pow(2).mean(-1).sqrt()
+        gap = want.gather(-1, b[:, None])[:, 0] - want.gather(-1, a[:, None])[:, 0]
+        parted = [{"step": i, "gap": gap[i].item(), "sigma": sigma[i].item(),
+                   "near_tie": bool(gap[i] <= NEAR_TIE_SIGMAS * math.sqrt(2) * sigma[i])}
+                  for i in torch.nonzero(a != b)[:, 0].tolist()]
+        return {"max_rel_logit_diff": ((got - want).abs().max() / want.abs().max()).item(),
+                "rms_rel_diff": rms(got, want),
+                "token_agreement": (a == b).float().mean().item(), "parted": parted}
+
+    runs, t_start = {}, time.time()
+    for shape in meshes:
+        mesh = tp_mesh(shape, device)
+        M = shape[1]
+        for which in ("f32", "bf16"):
+            k = kept[which]
+            c = k["cfg"]
+            reset_peak()
+            sync()
+            t0 = time.time()
+            params = shard_params(k["params"], c, mesh)
+            cache = place_slot_state(tree_map(torch.clone, k["cache"]), c, mesh)
+            sync()
+            t_place = time.time() - t0
+            lays = {layout(e["k"]) for sec in ("blocks", "tail") for e in cache[sec]}
+            check(lays == {KVLayout(shape[0], -1 if M > 1 else None, M, -3)},
+                  ("seq_split_decode layout", shape, lays))
+            pos_bytes = [state_position_bytes(cache, i) for i in range(mesh.size)]
+            whole = kv_bytes(c, spec.seq_len, True, torch.empty((), dtype=c.dtype).element_size())
+            check(pos_bytes == [whole // mesh.size] * mesh.size,
+                  ("seq_split_decode bytes per position", shape, which, pos_bytes, whole))
+            if cuda and which == "bf16":
+                check(pos_bytes == [SEQ_SPLIT_BYTES] * mesh.size and M * shape[0] == 4,
+                      ("seq_split_decode bf16 bytes", shape, pos_bytes))
+                check(k2_per_step(params) == (5 * M + 2) * c.n_layers,
+                      ("seq_split_decode K2 pieces", shape, k2_per_step(params)))
+            logits, ms = decode(k, params, cache)
+            del cache
+            want = k["logits"][1:]
+            check(bool(torch.isfinite(logits).all()) and logits.shape == want.shape,
+                  ("seq_split_decode logits", shape, which, logits.shape))
+            run = {"mesh": list(shape), "layout": [list(lay) for lay in lays],
+                   "position_bytes": pos_bytes, **diff(logits, want), "place_s": t_place,
+                   "decode_ms_per_step": ms,
+                   "max_memory_allocated": card_memory()[1] if cuda else None}
+            if which == "bf16":
+                same = want
+                if M > 1:         # the same placed params over the unplaced cache
+                    same, run["unplaced_cache_ms_per_step"] = decode(
+                        k, params, tree_map(torch.clone, k["cache"]))
+                run["same_params_unplaced_cache"] = diff(logits, same)
+                r32 = k["f32_logits"][1:]
+                run["ratio"] = rms(logits, r32) / rms(want, r32)
+            del params
+            runs[f"{which}_{shape[0]}x{shape[1]}"] = run
+    if cuda:
+        torch.cuda.empty_cache()
+    line = {"phase": "seq_split_decode", "model": kept["bf16"]["cfg"].name,
+            "max_len": spec.seq_len, "prompt": prompt, "steps": steps,
+            "f32_bound": LONG_DECODE_F32_TOL, "bf16_bound": LONG_DECODE_BF16_LAYOUT_TOL,
+            "ratio_bound": STEP_BF16_RATIO,
+            "unplaced_decode_ms_per_step": {w: kept[w]["decode_ms_per_step"]
+                                            for w in ("f32", "bf16")},
+            "runs": runs, "seconds": time.time() - t_start}
+    emit(line)
+    print("seq_split_decode: " + "; ".join(
+        f"{n} ({r['layout'][0][0]} position pieces) max rel diff {r['max_rel_logit_diff']:.3e} "
+        f"RMS {r['rms_rel_diff']:.3e} agreement {r['token_agreement']:.3f}"
+        + (f" (same params, unplaced cache: RMS "
+           f"{r['same_params_unplaced_cache']['rms_rel_diff']:.3e} agreement "
+           f"{r['same_params_unplaced_cache']['token_agreement']:.3f}; ratio {r['ratio']:.4f})"
+           if "ratio" in r else "")
+        + f", {r['decode_ms_per_step']:.2f} ms/step, {r['position_bytes'][0]} B a position"
+        for n, r in runs.items()), flush=True)
+    for n, r in runs.items():
+        if n.startswith("f32"):
+            check(r["token_agreement"] == 1.0 and r["max_rel_logit_diff"] < LONG_DECODE_F32_TOL
+                  and r["rms_rel_diff"] < LONG_DECODE_F32_TOL, ("seq_split_decode f32", n, r))
+        else:
+            same = r["same_params_unplaced_cache"]
+            check(all(p["near_tie"] for p in same["parted"])
+                  and same["rms_rel_diff"] < LONG_DECODE_BF16_LAYOUT_TOL
+                  and r["ratio"] <= STEP_BF16_RATIO, ("seq_split_decode bf16", n, r))
     return line
 
 
@@ -6480,6 +6781,7 @@ def _tp_step_check(flat, sharded, cfg, tok, prompts, mesh, device, label, max_le
         return out[:, -1].float(), probe.routes
 
     from repro_torch.distributed import collectives
+    BACKGROUND.fence("collectives")     # no background job moves the counts read below
     collectives.reset_result_bytes()
     step(sharded, cfg, backend, cfg.dtype)
     before = {"calls": {k: n for k, n in collectives.calls.items() if n},
@@ -6545,6 +6847,7 @@ def decode_collectives(eng, label):
     from repro_torch.core.compressed import kernel_backend
     from repro_torch.distributed import collectives
     from repro_torch.launch import roofline
+    BACKGROUND.fence("collectives")     # no background job moves the counts read below
     collectives.reset_result_bytes()
     with kernel_backend(eng.backend), torch.no_grad():
         eng._decode(None, eng._dev(eng._cur_tok), eng._dev(eng._cur_pos))
@@ -6711,6 +7014,89 @@ def check_quant_matmul_tp(shapes, name="tp_kernel_shapes"):
     return line
 
 
+MULTI_POD_MESH = (2, 2, 1)              # ("pod", "data", "model")
+MULTI_POD_ENGINE = dict(slots=8, max_len=256, buckets=(32, 64))
+MULTI_POD_ROWS = 8
+
+
+def multi_pod_engine(int8, cfg, device="cuda"):
+    """Full-width gemma2-2b's ``w8-absmax`` instance behind ``Engine(mesh=)``
+    over a MULTI_POD_MESH ("pod", "data", "model") mesh whose positions
+    are all on ``device``: its 8 slots over "pod" and "data" (two a
+    piece, pod-major), every slot-state leaf split with them, the params
+    whole (a "model" axis of 1 splits nothing), MULTI_POD_ROWS rows of
+    TP_MAX_NEW tokens with the template as a shared prefix, against the
+    unsharded contiguous engine on the same instance.  The launch counts
+    are zeroed just before the sharded run and read just after.  Gates:
+    K2 launched at every piece's shape (the whole linears, 7 a layer, the
+    rule table's count) per decode step and prefill, nothing else; rows
+    that part from the unsharded run near ties (``tie_at``); each
+    position's slot state the rule's share (a quarter); one decode step's
+    collectives the roofline's count."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.sharded_cache import KVLayout, data_split, layout, \
+        state_position_bytes
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.scheduler import slot_state_bytes
+    on_card = torch.device(device).type == "cuda"
+    mesh = tp_mesh(MULTI_POD_MESH, device, ("pod", "data", "model"))
+    prompts = [TEMPLATE + r for r in REVIEWS[:MULTI_POD_ROWS]]
+    flat = Engine(int8, cfg, device=device, kv_layout="contiguous", version="w8-absmax",
+                  **MULTI_POD_ENGINE)
+    want = flat.generate(prompts, max_new=TP_MAX_NEW, prefix=TEMPLATE, return_requests=True)
+    ops.reset_launch_counts()
+    eng = Engine(int8, cfg, mesh=mesh, version="w8-absmax", **MULTI_POD_ENGINE)
+    sync()
+    t0 = time.time()
+    got = eng.generate(prompts, max_new=TP_MAX_NEW, prefix=TEMPLATE, return_requests=True)
+    sync()
+    wall = time.time() - t0
+    launches = dict(ops.launch_count)
+    st = eng.stats
+    per_step = k2_per_step(eng.params)
+    n_data = MULTI_POD_MESH[0] * MULTI_POD_MESH[1]
+    lay = layout(eng._slot_state["blocks"][0]["k"])
+    check(lay == KVLayout(n_data, None, 1, -4) and data_split(eng._slot_state) == n_data,
+          ("multi_pod_engine k/v over pod x data", lay))
+    check(per_step == k2_rule_count(int8, cfg, mesh) == 7 * cfg.n_layers,
+          ("multi_pod_engine K2 a call", per_step))
+    if on_card:
+        check(launches == {"quant_matmul": per_step * (st.decode_steps + st.prefills),
+                           "paged_attention": 0, "block_sparse_matmul": 0, "flash_attention": 0},
+              ("multi_pod_engine launches", launches, st.decode_steps, st.prefills))
+    check(all(r.done for r in got) and st.rows == MULTI_POD_ROWS, ("multi_pod_engine rows", st))
+    state_bytes = [state_position_bytes(eng._slot_state, i) for i in range(mesh.size)]
+    state_whole = MULTI_POD_ENGINE["slots"] * slot_state_bytes(cfg, MULTI_POD_ENGINE["max_len"])
+    check(state_bytes == spec_state_bytes(eng) == [state_whole // n_data] * mesh.size,
+          ("multi_pod_engine slot state per position", state_bytes, state_whole))
+    coll = decode_collectives(eng, "multi_pod_engine")
+    agree, rows_same = _agreement(want, got)
+    parted = []
+    if rows_same < MULTI_POD_ROWS:
+        p32 = _f32(int8)
+        parted = [{"prompt": b.src, **tie_at(int8, cfg, eng.tok, b.src, a.out_ids, b.out_ids,
+                                             eng.buckets[-1], p32)}
+                  for a, b in zip(got, want) if a.out_ids != b.out_ids]
+        del p32
+    line = {"phase": "multi_pod_engine", "model": cfg.name, "layers": cfg.n_layers,
+            "mesh": dict(mesh.shape), "rows": MULTI_POD_ROWS, "max_new": TP_MAX_NEW,
+            "engine": {**MULTI_POD_ENGINE, "kv_layout": "contiguous"},
+            "k2_per_step": per_step, "decode_steps": st.decode_steps, "prefills": st.prefills,
+            "prefix_hits": st.prefix_hits, "launches": launches,
+            "slot_state_position_bytes": state_bytes, "slot_state_bytes_unsharded": state_whole,
+            "collectives_per_step": coll, "wall_s": wall, "wall_s_unsharded": flat.stats.wall_s,
+            "greedy_token_agreement": agree, "rows_identical": rows_same, "parted": parted}
+    emit(line)
+    print(f"multi_pod_engine: mesh {dict(mesh.shape)}, K2 {per_step} launches a call, slot "
+          f"state {state_bytes} of {state_whole}; collective calls a decode step "
+          f"{coll['calls']}; agreement {agree:.4f}, {rows_same}/{MULTI_POD_ROWS} rows "
+          f"identical, {len(parted)} parted at near ties; {wall:.2f} s "
+          f"({flat.stats.wall_s:.2f} unsharded)", flush=True)
+    check(all(p["near_tie"] for p in parted), ("multi_pod_engine parted beyond a near tie",
+                                               parted))
+    return line, launches
+
+
 def tp_rwkv(gen, base, cfg, device="cuda"):
     """rwkv6-3b's ``w8-absmax`` instance (published widths, its first
     ``SESSION_LAYERS`` layers, bf16) served by ``Engine(mesh=)`` at (1, 4)
@@ -6810,24 +7196,45 @@ def tp_rwkv(gen, base, cfg, device="cuda"):
     return line, launches, probe.shapes
 
 
+# the two placements beyond (1, 4) and (2, 2), for gemma2-2b: 3 slots at (2, 2),
+# which "data" does not divide (the k/v positions over "data": the sequence
+# split), and 8 slots over "pod" and "data" of a (2, 2, 1) multi-pod mesh
+TP_F32_PLACEMENTS = {"gemma2-2b": (("2x2_slots3", (2, 2), ("data", "model"), 3, -3),
+                                   ("2x2x1_pod", (2, 2, 1), ("pod", "data", "model"), 8, -4))}
+
+
 def tp_f32_parity(cases, device="cuda", n_rows: int = 8, max_new: int = 8):
     """Each (name, params, cfg) case in f32 (raw weights: no kernel) served
     through the unsharded contiguous engine and through ``Engine(mesh=)``
-    at (1, 4) and (2, 2): greedy tokens identical, or parted at a near
-    tie of the f32 plain path (top-two gap under NEAR_TIE); each position's
-    slot state the rule's share (``spec_state_bytes``) and one decode
-    step's collectives the roofline's count (``decode_collectives``)."""
-    from repro_torch.models.sharded_cache import state_position_bytes
+    at (1, 4) and (2, 2), and at the placements of TP_F32_PLACEMENTS
+    (against an unsharded engine of the same slot count): greedy tokens
+    identical, or parted at a near tie of the f32 plain path (top-two gap
+    under NEAR_TIE); each position's slot state the rule's share
+    (``spec_state_bytes``) and one decode step's collectives the
+    roofline's count (``decode_collectives``)."""
+    from repro_torch.models.sharded_cache import layout, state_position_bytes
     from repro_torch.serving.engine import Engine
     prompts = [TEMPLATE + r for r in REVIEWS[:n_rows]]
     out = {}
     for name, params, cfg in cases:
         check(cfg.dtype == torch.float32, (name, "is not f32"))
         flat = Engine(params, cfg, device=device, kv_layout="contiguous", **TP_ENGINE)
-        want = flat.generate(prompts, max_new=max_new, return_requests=True)
+        wants = {TP_ENGINE["slots"]: flat.generate(prompts, max_new=max_new,
+                                                   return_requests=True)}
         res = {}
-        for shape in ((1, 4), (2, 2)):
-            eng = Engine(params, cfg, mesh=tp_mesh(shape, device), **TP_ENGINE)
+        placements = [("x".join(map(str, shape)), shape, ("data", "model"), TP_ENGINE["slots"],
+                       None) for shape in ((1, 4), (2, 2))] + list(TP_F32_PLACEMENTS.get(name, ()))
+        for label, shape, axes, slots, data_dim in placements:
+            kw = {**TP_ENGINE, "slots": slots}
+            if slots not in wants:
+                wants[slots] = Engine(params, cfg, device=device, kv_layout="contiguous",
+                                      **kw).generate(prompts, max_new=max_new,
+                                                     return_requests=True)
+            want = wants[slots]
+            eng = Engine(params, cfg, mesh=tp_mesh(shape, device, axes), **kw)
+            if data_dim is not None:
+                kv = eng._slot_state["blocks"][0]["k"]
+                check(layout(kv).data_dim == data_dim, (name, label, "k/v split", layout(kv)))
             got = eng.generate(prompts, max_new=max_new, return_requests=True)
             parted = [{"prompt": b.src, **tie_at(params, cfg, flat.tok, b.src, a.out_ids,
                                                  b.out_ids, flat.buckets[-1])}
@@ -6835,14 +7242,14 @@ def tp_f32_parity(cases, device="cuda", n_rows: int = 8, max_new: int = 8):
             state_bytes = [state_position_bytes(eng._slot_state, i)
                            for i in range(eng.mesh.size)]
             check(state_bytes == spec_state_bytes(eng),
-                  (name, shape, "slot state per position", state_bytes))
-            res["x".join(map(str, shape))] = {"rows_identical": n_rows - len(parted),
-                                              "parted": parted,
-                                              "slot_state_position_bytes": state_bytes,
-                                              "cache_split": state_split(eng._slot_state),
-                                              "collectives_per_step": decode_collectives(
-                                                  eng, f"tp_f32_parity {name} {shape}")}
-            check(all(p["near_tie"] for p in parted), (name, shape, "parted beyond a near tie",
+                  (name, label, "slot state per position", state_bytes))
+            res[label] = {"rows_identical": n_rows - len(parted), "parted": parted,
+                          "slots": slots, "axes": list(axes),
+                          "slot_state_position_bytes": state_bytes,
+                          "cache_split": state_split(eng._slot_state),
+                          "collectives_per_step": decode_collectives(
+                              eng, f"tp_f32_parity {name} {label}")}
+            check(all(p["near_tie"] for p in parted), (name, label, "parted beyond a near tie",
                                                        parted))
             del eng
         out[name] = {"layers": cfg.n_layers, **res}
@@ -7169,8 +7576,10 @@ def sharded_full_width(base, cfg, device="cuda"):
     unsharded from the same params, run after the sharded ones (not
     beside them).  Gates: each step's loss within SHARDED_BF16_RTOL of the
     unsharded one's; the sharded params saved (``checkpoint.save`` writes
-    each leaf gathered whole), restored unsharded and equal bit for bit.
-    Records each run's step wall, peak memory and FLOP share."""
+    each leaf gathered whole), restored unsharded and equal bit for bit
+    (a ``BACKGROUND`` job tagged "collectives", its gathers being
+    collectives; it restores onto the host).  Records each run's step
+    wall, peak memory and FLOP share."""
     import shutil
     import tempfile
     from repro_torch.distributed import sharding as SH
@@ -7208,17 +7617,27 @@ def sharded_full_width(base, cfg, device="cuda"):
     placed = run(SH.place(tree_map(torch.clone, base), SH.param_shardings(cfg, base, mesh)),
                  "sharded")
     d = tempfile.mkdtemp(prefix="sharded_ckpt.", dir=os.path.join(ROOT, "build"))
-    try:
-        t0 = time.time()
-        ckpt.save(d, kw["steps"], placed)
-        # the bit-for-bit comparison below checks what restore's hash would
-        restored, _, _ = ckpt.restore(d, base, device=device, verify=False)
-        same = all(_same_bits(SH.gather(a), b) for a, b in zip(leaves(placed), leaves(restored)))
-        save_s = time.time() - t0
-        ckpt_bytes = _dir_bytes(d)
-    finally:
-        shutil.rmtree(d, ignore_errors=True)
-    del placed, restored
+    template = tree_map(lambda t: torch.empty(0), base)      # restore's structure only
+    checkpoint = {}
+
+    def round_trip(placed=placed):
+        try:
+            t0 = time.time()
+            ckpt.save(d, kw["steps"], placed)
+            # the bit-for-bit comparison below checks what restore's hash would
+            restored, _, _ = ckpt.restore(d, template, device="cpu", verify=False)
+            host = torch.device("cpu")
+            same = all(_same_bits(SH.gather(a, host), b)
+                       for a, b in zip(leaves(placed), leaves(restored)))
+            checkpoint.update(same_bits=same, bytes=_dir_bytes(d), seconds=time.time() - t0,
+                              restored_on="cpu")
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+        check(same, ("sharded checkpoint restored unsharded", checkpoint))
+        return {"phase": "parallel_training.checkpoint", **checkpoint}
+
+    BACKGROUND.run(round_trip, tags=("collectives",))
+    del placed, round_trip
     gc.collect()
     torch.cuda.empty_cache()
     flat = run(tree_map(torch.clone, base), "unsharded")
@@ -7229,10 +7648,8 @@ def sharded_full_width(base, cfg, device="cuda"):
            for a, b in zip(runs["sharded"]["steps"], runs["unsharded"]["steps"])]
     line = {"model": cfg.name, "layers": cfg.n_layers, "dtype": "bfloat16", "mesh": [1, 4],
             "optimizer": "adamw", "lr": FULL_LR, **kw, "flops_per_step": flops, **runs,
-            "loss_rel_err": rel, "tolerance": SHARDED_BF16_RTOL,
-            "checkpoint": {"same_bits": same, "bytes": ckpt_bytes, "seconds": save_s}}
+            "loss_rel_err": rel, "tolerance": SHARDED_BF16_RTOL, "checkpoint": checkpoint}
     check(max(rel) <= SHARDED_BF16_RTOL, ("sharded bf16 steps' losses", line))
-    check(same, ("sharded checkpoint restored unsharded", line["checkpoint"]))
     return line
 
 
@@ -7249,7 +7666,8 @@ def parallel_training(gen, base, cfg, device="cuda", layers: int = 4):
     gradients, kept from its one backward, go through
     ``compressed_allreduce`` over the mesh's 2-position "data" axis,
     against the same function on the CPU (grads and residuals within
-    ALLREDUCE_TOL).  (c) ``sharded_full_width``."""
+    ALLREDUCE_TOL; a ``BACKGROUND`` job on host copies, tagged
+    "collectives").  (c) ``sharded_full_width``."""
     from repro_torch.configs import zamba2_7b
     from repro_torch.core.compressed import ShardedTensor
     from repro_torch.distributed import sharding as SH
@@ -7298,16 +7716,32 @@ def parallel_training(gen, base, cfg, device="cuda", layers: int = 4):
         return SH.gather(t, torch.device("cpu")) if isinstance(t, ShardedTensor) \
             else t.detach().cpu()
 
-    g_cpu, r_cpu = compressed_allreduce(tree_map(cpu, grads), tree_map(cpu, res), axis="data",
-                                        mesh=tp_mesh((2,), "cpu", ("data",)))
-    g_err = max((cpu(a).float() - b.float()).abs().max().item()
-                for (_, a), (_, b) in zip(flatten_with_path(g_card), flatten_with_path(g_cpu)))
-    r_err = max((cpu(a) - b).abs().max().item()
-                for (_, a), (_, b) in zip(flatten_with_path(r_card), flatten_with_path(r_cpu)))
-    del grads, res, g_card, r_card, g_cpu, r_cpu
+    grads_h, res_h = tree_map(cpu, grads), tree_map(cpu, res)
+    g_card, r_card = tree_map(cpu, g_card), tree_map(cpu, r_card)
+    del grads, res
     gc.collect()
     torch.cuda.empty_cache()
-    allreduce_s = time.time() - t0
+    allreduce = {"of": "sharded step (a)'s gradients", "layers": layers, "axis": "data",
+                 "positions": 2, "elements": n_grad, "tolerance": ALLREDUCE_TOL,
+                 "seconds_card": time.time() - t0}
+
+    def cpu_reference():
+        # the same function on the host, off the card's critical path: its
+        # collectives move the process-wide counts, so it carries their tag
+        t0 = time.time()
+        g_cpu, r_cpu = compressed_allreduce(grads_h, res_h, axis="data",
+                                            mesh=tp_mesh((2,), "cpu", ("data",)))
+        g_err = max((a.float() - b.float()).abs().max().item()
+                    for (_, a), (_, b) in zip(flatten_with_path(g_card), flatten_with_path(g_cpu)))
+        r_err = max((a - b).abs().max().item()
+                    for (_, a), (_, b) in zip(flatten_with_path(r_card), flatten_with_path(r_cpu)))
+        allreduce.update(grad_max_abs_err_vs_cpu=g_err, residual_max_abs_err_vs_cpu=r_err,
+                         seconds_cpu=time.time() - t0)
+        check(g_err <= ALLREDUCE_TOL and r_err <= ALLREDUCE_TOL,
+              ("compressed_allreduce", allreduce))
+        return {"phase": "parallel_training.compressed_allreduce", **allreduce}
+
+    BACKGROUND.run(cpu_reference, tags=("collectives",))
     t0 = time.time()
     sgen = torch.Generator(device=device)
     sgen.manual_seed(SHARDED_TRAIN_SEED)
@@ -7329,15 +7763,10 @@ def parallel_training(gen, base, cfg, device="cuda", layers: int = 4):
                 "max_abs_err": pipe_err[0], "max_rel_err": pipe_err[1], "tolerance": PIPE_TOL,
                 "seconds": pipe_s},
             "sharded_step_a": step_a, "sharded_step_b": step_b, "sharded_full_width": full,
-            "compressed_allreduce": {
-                "of": "sharded step (a)'s gradients", "layers": layers, "axis": "data",
-                "positions": 2, "elements": n_grad,
-                "grad_max_abs_err_vs_cpu": g_err, "residual_max_abs_err_vs_cpu": r_err,
-                "tolerance": ALLREDUCE_TOL, "seconds": allreduce_s}}
+            "compressed_allreduce": allreduce}
     emit(line)
     print(f"parallel_training: pipeline max rel err {pipe_err[1]:.3g} over {layers} layers in 2 "
-          f"stages; compressed all-reduce of {n_grad} sharded gradient elements, card vs CPU: "
-          f"grads {g_err:.3g}, residuals {r_err:.3g}", flush=True)
+          f"stages", flush=True)
     for k in ("sharded_step_a", "sharded_step_b"):
         r = line[k]
         print(f"  {k}: {r['model']} {r['layers']} layers at {r['mesh']} fsdp={r['fsdp']} "
@@ -7350,13 +7779,55 @@ def parallel_training(gen, base, cfg, device="cuda", layers: int = 4):
           f"{[s['loss'] for s in full['unsharded']['steps']]}; step "
           f"{full['sharded']['steady_seconds']:.3f} s ({full['unsharded']['steady_seconds']:.3f} "
           f"unsharded), peak {full['sharded']['peak_memory']} "
-          f"({full['unsharded']['peak_memory']}); "
-          f"checkpoint {full['checkpoint']['bytes']} B same bits {full['checkpoint']['same_bits']} "
-          f"in {full['checkpoint']['seconds']:.1f} s", flush=True)
+          f"({full['unsharded']['peak_memory']})", flush=True)
     check(pipe_err[1] <= PIPE_TOL, ("pipeline_forward", line["pipeline"]))
-    check(g_err <= ALLREDUCE_TOL and r_err <= ALLREDUCE_TOL,
-          ("compressed_allreduce", line["compressed_allreduce"]))
     return line
+
+
+def host_cpus() -> dict:
+    """The host's CPUs as this process sees them: the count, the ones it
+    may run on, what its cgroup's quota leaves (``usable_cpus``) and
+    torch's intra-op threads."""
+    return {"cpu_count": os.cpu_count(), "affinity": len(os.sched_getaffinity(0)),
+            "usable": usable_cpus(), "torch_threads": torch.get_num_threads()}
+
+
+TINY_PHASES = "--tiny-phases"    # chip_smoke.py --tiny-phases OUT: the tiny-olap phases alone
+
+
+def tiny_phases(out_path: str) -> int:
+    """``train_tiny_olap``, ``service_trained`` and ``examples``, in a
+    process of their own that ``run`` starts (``python3 chip_smoke.py
+    --tiny-phases OUT``) once the kernels are built: they need only
+    ``tiny-olap`` and the K1/K2 libraries, and their host-bound work runs
+    on a core of its own beside the main process's phases.  Each phase
+    checks its gates here, so a failure exits non-zero; writes their lines,
+    the service's and the examples' launches and their seconds to OUT."""
+    import shutil
+    from repro_torch.kernels import ops     # the libraries: built by the main process
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    seconds = {}
+
+    def timed(phase, fn, *a):
+        t = time.time()
+        out = fn(*a)
+        seconds[phase] = time.time() - t
+        print(f"phase {phase}: {seconds[phase]:.1f} s", flush=True)
+        return out
+
+    tiny_line, tiny_cfg, tiny_params = timed("train_tiny_olap", train_tiny_olap)
+    ops.reset_launch_counts()
+    svc_line = timed("service_trained", service_trained, tiny_params, tiny_cfg)
+    svc_line["launches"] = dict(ops.launch_count)
+    del tiny_params
+    ex_line, ex_launches = timed("examples", examples_phase, TINY_CKPT)
+    shutil.rmtree(TINY_CKPT, ignore_errors=True)
+    with open(out_path, "w") as f:
+        json.dump({"train_tiny_olap": tiny_line, "service_trained": svc_line,
+                   "examples": ex_line, "examples_launches": ex_launches,
+                   "seconds": seconds}, f)
+    return 0
 
 
 def main() -> int:
@@ -7364,6 +7835,25 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 2
+    if sys.argv[1:2] == [TINY_PHASES]:
+        return tiny_phases(sys.argv[2])
+    from repro_torch.kernels import build
+    BACKGROUND.start()
+    try:
+        return run()
+    finally:
+        build.stop_all()            # nvcc runs a failed run left
+        for proc in CHILDREN:       # and the tiny-olap process
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        BACKGROUND.close()
+
+
+CHILDREN = []                       # the processes run() starts
+
+
+def run() -> int:
     t_start = time.time()
     from repro_torch.kernels import build, ops
 
@@ -7374,27 +7864,16 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     emit({"phase": "card", "nvidia_smi": card, "torch": torch.__version__,
-          "cuda": torch.version.cuda, "device": torch.cuda.get_device_name(0)})
+          "cuda": torch.version.cuda, "device": torch.cuda.get_device_name(0),
+          "host": host_cpus()})
+    # the kernels compile while the training phases, which launch none of
+    # them, run on the card; their CPU references wait for the build
     t0 = time.time()
-    logs = build.build_all()
-    sass = {n: build.sass_counts(n) for n in build.KERNELS}
-    ptxas = {n: [ln.strip() for ln in log.splitlines()
-                 if "registers" in ln or "spill" in ln or "smem" in ln]
-             for n, log in logs.items()}
-    # the most bytes any kernel of each library spills to local memory
-    spill = {n: max([int(m) for ln in lines
-                     for m in re.findall(r"(\d+) bytes spill stores", ln)] or [0])
-             for n, lines in ptxas.items()}
-    emit({"phase": "build", "seconds": time.time() - t0, "sass": sass, "spill_stores": spill})
-    print("sass: " + ", ".join(f"{n} HGMMA {c['HGMMA']} HMMA {c['HMMA']} spill {spill[n]}"
-                               for n, c in sass.items()), flush=True)
-    for n in ("paged_attention", "quant_matmul", "flash_attention", "block_sparse"):
-        check(sass[n]["HGMMA"] + sass[n]["HMMA"] > 0, (n, "has no tensor-core instruction"))
-    for n in ("quant_matmul", "paged_attention"):
-        check(spill[n] == 0, (n, "spills registers", ptxas[n]))
-
-    seconds = {"build": time.time() - t0}
+    build.start_all()
+    seconds = {}
     memory = {}                 # memory_allocated before and after each phase
+
+    os.makedirs(OUT_DIR, exist_ok=True)
 
     def timed(phase, fn, *a, **kw):
         t, before = time.time(), card_memory()[0]
@@ -7403,7 +7882,58 @@ def main() -> int:
         memory[phase] = (before, card_memory()[0])
         print(f"phase {phase}: {seconds[phase]:.1f} s, memory_allocated "
               f"{before} -> {memory[phase][1]}", flush=True)
+        # every phase's seconds so far: the record a run cut short leaves
+        with open(os.path.join(OUT_DIR, "phase_seconds.json"), "w") as f:
+            json.dump({"seconds": seconds, "since_start": time.time() - t_start}, f, indent=1)
         return out
+
+    # every family trains: one f32 step at a cut depth on the card and the
+    # CPU, then three bf16 steps at the published widths
+    from repro_torch.configs import registry
+    fgen = torch.Generator(device="cuda")
+    fgen.manual_seed(TRAIN_FAMILY_SEED)
+    family_parity = {}
+    for arch, layers, opt, seq_len in TRAIN_FAMILY_PARITY:
+        c = registry.get_config(arch).replace(n_layers=layers, param_dtype="float32")
+        family_parity[arch] = timed(f"train_family_parity_{arch}", train_parity, fgen, c,
+                                    opt=opt, seq_len=seq_len, name="train_family_parity")
+        gc.collect()
+        torch.cuda.empty_cache()
+    family_full = {}
+    for family, arch, kw in TRAIN_FULL_WIDTH:
+        kw = dict(kw)
+        c = registry.get_config(arch)
+        c = c.replace(n_layers=kw.pop("layers", c.n_layers))
+        family_full[family] = timed(f"train_full_width_{family}", train_full_width, c,
+                                    name=f"train_full_width_{family}", **kw)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    t1 = time.time()
+    logs = build.build_all()
+    build_wait = time.time() - t1
+    BACKGROUND.open()
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(len(build.KERNELS)) as pool:     # one cuobjdump each, together
+        sass = dict(zip(build.KERNELS, pool.map(build.sass_counts, build.KERNELS)))
+    ptxas = {n: [ln.strip() for ln in log.splitlines()
+                 if "registers" in ln or "spill" in ln or "smem" in ln]
+             for n, log in logs.items()}
+    # the most bytes any kernel of each library spills to local memory
+    spill = {n: max([int(m) for ln in lines
+                     for m in re.findall(r"(\d+) bytes spill stores", ln)] or [0])
+             for n, lines in ptxas.items()}
+    emit({"phase": "build", "seconds": time.time() - t0, "wait_s": build_wait, "sass": sass,
+          "spill_stores": spill})
+    print("sass: " + ", ".join(f"{n} HGMMA {c['HGMMA']} HMMA {c['HMMA']} spill {spill[n]}"
+                               for n, c in sass.items()), flush=True)
+    for n in ("paged_attention", "quant_matmul", "flash_attention", "block_sparse"):
+        check(sass[n]["HGMMA"] + sass[n]["HMMA"] > 0, (n, "has no tensor-core instruction"))
+    for n in ("quant_matmul", "paged_attention"):
+        check(spill[n] == 0, (n, "spills registers", ptxas[n]))
+
+    # the build's wait, and its wall from the start of the nvcc runs
+    seconds["build"], seconds["build_wall"] = build_wait, time.time() - t0
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -7426,7 +7956,18 @@ def main() -> int:
     tp_line, tp_launches, tp_variants, tp_shapes = timed("tp_main_path", tp_main_path, tgen,
                                                          int8, cfg)
     kq_tp = timed("tp_kernel_shapes", check_quant_matmul_tp, tp_shapes)
+    # the same instance with its slots over "pod" and "data" of a (2, 2, 1) mesh
+    mp_line, mp_launches = timed("multi_pod_engine", multi_pod_engine, int8, cfg)
     del int8
+    # the tiny-olap phases in a second process, beside the phases below
+    # (after the kernel timings of the phases above)
+    tiny_out = os.path.join(OUT_DIR, "tiny_phases.json")
+    tiny_log = os.path.join(OUT_DIR, "tiny_phases.log")
+    with open(tiny_log, "w") as log:
+        CHILDREN.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), TINY_PHASES, tiny_out],
+            stdout=log, stderr=subprocess.STDOUT, cwd=ROOT))
+    t_tiny = time.time()
     torch.cuda.empty_cache()
     qe_line, qe_launches = timed("qembed_serve", qembed_serve, base, cfg)
     torch.cuda.empty_cache()
@@ -7462,22 +8003,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     par_line = timed("parallel_training", parallel_training, tgen, base, cfg)
     torch.cuda.empty_cache()
-    from repro_torch.configs import granite_20b
-    from repro_torch.models import api
-    g4 = granite_20b.CONFIG.replace(n_layers=TP_LAYERS, param_dtype="float32")
-    # rwkv6-3b (40 heads of 64: S over "model" at both meshes) and zamba2-7b
-    # at one group of its layout (112 SSD heads: h over "model")
-    from repro_torch.configs import rwkv6_3b, zamba2_7b
-    r4 = rwkv6_3b.CONFIG.replace(n_layers=TP_LAYERS, param_dtype="float32")
-    z1 = zamba2_7b.CONFIG.replace(n_layers=zamba2_7b.CONFIG.shared_attn_every + 1,
-                                  param_dtype="float32")
-    tp_cases = [("gemma2-2b", _f32(cut_depth(base, cfg, TP_LAYERS)[0]),
-                 cut_depth(base, cfg, TP_LAYERS)[1].replace(param_dtype="float32")),
-                ("granite-20b", api.init_params(tgen, g4), g4),
-                ("rwkv6-3b", api.init_params(tgen, r4), r4),
-                ("zamba2-7b", api.init_params(tgen, z1), z1)]
-    tp_parity_line = timed("tp_f32_parity", tp_f32_parity, tp_cases)
-    del tp_cases
+    # tp_f32_parity reads the collectives' counts: it runs after the MoE
+    # session, so that the background's jobs tagged "collectives"
+    # (parallel_training's) run beside the phases in between.  Its
+    # gemma2-2b case waits on the host
+    from repro_torch.tree import tree_map
+    tp_g2, tp_g2_cfg = cut_depth(base, cfg, TP_LAYERS)
+    tp_g2 = tree_map(lambda t: t.detach().to("cpu", copy=True), tp_g2)
     del base, pool_base
     torch.cuda.empty_cache()
     pool_parity_line, pool_parity_launches = timed("olap_pool_f32_parity",
@@ -7492,18 +8024,25 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_full_line = timed("train_full_width", train_full_width, cfg)
     torch.cuda.empty_cache()
-    tiny_line, tiny_cfg, tiny_params = timed("train_tiny_olap", train_tiny_olap)
-    ops.reset_launch_counts()
-    svc_line = timed("service_trained", service_trained, tiny_params, tiny_cfg)
-    svc_line["launches"] = dict(ops.launch_count)
-    service_runs = {k: service_runs[k] + ops.launch_count[k] for k in ops.launch_count}
-    del tiny_params
-    ex_line, ex_launches = timed("examples", examples_phase, TINY_CKPT)
-    import shutil
-    shutil.rmtree(TINY_CKPT, ignore_errors=True)
+    # the tiny-olap process: its gates ran there, its lines come back here
+    t0 = time.time()
+    rc = CHILDREN[0].wait()
+    seconds["tiny_phases_wait"], seconds["tiny_phases_wall"] = time.time() - t0, time.time() - t_tiny
+    with open(tiny_log) as f:
+        tail = f.read()[-4000:]
+    check(rc == 0, ("the tiny-olap phases failed", rc, tail))
+    with open(tiny_out) as f:
+        tiny = json.load(f)
+    tiny_line, svc_line, ex_line = tiny["train_tiny_olap"], tiny["service_trained"], tiny["examples"]
+    ex_launches = tiny["examples_launches"]
+    for phase, t in tiny["seconds"].items():
+        seconds[phase] = t
+        print(f"phase {phase}: {t:.1f} s in the tiny-olap process", flush=True)
+    for line in (tiny_line, svc_line, ex_line):
+        emit(line)
+    service_runs = {k: service_runs[k] + svc_line["launches"][k] for k in ops.launch_count}
 
     # the MoE phases: full-width qwen2-moe-a2.7b, from a generator of their own
-    import gc
     gc.collect()
     torch.cuda.empty_cache()
     print(f"MoE phases: memory_allocated {torch.cuda.memory_allocated()}", flush=True)
@@ -7521,6 +8060,25 @@ def main() -> int:
     torch.cuda.empty_cache()
     moe_sess_line, moe_sess_launches, moe_sess_shapes = timed(
         "moe_session", moe_session, *cut_depth(moe_base, moe_cfg, SESSION_LAYERS[moe_cfg.name]))
+    gc.collect()
+    torch.cuda.empty_cache()
+    from repro_torch.configs import granite_20b
+    from repro_torch.models import api
+    g4 = granite_20b.CONFIG.replace(n_layers=TP_LAYERS, param_dtype="float32")
+    # rwkv6-3b (40 heads of 64: S over "model" at both meshes) and zamba2-7b
+    # at one group of its layout (112 SSD heads: h over "model")
+    from repro_torch.configs import rwkv6_3b, zamba2_7b
+    r4 = rwkv6_3b.CONFIG.replace(n_layers=TP_LAYERS, param_dtype="float32")
+    z1 = zamba2_7b.CONFIG.replace(n_layers=zamba2_7b.CONFIG.shared_attn_every + 1,
+                                  param_dtype="float32")
+    tp_cases = [("gemma2-2b", _f32(tree_map(lambda t: t.to("cuda"), tp_g2)),
+                 tp_g2_cfg.replace(param_dtype="float32")),
+                ("granite-20b", api.init_params(tgen, g4), g4),
+                ("rwkv6-3b", api.init_params(tgen, r4), r4),
+                ("zamba2-7b", api.init_params(tgen, z1), z1)]
+    del tp_g2
+    tp_parity_line = timed("tp_f32_parity", tp_f32_parity, tp_cases)
+    del tp_cases
     gc.collect()
     torch.cuda.empty_cache()
     tp_moe_line, tp_moe_launches = timed("tp_moe", tp_moe, moe_base, moe_cfg)
@@ -7703,7 +8261,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"long_decode: memory_allocated {torch.cuda.memory_allocated()}", flush=True)
     ops.reset_launch_counts()
-    ld_line = timed("long_decode", long_decode)
+    ld_line, ld_kept = timed("long_decode", long_decode, keep=True)
     ld_launches = dict(ops.launch_count)
     ld_line["launches"] = ld_launches
     ld_line["variants"] = {k: n for k, n in ops.variant_count.items() if n}
@@ -7711,31 +8269,23 @@ def main() -> int:
     print(f"long_decode launches: {ld_launches} (designs {ld_line['variants']}), "
           f"{seconds['long_decode']:.1f} s", flush=True)
     check(ld_launches == ld_want, ("long_decode launches", ld_launches, ld_want))
+    # the same compact caches split along their positions, at (2, 2) and (4, 1)
+    ops.reset_launch_counts()
+    ss_line = timed("seq_split_decode", seq_split_decode, ld_kept)
+    ss_launches = dict(ops.launch_count)
+    ss_line["launches"] = ss_launches
+    ss_line["variants"] = {k: n for k, n in ops.variant_count.items() if n}
+    del ld_kept
+    ss_want = seq_split_decode_launches()
+    print(f"seq_split_decode launches: {ss_launches} (designs {ss_line['variants']}), "
+          f"{seconds['seq_split_decode']:.1f} s", flush=True)
+    check(ss_launches == ss_want, ("seq_split_decode launches", ss_launches, ss_want))
 
-    # every family trains: one f32 step at a cut depth on the card and the
-    # CPU, then three bf16 steps at the published widths
-    gc.collect()
-    torch.cuda.empty_cache()
-    print(f"training phases: memory_allocated {torch.cuda.memory_allocated()}", flush=True)
-    from repro_torch.configs import registry
-    tgen = torch.Generator(device="cuda")
-    tgen.manual_seed(TRAIN_FAMILY_SEED)
-    family_parity = {}
-    for arch, layers, opt, seq_len in TRAIN_FAMILY_PARITY:
-        c = registry.get_config(arch).replace(n_layers=layers, param_dtype="float32")
-        family_parity[arch] = timed(f"train_family_parity_{arch}", train_parity, tgen, c,
-                                    opt=opt, seq_len=seq_len, name="train_family_parity")
-        gc.collect()
-        torch.cuda.empty_cache()
-    family_full = {}
-    for family, arch, kw in TRAIN_FULL_WIDTH:
-        kw = dict(kw)
-        c = registry.get_config(arch)
-        c = c.replace(n_layers=kw.pop("layers", c.n_layers))
-        family_full[family] = timed(f"train_full_width_{family}", train_full_width, c,
-                                    name=f"train_full_width_{family}", **kw)
-        gc.collect()
-        torch.cuda.empty_cache()
+    # the background's CPU references: their lines, and any failure
+    t0 = time.time()
+    BACKGROUND.fence()
+    seconds["background_wait_end"] = time.time() - t0
+    seconds["background_wait"] = BACKGROUND.waited_s
 
     kernels = []
     for line, runs, variants, source, replaces in (
@@ -7850,8 +8400,18 @@ def main() -> int:
             check(qe_launches[name] == 0, ("off the QEmbed path", name))
         # the granite path (granite_main_path's int8 run, the session): K1
         # on its `mma` design and K2
-        # the long-context decode (long_decode): K2 and K3 only
+        # the long-context decode (long_decode): K2 and K3 only; over its cache
+        # split along the positions (seq_split_decode): K2 only
         kernels[-1]["launches_long_decode"] = ld_launches[name]
+        kernels[-1]["launches_seq_split_decode"] = ss_launches[name]
+        # the int8 instance with its slots over "pod" and "data": K2 only
+        kernels[-1]["launches_multi_pod_engine"] = mp_launches[name]
+        if name == "quant_matmul":
+            check(ss_launches[name] > 0 and mp_launches[name] > 0,
+                  ("the sequence split and the pod mesh", name))
+        else:
+            check(ss_launches[name] == mp_launches[name] == 0,
+                  ("off the sequence split and the pod mesh", name))
         kernels[-1]["launches_granite"] = gr_launches[name]
         kernels[-1]["launches_granite_session"] = gr_sess_launches[name]
         if name in ("paged_attention", "quant_matmul"):
@@ -7922,7 +8482,8 @@ def main() -> int:
                                          **kq_ve["timed"]}
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
-        json.dump({"card": card, "sass": sass, "ptxas": ptxas, "kernels": kernels,
+        json.dump({"card": card, "host": host_cpus(), "sass": sass, "ptxas": ptxas,
+                   "kernels": kernels,
                    "quant_matmul_cases": k2_cases,
                    "paged_attention_cases": k1_cases, "block_sparse_matmul_cases": k4_cases,
                    "flash_attention_cases": k3_cases, "kernel_lines": [k1, k2, k3, k4],
@@ -7961,7 +8522,8 @@ def main() -> int:
                    "granite_main_path": gr_line, "granite_whole_step": gr_step_line,
                    "granite_decode_profile": gr_prof_line, "granite_session": gr_sess_line,
                    "quant_matmul_granite": kq_gr, "granite_f32_parity": gr_parity_line,
-                   "long_decode": ld_line,
+                   "long_decode": ld_line, "seq_split_decode": ss_line,
+                   "multi_pod_engine": mp_line,
                    "qembed_serve": qe_line, "train_family_parity": family_parity,
                    "static_analysis": sa_line, "static_analysis_rwkv": sa_rw_line,
                    "train_full_width_families": family_full,

@@ -20,7 +20,9 @@ dispatch (and the MoE block, through :func:`record`) feeds with
 (weight, activation) pairs of raw weights, and ``set_route_hook`` one
 that the MoE block feeds with routing statistics;
 ``repro_torch.core.calibrate`` uses them to gather Hessians, channel
-norms and expert routing counts without any model-code changes.
+norms and expert routing counts without any model-code changes.  A hook
+observes the thread (context) that installed it: another thread's model
+calls run unobserved.
 
 :class:`ShardedTensor` is a weight placed on a mesh: one piece per
 position along one axis, each piece a tensor or one of the containers
@@ -70,33 +72,33 @@ def current_backend(device="cuda") -> str:
     return resolve_backend(b if b is not None else "auto", device)
 
 
-_RECORD_HOOK: Optional[Callable] = None
-_ROUTE_HOOK: Optional[Callable] = None
+_RECORD_HOOK: contextvars.ContextVar = contextvars.ContextVar("record_hook", default=None)
+_ROUTE_HOOK: contextvars.ContextVar = contextvars.ContextVar("route_hook", default=None)
 
 
 def set_record_hook(fn: Optional[Callable]) -> None:
     """fn(w, x, valid) observes the matmuls of raw weights; x is
     [..., d_in] and ``valid`` None, or, for a stacked expert weight, x is
     [E, C, d_in] and ``valid`` [E] the filled rows of each expert."""
-    global _RECORD_HOOK
-    _RECORD_HOOK = fn
+    _RECORD_HOOK.set(fn)
 
 
 def set_route_hook(fn: Optional[Callable]) -> None:
     """fn(router_w, counts, probs_mean) observes MoE routing statistics."""
-    global _ROUTE_HOOK
-    _ROUTE_HOOK = fn
+    _ROUTE_HOOK.set(fn)
 
 
 def record(w, x, valid=None) -> None:
     """Explicit calibration record (the MoE block's expert inputs)."""
-    if _RECORD_HOOK is not None:
-        _RECORD_HOOK(w, x, valid)
+    hook = _RECORD_HOOK.get()
+    if hook is not None:
+        hook(w, x, valid)
 
 
 def record_routing(router_w, counts, probs_mean) -> None:
-    if _ROUTE_HOOK is not None:
-        _ROUTE_HOOK(router_w, counts, probs_mean)
+    hook = _ROUTE_HOOK.get()
+    if hook is not None:
+        hook(router_w, counts, probs_mean)
 
 
 class QTensor:
@@ -521,8 +523,9 @@ def matmul(x: torch.Tensor, w) -> torch.Tensor:
         if current_backend(x.device) == "cuda":
             return kops.block_sparse_matmul(x, w.w, w.idx, bs=w.bs)
         return torch.matmul(x, w.w.to(x.dtype))
-    if _RECORD_HOOK is not None:
-        _RECORD_HOOK(w, x, None)
+    hook = _RECORD_HOOK.get()
+    if hook is not None:
+        hook(w, x, None)
     return torch.matmul(x, w.to(x.dtype))
 
 

@@ -440,16 +440,14 @@ def _shard_leaf(leaf, splits, mesh, coords):
 
 
 def _splits(spec: P) -> List[Tuple[int, str]]:
-    """[(negative dim, axis)] of a spec's sharded dims, outermost first."""
+    """[(negative dim, axis)] of a spec's sharded dims, outermost first.  A
+    dim sharded over several axes (the multi-pod mesh's ``("pod",
+    "data")``) is split along each in turn, the first outermost: its
+    pieces are major in the first axis, as a ``PartitionSpec`` tuple and
+    a row-major device grid place them."""
     rank = len(spec)
-    out = []
-    for i, ax in enumerate(spec):
-        if ax is None:
-            continue
-        if not isinstance(ax, str):
-            raise NotImplementedError(f"a dim sharded over several axes {ax}")
-        out.append((i - rank, ax))
-    return out
+    return [(i - rank, a) for i, ax in enumerate(spec) if ax is not None
+            for a in ((ax,) if isinstance(ax, str) else ax)]
 
 
 def place(tree, shardings):
@@ -457,7 +455,8 @@ def place(tree, shardings):
     gives; a ``None`` sharding leaves its leaf as it is): each sharded
     leaf a ``ShardedTensor`` (nested where a leaf is sharded over two
     axes, an expert stack's experts over "data" and its matrix over
-    "model"), every other leaf on the mesh's first device.  A compressed
+    "model", or one dim over two, a slot state's slots over "pod" and
+    then "data"), every other leaf on the mesh's first device.  A compressed
     leaf is split by its main tensor's spec (``QTensor.q``,
     ``BlockSparseTensor.w``, ``QEmbed.q``), and kept whole along an axis
     whose pieces it cannot take (a row-parallel ``QTensor`` cut inside a
@@ -478,11 +477,13 @@ def place(tree, shardings):
 
 def spec_of(leaf) -> P:
     """The spec a placed leaf was cut by: each split of a (nested)
-    ``ShardedTensor`` names its axis at its dim; a whole leaf's is all
-    ``None``."""
+    ``ShardedTensor`` names its axis at its dim (a tuple of axes, outermost
+    first, where several split one dim); a whole leaf's is all ``None``."""
     entries = [None] * len(leaf.shape)
     while isinstance(leaf, ShardedTensor):
-        entries[len(entries) + leaf.dim] = leaf.axis
+        k = len(entries) + leaf.dim
+        entries[k] = leaf.axis if entries[k] is None else (
+            (entries[k],) if isinstance(entries[k], str) else entries[k]) + (leaf.axis,)
         leaf = leaf.pieces[0]
     return P(*entries)
 

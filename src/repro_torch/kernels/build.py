@@ -6,8 +6,11 @@ the repository root, keyed by a hash of the source and the shared
 headers (``csrc/*.cuh``), and loaded with
 ``ctypes``.  The build happens at first use (:func:`load`) or for all
 kernels at once, one ``nvcc`` per source started together
-(:func:`build_all`).  A failed build raises :class:`KernelError`; nothing
-falls back.
+(:func:`build_all`); :func:`start_all` starts those ``nvcc`` runs and
+returns at once, so a caller works on while they compile, and the next
+:func:`build_all` or :func:`load` waits for them (:func:`stop_all` ends
+the ones a failed caller leaves).  A failed build raises
+:class:`KernelError`; nothing falls back.
 :func:`sass_counts` counts instructions in a built library's machine
 code, which shows whether a kernel reached the tensor cores.
 """
@@ -18,6 +21,7 @@ import hashlib
 import os
 import re
 import shutil
+import signal
 import subprocess
 import threading
 from pathlib import Path
@@ -30,6 +34,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_RUNNING: Dict[str, tuple] = {}      # nvcc runs started by start_all, not yet waited for
 _LOCK = threading.Lock()
 
 
@@ -63,8 +68,11 @@ def _start(name: str):
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = target.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_tool("nvcc"), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                            text=True)
+    # the log goes to a file: a pipe nobody reads while nvcc runs could fill
+    with open(target.with_suffix(".log"), "w") as log:
+        # a session of its own: stop_all ends nvcc with the cicc and ptxas it runs
+        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
+                                start_new_session=True)
     return target, tmp, proc
 
 
@@ -74,19 +82,51 @@ def _finish(name: str, started) -> str:
     if started is None:
         return log_path.read_text() if log_path.exists() else ""
     target, tmp, proc = started
-    log, _ = proc.communicate()
-    log_path.write_text(log)
+    proc.wait()
+    log = log_path.read_text()
     if proc.returncode != 0:
         raise KernelError(f"nvcc failed for {name}.cu:\n{log}")
     os.replace(tmp, target)
     return log
 
 
+def _wait(name: str) -> str:
+    """Finish ``name``'s build, started by :func:`start_all` or now (the
+    caller holds ``_LOCK``); returns nvcc's log."""
+    started = _RUNNING.pop(name, None)
+    return _finish(name, started if started is not None else _start(name))
+
+
+def start_all(names: List[str] = KERNELS) -> None:
+    """Start one nvcc per source not built yet, all together, and return
+    at once; :func:`build_all` or :func:`load` waits for them."""
+    with _LOCK:
+        for n in names:
+            if n not in _RUNNING and n not in _LIBS:
+                started = _start(n)
+                if started is not None:
+                    _RUNNING[n] = started
+
+
+def stop_all() -> None:
+    """Kill the nvcc runs :func:`start_all` started that nobody waited for."""
+    with _LOCK:
+        for _, tmp, proc in _RUNNING.values():
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            proc.wait()
+            tmp.unlink(missing_ok=True)
+        _RUNNING.clear()
+
+
 def build_all(names: List[str] = KERNELS) -> Dict[str, str]:
     """Build every kernel, one nvcc per source, all started together;
     returns {name: compiler log (registers, shared memory, spills)}."""
-    started = {n: _start(n) for n in names}
-    return {n: _finish(n, started[n]) for n in names}
+    start_all(names)
+    with _LOCK:
+        return {n: _wait(n) for n in names}
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -94,7 +134,7 @@ def load(name: str) -> ctypes.CDLL:
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
-            _finish(name, _start(name))
+            _wait(name)
             try:
                 lib = ctypes.CDLL(str(_target(name)))
             except OSError as e:

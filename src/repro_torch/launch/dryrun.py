@@ -28,12 +28,13 @@ and reports, per cell:
   attention writes a compact local buffer at slot ``pos % T``): its
   attention over the k/v pieces, and the rwkv and zamba2 cells' scans
   over their recurrent pieces (``S``/``h`` over heads and slots, the
-  carries and conv window over slots), whose gathers are counted too.
-  Where the mesh engine cannot place it (the sequence split of
-  ``long_500k``; the multi-pod mesh's slots over two axes), its
-  collectives over the cache are not counted and ``cache_collectives``
-  says why.  A train step's backward, and the reduction of its
-  gradients over "data", are not counted (ROADMAP queue 1 item 15b).
+  carries and conv window over slots), whose gathers are counted too;
+  ``long_500k``'s one row puts the positions over "data" (the sequence
+  split: each piece's softmax sums merged), and the multi-pod mesh the
+  slots over "pod" and "data".  Every decode cell says
+  ``cache_collectives: counted``.  A train step's backward, and the
+  reduction of its gradients over "data", are not counted (ROADMAP queue
+  1 item 15b).
 
 Activations are not counted.  It touches no card.
 
@@ -233,10 +234,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, compress: str = "") -> 
         cache_note = "counted, recurrent pieces included"
     if spec.kind == "decode":
         from repro_torch.models.sharded_cache import place_slot_state
-        try:
-            state = place_slot_state(cache, cfg, mesh)
-        except NotImplementedError as e:
-            cache_note = f"not counted: a mesh engine does not place this cache ({e})"
+        state = place_slot_state(cache, cfg, mesh)
     coll = RL.collective_bytes(SH.shard_params(params, cfg, mesh), cfg, rows, state)
     mf = RL.model_flops(cfg, spec)
     roof = RL.Roofline(flops=mf / chips, bytes_accessed=per_position,

@@ -100,7 +100,9 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
 
 def make_host_mesh(shape=(2, 2), axes=("data", "model"), *, device="cuda") -> Mesh:
     """A small mesh with every position on ``device`` (the card unless
-    the caller asks for the CPU, as tests do)."""
+    the caller asks for the CPU, as tests do): single-pod ``(data,
+    model)``, or multi-pod at a small size, e.g. ``(2, 2, 1)`` over
+    ``("pod", "data", "model")``."""
     return make_mesh(shape, axes, device=device)
 
 

@@ -302,22 +302,28 @@ def _cache_collectives(params, state, cfg, rows: int, act: int, out: Dict[str, f
     stacked leaf's layers, the hybrid's sites).  KV heads split: no
     gather of the q (and k/v) column pieces' outputs.  ``head_dim``
     split: the partial scores' all-reduce [rows, H, T] in f32 and the
-    ``p @ v`` pieces' all-gather [rows, H, hd].  Over "data": the rows'
-    attention outputs gathered [rows, H, hd]; likewise the heads where
-    ``wo`` is not cut into the same pieces.  Outputs in the cache's
-    dtype."""
+    ``p @ v`` pieces' all-gather [rows, H, hd].  Slots over the data
+    axes: the rows' attention outputs gathered [rows, H, hd]; likewise the
+    heads where ``wo`` is not cut into the same pieces.  Outputs in the
+    cache's dtype.  Positions over "data" (the sequence split, D pieces):
+    the merge's gather of every piece's max [D, rows, H] and its sums of
+    the denominators [rows, H] and of the pieces' outputs [rows, H, hd],
+    all in f32."""
     from repro_torch.models.sharded_cache import layout
     H, hd = cfg.n_heads, cfg.resolved_head_dim
     _recurrent_collectives(params, state, cfg, rows, act, out)
     for path, leaf in flatten_with_path(state):
         if path[-1] != "k" or not isinstance(leaf, ShardedTensor):
             continue
-        n_d, mdim, n_m = layout(leaf)
+        n_d, mdim, n_m, ddim = layout(leaf)
         uses = math.prod(leaf.shape[:-4])
         T, K = leaf.shape[-3], leaf.shape[-2]
         c_act = torch.empty((), dtype=leaf.dtype).element_size()
         heads = rows * H * hd * c_act
-        gather = heads if n_d > 1 else 0.0
+        gather = heads if n_d > 1 and ddim == -4 else 0.0
+        if n_d > 1 and ddim == -3:
+            gather += n_d * rows * H * 4
+            out["all-reduce"] = out.get("all-reduce", 0.0) + rows * H * (hd + 1) * 4 * uses
         if mdim == -1:
             out["all-reduce"] = out.get("all-reduce", 0.0) + rows * H * T * 4 * uses
             gather += heads
@@ -401,15 +407,17 @@ def decode_step_cost(params, cfg, slots: int, max_len: int, state=None, *,
     ``detail`` splits the bytes into ``weight_bytes``, ``state_read`` and
     ``state_written``.
 
-    Where ``params`` were placed on a mesh (``shard_params``), they give
-    the step's collective bytes (:func:`collective_bytes`, per kind in
+    Where ``params`` were placed on a mesh (``shard_params``), or the
+    state (slots over "pod" and "data" with nothing over "model"), they
+    give the step's collective bytes (:func:`collective_bytes`, per kind in
     ``coll_detail``, over ``state``'s sharded k/v where a mesh engine's
     state is given) and ``chips`` the mesh's size; FLOPs and bytes stay
     the whole step's."""
     from repro_torch.models import api
     if state is None:
         state = api.init_cache(cfg, slots, max_len, compact_local=False, device="meta")
-    sharded = [t for _, t in flatten_with_path(params) if isinstance(t, ShardedTensor)]
+    sharded = [t for tree in (params, state) for _, t in flatten_with_path(tree)
+               if isinstance(t, ShardedTensor)]
     coll = collective_bytes(params, cfg, slots, state) if sharded else {}
     weights = _weight_bytes(params, cfg, slots)
     st = _state_bytes(state, cfg, slots, max_len if positions is None else positions)

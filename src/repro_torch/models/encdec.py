@@ -254,7 +254,7 @@ def _sharded_decode_layer(p, cs, cx, x, h, cfg, pos, enc_len):
     self and cross caches: both attentions run where their pieces live
     (``models/sharded_cache.py``); the cross cache is read only, and a
     slot-split ``enc_len`` masks each data position's rows with its own
-    piece."""
+    piece (pod x data pieces on the multi-pod mesh)."""
     T = cs["k"].shape[-3]
     valid = torch.arange(T, device=x.device)[None, :] <= pos[:, None]
     x = x + SC.decode_attention(p["attn"], h, cs, cfg, pos=pos, valid=valid)
@@ -262,7 +262,7 @@ def _sharded_decode_layer(p, cs, cx, x, h, cfg, pos, enc_len):
     Tc = cx["k"].shape[-3]
     if isinstance(enc_len, ShardedTensor):     # each data position's rows, where they live
         valid = [torch.arange(Tc, device=e.device)[None, :] < e.long()[:, None]
-                 for e in enc_len.pieces]
+                 for e in SC.dim_pieces(enc_len)]
     else:
         valid = torch.arange(Tc, device=x.device)[None, :] < enc_len[:, None]
     x = x + SC.decode_attention(p["xattn"], h, cx, cfg, pos=pos, valid=valid, write=False)

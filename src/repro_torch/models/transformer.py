@@ -469,7 +469,9 @@ def _decode_attn_block(p, c, x, cfg, *, kind: str, pos, max_len: int):
     slot of which is valid once pos >= T; otherwise slots are absolute.
     A sharded ``c`` (a mesh engine's, or the dry run's placed cache) is
     written at the same slot and attended piece by piece where it lives
-    (``models/sharded_cache.py``)."""
+    (``models/sharded_cache.py``): ``valid`` is built whole on the first
+    device, and each piece of a cache split along its positions takes its
+    columns."""
     B = x.shape[0]
     h = norm(x, p["ln1"], cfg)
     T = c["k"].shape[-3]

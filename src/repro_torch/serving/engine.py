@@ -65,11 +65,14 @@ process drives every position (single-controller, as the reference).  A
 mesh engine keeps the contiguous layout, as the reference's does (block
 gathers would defeat the sharding rules), and places its slot state at
 construction: every leaf follows the reference's ``cache_shardings``
-(k/v slots over "data", KV heads or else head_dim over "model"; rwkv
-``S`` and mamba ``h`` slots and heads; the other recurrent leaves and
-``enc_len`` slots), and decode attention and the recurrent scans run
-where each piece lives (``models/sharded_cache.py``); an admission hands
-each data position its rows.  Norms, sampling and the leaves a spec
+(k/v slots over "data", or over "pod" and "data" on a ``("pod",
+"data", "model")`` mesh, or where the slots do not divide "data" their
+positions, KV heads or else head_dim over "model"; rwkv ``S`` and mamba
+``h`` slots and heads; the other recurrent leaves and ``enc_len``
+slots), and decode attention and the recurrent scans run where each
+piece lives (``models/sharded_cache.py``); an admission hands each data
+position its rows, and each position piece of a sequence split its
+positions.  Norms, sampling and the leaves a spec
 replicates stay on the mesh's first device.  :meth:`Engine.position_bytes`
 is what each position holds.
 ``device=`` and ``mesh=`` together raise.
@@ -475,6 +478,7 @@ class Engine:
         w_ids = (self._paged_admit_ids(slot_idxs, pk, plen, entry) if self._paged
                  else None)
         # each data position's rows of a mesh engine's slot state, as tensors
+        # (a sequence split's pieces take every row, each its positions)
         idx = (SC.split_rows(slot_idxs, self.slots, self._data_split, self._dev)
                if self._data_split > 1 else self._dev(slot_idxs))
         self._slot_state = self._insert(rows, idx,

@@ -88,6 +88,27 @@ def test_calibrate_unregistered_weights_and_hook_scope(tiny):
         C.calibrate(params, cfg.replace(family="nonesuch"), {"tokens": torch.zeros((1, 4))})
 
 
+def test_hook_sees_only_its_own_thread(tiny):
+    """A recorder active in one thread records none of another thread's
+    matmuls (a CPU reference run beside a calibration), and a thread
+    started inside the ``with`` block runs unobserved."""
+    import threading
+
+    from repro_torch.core import compressed
+    _, _, cfg, params = tiny
+    rec = C.Recorder()
+    x = torch.ones((2, 64))
+    rec.register("", {"unembed": params["unembed"]})
+    other = threading.Thread(target=lambda: [compressed.matmul(2 * x, params["unembed"])
+                                             for _ in range(3)])
+    with rec.active():
+        other.start()
+        other.join()
+        compressed.matmul(x, params["unembed"])
+    st = rec.finish().get("unembed")
+    assert st.count == 2 and torch.equal(st.sqnorm, torch.full((64,), 2.0))
+
+
 def _problem(seed, K=256, N=96):
     rng = np.random.default_rng(seed)
     w = rng.normal(size=(K, N)).astype(np.float32)

@@ -9,8 +9,10 @@
   step runs; likewise over a mesh engine's sharded cache, at (1, 4)
   (``head_dim`` split) and (1, 2) (KV heads split).
 - A single-pod decode cell counts attention over the cache placed as a
-  mesh engine places it (both branches, by hand); a cell whose cache a
-  mesh engine cannot place says so.
+  mesh engine places it (both branches, by hand); so do the cells the
+  mesh engine once could not place: ``long_500k``'s sequence split (its
+  merge's gathers and sums by hand) and the multi-pod mesh's slots over
+  "pod" and "data".  Every decode cell of ``--all`` says ``counted``.
 - Decode cells build the compact cache (``compact_local=True``):
   gemma2-2b ``decode_32k`` and gemma3-1b ``long_500k`` hold the bytes
   per position that the reference's ``cache_spec(..., compact_local=True)``
@@ -38,7 +40,7 @@ from repro_torch.configs import from_reference  # noqa: E402
 from repro_torch.distributed import collectives  # noqa: E402
 from repro_torch.distributed import sharding as SH  # noqa: E402
 from repro_torch.launch import dryrun, roofline  # noqa: E402
-from repro_torch.launch.mesh import make_mesh  # noqa: E402
+from repro_torch.launch.mesh import make_mesh, make_production_mesh  # noqa: E402
 from repro_torch.models import api  # noqa: E402
 
 MESH = {"single": ((16, 16), ("data", "model")), "multi": ((2, 16, 16), ("pod", "data", "model"))}
@@ -204,12 +206,42 @@ def test_decode_cells_count_the_recurrent_pieces(arch):
 @pytest.mark.parametrize("arch,shape,mesh_kind", [("gemma3-1b", "long_500k", "single"),
                                                  ("gemma2-2b", "decode_32k", "multi")])
 def test_decode_cells_a_mesh_engine_cannot_place_say_so(arch, shape, mesh_kind):
-    """A sequence-split cache (one slot over "data") and slots over two
-    axes ("pod" and "data") are not placed by a mesh engine: the cell says
-    so instead of counting its attention's collectives."""
+    """The two placements a mesh engine once refused, and whose cells said
+    "not counted": a sequence-split cache (one slot; its positions over
+    16 "data" pieces, ``head_dim`` over "model") and slots over "pod" and
+    "data" (128 slots in 32 pieces of 4).  Both are placed now and their
+    collectives counted.  gemma3-1b's sequence split adds, to the
+    ``head_dim`` split's terms, each of its 26 layers' merge: the 16
+    pieces' maxima gathered [16, 1, H] and the weighted numerators and
+    denominators summed [1, H, hd + 1], in f32.  gemma2-2b's pod x data
+    slots cost what 32 "data" pieces would: one gather of the rows'
+    outputs a layer."""
+    from repro_torch.configs import registry
+    from repro_torch.models import sharded_cache as SC
     res = dryrun.run_cell(arch, shape, mesh_kind)
-    assert res["status"] == "ok"
-    assert res["cache_collectives"].startswith("not counted: a mesh engine does not place")
+    assert res["status"] == "ok" and res["cache_collectives"] == "counted"
+    mesh = make_production_mesh(multi_pod=mesh_kind == "multi")
+    cell = dryrun.build_cell(arch, shape, mesh)
+    cfg = registry.get_config(arch)
+    lay = SC.layout(SC.place_slot_state(cell["cache"], cfg, mesh)["blocks"][0]["k"])
+    params, _ = roofline.meta_instance(cfg)
+    unsharded = roofline.collective_bytes(SH.shard_params(params, cfg, mesh), cfg,
+                                          cell["spec"].global_batch)
+    got = res["roofline"]["coll_detail"]
+    H, hd, L = cfg.n_heads, cfg.resolved_head_dim, cfg.n_layers
+    act = torch.empty((), dtype=cfg.dtype).element_size()
+    if shape == "long_500k":
+        assert lay == SC.KVLayout(16, -1, 16, -3)
+        Ts = sum(min(cfg.window_size, 524288) if k == "L" else 524288 for k in cfg.pattern())
+        assert got == {
+            "all-reduce": unsharded["all-reduce"] + H * Ts * 4 + L * H * (hd + 1) * 4,
+            "all-gather": unsharded["all-gather"] + L * (16 * H * 4 + H * hd * act)}
+    else:
+        assert lay == SC.KVLayout(32, -1, 16, -4)
+        B, T = 128, 32768
+        Ts = sum(min(cfg.window_size, T) if k == "L" else T for k in cfg.pattern())
+        assert got == {"all-reduce": unsharded["all-reduce"] + B * H * Ts * 4,
+                       "all-gather": unsharded["all-gather"] + 2 * B * H * hd * act * L}
 
 
 def _ref_cache_bytes(arch, shape, mesh_kind, monkeypatch):
@@ -275,3 +307,6 @@ def test_all_cells_finish_on_meta_tensors(tmp_path, capsys):
     skipped = {k for k, r in res.items() if r["status"] == "skipped"}
     assert all(k.split(":")[1] == "long_500k" for k in skipped)
     assert "done: 66 ok, 14 skipped, 0 failed / 80" in capsys.readouterr().out
+    decode = [r for r in res.values() if r["status"] == "ok" and "cache_collectives" in r]
+    assert len(decode) == 26 and all(r["cache_collectives"].startswith("counted")
+                                     for r in decode)

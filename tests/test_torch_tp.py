@@ -84,7 +84,10 @@ def _models(arch):
 
 
 def _mesh(shape):
-    return make_mesh(shape, ("data", "model"), device="cpu")
+    """A CPU mesh over ("data", "model"), or ("pod", "data", "model") for a
+    three-axis shape."""
+    axes = ("pod", "data", "model") if len(shape) == 3 else ("data", "model")
+    return make_mesh(shape, axes, device="cpu")
 
 
 def _ids(eng, rows=ROWS, max_new=MAX_NEW):

@@ -20,9 +20,14 @@ decode step's recorded collectives against ``roofline.collective_bytes``
 heads split, the partial-score sums and no cache gather where
 ``head_dim`` splits), a planted fault (one piece's heads written into
 another piece), the hot-path auditor and the pool's record of what each
-position holds.
+position holds.  The two placements the engine once refused: three slots
+at (2, 2), whose k/v positions go over "data" (the sequence split), and
+four at (2, 2, 1) over ("pod", "data", "model"), whose slots go over
+"pod" and "data": every family's leaves, bytes and tokens, the step's
+collectives and the auditor over both.
 """
 import math
+from typing import NamedTuple
 
 import pytest
 
@@ -51,6 +56,14 @@ BRANCH = {"gemma2-2b": {(1, 4): "hd", (2, 2): "heads"},
           "zamba2-7b": {(1, 4): "heads", (2, 2): "heads"},
           "whisper-base": {(1, 4): "heads", (2, 2): "heads"},
           "rwkv6-3b": {(1, 4): None, (2, 2): "heads"}}
+class Seq(NamedTuple):
+    """A mesh whose "data" axis does not divide the engine's ``slots``: the
+    rule puts the k/v positions over "data" (the sequence split)."""
+    mesh: tuple
+    slots: int = 3
+
+
+SEQ, POD = Seq((2, 2)), (2, 2, 1)        # the sequence split; slots over "pod" and "data"
 PREFIX = "fix: "
 PREFIX_ROWS = [PREFIX + w for w in ("pythn", "jvaa", "rubby", "golng")]
 
@@ -177,14 +190,21 @@ def test_planted_fault_fails_the_token_check(arch, shape, monkeypatch):
                                         ("zamba2-7b", (2, 2)), ("whisper-base", (1, 4)),
                                         ("paligemma-3b", (1, 4)), ("rwkv6-3b", (1, 4)),
                                         ("rwkv6-3b", (2, 2)), ("zamba2-7b", (1, 4)),
-                                        ("whisper-base", (2, 2))])
+                                        ("whisper-base", (2, 2))]
+                         + [pytest.param(a, s, id=f"{a}-{'seq' if s == SEQ else 'pod'}")
+                            for a, s in (("gemma2-2b", SEQ), ("paligemma-3b", SEQ),
+                                         ("whisper-base", SEQ), ("zamba2-7b", SEQ),
+                                         ("gemma2-2b", POD), ("rwkv6-3b", POD),
+                                         ("zamba2-7b", POD), ("whisper-base", POD))])
 def test_decode_step_collectives_equal_the_roofline_count(arch, shape, monkeypatch):
-    """One decode step of four live slots records what
+    """One decode step of every slot live records what
     ``collective_bytes`` counts over the engine's sharded state; where KV
-    heads split that is no gather of q/k/v, and where ``head_dim``
-    splits no gather holds a layer's cache."""
-    eng = _engine(arch, shape)
-    for r in ROWS:
+    heads split that is no gather of q/k/v, where ``head_dim`` splits no
+    gather holds a layer's cache, and over a sequence split each
+    attention layer's merge gathers its pieces' maxima [2, slots, heads]."""
+    eng = (_engine(arch, shape.mesh, slots=shape.slots) if isinstance(shape, Seq)
+           else _engine(arch, shape))
+    for r in ROWS[:eng.slots]:
         eng.submit(r, max_new=6)
     eng.step()                               # admit all four rows, one decode
     assert not len(eng.batcher) and eng._active
@@ -206,7 +226,14 @@ def test_decode_step_collectives_equal_the_roofline_count(arch, shape, monkeypat
     recurrent = {}
     roofline._recurrent_collectives(eng.params, eng._slot_state, eng.cfg, eng.slots,
                                     eng.cfg.dtype.itemsize, recurrent)
-    if arch == "rwkv6-3b" and BRANCH[arch][shape] == "heads":
+    if isinstance(shape, Seq) or len(shape) == 3:
+        lays = [(SC.layout(leaf), math.prod(leaf.shape[:-4])) for _, leaf in kv]
+        assert all(lay.data_dim == (-3 if isinstance(shape, Seq) else -4) for lay, _ in lays)
+        if isinstance(shape, Seq):       # one merge per layer use and KV-head piece
+            maxima = [g for g in gathered if g.dim() == 6 and g.shape[:2] == (2, eng.slots)]
+            assert len(maxima) == sum(uses * (lay.model if lay.model_dim == -2 else 1)
+                                      for lay, uses in lays) > 0
+    elif arch == "rwkv6-3b" and BRANCH[arch][shape] == "heads":
         # no gather of the r/k/v/g projections (4 [slots, d] a layer); the
         # time mix's rows and the two f32 carries gathered over the slots
         L, B, d, act = eng.cfg.n_layers, eng.slots, eng.cfg.d_model, eng.cfg.dtype.itemsize
@@ -247,11 +274,62 @@ def test_auditor_finds_nothing_over_split_recurrent_state(arch):
 
 
 def test_sequence_split_raises():
-    """Three slots over two data positions would put the positions on
-    "data" (sequence parallelism): not handled, so the engine refuses."""
+    """Three slots over two data positions put the positions on "data"
+    (the reference's sequence parallelism), which the engine once
+    refused: it now serves them, every k/v leaf's 96 positions in two
+    pieces of 48, with the unsharded engine's tokens."""
     _, _, cfg, params, _ = _models("gemma2-2b")
-    with pytest.raises(NotImplementedError, match="sequence-split"):
-        Engine(params, cfg, mesh=_mesh((2, 2)), **{**KW, "slots": 3})
+    eng = Engine(params, cfg, mesh=_mesh((2, 2)), **{**KW, "slots": 3})
+    k = eng._slot_state["blocks"][0]["k"]
+    assert _splits(k) == [(-3, "data"), (-2, "model")] and SC.data_split(eng._slot_state) == 1
+    assert [p.shape[-3] for p in k.pieces] == [48, 48]
+    want = _ids(Engine(params, cfg, device="cpu", kv_layout="contiguous",
+                       **{**KW, "slots": 3}))
+    assert _ids(eng) == want
+
+
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_every_family_serves_a_sequence_split_and_a_pod_mesh(arch):
+    """Three slots at (2, 2), which put every k/v leaf's positions on
+    "data" (recurrent leaves stay whole along their slots), and four at
+    (2, 2, 1) over ("pod", "data", "model"), which put every leaf's slots
+    on "pod" and "data": each leaf as its spec says, each position the
+    specs' bytes, and the unsharded engine's greedy tokens."""
+    _, _, cfg, params, extra = _models(arch)
+    for shape, slots in ((SEQ.mesh, SEQ.slots), (POD, 4)):
+        eng = _engine(arch, shape, slots=slots)
+        meta = api.init_cache(cfg, slots, eng.max_len, compact_local=False, device="meta")
+        specs = dict(flatten_with_path(SH.cache_shardings(cfg, meta, eng.mesh),
+                                       is_leaf=lambda x: isinstance(x, SH.P)))
+        want_bytes = [0.0] * eng.mesh.size
+        for path, leaf in flatten_with_path(eng._slot_state):
+            assert SH.spec_of(leaf) == specs[path], (arch, shape, path, specs[path])
+            n = SH.spec_bytes(leaf.shape, leaf.dtype.itemsize, specs[path], eng.mesh)
+            want_bytes = [w + n for w in want_bytes]
+            if path[-1] == "k" and shape == SEQ.mesh:
+                assert SC.layout(leaf).data_dim == -3, (arch, path)
+        assert [SC.state_position_bytes(eng._slot_state, i)
+                for i in range(eng.mesh.size)] == want_bytes
+        assert SC.data_split(eng._slot_state) == (1 if shape == SEQ.mesh else 4)
+        flat = Engine(params, cfg, device="cpu", kv_layout="contiguous", extra_inputs=extra,
+                      **{**KW, "slots": slots})
+        assert _ids(eng) == _ids(flat), (arch, shape)
+
+
+@pytest.mark.parametrize("arch,shape", [("gemma2-2b", SEQ), ("gemma2-2b", POD),
+                                        ("paligemma-3b", SEQ), ("zamba2-7b", POD),
+                                        ("whisper-base", POD)],
+                         ids=["gemma2-2b-seq", "gemma2-2b-pod", "paligemma-3b-seq",
+                              "zamba2-7b-pod", "whisper-base-pod"])
+def test_auditor_finds_nothing_over_a_sequence_split_or_a_pod_mesh(arch, shape):
+    """The sequence split's write (a masked write into every position
+    piece) and the merge keep every row index on the device, and a pod
+    mesh's admission hands its four pieces their rows through
+    ``RowSplit``: nothing syncs or copies inside a step method."""
+    eng = (_engine(arch, shape.mesh, slots=shape.slots) if isinstance(shape, Seq)
+           else _engine(arch, shape))
+    report = jit_audit.audit_engine(eng)
+    assert report.diagnostics == [], [d.to_dict() for d in report.diagnostics]
 
 
 def test_pool_records_what_each_position_holds():
