@@ -328,15 +328,19 @@ to before phase 17:
    parallel_training: ``pipeline_forward`` over 2 stages of 4 full-width
    layers in f32 against the sequential forward; a train step of a placed
    tree against the same step unsharded on the card (``sharded_step_check``:
-   (a) those 4 layers in f32 at (2, 2) with FSDP, AdamW, at the CPU gate's
-   tolerances; (b) zamba2-7b at one group in f32 at (1, 4), Adafactor, at
-   train_parity's, and the unsharded optimizer on its own gradients at the
+   (a) those 4 layers in f32 at (2, 2) with FSDP, AdamW, its rows split
+   over "data", at the CPU gate's tolerances, its executed collectives
+   equal to ``roofline.train_collectives`` by kind, bytes and calls; (b)
+   zamba2-7b at one group in f32 at (1, 4), Adafactor, at train_parity's, and the unsharded optimizer on its own gradients at the
    CPU gate's; both with each position's param and state bytes the
    specs'), ``compressed_allreduce`` over 2 "data" positions on (a)'s
    sharded gradients (the tied table's included) against the CPU's, and
    (c) ``sharded_full_width``: 2 bf16 AdamW steps of all 26 layers at
-   (1, 4), then 2 unsharded (losses within SHARDED_BF16_RTOL), the
-   sharded params saved and restored unsharded bit for bit;
+   (1, 4), (d) the same 2 steps data-parallel at (2, 2) without FSDP
+   (one row a "data" position, each step's collectives equal to the
+   count), then 2 unsharded (both placements' losses within
+   SHARDED_BF16_RTOL), the (1, 4) params saved and restored unsharded bit
+   for bit;
    tp_f32_parity: gemma2-2b, granite-20b and rwkv6-3b cut to 4 layers
    and zamba2-7b to one group in f32 at (1, 4) and (2, 2), tokens equal
    to the unsharded engine's or parted at a near tie, rwkv's ``S`` and
@@ -6665,6 +6669,7 @@ SHARDED_ATOL = 2e-6              # every gathered param and state element
 SHARDED_GRAD_FLOOR = 1e-6        # below it an AdamW element's direction is f32 noise
 SHARDED_BF16_RTOL = 2e-2         # the full-width bf16 steps' losses
 SHARDED_FULL = dict(batch=2, seq_len=1024, xent_chunk=256, steps=2)
+DP_FULL_MESH = (2, 2)            # (d): the full-width steps' rows over "data"
 TP_RWKV_ROWS = 8                 # the w8-absmax rwkv6-3b mesh engine's rows
 ALLREDUCE_TOL = 1e-6             # compressed_allreduce on the card against the CPU
 
@@ -7392,7 +7397,7 @@ def _sharded_opt(kind):
 
 
 def sharded_step_check(label, params, cfg, shape, fsdp, kind, device="cuda", capture=False,
-                       strict=True):
+                       strict=True, count=False):
     """One ``make_train_step`` step of ``params`` (f32) placed by
     ``place(params, param_shardings(cfg, params, mesh, fsdp=fsdp))`` on a
     mesh of ``shape`` on ``device``, against the same step of the tree
@@ -7412,8 +7417,12 @@ def sharded_step_check(label, params, cfg, shape, fsdp, kind, device="cuda", cap
     gradients (``_same_grads``): the unsharded optimizer on the sharded
     step's own gradients, gathered, gives its params and state within
     SHARDED_ATOL.  ``capture`` returns the sharded step's gradients too (a
-    ``grad_compressor`` hook that keeps them)."""
+    ``grad_compressor`` hook that keeps them).  ``count``: the collectives
+    the sharded step records (forward, backward and the gradients'
+    reduction over "data"; AdamW's update runs none) equal
+    ``roofline.train_collectives`` by kind, bytes and calls (gate)."""
     from repro_torch.core.compressed import ShardedTensor, position_bytes
+    from repro_torch.distributed import collectives
     from repro_torch.distributed import sharding as SH
     from repro_torch.launch.dryrun import bytes_per_position
     from repro_torch.training.train_loop import make_train_step
@@ -7449,11 +7458,15 @@ def sharded_step_check(label, params, cfg, shape, fsdp, kind, device="cuda", cap
           (label, "optimizer state placed as opt_state_shardings"))
     step = make_train_step(cfg, o, grad_compressor=keep(kept) if capture or not strict
                            else None)
+    if count:
+        BACKGROUND.fence("collectives")     # no background job moves the counts read below
+        collectives.reset_result_bytes()
     sync()
     t0 = time.time()
     out = step(placed, state, batch, SHARDED_STEP)
     sync()
     sharded_s = time.time() - t0
+    counted = step_collectives(out[0], cfg, batch, label) if count else None
     placed, state, m = out[0], out[1], out[-1]
     loss, gnorm = float(m["loss"]), float(m["grad_norm"])
     floss, fgnorm = float(fm["loss"]), float(fm["grad_norm"])
@@ -7500,7 +7513,8 @@ def sharded_step_check(label, params, cfg, shape, fsdp, kind, device="cuda", cap
             "rms_rel_err": rms_rel, "rms_rel_tolerance": UPDATE_RMS_RTOL,
             "worst_leaves": sorted(leaf_errs, reverse=True)[:4],
             "position_bytes": [a for a, _ in pos], "state_position_bytes": [b for _, b in pos],
-            "seconds": sharded_s, "seconds_unsharded": flat_s}
+            "seconds": sharded_s, "seconds_unsharded": flat_s,
+            **({"collectives": counted} if counted is not None else {})}
     check(abs(loss / floss - 1) <= LOSS_RTOL and abs(gnorm / fgnorm - 1) <= LOSS_RTOL,
           (label, "loss and grad norm", line))
     if strict:
@@ -7515,6 +7529,28 @@ def sharded_step_check(label, params, cfg, shape, fsdp, kind, device="cuda", cap
                                          state, flat, worst_param)
     del flat, fstate, state, flat_kept
     return line, placed, (kept[0] if capture else None), mesh
+
+
+def step_collectives(placed, cfg, batch, label, xent_chunk=0):
+    """The collectives one ``make_train_step`` step of the placed tree
+    recorded since the counts were zeroed (the caller fences the
+    background's "collectives" jobs first): calls and result bytes by
+    kind.  Gate: they equal ``roofline.train_collectives`` of the step
+    (one microbatch, remat on, ``xent_chunk``), and the batch was split
+    over the dp axes."""
+    from repro_torch.distributed import collectives
+    from repro_torch.launch import roofline
+    got = {"calls": {k: n for k, n in collectives.calls.items() if n},
+           "bytes": {k: n for k, n in collectives.result_bytes.items() if n}}
+    B, S = batch["tokens"].shape
+    want = roofline.train_collectives(placed, cfg, roofline.TrainStep(B, S,
+                                                                       xent_chunk=xent_chunk))
+    line = {"executed": got, "counted": {"calls": want["calls"], "bytes": want["bytes"]},
+            "breakdown": want["breakdown"], "dp_split": want["split"]}
+    check(want["split"] > 1 and got["bytes"] == {k: v for k, v in want["bytes"].items() if v}
+          and got["calls"] == {k: v for k, v in want["calls"].items() if v},
+          (label, "executed collectives equal roofline.train_collectives", line))
+    return line
 
 
 def _same_grads(label, params, o, grads, flat_grads, placed, state, flat, path):
@@ -7571,17 +7607,23 @@ def _same_grads(label, params, o, grads, flat_grads, placed, state, flat, path):
 
 
 def sharded_full_width(base, cfg, device="cuda"):
-    """gemma2-2b at all its layers in bf16, AdamW, placed at (1, 4):
-    SHARDED_FULL's steps of ``make_train_step``, then the same steps
-    unsharded from the same params, run after the sharded ones (not
-    beside them).  Gates: each step's loss within SHARDED_BF16_RTOL of the
-    unsharded one's; the sharded params saved (``checkpoint.save`` writes
-    each leaf gathered whole), restored unsharded and equal bit for bit
-    (a ``BACKGROUND`` job tagged "collectives", its gathers being
-    collectives; it restores onto the host).  Records each run's step
-    wall, peak memory and FLOP share."""
+    """gemma2-2b at all its layers in bf16, AdamW: (c) placed at (1, 4),
+    SHARDED_FULL's steps of ``make_train_step``; (d) placed at (2, 2)
+    without FSDP (the reference's rule: 2.6 B params), the same steps
+    data-parallel, each step's rows split over "data" (one row a
+    position); then the same steps unsharded from the same params, run
+    after the placed ones (not beside them).  Gates: each step's loss of
+    (c) and of (d) within SHARDED_BF16_RTOL of the unsharded one's; each
+    step of (d) records the collectives ``roofline.train_collectives``
+    counts, by kind, bytes and calls (``step_collectives``); (c)'s params
+    saved (``checkpoint.save`` writes each leaf gathered whole), restored
+    unsharded and equal bit for bit (a ``BACKGROUND`` job tagged
+    "collectives", its gathers being collectives, submitted after (d)'s
+    counts are read; it restores onto the host).  Records each run's step
+    wall, peak memory and FLOP share, and (d)'s bytes by kind."""
     import shutil
     import tempfile
+    from repro_torch.distributed import collectives
     from repro_torch.distributed import sharding as SH
     from repro_torch.training import checkpoint as ckpt
     from repro_torch.training.train_loop import make_train_step
@@ -7591,14 +7633,18 @@ def sharded_full_width(base, cfg, device="cuda"):
     flops = train_flops(cfg, kw["batch"], kw["seq_len"])
     runs = {}
 
-    def run(params, label):
+    def run(params, label, count=False):
         o = make_optimizer("adamw", FULL_LR, kw["steps"])
         state = o.init(params)
         fn = make_train_step(cfg, o, xent_chunk=kw["xent_chunk"], remat=True)
         reset_peak()
         steps = []
+        t_run = time.time()
         for i in range(kw["steps"]):
             b = _batch(i, cfg, device, kw["batch"], kw["seq_len"])
+            if count:
+                BACKGROUND.fence("collectives")     # no background job moves the counts
+                collectives.reset_result_bytes()
             sync()
             t0 = time.time()
             params, state, m = fn(params, state, b, i)
@@ -7608,14 +7654,26 @@ def sharded_full_width(base, cfg, device="cuda"):
             check(math.isfinite(loss) and math.isfinite(gnorm), (label, i, loss, gnorm))
             steps.append({"step": i, "loss": loss, "grad_norm": gnorm, "seconds": dt,
                           "flop_share": flops / (dt * BF16_FLOPS)})
+            if count:
+                steps[-1]["collectives"] = step_collectives(params, cfg, b, (label, i),
+                                                            kw["xent_chunk"])
         runs[label] = {"steps": steps, "peak_memory": card_memory()[1],
                        "steady_seconds": steps[-1]["seconds"],
-                       "steady_flop_share": steps[-1]["flop_share"]}
+                       "steady_flop_share": steps[-1]["flop_share"],
+                       "seconds_all": time.time() - t_run}
         del state
         return params
 
     placed = run(SH.place(tree_map(torch.clone, base), SH.param_shardings(cfg, base, mesh)),
                  "sharded")
+    mesh_dp = tp_mesh(DP_FULL_MESH, device)
+    t0 = time.time()
+    dp = run(SH.place(tree_map(torch.clone, base), SH.param_shardings(cfg, base, mesh_dp)),
+             "data_parallel", count=True)
+    del dp
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs["data_parallel"]["seconds_with_placement"] = time.time() - t0
     d = tempfile.mkdtemp(prefix="sharded_ckpt.", dir=os.path.join(ROOT, "build"))
     template = tree_map(lambda t: torch.empty(0), base)      # restore's structure only
     checkpoint = {}
@@ -7644,12 +7702,19 @@ def sharded_full_width(base, cfg, device="cuda"):
     del flat
     gc.collect()
     torch.cuda.empty_cache()
-    rel = [abs(a["loss"] / b["loss"] - 1)
-           for a, b in zip(runs["sharded"]["steps"], runs["unsharded"]["steps"])]
+    rel = {k: [abs(a["loss"] / b["loss"] - 1)
+               for a, b in zip(runs[k]["steps"], runs["unsharded"]["steps"])]
+           for k in ("sharded", "data_parallel")}
+    dp_bytes = [s["collectives"]["executed"]["bytes"] for s in runs["data_parallel"]["steps"]]
     line = {"model": cfg.name, "layers": cfg.n_layers, "dtype": "bfloat16", "mesh": [1, 4],
+            "mesh_data_parallel": list(DP_FULL_MESH), "fsdp_data_parallel": False,
             "optimizer": "adamw", "lr": FULL_LR, **kw, "flops_per_step": flops, **runs,
-            "loss_rel_err": rel, "tolerance": SHARDED_BF16_RTOL, "checkpoint": checkpoint}
-    check(max(rel) <= SHARDED_BF16_RTOL, ("sharded bf16 steps' losses", line))
+            "loss_rel_err": rel["sharded"], "loss_rel_err_data_parallel": rel["data_parallel"],
+            "data_parallel_bytes": dp_bytes, "tolerance": SHARDED_BF16_RTOL,
+            "checkpoint": checkpoint}
+    check(max(rel["sharded"]) <= SHARDED_BF16_RTOL, ("sharded bf16 steps' losses", line))
+    check(max(rel["data_parallel"]) <= SHARDED_BF16_RTOL,
+          ("data-parallel bf16 steps' losses", line))
     return line
 
 
@@ -7660,14 +7725,17 @@ def parallel_training(gen, base, cfg, device="cuda", layers: int = 4):
     microbatches, against the sequential forward (within PIPE_TOL,
     relative to the largest output).  Then a train step of a placed tree
     against the same step unsharded (``sharded_step_check``): (a) those
-    ``layers`` layers in f32 at (2, 2) with FSDP, AdamW; (b) zamba2-7b at
+    ``layers`` layers in f32 at (2, 2) with FSDP, AdamW, its two rows split
+    over "data" (one a position), its executed collectives equal to
+    ``roofline.train_collectives``; (b) zamba2-7b at
     one group of its layout in f32 at (1, 4), Adafactor, held apart from its
     gradients too (``_same_grads``).  (a)'s sharded
     gradients, kept from its one backward, go through
     ``compressed_allreduce`` over the mesh's 2-position "data" axis,
     against the same function on the CPU (grads and residuals within
     ALLREDUCE_TOL; a ``BACKGROUND`` job on host copies, tagged
-    "collectives").  (c) ``sharded_full_width``."""
+    "collectives", submitted after (d) so that it moves no count (d)
+    reads).  (c) and (d) ``sharded_full_width``."""
     from repro_torch.configs import zamba2_7b
     from repro_torch.core.compressed import ShardedTensor
     from repro_torch.distributed import sharding as SH
@@ -7705,7 +7773,7 @@ def parallel_training(gen, base, cfg, device="cuda", layers: int = 4):
     pipe_s = time.time() - t0
     t0 = time.time()
     step_a, _, grads, mesh = sharded_step_check("sharded step (a)", _f32(cut), c32, (2, 2), True,
-                                                "adamw", device, capture=True)
+                                                "adamw", device, capture=True, count=True)
     step_a["seconds_all"] = time.time() - t0
     t0 = time.time()
     n_grad = sum(math.prod(g.shape) for g in leaves(grads))
@@ -7741,7 +7809,6 @@ def parallel_training(gen, base, cfg, device="cuda", layers: int = 4):
               ("compressed_allreduce", allreduce))
         return {"phase": "parallel_training.compressed_allreduce", **allreduce}
 
-    BACKGROUND.run(cpu_reference, tags=("collectives",))
     t0 = time.time()
     sgen = torch.Generator(device=device)
     sgen.manual_seed(SHARDED_TRAIN_SEED)
@@ -7757,6 +7824,8 @@ def parallel_training(gen, base, cfg, device="cuda", layers: int = 4):
     t0 = time.time()
     full = sharded_full_width(base, cfg, device)
     full["seconds_all"] = time.time() - t0
+    # submitted after (d)'s counts are read: its collectives move the counts
+    BACKGROUND.run(cpu_reference, tags=("collectives",))
     line = {"phase": "parallel_training", "pipeline": {
                 "model": cfg.name, "layers": layers, "stages": 2, "microbatches": x_mb.shape[0],
                 "microbatch": [mb, S, cfg.d_model], "dtype": "float32",
@@ -7775,6 +7844,12 @@ def parallel_training(gen, base, cfg, device="cuda", layers: int = 4):
               f"{r['seconds']:.2f} s a step ({r['seconds_unsharded']:.2f} unsharded)", flush=True)
         if "same_grads" in r:
             print(f"    {r['same_grads']}", flush=True)
+    dpr = full["data_parallel"]
+    print(f"  (d) data-parallel at {list(DP_FULL_MESH)}: losses "
+          f"{[s['loss'] for s in dpr['steps']]}, step {dpr['steady_seconds']:.3f} s, peak "
+          f"{dpr['peak_memory']}, {dpr['seconds_with_placement']:.1f} s with its placement; "
+          f"bytes {full['data_parallel_bytes'][-1]} as counted", flush=True)
+    print(f"  (a) collectives {step_a['collectives']['executed']} as counted", flush=True)
     print(f"  sharded_full_width: losses {[s['loss'] for s in full['sharded']['steps']]} vs "
           f"{[s['loss'] for s in full['unsharded']['steps']]}; step "
           f"{full['sharded']['steady_seconds']:.3f} s ({full['unsharded']['steady_seconds']:.3f} "
@@ -8002,6 +8077,9 @@ def run() -> int:
     tp_pool_line, tp_pool_launches = timed("tp_pool", tp_pool, pool_base, pool_cfg)
     torch.cuda.empty_cache()
     par_line = timed("parallel_training", parallel_training, tgen, base, cfg)
+    seconds["parallel_training.sharded_step_a"] = par_line["sharded_step_a"]["seconds_all"]
+    seconds["parallel_training.data_parallel_full_width"] = (
+        par_line["sharded_full_width"]["data_parallel"]["seconds_with_placement"])
     torch.cuda.empty_cache()
     # tp_f32_parity reads the collectives' counts: it runs after the MoE
     # session, so that the background's jobs tagged "collectives"

@@ -485,21 +485,30 @@ def _q_matmul_plain(x: torch.Tensor, w: QTensor) -> torch.Tensor:
 
 def _sharded_matmul(x: torch.Tensor, w: ShardedTensor, fn) -> torch.Tensor:
     """``fn(x, w)`` over the pieces of ``w``, the result on the mesh's
-    first device: a column-sharded weight's outputs gathered along the
-    last dim; a row-sharded one's input split along its last dim and the
-    partial products summed in f32 in mesh order (one cast); an expert
-    stack's rows of ``x`` [E, C, d] split by expert and gathered back."""
-    from repro_torch.distributed import collectives
-    first = w.mesh.first_device
+    first device (a split step's piece's: ``data_parallel.home_device``):
+    a column-sharded weight's ``x`` handed to each piece
+    (``collectives.replicate``) and the outputs gathered along the last
+    dim; a row-sharded one's ``x`` split along its last dim
+    (``collectives.split``) and the partial products summed in f32 in mesh
+    order (one cast); an expert stack's rows of ``x`` [E, C, d] split by
+    expert and gathered back.  Inside a split train step a split FSDP made
+    over "data" is gathered where it is used (``data_parallel.unshard``);
+    elsewhere it is a row or column split like the others."""
+    from repro_torch.distributed import collectives, data_parallel
+    w = data_parallel.unshard(w)
+    if not isinstance(w, ShardedTensor):
+        return fn(x, w)
+    home = data_parallel.home_device(w)
+    devices = [piece_device(p) for p in w.pieces]
     if w.dim == -1:
-        outs = [fn(x.to(piece_device(p)), p) for p in w.pieces]
-        return collectives.all_gather(outs, dim=-1, device=first)
+        outs = [fn(xj, p) for xj, p in zip(collectives.replicate(x, devices), w.pieces)]
+        return collectives.all_gather(outs, dim=-1, device=home)
     sizes = [p.shape[-2] if w.dim == -2 else _experts(p) for p in w.pieces]
-    xs = torch.split(x, sizes, dim=-1 if w.dim == -2 else -3)
-    outs = [fn(xj.to(piece_device(p)), p) for xj, p in zip(xs, w.pieces)]
+    xs = collectives.split(x, sizes, -1 if w.dim == -2 else -3, devices)
+    outs = [fn(xj, p) for xj, p in zip(xs, w.pieces)]
     if w.dim == -2:
-        return collectives.all_reduce_sum(outs, device=first)
-    return collectives.all_gather(outs, dim=-3, device=first)
+        return collectives.all_reduce_sum(outs, device=home)
+    return collectives.all_gather(outs, dim=-3, device=home)
 
 
 def _experts(p) -> int:

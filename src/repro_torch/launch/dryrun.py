@@ -19,22 +19,26 @@ and reports, per cell:
 - whether that fits an 80 GB card;
 - the roofline terms of ``launch/roofline.py``: the cell's model FLOPs
   shared over the mesh, the bytes above read once, and the result bytes
-  of every gather and reduce the sharded forward runs
+  of every gather and reduce the sharded step runs
   (``roofline.collective_bytes``: a decode step's ``B`` rows, a
-  prefill's or a train step's ``B * S``; a train step's backward is not
-  counted).  A decode step runs over the cache placed as a mesh engine
-  places its own (``models/sharded_cache.py`` ``place_slot_state``; the
-  engine keeps absolute slots, the rules are the same, and the sharded
-  attention writes a compact local buffer at slot ``pos % T``): its
+  prefill's ``B * S``).  A train cell counts the whole data-parallel step
+  over the params placed with the cell's own ``fsdp``
+  (``roofline.train_collectives``: its rows over the dp axes, the
+  forward, the backward's conjugates and rematerialized blocks, FSDP's
+  per-use gathers, and the gradients' all-reduces and reduce-scatters),
+  says ``train_collectives: counted`` and gives the
+  ``collective_breakdown`` by forward, backward and gradients.  A decode
+  step runs over the cache placed as a mesh engine places its own
+  (``models/sharded_cache.py`` ``place_slot_state``; the engine keeps
+  absolute slots, the rules are the same, and the sharded attention
+  writes a compact local buffer at slot ``pos % T``): its
   attention over the k/v pieces, and the rwkv and zamba2 cells' scans
   over their recurrent pieces (``S``/``h`` over heads and slots, the
   carries and conv window over slots), whose gathers are counted too;
   ``long_500k``'s one row puts the positions over "data" (the sequence
   split: each piece's softmax sums merged), and the multi-pod mesh the
   slots over "pod" and "data".  Every decode cell says
-  ``cache_collectives: counted``.  A train step's backward, and the
-  reduction of its gradients over "data", are not counted (ROADMAP queue
-  1 item 15b).
+  ``cache_collectives: counted``.
 
 Activations are not counted.  It touches no card.
 
@@ -203,6 +207,14 @@ def build_cell(arch: str, shape_name: str, mesh, compress: str = "") -> dict:
     return cell
 
 
+def train_step_shape(cfg, batch) -> "RL.TrainStep":
+    """The shape of the train step a train cell runs (``api.build_train_step``:
+    one microbatch, no cross-entropy chunks, remat on) from its inputs."""
+    B, S = batch["tokens"].shape
+    enc = batch["enc_inputs"].shape[1] if "enc_inputs" in batch else 0
+    return RL.TrainStep(B, S, enc_len=enc)
+
+
 def run_cell(arch: str, shape_name: str, mesh_kind: str, compress: str = "") -> dict:
     """One cell's report (see the module docstring)."""
     ok, reason = shape_supported(registry.get_config(arch), shape_name)
@@ -235,7 +247,15 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, compress: str = "") -> 
     if spec.kind == "decode":
         from repro_torch.models.sharded_cache import place_slot_state
         state = place_slot_state(cache, cfg, mesh)
-    coll = RL.collective_bytes(SH.shard_params(params, cfg, mesh), cfg, rows, state)
+    train_note = {}
+    if spec.kind == "train":
+        tc = RL.train_collectives(SH.place(params, cell["param_shardings"]), cfg,
+                                  train_step_shape(cfg, batch))
+        coll = tc["bytes"]
+        train_note = {"train_collectives": "counted", "collective_breakdown": tc["breakdown"],
+                      "collective_calls": tc["calls"], "dp_split": tc["split"]}
+    else:
+        coll = RL.collective_bytes(SH.shard_params(params, cfg, mesh), cfg, rows, state)
     mf = RL.model_flops(cfg, spec)
     roof = RL.Roofline(flops=mf / chips, bytes_accessed=per_position,
                        coll_bytes=sum(coll.values()), chips=chips, coll_detail=coll)
@@ -246,6 +266,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, compress: str = "") -> 
             "fits": per_position <= CARD_BYTES, "card_bytes": CARD_BYTES,
             "roofline": roof.to_dict(), "model_flops": mf,
             **({"cache_collectives": cache_note} if spec.kind == "decode" else {}),
+            **train_note,
             "seconds": time.time() - t0}
 
 

@@ -237,7 +237,8 @@ def _experts(w) -> int:
     return (w.q if isinstance(w, QTensor) else w).shape[-3]
 
 
-def collective_bytes(params, cfg, rows: int, state=None) -> Dict[str, float]:
+def collective_bytes(params, cfg, rows: int, state=None, *,
+                     train: "TrainStep" = None) -> Dict[str, float]:
     """Result bytes per collective kind of one step of ``rows`` tokens
     through a sharded param tree (``distributed/sharding.py``
     ``shard_params``): every sharded linear once per layer that runs it
@@ -249,7 +250,10 @@ def collective_bytes(params, cfg, rows: int, state=None) -> Dict[str, float]:
     ``state``, a mesh engine's slot state, makes it a decode step over
     that state's sharded k/v (:func:`_cache_collectives`).  The count the
     collectives of ``distributed/collectives.py`` record when the step
-    runs."""
+    runs.  ``train``, a :class:`TrainStep`, makes it a whole train step of
+    the placed tree (``rows`` unused): :func:`train_collectives`' bytes."""
+    if train is not None:
+        return train_collectives(params, cfg, train)["bytes"]
     from repro_torch.models.layers import moe_capacity
     act = torch.empty((), dtype=cfg.dtype).element_size()
     out: Dict[str, float] = {}
@@ -285,6 +289,272 @@ def collective_bytes(params, cfg, rows: int, state=None) -> Dict[str, float]:
     if state is not None:
         _cache_collectives(params, state, cfg, rows, act, out)
     return out
+
+
+@dataclass
+class TrainStep:
+    """A placed train step's shape: ``batch`` rows of ``seq_len`` tokens
+    (a vlm's text tokens; its ``n_img_tokens`` image positions come
+    ahead), an encdec's ``enc_len`` frames a row, ``microbatches``,
+    ``xent_chunk`` and ``remat`` as ``make_train_step`` takes them."""
+    batch: int
+    seq_len: int
+    microbatches: int = 1
+    xent_chunk: int = 0
+    remat: bool = True
+    enc_len: int = 0
+
+
+_REMAT_ROOTS = ("blocks", "mamba_groups", "shared", "enc_blocks", "dec_blocks")
+
+
+class _Tally:
+    """Bytes and calls by phase and kind."""
+
+    def __init__(self):
+        self.bytes = {p: {} for p in ("forward", "backward", "gradients")}
+        self.calls = {p: {} for p in ("forward", "backward", "gradients")}
+
+    def add(self, phase: str, kind: str, nbytes: float, calls: int = 1) -> None:
+        if calls:
+            self.bytes[phase][kind] = self.bytes[phase].get(kind, 0.0) + nbytes * calls
+            self.calls[phase][kind] = self.calls[phase].get(kind, 0) + calls
+
+    def forward(self, kind, nbytes, calls, again: bool) -> None:
+        """A forward collective, run again by the backward's recomputation
+        where ``again``."""
+        self.add("forward", kind, nbytes, calls)
+        if again:
+            self.add("backward", kind, nbytes, calls)
+
+
+def _layer_bytes(w) -> float:
+    """Bytes of one layer (one use) of a whole leaf or gathered piece."""
+    main = _main(w)
+    return math.prod(w.shape[-2:]) * main.element_size()
+
+
+def _is_fsdp(w) -> bool:
+    return isinstance(w, ShardedTensor) and w.axis == "data" and w.dim in (-1, -2)
+
+
+def _gathered(w, split: bool, t: _Tally, calls: int, again: bool):
+    """``w`` as a split step multiplies by it, as ``data_parallel.unshard``
+    makes it: each FSDP split made over "data" gathered per use (counted;
+    a meta tensor of the gathered shape in its place); ``w`` itself
+    outside a split step."""
+    if not split or not isinstance(w, ShardedTensor):
+        return w
+    if _is_fsdp(w):
+        inner = w.pieces[0]
+        if isinstance(inner, ShardedTensor):     # "data" outermost: gather each inner piece
+            per = [ShardedTensor([p.pieces[m] for p in w.pieces], w.dim, w.axis, w.mesh)
+                   for m in range(len(inner.pieces))]
+            return ShardedTensor([_gathered(g, split, t, calls, again) for g in per],
+                                 inner.dim, inner.axis, inner.mesh)
+        t.forward("all-gather", _layer_bytes(w), calls, again)
+        return torch.empty(w.shape, dtype=_main(w).dtype, device="meta")
+    return ShardedTensor([_gathered(p, split, t, calls, again) for p in w.pieces], w.dim,
+                         w.axis, w.mesh)
+
+
+def _linear_use(w, lead: float, act: int, split: bool, t: _Tally, calls: int,
+                again: bool) -> None:
+    """One use of a linear ``w`` on ``lead`` activation rows, made
+    ``calls`` times: a split step's FSDP gathers first (:func:`_gathered`),
+    then :func:`_split_rules`."""
+    _split_rules(_gathered(w, split, t, calls, again), lead, act, t, calls, again)
+
+
+def _split_rules(w, lead: float, act: int, t: _Tally, calls: int, again: bool) -> None:
+    """A column split's output all-gather and, in the backward, the
+    all-reduce of its input's gradient (the hand-off's conjugate); a row
+    split's all-reduce and its input's gradient all-gathered (the split's
+    conjugate); an expert stack's output gathered [E, C, d_out] and its
+    input's gradient [E, C, d_in]; then the pieces' own."""
+    if not isinstance(w, ShardedTensor):
+        return
+    d_in, d_out = w.shape[-2], w.shape[-1]
+    if w.dim == -2:
+        t.forward("all-reduce", lead * d_out * act, calls, again)
+        t.add("backward", "all-gather", lead * d_in * act, calls)
+    else:
+        t.forward("all-gather", lead * d_out * act, calls, again)
+        t.add("backward", "all-reduce" if w.dim == -1 else "all-gather",
+              lead * d_in * act, calls)
+    for p in w.pieces:
+        share = lead * _experts(p) / _experts(w) if w.dim == -3 else lead
+        _split_rules(p, share, act, t, calls, again)
+
+
+def _table_uses(leaf, cfg, rows_lookup: float, rows_logits: float, lookups: int,
+                logit_calls: int, act: int, split: bool, t: _Tally, again_logits: bool) -> None:
+    """The embedding table's lookups and, tied, its logits (see
+    ``models/layers.py``): FSDP gathers in a split step; a vocab split's
+    rows all-reduced; a piece's ``d_model`` split (outside a split step)
+    gathering its rows' columns or, for the logits, cutting ``x`` (its
+    gradient all-gathered) and all-reducing the partial f32 logits; the
+    tied logits' ``x`` handed to each vocab piece (its gradient
+    all-reduced) and the pieces' f32 logits gathered."""
+    size = _main(leaf).element_size()
+    V, d = leaf.shape[-2], leaf.shape[-1]
+    w = _gathered(leaf, split, t, lookups, False)
+    if isinstance(w, ShardedTensor):
+        t.forward("all-reduce", rows_lookup * d * size, lookups, False)
+        for p in w.pieces:
+            if isinstance(p, ShardedTensor):
+                t.forward("all-gather", rows_lookup * d * size, lookups, False)
+    if not cfg.tie_embeddings:
+        return
+    w = _gathered(leaf, split, t, logit_calls, again_logits)
+    if not isinstance(w, ShardedTensor):
+        return
+    t.forward("all-gather", rows_logits * V * 4, logit_calls, again_logits)
+    t.add("backward", "all-reduce", rows_logits * d * act, logit_calls)
+    for p in w.pieces:
+        if isinstance(p, ShardedTensor):
+            t.forward("all-reduce", rows_logits * p.shape[-2] * 4, logit_calls, again_logits)
+            t.add("backward", "all-gather", rows_logits * d * act, logit_calls)
+
+
+def _gradient_reduction(params, pieces, microbatches: int, t: _Tally) -> None:
+    """Each float tensor's gradient reduced over the split step's ``pieces``
+    (``data_parallel._reduce``): an all-reduce of every tensor the dp axes
+    do not split, one reduce-scatter of each FSDP split's shards, and an
+    expert stack's experts over "data" all-reduced over "pod" only."""
+    pods = len({p.get("pod", 0) for p in pieces})
+
+    def walk(node, kind):
+        if isinstance(node, ShardedTensor):
+            if node.axis == "data":
+                if _is_fsdp(node) and not isinstance(node.pieces[0], ShardedTensor):
+                    size = 4 if microbatches > 1 else node.pieces[0].element_size()
+                    t.add("gradients", "reduce-scatter",
+                          sum(p.numel() for p in node.pieces) * size, 1)
+                    return
+                if _is_fsdp(node):               # "data" outermost: one group per inner piece
+                    for m in range(len(node.pieces[0].pieces)):
+                        walk(ShardedTensor([p.pieces[m] for p in node.pieces], node.dim,
+                                           node.axis, node.mesh), kind)
+                    return
+                kind = "ep"
+            for p in node.pieces:
+                walk(p, kind)
+            return
+        if not (isinstance(node, torch.Tensor) and node.is_floating_point()):
+            return
+        size = 4 if microbatches > 1 else node.element_size()
+        if kind == "all" or pods > 1:
+            t.add("gradients", "all-reduce", node.numel() * size, 1)
+
+    for leaf in flatten_with_path(params):
+        walk(leaf[1], "all")
+
+
+def train_collectives(params, cfg, step: TrainStep) -> Dict[str, Dict]:
+    """The collectives of one ``make_train_step`` step of the placed tree
+    ``params`` (``sharding.place``, FSDP as placed) at ``step``'s shape:
+    ``{"bytes": {kind: result bytes}, "calls": {kind: calls},
+    "breakdown": {"forward" | "backward" | "gradients": {kind: bytes}},
+    "calls_breakdown": ..., "split": dp positions (1: the batch whole)}``.
+    It equals ``collectives.result_bytes`` and ``calls`` of one executed
+    step (forward, backward and gradients; the optimizer's own reductions
+    are not part of it), byte for byte:
+
+    - forward: every sharded linear as :func:`collective_bytes` counts it,
+      per dp position and microbatch on its rows, the tables' lookups and
+      tied logits (per cross-entropy chunk), a split step's FSDP gathers
+      per use (``data_parallel.unshard``), the MoE exchange of a split
+      step (gates [T, k] f32 and choices [T, k] int64 gathered, router
+      probabilities [E] f32 all-reduced, T the microbatch's global tokens)
+      and the loss's 4-byte all-reduce a microbatch;
+    - backward: each hand-off's conjugate (a column split's input
+      gradient all-reduced, a row or expert split's all-gathered), and,
+      under ``remat``, the forward collectives of every checkpointed block
+      again (the recomputation re-runs them; the MoE exchange is read
+      back, not re-run);
+    - gradients (a split step): every tensor the dp axes do not split
+      all-reduced, each FSDP split reduce-scattered, experts over "data"
+      all-reduced over "pod" where there are pods; in the gradients' dtype
+      (f32 with several microbatches).
+
+    The port's convention and XLA's differ, so the reference's HLO
+    figures (``launch/hlo_analysis.py``: per-device result bytes) map to
+    these as follows.  The port counts a single controller's whole result
+    once per call, XLA each device's result: an all-gather or all-reduce
+    the port counts as B is B in every device's HLO where the result is
+    replicated, so XLA's per-device figure for it is B, and the port's
+    sum over the dp positions' calls is n_dp times that.  A reduce-scatter
+    the port counts whole is 1/n_data of it per device in XLA.  XLA emits
+    none of the port's gathers of a column output that a row split cuts
+    again (its activations stay split over "model"), nor the tied logits'
+    gather (the loss reads the vocab pieces in place), nor the hand-offs'
+    conjugates of those; it may fuse an FSDP gather with its rematerialized
+    copy and folds the loss's and the MoE exchange's small reductions into
+    others."""
+    from repro_torch.distributed.data_parallel import dp_pieces, dp_split, mesh_of
+    from repro_torch.models.layers import moe_capacity
+    t = _Tally()
+    mesh = mesh_of(params)
+    split = mesh is not None and dp_split(mesh, step.batch)
+    n = len(dp_pieces(mesh)) if split else 1
+    M = step.microbatches
+    b = step.batch / (M * n)                      # rows a position a microbatch
+    runs = M * n
+    act = torch.empty((), dtype=cfg.dtype).element_size()
+    S_text = step.seq_len
+    S = S_text + (cfg.n_img_tokens if cfg.family == "vlm" else 0)
+    rows = b * S
+    chunked = step.xent_chunk > 0 and cfg.family in ("dense", "moe", "vlm")
+    nchunks = max(S_text // step.xent_chunk, 1) if chunked else 1
+    logit_rows = (b * S_text if chunked else rows) / nchunks
+    again_logits = chunked and step.remat
+    sites = 1
+    if cfg.family == "hybrid":
+        from repro_torch.models.hybrid import layout
+        sites = layout(cfg)[3]
+    tokens_mb = step.batch / M * S
+    for path, leaf in flatten_with_path(params):
+        name = [k for k in path if isinstance(k, str)][-1]
+        if name == "embed":
+            if isinstance(leaf, ShardedTensor):
+                _table_uses(leaf, cfg, rows - b * (S - S_text), logit_rows, runs,
+                            runs * nchunks, act, split, t, again_logits)
+            continue
+        if name == "router" and "moe" in path and split:
+            uses = math.prod(leaf.shape[:-2])
+            E, k = cfg.n_experts, cfg.top_k
+            t.add("forward", "all-gather", tokens_mb * k * 4, uses * M)
+            t.add("forward", "all-gather", tokens_mb * k * 8, uses * M)
+            t.add("forward", "all-reduce", E * 4, uses * M)
+        if not isinstance(leaf, ShardedTensor):
+            continue
+        expert = "moe" in path and name in ("wi", "wg", "wo")
+        main = _main(leaf)
+        uses = math.prod(main.shape[:main.dim() - (3 if expert else 2)])
+        if path[0] == "shared":
+            uses *= sites
+        again = step.remat and path[0] in _REMAT_ROOTS
+        lead = rows
+        if name == "unembed":
+            lead, again, uses = logit_rows, again_logits, nchunks
+        elif cfg.family == "encdec" and (path[0] == "enc_blocks"
+                                         or ("xattn" in path and name in ("wk", "wv"))):
+            lead = b * step.enc_len
+        if expert:
+            lead = _experts(leaf) * moe_capacity(int(tokens_mb), cfg, train=True)
+        _linear_use(leaf, lead, act, split, t, uses * runs, again)
+    if split:
+        t.add("forward", "all-reduce", 4, M)
+        _gradient_reduction(params, dp_pieces(mesh), M, t)
+    total_b: Dict[str, float] = {}
+    total_c: Dict[str, int] = {}
+    for phase in t.bytes:
+        for k, v in t.bytes[phase].items():
+            total_b[k] = total_b.get(k, 0.0) + v
+            total_c[k] = total_c.get(k, 0) + t.calls[phase][k]
+    return {"bytes": total_b, "calls": total_c, "breakdown": t.bytes,
+            "calls_breakdown": t.calls, "split": n}
 
 
 def _attn_params(params, path):

@@ -26,9 +26,9 @@ import math
 from typing import Any, Dict
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.compressed import ShardedTensor
+from repro_torch.distributed.data_parallel import checkpoint
 from repro_torch.models import layers as L
 from repro_torch.models import sharded_cache as SC
 from repro_torch.models import transformer as TF
@@ -122,7 +122,7 @@ def _dec_block(p, x, enc_out, cfg):
 
 def _run(blk, remat, *args):
     if remat and torch.is_grad_enabled():
-        return checkpoint(blk, *args, use_reentrant=False)
+        return checkpoint(blk, *args)
     return blk(*args)
 
 

@@ -23,8 +23,8 @@ from __future__ import annotations
 from typing import Any, Dict
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.data_parallel import checkpoint
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
 from repro_torch.models import sharded_cache as SC
@@ -104,7 +104,7 @@ def forward(params: Params, cfg, tokens, *, train: bool = False, remat: bool = T
         if capture:
             inputs.append(x)
         group = layer_slice(params["mamba_groups"], g)
-        x = checkpoint(body, group, x, use_reentrant=False) if remat else body(group, x)
+        x = checkpoint(body, group, x) if remat else body(group, x)
     if params["mamba_tail"] is not None:
         for i in range(params["mamba_tail"]["A_log"].shape[0]):
             x, _ = M.block_apply(layer_slice(params["mamba_tail"], i), x, cfg)

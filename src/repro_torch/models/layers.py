@@ -325,10 +325,26 @@ def moe_block(p, x, cfg, *, train: bool, cap_tokens: Optional[int] = None):
     row of the serving engine's admission) a dispatch of their own, as
     the reference's per-row ``vmap`` does: when such a group keeps all its
     tokens (capacity >= ``cap_tokens``), one dropless dispatch over the
-    batch gives the same rows; otherwise the groups run one at a time."""
+    batch gives the same rows; otherwise the groups run one at a time.
+
+    Inside a split train step (``distributed/data_parallel.py``) ``x`` is
+    one piece's rows and the block computes what it would over the global
+    batch: the capacity follows the global token count (the pieces' tokens
+    together), the pieces exchange their gates and expert choices
+    (``data_parallel.moe_exchange``) so that each entry's place in its
+    expert's buffer is its rank among every piece's entries in the global
+    gate order, and ``f_e`` and ``p_e`` are the global means.  So a piece
+    keeps exactly the entries the unsplit step keeps, dropless or not; its
+    buffer holds its own kept entries at their global places (the others'
+    rows stay empty)."""
+    from repro_torch.distributed import data_parallel
     B, S, d = x.shape
     T = B * S
+    piece = data_parallel.active()
+    n = piece.n if piece is not None else 1
     if cap_tokens is not None and cap_tokens < T:
+        if piece is not None:
+            raise ValueError("cap_tokens inside a split train step")
         if T % cap_tokens:
             raise ValueError(f"cap_tokens={cap_tokens} does not divide {T} tokens")
         if moe_capacity(cap_tokens, cfg, train) < cap_tokens:
@@ -338,7 +354,7 @@ def moe_block(p, x, cfg, *, train: bool, cap_tokens: Optional[int] = None):
             return torch.cat([o for o, _ in outs]).reshape(B, S, d), aux
         C = T
     else:
-        C = moe_capacity(T, cfg, train)
+        C = moe_capacity(T * n, cfg, train)
     E, k = cfg.n_experts, cfg.top_k
     xt = x.reshape(T, d)
     logits = matmul(xt, p["router"]).float()                       # [T, E]
@@ -346,25 +362,34 @@ def moe_block(p, x, cfg, *, train: bool, cap_tokens: Optional[int] = None):
     gates, eidx = torch.topk(probs, k, dim=-1)                     # [T, k]
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
 
-    # load-balance aux (Switch-style): E * sum_e f_e * p_e
-    f = F.one_hot(eidx, E).float().sum(1).mean(0)
-    pmean = probs.mean(0)
+    # load-balance aux (Switch-style): E * sum_e f_e * p_e, over every piece
+    # of a split step (its gates and choices gathered, its probabilities'
+    # sums added)
+    if piece is not None:
+        all_gates, all_e, pmean = data_parallel.moe_exchange(gates, eidx, probs.sum(0) / (T * n))
+        lo = piece.index * T * k
+    else:
+        all_gates, all_e, pmean = gates, eidx, probs.mean(0)
+        lo = 0
+    f = F.one_hot(all_e, E).float().sum(1).mean(0)
     aux = E * torch.sum(f * pmean)
 
     # position of each (token, choice) within its expert: ranks from the
     # exclusive cumsum of the one-hot; when capacity can drop entries, in
     # gate order (stable, as jnp.argsort), so the lowest gates drop first
-    flat_e = eidx.reshape(-1)                                      # [T*k]
-    if C < T * k:
-        order = torch.argsort(-gates.reshape(-1).detach(), stable=True)
+    all_flat = all_e.reshape(-1)                                   # [n*T*k]
+    if C < n * T * k:
+        order = torch.argsort(-all_gates.reshape(-1).detach(), stable=True)
         inv = torch.argsort(order)
-        onehot = F.one_hot(flat_e[order], E)
+        onehot = F.one_hot(all_flat[order], E)
         pos = onehot.cumsum(0) - onehot
-        ppos = pos.gather(1, flat_e[order][:, None])[:, 0][inv]
+        ppos = pos.gather(1, all_flat[order][:, None])[:, 0][inv]
     else:
-        onehot = F.one_hot(flat_e, E)
+        onehot = F.one_hot(all_flat, E)
         pos = onehot.cumsum(0) - onehot
-        ppos = pos.gather(1, flat_e[:, None])[:, 0]
+        ppos = pos.gather(1, all_flat[:, None])[:, 0]
+    ppos = ppos[lo:lo + T * k]
+    flat_e = eidx.reshape(-1)                                      # [T*k]
     keep = ppos < C
     tok = torch.arange(T, device=x.device).repeat_interleave(k)
     # scatter the kept entries into [E, C, d]; dropped ones go to a spare row
@@ -407,7 +432,9 @@ def init_embed(gen, cfg, dtype):
 
 def _lookup(t, tokens):
     """Rows of a table, or of a vocab piece whose model dim is split again
-    (FSDP's "data" split of ``d_model``): each piece's columns gathered."""
+    (FSDP's "data" split of ``d_model``): each piece's columns gathered
+    (outside a split train step, which gathers the table piece itself:
+    ``data_parallel.unshard``)."""
     if isinstance(t, ShardedTensor):
         from repro_torch.distributed import collectives
         if t.dim != -1:
@@ -420,8 +447,9 @@ def _lookup(t, tokens):
 def _sharded_lookup(t: ShardedTensor, tokens):
     """Rows of a vocab-sharded table: each piece looks up the tokens in its
     range (the others read row 0 and are zeroed), and the pieces' rows are
-    summed (one piece is nonzero per token, so the sum is exact)."""
-    from repro_torch.distributed import collectives
+    summed (one piece is nonzero per token, so the sum is exact); the
+    gradient of the sum hands each piece the rows' gradient."""
+    from repro_torch.distributed import collectives, data_parallel
     rows, lo = [], 0
     for p in t.pieces:
         n = p.shape[0]
@@ -430,20 +458,21 @@ def _sharded_lookup(t: ShardedTensor, tokens):
         r = _lookup(p, torch.where(mine, tok - lo, torch.zeros_like(tok)))
         rows.append(r * mine[..., None].to(r.dtype))
         lo += n
-    return collectives.all_reduce_sum(rows, device=t.mesh.first_device)
+    return collectives.all_reduce_sum(rows, device=data_parallel.home_device(t))
 
 
 def _tied_logits(t, x):
     """f32 logits of ``x`` against a table; a piece whose model dim is split
-    again takes ``x``'s matching columns and sums the partial logits in
-    f32, in mesh order."""
+    again takes ``x``'s matching columns (``collectives.split``) and sums
+    the partial logits in f32, in mesh order."""
     if isinstance(t, ShardedTensor):
         from repro_torch.distributed import collectives
         if t.dim != -1:
             raise NotImplementedError(f"a table piece split along dim {t.dim}")
-        xs = torch.split(x, [p.shape[-1] for p in t.pieces], dim=-1)
+        xs = collectives.split(x, [p.shape[-1] for p in t.pieces], -1,
+                               [piece_device(p) for p in t.pieces])
         return collectives.all_reduce_sum(
-            [_tied_logits(p, xj.to(piece_device(p))) for xj, p in zip(xs, t.pieces)],
+            [_tied_logits(p, xj) for xj, p in zip(xs, t.pieces)],
             dtype=torch.float32, device=x.device)
     return t.logits(x) if isinstance(t, QEmbed) else tied_logits(x, t)
 
@@ -451,7 +480,8 @@ def _tied_logits(t, x):
 def embed(params, cfg, tokens):
     """The rows of ``tokens``; a ``QEmbed`` table gives them in bf16.  A
     vocab-sharded table is looked up piece by piece."""
-    t = params["embed"]
+    from repro_torch.distributed import data_parallel
+    t = data_parallel.unshard(params["embed"])
     if isinstance(t, ShardedTensor):
         x = _sharded_lookup(t, tokens.long())
     else:
@@ -465,14 +495,18 @@ def unembed(params, cfg, x):
     """f32 logits [..., V].  The tied product (a plain table's, or a
     ``QEmbed``'s on its codes) keeps its f32 accumulation: the logits are
     never rounded to bf16, as in the reference.  A vocab-sharded table
-    gives each piece's logits, gathered along the vocabulary."""
+    gives each piece's logits, gathered along the vocabulary, from ``x``
+    handed to each piece (``collectives.replicate``).  Inside a split train
+    step a table FSDP split over "data" is gathered where it is used."""
     if cfg.tie_embeddings:
-        t = params["embed"]
+        from repro_torch.distributed import data_parallel
+        t = data_parallel.unshard(params["embed"])
         if isinstance(t, ShardedTensor):
             from repro_torch.distributed import collectives
+            xs = collectives.replicate(x, [piece_device(p) for p in t.pieces])
             logits = collectives.all_gather(
-                [_tied_logits(p, x.to(piece_device(p))) for p in t.pieces], dim=-1,
-                device=t.mesh.first_device)
+                [_tied_logits(p, xj) for xj, p in zip(xs, t.pieces)], dim=-1,
+                device=data_parallel.home_device(t))
         else:
             logits = _tied_logits(t, x)
     else:

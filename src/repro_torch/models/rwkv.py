@@ -34,10 +34,10 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.compressed import ShardedTensor, piece_device
 from repro_torch.distributed import collectives
+from repro_torch.distributed.data_parallel import checkpoint
 from repro_torch.models import layers as L
 from repro_torch.models import sharded_cache as SC
 from repro_torch.models.layers import matmul
@@ -284,7 +284,7 @@ def forward(params: Params, cfg, tokens, *, train: bool = False, remat: bool = T
         if capture:
             inputs.append(x)
         p = layer_slice(params["blocks"][0], r)
-        x = checkpoint(body, p, x, use_reentrant=False) if remat else body(p, x)
+        x = checkpoint(body, p, x) if remat else body(p, x)
     h = L.norm(x, params["ln_f"], cfg)
     aux = {"moe_aux": torch.zeros((), dtype=torch.float32, device=x.device)}
     if capture:

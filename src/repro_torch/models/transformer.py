@@ -33,9 +33,9 @@ from __future__ import annotations
 from typing import Any, Dict, Iterator, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.compressed import BlockSparseTensor, QTensor, ShardedTensor, current_backend
+from repro_torch.distributed.data_parallel import checkpoint
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
 from repro_torch.models import sharded_cache as SC
@@ -199,7 +199,7 @@ def _trunk(params: Params, cfg, x, *, train: bool, use_flash: bool, remat: bool,
         if inputs is not None:
             inputs.append(x)
         if remat and i < R * len(unit):
-            x, a = checkpoint(one, p, x, kind, use_reentrant=False)
+            x, a = checkpoint(one, p, x, kind)
         else:
             x, a = one(p, x, kind)
         aux = aux + a
@@ -269,7 +269,7 @@ def loss_fn(params: Params, cfg, tokens, labels, *, img_embs=None,
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for c in range(nchunks):
         if remat and torch.is_grad_enabled():
-            total = total + checkpoint(chunk, xcs[:, c], ycs[:, c], use_reentrant=False)
+            total = total + checkpoint(chunk, xcs[:, c], ycs[:, c])
         else:
             total = total + chunk(xcs[:, c], ycs[:, c])
     return total / labels.numel() + aux_weight * aux

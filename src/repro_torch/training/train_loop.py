@@ -16,11 +16,12 @@ The reference's trainer (``training/train_loop.py``) on PyTorch:
     mesh=...)`` (``training/grad_compress.py``);
   - a sharded param tree trains as it is: ``params=`` placed by
     ``sharding.place(params, sharding.param_shardings(cfg, params, mesh,
-    fsdp=...))`` gives gradients cut as the params are
-    (``tree.value_and_grad``), an optimizer state placed as the
-    reference's ``opt_state_shardings`` says (``Optimizer.init``), and a
-    checkpoint restored onto the params' own layout.  Like the
-    reference's ``train``, it takes no mesh: the params carry it.
+    fsdp=...))`` trains data-parallel where the mesh's dp axes split the
+    batch (:func:`make_train_step`), with gradients cut as the params
+    are, an optimizer state placed as the reference's
+    ``opt_state_shardings`` says (``Optimizer.init``), and a checkpoint
+    restored onto the params' own layout.  Like the reference's
+    ``train``, it takes no mesh: the params carry it.
 
 Params come from a seeded ``torch.Generator`` on ``device`` (default
 ``"cuda"``, which raises without a card), or from ``params=``; a placed
@@ -35,6 +36,8 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from repro_torch.core.compressed import ShardedTensor
+from repro_torch.distributed.data_parallel import (dp_split, mesh_of, mesh_step,
+                                                   split_value_and_grad)
 from repro_torch.distributed.sharding import shardings_of
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.models import api
@@ -74,32 +77,60 @@ def make_train_step(model_cfg, optimizer: Optimizer, *,
     ``batch["tokens"/"labels"]``: [B, S] tensors; B must divide by
     ``microbatches``.  Metrics are device scalars ``loss`` and
     ``grad_norm`` (the norm before clipping).  The update is written
-    into the given params and state (``Optimizer.update``)."""
+    into the given params and state (``Optimizer.update``).
+
+    On a placed tree (``sharding.place``) the step is the reference's
+    SPMD step on the params' mesh: where ``sharding.batch_shardings``
+    splits the batch's rows over the mesh's dp axes (``("pod", "data")``
+    on a multi-pod mesh, ``("data",)`` otherwise: B divisible by their
+    size), each dp position runs the forward and backward of its rows,
+    FSDP weights are gathered where they are used, and every gradient is
+    reduced over the dp axes through ``collectives`` once a step
+    (``distributed/data_parallel.py`` ``split_value_and_grad``):
+    microbatches split the global rows first and the dp axes second, and
+    each position accumulates over its microbatches before the reduction.
+    Where the spec leaves the batch whole, the step runs it whole and
+    reduces nothing over the dp axes, as the reference does; a batch
+    that splits but whose microbatches do not raises.  Either way the
+    model axis's collectives and their backward conjugates go through
+    ``collectives`` and are counted (``launch/roofline.py``
+    ``train_collectives``); the scalar loss's sum over the positions is
+    counted too, the gradient norm's sums are not."""
     def loss(p, b):
         return api.loss_fn(p, model_cfg, b, xent_chunk=xent_chunk, remat=remat,
                            aux_weight=aux_weight)
 
-    def train_step(params, opt_state, batch, step, residual=None):
+    def whole_value_and_grad(params, batch):
         if microbatches == 1:
-            lv, grads = value_and_grad(lambda p: loss(p, batch), params)
+            return value_and_grad(lambda p: loss(p, batch), params)
+        M = microbatches
+        B = batch["tokens"].shape[0]
+        if B % M:
+            raise ValueError(f"batch {B} does not divide into {M} microbatches")
+        lv = None
+        grads = None
+        for i in range(M):
+            mb = {k: v[i * (B // M):(i + 1) * (B // M)] for k, v in batch.items()}
+            li, gi = value_and_grad(lambda p: loss(p, mb), params)
+            if grads is None:
+                lv, grads = li.float(), tree_map(_leafwise(lambda g: g.float()), gi)
+            else:
+                lv = lv + li
+                grads = tree_map(_leafwise(lambda a, g: a.add_(g)), grads, gi)
+            del gi
+        return lv / M, tree_map(_leafwise(lambda g: g.div_(M)), grads)
+
+    def train_step(params, opt_state, batch, step, residual=None):
+        mesh = mesh_of(params)
+        if mesh is None:
+            lv, grads = whole_value_and_grad(params, batch)
+        elif dp_split(mesh, batch["tokens"].shape[0]):
+            lv, grads = split_value_and_grad(loss, params, batch, mesh,
+                                             microbatches=microbatches,
+                                             lockstep=model_cfg.family == "moe")
         else:
-            M = microbatches
-            B = batch["tokens"].shape[0]
-            if B % M:
-                raise ValueError(f"batch {B} does not divide into {M} microbatches")
-            lv = None
-            grads = None
-            for i in range(M):
-                mb = {k: v[i * (B // M):(i + 1) * (B // M)] for k, v in batch.items()}
-                li, gi = value_and_grad(lambda p: loss(p, mb), params)
-                if grads is None:
-                    lv, grads = li.float(), tree_map(_leafwise(lambda g: g.float()), gi)
-                else:
-                    lv = lv + li
-                    grads = tree_map(_leafwise(lambda a, g: a.add_(g)), grads, gi)
-                del gi
-            lv = lv / M
-            grads = tree_map(_leafwise(lambda g: g.div_(M)), grads)
+            with mesh_step():
+                lv, grads = whole_value_and_grad(params, batch)
         if grad_compressor is not None:
             grads, residual = grad_compressor(grads, residual)
         gnorm = global_norm(grads)

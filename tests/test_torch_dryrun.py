@@ -19,7 +19,13 @@
   shapes hold under its ``cache_shardings`` rule, on both meshes.
 - ``build_cell`` gives each kind of cell its pieces and step builder;
   ``registry.all_cells`` equals the reference's.
-- ``--all`` finishes on meta tensors.
+- ``--all`` finishes on meta tensors, and every train cell counts its
+  whole data-parallel step (``train_collectives: counted``, with the
+  backward and the gradients' reductions in its breakdown).
+- ``roofline.train_collectives`` of tiny_dense at train_4k's shape on a
+  (2, 2) mesh equals a count by hand, by kind and by forward, backward
+  and gradients; an FSDP cell (mistral-nemo-12b) counts each FSDP-split
+  leaf's per-use gathers and its gradients' reduce-scatter.
 """
 import json
 from types import SimpleNamespace
@@ -310,3 +316,98 @@ def test_all_cells_finish_on_meta_tensors(tmp_path, capsys):
     decode = [r for r in res.values() if r["status"] == "ok" and "cache_collectives" in r]
     assert len(decode) == 26 and all(r["cache_collectives"].startswith("counted")
                                      for r in decode)
+    train = [r for r in res.values() if r["shape"] == "train_4k"]
+    assert len(train) == 2 * len(rregistry.ARCH_IDS) == 20
+    assert all(r["train_collectives"] == "counted" and r["collective_breakdown"]["gradients"]
+               and r["collective_breakdown"]["backward"] for r in train)
+    assert all(sum(r["roofline"]["coll_detail"].values()) == r["roofline"]["coll_bytes"]
+               for r in train)
+
+
+def _meta_placed(cfg, shape, fsdp):
+    mesh = make_mesh(shape, ("data", "model"), device="meta")
+    params, _ = roofline.meta_instance(cfg)
+    return params, SH.place(params, SH.param_shardings(cfg, params, mesh, fsdp=fsdp))
+
+
+def test_tiny_dense_train_step_collectives_by_hand(tiny_dense):
+    """tiny_dense (bf16) at train_4k's shape (256 rows of 4096) on a (2, 2)
+    mesh, FSDP off: each "data" position runs 128 rows (R = 524288 tokens).
+    Per layer and position: wq (64), wk and wv (32 each: 2 KV heads divide
+    2), wi and wg (128) column splits gather their outputs; wo (64 -> 64)
+    and the MLP's wo (128 -> 64) sum theirs.  The backward all-reduces the
+    column splits' input gradients (5 x 64) and gathers the row splits'
+    (64 and 128), and recomputes the checkpointed blocks' forward; the
+    vocab-split table's lookup sums its rows, the untied unembed (64 ->
+    260, column) gathers its outputs and all-reduces its input gradient;
+    the loss is a 4-byte all-reduce; the gradients, one all-reduce per
+    tensor piece, add up to every param's bytes."""
+    cfg = from_reference(tiny_dense[0])
+    _, placed = _meta_placed(cfg, (2, 2), False)
+    step = roofline.TrainStep(256, 4096)
+    got = roofline.train_collectives(placed, cfg, step)
+    R, a, L, n = 128 * 4096, 2, 2, 2
+    fwd_g, fwd_r = L * R * (64 + 32 + 32 + 128 + 128) * a, L * R * (64 + 64) * a
+    forward = {"all-gather": n * (fwd_g + R * 260 * a),
+               "all-reduce": n * (fwd_r + R * 64 * a) + 4}
+    backward = {"all-gather": n * (L * R * (64 + 128) * a + fwd_g),
+                "all-reduce": n * (L * R * 5 * 64 * a + R * 64 * a + fwd_r)}
+    gradients = {"all-reduce": (cfg.param_count() + (2 * L + 1) * 64) * a}   # norms too
+    assert got["breakdown"] == {"forward": forward, "backward": backward,
+                                "gradients": gradients}
+    assert got["calls_breakdown"] == {
+        "forward": {"all-gather": n * (L * 5 + 1), "all-reduce": n * (L * 2 + 1) + 1},
+        "backward": {"all-gather": n * L * (2 + 5), "all-reduce": n * (L * (5 + 2) + 1)},
+        "gradients": {"all-reduce": 7 * 2 + 2 * 1 + 2 + 2 + 1}}
+    assert got["split"] == 2
+    assert roofline.collective_bytes(placed, cfg, 0, train=step) == got["bytes"]
+
+
+def test_fsdp_train_cell_counts_its_gathers_and_reduce_scatters():
+    """mistral-nemo-12b's train cell (FSDP: 12.2 B params) against the same
+    step without FSDP: the forward gathers every FSDP-split leaf once per
+    "data" position, the backward again for the checkpointed blocks, and
+    the gradients reduce-scatter each of them whole."""
+    from repro_torch.configs import registry
+    r = dryrun.run_cell("mistral-nemo-12b", "train_4k", "single")
+    assert r["fsdp"] and r["train_collectives"] == "counted" and r["dp_split"] == 16
+    cfg = registry.get_config("mistral-nemo-12b")
+    mesh = make_production_mesh()
+    params, _ = roofline.meta_instance(cfg)
+    flat = SH.place(params, SH.param_shardings(cfg, params, mesh))
+    fsdp = SH.place(params, SH.param_shardings(cfg, params, mesh, fsdp=True))
+    step = dryrun.train_step_shape(cfg, dryrun.input_specs(cfg, "train_4k"))
+    base = roofline.train_collectives(flat, cfg, step)["breakdown"]
+    got = r["collective_breakdown"]
+    split = {}                       # bytes of the FSDP-split leaves, by subtree
+    for p, leaf in _flat_leaves(fsdp):
+        if _has_fsdp(leaf):
+            split[p[0]] = split.get(p[0], 0) + sum(t.numel() * t.element_size()
+                                                   for t in _tensors(leaf))
+    assert split and sum(split.values()) > 0.9 * sum(
+        t.numel() * t.element_size() for _, leaf in _flat_leaves(params) for t in _tensors(leaf))
+    n = 16
+    assert got["forward"]["all-gather"] - base["forward"]["all-gather"] == n * sum(split.values())
+    assert got["backward"]["all-gather"] - base["backward"]["all-gather"] \
+        == n * split["blocks"]
+    assert got["gradients"]["reduce-scatter"] == sum(split.values())
+    assert "reduce-scatter" not in base["gradients"]
+
+
+def _flat_leaves(tree):
+    from repro_torch.tree import flatten_with_path
+    return flatten_with_path(tree)
+
+
+def _tensors(leaf):
+    from repro_torch.core.compressed import ShardedTensor
+    return leaf.tensors() if isinstance(leaf, ShardedTensor) else [leaf]
+
+
+def _has_fsdp(leaf):
+    from repro_torch.core.compressed import ShardedTensor
+    while isinstance(leaf, ShardedTensor):
+        if leaf.axis == "data" and leaf.dim in (-1, -2):
+            return True
+        leaf = leaf.pieces[0]
+    return False

@@ -5,7 +5,9 @@ The params of every family at the reduced widths of ``test_torch_tp.py``
 ``sharding.place(params, param_shardings(cfg, params, mesh, fsdp=...))``
 on a (1, 4) and a (2, 2) mesh whose positions are all the CPU, and take
 one step of the port's ``make_train_step`` (one and two microbatches)
-from an optimizer state ``Optimizer.init`` builds on the placed tree.
+from an optimizer state ``Optimizer.init`` builds on the placed tree; at
+(2, 2) the step is data-parallel, its 4 rows split over "data"
+(``distributed/data_parallel.py``), at (1, 4) it runs them whole.
 The reference's jitted ``make_train_step`` runs the same step on the same
 numpy params and batch: dense (gemma2) and tiny_dense with AdamW, hybrid
 (zamba2) with Adafactor, rwkv (rwkv6) and MoE (qwen2-moe: experts over
