@@ -384,6 +384,26 @@ to before phase 17:
    greedy token the same) and to the whole-step rule; the bf16 caches'
    bytes equal 2,159,017,984 and 13,958,643,712; K2 and K3 launched as
    ``long_decode_launches`` says.
+57. train_split_fallbacks (after parallel_training, on its full-width
+   base): all 26 layers of gemma2-2b in bf16, AdamW, remat, ``xent_chunk``
+   256, placed at (2, 2) without FSDP, every position this card, through
+   the train step's two split fallbacks (``data_parallel.Split``): (a) one
+   row of 2048 positions, its positions over "data" (1024 a piece, the
+   K/V gathered at every layer); (b) 2 rows of 1024 in 2 microbatches, one
+   row a microbatch over 2 dp positions (each runs it, as XLA places the
+   reference's reshape).  Each step against the same step unsharded on
+   the card: the loss within SHARDED_BF16_RTOL; the update element by
+   element (AdamW's first step moves an element by lr whatever its
+   gradient's size, so two bf16 computations of it agree where the
+   gradients' directions do): where the clipped gradients agree in sign
+   and are both at least SHARDED_GRAD_FLOOR, within lr / 50 and one bf16
+   step of the param; elsewhere (near-zero gradients, as the CPU gate
+   counts them, and directions that part) within 2 lr and one step, those
+   elements counted, the parted directions at most SPLIT_PARTED_SHARE of
+   any leaf's elements above the floor (the unsharded step's gradients
+   kept in bf16 on the host); its executed collectives equal to
+   ``roofline.train_collectives`` by kind, bytes and calls.  Records each
+   step's seconds, peak memory and collective bytes.
 
 K2, K3 and K4 run their tensor-core designs on bf16 and their FMA
 designs on f32; K1 runs ``split`` up to 8 query heads per KV head in
@@ -7531,22 +7551,23 @@ def sharded_step_check(label, params, cfg, shape, fsdp, kind, device="cuda", cap
     return line, placed, (kept[0] if capture else None), mesh
 
 
-def step_collectives(placed, cfg, batch, label, xent_chunk=0):
+def step_collectives(placed, cfg, batch, label, xent_chunk=0, microbatches=1):
     """The collectives one ``make_train_step`` step of the placed tree
     recorded since the counts were zeroed (the caller fences the
     background's "collectives" jobs first): calls and result bytes by
     kind.  Gate: they equal ``roofline.train_collectives`` of the step
-    (one microbatch, remat on, ``xent_chunk``), and the batch was split
+    (``microbatches``, remat on, ``xent_chunk``), and the batch was split
     over the dp axes."""
     from repro_torch.distributed import collectives
     from repro_torch.launch import roofline
     got = {"calls": {k: n for k, n in collectives.calls.items() if n},
            "bytes": {k: n for k, n in collectives.result_bytes.items() if n}}
     B, S = batch["tokens"].shape
-    want = roofline.train_collectives(placed, cfg, roofline.TrainStep(B, S,
-                                                                       xent_chunk=xent_chunk))
+    want = roofline.train_collectives(placed, cfg, roofline.TrainStep(
+        B, S, microbatches, xent_chunk=xent_chunk))
     line = {"executed": got, "counted": {"calls": want["calls"], "bytes": want["bytes"]},
-            "breakdown": want["breakdown"], "dp_split": want["split"]}
+            "breakdown": want["breakdown"], "dp_split": want["split"],
+            "split_by": want["split_by"], "per_device": want["per_device"]}
     check(want["split"] > 1 and got["bytes"] == {k: v for k, v in want["bytes"].items() if v}
           and got["calls"] == {k: v for k, v in want["calls"].items() if v},
           (label, "executed collectives equal roofline.train_collectives", line))
@@ -7859,6 +7880,141 @@ def parallel_training(gen, base, cfg, device="cuda", layers: int = 4):
     return line
 
 
+SPLIT_FALLBACKS = {"positions": dict(batch=1, seq_len=2048, microbatches=1),
+                   "microbatches": dict(batch=2, seq_len=1024, microbatches=2)}
+# at most this share of a leaf's elements above SHARDED_GRAD_FLOOR may have
+# gradients whose directions part between two bf16 computations of a step
+# (a gradient gone wrong parts about half of its leaf's)
+SPLIT_PARTED_SHARE = 0.25
+
+
+def _bf16_step(p):
+    """One bf16 step of each element of ``p`` (f32 of bf16 values): the
+    spacing of bf16 numbers at its magnitude (8 significant bits)."""
+    _, e = torch.frexp(p)
+    return torch.ldexp(torch.ones_like(p), e - 8)
+
+
+def train_split_fallbacks(base, cfg, device="cuda"):
+    """The train step's two split fallbacks at full width (phase 57): for
+    each case of SPLIT_FALLBACKS, one AdamW step of ``base`` unsharded, then
+    the same step of ``base`` placed at DP_FULL_MESH (no FSDP) split as
+    ``data_parallel.plan_split`` says; the gates of the module docstring.
+    Returns the phase's line."""
+    from repro_torch.core.compressed import ShardedTensor
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed import data_parallel as DP
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.training.train_loop import make_train_step
+    from repro_torch.tree import leaves, tree_map
+    mesh = tp_mesh(DP_FULL_MESH, device)
+    xc = SHARDED_FULL["xent_chunk"]
+    line = {"phase": "train_split_fallbacks", "model": cfg.name, "layers": cfg.n_layers,
+            "dtype": "bfloat16", "mesh": list(DP_FULL_MESH), "fsdp": False,
+            "optimizer": "adamw", "lr": FULL_LR, "xent_chunk": xc, "remat": True,
+            "tolerance": SHARDED_BF16_RTOL}
+    for case, kw in SPLIT_FALLBACKS.items():
+        B, S, M = kw["batch"], kw["seq_len"], kw["microbatches"]
+        batch = _batch(0, cfg, device, B, S)
+        flops = train_flops(cfg, B, S)
+
+        def run(params, count):
+            o = make_optimizer("adamw", FULL_LR, 1)
+            state = o.init(params)
+            kept = []
+            fn = make_train_step(cfg, o, microbatches=M, xent_chunk=xc, remat=True,
+                                 grad_compressor=lambda g, r: (kept.append(g) or g, r))
+            if count:
+                BACKGROUND.fence("collectives")     # no background job moves the counts
+                collectives.reset_result_bytes()
+            reset_peak()
+            sync()
+            t0 = time.time()
+            params, state, _, m = fn(params, state, batch, 0)
+            loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+            sync()
+            dt = time.time() - t0
+            check(math.isfinite(loss) and math.isfinite(gnorm), (case, loss, gnorm))
+            del state
+            return params, kept[0], {"loss": loss, "grad_norm": gnorm, "seconds": dt,
+                                     "flop_share": flops / (dt * BF16_FLOPS),
+                                     "peak_memory": card_memory()[1]}
+
+        flat, g_flat, flat_run = run(tree_map(torch.clone, base), False)
+        # held on the host beside the split step (its f32 gradients and
+        # state need the card): the params, and the gradients in bf16
+        flat = tree_map(lambda t: t.to("cpu"), flat)
+        g_flat = tree_map(lambda t: t.to(torch.bfloat16).to("cpu"), g_flat)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.time()
+        placed = SH.place(tree_map(torch.clone, base), SH.param_shardings(cfg, base, mesh))
+        plan = DP.plan_split(mesh, B, S, M, cfg.family)
+        placed, g_split, split_run = run(placed, True)
+        split_run["seconds_with_placement"] = time.time() - t0
+        counted = step_collectives(placed, cfg, batch, ("train_split_fallbacks", case), xc, M)
+        lr = FULL_LR
+        scale = {k: min(1.0, 1.0 / r["grad_norm"]) for k, r in (("split", split_run),
+                                                                ("flat", flat_run))}
+        worst = {"agree": 0.0, "part": 0.0, "leaf_part_share": 0.0, "grad_rms_rel": 0.0}
+        differ = parted = flipped = total = 0
+        for a, b, ga, gb in zip(leaves(placed), leaves(flat), leaves(g_split), leaves(g_flat)):
+            whole = (lambda t: SH.gather(t) if isinstance(t, ShardedTensor) else t)
+            a, ga = whole(a).float(), whole(ga).float() * scale["split"]
+            b, gb = b.to(a.device).float(), gb.to(a.device).float() * scale["flat"]
+            diff = (a - b).abs()
+            step = _bf16_step(torch.maximum(a.abs(), b.abs()))
+            near = (ga.abs() < SHARDED_GRAD_FLOOR) | (gb.abs() < SHARDED_GRAD_FLOOR)
+            flip = ~near & (torch.sign(ga) != torch.sign(gb))
+            part = near | flip
+            if (~part).any():
+                worst["agree"] = max(worst["agree"],
+                                     ((diff - 0.02 * lr) / step)[~part].max().item())
+            if part.any():
+                worst["part"] = max(worst["part"], ((diff - 2.01 * lr) / step)[part].max().item())
+            if (~near).any():
+                worst["leaf_part_share"] = max(worst["leaf_part_share"],
+                                               (flip.sum() / (~near).sum()).item())
+            worst["grad_rms_rel"] = max(worst["grad_rms_rel"],
+                                        ((ga - gb).norm() / gb.norm().clamp_min(1e-30)).item())
+            differ += int((a != b).sum())
+            parted += int(part.sum())
+            flipped += int(flip.sum())
+            total += a.numel()
+            del a, b, ga, gb, diff, step, part, near, flip
+        rel = abs(split_run["loss"] / flat_run["loss"] - 1)
+        line[case] = {"batch": [B, S], "microbatches": M, "split_by": plan.by,
+                      "blocks": plan.blocks, "dp_positions": plan.n, "split": split_run,
+                      "unsharded": flat_run, "loss_rel_err": rel,
+                      "agreeing_max_diff_beyond_lr_50th_in_bf16_steps": worst["agree"],
+                      "parted_max_diff_beyond_2lr_in_bf16_steps": worst["part"],
+                      "flipped_share_of_a_leaf_max": worst["leaf_part_share"],
+                      "grad_rms_rel_diff_of_a_leaf_max": worst["grad_rms_rel"],
+                      "elements_differing": differ, "elements_near_zero_or_flipped": parted,
+                      "elements_flipped": flipped,
+                      "param_elements": total, "collectives": counted}
+        del flat, placed, g_flat, g_split
+        gc.collect()
+        torch.cuda.empty_cache()
+        check(plan.by == ("positions" if case == "positions" else "rows"), (case, plan))
+        check(rel <= SHARDED_BF16_RTOL, (case, "loss", line[case]))
+        check(worst["agree"] <= 1.0 and worst["part"] <= 1.0
+              and worst["leaf_part_share"] <= SPLIT_PARTED_SHARE,
+              (case, "update element by element", line[case]))
+        r = line[case]
+        print(f"train_split_fallbacks {case}: {B} x {S} in {M} microbatch(es) split by "
+              f"{plan.by} ({plan.blocks} blocks over {plan.n}): loss {r['split']['loss']:.6f} "
+              f"({r['unsharded']['loss']:.6f} unsharded, rel {rel:.3g}); step "
+              f"{r['split']['seconds']:.3f} s ({r['unsharded']['seconds']:.3f} unsharded), peak "
+              f"{r['split']['peak_memory']} ({r['unsharded']['peak_memory']}); "
+              f"{differ} of {total} elements differ; {parted} near-zero or flipped gradients, "
+              f"{flipped} flipped; "
+              f"collectives {counted['executed']['bytes']} in {counted['executed']['calls']} "
+              f"calls as counted", flush=True)
+    emit(line)
+    return line
+
+
 def host_cpus() -> dict:
     """The host's CPUs as this process sees them: the count, the ones it
     may run on, what its cgroup's quota leaves (``usable_cpus``) and
@@ -8080,6 +8236,8 @@ def run() -> int:
     seconds["parallel_training.sharded_step_a"] = par_line["sharded_step_a"]["seconds_all"]
     seconds["parallel_training.data_parallel_full_width"] = (
         par_line["sharded_full_width"]["data_parallel"]["seconds_with_placement"])
+    torch.cuda.empty_cache()
+    split_line = timed("train_split_fallbacks", train_split_fallbacks, base, cfg)
     torch.cuda.empty_cache()
     # tp_f32_parity reads the collectives' counts: it runs after the MoE
     # session, so that the background's jobs tagged "collectives"
@@ -8606,7 +8764,8 @@ def run() -> int:
                    "static_analysis": sa_line, "static_analysis_rwkv": sa_rw_line,
                    "train_full_width_families": family_full,
                    "tp_main_path": tp_line, "tp_kernel_shapes": kq_tp, "tp_pool": tp_pool_line,
-                   "parallel_training": par_line, "tp_f32_parity": tp_parity_line,
+                   "parallel_training": par_line, "train_split_fallbacks": split_line,
+                   "tp_f32_parity": tp_parity_line,
                    "tp_moe": tp_moe_line, "tp_rwkv": tp_rw_line,
                    "tp_rwkv_kernel_shapes": kq_tp_rw,
                    "phase_seconds": seconds, "phase_memory": memory,

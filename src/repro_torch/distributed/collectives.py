@@ -22,6 +22,9 @@ holds whole is *invariant* over the axis; a per-position piece is
 - :func:`all_gather` (varying pieces to one whole tensor,
   ``all_gather_invariant``) transposes to a slice: each piece's part of
   the whole gradient, no collective;
+- :func:`all_gather_each` (varying pieces to a whole copy at every
+  position, ``all_gather``) transposes to :func:`reduce_scatter` of the
+  copies' gradients;
 - :func:`all_reduce_sum` (varying pieces to one whole sum, ``psum``)
   transposes to the hand-off of the whole gradient to each piece, no
   collective;
@@ -106,6 +109,33 @@ def all_gather(pieces: Sequence[torch.Tensor], dim: int = 0, *, device=None,
     gradient is sliced back to the pieces (no collective)."""
     device = pieces[0].device if device is None else device
     return _AllGather.apply(dim, device, stack, *pieces)
+
+
+class _AllGatherEach(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, dim, devices, *pieces):
+        ctx.dim, ctx.sizes = dim, [p.shape[dim] for p in pieces]
+        ctx.metas = [_meta(p) for p in pieces]
+        out = tuple(torch.cat([_on(p, d) for p in pieces], dim) for d in devices)
+        _count("all-gather", out)
+        return out
+
+    @staticmethod
+    def backward(ctx, *gs):
+        parts = [list(torch.split(g, ctx.sizes, ctx.dim)) for g in gs]
+        back = reduce_scatter(parts, dtype=ctx.metas[0][0], devices=[m[1] for m in ctx.metas])
+        return (None, None, *(_grad_in(b, m) for b, m in zip(back, ctx.metas)))
+
+
+def all_gather_each(pieces: Sequence[torch.Tensor], dim: int = 0, *,
+                    devices=None) -> List[torch.Tensor]:
+    """The pieces concatenated along ``dim`` onto every position (position
+    ``j``'s copy on ``devices[j]``, default the pieces' own): a gather whose
+    result varies over the axis, one call counting every position's copy.
+    Its gradient sums the copies' gradients over the positions and hands
+    each piece its part: :func:`reduce_scatter`."""
+    devices = [p.device for p in pieces] if devices is None else list(devices)
+    return list(_AllGatherEach.apply(dim, devices, *pieces))
 
 
 def _sum_f32(pieces, device, dtype) -> torch.Tensor:
@@ -268,5 +298,5 @@ def ppermute(pieces: Sequence[torch.Tensor],
     return list(_Ppermute.apply([tuple(p) for p in perm], *pieces))
 
 
-__all__ = ["KINDS", "all_gather", "all_reduce_sum", "all_to_all", "calls", "ppermute",
-           "reduce_scatter", "replicate", "reset_result_bytes", "result_bytes", "split"]
+__all__ = ["KINDS", "all_gather", "all_gather_each", "all_reduce_sum", "all_to_all", "calls",
+           "ppermute", "reduce_scatter", "replicate", "reset_result_bytes", "result_bytes", "split"]

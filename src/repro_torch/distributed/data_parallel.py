@@ -39,13 +39,30 @@ axes, each running ``loss`` on its rows.
   microbatch ``i`` is rows ``[i B/M, (i+1) B/M)``, and piece ``j`` takes
   the ``j``-th of its ``n`` row blocks, as the reference's ``lax.scan``
   over ``[M, B/M, ...]`` with the batch split over the dp axes does.
+  Where a microbatch's rows do not divide the ``n`` positions, it goes in
+  ``n / gcd(n, M)`` blocks, as XLA places the reshape (:class:`Split`):
+  the positions that held its rows split it, the others run a block again
+  (a replica: the same values; every piece's loss weighted ``1 / n``, so
+  the reduction over every position gives the mean).
+- **Positions over "data".**  Where the rows do not divide the dp axes,
+  ``batch_shardings`` puts the positions over "data"; a dense or MoE
+  model's step then splits every row's positions over the "data"
+  positions (a "pod" position runs its block again).  The pieces run in
+  lockstep: at each attention layer they exchange k and v
+  (:func:`gather_positions`: ``collectives.all_gather_each`` within each
+  "pod" position, whose gradient is the reduce-scatter of the K/V
+  gradients), and each piece's RoPE positions, causal mask and window
+  start at its first position; its loss is its labels' mean, weighted by
+  its share.  The recomputation of a checkpointed block gathers the
+  forward's pieces again (counted), its own recomputed k and v in place.
 - **The MoE block** (:func:`moe_exchange`) computes what the reference's
   step computes over the global batch: the pieces run in lockstep (one
   thread each, one running at a time, :class:`_Lockstep`), and at every
-  MoE layer they all-gather their gates and expert choices (so each
-  piece ranks its entries against every piece's, for the capacity of the
-  global token count) and all-reduce their router probabilities' sums
-  (the Switch aux loss' mean); the expert fractions follow from the
+  MoE layer they all-gather their gates and expert choices in the
+  microbatch's token order (so each piece ranks its entries against
+  every block's, for the capacity of the microbatch's token count; a
+  replica's are left out) and all-reduce their router probabilities'
+  sums (the Switch aux loss' mean); the expert fractions follow from the
   gathered choices.  The backward's recomputation of a checkpointed block
   reads the exchange's results back instead of exchanging again.
 
@@ -64,11 +81,12 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import dataclasses
 import inspect
 import math
 import threading
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.utils.checkpoint as _ckpt
@@ -84,7 +102,10 @@ class Piece:
     the dp axes (pod-major), their count, its coordinates, the mesh, the
     lockstep group it exchanges through (None when the pieces run one
     after another), the log of its exchanges' results, and, inside a
-    recomputation, the cursor into that log."""
+    recomputation, the cursor into that log.  ``block`` of ``blocks`` is
+    the part of each microbatch it runs (see :class:`Split`); ``span``,
+    for a split of the positions, is (its first position, each row's
+    positions in all)."""
     index: int
     n: int
     coords: Dict[str, int]
@@ -92,6 +113,9 @@ class Piece:
     group: Optional["_Lockstep"] = None
     log: List[Any] = field(default_factory=list)
     replay: Optional[List[int]] = None
+    block: int = 0
+    blocks: int = 1
+    span: Optional[Tuple[int, int]] = None
 
     def device_at(self, coords: Dict[str, int]) -> torch.device:
         full = {**coords, **self.coords}
@@ -100,6 +124,15 @@ class Piece:
     @property
     def device(self) -> torch.device:
         return self.device_at({})
+
+    def token_index(self, rows: int, seq: int) -> torch.Tensor:
+        """Where this piece's ``rows`` x ``seq`` tokens (row-major) stand
+        in the microbatch's tokens (row-major over every block)."""
+        local = torch.arange(rows * seq, device=self.device)
+        if self.span is None:
+            return local + self.block * rows * seq
+        first, total = self.span
+        return (local // seq) * total + first + local % seq
 
 
 _PIECE: contextvars.ContextVar = contextvars.ContextVar("dp_piece", default=None)
@@ -166,8 +199,9 @@ class _Lockstep:
     turn comes back.  So the pieces meet at each exchange as SPMD devices
     do, and the run is as deterministic as one thread's."""
 
-    def __init__(self, n: int):
+    def __init__(self, n: int, pieces: Optional[Sequence[Piece]] = None):
         self.n = n
+        self.pieces = pieces
         self.cv = threading.Condition()
         self.turn = 0
         self.finished = [False] * n
@@ -238,23 +272,33 @@ class _Lockstep:
         return out
 
 
-def _moe_combine(deposits):
-    """The exchange of one MoE layer: every piece's gates and expert
-    choices gathered (in piece order, the global token order) and the
-    pieces' router-probability sums over the global token count summed."""
-    first = deposits[0][0].device
-    gates = collectives.all_gather([d[0] for d in deposits], dim=0, device=first)
-    experts = collectives.all_gather([d[1] for d in deposits], dim=0, device=first)
-    pmean = collectives.all_reduce_sum([d[2] for d in deposits], device=first)
-    return gates, experts, pmean
+def _moe_combine(pieces: Sequence[Piece]):
+    """The exchange of one MoE layer over ``pieces``: the gates and expert
+    choices ([rows, seq, k] each) of one piece per block, gathered in the
+    microbatch's token order (along the rows, or along the positions of a
+    position split), and those pieces' router-probability sums over the
+    microbatch's token count summed.  A replica's deposit (a piece whose
+    block another piece runs too) is the same and is left out."""
+    first = pieces[0]
+    dim = 0 if first.span is None else 1
+
+    def combine(deposits):
+        ds = deposits[:first.blocks]
+        dev = ds[0][0].device
+        gates = collectives.all_gather([d[0] for d in ds], dim=dim, device=dev)
+        experts = collectives.all_gather([d[1] for d in ds], dim=dim, device=dev)
+        pmean = collectives.all_reduce_sum([d[2] for d in ds], device=dev)
+        k = gates.shape[-1]
+        return gates.reshape(-1, k), experts.reshape(-1, k), pmean
+    return combine
 
 
 def moe_exchange(gates: torch.Tensor, experts: torch.Tensor, psum: torch.Tensor):
-    """(every piece's gates [T, k], every piece's expert choices [T, k], the
-    global mean router probabilities [E]) for the running piece, which
-    brings its own gates, choices and router-probability sum over the
-    global token count ``psum``; inside a recomputation, the results the
-    forward's exchange gave."""
+    """(every block's gates [T, k], every block's expert choices [T, k], the
+    microbatch's mean router probabilities [E]) for the running piece,
+    which brings its own gates and choices [rows, seq, k] and its
+    router-probability sum over the microbatch's token count ``psum``;
+    inside a recomputation, the results the forward's exchange gave."""
     piece = _PIECE.get()
     if piece.replay is not None:
         out = piece.log[piece.replay[0]]
@@ -262,10 +306,62 @@ def moe_exchange(gates: torch.Tensor, experts: torch.Tensor, psum: torch.Tensor)
         return out
     if piece.group is None:
         raise RuntimeError("an MoE exchange between pieces that do not run in lockstep")
-    out = piece.group.exchange(piece.index, (gates.detach(), experts, psum), _moe_combine)
+    out = piece.group.exchange(piece.index, (gates.detach(), experts, psum),
+                               _moe_combine(piece.group.pieces))
     out = tuple(t.to(piece.device) for t in out)
     piece.log.append(out)
     return out
+
+
+def position_span() -> Optional[Tuple[int, int]]:
+    """(first position, positions of a row in all) of the running piece of a
+    position split; None elsewhere."""
+    piece = _PIECE.get()
+    return None if piece is None else piece.span
+
+
+def _kv_combine(pieces: Sequence[Piece]):
+    """The K/V exchange of one attention layer: within each replica group
+    (the pieces of one "pod" position, ordered by their blocks) every
+    piece's k and v gathered along the positions onto each piece of the
+    group (``collectives.all_gather_each``); per piece, its copies and the
+    group's pieces (detached, for a recomputation's gather)."""
+    D = pieces[0].blocks
+
+    def combine(deposits):
+        out = {}
+        for g in range(0, len(deposits), D):
+            ks, vs = [d[0] for d in deposits[g:g + D]], [d[1] for d in deposits[g:g + D]]
+            devices = [p.device for p in pieces[g:g + D]]
+            kk = collectives.all_gather_each(ks, dim=1, devices=devices)
+            vv = collectives.all_gather_each(vs, dim=1, devices=devices)
+            own = [(k.detach(), v.detach()) for k, v in zip(ks, vs)]
+            for i in range(D):
+                out[g + i] = (kk[i], vv[i], i, own)
+        return out
+    return combine
+
+
+def gather_positions(k: torch.Tensor, v: torch.Tensor):
+    """Every position of the running piece's rows, k and v [rows, seq, K,
+    hd] each, gathered from the pieces of its replica group, in their
+    order: a split of the positions runs each piece's attention over the
+    whole K/V.  The gathers differentiate to reduce-scatters of the K/V
+    gradients.  Inside a recomputation the gathers run again (counted
+    again), over the forward's pieces with the piece's own recomputed k
+    and v in its place."""
+    piece = _PIECE.get()
+    if piece.replay is not None:
+        own, group = piece.log[piece.replay[0]]
+        piece.replay[0] += 1
+        ks = [k if i == own else g[0] for i, g in enumerate(group)]
+        vs = [v if i == own else g[1] for i, g in enumerate(group)]
+        return (collectives.all_gather(ks, dim=1, device=piece.device),
+                collectives.all_gather(vs, dim=1, device=piece.device))
+    kk, vv, own, group = piece.group.exchange(piece.index, (k, v),
+                                              _kv_combine(piece.group.pieces))[piece.index]
+    piece.log.append((own, group))
+    return kk, vv
 
 
 # ---------------------------------------------------------------------------
@@ -277,8 +373,7 @@ _EARLY_STOP_KW = "early_stop" in inspect.signature(_ckpt.checkpoint).parameters
 
 @contextlib.contextmanager
 def _replaying(piece: Piece, cursor: int):
-    token = _PIECE.set(Piece(piece.index, piece.n, piece.coords, piece.mesh, None, piece.log,
-                             [cursor]))
+    token = _PIECE.set(dataclasses.replace(piece, group=None, replay=[cursor]))
     try:
         yield
     finally:
@@ -379,11 +474,15 @@ def dp_pieces(mesh) -> List[Dict[str, int]]:
 
 def _reduce(plan: List[_Entry], grads: List[list], pieces: List[Dict[str, int]]):
     """Each tensor's gradient reduced over the pieces (``grads[j][e]``,
-    piece ``j``'s gradient of entry ``e``), in the entries' order."""
+    piece ``j``'s gradient of entry ``e``), in the entries' order; each
+    piece's gradient is let go once its entry is reduced."""
     out: List[Optional[torch.Tensor]] = [None] * len(plan)
     groups: Dict[tuple, List[int]] = {}
     for e, ent in enumerate(plan):
         gs = [g[e] for g in grads]
+        if ent.kind != "fsdp":
+            for g in grads:
+                g[e] = None
         dtype = gs[0].dtype
         if ent.kind == "all":
             out[e] = collectives.all_reduce_sum(gs, dtype=dtype, device=ent.tensor.device)
@@ -401,6 +500,7 @@ def _reduce(plan: List[_Entry], grads: List[list], pieces: List[Dict[str, int]])
                 parts.append(acc)
             out[e] = (collectives.all_reduce_sum(parts, dtype=dtype, device=ent.tensor.device)
                       if len(parts) > 1 else parts[0].to(dtype))
+        del gs
     for es in groups.values():
         es = sorted(es, key=lambda e: plan[e].shard)
         res = collectives.reduce_scatter([[grads[j][e] for e in es] for j in range(len(grads))],
@@ -418,39 +518,100 @@ def mesh_of(params):
                 None)
 
 
-def dp_split(mesh, rows: int) -> bool:
-    """Whether ``sharding.batch_shardings`` splits ``rows`` over ``mesh``'s
-    dp axes (their size divides ``rows``)."""
+@dataclass(frozen=True)
+class Split:
+    """How a step's batch goes over the ``n`` positions of the dp axes.
+
+    - ``"rows"`` (``batch_shardings`` splits the rows): each microbatch's
+      rows in ``blocks`` equal blocks, position ``j`` running block
+      ``j % blocks``: ``blocks == n`` where a microbatch's rows divide
+      the dp positions.  Where they do not, the placement XLA gives the
+      reference's ``[M, B/M, ...]`` reshape of a batch split over the dp
+      axes (read from its compiled step at (4, 2) and (8, 1) host meshes):
+      ``blocks = n / gcd(n, M)``, the positions that held a microbatch's
+      rows split it, and the other positions run it again (replicas, ``n
+      / blocks`` of each block).
+    - ``"positions"`` (the rows do not divide the dp axes and
+      ``batch_shardings`` puts the positions over "data"): each row's
+      positions in ``blocks`` (the "data" axis' size) blocks, position
+      ``j`` running the block of its "data" coordinate; its "pod"
+      positions are replicas.
+    - ``None``: the batch whole."""
+    by: Optional[str] = None
+    n: int = 1
+    blocks: int = 1
+
+    def block(self, j: int, coords: Dict[str, int]) -> int:
+        return coords["data"] if self.by == "positions" else j % self.blocks
+
+
+POSITION_SPLIT_FAMILIES = ("dense", "moe")
+
+
+def plan_split(mesh, rows: int, seq: int, microbatches: int = 1,
+               family: str = "dense") -> Split:
+    """The :class:`Split` of a ``rows`` x ``seq`` batch in ``microbatches``
+    over ``mesh`` (None: no mesh).  A split of the positions runs for the
+    families of :data:`POSITION_SPLIT_FAMILIES`; the others run such a
+    batch whole.  Raises ``ValueError`` where the microbatches do not
+    divide the rows, or their rows do not split into the blocks."""
     from repro_torch.distributed.sharding import batch_shardings
-    return batch_shardings(None, {"tokens": torch.empty((rows, 1), device="meta")},
-                           mesh)["tokens"][0] is not None
-
-
-def _split_rows(batch: Dict[str, torch.Tensor], n: int, microbatches: int) -> List[List[dict]]:
-    """``[i][j]``: microbatch ``i``'s rows of piece ``j``."""
-    B = next(iter(batch.values())).shape[0]
+    if mesh is None:
+        return Split()
     M = microbatches
-    if B % M or (B // M) % n:
-        raise ValueError(f"batch {B} does not split into {M} microbatches of rows over "
-                         f"{n} dp positions")
-    b = B // M // n
-    return [[{k: v[i * (B // M) + j * b:i * (B // M) + (j + 1) * b] for k, v in batch.items()}
-             for j in range(n)] for i in range(M)]
+    if rows % M:
+        raise ValueError(f"batch {rows} does not divide into {M} microbatches")
+    n = len(dp_pieces(mesh))
+    spec = batch_shardings(None, {"tokens": torch.empty((rows, seq), device="meta")},
+                           mesh)["tokens"]
+    if spec[0] is not None:
+        blocks = n if (rows // M) % n == 0 else n // math.gcd(n, M)
+        if (rows // M) % blocks:
+            raise ValueError(f"{M} microbatches of {rows // M} rows do not split into "
+                             f"{blocks} blocks over {n} dp positions")
+        return Split("rows", n, blocks)
+    if spec[1] == "data" and family in POSITION_SPLIT_FAMILIES:
+        return Split("positions", n, mesh.shape["data"])
+    return Split()
 
 
-def split_value_and_grad(loss: Callable, params, batch: Dict[str, torch.Tensor], mesh, *,
-                         microbatches: int = 1, lockstep: bool = False):
+def _parts(batch: Dict[str, torch.Tensor], split: Split, pieces, M: int) -> List[List[dict]]:
+    """``[i][j]``: microbatch ``i``'s part of piece ``j`` (its rows, or
+    every row's block of positions)."""
+    B = next(iter(batch.values())).shape[0]
+    rows = B // M
+    out = []
+    for i in range(M):
+        mb = {k: v[i * rows:(i + 1) * rows] for k, v in batch.items()}
+        row = []
+        for j, c in enumerate(pieces):
+            blk = split.block(j, c)
+            if split.by == "positions":
+                S = next(iter(mb.values())).shape[1] // split.blocks
+                row.append({k: v[:, blk * S:(blk + 1) * S] for k, v in mb.items()})
+            else:
+                b = rows // split.blocks
+                row.append({k: v[blk * b:(blk + 1) * b] for k, v in mb.items()})
+        out.append(row)
+    return out
+
+
+def split_value_and_grad(loss: Callable, params, batch: Dict[str, torch.Tensor], mesh,
+                         split: Split, *, microbatches: int = 1, lockstep: bool = False):
     """(the global mean loss, its gradient as a tree like ``params``) of a
-    placed tree over ``batch``, its rows split over ``mesh``'s dp axes
-    (see the module docstring).  ``loss(params, rows)`` is a piece's mean
-    loss over its rows.  ``lockstep`` runs the pieces in lockstep (a model
-    whose forward exchanges between them: the MoE block).  With one
-    microbatch each gradient has its param's dtype; with several, f32,
+    placed tree over ``batch``, split over ``mesh``'s dp axes as ``split``
+    (:func:`plan_split`) says; see the module docstring.  ``loss(params,
+    part)`` is a piece's mean loss over its part.  ``lockstep`` runs the
+    pieces in lockstep (a model whose forward exchanges between them: the
+    MoE block; a split of the positions always does, for its K/V).  With
+    one microbatch each gradient has its param's dtype; with several, f32,
     accumulated per piece and divided by their count."""
     pieces = dp_pieces(mesh)
     n = len(pieces)
     M = microbatches
-    rows = _split_rows(batch, n, M)
+    lockstep = lockstep or split.by == "positions"
+    parts_all = _parts(batch, split, pieces, M)
+    S = next(iter(batch.values())).shape[1]
     flat = leaves(params)
     plan: List[_Entry] = []
     views, diffs = [], []
@@ -465,12 +626,17 @@ def split_value_and_grad(loss: Callable, params, batch: Dict[str, torch.Tensor],
     total = None
     with mesh_step(), torch.enable_grad():
         for i in range(M):
-            group = _Lockstep(n) if lockstep else None
-            states = [Piece(j, n, c, mesh, group) for j, c in enumerate(pieces)]
-            parts = [{k: v.to(s.device) for k, v in rows[i][j].items()}
+            states = [Piece(j, n, c, mesh, None, block=split.block(j, c), blocks=split.blocks,
+                            span=((split.block(j, c) * (S // split.blocks), S)
+                                  if split.by == "positions" else None))
+                      for j, c in enumerate(pieces)]
+            group = _Lockstep(n, states) if lockstep else None
+            for st in states:
+                st.group = group
+            parts = [{k: v.to(s.device) for k, v in parts_all[i][j].items()}
                      for j, s in enumerate(states)]
 
-            def run_piece(j):           # its rows' mean, weighted by their share (1 / n)
+            def run_piece(j):           # its part's mean, weighted by its share (1 / n)
                 token = _PIECE.set(states[j])
                 try:
                     return loss(views[j], parts[j]).float() * (1.0 / n)
@@ -506,5 +672,6 @@ def split_value_and_grad(loss: Callable, params, batch: Dict[str, torch.Tensor],
     return total, unflatten_like(params, [_rebuild(leaf, it) for leaf in flat])
 
 
-__all__ = ["Piece", "active", "checkpoint", "dp_pieces", "dp_split", "home_device", "mesh_of",
-           "mesh_step", "moe_exchange", "split_value_and_grad", "unshard"]
+__all__ = ["POSITION_SPLIT_FAMILIES", "Piece", "Split", "active", "checkpoint", "dp_pieces",
+           "gather_positions", "home_device", "mesh_of", "mesh_step", "moe_exchange", "plan_split",
+           "position_span", "split_value_and_grad", "unshard"]

@@ -17,17 +17,26 @@ and reports, per cell:
   (``init_cache(compact_local=True)``): a local layer keeps a circular
   buffer of its window, a global layer the whole context;
 - whether that fits an 80 GB card;
-- the roofline terms of ``launch/roofline.py``: the cell's model FLOPs
-  shared over the mesh, the bytes above read once, and the result bytes
-  of every gather and reduce the sharded step runs
-  (``roofline.collective_bytes``: a decode step's ``B`` rows, a
-  prefill's ``B * S``).  A train cell counts the whole data-parallel step
-  over the params placed with the cell's own ``fsdp``
-  (``roofline.train_collectives``: its rows over the dp axes, the
-  forward, the backward's conjugates and rematerialized blocks, FSDP's
-  per-use gathers, and the gradients' all-reduces and reduce-scatters),
-  says ``train_collectives: counted`` and gives the
-  ``collective_breakdown`` by forward, backward and gradients.  A decode
+- the roofline terms of ``launch/roofline.py``, each per device, as the
+  reference reads them from each compiled cell's per-device program: the
+  cell's model FLOPs shared over the mesh, the bytes above read once,
+  and the result bytes of the collectives one device's program holds
+  (``per_device`` of ``roofline.collective_report``, a decode step's
+  ``B`` rows and a prefill's ``B * S`` shared over the dp positions that
+  split them, and of ``roofline.train_collectives``), which set
+  ``t_collective`` and ``bound``.  Beside them ``coll_bytes_controller``
+  and ``collective_controller`` give the single controller's sum over
+  every call (what ``collectives`` records when the step runs) and
+  ``port_only`` the gathers XLA never emits (column outputs cut again by
+  a row split, the logits', slot gathers, and their conjugates).  A train
+  cell builds the reference's step (``api.build_train_step`` with its
+  :func:`xent_chunk`, one microbatch) and counts the whole
+  data-parallel step over the params placed with the cell's own ``fsdp``
+  (its rows over the dp axes, the forward, the backward's conjugates and
+  rematerialized blocks, FSDP's per-use gathers, and the gradients'
+  all-reduces and reduce-scatters), says ``train_collectives: counted``
+  and gives the ``collective_breakdown`` by forward, backward and
+  gradients.  A decode
   step runs over the cache placed as a mesh engine places its own
   (``models/sharded_cache.py`` ``place_slot_state``; the engine keeps
   absolute slots, the rules are the same, and the sharded attention
@@ -51,6 +60,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import sys
 import time
@@ -74,6 +84,22 @@ SHAPES = {
 BIG_FOR_ADAFACTOR = 50e9     # params; arctic trains with adafactor + fsdp
 FSDP_ABOVE = 5e9             # params; train cells shard weights over data above it
 CARD_BYTES = 80e9            # one H100's memory
+
+
+def _largest_divisor(n: int, cap: int) -> int:
+    return max(d for d in range(1, cap + 1) if n % d == 0)
+
+
+def xent_chunk(cfg, seq_len: int) -> int:
+    """The streamed cross-entropy chunk the reference's dry run builds a
+    train cell's step with (``launch/dryrun.py``): the largest divisor of
+    the loss's positions (a vlm's text positions) up to 1024 for a
+    vocabulary of 32000 or more in the dense, MoE and vlm families, else
+    none (0)."""
+    if cfg.vocab_size >= 32000 and cfg.family in ("dense", "moe", "vlm"):
+        return _largest_divisor(seq_len - (cfg.n_img_tokens if cfg.family == "vlm" else 0),
+                                1024)
+    return 0
 
 
 def shape_supported(cfg, shape: str) -> Tuple[bool, str]:
@@ -196,7 +222,8 @@ def build_cell(arch: str, shape_name: str, mesh, compress: str = "") -> dict:
         cell.update(opt_kind=kind, opt_state=opt.init(params),
                     opt_state_shardings=SH.opt_state_shardings(cell["param_shardings"],
                                                                mesh, kind),
-                    step=api.build_train_step(cfg, opt))
+                    step=api.build_train_step(cfg, opt,
+                                              xent_chunk=xent_chunk(cfg, spec.seq_len)))
     elif spec.kind == "prefill":
         cell["step"] = api.build_prefill_step(cfg, spec)
     else:
@@ -209,10 +236,31 @@ def build_cell(arch: str, shape_name: str, mesh, compress: str = "") -> dict:
 
 def train_step_shape(cfg, batch) -> "RL.TrainStep":
     """The shape of the train step a train cell runs (``api.build_train_step``:
-    one microbatch, no cross-entropy chunks, remat on) from its inputs."""
+    one microbatch, as the reference's unrolled analysis build, its
+    :func:`xent_chunk`, remat on) from its inputs."""
     B, S = batch["tokens"].shape
     enc = batch["enc_inputs"].shape[1] if "enc_inputs" in batch else 0
-    return RL.TrainStep(B, S, enc_len=enc)
+    seq = S + (cfg.n_img_tokens if cfg.family == "vlm" else 0)
+    return RL.TrainStep(B, S, xent_chunk=xent_chunk(cfg, seq), enc_len=enc)
+
+
+def _device_share(cfg, spec, batch_sh, mesh) -> Tuple[float, bool]:
+    """(the share of a decode or prefill cell's rows one device runs, as
+    ``batch_shardings`` places them: 1 / the dp positions where they split
+    the rows, 1 / "data" where the positions go over "data"; whether the
+    reference keeps a prefill's activations split over "model" along the
+    sequence, ``roofline._sequence_split``'s rule)."""
+    spec0 = batch_sh["tokens"]
+    share = 1.0
+    if spec0[0] is not None:
+        axes = spec0[0] if isinstance(spec0[0], tuple) else (spec0[0],)
+        share /= math.prod(mesh.shape[a] for a in axes)
+    elif len(spec0) > 1 and spec0[1] == "data":
+        share /= mesh.shape["data"]
+    model = mesh.shape.get("model", 1)
+    sp = (spec.kind == "prefill" and cfg.family in RL._SEQUENCE_SPLIT and spec0[0] is not None
+          and model > 1 and spec.seq_len % model == 0)
+    return share, sp
 
 
 def run_cell(arch: str, shape_name: str, mesh_kind: str, compress: str = "") -> dict:
@@ -249,13 +297,16 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, compress: str = "") -> 
         state = place_slot_state(cache, cfg, mesh)
     train_note = {}
     if spec.kind == "train":
-        tc = RL.train_collectives(SH.place(params, cell["param_shardings"]), cfg,
-                                  train_step_shape(cfg, batch))
-        coll = tc["bytes"]
-        train_note = {"train_collectives": "counted", "collective_breakdown": tc["breakdown"],
-                      "collective_calls": tc["calls"], "dp_split": tc["split"]}
+        step = train_step_shape(cfg, batch)
+        rep = RL.train_collectives(SH.place(params, cell["param_shardings"]), cfg, step)
+        train_note = {"train_collectives": "counted", "collective_breakdown": rep["breakdown"],
+                      "collective_calls": rep["calls"], "dp_split": rep["split"],
+                      "xent_chunk": step.xent_chunk}
     else:
-        coll = RL.collective_bytes(SH.shard_params(params, cfg, mesh), cfg, rows, state)
+        share, sp = _device_share(cfg, spec, batch_sh, mesh)
+        rep = RL.collective_report(SH.shard_params(params, cfg, mesh), cfg, rows, state,
+                                   share=share, sp=sp)
+    coll = rep["per_device"]
     mf = RL.model_flops(cfg, spec)
     roof = RL.Roofline(flops=mf / chips, bytes_accessed=per_position,
                        coll_bytes=sum(coll.values()), chips=chips, coll_detail=coll)
@@ -265,6 +316,8 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, compress: str = "") -> 
             "param_bytes_per_position": mem["params"], "memory": mem,
             "fits": per_position <= CARD_BYTES, "card_bytes": CARD_BYTES,
             "roofline": roof.to_dict(), "model_flops": mf,
+            "coll_bytes_controller": sum(rep["bytes"].values()),
+            "collective_controller": rep["bytes"], "port_only": rep["port_only"],
             **({"cache_collectives": cache_note} if spec.kind == "decode" else {}),
             **train_note,
             "seconds": time.time() - t0}

@@ -215,19 +215,82 @@ def _state_bytes(state, cfg, slots: int, positions) -> Dict[str, float]:
     return {"state_read": read, "state_written": written}
 
 
-def _gathers(w, lead: int, act: int, out: Dict[str, float]) -> None:
-    """Add one use of ``w`` on ``lead`` activation rows to ``out``: a
-    column-sharded weight's all-gather of its output [lead, d_out], a
+class _Tally:
+    """A step's collectives two ways.  The single controller's, by phase
+    and kind (``bytes``, ``calls``): what ``collectives`` records when the
+    step runs.  And what one device's program holds, the reference's
+    convention (``launch/hlo_analysis.py`` reads each compiled cell's
+    per-device HLO): ``dev`` {kind: result bytes}, the gathers that only
+    the single controller runs in ``port_only`` {name: {kind: bytes}},
+    and ``widen`` {kind: bytes}, what the device's floating-point
+    collectives narrower than f32 would add in f32."""
+
+    def __init__(self):
+        self.bytes = {p: {} for p in ("forward", "backward", "gradients")}
+        self.calls = {p: {} for p in ("forward", "backward", "gradients")}
+        self.dev: Dict[str, float] = {}
+        self.port_only: Dict[str, Dict[str, float]] = {}
+        self.widen: Dict[str, float] = {}
+
+    def add(self, phase: str, kind: str, nbytes: float, calls: int = 1, *, per: float = 1.0,
+            only: str = None, size: int = 4, dev_nbytes: float = None) -> None:
+        """``calls`` of a collective of ``nbytes`` a call; a device takes
+        part in ``per`` of them and holds ``dev_nbytes`` a call (default
+        ``nbytes``) of elements of ``size`` bytes, listed under ``only``
+        where XLA emits no such collective."""
+        if not calls:
+            return
+        self.bytes[phase][kind] = self.bytes[phase].get(kind, 0.0) + nbytes * calls
+        self.calls[phase][kind] = self.calls[phase].get(kind, 0) + calls
+        self.device(kind, (nbytes if dev_nbytes is None else dev_nbytes) * calls * per,
+                    only=only, size=size)
+
+    def device(self, kind: str, nbytes: float, *, only: str = None, size: int = 4) -> None:
+        """``nbytes`` of one device's program that the controller's count
+        does not hold as such (XLA's decomposition of the same step)."""
+        if only is not None:
+            into = self.port_only.setdefault(only, {})
+            into[kind] = into.get(kind, 0.0) + nbytes
+            return
+        self.dev[kind] = self.dev.get(kind, 0.0) + nbytes
+        if size < 4:
+            self.widen[kind] = self.widen.get(kind, 0.0) + nbytes * (4 / size - 1)
+
+    def forward(self, kind, nbytes, calls, again: bool, **kw) -> None:
+        """A forward collective, run again by the backward's recomputation
+        where ``again``."""
+        self.add("forward", kind, nbytes, calls, **kw)
+        if again:
+            self.add("backward", kind, nbytes, calls, **kw)
+
+    def device_forward(self, kind, nbytes, again: bool, size: int) -> None:
+        self.device(kind, nbytes * (2 if again else 1), size=size)
+
+
+def _gathers(w, lead: float, act: int, t: _Tally, per: float, sp: bool) -> None:
+    """Add one use of ``w`` on ``lead`` activation rows to ``t``'s forward:
+    a column-sharded weight's all-gather of its output [lead, d_out], a
     row-sharded one's all-reduce of it, an expert stack's all-gather of
     [E, C, d_out] (``lead`` = E * C), each in the activation's ``act``
-    bytes, and its pieces' own collectives."""
+    bytes, and its pieces' own collectives.  One device holds ``per`` of
+    each; XLA keeps a column output split over "model" (``port_only``
+    ``"column_outputs"``) and, under the activations' sequence split
+    ``sp``, gathers a row-split section's input [lead, d_out] instead."""
     if not isinstance(w, ShardedTensor):
         return
-    kind = "all-reduce" if w.dim == -2 else "all-gather"
-    out[kind] = out.get(kind, 0.0) + lead * w.shape[-1] * act
+    d_out = w.shape[-1]
+    if w.dim == -2:
+        t.add("forward", "all-reduce", lead * d_out * act, per=per, size=act)
+        if sp:
+            t.device("all-gather", lead * d_out * act * per, size=act)
+    else:
+        t.add("forward", "all-gather", lead * d_out * act, per=per, size=act,
+              only="column_outputs" if w.dim == -1 else None)
     for p in w.pieces:
-        share = lead * _experts(p) // _experts(w) if w.dim == -3 else lead
-        _gathers(p, share, act, out)
+        if w.dim == -3:
+            _gathers(p, lead * _experts(p) // _experts(w), act, t, per, False)
+        else:
+            _gathers(p, lead, act, t, per / len(w.pieces), False)
 
 
 def _experts(w) -> int:
@@ -254,9 +317,21 @@ def collective_bytes(params, cfg, rows: int, state=None, *,
     the placed tree (``rows`` unused): :func:`train_collectives`' bytes."""
     if train is not None:
         return train_collectives(params, cfg, train)["bytes"]
+    return collective_report(params, cfg, rows, state)["bytes"]
+
+
+def collective_report(params, cfg, rows: int, state=None, *, share: float = 1.0,
+                      sp: bool = False) -> Dict[str, Dict]:
+    """:func:`collective_bytes` (``"bytes"``) and what one device's program
+    holds of that step (``"per_device"``, ``"port_only"``, ``"widen"``:
+    see :class:`_Tally`), where a device runs ``share`` of the ``rows``
+    (1 / the dp positions where the batch splits over them) and ``sp``
+    says the reference keeps the activations split over "model" between
+    layers (its dry run's train and prefill cells: each row-split
+    section's input gathered, as a train step's forward)."""
     from repro_torch.models.layers import moe_capacity
     act = torch.empty((), dtype=cfg.dtype).element_size()
-    out: Dict[str, float] = {}
+    t = _Tally()
     sites = 1
     if cfg.family == "hybrid":
         from repro_torch.models.hybrid import layout
@@ -269,9 +344,12 @@ def collective_bytes(params, cfg, rows: int, state=None, *,
             continue
         if name == "embed":
             size = torch.empty((), dtype=leaf.dtype).element_size()     # QEmbed rows: bf16
-            out["all-reduce"] = out.get("all-reduce", 0.0) + rows * leaf.shape[-1] * size
+            t.add("forward", "all-reduce", rows * leaf.shape[-1] * size, per=share, size=size)
             if cfg.tie_embeddings:
-                out["all-gather"] = out.get("all-gather", 0.0) + rows * leaf.shape[-2] * 4
+                t.add("forward", "all-gather", rows * leaf.shape[-2] * 4, per=share,
+                      only="logits")
+                if sp:
+                    t.device("all-gather", rows * leaf.shape[-1] * act * share, size=act)
             continue
         expert = "moe" in path and name in ("wi", "wg", "wo")
         matrix = 3 if expert else 2
@@ -282,13 +360,36 @@ def collective_bytes(params, cfg, rows: int, state=None, *,
         lead = rows
         if expert:
             lead = _experts(leaf) * moe_capacity(rows, cfg, train=False)
-        one: Dict[str, float] = {}
-        _gathers(leaf, lead, act, one)
-        for k, v in one.items():
-            out[k] = out.get(k, 0.0) + v * uses
+        one = _Tally()
+        _gathers(leaf, lead, act, one, share, sp)
+        if name == "unembed":
+            one.port_only["logits"] = one.port_only.pop("column_outputs", {})
+            if sp:
+                one.device("all-gather", lead * leaf.shape[-2] * act * share, size=act)
+        _merge(t, one, uses)
     if state is not None:
-        _cache_collectives(params, state, cfg, rows, act, out)
-    return out
+        _cache_collectives(params, state, cfg, rows, act, t, share)
+    return {"bytes": t.bytes["forward"], **_device_report(t)}
+
+
+def _merge(t: _Tally, one: _Tally, times: float = 1) -> None:
+    """Add ``times`` x ``one`` to ``t``."""
+    for phase in one.bytes:
+        for k, v in one.bytes[phase].items():
+            t.bytes[phase][k] = t.bytes[phase].get(k, 0.0) + v * times
+            t.calls[phase][k] = t.calls[phase].get(k, 0) + one.calls[phase][k] * times
+    for mine, theirs in ((t.dev, one.dev), (t.widen, one.widen)):
+        for k, v in theirs.items():
+            mine[k] = mine.get(k, 0.0) + v * times
+    for name, kb in one.port_only.items():
+        into = t.port_only.setdefault(name, {})
+        for k, v in kb.items():
+            into[k] = into.get(k, 0.0) + v * times
+
+
+def _device_report(t: _Tally) -> Dict[str, Dict]:
+    return {"per_device": dict(t.dev), "port_only": {k: dict(v) for k, v in t.port_only.items()},
+            "widen": dict(t.widen)}
 
 
 @dataclass
@@ -306,26 +407,9 @@ class TrainStep:
 
 
 _REMAT_ROOTS = ("blocks", "mamba_groups", "shared", "enc_blocks", "dec_blocks")
-
-
-class _Tally:
-    """Bytes and calls by phase and kind."""
-
-    def __init__(self):
-        self.bytes = {p: {} for p in ("forward", "backward", "gradients")}
-        self.calls = {p: {} for p in ("forward", "backward", "gradients")}
-
-    def add(self, phase: str, kind: str, nbytes: float, calls: int = 1) -> None:
-        if calls:
-            self.bytes[phase][kind] = self.bytes[phase].get(kind, 0.0) + nbytes * calls
-            self.calls[phase][kind] = self.calls[phase].get(kind, 0) + calls
-
-    def forward(self, kind, nbytes, calls, again: bool) -> None:
-        """A forward collective, run again by the backward's recomputation
-        where ``again``."""
-        self.add("forward", kind, nbytes, calls)
-        if again:
-            self.add("backward", kind, nbytes, calls)
+# the families whose layers the reference's dry run constrains to the
+# activations' sequence split (``sharding.constrain``)
+_SEQUENCE_SPLIT = ("dense", "moe", "vlm", "hybrid", "rwkv")
 
 
 def _layer_bytes(w) -> float:
@@ -338,117 +422,186 @@ def _is_fsdp(w) -> bool:
     return isinstance(w, ShardedTensor) and w.axis == "data" and w.dim in (-1, -2)
 
 
-def _gathered(w, split: bool, t: _Tally, calls: int, again: bool):
+def _gathered(w, split: bool, t: _Tally, calls: int, again: bool, per: float):
     """``w`` as a split step multiplies by it, as ``data_parallel.unshard``
     makes it: each FSDP split made over "data" gathered per use (counted;
-    a meta tensor of the gathered shape in its place); ``w`` itself
-    outside a split step."""
+    a meta tensor of the gathered shape in its place; a device gathers
+    the one model piece it holds); ``w`` itself outside a split step."""
     if not split or not isinstance(w, ShardedTensor):
         return w
     if _is_fsdp(w):
         inner = w.pieces[0]
         if isinstance(inner, ShardedTensor):     # "data" outermost: gather each inner piece
-            per = [ShardedTensor([p.pieces[m] for p in w.pieces], w.dim, w.axis, w.mesh)
-                   for m in range(len(inner.pieces))]
-            return ShardedTensor([_gathered(g, split, t, calls, again) for g in per],
-                                 inner.dim, inner.axis, inner.mesh)
-        t.forward("all-gather", _layer_bytes(w), calls, again)
+            per_m = [ShardedTensor([p.pieces[m] for p in w.pieces], w.dim, w.axis, w.mesh)
+                     for m in range(len(inner.pieces))]
+            return ShardedTensor([_gathered(g, split, t, calls, again, per / len(per_m))
+                                  for g in per_m], inner.dim, inner.axis, inner.mesh)
+        t.forward("all-gather", _layer_bytes(w), calls, again, per=per,
+                  size=_main(w).element_size())
         return torch.empty(w.shape, dtype=_main(w).dtype, device="meta")
-    return ShardedTensor([_gathered(p, split, t, calls, again) for p in w.pieces], w.dim,
-                         w.axis, w.mesh)
+    return ShardedTensor([_gathered(p, split, t, calls, again, per / len(w.pieces))
+                          for p in w.pieces], w.dim, w.axis, w.mesh)
 
 
 def _linear_use(w, lead: float, act: int, split: bool, t: _Tally, calls: int,
-                again: bool) -> None:
+                again: bool, per: float, sp: bool) -> None:
     """One use of a linear ``w`` on ``lead`` activation rows, made
     ``calls`` times: a split step's FSDP gathers first (:func:`_gathered`),
     then :func:`_split_rules`."""
-    _split_rules(_gathered(w, split, t, calls, again), lead, act, t, calls, again)
+    _split_rules(_gathered(w, split, t, calls, again, per), lead, act, t, calls, again, per, sp)
 
 
-def _split_rules(w, lead: float, act: int, t: _Tally, calls: int, again: bool) -> None:
+def _split_rules(w, lead: float, act: int, t: _Tally, calls: int, again: bool, per: float,
+                 sp: bool) -> None:
     """A column split's output all-gather and, in the backward, the
     all-reduce of its input's gradient (the hand-off's conjugate); a row
     split's all-reduce and its input's gradient all-gathered (the split's
     conjugate); an expert stack's output gathered [E, C, d_out] and its
-    input's gradient [E, C, d_in]; then the pieces' own."""
+    input's gradient [E, C, d_in]; then the pieces' own.
+
+    One device holds ``per`` of them.  XLA keeps the column outputs split
+    over "model" into the row split that cuts them again, so the column
+    outputs' gathers and the row inputs' gradient gathers are
+    ``port_only``.  Under the activations' sequence split ``sp`` (read
+    from the reference's compiled step) it gathers instead each row-split
+    section's input [lead, d_out] (again in the recomputation) and its
+    output's gradient, and each column split's input for its weight's
+    gradient."""
     if not isinstance(w, ShardedTensor):
         return
     d_in, d_out = w.shape[-2], w.shape[-1]
     if w.dim == -2:
-        t.forward("all-reduce", lead * d_out * act, calls, again)
-        t.add("backward", "all-gather", lead * d_in * act, calls)
+        t.forward("all-reduce", lead * d_out * act, calls, again, per=per, size=act)
+        t.add("backward", "all-gather", lead * d_in * act, calls, per=per,
+              only="row_input_gradients")
+        if sp:
+            t.device_forward("all-gather", lead * d_out * act * calls * per, again, act)
+            t.device("all-gather", lead * d_out * act * calls * per, size=act)
+    elif w.dim == -1:
+        t.forward("all-gather", lead * d_out * act, calls, again, per=per,
+                  only="column_outputs")
+        t.add("backward", "all-reduce", lead * d_in * act, calls, per=per, size=act)
+        if sp:
+            t.device("all-gather", lead * d_in * act * calls * per, size=act)
     else:
-        t.forward("all-gather", lead * d_out * act, calls, again)
-        t.add("backward", "all-reduce" if w.dim == -1 else "all-gather",
-              lead * d_in * act, calls)
+        t.forward("all-gather", lead * d_out * act, calls, again, per=per, size=act)
+        t.add("backward", "all-gather", lead * d_in * act, calls, per=per, size=act)
     for p in w.pieces:
-        share = lead * _experts(p) / _experts(w) if w.dim == -3 else lead
-        _split_rules(p, share, act, t, calls, again)
+        if w.dim == -3:
+            _split_rules(p, lead * _experts(p) / _experts(w), act, t, calls, again, per, False)
+        else:
+            _split_rules(p, lead, act, t, calls, again, per / len(w.pieces), False)
 
 
 def _table_uses(leaf, cfg, rows_lookup: float, rows_logits: float, lookups: int,
-                logit_calls: int, act: int, split: bool, t: _Tally, again_logits: bool) -> None:
+                logit_calls: int, act: int, split: bool, t: _Tally, again_logits: bool,
+                per: float, sp: bool) -> None:
     """The embedding table's lookups and, tied, its logits (see
     ``models/layers.py``): FSDP gathers in a split step; a vocab split's
     rows all-reduced; a piece's ``d_model`` split (outside a split step)
     gathering its rows' columns or, for the logits, cutting ``x`` (its
     gradient all-gathered) and all-reducing the partial f32 logits; the
     tied logits' ``x`` handed to each vocab piece (its gradient
-    all-reduced) and the pieces' f32 logits gathered."""
+    all-reduced) and the pieces' f32 logits gathered.  XLA reads the
+    vocab pieces' logits in place (``port_only`` ``"logits"``); under the
+    sequence split ``sp`` it gathers the final norm's output for the
+    logits' section and again for the table's gradient."""
     size = _main(leaf).element_size()
     V, d = leaf.shape[-2], leaf.shape[-1]
-    w = _gathered(leaf, split, t, lookups, False)
+    w = _gathered(leaf, split, t, lookups, False, per)
     if isinstance(w, ShardedTensor):
-        t.forward("all-reduce", rows_lookup * d * size, lookups, False)
+        t.forward("all-reduce", rows_lookup * d * size, lookups, False, per=per, size=size)
         for p in w.pieces:
             if isinstance(p, ShardedTensor):
-                t.forward("all-gather", rows_lookup * d * size, lookups, False)
+                t.forward("all-gather", rows_lookup * d * size, lookups, False,
+                          per=per / len(w.pieces), size=size)
     if not cfg.tie_embeddings:
         return
-    w = _gathered(leaf, split, t, logit_calls, again_logits)
+    w = _gathered(leaf, split, t, logit_calls, again_logits, per)
     if not isinstance(w, ShardedTensor):
         return
-    t.forward("all-gather", rows_logits * V * 4, logit_calls, again_logits)
-    t.add("backward", "all-reduce", rows_logits * d * act, logit_calls)
+    t.forward("all-gather", rows_logits * V * 4, logit_calls, again_logits, per=per,
+              only="logits")
+    t.add("backward", "all-reduce", rows_logits * d * act, logit_calls, per=per, size=act)
+    if sp:
+        t.device("all-gather", rows_logits * d * act * logit_calls * per, size=act)
     for p in w.pieces:
         if isinstance(p, ShardedTensor):
-            t.forward("all-reduce", rows_logits * p.shape[-2] * 4, logit_calls, again_logits)
-            t.add("backward", "all-gather", rows_logits * d * act, logit_calls)
+            inner = per / len(w.pieces)
+            t.forward("all-reduce", rows_logits * p.shape[-2] * 4, logit_calls, again_logits,
+                      per=inner, only="logits")
+            t.add("backward", "all-gather", rows_logits * d * act, logit_calls, per=inner,
+                  only="logits")
 
 
 def _gradient_reduction(params, pieces, microbatches: int, t: _Tally) -> None:
     """Each float tensor's gradient reduced over the split step's ``pieces``
     (``data_parallel._reduce``): an all-reduce of every tensor the dp axes
     do not split, one reduce-scatter of each FSDP split's shards, and an
-    expert stack's experts over "data" all-reduced over "pod" only."""
+    expert stack's experts over "data" all-reduced over "pod" only.  A
+    device reduces the model shard it holds, and receives 1 / "data" of
+    an FSDP split's shards."""
     pods = len({p.get("pod", 0) for p in pieces})
 
-    def walk(node, kind):
+    def walk(node, kind, per):
         if isinstance(node, ShardedTensor):
             if node.axis == "data":
                 if _is_fsdp(node) and not isinstance(node.pieces[0], ShardedTensor):
                     size = 4 if microbatches > 1 else node.pieces[0].element_size()
                     t.add("gradients", "reduce-scatter",
-                          sum(p.numel() for p in node.pieces) * size, 1)
+                          sum(p.numel() for p in node.pieces) * size, 1,
+                          per=per / len(node.pieces), size=size)
                     return
                 if _is_fsdp(node):               # "data" outermost: one group per inner piece
-                    for m in range(len(node.pieces[0].pieces)):
-                        walk(ShardedTensor([p.pieces[m] for p in node.pieces], node.dim,
-                                           node.axis, node.mesh), kind)
+                    m = len(node.pieces[0].pieces)
+                    for i in range(m):
+                        walk(ShardedTensor([p.pieces[i] for p in node.pieces], node.dim,
+                                           node.axis, node.mesh), kind, per / m)
                     return
                 kind = "ep"
             for p in node.pieces:
-                walk(p, kind)
+                walk(p, kind, per / len(node.pieces))
             return
         if not (isinstance(node, torch.Tensor) and node.is_floating_point()):
             return
         size = 4 if microbatches > 1 else node.element_size()
         if kind == "all" or pods > 1:
-            t.add("gradients", "all-reduce", node.numel() * size, 1)
+            t.add("gradients", "all-reduce", node.numel() * size, 1, per=per, size=size)
 
     for leaf in flatten_with_path(params):
-        walk(leaf[1], "all")
+        walk(leaf[1], "all", 1.0)
+
+
+def _step_split(params, cfg, step: "TrainStep"):
+    """(the mesh, ``data_parallel.Split`` of the step's batch)."""
+    from repro_torch.distributed.data_parallel import Split, mesh_of, plan_split
+    mesh = mesh_of(params)
+    if mesh is None:
+        return None, Split()
+    return mesh, plan_split(mesh, step.batch, step.seq_len, step.microbatches, cfg.family)
+
+
+def _sequence_split(cfg, mesh, plan, step: "TrainStep") -> bool:
+    """Whether the reference's dry run keeps this step's activations split
+    over "model" along the sequence between layers: its
+    ``set_activation_sharding`` constraint ``(dp axes, "model", None)``
+    holds where a microbatch's rows divide the dp axes and its positions
+    the "model" axis, in the families that apply it."""
+    if cfg.family not in _SEQUENCE_SPLIT or plan.by != "rows" or plan.blocks != plan.n:
+        return False
+    model = mesh.shape.get("model", 1)
+    seq = step.seq_len + (cfg.n_img_tokens if cfg.family == "vlm" else 0)
+    return model > 1 and seq % model == 0
+
+
+def _model_pieces(w) -> int:
+    """Into how many pieces the "model" axis cuts a sharded leaf."""
+    n = 1
+    while isinstance(w, ShardedTensor):
+        if w.axis == "model":
+            n *= len(w.pieces)
+        w = w.pieces[0]
+    return n
 
 
 def train_collectives(params, cfg, step: TrainStep) -> Dict[str, Dict]:
@@ -456,77 +609,98 @@ def train_collectives(params, cfg, step: TrainStep) -> Dict[str, Dict]:
     ``params`` (``sharding.place``, FSDP as placed) at ``step``'s shape:
     ``{"bytes": {kind: result bytes}, "calls": {kind: calls},
     "breakdown": {"forward" | "backward" | "gradients": {kind: bytes}},
-    "calls_breakdown": ..., "split": dp positions (1: the batch whole)}``.
-    It equals ``collectives.result_bytes`` and ``calls`` of one executed
-    step (forward, backward and gradients; the optimizer's own reductions
-    are not part of it), byte for byte:
+    "calls_breakdown": ..., "split": dp positions (1: the batch whole),
+    "split_by": "rows" | "positions" | None, "per_device", "port_only",
+    "widen"}``.  ``bytes`` and ``calls`` equal ``collectives.result_bytes``
+    and ``calls`` of one executed step (forward, backward and gradients;
+    the optimizer's own reductions are not part of it), byte for byte:
 
     - forward: every sharded linear as :func:`collective_bytes` counts it,
-      per dp position and microbatch on its rows, the tables' lookups and
-      tied logits (per cross-entropy chunk), a split step's FSDP gathers
-      per use (``data_parallel.unshard``), the MoE exchange of a split
-      step (gates [T, k] f32 and choices [T, k] int64 gathered, router
-      probabilities [E] f32 all-reduced, T the microbatch's global tokens)
-      and the loss's 4-byte all-reduce a microbatch;
+      per dp position and microbatch on its part (its rows, or every
+      row's block of positions: ``data_parallel.Split``; a replica runs
+      its block again), the tables' lookups and tied logits (per
+      cross-entropy chunk), a split step's FSDP gathers per use
+      (``data_parallel.unshard``), the MoE exchange of a split step (gates
+      [T, k] f32 and choices [T, k] int64 gathered, router probabilities
+      [E] f32 all-reduced, T the microbatch's tokens), a split of the
+      positions' K/V gathers at every attention layer (k and v [rows,
+      seq, K, hd] onto each piece of a "pod" position, one call each) and
+      the loss's 4-byte all-reduce a microbatch;
     - backward: each hand-off's conjugate (a column split's input
-      gradient all-reduced, a row or expert split's all-gathered), and,
-      under ``remat``, the forward collectives of every checkpointed block
-      again (the recomputation re-runs them; the MoE exchange is read
-      back, not re-run);
+      gradient all-reduced, a row or expert split's all-gathered, the K/V
+      gathers' gradients reduce-scattered), and, under ``remat``, the
+      forward collectives of every checkpointed block again (the
+      recomputation re-runs them; the MoE exchange is read back, not
+      re-run; each piece gathers the K/V again, one call for k and one
+      for v);
     - gradients (a split step): every tensor the dp axes do not split
       all-reduced, each FSDP split reduce-scattered, experts over "data"
       all-reduced over "pod" where there are pods; in the gradients' dtype
       (f32 with several microbatches).
 
-    The port's convention and XLA's differ, so the reference's HLO
-    figures (``launch/hlo_analysis.py``: per-device result bytes) map to
-    these as follows.  The port counts a single controller's whole result
-    once per call, XLA each device's result: an all-gather or all-reduce
-    the port counts as B is B in every device's HLO where the result is
-    replicated, so XLA's per-device figure for it is B, and the port's
-    sum over the dp positions' calls is n_dp times that.  A reduce-scatter
-    the port counts whole is 1/n_data of it per device in XLA.  XLA emits
-    none of the port's gathers of a column output that a row split cuts
-    again (its activations stay split over "model"), nor the tied logits'
-    gather (the loss reads the vocab pieces in place), nor the hand-offs'
-    conjugates of those; it may fuse an FSDP gather with its rematerialized
-    copy and folds the loss's and the MoE exchange's small reductions into
-    others."""
-    from repro_torch.distributed.data_parallel import dp_pieces, dp_split, mesh_of
+    ``per_device`` is what one device's program holds, the reference's
+    convention (``launch/hlo_analysis.py``: per-device result bytes): a
+    collective every dp position runs counts one position's call (the
+    controller's sum over the n positions is n of them), a gradient the
+    model shard a device holds, a reduce-scatter 1 / "data" of the
+    shards, and the K/V gathers a device's KV heads.  XLA emits none of
+    the port's gathers of a column output that a row split cuts again
+    (its activations stay split over "model"), nor the logits' gathers
+    (the loss reads the vocab pieces in place), nor those gathers'
+    conjugates: ``port_only`` lists them, per device.  Where the
+    reference's dry run keeps the activations split over "model" along
+    the sequence between layers (its rows divide the dp axes and its
+    positions the "model" axis), ``per_device`` holds what XLA moves
+    instead, read from the compiled step: each row-split section's input
+    gathered (and again in the recomputation), its output's gradient
+    gathered, each column split's input gathered for its weight's
+    gradient, and the logits' section likewise.  :func:`hlo_terms` names
+    what a CPU compile of the reference adds on top."""
+    from repro_torch.distributed.data_parallel import dp_pieces
     from repro_torch.models.layers import moe_capacity
     t = _Tally()
-    mesh = mesh_of(params)
-    split = mesh is not None and dp_split(mesh, step.batch)
-    n = len(dp_pieces(mesh)) if split else 1
+    mesh, plan = _step_split(params, cfg, step)
+    split = plan.by is not None
+    n = plan.n if split else 1
     M = step.microbatches
-    b = step.batch / (M * n)                      # rows a position a microbatch
+    per = 1.0 / n
     runs = M * n
     act = torch.empty((), dtype=cfg.dtype).element_size()
     S_text = step.seq_len
+    b = step.batch / M
+    if plan.by == "rows":
+        b = b / plan.blocks                       # rows a position a microbatch
+    elif plan.by == "positions":
+        S_text = S_text / plan.blocks
     S = S_text + (cfg.n_img_tokens if cfg.family == "vlm" else 0)
     rows = b * S
     chunked = step.xent_chunk > 0 and cfg.family in ("dense", "moe", "vlm")
-    nchunks = max(S_text // step.xent_chunk, 1) if chunked else 1
+    nchunks = max(int(S_text) // step.xent_chunk, 1) if chunked else 1
     logit_rows = (b * S_text if chunked else rows) / nchunks
     again_logits = chunked and step.remat
+    sp = _sequence_split(cfg, mesh, plan, step)
     sites = 1
     if cfg.family == "hybrid":
         from repro_torch.models.hybrid import layout
         sites = layout(cfg)[3]
-    tokens_mb = step.batch / M * S
+    tokens_mb = step.batch / M * (step.seq_len + (cfg.n_img_tokens if cfg.family == "vlm"
+                                                  else 0))
     for path, leaf in flatten_with_path(params):
         name = [k for k in path if isinstance(k, str)][-1]
         if name == "embed":
             if isinstance(leaf, ShardedTensor):
                 _table_uses(leaf, cfg, rows - b * (S - S_text), logit_rows, runs,
-                            runs * nchunks, act, split, t, again_logits)
+                            runs * nchunks, act, split, t, again_logits, per, sp)
             continue
         if name == "router" and "moe" in path and split:
             uses = math.prod(leaf.shape[:-2])
             E, k = cfg.n_experts, cfg.top_k
             t.add("forward", "all-gather", tokens_mb * k * 4, uses * M)
-            t.add("forward", "all-gather", tokens_mb * k * 8, uses * M)
+            t.add("forward", "all-gather", tokens_mb * k * 8, uses * M, size=8)
             t.add("forward", "all-reduce", E * 4, uses * M)
+        if name == "wk" and plan.by == "positions" and "attn" in path:
+            _kv_gathers(leaf, cfg, b, step.seq_len, plan, M, act, t,
+                        step.remat and path[0] in _REMAT_ROOTS)
         if not isinstance(leaf, ShardedTensor):
             continue
         expert = "moe" in path and name in ("wi", "wg", "wo")
@@ -543,7 +717,14 @@ def train_collectives(params, cfg, step: TrainStep) -> Dict[str, Dict]:
             lead = b * step.enc_len
         if expert:
             lead = _experts(leaf) * moe_capacity(int(tokens_mb), cfg, train=True)
-        _linear_use(leaf, lead, act, split, t, uses * runs, again)
+        one = _Tally()
+        _linear_use(leaf, lead, act, split, one, uses * runs, again, per, sp)
+        if name == "unembed":
+            one.port_only["logits"] = one.port_only.pop("column_outputs", {})
+        _merge(t, one)
+    if sp:                                        # the logits' section input
+        t.device_forward("all-gather", logit_rows * cfg.d_model * act * runs * nchunks * per,
+                         again_logits, act)
     if split:
         t.add("forward", "all-reduce", 4, M)
         _gradient_reduction(params, dp_pieces(mesh), M, t)
@@ -554,7 +735,119 @@ def train_collectives(params, cfg, step: TrainStep) -> Dict[str, Dict]:
             total_b[k] = total_b.get(k, 0.0) + v
             total_c[k] = total_c.get(k, 0) + t.calls[phase][k]
     return {"bytes": total_b, "calls": total_c, "breakdown": t.bytes,
-            "calls_breakdown": t.calls, "split": n}
+            "calls_breakdown": t.calls, "split": n, "split_by": plan.by, **_device_report(t)}
+
+
+def _kv_gathers(wk, cfg, rows: float, seq: int, plan, M: int, act: int, t: _Tally,
+                again: bool) -> None:
+    """The K/V gathers of a split of the positions at each layer of ``wk``
+    (``data_parallel.gather_positions``): per microbatch and "pod"
+    position, k and v [rows, seq, K, hd] gathered onto each of its
+    ``plan.blocks`` pieces (one call each), reduce-scattered in the
+    backward, and gathered again by each piece's recomputation where
+    ``again``.  A device holds its KV heads' share."""
+    main = _main(wk)
+    layers = math.prod(main.shape[:-2])
+    K, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    whole = rows * seq * K * hd * act
+    D, n = plan.blocks, plan.n
+    groups = n // D
+    heads = 1
+    if isinstance(wk, ShardedTensor) and wk.axis == "model" and K % len(wk.pieces) == 0:
+        heads = len(wk.pieces)
+    for _ in range(2):                               # k, then v
+        t.add("forward", "all-gather", whole * D, layers * M * groups, per=1.0 / groups,
+              dev_nbytes=whole / heads, size=act)
+        t.add("backward", "reduce-scatter", whole, layers * M * groups, per=1.0 / groups,
+              dev_nbytes=whole / (D * heads), size=act)
+        if again:
+            t.add("backward", "all-gather", whole, layers * M * n, per=1.0 / n,
+                  dev_nbytes=whole / heads, size=act)
+
+
+def hlo_terms(params, cfg, step: TrainStep, report: Dict[str, Dict]) -> Dict[str, Dict]:
+    """{name: {kind: bytes}}: what a CPU compile of the reference's step
+    (``tools/torch_hlo_compare.py``: forced host devices, the dry run's
+    activation split) holds per device beyond ``report["per_device"]``
+    (``train_collectives``' figure for the same step), each from shapes,
+    read from the compiled HLO of gemma2-2b (2 layers, 4 x 64 on a (2, 4)
+    mesh, FSDP off and on).  Added to ``per_device`` in this order:
+
+    - ``hlo_f32``: the CPU compile holds every floating collective in f32
+      where the step's dtype is narrower (``report["widen"]``);
+    - ``hlo_reduce_scatter_as_all_reduce``: it lowers a reduce-scatter (an
+      FSDP split's gradient, a split of the positions' K/V gradients) to
+      an all-reduce of the whole ("data" times the result, in f32);
+    - ``tied_table_twice``: without FSDP it reduces a tied table's
+      gradient twice, once for the lookup and once for the logits (the
+      model shard in f32);
+    - ``fsdp_backward_gather``: it gathers an FSDP-split weight a third
+      time for the backward's products (each gathered layer, f32), the
+      tied table's for the logits too;
+    - ``lookup_all_to_all``: it looks an FSDP-split table up without
+      gathering it (less the lookup's gather, f32), moving the rows
+      [rows, d] in f32 by an all-to-all each way;
+    - ``lookup_scatter_gather``: under the activations' sequence split the
+      scatter of the lookup's gradient into the vocab-split table gathers
+      the rows' gradient over "model", 1.5 x [rows, d] in f32 (halves over
+      one factor of the (2, 4) mesh's "model" axis, then whole over the
+      other)."""
+    mesh, plan = _step_split(params, cfg, step)
+    terms: Dict[str, Dict[str, float]] = {"hlo_f32": dict(report["widen"])}
+    if plan.by is None:
+        return terms
+    M = step.microbatches
+    rs = report["per_device"].get("reduce-scatter", 0.0)
+    if rs:
+        f32 = rs * 4 / (4 if M > 1 else torch.empty((), dtype=cfg.dtype).element_size())
+        terms["hlo_reduce_scatter_as_all_reduce"] = {
+            "reduce-scatter": -f32, "all-reduce": f32 * mesh.shape["data"]}
+    table = params.get("embed")
+    fsdp_table = isinstance(table, ShardedTensor) and (_is_fsdp(table) or _is_fsdp(table.pieces[0]))
+    shard = 0.0
+    if isinstance(table, ShardedTensor) and _model_pieces(table) > 1:
+        shard = math.prod(table.shape) * 4 / _model_pieces(table)
+        if cfg.tie_embeddings and not fsdp_table:
+            terms["tied_table_twice"] = {"all-reduce": shard}
+    gather = sum(math.prod(leaf.shape) * 4 / _model_pieces(leaf)
+                 for path, leaf in flatten_with_path(params)
+                 if path[0] in _REMAT_ROOTS and isinstance(leaf, ShardedTensor)
+                 and (_is_fsdp(leaf) or _is_fsdp(leaf.pieces[0]))) * M
+    rows = step.batch / M / plan.blocks * step.seq_len
+    if fsdp_table and cfg.tie_embeddings:
+        gather += shard * M
+        terms["lookup_all_to_all"] = {"all-gather": -shard * M,
+                                      "all-to-all": 2 * rows * cfg.d_model * 4 * M}
+    if gather:
+        terms["fsdp_backward_gather"] = {"all-gather": gather}
+    if _sequence_split(cfg, mesh, plan, step) and shard:
+        terms["lookup_scatter_gather"] = {"all-gather": 1.5 * rows * cfg.d_model * 4 * M}
+    return terms
+
+
+def hlo_match(hlo: Dict[str, float], per_device: Dict[str, float],
+              terms: Dict[str, Dict[str, float]], *, rtol: float = 0.02,
+              floor: float = 0.01) -> Dict[str, Dict]:
+    """Each collective kind of a compiled step's per-device HLO (``hlo``)
+    beside ``per_device`` plus the named ``terms`` (:func:`hlo_terms`):
+    {kind: {"hlo", "per_device", "terms", "sum", "rel_err", "status"}},
+    ``status`` "matched" (the sum within ``rtol`` of the HLO's bytes),
+    "unmatched" (both under ``floor`` of the HLO's total, listed, not
+    held) or "differs"."""
+    total = sum(hlo.values())
+    kinds = set(hlo) | set(per_device) | {k for t in terms.values() for k in t}
+    out = {}
+    for k in sorted(kinds):
+        h, p = hlo.get(k, 0.0), per_device.get(k, 0.0)
+        extra = sum(t.get(k, 0.0) for t in terms.values())
+        got = p + extra
+        if max(h, got) < floor * total:
+            status = "unmatched"
+        else:
+            status = "matched" if abs(got - h) <= rtol * h else "differs"
+        out[k] = {"hlo": h, "per_device": p, "terms": extra, "sum": got,
+                  "rel_err": (got - h) / h if h else None, "status": status}
+    return out
 
 
 def _attn_params(params, path):
@@ -566,7 +859,8 @@ def _attn_params(params, path):
     return params[path[0]][path[1]]["attn"]
 
 
-def _cache_collectives(params, state, cfg, rows: int, act: int, out: Dict[str, float]) -> None:
+def _cache_collectives(params, state, cfg, rows: int, act: int, t: _Tally,
+                       share: float = 1.0) -> None:
     """What attention over a sharded slot state (``models/sharded_cache.py``)
     changes in a decode step's collectives, per use of each k leaf (a
     stacked leaf's layers, the hybrid's sites).  KV heads split: no
@@ -578,10 +872,12 @@ def _cache_collectives(params, state, cfg, rows: int, act: int, out: Dict[str, f
     cache's dtype.  Positions over "data" (the sequence split, D pieces):
     the merge's gather of every piece's max [D, rows, H] and its sums of
     the denominators [rows, H] and of the pieces' outputs [rows, H, hd],
-    all in f32."""
+    all in f32.  A device holds ``share`` of the rows; XLA keeps the
+    rows split over the data axes (their gathers are ``port_only``
+    ``"slot_gathers"``)."""
     from repro_torch.models.sharded_cache import layout
     H, hd = cfg.n_heads, cfg.resolved_head_dim
-    _recurrent_collectives(params, state, cfg, rows, act, out)
+    _recurrent_collectives(params, state, cfg, rows, act, t, share)
     for path, leaf in flatten_with_path(state):
         if path[-1] != "k" or not isinstance(leaf, ShardedTensor):
             continue
@@ -590,27 +886,27 @@ def _cache_collectives(params, state, cfg, rows: int, act: int, out: Dict[str, f
         T, K = leaf.shape[-3], leaf.shape[-2]
         c_act = torch.empty((), dtype=leaf.dtype).element_size()
         heads = rows * H * hd * c_act
-        gather = heads if n_d > 1 and ddim == -4 else 0.0
+        if n_d > 1 and ddim == -4:
+            t.add("forward", "all-gather", heads * uses, per=share, only="slot_gathers")
         if n_d > 1 and ddim == -3:
-            gather += n_d * rows * H * 4
-            out["all-reduce"] = out.get("all-reduce", 0.0) + rows * H * (hd + 1) * 4 * uses
+            t.add("forward", "all-gather", n_d * rows * H * 4 * uses, per=share)
+            t.add("forward", "all-reduce", rows * H * (hd + 1) * 4 * uses, per=share)
         if mdim == -1:
-            out["all-reduce"] = out.get("all-reduce", 0.0) + rows * H * T * 4 * uses
-            gather += heads
+            t.add("forward", "all-reduce", rows * H * T * 4 * uses, per=share)
+            t.add("forward", "all-gather", heads * uses, per=share, size=c_act)
         else:
             if mdim == -2:
                 qkv = H + (0 if path[0] == "cross" else 2 * K)
-                out["all-gather"] = out.get("all-gather", 0.0) - rows * qkv * hd * act * uses
+                t.add("forward", "all-gather", -rows * qkv * hd * act * uses, per=share,
+                      only="column_outputs")
             wo = _attn_params(params, path)["wo"]
             if n_m > 1 and not (isinstance(wo, ShardedTensor) and wo.axis == "model"
                                 and wo.dim == -2 and len(wo.pieces) == n_m):
-                gather += heads
-        if gather:
-            out["all-gather"] = out.get("all-gather", 0.0) + gather * uses
+                t.add("forward", "all-gather", heads * uses, per=share, size=c_act)
 
 
-def _recurrent_collectives(params, state, cfg, rows: int, act: int,
-                           out: Dict[str, float]) -> None:
+def _recurrent_collectives(params, state, cfg, rows: int, act: int, t: _Tally,
+                           share: float = 1.0) -> None:
     """What a sharded recurrent state changes in a decode step's
     collectives (rwkv's ``_sharded_decode``, mamba's ``_sharded_decode``),
     per use of each leaf (a stacked leaf's layers).  A slot-split carry
@@ -619,7 +915,9 @@ def _recurrent_collectives(params, state, cfg, rows: int, act: int,
     of the r/k/v/g column pieces' outputs [rows, d]; the time mix's rows
     gathered over slots [rows, d], and its heads where ``wo`` is not cut
     into the same pieces.  mamba ``h``: ``y`` [rows, d_inner] in f32
-    gathered once over slots and once over heads, where each splits."""
+    gathered once over slots and once over heads, where each splits.  A
+    device holds ``share`` of the rows; the gathers over slots are
+    ``port_only`` ``"slot_gathers"``."""
     from repro_torch.models.sharded_cache import head_layout
     for path, leaf in flatten_with_path(state):
         name = path[-1]
@@ -630,27 +928,29 @@ def _recurrent_collectives(params, state, cfg, rows: int, act: int,
         if name in ("tm_x", "cm_x", "conv"):
             rank = 2 if name != "conv" else 3
             each = rows * math.prod(leaf.shape[-rank + 1:]) * size
-            out["all-gather"] = out.get("all-gather", 0.0) + each * math.prod(
-                leaf.shape[:-rank])
+            t.add("forward", "all-gather", each * math.prod(leaf.shape[:-rank]), per=share,
+                  only="slot_gathers")
             continue
         n_d, n_m = head_layout(leaf)
         uses = math.prod(leaf.shape[:-4])
         if name == "h":
             y = rows * leaf.shape[-3] * leaf.shape[-2] * 4
-            out["all-gather"] = out.get("all-gather", 0.0) + y * uses * (
-                (n_d > 1) + (n_m > 1))
+            t.add("forward", "all-gather", y * uses * (n_d > 1), per=share, only="slot_gathers")
+            t.add("forward", "all-gather", y * uses * (n_m > 1), per=share)
             continue
         tm = params[path[0]][path[1]]["tm"]
         d = cfg.d_model
-        gather = rows * d * act if n_d > 1 else 0.0
+        if n_d > 1:
+            t.add("forward", "all-gather", rows * d * act * uses, per=share, only="slot_gathers")
         if n_m > 1:
-            gather -= sum(rows * tm[n].shape[-1] * act for n in ("wr", "wk", "wv", "wg")
-                          if isinstance(tm[n], ShardedTensor))
+            t.add("forward", "all-gather", -sum(rows * tm[m].shape[-1] * act
+                                                for m in ("wr", "wk", "wv", "wg")
+                                                if isinstance(tm[m], ShardedTensor)) * uses,
+                  per=share, only="column_outputs")
             wo = tm["wo"]
             if not (isinstance(wo, ShardedTensor) and wo.axis == "model" and wo.dim == -2
                     and len(wo.pieces) == n_m):
-                gather += rows * d * act
-        out["all-gather"] = out.get("all-gather", 0.0) + gather * uses
+                t.add("forward", "all-gather", rows * d * act * uses, per=share, size=act)
 
 
 def _main(w) -> torch.Tensor:

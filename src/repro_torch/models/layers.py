@@ -246,10 +246,20 @@ def best_attention(q, k, v, *, kind: str, cfg, q_offset: int = 0,
 
 def attention_block(p, x, cfg, *, kind: str, positions, theta: float,
                     use_flash: bool = False):
-    """Full-sequence (train/prefill) attention incl. projections."""
+    """Full-sequence (train/prefill) attention incl. projections.  Inside a
+    train step split along the positions (``distributed/data_parallel.py``)
+    ``x`` is one piece's block of positions: its queries attend over every
+    position's K/V, gathered from the pieces, under the causal mask and
+    window offset by its first position."""
+    from repro_torch.distributed import data_parallel
     B, S, _ = x.shape
     q, k, v = _qkv(p, x, cfg, positions, theta)
-    if use_flash:
+    span = data_parallel.position_span()
+    if span is not None:
+        k, v = data_parallel.gather_positions(k, v)
+        out = full_attention(q, k, v, causal=True, cap=cfg.attn_softcap,
+                             window=cfg.window_size if kind == "L" else 0, q_offset=span[0])
+    elif use_flash:
         out = flash_attention(q, k, v, causal=True,
                               window=cfg.window_size if kind == "L" else 0,
                               cap=cfg.attn_softcap)
@@ -328,12 +338,14 @@ def moe_block(p, x, cfg, *, train: bool, cap_tokens: Optional[int] = None):
     batch gives the same rows; otherwise the groups run one at a time.
 
     Inside a split train step (``distributed/data_parallel.py``) ``x`` is
-    one piece's rows and the block computes what it would over the global
-    batch: the capacity follows the global token count (the pieces' tokens
-    together), the pieces exchange their gates and expert choices
-    (``data_parallel.moe_exchange``) so that each entry's place in its
-    expert's buffer is its rank among every piece's entries in the global
-    gate order, and ``f_e`` and ``p_e`` are the global means.  So a piece
+    one piece's block of the microbatch (its rows, or every row's block of
+    positions) and the block computes what it would over the whole
+    microbatch: the capacity follows the microbatch's token count (every
+    block's tokens together), the pieces exchange their gates and expert
+    choices (``data_parallel.moe_exchange``) so that each entry's place in
+    its expert's buffer is its rank among every block's entries in the
+    microbatch's token and gate order, and ``f_e`` and ``p_e`` are the
+    microbatch's means.  So a piece
     keeps exactly the entries the unsplit step keeps, dropless or not; its
     buffer holds its own kept entries at their global places (the others'
     rows stay empty)."""
@@ -341,7 +353,7 @@ def moe_block(p, x, cfg, *, train: bool, cap_tokens: Optional[int] = None):
     B, S, d = x.shape
     T = B * S
     piece = data_parallel.active()
-    n = piece.n if piece is not None else 1
+    n = piece.blocks if piece is not None else 1
     if cap_tokens is not None and cap_tokens < T:
         if piece is not None:
             raise ValueError("cap_tokens inside a split train step")
@@ -366,11 +378,10 @@ def moe_block(p, x, cfg, *, train: bool, cap_tokens: Optional[int] = None):
     # of a split step (its gates and choices gathered, its probabilities'
     # sums added)
     if piece is not None:
-        all_gates, all_e, pmean = data_parallel.moe_exchange(gates, eidx, probs.sum(0) / (T * n))
-        lo = piece.index * T * k
+        all_gates, all_e, pmean = data_parallel.moe_exchange(
+            gates.view(B, S, k), eidx.view(B, S, k), probs.sum(0) / (T * n))
     else:
         all_gates, all_e, pmean = gates, eidx, probs.mean(0)
-        lo = 0
     f = F.one_hot(all_e, E).float().sum(1).mean(0)
     aux = E * torch.sum(f * pmean)
 
@@ -388,7 +399,8 @@ def moe_block(p, x, cfg, *, train: bool, cap_tokens: Optional[int] = None):
         onehot = F.one_hot(all_flat, E)
         pos = onehot.cumsum(0) - onehot
         ppos = pos.gather(1, all_flat[:, None])[:, 0]
-    ppos = ppos[lo:lo + T * k]
+    if piece is not None:                # this piece's entries, in its own token order
+        ppos = ppos.view(-1, k)[piece.token_index(B, S)].reshape(-1)
     flat_e = eidx.reshape(-1)                                      # [T*k]
     keep = ppos < C
     tok = torch.arange(T, device=x.device).repeat_interleave(k)

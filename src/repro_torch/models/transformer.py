@@ -35,7 +35,7 @@ from typing import Any, Dict, Iterator, Optional, Tuple
 import torch
 
 from repro_torch.core.compressed import BlockSparseTensor, QTensor, ShardedTensor, current_backend
-from repro_torch.distributed.data_parallel import checkpoint
+from repro_torch.distributed.data_parallel import checkpoint, position_span
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
 from repro_torch.models import sharded_cache as SC
@@ -186,7 +186,9 @@ def _trunk(params: Params, cfg, x, *, train: bool, use_flash: bool, remat: bool,
     rematerialized, as in the reference.  ``inputs``, a list, receives
     every layer's input in execution order, and turns remat off."""
     B, S, _ = x.shape
-    positions = torch.arange(S, device=x.device).expand(B, S)
+    span = position_span()          # a piece of a split along the positions: its block's
+    first = span[0] if span is not None else 0
+    positions = torch.arange(first, first + S, device=x.device).expand(B, S)
     unit, R, _ = pattern_unit(cfg)
     remat = remat and torch.is_grad_enabled() and inputs is None
 

@@ -36,7 +36,7 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from repro_torch.core.compressed import ShardedTensor
-from repro_torch.distributed.data_parallel import (dp_split, mesh_of, mesh_step,
+from repro_torch.distributed.data_parallel import (mesh_of, mesh_step, plan_split,
                                                    split_value_and_grad)
 from repro_torch.distributed.sharding import shardings_of
 from repro_torch.kernels.backend import resolve_device
@@ -89,9 +89,15 @@ def make_train_step(model_cfg, optimizer: Optimizer, *,
     (``distributed/data_parallel.py`` ``split_value_and_grad``):
     microbatches split the global rows first and the dp axes second, and
     each position accumulates over its microbatches before the reduction.
-    Where the spec leaves the batch whole, the step runs it whole and
-    reduces nothing over the dp axes, as the reference does; a batch
-    that splits but whose microbatches do not raises.  Either way the
+    Microbatches whose rows do not split over the dp positions run as XLA
+    places the reference's ``[M, B/M]`` reshape: each microbatch in
+    blocks over the positions that held it, the others running it again
+    (``data_parallel.Split``).  Where the spec puts the positions over
+    "data" instead (rows that do not divide the dp axes), a dense or MoE
+    model's step splits every row's positions over "data", each piece's
+    attention reading the others' K/V through counted gathers; the other
+    families run such a batch whole and reduce nothing over the dp axes,
+    as does a batch the spec leaves whole.  Either way the
     model axis's collectives and their backward conjugates go through
     ``collectives`` and are counted (``launch/roofline.py``
     ``train_collectives``); the scalar loss's sum over the positions is
@@ -122,10 +128,11 @@ def make_train_step(model_cfg, optimizer: Optimizer, *,
 
     def train_step(params, opt_state, batch, step, residual=None):
         mesh = mesh_of(params)
+        split = plan_split(mesh, *batch["tokens"].shape, microbatches, model_cfg.family)
         if mesh is None:
             lv, grads = whole_value_and_grad(params, batch)
-        elif dp_split(mesh, batch["tokens"].shape[0]):
-            lv, grads = split_value_and_grad(loss, params, batch, mesh,
+        elif split.by is not None:
+            lv, grads = split_value_and_grad(loss, params, batch, mesh, split,
                                              microbatches=microbatches,
                                              lockstep=model_cfg.family == "moe")
         else:

@@ -28,8 +28,11 @@
   jitted step under ``test_sharded_step_equals_reference``'s tolerances:
   qwen2-moe-a2.7b FSDP off and on (its experts over "data" split the
   tree either way), gemma2-2b FSDP on.
-- A batch whose rows split over the dp axes but whose microbatches do
-  not raises.
+- A batch that does not divide into its microbatches raises; one whose
+  microbatches' rows do not split over the dp positions runs as XLA
+  places the reference's reshape (``data_parallel.Split``), its loss
+  that of the step whole, its collectives as counted
+  (``tests/test_torch_split_fallbacks.py`` holds every gradient).
 """
 import numpy as np
 import pytest
@@ -286,8 +289,25 @@ def test_pod_and_data_split_step_equals_reference(name, fsdp, tiny_dense):
 
 def test_microbatches_that_do_not_split_raise(tiny_dense):
     _, _, cfg, params = TST._family("gemma2-2b", tiny_dense)
-    with pytest.raises(ValueError, match="microbatches of rows"):
-        _snapshot_step(cfg, params, (2, 2, 1), True, mb=2)
+    with pytest.raises(ValueError, match="does not divide into 3 microbatches"):
+        _snapshot_step(cfg, params, (2, 2, 1), True, mb=3)
+
+
+def test_microbatches_whose_rows_do_not_split_over_the_dp_positions_run(tiny_dense):
+    """2 rows a microbatch over 4 dp positions: each microbatch in 2 blocks,
+    each run by 2 positions (``data_parallel.Split``), equal to the same
+    tree's step with the batch whole, its collectives as counted."""
+    _, _, cfg, params = TST._family("gemma2-2b", tiny_dense)
+    (got_b, got_c), _, placed, loss = _snapshot_step(cfg, params, (2, 2, 1), True, mb=2)
+    want = roofline.train_collectives(placed, cfg, roofline.TrainStep(4, 32, 2))
+    assert want["split_by"] == "rows" and want["split"] == 4
+    assert DP.plan_split(placed["embed"].mesh, 4, 32, 2).blocks == 2
+    assert got_b == {k: v for k, v in want["bytes"].items() if v}
+    assert got_c == {k: v for k, v in want["calls"].items() if v}
+    whole = make_train_step(cfg, TST._opt(OPT, "adamw"), microbatches=2)
+    o = TST._opt(OPT, "adamw")
+    _, _, m = whole(tree_map(torch.clone, params), o.init(params), TST._batch(cfg)[0], TST.STEP)
+    assert abs(loss - float(m["loss"])) <= MOE_TOL
 
 
 def _run_bounded(fn, seconds=60):

@@ -26,6 +26,13 @@
   (2, 2) mesh equals a count by hand, by kind and by forward, backward
   and gradients; an FSDP cell (mistral-nemo-12b) counts each FSDP-split
   leaf's per-use gathers and its gradients' reduce-scatter.
+- What one device's program holds (``per_device``, which sets every
+  cell's ``t_collective`` and ``bound``) and the port's own gathers
+  (``port_only``) of tiny_dense's train step, decode step and a prefill
+  equal a count by hand; every cell reports the controller's sum beside
+  them, and the train cells carry the reference's ``xent_chunk``
+  (``tests/test_torch_dryrun_per_device.py`` holds the figure to the
+  reference's compiled HLO).
 """
 import json
 from types import SimpleNamespace
@@ -119,6 +126,24 @@ def test_tiny_dense_decode_step_collective_bytes_by_hand(tiny_dense):
         api.decode_step(placed, cfg, cache, torch.ones((S, 1), dtype=torch.long),
                         torch.full((S,), 3), max_len=64)
     assert {k: v for k, v in collectives.result_bytes.items() if v} == cost.coll_detail
+    # per device: the sums (XLA keeps the column outputs split over "model"
+    # and reads the logits' vocab pieces in place), over a device's share
+    # of the rows
+    rep = roofline.collective_report(placed, cfg, S)
+    assert rep["bytes"] == cost.coll_detail
+    assert rep["per_device"] == {"all-reduce": reduce}
+    assert rep["port_only"] == {"column_outputs": {"all-gather": layers * S * 320 * f32},
+                                "logits": {"all-gather": S * 260 * f32}}
+    half = roofline.collective_report(placed, cfg, S, share=0.5)
+    assert half["bytes"] == rep["bytes"] and half["per_device"] == {"all-reduce": reduce / 2}
+    # a prefill of 2 rows of 32 positions under the activations' sequence
+    # split: the sums on its 64 rows, and each row-split section's input
+    # and the logits' gathered [64, 64]
+    P = 2 * 32
+    pre = roofline.collective_report(placed, cfg, P, sp=True)
+    assert pre["per_device"] == {
+        "all-reduce": layers * P * (64 + 64) * f32 + P * 64 * f32,
+        "all-gather": layers * 2 * P * 64 * f32 + P * 64 * f32}
 
 
 @pytest.mark.parametrize("shape,gather,reduce", [
@@ -173,7 +198,7 @@ def test_decode_cells_count_the_sharded_cache(arch, branch):
         cfg.n_layers
     act = torch.empty((), dtype=cfg.dtype).element_size()
     heads = B * H * hd * act * L
-    got = res["roofline"]["coll_detail"]
+    got = res["collective_controller"]
     if branch == "hd":
         Ts = sum(min(cfg.window_size, T) if k == "L" else T for k in cfg.pattern())
         assert Ts == 13 * 4096 + 13 * 32768
@@ -204,7 +229,7 @@ def test_decode_cells_count_the_recurrent_pieces(arch):
     unsharded = roofline.collective_bytes(SH.shard_params(params, cfg, mesh), cfg, 128)
     act = torch.empty((), dtype=cfg.dtype).element_size()
     B, d, L = 128, cfg.d_model, cfg.n_layers
-    assert cfg.n_heads % 16 and res["roofline"]["coll_detail"] == {
+    assert cfg.n_heads % 16 and res["collective_controller"] == {
         "all-reduce": unsharded["all-reduce"],
         "all-gather": unsharded["all-gather"] + L * B * d * (2 * 4 + act)}
 
@@ -233,7 +258,7 @@ def test_decode_cells_a_mesh_engine_cannot_place_say_so(arch, shape, mesh_kind):
     params, _ = roofline.meta_instance(cfg)
     unsharded = roofline.collective_bytes(SH.shard_params(params, cfg, mesh), cfg,
                                           cell["spec"].global_batch)
-    got = res["roofline"]["coll_detail"]
+    got = res["collective_controller"]
     H, hd, L = cfg.n_heads, cfg.resolved_head_dim, cfg.n_layers
     act = torch.empty((), dtype=cfg.dtype).element_size()
     if shape == "long_500k":
@@ -322,6 +347,18 @@ def test_all_cells_finish_on_meta_tensors(tmp_path, capsys):
                and r["collective_breakdown"]["backward"] for r in train)
     assert all(sum(r["roofline"]["coll_detail"].values()) == r["roofline"]["coll_bytes"]
                for r in train)
+    # every counted cell's collective term is per device, the controller's
+    # sum and the port's own gathers beside it
+    ok = [r for r in res.values() if r["status"] == "ok"]
+    assert all(r["roofline"]["coll_bytes"] == sum(r["roofline"]["coll_detail"].values())
+               <= r["coll_bytes_controller"] == sum(r["collective_controller"].values())
+               and isinstance(r["port_only"], dict) for r in ok)
+    # the train cells build the reference's step: its streamed cross-entropy
+    # for the dense, MoE and vlm families' 32000-plus vocabularies
+    chunk = {k: r["xent_chunk"] for k, r in res.items() if r["shape"] == "train_4k"}
+    assert chunk["gemma2-2b:train_4k:single"] == chunk["qwen2-moe-a2.7b:train_4k:multi"] == 1024
+    assert chunk["paligemma-3b:train_4k:single"] == 960      # of 4096 - 256 image positions
+    assert chunk["rwkv6-3b:train_4k:single"] == chunk["whisper-base:train_4k:multi"] == 0
 
 
 def _meta_placed(cfg, shape, fsdp):
@@ -361,13 +398,31 @@ def test_tiny_dense_train_step_collectives_by_hand(tiny_dense):
         "gradients": {"all-reduce": 7 * 2 + 2 * 1 + 2 + 2 + 1}}
     assert got["split"] == 2
     assert roofline.collective_bytes(placed, cfg, 0, train=step) == got["bytes"]
+    # per device: one position's calls; the gradients each model shard (the
+    # matrices halved over "model", the norms whole); XLA emits none of the
+    # column outputs' gathers, their recomputation, the row inputs'
+    # gradient gathers or the logits'; under the activations' sequence
+    # split it gathers instead each row-split section's input (again in the
+    # recomputation) and its output's gradient, each column split's input
+    # for its weight's gradient, and the logits' section likewise
+    assert got["per_device"] == {
+        "all-gather": 11 * L * R * 64 * a + 2 * R * 64 * a,
+        "all-reduce": (L * R * 128 * a + R * 64 * a + 4 + L * R * 320 * a + L * R * 128 * a
+                       + R * 64 * a + (cfg.param_count() // 2 + (2 * L + 1) * 64) * a)}
+    assert got["port_only"] == {
+        "column_outputs": {"all-gather": 2 * L * R * 384 * a},
+        "row_input_gradients": {"all-gather": L * R * (64 + 128) * a},
+        "logits": {"all-gather": R * 260 * a}}
+    assert got["widen"] == {k: v for k, v in got["per_device"].items()} | {
+        "all-reduce": got["per_device"]["all-reduce"] - 4}
 
 
 def test_fsdp_train_cell_counts_its_gathers_and_reduce_scatters():
     """mistral-nemo-12b's train cell (FSDP: 12.2 B params) against the same
     step without FSDP: the forward gathers every FSDP-split leaf once per
-    "data" position, the backward again for the checkpointed blocks, and
-    the gradients reduce-scatter each of them whole."""
+    "data" position (the untied unembed once per cross-entropy chunk), the
+    backward again for the checkpointed blocks and chunks, and the
+    gradients reduce-scatter each of them whole."""
     from repro_torch.configs import registry
     r = dryrun.run_cell("mistral-nemo-12b", "train_4k", "single")
     assert r["fsdp"] and r["train_collectives"] == "counted" and r["dp_split"] == 16
@@ -387,9 +442,12 @@ def test_fsdp_train_cell_counts_its_gathers_and_reduce_scatters():
     assert split and sum(split.values()) > 0.9 * sum(
         t.numel() * t.element_size() for _, leaf in _flat_leaves(params) for t in _tensors(leaf))
     n = 16
-    assert got["forward"]["all-gather"] - base["forward"]["all-gather"] == n * sum(split.values())
+    chunks = 4096 // step.xent_chunk            # the untied unembed gathered per chunk,
+    assert chunks == 4                           # and again in its recomputation
+    assert got["forward"]["all-gather"] - base["forward"]["all-gather"] == n * (
+        split["blocks"] + split["embed"] + chunks * split["unembed"])
     assert got["backward"]["all-gather"] - base["backward"]["all-gather"] \
-        == n * split["blocks"]
+        == n * (split["blocks"] + chunks * split["unembed"])
     assert got["gradients"]["reduce-scatter"] == sum(split.values())
     assert "reduce-scatter" not in base["gradients"]
 

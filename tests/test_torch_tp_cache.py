@@ -223,9 +223,10 @@ def test_decode_step_collectives_equal_the_roofline_count(arch, shape, monkeypat
     assert cost.coll_detail == want
     unsharded = roofline.collective_bytes(eng.params, eng.cfg, eng.slots)
     kv = [(p, leaf) for p, leaf in flatten_with_path(eng._slot_state) if p[-1] == "k"]
-    recurrent = {}
+    tally = roofline._Tally()
     roofline._recurrent_collectives(eng.params, eng._slot_state, eng.cfg, eng.slots,
-                                    eng.cfg.dtype.itemsize, recurrent)
+                                    eng.cfg.dtype.itemsize, tally)
+    recurrent = tally.bytes["forward"]
     if isinstance(shape, Seq) or len(shape) == 3:
         lays = [(SC.layout(leaf), math.prod(leaf.shape[:-4])) for _, leaf in kv]
         assert all(lay.data_dim == (-3 if isinstance(shape, Seq) else -4) for lay, _ in lays)

@@ -3,19 +3,31 @@
 The reference compiles its data-parallel train step on a host mesh of
 forced CPU devices (``XLA_FLAGS=--xla_force_host_platform_device_count=8``)
 as its dry run builds a train cell (``launch/dryrun.py``: activations
-sequence-sharded over "model", the streamed cross-entropy, one
-microbatch, layers unrolled), and its ``launch/hlo_analysis.py`` reads the
-result bytes per collective kind from the compiled per-device HLO.  The
-port counts the same step analytically (``roofline.train_collectives``
-on meta tensors).  The two conventions differ (that function's docstring
-states the mapping); this prints both by kind, not a gate.
+sequence-sharded over "model", the streamed cross-entropy, layers
+unrolled; one microbatch unless ``--microbatches`` asks for more), and its
+``launch/hlo_analysis.py`` reads the result bytes per collective kind
+from the compiled per-device HLO.  The port counts the same step
+analytically (``roofline.train_collectives`` on meta tensors): the single
+controller's sum over every call, what one device's program holds of it
+(``per_device``), and the gathers XLA never emits (``port_only``).  The
+CPU compile differs from a device's program in ways each named by
+``roofline.hlo_terms``; per kind the tool prints ``per_device`` plus those
+terms beside the HLO (``roofline.hlo_match``: within 2%, or both under 1%
+of the HLO's total and listed).
+
+A ``--batch`` that the dp axes do not divide runs the reference's
+fallback (its positions over "data"); ``--microbatches`` whose rows do
+not split over the dp positions runs XLA's placement of the ``[M, B/M]``
+reshape.  The named terms were read at the default shape; for those
+shapes the comparison is printed, not held.
 
 The reference runs in a process of its own (``--reference``), which sets
 the flag before JAX starts; nothing of the reference is changed.
 
 Usage:
   PYTHONPATH=src python tools/torch_hlo_compare.py [--arch gemma2-2b] [--layers 2]
-      [--batch 4] [--seq 64] [--mesh 2,4] [--out results/torch_hlo_compare.json]
+      [--batch 4] [--seq 64] [--mesh 2,4] [--microbatches 1]
+      [--out results/torch_hlo_compare.json]
 """
 from __future__ import annotations
 
@@ -26,23 +38,16 @@ import subprocess
 import sys
 
 
-def _largest_divisor(n: int, cap: int) -> int:
-    return max(d for d in range(1, cap + 1) if n % d == 0)
-
-
-def _xent_chunk(cfg, seq: int) -> int:
-    """The reference dry run's streamed cross-entropy chunk."""
-    if cfg.vocab_size >= 32000 and cfg.family in ("dense", "moe", "vlm"):
-        return _largest_divisor(seq, 1024)
-    return 0
-
-
 def _largest(hlo: str, HA, top: int) -> list:
     """The ``top`` largest collectives of an HLO text: [kind, result
     shape, bytes], by the reference parser's rules (a "-start" skipped)."""
     found = [(m.group(2), m.group(1), HA._shape_bytes(m.group(1)))
              for m in HA._COLL_RE.finditer(hlo) if m.group(3) != "-start"]
     return [list(f) for f in sorted(found, key=lambda f: -f[2])[:top]]
+
+
+def _mesh_axes(shape) -> tuple:
+    return ("pod", "data", "model") if len(shape) == 3 else ("data", "model")
 
 
 def reference(args) -> dict:
@@ -61,11 +66,12 @@ def reference(args) -> dict:
     from repro.models import api
     from repro.training import optimizer as OPT
     from repro.training.train_loop import make_train_step
+    from repro_torch.launch.dryrun import xent_chunk
     shape = tuple(int(s) for s in args.mesh.split(","))
     # a mesh of Auto axes (``jax.make_mesh`` gives Explicit ones on this
     # JAX, which the reference's sharding constraints refuse)
     mesh = jax.sharding.Mesh(np.array(jax.devices()[:int(np.prod(shape))]).reshape(shape),
-                             ("data", "model"))
+                             _mesh_axes(shape))
     base = registry.get_config(args.arch)
     cfg = base.replace(n_layers=args.layers, scan_unroll=True,
                        **({"attn_pattern": base.attn_pattern[:args.layers]}
@@ -83,7 +89,8 @@ def reference(args) -> dict:
             opt = OPT.adamw()
             opt_sds = jax.eval_shape(opt.init, params)
             opt_sh = SH.opt_state_shardings(param_sh, mesh, "adamw")
-            step = make_train_step(cfg, opt, xent_chunk=_xent_chunk(cfg, args.seq))
+            step = make_train_step(cfg, opt, xent_chunk=xent_chunk(cfg, args.seq),
+                                   microbatches=args.microbatches)
             jitted = jax.jit(step, in_shardings=(param_sh, opt_sh, batch_sh,
                                                  NamedSharding(mesh, P())),
                              donate_argnums=(0, 1))
@@ -97,43 +104,33 @@ def reference(args) -> dict:
 
 
 def port(args) -> dict:
-    """{fsdp: train_collectives report} of the port's count at the shape."""
+    """{fsdp: train_collectives report with its ``hlo_terms``} of the
+    port's count at the shape (meta tensors)."""
     from repro_torch.configs import registry
     from repro_torch.distributed import sharding as SH
     from repro_torch.launch import roofline as RL
+    from repro_torch.launch.dryrun import xent_chunk
     from repro_torch.launch.mesh import make_mesh
     base = registry.get_config(args.arch)
     cfg = base.replace(n_layers=args.layers,
                        **({"attn_pattern": base.attn_pattern[:args.layers]}
                           if base.attn_pattern else {}))
     shape = tuple(int(s) for s in args.mesh.split(","))
-    mesh = make_mesh(shape, ("data", "model"), device="meta")
+    mesh = make_mesh(shape, _mesh_axes(shape), device="meta")
     params, _ = RL.meta_instance(cfg)
-    step = RL.TrainStep(args.batch, args.seq, xent_chunk=_xent_chunk(cfg, args.seq))
+    step = RL.TrainStep(args.batch, args.seq, args.microbatches,
+                        xent_chunk=xent_chunk(cfg, args.seq))
     out = {}
     for fsdp in (False, True):
         placed = SH.place(params, SH.param_shardings(cfg, params, mesh, fsdp=fsdp))
         r = RL.train_collectives(placed, cfg, step)
-        out[str(fsdp)] = {k: r[k] for k in ("bytes", "calls", "breakdown", "split")}
+        keep = ("bytes", "calls", "breakdown", "split", "split_by", "per_device", "port_only")
+        out[str(fsdp)] = {**{k: r[k] for k in keep}, "terms": RL.hlo_terms(placed, cfg, step, r)}
     return out
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", default="gemma2-2b")
-    ap.add_argument("--layers", type=int, default=2)
-    ap.add_argument("--batch", type=int, default=4)
-    ap.add_argument("--seq", type=int, default=64)
-    ap.add_argument("--mesh", default="2,4")
-    ap.add_argument("--reference", action="store_true",
-                    help="compile the reference's step and print its HLO counts (JAX)")
-    ap.add_argument("--top", type=int, default=6,
-                    help="list the reference's largest collectives")
-    ap.add_argument("--out", default="results/torch_hlo_compare.json")
-    args = ap.parse_args(argv)
-    if args.reference:
-        print("REFERENCE " + json.dumps(reference(args)), flush=True)
-        return 0
+def run_reference(args) -> dict:
+    """The ``--reference`` process's result, at the forced device count."""
     n = 1
     for s in args.mesh.split(","):
         n *= int(s)
@@ -141,25 +138,58 @@ def main(argv=None) -> int:
            "JAX_PLATFORMS": "cpu"}
     cmd = [sys.executable, os.path.abspath(__file__), "--reference", "--arch", args.arch,
            "--layers", str(args.layers), "--batch", str(args.batch), "--seq", str(args.seq),
-           "--mesh", args.mesh, "--top", str(args.top)]
+           "--mesh", args.mesh, "--microbatches", str(args.microbatches), "--top", str(args.top)]
     done = subprocess.run(cmd, env=env, capture_output=True, text=True, check=True)
-    got = json.loads(next(line for line in done.stdout.splitlines()
-                          if line.startswith("REFERENCE "))[len("REFERENCE "):])
+    return json.loads(next(line for line in done.stdout.splitlines()
+                           if line.startswith("REFERENCE "))[len("REFERENCE "):])
+
+
+def parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="gemma2-2b")
+    ap.add_argument("--layers", type=int, default=2)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--mesh", default="2,4")
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--reference", action="store_true",
+                    help="compile the reference's step and print its HLO counts (JAX)")
+    ap.add_argument("--top", type=int, default=6,
+                    help="list the reference's largest collectives")
+    ap.add_argument("--out", default="results/torch_hlo_compare.json")
+    return ap
+
+
+def main(argv=None) -> int:
+    args = parser().parse_args(argv)
+    if args.reference:
+        print("REFERENCE " + json.dumps(reference(args)), flush=True)
+        return 0
+    got = run_reference(args)
     ref = got["bytes"]
     ours = port(args)
+    from repro_torch.launch import roofline as RL
+    match = {f: RL.hlo_match(ref[f], ours[f]["per_device"], ours[f]["terms"]) for f in ref}
     res = {"shape": vars(args), "reference_hlo": ref, "reference_largest": got["largest"],
-           "port": ours}
+           "port": ours, "match": match}
     for fsdp in ("False", "True"):
-        kinds = sorted(set(ref[fsdp]) | set(ours[fsdp]["bytes"]))
-        print(f"fsdp={fsdp}: dp positions {ours[fsdp]['split']}")
-        for k in kinds:
-            print(f"  {k:18s} reference HLO {ref[fsdp].get(k, 0):>16,.0f}   port "
-                  f"{ours[fsdp]['bytes'].get(k, 0):>16,.0f} in {ours[fsdp]['calls'].get(k, 0)} "
-                  f"calls")
-        for phase, kb in ours[fsdp]["breakdown"].items():
-            print(f"    port {phase}: " + ", ".join(f"{k} {v:,.0f}" for k, v in kb.items()))
+        mine = ours[fsdp]
+        print(f"fsdp={fsdp}: {mine['split']} dp positions, split by {mine['split_by']}")
+        print(f"  {'kind':18s} {'reference HLO':>16s} {'per_device':>16s} {'+ terms':>16s} "
+              f"{'controller':>16s} calls  status")
+        for k, m in match[fsdp].items():
+            err = f" {m['rel_err']:+.4%}" if m["rel_err"] is not None else ""
+            print(f"  {k:18s} {m['hlo']:>16,.0f} {m['per_device']:>16,.0f} {m['sum']:>16,.0f} "
+                  f"{mine['bytes'].get(k, 0):>16,.0f} {mine['calls'].get(k, 0):>5d}  "
+                  f"{m['status']}{err}")
+        for name, kb in mine["terms"].items():
+            print(f"    term {name}: " + ", ".join(f"{k} {v:+,.0f}" for k, v in kb.items()))
+        for name, kb in mine["port_only"].items():
+            print(f"    port_only {name}: " + ", ".join(f"{k} {v:,.0f}" for k, v in kb.items()))
+        for phase, kb in mine["breakdown"].items():
+            print(f"    controller {phase}: " + ", ".join(f"{k} {v:,.0f}" for k, v in kb.items()))
         for kind, shape, nbytes in got["largest"][fsdp]:
-            print(f"    reference's largest: {kind} {shape} {nbytes:,.0f}")
+            print(f"    reference's largest: {kind} {shape[:120]} {nbytes:,.0f}")
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(res, f, indent=1)
