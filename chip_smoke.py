@@ -404,6 +404,16 @@ to before phase 17:
    kept in bf16 on the host); its executed collectives equal to
    ``roofline.train_collectives`` by kind, bytes and calls.  Records each
    step's seconds, peak memory and collective bytes.
+58. train_position_split (after train_split_fallbacks): full-width
+   paligemma-3b (18 layers, seeded image embeddings, 1024 text tokens)
+   and full-width whisper-base (6 + 6 layers, 1500 seeded frames, 448
+   tokens), each from POSITION_SPLIT_SEED, one bf16 AdamW step with remat
+   of one row, unsharded and placed at (2, 2) without FSDP with the row's
+   text positions over "data" (each piece its block of the text; the
+   image, or the frames through the encoder, whole), under phase 57's
+   gates and, over every element, fewer than SPLIT_FLIPPED_SHARE of the
+   gradients above the floor flipped.  Records each step's seconds, peak
+   memory and FLOP share.
 
 K2, K3 and K4 run their tensor-core designs on bf16 and their FMA
 designs on f32; K1 runs ``split`` up to 8 query heads per KV head in
@@ -7563,8 +7573,9 @@ def step_collectives(placed, cfg, batch, label, xent_chunk=0, microbatches=1):
     got = {"calls": {k: n for k, n in collectives.calls.items() if n},
            "bytes": {k: n for k, n in collectives.result_bytes.items() if n}}
     B, S = batch["tokens"].shape
+    enc = batch["enc_inputs"].shape[1] if "enc_inputs" in batch else 0
     want = roofline.train_collectives(placed, cfg, roofline.TrainStep(
-        B, S, microbatches, xent_chunk=xent_chunk))
+        B, S, microbatches, xent_chunk=xent_chunk, enc_len=enc))
     line = {"executed": got, "counted": {"calls": want["calls"], "bytes": want["bytes"]},
             "breakdown": want["breakdown"], "dp_split": want["split"],
             "split_by": want["split_by"], "per_device": want["per_device"]}
@@ -7895,18 +7906,120 @@ def _bf16_step(p):
     return torch.ldexp(torch.ones_like(p), e - 8)
 
 
-def train_split_fallbacks(base, cfg, device="cuda"):
-    """The train step's two split fallbacks at full width (phase 57): for
-    each case of SPLIT_FALLBACKS, one AdamW step of ``base`` unsharded, then
-    the same step of ``base`` placed at DP_FULL_MESH (no FSDP) split as
-    ``data_parallel.plan_split`` says; the gates of the module docstring.
-    Returns the phase's line."""
+def _split_case(label, base, cfg, mesh, batch, M, xc, flops):
+    """One AdamW step of ``base`` unsharded, then the same step of ``base``
+    placed at ``mesh`` (no FSDP) split as ``data_parallel.plan_split``
+    says, each step's gradients kept; the update element by element and
+    the collectives against the count (the gates of phase 57).  Returns
+    the case's line (``plan``: the split)."""
     from repro_torch.core.compressed import ShardedTensor
     from repro_torch.distributed import collectives
     from repro_torch.distributed import data_parallel as DP
     from repro_torch.distributed import sharding as SH
     from repro_torch.training.train_loop import make_train_step
     from repro_torch.tree import leaves, tree_map
+    B, S = batch["tokens"].shape
+
+    def run(params, count):
+        o = make_optimizer("adamw", FULL_LR, 1)
+        state = o.init(params)
+        kept = []
+        fn = make_train_step(cfg, o, microbatches=M, xent_chunk=xc, remat=True,
+                             grad_compressor=lambda g, r: (kept.append(g) or g, r))
+        if count:
+            BACKGROUND.fence("collectives")     # no background job moves the counts
+            collectives.reset_result_bytes()
+        reset_peak()
+        sync()
+        t0 = time.time()
+        params, state, _, m = fn(params, state, batch, 0)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        sync()
+        dt = time.time() - t0
+        check(math.isfinite(loss) and math.isfinite(gnorm), (label, loss, gnorm))
+        del state
+        return params, kept[0], {"loss": loss, "grad_norm": gnorm, "seconds": dt,
+                                 "flop_share": flops / (dt * BF16_FLOPS),
+                                 "peak_memory": card_memory()[1]}
+
+    flat, g_flat, flat_run = run(tree_map(torch.clone, base), False)
+    # held on the host beside the split step (its f32 gradients and
+    # state need the card): the params, and the gradients in bf16
+    flat = tree_map(lambda t: t.to("cpu"), flat)
+    g_flat = tree_map(lambda t: t.to(torch.bfloat16).to("cpu"), g_flat)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    placed = SH.place(tree_map(torch.clone, base), SH.param_shardings(cfg, base, mesh))
+    plan = DP.plan_split(mesh, B, S, M, cfg.family)
+    placed, g_split, split_run = run(placed, True)
+    split_run["seconds_with_placement"] = time.time() - t0
+    counted = step_collectives(placed, cfg, batch, label, xc, M)
+    lr = FULL_LR
+    scale = {k: min(1.0, 1.0 / r["grad_norm"]) for k, r in (("split", split_run),
+                                                            ("flat", flat_run))}
+    worst = {"agree": 0.0, "part": 0.0, "leaf_part_share": 0.0, "grad_rms_rel": 0.0}
+    differ = parted = flipped = above = total = 0
+    for a, b, ga, gb in zip(leaves(placed), leaves(flat), leaves(g_split), leaves(g_flat)):
+        whole = (lambda t: SH.gather(t) if isinstance(t, ShardedTensor) else t)
+        a, ga = whole(a).float(), whole(ga).float() * scale["split"]
+        b, gb = b.to(a.device).float(), gb.to(a.device).float() * scale["flat"]
+        diff = (a - b).abs()
+        step = _bf16_step(torch.maximum(a.abs(), b.abs()))
+        near = (ga.abs() < SHARDED_GRAD_FLOOR) | (gb.abs() < SHARDED_GRAD_FLOOR)
+        flip = ~near & (torch.sign(ga) != torch.sign(gb))
+        part = near | flip
+        if (~part).any():
+            worst["agree"] = max(worst["agree"],
+                                 ((diff - 0.02 * lr) / step)[~part].max().item())
+        if part.any():
+            worst["part"] = max(worst["part"], ((diff - 2.01 * lr) / step)[part].max().item())
+        if (~near).any():
+            worst["leaf_part_share"] = max(worst["leaf_part_share"],
+                                           (flip.sum() / (~near).sum()).item())
+        worst["grad_rms_rel"] = max(worst["grad_rms_rel"],
+                                    ((ga - gb).norm() / gb.norm().clamp_min(1e-30)).item())
+        differ += int((a != b).sum())
+        parted += int(part.sum())
+        flipped += int(flip.sum())
+        above += int((~near).sum())
+        total += a.numel()
+        del a, b, ga, gb, diff, step, part, near, flip
+    rel = abs(split_run["loss"] / flat_run["loss"] - 1)
+    line = {"batch": [B, S], "microbatches": M, "split_by": plan.by,
+            "blocks": plan.blocks, "dp_positions": plan.n, "split": split_run,
+            "unsharded": flat_run, "loss_rel_err": rel,
+            "agreeing_max_diff_beyond_lr_50th_in_bf16_steps": worst["agree"],
+            "parted_max_diff_beyond_2lr_in_bf16_steps": worst["part"],
+            "flipped_share_of_a_leaf_max": worst["leaf_part_share"],
+            "grad_rms_rel_diff_of_a_leaf_max": worst["grad_rms_rel"],
+            "elements_differing": differ, "elements_near_zero_or_flipped": parted,
+            "elements_flipped": flipped, "elements_above_floor": above,
+            "flipped_share_above_floor": flipped / max(above, 1),
+            "param_elements": total, "collectives": counted, "plan": plan}
+    del flat, placed, g_flat, g_split
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(rel <= SHARDED_BF16_RTOL, (label, "loss", line))
+    check(worst["agree"] <= 1.0 and worst["part"] <= 1.0
+          and worst["leaf_part_share"] <= SPLIT_PARTED_SHARE,
+          (label, "update element by element", line))
+    print(f"{label[0]} {label[1]}: {B} x {S} in {M} microbatch(es) split by "
+          f"{plan.by} ({plan.blocks} blocks over {plan.n}): loss {split_run['loss']:.6f} "
+          f"({flat_run['loss']:.6f} unsharded, rel {rel:.3g}); step "
+          f"{split_run['seconds']:.3f} s ({flat_run['seconds']:.3f} unsharded), peak "
+          f"{split_run['peak_memory']} ({flat_run['peak_memory']}); "
+          f"{differ} of {total} elements differ; {parted} near-zero or flipped gradients, "
+          f"{flipped} flipped of {above} above the floor; "
+          f"collectives {counted['executed']['bytes']} in {counted['executed']['calls']} "
+          f"calls as counted", flush=True)
+    return line
+
+
+def train_split_fallbacks(base, cfg, device="cuda"):
+    """The train step's two split fallbacks at full width (phase 57): each
+    case of SPLIT_FALLBACKS through :func:`_split_case` at DP_FULL_MESH.
+    Returns the phase's line."""
     mesh = tp_mesh(DP_FULL_MESH, device)
     xc = SHARDED_FULL["xent_chunk"]
     line = {"phase": "train_split_fallbacks", "model": cfg.name, "layers": cfg.n_layers,
@@ -7916,101 +8029,54 @@ def train_split_fallbacks(base, cfg, device="cuda"):
     for case, kw in SPLIT_FALLBACKS.items():
         B, S, M = kw["batch"], kw["seq_len"], kw["microbatches"]
         batch = _batch(0, cfg, device, B, S)
-        flops = train_flops(cfg, B, S)
-
-        def run(params, count):
-            o = make_optimizer("adamw", FULL_LR, 1)
-            state = o.init(params)
-            kept = []
-            fn = make_train_step(cfg, o, microbatches=M, xent_chunk=xc, remat=True,
-                                 grad_compressor=lambda g, r: (kept.append(g) or g, r))
-            if count:
-                BACKGROUND.fence("collectives")     # no background job moves the counts
-                collectives.reset_result_bytes()
-            reset_peak()
-            sync()
-            t0 = time.time()
-            params, state, _, m = fn(params, state, batch, 0)
-            loss, gnorm = float(m["loss"]), float(m["grad_norm"])
-            sync()
-            dt = time.time() - t0
-            check(math.isfinite(loss) and math.isfinite(gnorm), (case, loss, gnorm))
-            del state
-            return params, kept[0], {"loss": loss, "grad_norm": gnorm, "seconds": dt,
-                                     "flop_share": flops / (dt * BF16_FLOPS),
-                                     "peak_memory": card_memory()[1]}
-
-        flat, g_flat, flat_run = run(tree_map(torch.clone, base), False)
-        # held on the host beside the split step (its f32 gradients and
-        # state need the card): the params, and the gradients in bf16
-        flat = tree_map(lambda t: t.to("cpu"), flat)
-        g_flat = tree_map(lambda t: t.to(torch.bfloat16).to("cpu"), g_flat)
-        gc.collect()
-        torch.cuda.empty_cache()
-        t0 = time.time()
-        placed = SH.place(tree_map(torch.clone, base), SH.param_shardings(cfg, base, mesh))
-        plan = DP.plan_split(mesh, B, S, M, cfg.family)
-        placed, g_split, split_run = run(placed, True)
-        split_run["seconds_with_placement"] = time.time() - t0
-        counted = step_collectives(placed, cfg, batch, ("train_split_fallbacks", case), xc, M)
-        lr = FULL_LR
-        scale = {k: min(1.0, 1.0 / r["grad_norm"]) for k, r in (("split", split_run),
-                                                                ("flat", flat_run))}
-        worst = {"agree": 0.0, "part": 0.0, "leaf_part_share": 0.0, "grad_rms_rel": 0.0}
-        differ = parted = flipped = total = 0
-        for a, b, ga, gb in zip(leaves(placed), leaves(flat), leaves(g_split), leaves(g_flat)):
-            whole = (lambda t: SH.gather(t) if isinstance(t, ShardedTensor) else t)
-            a, ga = whole(a).float(), whole(ga).float() * scale["split"]
-            b, gb = b.to(a.device).float(), gb.to(a.device).float() * scale["flat"]
-            diff = (a - b).abs()
-            step = _bf16_step(torch.maximum(a.abs(), b.abs()))
-            near = (ga.abs() < SHARDED_GRAD_FLOOR) | (gb.abs() < SHARDED_GRAD_FLOOR)
-            flip = ~near & (torch.sign(ga) != torch.sign(gb))
-            part = near | flip
-            if (~part).any():
-                worst["agree"] = max(worst["agree"],
-                                     ((diff - 0.02 * lr) / step)[~part].max().item())
-            if part.any():
-                worst["part"] = max(worst["part"], ((diff - 2.01 * lr) / step)[part].max().item())
-            if (~near).any():
-                worst["leaf_part_share"] = max(worst["leaf_part_share"],
-                                               (flip.sum() / (~near).sum()).item())
-            worst["grad_rms_rel"] = max(worst["grad_rms_rel"],
-                                        ((ga - gb).norm() / gb.norm().clamp_min(1e-30)).item())
-            differ += int((a != b).sum())
-            parted += int(part.sum())
-            flipped += int(flip.sum())
-            total += a.numel()
-            del a, b, ga, gb, diff, step, part, near, flip
-        rel = abs(split_run["loss"] / flat_run["loss"] - 1)
-        line[case] = {"batch": [B, S], "microbatches": M, "split_by": plan.by,
-                      "blocks": plan.blocks, "dp_positions": plan.n, "split": split_run,
-                      "unsharded": flat_run, "loss_rel_err": rel,
-                      "agreeing_max_diff_beyond_lr_50th_in_bf16_steps": worst["agree"],
-                      "parted_max_diff_beyond_2lr_in_bf16_steps": worst["part"],
-                      "flipped_share_of_a_leaf_max": worst["leaf_part_share"],
-                      "grad_rms_rel_diff_of_a_leaf_max": worst["grad_rms_rel"],
-                      "elements_differing": differ, "elements_near_zero_or_flipped": parted,
-                      "elements_flipped": flipped,
-                      "param_elements": total, "collectives": counted}
-        del flat, placed, g_flat, g_split
-        gc.collect()
-        torch.cuda.empty_cache()
+        r = _split_case(("train_split_fallbacks", case), base, cfg, mesh, batch, M, xc,
+                        train_flops(cfg, B, S))
+        plan = r.pop("plan")
         check(plan.by == ("positions" if case == "positions" else "rows"), (case, plan))
-        check(rel <= SHARDED_BF16_RTOL, (case, "loss", line[case]))
-        check(worst["agree"] <= 1.0 and worst["part"] <= 1.0
-              and worst["leaf_part_share"] <= SPLIT_PARTED_SHARE,
-              (case, "update element by element", line[case]))
-        r = line[case]
-        print(f"train_split_fallbacks {case}: {B} x {S} in {M} microbatch(es) split by "
-              f"{plan.by} ({plan.blocks} blocks over {plan.n}): loss {r['split']['loss']:.6f} "
-              f"({r['unsharded']['loss']:.6f} unsharded, rel {rel:.3g}); step "
-              f"{r['split']['seconds']:.3f} s ({r['unsharded']['seconds']:.3f} unsharded), peak "
-              f"{r['split']['peak_memory']} ({r['unsharded']['peak_memory']}); "
-              f"{differ} of {total} elements differ; {parted} near-zero or flipped gradients, "
-              f"{flipped} flipped; "
-              f"collectives {counted['executed']['bytes']} in {counted['executed']['calls']} "
-              f"calls as counted", flush=True)
+        line[case] = r
+    emit(line)
+    return line
+
+
+# phase 58: one row of each model, its text positions over "data"
+POSITION_SPLIT = (("paligemma-3b", 1024), ("whisper-base", 448))
+POSITION_SPLIT_SEED = 59         # its generator: earlier phases' draws stay
+SPLIT_FLIPPED_SHARE = 0.01       # of the gradient elements above SHARDED_GRAD_FLOOR
+
+
+def train_position_split(device="cuda"):
+    """The split of the positions over "data" for the vlm and encdec
+    families at full width (phase 58): for each of POSITION_SPLIT, params
+    and the row's image embeddings or frames from POSITION_SPLIT_SEED, one
+    row of that many text tokens through :func:`_split_case` at
+    DP_FULL_MESH (each "data" position its block of the text, the image or
+    frames whole), gated as phase 57 and, over all of its elements, fewer
+    than SPLIT_FLIPPED_SHARE of the gradients above the floor flipped.
+    Returns the phase's line."""
+    from repro_torch.configs import registry
+    from repro_torch.launch.dryrun import xent_chunk
+    from repro_torch.models import api
+    mesh = tp_mesh(DP_FULL_MESH, device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(POSITION_SPLIT_SEED)
+    line = {"phase": "train_position_split", "dtype": "bfloat16", "mesh": list(DP_FULL_MESH),
+            "fsdp": False, "optimizer": "adamw", "lr": FULL_LR, "remat": True,
+            "tolerance": SHARDED_BF16_RTOL, "flipped_share_limit": SPLIT_FLIPPED_SHARE}
+    for name, S in POSITION_SPLIT:
+        cfg = registry.get_config(name)
+        base = api.init_params(gen, cfg)
+        batch = {**_batch(0, cfg, device, 1, S), **family_extra(gen, cfg, 1, device)}
+        xc = xent_chunk(cfg, S + (cfg.n_img_tokens if cfg.family == "vlm" else 0))
+        r = _split_case(("train_position_split", name), base, cfg, mesh, batch, 1, xc,
+                        train_flops(cfg, 1, S))
+        plan = r.pop("plan")
+        r.update(family=cfg.family, layers=cfg.n_layers, xent_chunk=xc, params=cfg.param_count())
+        del base, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+        check(plan.by == "positions" and plan.blocks == DP_FULL_MESH[0], (name, plan))
+        check(r["flipped_share_above_floor"] < SPLIT_FLIPPED_SHARE, (name, "flipped", r))
+        line[name] = r
     emit(line)
     return line
 
@@ -8238,6 +8304,8 @@ def run() -> int:
         par_line["sharded_full_width"]["data_parallel"]["seconds_with_placement"])
     torch.cuda.empty_cache()
     split_line = timed("train_split_fallbacks", train_split_fallbacks, base, cfg)
+    torch.cuda.empty_cache()
+    position_line = timed("train_position_split", train_position_split)
     torch.cuda.empty_cache()
     # tp_f32_parity reads the collectives' counts: it runs after the MoE
     # session, so that the background's jobs tagged "collectives"
@@ -8765,6 +8833,7 @@ def run() -> int:
                    "train_full_width_families": family_full,
                    "tp_main_path": tp_line, "tp_kernel_shapes": kq_tp, "tp_pool": tp_pool_line,
                    "parallel_training": par_line, "train_split_fallbacks": split_line,
+                   "train_position_split": position_line,
                    "tp_f32_parity": tp_parity_line,
                    "tp_moe": tp_moe_line, "tp_rwkv": tp_rw_line,
                    "tp_rwkv_kernel_shapes": kq_tp_rw,

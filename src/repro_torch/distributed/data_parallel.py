@@ -45,16 +45,26 @@ axes, each running ``loss`` on its rows.
   (a replica: the same values; every piece's loss weighted ``1 / n``, so
   the reduction over every position gives the mean).
 - **Positions over "data".**  Where the rows do not divide the dp axes,
-  ``batch_shardings`` puts the positions over "data"; a dense or MoE
-  model's step then splits every row's positions over the "data"
-  positions (a "pod" position runs its block again).  The pieces run in
-  lockstep: at each attention layer they exchange k and v
-  (:func:`gather_positions`: ``collectives.all_gather_each`` within each
-  "pod" position, whose gradient is the reduce-scatter of the K/V
-  gradients), and each piece's RoPE positions, causal mask and window
-  start at its first position; its loss is its labels' mean, weighted by
-  its share.  The recomputation of a checkpointed block gathers the
-  forward's pieces again (counted), its own recomputed k and v in place.
+  ``batch_shardings`` puts the positions over "data"; a dense, MoE, vlm
+  or encdec model's step then splits every row's text positions
+  (``tokens`` and ``labels``) over the "data" positions (a "pod" position
+  runs its block again).  The pieces run in lockstep: at each causal
+  attention layer they exchange k and v (:func:`gather_positions`:
+  ``collectives.all_gather_each`` within each "pod" position, whose
+  gradient is the reduce-scatter of the K/V gradients), and each piece's
+  positions, causal mask and window start at its first position; its
+  loss is its labels' mean, weighted by its share.  A row's other inputs
+  are not its text's positions: every piece holds them whole (as
+  ``batch_shardings`` replicates them over "data") and runs what they
+  feed whole.  A vlm's image goes ahead of each piece's block: the piece
+  runs the image positions itself and keeps their K/V ahead of the
+  gathered text K/V.  An encdec's piece runs the encoder over its rows'
+  whole frames (``enc_inputs``), and its decoder's cross-attention reads
+  all of them.  Each copy's gradient
+  comes from its own piece's text only, so the reduction over the pieces
+  sums the whole gradient.  The recomputation of a checkpointed block
+  gathers the forward's pieces again (counted), its own recomputed k and
+  v in place.
 - **The MoE block** (:func:`moe_exchange`) computes what the reference's
   step computes over the global batch: the pieces run in lockstep (one
   thread each, one running at a time, :class:`_Lockstep`), and at every
@@ -104,8 +114,8 @@ class Piece:
     after another), the log of its exchanges' results, and, inside a
     recomputation, the cursor into that log.  ``block`` of ``blocks`` is
     the part of each microbatch it runs (see :class:`Split`); ``span``,
-    for a split of the positions, is (its first position, each row's
-    positions in all)."""
+    for a split of the positions, is (its first text position, each row's
+    text positions in all)."""
     index: int
     n: int
     coords: Dict[str, int]
@@ -314,8 +324,8 @@ def moe_exchange(gates: torch.Tensor, experts: torch.Tensor, psum: torch.Tensor)
 
 
 def position_span() -> Optional[Tuple[int, int]]:
-    """(first position, positions of a row in all) of the running piece of a
-    position split; None elsewhere."""
+    """(first text position, text positions of a row in all) of the running
+    piece of a position split; None elsewhere."""
     piece = _PIECE.get()
     return None if piece is None else piece.span
 
@@ -545,7 +555,10 @@ class Split:
         return coords["data"] if self.by == "positions" else j % self.blocks
 
 
-POSITION_SPLIT_FAMILIES = ("dense", "moe")
+POSITION_SPLIT_FAMILIES = ("dense", "moe", "vlm", "encdec")
+# the batch entries a split of the positions cuts; a row's other inputs
+# (a vlm's ``img_embs``, an encdec's ``enc_inputs``) go whole to each piece
+POSITION_KEYS = ("tokens", "labels")
 
 
 def plan_split(mesh, rows: int, seq: int, microbatches: int = 1,
@@ -578,8 +591,9 @@ def plan_split(mesh, rows: int, seq: int, microbatches: int = 1,
 def _parts(batch: Dict[str, torch.Tensor], split: Split, pieces, M: int) -> List[List[dict]]:
     """``[i][j]``: microbatch ``i``'s part of piece ``j`` (its rows, or
     every row's block of positions)."""
-    B = next(iter(batch.values())).shape[0]
+    B, S = batch["tokens"].shape
     rows = B // M
+    S //= split.blocks
     out = []
     for i in range(M):
         mb = {k: v[i * rows:(i + 1) * rows] for k, v in batch.items()}
@@ -587,8 +601,8 @@ def _parts(batch: Dict[str, torch.Tensor], split: Split, pieces, M: int) -> List
         for j, c in enumerate(pieces):
             blk = split.block(j, c)
             if split.by == "positions":
-                S = next(iter(mb.values())).shape[1] // split.blocks
-                row.append({k: v[:, blk * S:(blk + 1) * S] for k, v in mb.items()})
+                row.append({k: v[:, blk * S:(blk + 1) * S] if k in POSITION_KEYS else v
+                            for k, v in mb.items()})
             else:
                 b = rows // split.blocks
                 row.append({k: v[blk * b:(blk + 1) * b] for k, v in mb.items()})
@@ -611,7 +625,7 @@ def split_value_and_grad(loss: Callable, params, batch: Dict[str, torch.Tensor],
     M = microbatches
     lockstep = lockstep or split.by == "positions"
     parts_all = _parts(batch, split, pieces, M)
-    S = next(iter(batch.values())).shape[1]
+    S = batch["tokens"].shape[1]
     flat = leaves(params)
     plan: List[_Entry] = []
     views, diffs = [], []

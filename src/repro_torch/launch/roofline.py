@@ -51,7 +51,7 @@ from torch.overrides import TorchFunctionMode
 
 from repro_torch.core.compressed import (BlockSparseTensor, QEmbed, QTensor, ShardedTensor,
                                          param_bytes)
-from repro_torch.tree import flatten_with_path
+from repro_torch.tree import flatten_with_path, leaves
 
 # --- H100 SXM5 constants (per card), NVIDIA data sheet ---
 BF16_FLOPS = 989e12              # dense bf16 tensor-core peak, FLOP/s
@@ -534,33 +534,46 @@ def _table_uses(leaf, cfg, rows_lookup: float, rows_logits: float, lookups: int,
                   only="logits")
 
 
-def _gradient_reduction(params, pieces, microbatches: int, t: _Tally) -> None:
+def _gradient_reduction(params, pieces, microbatches: int, t: _Tally,
+                        rows_used: Dict[str, float] = None,
+                        replicated=lambda path: False) -> None:
     """Each float tensor's gradient reduced over the split step's ``pieces``
     (``data_parallel._reduce``): an all-reduce of every tensor the dp axes
     do not split, one reduce-scatter of each FSDP split's shards, and an
     expert stack's experts over "data" all-reduced over "pod" only.  A
     device reduces the model shard it holds, and receives 1 / "data" of
-    an FSDP split's shards."""
+    an FSDP split's shards, which it all-reduces over "pod" where there
+    are pods (read from qwen2-moe-a2.7b's and gemma2-2b's compiled steps
+    on (2, 2, 2)).  ``rows_used`` {top-level key: rows}: a table the step
+    reads a slice of (an encdec's learned positions), whose gradient XLA
+    reduces only at the rows the slice touched (read from whisper-base's
+    compiled step); the port reduces it whole, the rest ``port_only``
+    ``"untouched_rows"``.  The tensors whose path ``replicated`` holds are
+    ones every device's program computes the same gradient of, reduced by
+    the port only (``"replicated_gradients"``)."""
     pods = len({p.get("pod", 0) for p in pieces})
+    rows_used = rows_used or {}
 
-    def walk(node, kind, per):
+    def walk(node, kind, per, t=t):
         if isinstance(node, ShardedTensor):
             if node.axis == "data":
                 if _is_fsdp(node) and not isinstance(node.pieces[0], ShardedTensor):
                     size = 4 if microbatches > 1 else node.pieces[0].element_size()
-                    t.add("gradients", "reduce-scatter",
-                          sum(p.numel() for p in node.pieces) * size, 1,
+                    whole = sum(p.numel() for p in node.pieces) * size
+                    t.add("gradients", "reduce-scatter", whole, 1,
                           per=per / len(node.pieces), size=size)
+                    if pods > 1:                 # the shard over "pod" on a device
+                        t.device("all-reduce", whole * per / len(node.pieces), size=size)
                     return
                 if _is_fsdp(node):               # "data" outermost: one group per inner piece
                     m = len(node.pieces[0].pieces)
                     for i in range(m):
                         walk(ShardedTensor([p.pieces[i] for p in node.pieces], node.dim,
-                                           node.axis, node.mesh), kind, per / m)
+                                           node.axis, node.mesh), kind, per / m, t)
                     return
                 kind = "ep"
             for p in node.pieces:
-                walk(p, kind, per / len(node.pieces))
+                walk(p, kind, per / len(node.pieces), t)
             return
         if not (isinstance(node, torch.Tensor) and node.is_floating_point()):
             return
@@ -568,8 +581,40 @@ def _gradient_reduction(params, pieces, microbatches: int, t: _Tally) -> None:
         if kind == "all" or pods > 1:
             t.add("gradients", "all-reduce", node.numel() * size, 1, per=per, size=size)
 
-    for leaf in flatten_with_path(params):
-        walk(leaf[1], "all", 1.0)
+    for path, leaf in flatten_with_path(params):
+        one = _Tally()
+        walk(leaf, "all", 1.0, one)
+        _merge(t, one)
+        if replicated(path):
+            _to_port_only(t, one, "replicated_gradients")
+        elif path[0] in rows_used:
+            _to_port_only(t, one, "untouched_rows",
+                          1 - min(rows_used[path[0]] / leaf.shape[0], 1.0))
+
+
+def _to_port_only(t: _Tally, one: _Tally, name: str, share: float = 1.0) -> None:
+    """Move ``share`` of ``one``'s per-device figures, already merged into
+    ``t``, to ``t``'s ``port_only`` ``name``."""
+    into = t.port_only.setdefault(name, {})
+    for kind, v in one.dev.items():
+        t.dev[kind] = t.dev.get(kind, 0.0) - v * share
+        t.widen[kind] = t.widen.get(kind, 0.0) - one.widen.get(kind, 0.0) * share
+        into[kind] = into.get(kind, 0.0) + v * share
+
+
+def _apart(plan, M: int) -> int:
+    """How many times one device's program reduces the gradients: once a
+    microbatch where the rows split, whether or not a microbatch's rows
+    split over every dp position (read from gemma2-2b's compiled steps at
+    2 microbatches on (2, 4) and on (4, 2), and rwkv6-3b's on (2, 4))."""
+    return M if plan.by == "rows" else 1
+
+
+def _device_only(t: _Tally) -> _Tally:
+    """``t``'s per-device figures alone (the controller's count left out)."""
+    out = _Tally()
+    out.dev, out.widen = dict(t.dev), dict(t.widen)
+    return out
 
 
 def _step_split(params, cfg, step: "TrainStep"):
@@ -679,6 +724,11 @@ def train_collectives(params, cfg, step: TrainStep) -> Dict[str, Dict]:
     logit_rows = (b * S_text if chunked else rows) / nchunks
     again_logits = chunked and step.remat
     sp = _sequence_split(cfg, mesh, plan, step)
+    fs = _feature_split_frames(cfg, mesh, plan)
+    rwkv_sp = cfg.family == "rwkv" and sp and not _has_fsdp(params)
+    fs_vlm = (cfg.family == "vlm" and plan.by == "positions"
+              and cfg.d_model % mesh.shape.get("model", 1) == 0)
+    lead_vlm = (step.seq_len + cfg.n_img_tokens) / plan.blocks if fs_vlm else 0
     sites = 1
     if cfg.family == "hybrid":
         from repro_torch.models.hybrid import layout
@@ -695,12 +745,28 @@ def train_collectives(params, cfg, step: TrainStep) -> Dict[str, Dict]:
         if name == "router" and "moe" in path and split:
             uses = math.prod(leaf.shape[:-2])
             E, k = cfg.n_experts, cfg.top_k
-            t.add("forward", "all-gather", tokens_mb * k * 4, uses * M)
-            t.add("forward", "all-gather", tokens_mb * k * 8, uses * M, size=8)
-            t.add("forward", "all-reduce", E * 4, uses * M)
-        if name == "wk" and plan.by == "positions" and "attn" in path:
-            _kv_gathers(leaf, cfg, b, step.seq_len, plan, M, act, t,
-                        step.remat and path[0] in _REMAT_ROOTS)
+            ex = _Tally()
+            ex.add("forward", "all-gather", tokens_mb * k * 4, uses * M)
+            ex.add("forward", "all-gather", tokens_mb * k * 8, uses * M, size=8)
+            ex.add("forward", "all-reduce", E * 4, uses * M)
+            _merge(t, _controller_only(ex, "moe_exchange"))
+            _moe_dispatch(params, cfg, mesh, b * S, tokens_mb, act, t, uses * M,
+                          step.remat and path[0] in _REMAT_ROOTS)
+        again = step.remat and path[0] in _REMAT_ROOTS
+        if name == "wk" and plan.by == "positions" and "attn" in path and path[0] != "enc_blocks":
+            kv = _Tally()
+            _kv_gathers(leaf, cfg, b, step.seq_len, plan, M, act, kv, again)
+            if fs_vlm:                  # XLA gathers the image's K/V too: see _feature_split
+                _merge(t, _controller_only(kv, "text_kv_gathers"))
+                _sp_kv_gathers(leaf, cfg, b * lead_vlm * plan.blocks * M, act, t, again,
+                               halves=False)
+            else:
+                _merge(t, kv)
+        if name == "wk" and sp and "attn" in path and _model_pieces(leaf) == 1:
+            _sp_kv_gathers(leaf, cfg, rows * M, act, t, again)
+        if fs_vlm and name == "wk" and not isinstance(leaf, ShardedTensor):
+            _feature_split(name, leaf, b * lead_vlm, act, t, math.prod(leaf.shape[:-2]) * M,
+                           again, encoder=True)
         if not isinstance(leaf, ShardedTensor):
             continue
         expert = "moe" in path and name in ("wi", "wg", "wo")
@@ -721,13 +787,68 @@ def train_collectives(params, cfg, step: TrainStep) -> Dict[str, Dict]:
         _linear_use(leaf, lead, act, split, one, uses * runs, again, per, sp)
         if name == "unembed":
             one.port_only["logits"] = one.port_only.pop("column_outputs", {})
+        if expert and split:                      # XLA's dispatch instead: _moe_dispatch
+            one = _controller_only(one, "expert_gathers")
+        if rwkv_sp and path[0] == "blocks":       # XLA's layer instead: _rwkv_sequence_split
+            one = _controller_only(one, "rwkv_layers")
+            if name == "wr" and "cm" in path:
+                _rwkv_sequence_split(leaf, cfg, rows, act, t, uses * M, again, M)
         _merge(t, one)
+        if (again and split and name == "wo" and not cfg.post_norms
+                and any(m in path for m in ("mlp", "shared_mlp", "dense_mlp"))):
+            _unread_recompute(leaf, lead, act, t, uses * runs, per)
+        if fs and (path[0] == "enc_blocks" or "xattn" in path):
+            _feature_split(name, leaf, lead, act, t, uses * M, again,
+                           encoder=path[0] == "enc_blocks", xattn="xattn" in path)
+        if fs_vlm and path[0] in ("blocks", "tail") and name != "unembed":
+            _feature_split(name, leaf, b * lead_vlm, act, t, uses * M, again, encoder=True)
+    if fs:                                        # the encoder's output, for the cross K/V
+        t.device("all-gather", b * step.enc_len * cfg.d_model * act * M, size=act)
+    if fs_vlm:                                    # the logits' section input
+        t.device_forward("all-gather", b * S_text * cfg.d_model * act * M, again_logits, act)
+        t.device("all-gather", b * S_text * cfg.d_model * act * M, size=act)
+        # the lookup's gradient rows [rows, d / model] gathered over "data"
+        t.device("all-gather", b * step.seq_len * cfg.d_model * 4 * M
+                 / mesh.shape.get("model", 1))
     if sp:                                        # the logits' section input
         t.device_forward("all-gather", logit_rows * cfg.d_model * act * runs * nchunks * per,
                          again_logits, act)
+        if cfg.family == "vlm":                   # the text slice's gradient (a pad)
+            t.device("all-gather", b * S_text * cfg.d_model * act * M, size=act)
+        # the embedding's output moved into the sequence split and its
+        # gradient back, [rows, S / model, d] each, once a step whatever
+        # the layers (read from qwen2-moe-a2.7b's steps at 2 and 3 layers)
+        t.device("collective-permute", 2 * rows / mesh.shape["model"] * cfg.d_model * act * M,
+                 size=act)
     if split:
         t.add("forward", "all-reduce", 4, M)
-        _gradient_reduction(params, dp_pieces(mesh), M, t)
+        g = _Tally()
+        whole_encoder = cfg.family == "encdec" and plan.by == "positions"
+        # every device runs its experts on every token that reaches them,
+        # the other pods' too (read from qwen2-moe-a2.7b's steps on (8, 2)
+        # and (2, 2, 2)): no expert gradient is reduced
+        whole_experts = cfg.family == "moe" and (_experts_whole(cfg, mesh)
+                                                 or mesh.shape.get("pod", 1) > 1)
+        _gradient_reduction(
+            params, dp_pieces(mesh), M, g,
+            {"pos_enc": step.enc_len, "pos_dec": step.seq_len} if cfg.family == "encdec" else None,
+            lambda path: ((whole_encoder and path[0] in _ENCODER)
+                          or (whole_experts and "moe" in path and path[-1] in ("wi", "wg", "wo"))))
+        if whole_encoder:
+            # every piece runs the encoder on the same frames: XLA sums the
+            # encoder output's gradient over the pieces [b, enc_len, d] and
+            # each runs the same encoder backward (its weights' gradients
+            # not reduced), and gathers the decoder positions' gradient
+            # rows [seq, d] of the sliced table (read from whisper-base's
+            # compiled step at batch 1)
+            g.device("all-reduce", b * step.enc_len * cfg.d_model * act * M, size=act)
+            g.device("all-gather", step.seq_len * cfg.d_model * 4 * M)
+        # several microbatches: XLA reduces each microbatch's gradients
+        # apart, over the positions that split it (:func:`_apart`)
+        _merge(t, g)
+        _merge(t, _device_only(g), _apart(plan, M) - 1)
+    if _stationary(params, plan):
+        _stationary_device(params, cfg, step, mesh, t)
     total_b: Dict[str, float] = {}
     total_c: Dict[str, int] = {}
     for phase in t.bytes:
@@ -736,6 +857,272 @@ def train_collectives(params, cfg, step: TrainStep) -> Dict[str, Dict]:
             total_c[k] = total_c.get(k, 0) + t.calls[phase][k]
     return {"bytes": total_b, "calls": total_c, "breakdown": t.bytes,
             "calls_breakdown": t.calls, "split": n, "split_by": plan.by, **_device_report(t)}
+
+
+def _stationary(params, plan) -> bool:
+    """Whether XLA keeps the weights split at this step: FSDP split some
+    weight and the step is a fallback (its positions over "data", or
+    microbatches whose rows do not split over every dp position)."""
+    fallback = plan.by == "positions" or (plan.by == "rows" and plan.blocks < plan.n)
+    return fallback and _has_fsdp(params)
+
+
+def _has_fsdp(params) -> bool:
+    """Whether FSDP split some leaf of ``params`` over "data"."""
+    return any(_is_fsdp(leaf) or (isinstance(leaf, ShardedTensor) and _is_fsdp(leaf.pieces[0]))
+               for leaf in leaves(params))
+
+
+def _axis_pieces(w, axis: str, dim: int) -> int:
+    """Into how many pieces ``axis`` cuts ``w`` along ``dim``."""
+    n = 1
+    while isinstance(w, ShardedTensor):
+        if w.axis == axis and w.dim == dim:
+            n *= len(w.pieces)
+        w = w.pieces[0]
+    return n
+
+
+def _stationary_device(params, cfg, step: "TrainStep", mesh, t: _Tally) -> None:
+    """One device's program where XLA keeps FSDP's weights split
+    (:func:`_stationary`; read from gemma2-2b's compiled steps at batch 1
+    on (2, 4) and at 2 microbatches on (4, 2)): every device runs every row
+    and position of a microbatch (``R`` of them, a vlm's image too), its
+    activations split along the features over "data", and moves the
+    activations, not the weights.  A linear split over "data" along its
+    input all-reduces its output [R, d_out / model pieces] over "data" (in
+    the forward and again in the recomputation) and its input's gradient
+    [R, d_in / data pieces] over "model"; one split over "data" along its
+    output all-reduces its output [R, d_out / data pieces] over "model" and
+    its input's gradient [R, d_in / model pieces] over "data" (each
+    all-reduce over "model" only where "model" splits the other dim).  A
+    vlm's image, split over "model" along its features, is gathered to
+    its "data" cut [rows, n_img, d / data].  The tied
+    table's logits [text rows, V / model pieces] in f32 are all-reduced
+    over "data" (again in the recomputation, and once more at several
+    microbatches) and gathered twice in the backward, its lookup
+    all-reduced over "model" [text rows, d / data pieces] (the logits' third
+    all-reduce read from gemma2-2b's step at 2 microbatches on (4, 2)).  No
+    gradient is reduced: each device's weight gradients are its own
+    shard's.  Replaces the tally's per-device figures; the port's own
+    gathers per use and gradient reductions go to ``port_only``
+    ``"weights_gathered"``."""
+    act = torch.empty((), dtype=cfg.dtype).element_size()
+    M = step.microbatches
+    R = step.batch / M * (step.seq_len + (cfg.n_img_tokens if cfg.family == "vlm" else 0))
+    into = t.port_only.setdefault("weights_gathered", {})
+    for kind, v in t.dev.items():
+        into[kind] = into.get(kind, 0.0) + v
+    t.dev, t.widen = {}, {}
+    for path, leaf in flatten_with_path(params):
+        name = [k for k in path if isinstance(k, str)][-1]
+        if not isinstance(leaf, ShardedTensor) or name == "router" or len(leaf.shape) < 2:
+            continue
+        again = step.remat and path[0] in _REMAT_ROOTS
+        main = _main(leaf)
+        uses = math.prod(main.shape[:-2]) * M
+        d_in, d_out = leaf.shape[-2], leaf.shape[-1]
+        if name == "embed":                   # the text's rows
+            V, d, rt = d_in, d_out, step.batch / M * step.seq_len
+            pm, pd = _axis_pieces(leaf, "model", -2), _axis_pieces(leaf, "data", -1)
+            t.device("all-reduce", rt * d / pd * act * M, size=act)
+            if cfg.tie_embeddings:
+                t.device_forward("all-reduce", rt * V / pm * 4 * M, step.remat, 4)
+                if M > 1:
+                    t.device("all-reduce", rt * V / pm * 4 * M)
+                t.device("all-gather", 2 * rt * V / pm * 4 * M)
+                t.device("all-reduce", rt * d / pd * act * M, size=act)
+            continue
+        if _axis_pieces(leaf, "data", -2) > 1:
+            out = R * d_out / _axis_pieces(leaf, "model", -1) * act * uses
+            t.device_forward("all-reduce", out, again, act)
+            if _axis_pieces(leaf, "model", -1) > 1:
+                t.device("all-reduce", R * d_in / _axis_pieces(leaf, "data", -2) * act * uses,
+                         size=act)
+        elif _axis_pieces(leaf, "data", -1) > 1:
+            if _axis_pieces(leaf, "model", -2) > 1:
+                out = R * d_out / _axis_pieces(leaf, "data", -1) * act * uses
+                t.device_forward("all-reduce", out, again, act)
+            t.device("all-reduce", R * d_in / _axis_pieces(leaf, "model", -2) * act * uses,
+                     size=act)
+    if cfg.family == "vlm":     # the image, split over "model", cut over "data" instead
+        t.device("all-gather", step.batch / M * cfg.n_img_tokens * cfg.d_model * act * M
+                 / mesh.shape["data"], size=act)
+
+
+def _unread_recompute(w, lead: float, act: int, t: _Tally, calls: int, per: float) -> None:
+    """The recomputation's collectives of a block's last linear (the MLP's
+    ``wo``: its FSDP gathers, its row split's all-reduce) where no norm
+    follows it: the port's checkpoint re-runs the whole block, but
+    nothing in the backward reads that linear's output, so XLA's
+    recomputation leaves it out (read from paligemma-3b's, whisper-base's
+    and arctic-480b's compiled steps, arctic's dense residual MLP beside
+    its experts too; gemma2-2b's post-norms read it):
+    ``port_only`` ``"unread_recompute"``."""
+    with_it, without = _Tally(), _Tally()
+    _linear_use(w, lead, act, True, with_it, calls, True, per, False)
+    _linear_use(w, lead, act, True, without, calls, False, per, False)
+    recompute = _Tally()
+    for mine, a, b in ((recompute.dev, with_it.dev, without.dev),
+                       (recompute.widen, with_it.widen, without.widen)):
+        mine.update({k: v - b.get(k, 0.0) for k, v in a.items()})
+    _to_port_only(t, recompute, "unread_recompute")
+
+
+def _feature_split_frames(cfg, mesh, plan) -> bool:
+    """Whether XLA runs an encdec's encoder split over "model" along the
+    features: ``batch_shardings`` splits the frames' ``d_model`` over
+    "model" (read from whisper-base's compiled step; the reference
+    constrains no encdec activation)."""
+    model = mesh.shape.get("model", 1) if mesh is not None else 1
+    return (cfg.family == "encdec" and plan.by is not None and model > 1
+            and cfg.d_model % model == 0)
+
+
+def _feature_split(name: str, w, lead: float, act: int, t: _Tally, calls: float,
+                   again: bool, *, encoder: bool, xattn: bool = False) -> None:
+    """What XLA moves for a linear ``name`` whose activations stay split
+    over "model" along the features (:func:`_feature_split_frames`; read
+    from whisper-base's compiled step, one device's bytes over ``calls``
+    uses): in an ``encoder`` (an encdec's, or a vlm's trunk split along
+    its positions: paligemma-3b's step at batch 1), the norm's output
+    gathered ahead of each section (at its ``wq`` and its MLP's ``wi``;
+    again in the recomputation), and in the backward each column split's
+    input and each row split's output gradient for the weight's gradient;
+    a decoder layer's cross-attention (``xattn``) ``wk`` and ``wv`` gather
+    the encoder's output for their weights' gradients, and ``wk`` once
+    more in the recomputation."""
+    d_in, d_out = w.shape[-2], w.shape[-1]
+    if encoder and name in ("wq", "wi"):
+        t.device_forward("all-gather", lead * d_in * act * calls, again, act)
+    if xattn and name == "wk" and again:
+        t.device("all-gather", lead * d_in * act * calls, size=act)
+    if not isinstance(w, ShardedTensor):
+        if name == "wk" and encoder:                     # k and v's input, for their gradients
+            t.device("all-gather", lead * d_in * act * calls, size=act)
+    elif w.dim == -1 and (encoder or name in ("wk", "wv")):
+        t.device("all-gather", lead * d_in * act * calls, size=act)
+    elif w.dim == -2 and encoder:
+        t.device("all-gather", lead * d_out * act * calls, size=act)
+
+
+def _moe_dispatch(params, cfg, mesh, rows: float, tokens_mb: float, act: int, t: _Tally,
+                  layers: float, again: bool) -> None:
+    """What one device's program moves for ``layers`` MoE layers of a split
+    step, as XLA partitions the reference's sort-based dispatch (read from
+    qwen2-moe-a2.7b's compiled steps, 2 layers, on (2, 4), (4, 2) with
+    FSDP, (8, 2), (16, 2), (2, 2, 2) and (2, 8, 2), and arctic-480b's on
+    (2, 4) and (2, 2, 2), each the same with FSDP and without), with the
+    device's ``rows`` tokens (T), the microbatch's ``tokens_mb`` (T_mb)
+    and its capacity C.  Each layer all-reduces the expert buffers [E /
+    data, C, d] 7 times, and gathers the router's probabilities [T_mb, E]
+    (in f32) once and again in the recomputation.  Where "data" divides
+    the experts it also all-reduces the dispatched rows [T k, d] 6 times,
+    permutes [T k, d] 6 times and [T, d] 5 times, all-reduces [T, d] twice
+    (the combine's scatter), gathers its input [T, d] over the sequence
+    split in the backward and, unless a shared or dense residual MLP's
+    section gathers the same input (arctic's), in the forward, and with
+    pods gathers [T pods, d] over "pod" in the forward, the recomputation
+    and the backward.  Where it does not (:func:`_experts_whole`) the
+    buffers are [E, C, d] and each layer instead gathers the microbatch's
+    tokens [T_mb, d] 3 times and all-reduces them twice.  Without
+    ``again`` the recomputation's share (2 of the 7, 2, 2, 1, the
+    probabilities' second gather, 1 of the 3) is left out.  In the
+    activations' dtype, f32 where noted.  The port's own exchange and
+    per-piece expert gathers are ``port_only`` (``"moe_exchange"``,
+    ``"expert_gathers"``)."""
+    from repro_torch.models.layers import moe_capacity
+    E, k, d = cfg.n_experts, cfg.top_k, cfg.d_model
+    whole = _experts_whole(cfg, mesh)
+    C = moe_capacity(int(tokens_mb), cfg, train=True)
+    buf = (E if whole else E / mesh.shape.get("data", 1)) * C * d * act
+    disp, tok = rows * k * d * act, rows * d * act
+    r = 1 if again else 0
+    t.device("all-reduce", (5 + 2 * r) * buf * layers, size=act)
+    t.device("all-gather", (1 + r) * tokens_mb * E * 4 * layers)
+    if whole:
+        mb = tokens_mb * d * act
+        t.device("all-gather", (2 + r) * mb * layers, size=act)
+        t.device("all-reduce", 2 * mb * layers, size=act)
+        return
+    pods = mesh.shape.get("pod", 1)
+    if pods > 1:
+        t.device("all-gather", (2 + r) * tok * pods * layers, size=act)
+    shared = any("shared_mlp" in path or "dense_mlp" in path
+                 for path, _ in flatten_with_path(params))
+    t.device("all-reduce", (4 + 2 * r) * disp * layers, size=act)
+    t.device("collective-permute", ((4 + 2 * r) * disp + (4 + r) * tok) * layers, size=act)
+    t.device("all-reduce", 2 * tok * layers, size=act)
+    t.device("all-gather", (1 if shared else 2) * tok * layers, size=act)
+
+
+def _experts_whole(cfg, mesh) -> bool:
+    """Whether "data" leaves a MoE layer's experts whole on every device
+    (it does not divide them; ``sharding.param_shardings``)."""
+    return cfg.n_experts % mesh.shape.get("data", 1) != 0
+
+
+def _rwkv_sequence_split(cm_wr, cfg, rows: float, act: int, t: _Tally, layers: float,
+                         again: bool, M: int) -> None:
+    """One device's program for ``layers`` rwkv layers under the
+    activations' sequence split, without FSDP (read from rwkv6-3b's
+    compiled step, 2 layers, 4 x 64 on (2, 4)), in units of a device's
+    rows U = [rows, d]: each layer gathers 5 U in the forward (the token
+    mixes ahead of the column splits), 5 U again in the recomputation
+    and 9 U in the backward, all-reduces 1.5 U, 4.5 U and 4.5 U, moves
+    3.75 U by all-to-all (the heads for the WKV scan and back, 1.375 U in
+    the forward, again in the recomputation, 1 U in the backward), and
+    gathers the channel mix's receptance ``wr`` whole over "model" (its
+    output multiplies the row split's, element by element) in each of
+    the three, with the decay's low-rank pair (``wa1``, ``wa2``) in the
+    forward and the recomputation, and reduces ``wr``'s whole gradient
+    over "data" beside its model shard's, in f32 at several microbatches
+    (read from the same step at 2 microbatches, 8 x 64).  Without
+    ``again`` the recomputation's shares are left out.  The port's own
+    collectives of these layers are ``port_only`` ``"rwkv_layers"``."""
+    from repro_torch.models.rwkv import _LORA
+    U = rows * cfg.d_model * act * layers
+    r = 1 if again else 0
+    size = _main(cm_wr).element_size()
+    whole = math.prod(cm_wr.shape[-2:]) * size * layers
+    lora = 2 * cfg.d_model * _LORA * size * layers
+    t.device("all-gather", (5 + 5 * r + 9) * U, size=act)
+    t.device("all-gather", (2 + r) * whole + (1 + r) * lora, size=size)
+    t.device("all-reduce", (1.5 + 4.5 * r + 4.5) * U, size=act)
+    t.device("all-to-all", (1.375 + 1.375 * r + 1) * U, size=act)
+    grad = 4 if M > 1 else size
+    t.device("all-reduce", whole / size * grad, size=grad)
+
+
+def _controller_only(t: _Tally, name: str) -> _Tally:
+    """``t``'s controller count, its per-device figures ``port_only``
+    ``name``."""
+    out = _Tally()
+    out.bytes, out.calls = t.bytes, t.calls
+    out.port_only = {**t.port_only, name: dict(t.dev)}
+    return out
+
+
+def _sp_kv_gathers(wk, cfg, rows: float, act: int, t: _Tally, again: bool,
+                   halves: bool = True) -> None:
+    """Under the activations' sequence split, the K/V of each layer of a
+    ``wk`` the "model" axis does not split (KV heads fewer than its
+    positions: every device computes them for its block of positions),
+    as XLA moves them (read from paligemma-3b's compiled step: 1 KV head
+    on a (2, 4) mesh): k and v [rows, K, hd] gathered along the sequence
+    in the forward, in the recomputation and in the backward, and in the
+    recomputation and the backward each RoPE half of k and v [rows, K,
+    hd / 2] too.  ``rows`` a device's over the microbatches.  A vlm's
+    split of its positions over "data" (``halves`` False: read from
+    paligemma-3b's step at batch 1) gathers k and v [rows, K / the model
+    pieces of ``wk``, hd] over "data" in each of the three, no halves."""
+    layers = math.prod(_main(wk).shape[:-2])
+    kv = (rows * cfg.n_kv_heads * cfg.resolved_head_dim * act * layers
+          / _model_pieces(wk))
+    t.device_forward("all-gather", 2 * kv, again, act)
+    t.device("all-gather", (4 if halves else 2) * kv, size=act)
+    if again and halves:
+        t.device("all-gather", 2 * kv, size=act)
 
 
 def _kv_gathers(wk, cfg, rows: float, seq: int, plan, M: int, act: int, t: _Tally,
@@ -780,13 +1167,33 @@ def hlo_terms(params, cfg, step: TrainStep, report: Dict[str, Dict]) -> Dict[str
       an all-reduce of the whole ("data" times the result, in f32);
     - ``tied_table_twice``: without FSDP it reduces a tied table's
       gradient twice, once for the lookup and once for the logits (the
-      model shard in f32);
+      model shard in f32), where "model" splits the table or the
+      positions go over "data" (whisper-base's replicated table, at batch
+      1; at the default shape it reduces that table once); with FSDP and
+      pods, its FSDP shard over "pod" twice (read from gemma2-2b's step on
+      (2, 2, 2));
     - ``fsdp_backward_gather``: it gathers an FSDP-split weight a third
       time for the backward's products (each gathered layer, f32), the
       tied table's for the logits too;
     - ``lookup_all_to_all``: it looks an FSDP-split table up without
       gathering it (less the lookup's gather, f32), moving the rows
       [rows, d] in f32 by an all-to-all each way;
+    - ``logits_gradient_gather`` (read from paligemma-3b's step, no final
+      logit softcap): in place of the tied FSDP table's third gather, the
+      backward gathers the logits' gradient over "data", [rows of the
+      microbatch, text positions, the model shard of the vocabulary] in
+      f32 (gemma2-2b's softcapped logits gather the table);
+    - ``lookup_gradient_in_place`` (read from qwen2-moe-a2.7b's step, an
+      untied FSDP table): the all-to-all of the lookup's rows brings each
+      row's gradient to the table shard that holds it, so the table's
+      gradient is not reduced (less its reduce-scatter as the CPU lowers
+      it: "data" times the shard in f32);
+    - ``lookup_gradient_in_stages`` (read from qwen2-moe-a2.7b's steps on
+      (4, 2), (8, 2), (16, 2) and (2, 2, 2) and gemma2-2b's on (2, 2, 2),
+      a table split over "model" without FSDP): where a microbatch's rows
+      split over more than 2 dp positions it reduces the lookup's gradient
+      (a scatter's) in two stages, over pairs of those positions and then
+      across the pairs, the model shard in f32 once more a reduction;
     - ``lookup_scatter_gather``: under the activations' sequence split the
       scatter of the lookup's gradient into the vocab-split table gathers
       the rows' gradient over "model", 1.5 x [rows, d] in f32 (halves over
@@ -794,7 +1201,7 @@ def hlo_terms(params, cfg, step: TrainStep, report: Dict[str, Dict]) -> Dict[str
       other)."""
     mesh, plan = _step_split(params, cfg, step)
     terms: Dict[str, Dict[str, float]] = {"hlo_f32": dict(report["widen"])}
-    if plan.by is None:
+    if plan.by is None or _stationary(params, plan):
         return terms
     M = step.microbatches
     rs = report["per_device"].get("reduce-scatter", 0.0)
@@ -807,17 +1214,30 @@ def hlo_terms(params, cfg, step: TrainStep, report: Dict[str, Dict]) -> Dict[str
     shard = 0.0
     if isinstance(table, ShardedTensor) and _model_pieces(table) > 1:
         shard = math.prod(table.shape) * 4 / _model_pieces(table)
-        if cfg.tie_embeddings and not fsdp_table:
-            terms["tied_table_twice"] = {"all-reduce": shard}
+    if (cfg.tie_embeddings and not fsdp_table
+            and (shard or (plan.by == "positions" and table is not None))):
+        terms["tied_table_twice"] = {"all-reduce": (shard or math.prod(table.shape) * 4)
+                                     * _apart(plan, M)}
+    if cfg.tie_embeddings and fsdp_table and mesh.shape.get("pod", 1) > 1:
+        terms["tied_table_twice"] = {"all-reduce": shard / mesh.shape["data"] * _apart(plan, M)}
     gather = sum(math.prod(leaf.shape) * 4 / _model_pieces(leaf)
                  for path, leaf in flatten_with_path(params)
                  if path[0] in _REMAT_ROOTS and isinstance(leaf, ShardedTensor)
                  and (_is_fsdp(leaf) or _is_fsdp(leaf.pieces[0]))) * M
     rows = step.batch / M / plan.blocks * step.seq_len
+    if fsdp_table and not cfg.tie_embeddings and "hlo_reduce_scatter_as_all_reduce" in terms:
+        terms["lookup_gradient_in_place"] = {"all-reduce": -shard}
+    if shard and not fsdp_table and plan.blocks > 2:
+        terms["lookup_gradient_in_stages"] = {"all-reduce": shard * _apart(plan, M)}
     if fsdp_table and cfg.tie_embeddings:
-        gather += shard * M
         terms["lookup_all_to_all"] = {"all-gather": -shard * M,
                                       "all-to-all": 2 * rows * cfg.d_model * 4 * M}
+        if cfg.final_softcap:
+            gather += shard * M
+        else:
+            terms["logits_gradient_gather"] = {
+                "all-gather": step.batch / M * step.seq_len * table.shape[0] * 4
+                / _model_pieces(table) * M}
     if gather:
         terms["fsdp_backward_gather"] = {"all-gather": gather}
     if _sequence_split(cfg, mesh, plan, step) and shard:

@@ -28,7 +28,7 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.core.compressed import ShardedTensor
-from repro_torch.distributed.data_parallel import checkpoint
+from repro_torch.distributed.data_parallel import checkpoint, gather_positions, position_span
 from repro_torch.models import layers as L
 from repro_torch.models import sharded_cache as SC
 from repro_torch.models import transformer as TF
@@ -94,7 +94,10 @@ def _heads(t, cfg, n):
 
 def _mha(p, x, cfg, kv_x=None, *, causal: bool, kv=None):
     """Self- or cross-attention without rope -> (out, k, v).  ``kv``: the
-    (k, v) of ``kv_x`` already projected."""
+    (k, v) of ``kv_x`` already projected.  Inside a train step split
+    along the positions (``distributed/data_parallel.py``) the decoder's
+    causal self-attention runs on one piece's block of positions over
+    every piece's K/V, gathered, its mask offset by its first position."""
     B, S, _ = x.shape
     src = x if kv_x is None else kv_x
     q = _heads(matmul(x, p["wq"]), cfg, cfg.n_heads)
@@ -102,7 +105,12 @@ def _mha(p, x, cfg, kv_x=None, *, causal: bool, kv=None):
         kv = (_heads(matmul(src, p["wk"]), cfg, cfg.n_kv_heads),
               _heads(matmul(src, p["wv"]), cfg, cfg.n_kv_heads))
     k, v = kv
-    out = L.best_attention(q, k, v, kind="G", cfg=cfg, causal=causal)
+    span = position_span() if causal else None
+    if span is not None:
+        kk, vv = gather_positions(k, v)
+        out = L.full_attention(q, kk, vv, causal=True, cap=cfg.attn_softcap, q_offset=span[0])
+    else:
+        out = L.best_attention(q, k, v, kind="G", cfg=cfg, causal=causal)
     return matmul(out.reshape(B, S, -1), p["wo"]), k, v
 
 
@@ -137,7 +145,8 @@ def encode(params: Params, cfg, enc_inputs, *, remat: bool = True):
 
 def decode_train(params: Params, cfg, tokens, enc_out, pos_offset: int = 0, *,
                  remat: bool = True):
-    """Decoder logits [B, S, V] of ``tokens`` [B, S] against ``enc_out``."""
+    """Decoder logits [B, S, V] of ``tokens`` [B, S], the first at position
+    ``pos_offset``, against ``enc_out``."""
     x = L.embed(params, cfg, tokens)
     x = x + params["pos_dec"][None, pos_offset:pos_offset + tokens.shape[1]]
     for p in params["dec_blocks"]:
@@ -151,7 +160,9 @@ def forward(params: Params, cfg, tokens, *, enc_inputs, train: bool = False,
     """Returns (logits [B, S, V], aux dict).  ``capture`` is accepted and
     returns no captures, as the reference's encdec ``forward`` does."""
     enc_out = encode(params, cfg, enc_inputs, remat=remat and train)
-    logits = decode_train(params, cfg, tokens, enc_out, remat=remat and train)
+    span = position_span()          # a piece of a split along the positions: its block's
+    logits = decode_train(params, cfg, tokens, enc_out, span[0] if span is not None else 0,
+                          remat=remat and train)
     return logits, {"moe_aux": torch.zeros((), dtype=torch.float32, device=logits.device)}
 
 

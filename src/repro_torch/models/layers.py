@@ -250,15 +250,24 @@ def attention_block(p, x, cfg, *, kind: str, positions, theta: float,
     train step split along the positions (``distributed/data_parallel.py``)
     ``x`` is one piece's block of positions: its queries attend over every
     position's K/V, gathered from the pieces, under the causal mask and
-    window offset by its first position."""
+    window offset by its first position.  A vlm's piece holds the image
+    positions whole ahead of its block (``cfg.n_img_tokens``): their K/V
+    stay its own, ahead of the gathered text K/V, and their queries see
+    only the image."""
     from repro_torch.distributed import data_parallel
     B, S, _ = x.shape
     q, k, v = _qkv(p, x, cfg, positions, theta)
     span = data_parallel.position_span()
     if span is not None:
-        k, v = data_parallel.gather_positions(k, v)
-        out = full_attention(q, k, v, causal=True, cap=cfg.attn_softcap,
-                             window=cfg.window_size if kind == "L" else 0, q_offset=span[0])
+        pre = cfg.n_img_tokens if cfg.family == "vlm" else 0
+        win = cfg.window_size if kind == "L" else 0
+        kt, vt = data_parallel.gather_positions(k[:, pre:], v[:, pre:])
+        out = full_attention(q[:, pre:], torch.cat([k[:, :pre], kt], dim=1),
+                             torch.cat([v[:, :pre], vt], dim=1), causal=True,
+                             cap=cfg.attn_softcap, window=win, q_offset=pre + span[0])
+        if pre:
+            out = torch.cat([full_attention(q[:, :pre], k[:, :pre], v[:, :pre], causal=True,
+                                            cap=cfg.attn_softcap, window=win), out], dim=1)
     elif use_flash:
         out = flash_attention(q, k, v, causal=True,
                               window=cfg.window_size if kind == "L" else 0,

@@ -186,9 +186,11 @@ def _trunk(params: Params, cfg, x, *, train: bool, use_flash: bool, remat: bool,
     rematerialized, as in the reference.  ``inputs``, a list, receives
     every layer's input in execution order, and turns remat off."""
     B, S, _ = x.shape
-    span = position_span()          # a piece of a split along the positions: its block's
-    first = span[0] if span is not None else 0
-    positions = torch.arange(first, first + S, device=x.device).expand(B, S)
+    span = position_span()          # a piece of a split along the positions: its block's,
+    first = span[0] if span is not None else 0      # after the image it holds whole
+    pre = cfg.n_img_tokens if cfg.family == "vlm" and span is not None else 0
+    positions = torch.cat([torch.arange(pre, device=x.device),
+                           torch.arange(pre + first, first + S, device=x.device)]).expand(B, S)
     unit, R, _ = pattern_unit(cfg)
     remat = remat and torch.is_grad_enabled() and inputs is None
 
@@ -210,7 +212,10 @@ def _trunk(params: Params, cfg, x, *, train: bool, use_flash: bool, remat: bool,
 
 def embed_inputs(params: Params, cfg, tokens, img_embs=None):
     """The token embeddings [B, S, d], a vlm's image embeddings [B, n_img,
-    d] ahead of them when given (cast to their dtype, not scaled)."""
+    d] ahead of them when given (cast to their dtype, not scaled).  A
+    vlm's piece of a split along the positions holds its image whole."""
+    if cfg.family == "vlm" and img_embs is None and position_span() is not None:
+        raise ValueError("a vlm's split of the positions needs its img_embs")
     x = L.embed(params, cfg, tokens)
     if cfg.family == "vlm" and img_embs is not None:
         x = torch.cat([img_embs.to(x.dtype), x], dim=1)

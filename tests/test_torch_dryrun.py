@@ -404,15 +404,20 @@ def test_tiny_dense_train_step_collectives_by_hand(tiny_dense):
     # gradient gathers or the logits'; under the activations' sequence
     # split it gathers instead each row-split section's input (again in the
     # recomputation) and its output's gradient, each column split's input
-    # for its weight's gradient, and the logits' section likewise
+    # for its weight's gradient, and the logits' section likewise, and
+    # permutes the embedding's output into that split and its gradient back
+    # (each half of a position's rows); and with no norm after the MLP's wo,
+    # XLA's recomputation leaves that linear out
     assert got["per_device"] == {
         "all-gather": 11 * L * R * 64 * a + 2 * R * 64 * a,
-        "all-reduce": (L * R * 128 * a + R * 64 * a + 4 + L * R * 320 * a + L * R * 128 * a
+        "collective-permute": 2 * (R // 2) * 64 * a,
+        "all-reduce": (L * R * 128 * a + R * 64 * a + 4 + L * R * 320 * a + L * R * 64 * a
                        + R * 64 * a + (cfg.param_count() // 2 + (2 * L + 1) * 64) * a)}
     assert got["port_only"] == {
         "column_outputs": {"all-gather": 2 * L * R * 384 * a},
         "row_input_gradients": {"all-gather": L * R * (64 + 128) * a},
-        "logits": {"all-gather": R * 260 * a}}
+        "logits": {"all-gather": R * 260 * a},
+        "unread_recompute": {"all-reduce": L * R * 64 * a}}
     assert got["widen"] == {k: v for k, v in got["per_device"].items()} | {
         "all-reduce": got["per_device"]["all-reduce"] - 4}
 

@@ -199,7 +199,10 @@ def test_the_split_plan():
     assert DP.plan_split(mesh, 4, 32, 2) == DP.Split("rows", 4, 2)      # 2 rows over 4
     assert DP.plan_split(mesh, 4, 32, 4) == DP.Split("rows", 4, 1)      # 1 row over 4
     assert DP.plan_split(mesh, 1, 32, 1) == DP.Split("positions", 4, 2)
+    for family in ("vlm", "encdec"):
+        assert DP.plan_split(mesh, 1, 32, 1, family) == DP.Split("positions", 4, 2)
     assert DP.plan_split(mesh, 1, 32, 1, "rwkv") == DP.Split()          # runs it whole
+    assert DP.plan_split(mesh, 1, 32, 1, "hybrid") == DP.Split()
     assert DP.plan_split(mesh, 3, 33, 1) == DP.Split()                   # 33 positions: whole
     with pytest.raises(ValueError, match="does not divide into 3 microbatches"):
         DP.plan_split(mesh, 4, 32, 3)

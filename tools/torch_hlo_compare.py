@@ -15,11 +15,16 @@ CPU compile differs from a device's program in ways each named by
 terms beside the HLO (``roofline.hlo_match``: within 2%, or both under 1%
 of the HLO's total and listed).
 
-A ``--batch`` that the dp axes do not divide runs the reference's
-fallback (its positions over "data"); ``--microbatches`` whose rows do
-not split over the dp positions runs XLA's placement of the ``[M, B/M]``
-reshape.  The named terms were read at the default shape; for those
-shapes the comparison is printed, not held.
+Every family's batch is the reference dry run's train batch
+(``configs/base.py`` ``input_specs``): ``--seq`` text tokens a row, a
+vlm's ``img_embs`` [B, n_img, d] ahead of them, an encdec's
+``enc_inputs`` [B, seq, d] frames; ``--layers`` cuts an encdec's encoder
+and decoder each.  A ``--batch`` that the dp axes do not divide runs the
+reference's fallback (its positions over "data"); ``--microbatches``
+whose rows do not split over the dp positions runs XLA's placement of
+the ``[M, B/M]`` reshape.  Both are held by the same rule as the default
+shape (``tests/test_torch_dryrun_hlo_<family>.py``), except the residue
+ROADMAP's queue 3 lists.
 
 The reference runs in a process of its own (``--reference``), which sets
 the flag before JAX starts; nothing of the reference is changed.
@@ -27,7 +32,7 @@ the flag before JAX starts; nothing of the reference is changed.
 Usage:
   PYTHONPATH=src python tools/torch_hlo_compare.py [--arch gemma2-2b] [--layers 2]
       [--batch 4] [--seq 64] [--mesh 2,4] [--microbatches 1]
-      [--out results/torch_hlo_compare.json]
+      [--hlo-dir DIR] [--out results/torch_hlo_compare.json]
 """
 from __future__ import annotations
 
@@ -46,8 +51,38 @@ def _largest(hlo: str, HA, top: int) -> list:
     return [list(f) for f in sorted(found, key=lambda f: -f[2])[:top]]
 
 
+def _cut(base, layers: int):
+    """``base`` cut to ``layers`` layers (an encdec's encoder and decoder
+    each), its attention pattern with it."""
+    kw = {"n_layers": layers}
+    if base.attn_pattern:
+        kw["attn_pattern"] = base.attn_pattern[:layers]
+    if base.family == "encdec":
+        kw.update(n_enc_layers=layers, n_dec_layers=layers)
+    return base.replace(**kw)
+
+
+def _positions(cfg, args) -> int:
+    """A row's positions: the text and a vlm's image ahead of it."""
+    return args.seq + (cfg.n_img_tokens if cfg.family == "vlm" else 0)
+
+
 def _mesh_axes(shape) -> tuple:
     return ("pod", "data", "model") if len(shape) == 3 else ("data", "model")
+
+
+def batch_shapes(cfg, args) -> dict:
+    """{name: (shape, "int32" or "float")} of the train batch, as both dry
+    runs' ``input_specs`` build a train cell's: ``--seq`` text tokens a
+    row, a vlm's ``img_embs`` [B, n_img, d] ahead of them, an encdec's
+    ``enc_inputs`` [B, seq, d] frames."""
+    B, S = args.batch, args.seq
+    out = {"tokens": ((B, S), "int32"), "labels": ((B, S), "int32")}
+    if cfg.family == "vlm":
+        out["img_embs"] = ((B, cfg.n_img_tokens, cfg.d_model), "float")
+    elif cfg.family == "encdec":
+        out["enc_inputs"] = ((B, S, cfg.d_model), "float")
+    return out
 
 
 def reference(args) -> dict:
@@ -72,24 +107,21 @@ def reference(args) -> dict:
     # JAX, which the reference's sharding constraints refuse)
     mesh = jax.sharding.Mesh(np.array(jax.devices()[:int(np.prod(shape))]).reshape(shape),
                              _mesh_axes(shape))
-    base = registry.get_config(args.arch)
-    cfg = base.replace(n_layers=args.layers, scan_unroll=True,
-                       **({"attn_pattern": base.attn_pattern[:args.layers]}
-                          if base.attn_pattern else {}))
+    cfg = _cut(registry.get_config(args.arch), args.layers).replace(scan_unroll=True)
     out, largest = {}, {}
     for fsdp in (False, True):
         with mesh:
             SH.set_activation_sharding(NamedSharding(mesh, P(SH.dp_axes(mesh), "model", None)))
             sds = jax.ShapeDtypeStruct
-            batch = {"tokens": sds((args.batch, args.seq), jnp.int32),
-                     "labels": sds((args.batch, args.seq), jnp.int32)}
+            batch = {k: sds(s, dt if dt == "int32" else cfg.dtype)
+                     for k, (s, dt) in batch_shapes(cfg, args).items()}
             batch_sh = SH.batch_shardings(cfg, batch, mesh)
             params = jax.eval_shape(lambda: api.init_params(jax.random.PRNGKey(0), cfg))
             param_sh = SH.param_shardings(cfg, params, mesh, fsdp=fsdp)
             opt = OPT.adamw()
             opt_sds = jax.eval_shape(opt.init, params)
             opt_sh = SH.opt_state_shardings(param_sh, mesh, "adamw")
-            step = make_train_step(cfg, opt, xent_chunk=xent_chunk(cfg, args.seq),
+            step = make_train_step(cfg, opt, xent_chunk=xent_chunk(cfg, _positions(cfg, args)),
                                    microbatches=args.microbatches)
             jitted = jax.jit(step, in_shardings=(param_sh, opt_sh, batch_sh,
                                                  NamedSharding(mesh, P())),
@@ -97,6 +129,10 @@ def reference(args) -> dict:
             compiled = jitted.lower(params, opt_sds, batch,
                                     sds((), jnp.int32)).compile()
             hlo = compiled.as_text()
+            if args.hlo_dir:
+                os.makedirs(args.hlo_dir, exist_ok=True)
+                with open(os.path.join(args.hlo_dir, f"{args.arch}_fsdp{fsdp}.hlo"), "w") as f:
+                    f.write(hlo)
             out[str(fsdp)] = HA.collective_bytes(hlo)
             largest[str(fsdp)] = _largest(hlo, HA, args.top)
             SH.set_activation_sharding(None)
@@ -111,15 +147,13 @@ def port(args) -> dict:
     from repro_torch.launch import roofline as RL
     from repro_torch.launch.dryrun import xent_chunk
     from repro_torch.launch.mesh import make_mesh
-    base = registry.get_config(args.arch)
-    cfg = base.replace(n_layers=args.layers,
-                       **({"attn_pattern": base.attn_pattern[:args.layers]}
-                          if base.attn_pattern else {}))
+    cfg = _cut(registry.get_config(args.arch), args.layers)
     shape = tuple(int(s) for s in args.mesh.split(","))
     mesh = make_mesh(shape, _mesh_axes(shape), device="meta")
     params, _ = RL.meta_instance(cfg)
     step = RL.TrainStep(args.batch, args.seq, args.microbatches,
-                        xent_chunk=xent_chunk(cfg, args.seq))
+                        xent_chunk=xent_chunk(cfg, _positions(cfg, args)),
+                        enc_len=args.seq if cfg.family == "encdec" else 0)
     out = {}
     for fsdp in (False, True):
         placed = SH.place(params, SH.param_shardings(cfg, params, mesh, fsdp=fsdp))
@@ -139,6 +173,8 @@ def run_reference(args) -> dict:
     cmd = [sys.executable, os.path.abspath(__file__), "--reference", "--arch", args.arch,
            "--layers", str(args.layers), "--batch", str(args.batch), "--seq", str(args.seq),
            "--mesh", args.mesh, "--microbatches", str(args.microbatches), "--top", str(args.top)]
+    if args.hlo_dir:
+        cmd += ["--hlo-dir", args.hlo_dir]
     done = subprocess.run(cmd, env=env, capture_output=True, text=True, check=True)
     return json.loads(next(line for line in done.stdout.splitlines()
                            if line.startswith("REFERENCE "))[len("REFERENCE "):])
@@ -156,6 +192,8 @@ def parser() -> argparse.ArgumentParser:
                     help="compile the reference's step and print its HLO counts (JAX)")
     ap.add_argument("--top", type=int, default=6,
                     help="list the reference's largest collectives")
+    ap.add_argument("--hlo-dir", default="",
+                    help="write the reference's compiled HLO texts there")
     ap.add_argument("--out", default="results/torch_hlo_compare.json")
     return ap
 
